@@ -1,0 +1,127 @@
+"""Headless command-line renderer of the PyTorch/CUDA port: the slice
+of ``fractalshark_tpu/cli.py`` that the deep-zoom render path needs,
+with the same flag names, plus ``--device`` (default ``cuda``; ``cpu``
+runs the kernels' plain PyTorch twins).
+
+    python -m fractalshark_tpu_torch.cli --view 6 --width 256 \\
+        --height 256 --output-png out.png --stats
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+import zlib
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="fractalshark-tpu-torch",
+        description="deep-zoom Mandelbrot renderer (PyTorch + CUDA port)")
+    p.add_argument("--render-algorithm", default="AUTO",
+                   help="algorithm name (e.g. Gpu1x32, Cpu64, "
+                        "GpuHDRx32PerturbedLAv2, AUTO)")
+    p.add_argument("--view", type=int, default=None,
+                   help="builtin view preset index (0..32)")
+    p.add_argument("--center-x", default=None, help="center real coordinate")
+    p.add_argument("--center-y", default=None, help="center imag coordinate")
+    p.add_argument("--zoom", default=None, help="zoom factor (decimal string)")
+    p.add_argument("--iterations", type=int, default=None)
+    p.add_argument("--width", type=int, default=1024)
+    p.add_argument("--height", type=int, default=1024)
+    p.add_argument("--output-png", default=None)
+    p.add_argument("--png-bit-depth", type=int, default=8, choices=[8, 16])
+    p.add_argument("--stats", action="store_true",
+                   help="print iteration min/max/sum, the grid's CRC-32 "
+                        "and phase timings as JSON")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (kernels) or cpu (plain "
+                        "PyTorch versions)")
+    return p
+
+
+def grid_crc32(iters) -> int:
+    """CRC-32 of the grid's little-endian bytes (u32 below a 2^31
+    budget), the repo's golden-CRC convention."""
+    return zlib.crc32(iters.astype(iters.dtype.newbyteorder("<")).tobytes())
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    from fractalshark_tpu.core.algorithms import get_algorithm
+    from fractalshark_tpu.core.highprecision import HighPrecision
+    from fractalshark_tpu.core.pointzoom import PointZoomBBConverter
+    from fractalshark_tpu_torch.engine.fractal import Fractal
+
+    try:
+        get_algorithm(args.render_algorithm)
+    except KeyError as e:
+        print(f"error: {e.args[0]}", file=sys.stderr)
+        return 2
+
+    try:
+        f = Fractal(width=args.width, height=args.height,
+                    algorithm=args.render_algorithm, device=args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.center_x is not None:
+        if args.center_y is None or args.zoom is None:
+            print("error: --center-x requires --center-y and --zoom",
+                  file=sys.stderr)
+            return 2
+        zoom = HighPrecision(args.zoom, prec=64)
+        prec = max(64, abs(zoom.exponent2()) + 192)
+        f.set_view(PointZoomBBConverter(
+            pt_x=HighPrecision(args.center_x, prec=prec),
+            pt_y=HighPrecision(args.center_y, prec=prec),
+            zoom_factor=HighPrecision(args.zoom, prec=prec)))
+    else:
+        try:
+            f.set_view_preset(args.view if args.view is not None else 0)
+        except KeyError:
+            from fractalshark_tpu.core.views import num_views
+            print(f"error: no such view preset {args.view} "
+                  f"(valid: 0..{num_views() - 1})", file=sys.stderr)
+            return 2
+    if args.iterations is not None:
+        f.num_iterations = args.iterations
+
+    t0 = time.perf_counter()
+    if args.output_png:
+        f.save_png(args.output_png, bit_depth=args.png_bit_depth)
+        print(f"wrote {args.output_png}")
+    else:
+        f.calc_fractal()
+    elapsed = time.perf_counter() - t0
+
+    if args.stats:
+        stats = f.stats()
+        bm = f.benchmark
+        timings = {"ref_orbit_s": bm.ref_orbit_s,
+                   "la_generation_s": bm.la_generation_s,
+                   "per_pixel_s": bm.per_pixel_s}
+        timings.update({k: v for k, v in bm.extra.items()
+                        if k.endswith("_s")})
+        print(json.dumps({
+            "algorithm": f.resolve_algorithm().name,
+            "width": f.width, "height": f.height,
+            "iterations_budget": f.num_iterations,
+            "iter_min": stats["min"], "iter_max": stats["max"],
+            "iter_sum": stats["sum"],
+            "crc32": grid_crc32(f.iters_numpy()),
+            "wall_s": round(elapsed, 4),
+            "per_pixel_s": round(bm.per_pixel_s, 4),
+            "backend": f.backend,
+            "kernel": bm.extra.get("kernel"),
+            "orbit_backend": bm.extra.get("backend"),
+            "timings": timings,
+        }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

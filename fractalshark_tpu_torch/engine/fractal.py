@@ -1,0 +1,175 @@
+"""The render engine: view state, algorithm resolution and render
+orchestration.  The port of ``fractalshark_tpu/engine/fractal.py``
+limited to the slice: the direct f32/f64 escapes and the LAv2 HDRx32
+family.  Every tensor lives on the fractal's explicit ``device``.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from fractalshark_tpu.core.algorithms import (
+    Family, RenderAlgorithm, auto_select, get_algorithm)
+from fractalshark_tpu.core.palette import FractalPalette
+from fractalshark_tpu.core.pointzoom import PointZoomBBConverter
+from fractalshark_tpu.core.views import get_view_preset
+from fractalshark_tpu.io.png import write_png
+from fractalshark_tpu_torch.ops import escape
+from fractalshark_tpu_torch.ops.coloring import (
+    color_from_iters, iteration_stats, rgba16_to_numpy, rgba16_to_rgba8)
+
+
+@dataclass
+class BenchmarkData:
+    """Phase timers (reference BenchmarkData.h:28-46)."""
+    overall_s: float = 0.0
+    per_pixel_s: float = 0.0
+    ref_orbit_s: float = 0.0
+    la_generation_s: float = 0.0
+    extra: dict = field(default_factory=dict)
+
+
+def resolve_device(device) -> torch.device:
+    """The device a render runs on; CUDA must really be there."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but CUDA is not "
+                           "available (pass --device cpu to run the plain "
+                           "PyTorch versions)")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+class Fractal:
+    def __init__(self, width: int = 1024, height: int = 1024,
+                 view: int | PointZoomBBConverter = 0,
+                 algorithm: str = "AUTO",
+                 num_iterations: int | None = None,
+                 antialiasing: int = 1,
+                 device="cuda",
+                 compression_error_exp: int = 20):
+        self.width = width
+        self.height = height
+        self.antialiasing = antialiasing
+        self.compression_error_exp = compression_error_exp
+        self.abort_monitor = None
+        self.la_parameters = None
+        self.palette = FractalPalette()
+        self.device = resolve_device(device)
+        self.algorithm_name = algorithm
+        self.num_iterations = 256
+        self.benchmark = BenchmarkData()
+        self._iters_cache = None
+        self._orbit_cache = None
+        if isinstance(view, PointZoomBBConverter):
+            self.ptz = view.square_aspect_ratio(width, height)
+        else:
+            self.set_view_preset(view)
+        if num_iterations is not None:
+            self.num_iterations = num_iterations
+
+    @property
+    def backend(self) -> str:
+        return self.device.type
+
+    def set_view_preset(self, index: int) -> None:
+        preset = get_view_preset(index)
+        self.ptz = preset.ptz.square_aspect_ratio(self.width, self.height)
+        self.num_iterations = preset.num_iterations
+        if preset.antialiasing > 1:
+            self.antialiasing = preset.antialiasing
+        self._iters_cache = None
+
+    def set_view(self, ptz: PointZoomBBConverter) -> None:
+        self.ptz = ptz.square_aspect_ratio(self.width, self.height)
+        self._iters_cache = None
+
+    def resolve_algorithm(self) -> RenderAlgorithm:
+        alg = get_algorithm(self.algorithm_name)
+        if alg.family is Family.AUTO:
+            radius_exp = abs(self.ptz.radius.exponent2())
+            alg = auto_select(radius_exp,
+                              has_accelerator=(self.device.type == "cuda"))
+        return alg
+
+    def _render_dims(self) -> tuple[int, int]:
+        return (self.width * self.antialiasing,
+                self.height * self.antialiasing)
+
+    def calc_fractal(self) -> torch.Tensor:
+        """The int64 iteration grid [H*aa, W*aa] on the device."""
+        alg = self.resolve_algorithm()
+        t0 = time.perf_counter()
+        if alg.family is Family.DIRECT:
+            iters = self._calc_direct(alg)
+        elif alg.is_perturbed:
+            from fractalshark_tpu_torch.engine.renderers import calc_perturbed
+            iters = calc_perturbed(self, alg)
+        else:
+            raise NotImplementedError(f"family {alg.family}")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.benchmark.per_pixel_s = time.perf_counter() - t0
+        self._iters_cache = iters
+        return iters
+
+    def _calc_direct(self, alg: RenderAlgorithm) -> torch.Tensor:
+        if alg.dtype not in ("f32", "f64"):
+            raise NotImplementedError(
+                f"{alg.name}: the {alg.dtype} direct escape is ROADMAP A11 "
+                f"(2x32/4x32/HDR direct escapes), not ported yet")
+        w, h = self._render_dims()
+        params = escape.PlainParams.from_view(
+            self.ptz, self.width, self.height, self.antialiasing)
+        self.benchmark.extra["kernel"] = "escape"
+        return escape.escape(params, w, h, self.num_iterations,
+                             dtype=alg.dtype, device=self.device)
+
+    def _iters(self, iters):
+        if iters is not None:
+            return iters
+        return (self._iters_cache if self._iters_cache is not None
+                else self.calc_fractal())
+
+    def iters_numpy(self, iters=None) -> np.ndarray:
+        """The grid as numpy uint32 (uint64 for budgets >= 2^31), the
+        reference's public convention."""
+        a = self._iters(iters).cpu().numpy()
+        return a.astype(np.uint64 if self.num_iterations >= (1 << 31)
+                        else np.uint32)
+
+    def color(self, iters=None) -> torch.Tensor:
+        """RGBA16 [H, W, 4] on the device."""
+        iters = self._iters(iters)
+        pal = np.roll(self.palette.current(), -self.palette.rotation, axis=0)
+        return color_from_iters(iters, pal, self.num_iterations,
+                                self.palette.aux_depth,
+                                antialiasing=self.antialiasing)
+
+    def stats(self, iters=None) -> dict:
+        return iteration_stats(self._iters(iters))
+
+    def render(self) -> torch.Tensor:
+        t0 = time.perf_counter()
+        iters = self.calc_fractal()
+        t1 = time.perf_counter()
+        rgba = self.color(iters)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.benchmark.extra["color_s"] = time.perf_counter() - t1
+        self.benchmark.overall_s = time.perf_counter() - t0
+        return rgba
+
+    def save_png(self, path: str, bit_depth: int = 8) -> None:
+        rgba = self.render()
+        t0 = time.perf_counter()
+        if bit_depth == 8:
+            write_png(path, rgba16_to_rgba8(rgba))
+        else:
+            write_png(path, rgba16_to_numpy(rgba))
+        self.benchmark.extra["png_s"] = time.perf_counter() - t0

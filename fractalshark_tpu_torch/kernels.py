@@ -1,0 +1,142 @@
+"""Build, load and count the port's CUDA kernels.
+
+``csrc/*.cu`` is compiled by ``nvcc`` at first use into one shared
+library with a plain C interface, cached under
+``fractalshark_tpu_torch/build/`` by a hash of the sources and flags,
+and loaded with ctypes.  Nothing here runs at import: the CPU tests
+import every module of the port on machines without nvcc or a card.
+
+Build flags, and why:
+
+* ``-gencode arch=compute_90a,code=sm_90a``: Hopper (H100).
+* ``-fmad=false``: nvcc contracts ``a*b+c`` into a fused multiply-add
+  by default.  That breaks the df32 error-free transforms (``split``,
+  ``two_prod``) and changes the HDR mantissas' rounding, so every
+  ``*`` and ``+`` rounds on its own, as in the plain PyTorch twins.
+* ``-ftz=true``: the reference's CPU backend (XLA:CPU) runs with
+  subnormals flushed to zero; the f32 kernels flush likewise (the plain
+  twins flush explicitly, ``ops/hdrfloat.ftz``).  f64 has no flush mode
+  on the card.
+* ``-prec-div=true -prec-sqrt=true``: IEEE division and square root
+  (no ``--use_fast_math``).
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+``check`` raises on anything but 0.  ``launches`` counts each kernel's
+launches: a wrapper adds one where it launches its kernel and nowhere
+else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-ftz=true", "-prec-div=true",
+              "-prec-sqrt=true", "-shared", "-Xcompiler", "-fPIC"]
+
+# launch counters: K2 is counted per mode (full = the reference's
+# one-kernel la_pallas render, phase1 = its la_only machine)
+KERNELS = ("escape", "lav2_full", "lav2_phase1", "rc_tail")
+launches = {k: 0 for k in KERNELS}
+
+_lib = None
+_lock = threading.Lock()
+
+_P = ctypes.c_void_p
+_I32 = ctypes.c_int32
+_I64 = ctypes.c_int64
+_F32 = ctypes.c_float
+_F64 = ctypes.c_double
+
+# argtypes of every C entry point (pointers and the stream as c_void_p)
+_SIGNATURES = {
+    "fs_escape_f32": [_P, _I32, _I32, _F32, _F32, _F32, _F32, _I64, _P],
+    "fs_escape_f64": [_P, _I32, _I32, _F64, _F64, _F64, _F64, _I64, _P],
+    # lav2: dc(3) nodes side orbit stages at | state(8) | scalars | stream
+    "fs_lav2": [_P] * 16 + [_I32, _I32, _I32, _I64, _I64, _I64, _I64, _I32,
+                            _P],
+    # rc_tail: dc(3) anchor index, values | state(8) | scalars | stream
+    "fs_rc_tail": [_P] * 13 + [_I32, _I64, _I64, _F32, _F32, _F32, _F32,
+                               _F32, _F32, _I64, _I64, _I32, _P],
+}
+
+
+def reset_counts() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libfs_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu unless the hashed library exists; return it."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), *map(str, sorted(SRC_DIR.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + proc.stderr[-4000:])
+    if verbose:
+        print(proc.stderr)
+    os.replace(tmp, so)
+    return so
+
+
+def lib():
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.fs_error_string.argtypes = [ctypes.c_int]
+            handle.fs_error_string.restype = ctypes.c_char_p
+            _lib = handle
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib().fs_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def stream(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,328 @@
+"""LAv2 per-pixel machine: AT head skip → LA stage stepping →
+perturbation tail with rebasing.  The port of
+``fractalshark_tpu/ops/la_kernel.py`` (``_lav2_impl``, B2) through
+kernel K2 (``csrc/lav2.cu``), which also covers the reference's
+one-kernel Pallas render ``ops/la_pallas.py::_kernel`` (B4) in its
+full mode.
+
+Per-pixel state: stage ``s`` (s >= 0: LA stepping in stage s; s = -1:
+perturbation tail), node offset ``j`` within the stage (-1 = "just
+entered, take it from ref_iter"), ``ref_iter`` (node index handed to the
+next stage, then the orbit position in the tail), dz (HDR complex), the
+iteration count ``it`` and ``done``.  Counters and positions are int64.
+
+Modes: full (returns the iteration grid) and ``la_only`` (a pixel is
+done when it leaves stage 0; with ``return_state`` the state is
+exported for the perturbation tail).  Both run in bounded chunks of
+body steps with relaunches between them, polling an abort monitor, as
+the reference does (``la_kernel.py:484-506``).
+
+The plain version below runs every pixel in lockstep over flat tensors;
+K2 runs one thread per pixel through the same body.  Each pixel's
+trajectory depends only on its own state, so both give the same grid.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fractalshark_tpu.core.pointzoom import PointZoomBBConverter
+from fractalshark_tpu_torch import kernels
+from fractalshark_tpu_torch.ops import hdrfloat as hdr
+from fractalshark_tpu_torch.ops.hdrfloat import HDR, HDRComplex
+from fractalshark_tpu_torch.ops.perturb import _dc_grids_hdr, delta_params
+from fractalshark_tpu_torch.ops.tables import la_tables, orbit_table
+
+# body steps per pixel per launch: bounds one launch and sets the
+# abort-poll granularity
+DEFAULT_CHUNK_STEPS = 1 << 14
+
+# written by la_perturb_render after every render
+last_run_stats: dict = {}
+
+_STATE = ("s", "j", "ref_iter", "dzr", "dzi", "dze", "it", "done")
+
+
+def _select(c, a: HDRComplex, b: HDRComplex) -> HDRComplex:
+    return HDRComplex(torch.where(c, a.re, b.re), torch.where(c, a.im, b.im),
+                      torch.where(c, a.e, b.e))
+
+
+def _cheb_r(z: HDRComplex) -> HDR:
+    return hdr.reduce(hdr.chebychev_norm(z))
+
+
+def _at_vals(at: torch.Tensor):
+    """Unpack the [13] AT row: thrc, sqr_esc (HDR); refc, cc, invzc."""
+    a = at.cpu()
+    f = [float(v) for v in a]
+    i = [int(v) for v in a.view(torch.int32)]
+    return ((f[0], i[1]), (f[2], i[3]), (f[4], f[5], i[6]),
+            (f[7], f[8], i[9]), (f[10], f[11], i[12]))
+
+
+def init_state_plain(T, dc: HDRComplex, max_iter: int) -> tuple:
+    """AT head skip and the initial machine state (plain twin of K2's
+    init launch)."""
+    shape = dc.re.shape
+    dev = dc.re.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    it0 = torch.zeros(shape, **i64)
+    dz0 = hdr.complex_zero(shape, device=dev)
+    if T.at_step > 0:
+        thrc, sqr, refc, cc, invzc = _at_vals(T.at)
+
+        def bc_c(v):
+            return HDRComplex(torch.full(shape, v[0], device=dev),
+                              torch.full(shape, v[1], device=dev),
+                              torch.full(shape, v[2], dtype=torch.int32,
+                                         device=dev))
+
+        def bc_s(v):
+            return HDR(torch.full(shape, v[0], device=dev),
+                       torch.full(shape, v[1], dtype=torch.int32, device=dev))
+
+        dc_cheb = _cheb_r(dc)
+        at_ok = hdr.lte_reduced(dc_cheb, bc_s(thrc))
+        c_at = hdr.reduce_complex(hdr.complex_add(
+            hdr.complex_mul(dc, bc_c(cc)), bc_c(refc)))
+        at_max = max_iter // T.at_step
+        sqr_esc = bc_s(sqr)
+        z = hdr.complex_zero(shape, device=dev)
+        cnt = torch.zeros(shape, **i64)
+        active = at_ok.clone()
+        i = 0
+        while i < at_max and bool(active.any()):
+            esc = hdr.gt_reduced(hdr.reduce(hdr.norm_squared(z)), sqr_esc)
+            cont = active & ~esc
+            nz = hdr.reduce_complex(hdr.complex_add(hdr.complex_sqr(z), c_at))
+            z = _select(cont, nz, z)
+            cnt += cont.to(torch.int64)
+            active = cont
+            i += 1
+        dz_at = hdr.reduce_complex(hdr.complex_mul(z, bc_c(invzc)))
+        it0 = torch.where(at_ok, cnt * T.at_step, it0)
+        dz0 = _select(at_ok, dz_at, dz0)
+    s0 = torch.full(shape, T.stage_count - 1, dtype=torch.int32, device=dev)
+    j0 = torch.zeros(shape, dtype=torch.int32, device=dev)
+    ref0 = torch.zeros(shape, **i64)
+    return (s0, j0, ref0, dz0.re, dz0.im, dz0.e, it0, it0 >= max_iter)
+
+
+def lav2_plain(T, orbit: torch.Tensor, dc: HDRComplex, state: tuple,
+               max_iter: int, max_ref: int, la_only: bool,
+               chunk_steps: int = 0) -> tuple:
+    """Plain PyTorch twin of K2: run the machine over flat pixel
+    tensors for at most `chunk_steps` lockstep body steps (0 = until
+    every pixel is done).  Returns the state."""
+    n = int(max_iter)
+    S = T.stage_count
+    N = T.nodes.shape[0]
+    nodes_i = T.nodes.view(torch.int32)
+    shape = dc.re.shape
+    dev = dc.re.device
+    dc_cheb = _cheb_r(dc)
+    two56 = HDR(torch.ones(shape, device=dev),
+                torch.full(shape, 8, dtype=torch.int32, device=dev))
+    zero_e = torch.zeros(shape, dtype=torch.int32, device=dev)
+    if S > 0:
+        st_rows = T.stages.long()
+        thrc_m = T.stages[:, 2].contiguous().view(torch.float32)
+        stage_valid = torch.stack([
+            hdr.lt_reduced(dc_cheb, HDR(thrc_m[k].expand(shape),
+                                        T.stages[k, 3].expand(shape)))
+            for k in range(S)])
+    s, j, ref_iter, dzr, dzi, dze, it, done = state
+    steps = 0
+    while not bool(done.all()) and (chunk_steps == 0 or steps < chunk_steps):
+        steps += 1
+        dz = HDRComplex(dzr, dzi, dze)
+        live = ~done
+        in_la = live & (s >= 0)
+        in_tail = live & (s < 0)
+
+        # ---------------- LA branch -----------------------------------
+        if S > 0:
+            s_idx = s.clamp(0, S - 1).long()
+            la_index = st_rows[s_idx, 0]
+            macro = st_rows[s_idx, 1]
+            valid = stage_valid.gather(0, s_idx[None])[0]
+        else:
+            la_index = torch.zeros_like(ref_iter)
+            macro = torch.zeros_like(ref_iter)
+            valid = torch.zeros_like(done)
+        j_eff = torch.where(j < 0, ref_iter.to(torch.int32), j)
+        node = (la_index + j_eff).clamp(0, N - 1)
+        g = T.nodes[node]
+        gi = nodes_i[node]
+        sg = T.side[node]
+        ref = HDRComplex(g[:, 0], g[:, 1], gi[:, 2])
+        thr = HDR(g[:, 9], gi[:, 10])
+        l_step = sg[:, 0]
+        nsi = sg[:, 1]
+        t = hdr.complex_add(hdr.complex_mul_pow2(ref, 1), dz)
+        newdz = hdr.reduce_complex(hdr.complex_mul(t, dz))
+        usable = ((it + l_step) <= n) & hdr.lt_reduced(_cheb_r(newdz), thr)
+        drop_invalid = in_la & ~valid
+        drop_unusable = in_la & valid & ~usable
+        do_step = in_la & valid & usable
+        ref_iter = torch.where(drop_unusable, nsi, ref_iter)
+        drop = drop_invalid | drop_unusable
+        s = torch.where(drop, s - 1, s)
+        j = torch.where(drop, -1, j)
+        zc = HDRComplex(g[:, 3], g[:, 4], gi[:, 5])
+        cc = HDRComplex(g[:, 6], g[:, 7], gi[:, 8])
+        dz_ev = hdr.reduce_complex(hdr.complex_add(
+            hdr.complex_mul(newdz, zc), hdr.complex_mul(dc, cc)))
+        refp1 = HDRComplex(g[:, 13], g[:, 14], gi[:, 15])
+        z_full = hdr.reduce_complex(hdr.complex_add(refp1, dz_ev))
+        j_next = j_eff + 1
+        reb = hdr.lt_reduced(_cheb_r(z_full), _cheb_r(dz_ev)) | \
+            (j_next >= macro)
+        dz_la = _select(reb, z_full, dz_ev)
+        j_la = torch.where(reb, 0, j_next)
+
+        # ---------------- tail branch ----------------------------------
+        og = orbit[ref_iter.clamp(0, max_ref)]
+        zj = HDRComplex(og[:, 0], og[:, 1], zero_e)
+        t2 = hdr.complex_add(hdr.complex_mul_pow2(zj, 1), dz)
+        ndz = hdr.reduce_complex(
+            hdr.complex_add(hdr.complex_mul(t2, dz), dc))
+        zf = hdr.reduce_complex(hdr.complex_add(
+            HDRComplex(og[:, 2], og[:, 3], zero_e), ndz))
+        nsq = hdr.reduce(hdr.norm_squared(zf))
+        dsq = hdr.reduce(hdr.norm_squared(ndz))
+        esc = hdr.gt_reduced(nsq, two56)
+        treb = hdr.lt_reduced(nsq, dsq) | ((ref_iter + 1) >= max_ref)
+        tail_upd = in_tail & ~esc
+        dz_tail = _select(treb, zf, ndz)
+        ref_tail = torch.where(treb, 0, ref_iter + 1)
+
+        # ---------------- merge ----------------------------------------
+        dz_new = _select(do_step, dz_la, _select(tail_upd, dz_tail, dz))
+        dzr, dzi, dze = dz_new.re, dz_new.im, dz_new.e
+        j = torch.where(do_step, j_la, j)
+        ref_iter = torch.where(tail_upd, ref_tail, ref_iter)
+        it = torch.where(do_step, it + l_step,
+                         torch.where(tail_upd, it + 1, it))
+        done = done | (in_tail & esc) | (it >= n)
+        if la_only:
+            done = done | (live & (s < 0))
+    return (s, j, ref_iter, dzr, dzi, dze, it, done)
+
+
+def lav2_kernel(T, orbit: torch.Tensor, dc: HDRComplex, state: tuple | None,
+                max_iter: int, max_ref: int, la_only: bool,
+                chunk_steps: int) -> tuple:
+    """Launch K2 once on a CUDA device: with `state` None the launch
+    runs the AT head skip and initialises the state itself.  The state
+    tensors are updated in place and returned."""
+    dev = dc.re.device
+    P = dc.re.numel()
+    init = state is None
+    if init:
+        state = (torch.empty(P, dtype=torch.int32, device=dev),
+                 torch.empty(P, dtype=torch.int32, device=dev),
+                 torch.empty(P, dtype=torch.int64, device=dev),
+                 torch.empty(P, dtype=torch.float32, device=dev),
+                 torch.empty(P, dtype=torch.float32, device=dev),
+                 torch.empty(P, dtype=torch.int32, device=dev),
+                 torch.empty(P, dtype=torch.int64, device=dev),
+                 torch.empty(P, dtype=torch.bool, device=dev))
+    _check_state(state, P, dev)
+    tabs = (T.nodes, T.side, orbit, T.stages, T.at)
+    for t in (*dc, *tabs):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("K2 inputs must be contiguous on one device")
+    at = T.at if T.at.numel() else T.nodes  # never read when at_step == 0
+    lib = kernels.lib()
+    kernels.launches["lav2_phase1" if la_only else "lav2_full"] += 1
+    kernels.check(lib.fs_lav2(
+        *(t.data_ptr() for t in dc), T.nodes.data_ptr(),
+        T.side.data_ptr(), orbit.data_ptr(), T.stages.data_ptr(),
+        at.data_ptr(), *(t.data_ptr() for t in state),
+        P, T.nodes.shape[0], T.stage_count, int(max_ref), int(max_iter),
+        int(chunk_steps), int(T.at_step), int(la_only) | (int(init) << 1),
+        kernels.stream(dev)), "fs_lav2")
+    return state
+
+
+def _check_state(state, P, dev):
+    want = (torch.int32, torch.int32, torch.int64, torch.float32,
+            torch.float32, torch.int32, torch.int64, torch.bool)
+    for t, dt, name in zip(state, want, _STATE):
+        if t.dtype != dt or t.numel() != P or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"K2 state {name}: {t.dtype} {tuple(t.shape)}")
+
+
+def lav2_run(T, orbit, dc: HDRComplex, max_iter: int, max_ref: int,
+             la_only: bool, chunk_steps: int | None = None,
+             abort_monitor=None) -> tuple:
+    """Run the machine to the end (or to an abort) in bounded launches:
+    K2 for CUDA tensors, the plain twin for CPU tensors."""
+    dev = dc.re.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    cuda = dev.type == "cuda"
+    flat = HDRComplex(*(t.reshape(-1) for t in dc))
+    if chunk_steps is None:
+        chunk_steps = DEFAULT_CHUNK_STEPS if cuda else 0
+    state = None if cuda else init_state_plain(T, flat, max_iter)
+    launches = 0
+    while True:
+        run = lav2_kernel if cuda else lav2_plain
+        state = run(T, orbit, flat, state, max_iter, max_ref, la_only,
+                    chunk_steps)
+        launches += 1
+        if bool(state[-1].all()) or (abort_monitor is not None
+                                     and abort_monitor.aborted()):
+            break
+    last_run_stats["dispatches"] = launches
+    return tuple(t.reshape(dc.re.shape) for t in state)
+
+
+def la_perturb_render(results, la, ptz: PointZoomBBConverter, width: int,
+                      height: int, max_iter: int, la_only: bool = False,
+                      chunk_steps: int | None = None, abort_monitor=None,
+                      return_state: bool = False, device="cuda"):
+    """Full LAv2 render: AT skip → LA stages → perturbation tail.
+    Returns the int64 iteration grid [height, width], or with
+    `return_state` the machine state
+    (s, j, ref_iter, dzr, dzi, dze, it, done)."""
+    device = torch.device(device)
+    T, orbit = device_tables(results, la, device)
+    dx, dy, cxo, cyo = delta_params(ptz, results.center_x,
+                                    results.center_y, width, height)
+    dc = _dc_grids_hdr(dx, dy, cxo, cyo, width, height, device)
+    state = lav2_run(T, orbit, dc, max_iter, results.max_ref_iteration(),
+                     la_only, chunk_steps, abort_monitor)
+    return state if return_state else state[6]
+
+
+def device_tables(results, la, device):
+    """LA and orbit tables on `device`, cached on the host objects for
+    the lifetime of that LA table / orbit."""
+    key = ("torch_tables", str(device))
+    cache = getattr(la, "_torch_cache", None)
+    if cache is None:
+        cache = la._torch_cache = {}
+    if key not in cache:
+        cache[key] = la_tables(la, device)
+    okey = ("torch_orbit", str(device))
+    orbit = results.extra.get(okey)
+    if orbit is None:
+        orbit = results.extra[okey] = orbit_table(results, device)
+    return cache[key], orbit
+
+
+def fits_full_mode(results, T, max_iter: int) -> bool:
+    """The reference's one-kernel Pallas caps (``la_pallas.py:250-262``):
+    orbit ≤ 8,192 entries, ≤ 2,048 nodes, 32-bit budgets and step
+    lengths, at least one stage.  Frames within them render in K2's
+    full mode; the others go two-phase, as on the reference."""
+    count = results.count_orbit_entries() + 1
+    return (count <= 64 * 128 and T.nodes.shape[0] <= 16 * 128
+            and max_iter < (1 << 31) and T.stage_count > 0
+            and T.max_step < (1 << 31))
+

@@ -1,0 +1,254 @@
+"""The RC perturbation tail: the port of the RC part of
+``fractalshark_tpu/ops/perturb_stream.py`` (``_rc_kernel``, B3) through
+kernel K3 (``csrc/rc_tail.cu``).
+
+The reference sweeps one serial reconstruction cursor over the orbit
+in lockstep for a whole pixel tile (the TPU has no vector gather).  On
+a GPU each pixel carries its own cursor instead, in the design of the
+reference's gather tail ``ops/rc_tail.py`` (df32 mode), which its tests
+pin bit-identical to the sweep:
+
+1. the handoff (``_rc_init_from_handoff``, ``perturb_stream.py:671-716``):
+   a pixel handed over at ``jwait == max_ref`` rebases there
+   (dz ← Z[max_ref] + dz, position 0) without spending an iteration;
+   other positions are clipped to [0, max_ref - 1];
+2. each pixel finds the last anchor ≤ its position and catches up to it
+   with the df32 recurrence z ← z² + c_low (``perturb_stream.py:480-489``);
+3. the HDR-f32 tail (``:492-520``): unreduced compares, escape at
+   |z|² > 2^8, rebase on |z|² < |dz|² or at the orbit's end, which
+   restarts the pixel at position 0 and anchor 0.
+
+Positions and the remaining budget are int64.  Launches are bounded
+(``chunk_steps`` tail steps per pixel) and resumable; the state is
+updated in place.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fractalshark_tpu.core.pointzoom import PointZoomBBConverter
+from fractalshark_tpu_torch import kernels
+from fractalshark_tpu_torch.ops import dblflt as dfm
+from fractalshark_tpu_torch.ops import hdrfloat as hdr
+from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
+from fractalshark_tpu_torch.ops.perturb import _dc_grids_hdr, delta_params
+from fractalshark_tpu_torch.ops.tables import Anchors, anchor_table
+
+DEFAULT_CHUNK_STEPS = 1 << 16
+
+_STATE = ("dzr", "dzi", "dze", "rem", "pos", "aptr", "z", "done")
+
+
+def _orbit_value_at(compressed, idx: int) -> tuple[float, float]:
+    """Z[idx] from the anchor set: the last anchor ≤ idx, then the f64
+    low-precision recurrence forward (``perturb_stream.py:719-744``)."""
+    ai = compressed.anchor_index
+    k = int(np.searchsorted(ai, idx, side="right")) - 1
+    zx = float(compressed.anchors_x[k])
+    zy = float(compressed.anchors_y[k])
+    for _ in range(idx - int(ai[k])):
+        zx, zy = (zx * zx - zy * zy + compressed.cx_low,
+                  2.0 * zx * zy + compressed.cy_low)
+    return zx, zy
+
+
+def _df_step(z: torch.Tensor, c: tuple) -> torch.Tensor:
+    """One df32 recurrence step z ← z² + c on [P, 4] (xh, xl, yh, yl)."""
+    ccx = dfm.DF(*(torch.full_like(z[:, 0], v) for v in c[0:2]))
+    ccy = dfm.DF(*(torch.full_like(z[:, 0], v) for v in c[2:4]))
+    zx = dfm.DF(z[:, 0], z[:, 1])
+    zy = dfm.DF(z[:, 2], z[:, 3])
+    rx = dfm.df_add(dfm.df_sub(dfm.df_sqr(zx), dfm.df_sqr(zy)), ccx)
+    ry = dfm.df_add(dfm.df_mul_pow2(dfm.df_mul(zx, zy), 2.0), ccy)
+    return torch.stack([rx.hi, rx.lo, ry.hi, ry.lo], dim=1)
+
+
+def rc_init_plain(A: Anchors, state: tuple, max_iter: int,
+                  z_mr: tuple) -> tuple:
+    """Plain twin of K3's init launch.  On entry `rem` holds the
+    completed iterations and `pos` the handoff position jwait."""
+    dzr, dzi, dze, it, jw, _, _, done = state
+    max_ref = A.max_ref
+    wrap = (jw >= max_ref) & ~done
+    zero_e = torch.zeros_like(dze)
+    zmr = HDRComplex(torch.full_like(dzr, z_mr[0]),
+                     torch.full_like(dzr, z_mr[1]), zero_e)
+    zf = hdr.reduce_complex(hdr.complex_add(zmr, HDRComplex(dzr, dzi, dze)))
+    dzr = torch.where(wrap, zf.re, dzr)
+    dzi = torch.where(wrap, zf.im, dzi)
+    dze = torch.where(wrap, zf.e, dze)
+    pos = torch.where(wrap, 0, jw.clamp(0, max(max_ref - 1, 0)))
+    rem = (max_iter - it).clamp(min=0)
+    done = done | (rem == 0)
+    aptr = torch.searchsorted(A.index, pos, right=True) - 1
+    z = A.val[aptr].clone()
+    catch = pos - A.index[aptr]
+    while bool((catch > 0).any()):
+        step = catch > 0
+        z = torch.where(step[:, None], _df_step(z, A.c), z)
+        catch = catch - step.to(torch.int64)
+    return (dzr, dzi, dze, rem, pos, aptr, z, done)
+
+
+def rc_tail_plain(A: Anchors, dc: HDRComplex, state: tuple,
+                  chunk_steps: int = 0) -> tuple:
+    """Plain PyTorch twin of K3's tail launch over flat pixel tensors:
+    at most `chunk_steps` lockstep steps (0 = until every pixel is
+    done).  Returns the state."""
+    dzr, dzi, dze, rem, pos, aptr, z, done = state
+    M = A.index.shape[0]
+    max_ref = A.max_ref
+    zero_e = torch.zeros_like(dze)
+    steps = 0
+    while not bool(done.all()) and (chunk_steps == 0 or steps < chunk_steps):
+        steps += 1
+        live = ~done
+        nxt = (aptr + 1).clamp(max=M - 1)
+        hit = ((aptr + 1) < M) & (A.index[nxt] == pos + 1)
+        zn = A.val[nxt]
+        if not bool((hit | done).all()):
+            zn = torch.where(hit[:, None], zn, _df_step(z, A.c))
+        dz = HDRComplex(dzr, dzi, dze)
+        zj = HDRComplex(z[:, 0], z[:, 2], zero_e)
+        t = hdr.complex_add(hdr.complex_mul_pow2(zj, 1), dz)
+        ndz = hdr.reduce_complex(hdr.complex_add(hdr.complex_mul(t, dz), dc))
+        zf = hdr.reduce_complex(hdr.complex_add(
+            HDRComplex(zn[:, 0], zn[:, 2], zero_e), ndz))
+        nsq = hdr.norm_squared(zf)
+        dsq = hdr.norm_squared(ndz)
+        esc = hdr.gt_pow2_unreduced(nsq, 8)
+        reb = hdr.lt_unreduced(nsq, dsq) | (pos + 1 >= max_ref)
+        upd = live & ~esc
+        rb = upd & reb
+        adv = upd & ~reb
+        dzr = torch.where(upd, torch.where(reb, zf.re, ndz.re), dzr)
+        dzi = torch.where(upd, torch.where(reb, zf.im, ndz.im), dzi)
+        dze = torch.where(upd, torch.where(reb, zf.e, ndz.e), dze)
+        rem = rem - upd.to(torch.int64)
+        pos = torch.where(adv, pos + 1, torch.where(rb, 0, pos))
+        aptr = torch.where(adv & hit, aptr + 1, torch.where(rb, 0, aptr))
+        z = torch.where(adv[:, None], zn,
+                        torch.where(rb[:, None], A.val[0].expand_as(z), z))
+        done = done | (live & esc) | (rem == 0)
+    return (dzr, dzi, dze, rem, pos, aptr, z, done)
+
+
+def rc_tail_kernel(A: Anchors, dc: HDRComplex, state: tuple, max_iter: int,
+                   z_mr: tuple, chunk_steps: int, init: bool) -> tuple:
+    """Launch K3 once on a CUDA device (state updated in place)."""
+    dev = dc.re.device
+    P = dc.re.numel()
+    _check_state(state, P, dev)
+    for t in (*dc, A.index, A.val):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("K3 inputs must be contiguous on one device")
+    lib = kernels.lib()
+    kernels.launches["rc_tail"] += 1
+    kernels.check(lib.fs_rc_tail(
+        *(t.data_ptr() for t in dc), A.index.data_ptr(),
+        A.val.data_ptr(), *(t.data_ptr() for t in state),
+        P, A.index.shape[0], A.max_ref, *A.c, float(z_mr[0]),
+        float(z_mr[1]), int(max_iter), int(chunk_steps), int(init),
+        kernels.stream(dev)), "fs_rc_tail")
+    return state
+
+
+def _check_state(state, P, dev):
+    want = (torch.float32, torch.float32, torch.int32, torch.int64,
+            torch.int64, torch.int64, torch.float32, torch.bool)
+    for t, dt, name in zip(state, want, _STATE):
+        n = 4 * P if name == "z" else P
+        if t.dtype != dt or t.numel() != n or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"K3 state {name}: {t.dtype} {tuple(t.shape)}")
+
+
+def wrap_value(compressed, max_ref: int) -> tuple[float, float]:
+    """Z[max_ref] as the f32 pair the handoff's wrap rebase adds."""
+    return tuple(float(hdr.flush_np(np.float32(v)))
+                 for v in _orbit_value_at(compressed, max_ref))
+
+
+def handoff_state(init_state: dict, device) -> tuple:
+    """Flat K3 state from a handoff dict: `rem` holds the completed
+    iterations and `pos` the position jwait until the init launch."""
+    P = init_state["dzr"].numel()
+
+    def f(k, dt):
+        return init_state[k].reshape(-1).to(device=device, dtype=dt).clone()
+
+    return (f("dzr", torch.float32), f("dzi", torch.float32),
+            f("dze", torch.int32), f("it", torch.int64),
+            f("jwait", torch.int64),
+            torch.zeros(P, dtype=torch.int64, device=device),
+            torch.zeros((P, 4), dtype=torch.float32, device=device),
+            f("done", torch.bool))
+
+
+def rc_tail_run(A: Anchors, dc: HDRComplex, init_state: dict, max_iter: int,
+                z_mr: tuple, chunk_steps: int | None = None,
+                abort_monitor=None) -> torch.Tensor:
+    """Handoff init plus the tail to the end (or an abort) in bounded
+    launches; K3 for CUDA tensors, the plain twin for CPU tensors.
+    Returns the remaining budget per pixel (flat int64)."""
+    dev = dc.re.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    cuda = dev.type == "cuda"
+    flat = HDRComplex(*(t.reshape(-1).contiguous() for t in dc))
+    state = handoff_state(init_state, dev)
+    if chunk_steps is None:
+        chunk_steps = DEFAULT_CHUNK_STEPS if cuda else 0
+    if not cuda:
+        state = rc_init_plain(A, state, max_iter, z_mr)
+    first = True
+    while True:
+        if cuda:  # the first launch also runs the handoff init
+            state = rc_tail_kernel(A, flat, state, max_iter, z_mr,
+                                   chunk_steps, init=first)
+        else:
+            state = rc_tail_plain(A, flat, state, chunk_steps)
+        first = False
+        if bool(state[-1].all()) or (abort_monitor is not None
+                                     and abort_monitor.aborted()):
+            break
+    return state[3]
+
+
+def anchors_on(compressed, device) -> Anchors:
+    """Anchor tables on `device`, cached on the CompressedOrbit."""
+    cache = getattr(compressed, "_torch_anchors", None)
+    if cache is None:
+        cache = {}
+        compressed._torch_anchors = cache
+    key = str(device)
+    if key not in cache:
+        cache[key] = anchor_table(compressed, device)
+    return cache[key]
+
+
+def perturb_render_stream_rc(compressed, center_x, center_y,
+                             ptz: PointZoomBBConverter, width: int,
+                             height: int, max_iter: int, init_state=None,
+                             chunk_steps: int | None = None,
+                             abort_monitor=None, device="cuda"):
+    """Perturbation render from a CompressedOrbit; the orbit is rebuilt
+    on the device from its anchors.  ``init_state``: optional handoff
+    from the LA phase, a dict of [height, width] tensors 'dzr', 'dzi',
+    'dze', 'it' (completed iterations), 'jwait' (orbit position) and
+    'done'.  Returns the int64 iteration grid [height, width]."""
+    device = torch.device(device)
+    A = anchors_on(compressed, device)
+    dx, dy, cxo, cyo = delta_params(ptz, center_x, center_y, width, height)
+    dc = _dc_grids_hdr(dx, dy, cxo, cyo, width, height, device)
+    if init_state is None:
+        z = hdr.complex_zero((height, width), device=device)
+        zeros = torch.zeros((height, width), dtype=torch.int64, device=device)
+        init_state = {"dzr": z.re, "dzi": z.im, "dze": z.e, "it": zeros,
+                      "jwait": zeros, "done": zeros.bool()}
+    rem = rc_tail_run(A, dc, init_state, max_iter,
+                      wrap_value(compressed, A.max_ref), chunk_steps,
+                      abort_monitor)
+    return (max_iter - rem).reshape(height, width)

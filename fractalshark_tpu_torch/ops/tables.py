@@ -1,0 +1,171 @@
+"""The render state carried across from the host: the reference orbit,
+the LA table and the orbit anchors, as the port's device tensors.
+
+This system has no weights; its state is these three tables, built on
+the host by the reused layer of ``fractalshark_tpu`` (native GMP orbit,
+LA builder, ``CompressedOrbit``).  Each function turns those numpy
+arrays into tensors on an explicit ``device``, so the JAX package and
+the port compute from the same host tables.  Float tables are flushed
+of subnormals on the way (see ``hdrfloat.ftz``).
+
+Layouts:
+
+* LA nodes: ``[N, 16]`` f32 rows in the layout of the reference's
+  ``la_kernel._pack_nodes`` (``fractalshark_tpu/ops/la_kernel.py:43-81``;
+  integer columns bit-cast), plus an int64 ``[N, 2]`` side table
+  (step_length, next_stage_la_index).  The kernels read both integer
+  fields from the side table, so no column wraps at 2^31.
+* Stages: int32 ``[S, 4]`` (first node index, macro iteration count,
+  bit-cast LAThresholdC mantissa and exponent of the stage's first node).
+* Orbit: ``[M, 4]`` f32 rows (Z[j], Z[j+1]) from ``_pack_orbit``
+  (``:84-94``).
+* Anchors: int64 positions plus (hi, lo) f32 pairs of x and y, from
+  ``perturb_stream._prep_anchors`` (``ops/perturb_stream.py:747-770``)
+  with int64 positions in place of (window, local) pairs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from fractalshark_tpu_torch.ops.hdrfloat import flush_np
+
+PACK_COLS = 16
+
+
+def _i32_bits(a) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(a).astype(np.int32)).view(
+        np.float32)
+
+
+def pack_nodes_np(arrs: dict) -> np.ndarray:
+    """[N, 16] f32 node rows (``la_kernel._pack_nodes`` layout)."""
+    n = arrs["ref_e"].shape[0]
+    P = np.empty((n, PACK_COLS), np.float32)
+    P[:, 0] = arrs["ref_m"][:, 0]
+    P[:, 1] = arrs["ref_m"][:, 1]
+    P[:, 2] = _i32_bits(arrs["ref_e"])
+    P[:, 3] = arrs["zc_m"][:, 0]
+    P[:, 4] = arrs["zc_m"][:, 1]
+    P[:, 5] = _i32_bits(arrs["zc_e"])
+    P[:, 6] = arrs["cc_m"][:, 0]
+    P[:, 7] = arrs["cc_m"][:, 1]
+    P[:, 8] = _i32_bits(arrs["cc_e"])
+    P[:, 9] = arrs["thr_m"]
+    P[:, 10] = _i32_bits(arrs["thr_e"])
+    P[:, 11] = _i32_bits(arrs["step_length"].astype(np.int64))
+    P[:, 12] = _i32_bits(arrs["next_stage_la_index"])
+    P[:-1, 13:16] = P[1:, 0:3]
+    P[-1, 13:16] = P[-1, 0:3]
+    for c in (0, 1, 3, 4, 6, 7, 9, 13, 14):
+        P[:, c] = flush_np(P[:, c])
+    return P
+
+
+@dataclass
+class LATables:
+    nodes: torch.Tensor      # f32 [N, 16]
+    side: torch.Tensor       # int64 [N, 2]
+    stages: torch.Tensor     # int32 [S, 4]
+    at: torch.Tensor         # f32 [13] (ints bit-cast); empty if no AT
+    at_step: int             # 0 = no AT head skip
+    stage_count: int
+    max_step: int            # longest step_length in the table
+
+
+def la_tables(la, device) -> LATables:
+    """LA table → device tensors (``la.device_arrays(np.float32)``)."""
+    arrs = la.device_arrays(np.float32)
+    nodes = pack_nodes_np(arrs)
+    side = np.stack([arrs["step_length"].astype(np.int64),
+                     arrs["next_stage_la_index"].astype(np.int64)], axis=1)
+    heads = np.asarray(arrs["stage_la_index"], np.int64)
+    stages = np.zeros((len(heads), 4), np.int32)
+    stages[:, 0] = heads
+    stages[:, 1] = arrs["stage_macro_it_count"]
+    stages[:, 2] = flush_np(arrs["thrc_m"][heads].astype(np.float32)).view(
+        np.int32)
+    stages[:, 3] = arrs["thrc_e"][heads]
+    at_vals = np.zeros(0, np.float32)
+    at_step = 0
+    if la.use_at and la.at is not None:
+        at = la.at
+        f = np.float32
+
+        def s2(v):
+            return [f(v.m), np.int32(v.e)]
+
+        def c3(z):
+            return [f(z.m.real), f(z.m.imag), np.int32(z.e)]
+
+        vals = (s2(at.threshold_c) + s2(at.sqr_escape_radius) +
+                c3(at.ref_c) + c3(at.ccoeff) + c3(at.inv_zcoeff))
+        at_vals = np.array(
+            [flush_np(np.float32(v)) if isinstance(v, np.float32)
+             else np.int32(v).view(np.float32) for v in vals], np.float32)
+        at_step = int(at.step_length)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return LATables(nodes=up(nodes), side=up(side), stages=up(stages),
+                    at=up(at_vals), at_step=at_step,
+                    stage_count=int(arrs["stage_count"]),
+                    max_step=int(side[:, 0].max()) if len(side) else 0)
+
+
+def pack_orbit_np(ox: np.ndarray, oy: np.ndarray, max_ref: int) -> np.ndarray:
+    """[M, 4] rows (Z[j].re, Z[j].im, Z[j+1].re, Z[j+1].im)."""
+    n = len(ox)
+    m = min(n, max_ref + 1)
+    OP = np.empty((m, 4), ox.dtype)
+    OP[:, 0] = ox[:m]
+    OP[:, 1] = oy[:m]
+    OP[:m - 1, 2] = ox[1:m]
+    OP[:m - 1, 3] = oy[1:m]
+    OP[m - 1, 2] = ox[m - 1]
+    OP[m - 1, 3] = oy[m - 1]
+    return OP
+
+
+def orbit_table(results, device) -> torch.Tensor:
+    """Reference orbit → f32 [M, 4] on `device`."""
+    ox, oy = results.device_orbit(np.float32)
+    packed = flush_np(pack_orbit_np(np.asarray(ox), np.asarray(oy),
+                                    int(results.max_ref_iteration())))
+    return torch.from_numpy(np.ascontiguousarray(packed)).to(device)
+
+
+@dataclass
+class Anchors:
+    index: torch.Tensor      # int64 [M] orbit positions, ascending
+    val: torch.Tensor        # f32 [M, 4] (x_hi, x_lo, y_hi, y_lo)
+    max_ref: int
+    c: tuple                 # (cx_hi, cx_lo, cy_hi, cy_lo) as floats
+
+
+def _hi_lo(v: np.ndarray):
+    hi = v.astype(np.float32)
+    return hi, (v - hi.astype(np.float64)).astype(np.float32)
+
+
+def anchor_table(compressed, device) -> Anchors:
+    """CompressedOrbit → anchor tensors on `device`.  Position 0 must be
+    an anchor: a rebase restarts reconstruction there."""
+    M = len(compressed.anchors_x)
+    if M == 0 or int(compressed.anchor_index[0]) != 0:
+        raise ValueError("anchor table must start at orbit position 0")
+    xh, xl = _hi_lo(np.asarray(compressed.anchors_x, np.float64))
+    yh, yl = _hi_lo(np.asarray(compressed.anchors_y, np.float64))
+    val = flush_np(np.stack([xh, xl, yh, yl], axis=1))
+    cxh, cxl = _hi_lo(np.asarray([compressed.cx_low], np.float64))
+    cyh, cyl = _hi_lo(np.asarray([compressed.cy_low], np.float64))
+    c = tuple(float(flush_np(v)[0]) for v in (cxh, cxl, cyh, cyl))
+    return Anchors(
+        index=torch.from_numpy(np.asarray(compressed.anchor_index,
+                                          np.int64).copy()).to(device),
+        val=torch.from_numpy(np.ascontiguousarray(val)).to(device),
+        max_ref=int(compressed.total_count) - 1, c=c)

@@ -1,0 +1,132 @@
+"""Differential-test harness of the PyTorch/CUDA port, and the facts
+about the JAX reference's floating point that it rests on.
+
+XLA:CPU, which runs the JAX package in these tests, contracts
+``a*b + c`` into fused multiply-adds wherever its backend finds the
+pattern, and runs with subnormals flushed to zero.  The port's kernels
+do no contraction (``nvcc -fmad=false``) and flush f32 subnormals
+(``-ftz=true``), and so do their plain PyTorch twins.  The reference the
+port is held to bit for bit is therefore the JAX package with FMA
+instructions disabled (``--xla_cpu_max_isa=AVX``): the same program,
+each ``*`` and ``+`` rounded on its own.  That flag has to be set
+before XLA starts, so the reference runs in a subprocess; each test
+module computes all of its JAX references in one such call.
+
+Importing this module imports the port with the environment switches
+it sets restored afterwards, so that other tests' subprocesses of the
+JAX package still start with x64 on.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+# the plain twins run thousands of small tensor steps: one intra-op
+# thread is faster than many and leaves the other test workers alone
+torch.set_num_threads(1)
+
+_SWITCHES = ("FRACTALSHARK_NO_X64", "FRACTALSHARK_NO_COMPILE_CACHE")
+_saved = {k: os.environ.get(k) for k in _SWITCHES}
+import fractalshark_tpu_torch  # noqa: E402,F401
+
+for _k, _v in _saved.items():
+    if _v is None:
+        os.environ.pop(_k, None)
+    else:
+        os.environ[_k] = _v
+
+TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(TESTS_DIR)
+NOFMA_XLA_FLAGS = "--xla_cpu_max_isa=AVX"
+
+_BOOT = """
+import os, sys
+os.environ["JAX_PLATFORMS"] = "cpu"
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+sys.path.insert(0, {tests!r})
+import numpy as np
+import {module} as m
+inputs = dict(np.load({inp!r}, allow_pickle=False))
+np.savez({out!r}, **m.{func}(inputs))
+"""
+
+
+def run_jax_reference(module: str, func: str, workdir, inputs=None,
+                      timeout: int = 900) -> dict:
+    """Run ``module.func(inputs) -> dict of arrays`` in a subprocess
+    with JAX on the CPU, x64 on and FMA contraction off; return its
+    result as numpy arrays."""
+    inp = os.path.join(str(workdir), f"{module}.{func}.in.npz")
+    out = os.path.join(str(workdir), f"{module}.{func}.out.npz")
+    np.savez(inp, **(inputs or {}))
+    env = {k: v for k, v in os.environ.items() if k not in _SWITCHES}
+    # x64 on, as the JAX package's own tests run it; no compile cache
+    # written under the home directory
+    env.update(JAX_PLATFORMS="cpu", XLA_FLAGS=NOFMA_XLA_FLAGS,
+               FRACTALSHARK_NO_COMPILE_CACHE="1",
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (ROOT, env.get("PYTHONPATH")) if p))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BOOT.format(tests=TESTS_DIR, module=module,
+                                            func=func, inp=inp, out=out)],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with np.load(out) as z:
+        return {k: z[k] for k in z.files}
+
+
+def bits_equal(a, b) -> bool:
+    """Bitwise equality (NaNs and signed zeros included)."""
+    a = np.ascontiguousarray(np.asarray(a))
+    b = np.ascontiguousarray(np.asarray(b))
+    if a.shape != b.shape or a.dtype.itemsize != b.dtype.itemsize:
+        return False
+    if a.dtype.kind == "f":
+        a = a.view(f"u{a.dtype.itemsize}")
+        b = b.view(f"u{b.dtype.itemsize}")
+    return bool((a == b).all())
+
+
+# ----------------------------------------------------------------------------
+# The reference's floating-point mode
+
+
+def _fp_mode(inputs):
+    import jax
+    import jax.numpy as jnp
+
+    a, b, c, d = (jnp.asarray(inputs[k]) for k in "abcd")
+    tiny = jnp.asarray(inputs["tiny"])
+    return {
+        "fma_pattern": np.asarray(jax.jit(lambda a, b, c: a * b + c)(a, b, c)),
+        "cmul_pattern": np.asarray(
+            jax.jit(lambda a, b, c, d: a * b - c * d)(a, b, c, d)),
+        "underflow": np.asarray(jax.jit(lambda t: t * t)(tiny)),
+    }
+
+
+def test_reference_has_ieee_products_and_flushes_subnormals(tmp_path):
+    """The no-FMA reference rounds every * and + on its own (equal to
+    numpy), and flushes subnormal results exactly as the port's ftz."""
+    from fractalshark_tpu_torch.ops.hdrfloat import ftz
+
+    rng = np.random.default_rng(7)
+    inputs = {k: rng.standard_normal(4096).astype(np.float32)
+              for k in "abcd"}
+    inputs["tiny"] = np.float32(1e-20) * rng.standard_normal(64).astype(
+        np.float32)
+    ref = run_jax_reference("test_torch_jaxref", "_fp_mode", tmp_path, inputs)
+    a, b, c, d = (inputs[k] for k in "abcd")
+    assert bits_equal(ref["fma_pattern"], a * b + c)
+    assert bits_equal(ref["cmul_pattern"], a * b - c * d)
+    t = torch.from_numpy(inputs["tiny"])
+    assert (ref["underflow"] == 0).all()
+    assert bits_equal(ref["underflow"], ftz(t * t).numpy())
+    assert not (inputs["tiny"] * inputs["tiny"] == 0).all()
