@@ -7,19 +7,36 @@ reference.
 
     python3 chip_smoke.py
 
-Phases: (1) card, (2) build, (3) kernel vs plain on the card at the
-main path's shapes, bit-identical, (4) the slice through
-``fractalshark_tpu_torch.cli.main``: View 0 AUTO at 1024² (K1), a
-small-table deep frame (K2 full mode), View #6 AUTO at 64² and 256²
-(K2 phase 1 + K3).  Exits non-zero if any phase fails, and at once when
-no CUDA device is present.  The next-to-last lines are the card's
-``nvidia-smi`` name and power limit and a JSON object of the kernels;
-the last line is ``{"ok": true, "device": {...}}``.
+Phases: (1) card, (2) build, (3) K1-K3 vs plain on the card at the main
+path's shapes, bit-identical, (4) K4/K5 (one device-orbit step) vs plain
+at 32, 2,048 and 16,384 limbs from the View #30 centre, digit for digit,
+(5) the device orbit: View #30 at 16,384 limbs against the exact
+Python-int recurrence after 256 steps, then bounded sessions and their
+time per iteration at 16,384, 2,048 and 32 limbs, (6) the paths through
+``fractalshark_tpu_torch.cli.main``, each with the launch counts set to 0
+just before it and read just after: View 0 AUTO at 1024² (K1), a
+small-table deep frame (K2 full mode), View #6 AUTO at 64² and 256² (K2
+phase 1 + K3), and View #6 with ``--perturbation-alg GPU`` at 64² and
+256² (K4 + K5 for the orbit, then K2 phase 1 + K3).  Exits non-zero if
+any phase fails, and at once when no CUDA device is present.  The
+next-to-last lines are the card's ``nvidia-smi`` name and power limit and
+a JSON object of the kernels; the last line is ``{"ok": true, ...}``.
 
 Expected View #6 values are those of the JAX package on the CPU with
 FMA contraction off (``XLA_FLAGS=--xla_cpu_max_isa=AVX``): the port's
 kernels round every * and + on their own (``nvcc -fmad=false``), while
-XLA:CPU's default contracts a*b+c.
+XLA:CPU's default contracts a*b+c.  With ``--perturbation-alg GPU`` the
+JAX package gives the same two frames as with its native orbit.
+
+Bounds (``bound_ms``): the larger of the bytes a kernel must move (each
+input read once, each output written once) over 3.35 TB/s and the
+operations its function needs on this run's inputs over the card's peak
+rate for their type: 67 TFLOP/s f32 (NVIDIA's H100 SXM data sheet) and,
+for the integer kernels K4 and K5, 16.7 Tops/s int32 (a quarter of the
+f32 figure: 64 INT32 lanes per SM against 128 FP32 lanes that each count
+an FMA as two, Hopper white paper).  Where the count depends on the
+data, it is a lower bound of what these inputs need, as each ``*_ops``
+function says.
 """
 
 from __future__ import annotations
@@ -32,12 +49,14 @@ import subprocess
 import sys
 import tempfile
 import time
-import zlib
 
 # View #6 (zoom 2^452, 4,718,592-iteration budget): iter_sum and CRC-32
-# of the grid as <u4, JAX package on the CPU with FMA off
+# of the grid as <u4, JAX package on the CPU with FMA off; the same with
+# its native orbit and with its device orbit (--perturbation-alg GPU)
 VIEW6_64 = (3_268_937_305, 2_518_423_760)
 VIEW6_256 = (52_302_966_139, 1_647_051_423)
+VIEW6_GPU_ORBIT = {64: VIEW6_64, 256: VIEW6_256}
+VIEW6_PERIOD = 457_977
 # the same frames with XLA:CPU's default FMA contraction, and the TPU
 # v5e's bench record (BENCH_r05.json deep_iter_sum): printed, not targets
 VIEW6_256_JAX_CPU_FMA = 52_302_949_912
@@ -45,6 +64,9 @@ VIEW6_256_TPU = 52_302_966_139
 # a deep view whose orbit and LA table fit the one-kernel caps
 SMALL_DEEP = ("-0.743643887037158704752191506114774",
               "0.131825904205311970493132056385139", "1e8", 2000)
+ORBIT_LIMBS = (32, 2048, 16384)
+ORACLE_STEPS = 256
+SESSION_BUDGET = 16384
 
 KERNEL_META = {
     "escape": ("fractalshark_tpu_torch/csrc/escape.cu",
@@ -55,15 +77,19 @@ KERNEL_META = {
                     "fractalshark_tpu/ops/la_kernel.py:99"),
     "rc_tail": ("fractalshark_tpu_torch/csrc/rc_tail.cu",
                 "fractalshark_tpu/ops/perturb_stream.py:395"),
+    "ntt_orbit": ("fractalshark_tpu_torch/csrc/ntt_orbit.cu",
+                  "fractalshark_tpu/ops/bignum/ntt_mxu.py:800"),
+    "orbit_tail": ("fractalshark_tpu_torch/csrc/orbit_tail.cu",
+                   "fractalshark_tpu/ops/bignum/ntt_pallas.py:1530"),
 }
+
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+I32_OPS_PER_S = 67e12 / 4
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def crc(iters) -> int:
-    return zlib.crc32(iters.cpu().numpy().astype("<u4").tobytes())
 
 
 def timed(fn, device, reps: int = 1):
@@ -97,6 +123,21 @@ def compare(name, kern, plain, results):
     results["max_abs_err"] = max(results.get("max_abs_err", 0.0), err)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, ops: float, rate: float) -> dict:
+    """bound_ms / bound_by from the bytes moved and operations needed."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    out = {"bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    log(f"    bound {out['bound_ms']:.6f} ms by {out['bound_by']} "
+        f"({n_bytes} bytes, {ops:.4g} ops)")
+    return out
+
+
 # ---------------------------------------------------------------- phases
 
 
@@ -122,9 +163,9 @@ def phase_build():
 
 def deep_inputs(view_or_center, size, device):
     """Host tables and dc grid of a deep frame, via the engine."""
-    from fractalshark_tpu.core.pointzoom import PointZoomBBConverter
-    from fractalshark_tpu.engine.la_reference import get_or_build_la
+    from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
     from fractalshark_tpu_torch.engine.fractal import Fractal
+    from fractalshark_tpu_torch.engine.la_reference import get_or_build_la
     from fractalshark_tpu_torch.engine.renderers import get_orbit_calc
     from fractalshark_tpu_torch.ops import la_kernel
     from fractalshark_tpu_torch.ops.perturb import _dc_grids_hdr, delta_params
@@ -148,19 +189,54 @@ def deep_inputs(view_or_center, size, device):
     return f, res, la, T, orbit, dc, calc.last_details.get("backend")
 
 
+def escape_ops(iters, budget: int) -> float:
+    """K1: 7 f32 operations per iteration (z², |z|² and the update) over
+    the pixels that escape; pixels at the budget are left out, since the
+    kernel resolves cardioid and bulb pixels without iterating."""
+    return 7.0 * float(iters[iters < budget].sum())
+
+
+def lav2_ops(T, pixels: int) -> float:
+    """K2: at least one LA step per stage for every pixel, each step a
+    complex HDR product and add (about 40 f32 operations)."""
+    return 40.0 * pixels * T.stage_count
+
+
+def rc_tail_ops(done_iters: float) -> float:
+    """K3: one HDR perturbation step per tail iteration done (about 25
+    f32 operations: 2·Z·dz + dz² + dc, the norm, the rebase test)."""
+    return 25.0 * done_iters
+
+
+def ntt_ops(n: int) -> float:
+    """K4: 8 transforms of n/2·log2(n) butterflies at 8 integer
+    operations (a Montgomery product, a modular add and a subtract), the
+    pointwise products (3 Montgomery products of 6 operations per point
+    and prime) and the CRT (about 12 per coefficient)."""
+    lg = n.bit_length() - 1
+    return 8 * (n // 2) * lg * 8 + 2 * n * 3 * 6 + 2 * n * 12
+
+
+def tail_ops(n: int) -> float:
+    """K5: about 8 integer operations per digit sum (the combine, the
+    ripple's add, mask and shift) for both components."""
+    return 2 * n * 8.0
+
+
 def phase_kernels(device, size_escape=1024, size_deep=256,
                   size_small=64):
-    """Each kernel against its plain version on the card."""
+    """K1-K3 against their plain versions on the card."""
     import torch
 
-    from fractalshark_tpu.core.views import get_view_preset
-    from fractalshark_tpu.engine.perturbation_results import CompressedOrbit
+    from fractalshark_tpu_torch.core.views import get_view_preset
+    from fractalshark_tpu_torch.engine.perturbation_results import (
+        CompressedOrbit)
     from fractalshark_tpu_torch.ops import escape, la_kernel
     from fractalshark_tpu_torch.ops import perturb_stream as ps
     from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
 
     stats = {k: {} for k in KERNEL_META}
-    log("[3] kernels vs plain versions on the card")
+    log("[3] K1-K3 vs plain versions on the card")
 
     # K1 at View 0, the main path's 1024² (f32 = Gpu1x32, f64 = Gpu1x64)
     ptz = get_view_preset(0).ptz.square_aspect_ratio(size_escape, size_escape)
@@ -175,7 +251,8 @@ def phase_kernels(device, size_escape=1024, size_deep=256,
                 stats["escape"])
         log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
         if dt == "f32":
-            stats["escape"].update(ms=ms, plain_ms=pms)
+            stats["escape"].update(ms=ms, plain_ms=pms, **bound(
+                nbytes(k), escape_ops(k, 256), F32_OPS_PER_S))
 
     def k2(T, orbit, dc, n, max_ref, la_only):
         flat = HDRComplex(*(t.reshape(-1) for t in dc))
@@ -189,35 +266,37 @@ def phase_kernels(device, size_escape=1024, size_deep=256,
         return ks, [t.reshape(dc.re.shape) for t in ps_], ms, pms
 
     def k2_both(label, T, orbit, dc, n, max_ref, modes):
-        """K2 against its plain twin, every state array; (ms, plain ms)
-        of the last mode."""
+        """K2 against its plain twin, every state array; the last mode's
+        state, times and bound."""
         for la_only in modes:
             key = "lav2_phase1" if la_only else "lav2_full"
             ks, pls, ms, pms = k2(T, orbit, dc, n, max_ref, la_only)
             for i, name in enumerate(la_kernel._STATE):
                 compare(f"K2 {key} {label} {name}", ks[i], pls[i], stats[key])
             log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
-        return ks, ms, pms
+        b = bound(nbytes(T.nodes, T.side, T.stages, orbit, *dc, *ks),
+                  lav2_ops(T, dc.re.numel()), F32_OPS_PER_S)
+        return ks, dict(ms=ms, plain_ms=pms, **b)
 
     # K2 in both modes on the small-table deep frame (full mode is its
     # main-path route) and on View #6, at the small size
     f, res, la, T, orbit, dc, backend = deep_inputs(SMALL_DEEP, size_small,
                                                     device)
-    _, ms, pms = k2_both(f"1e8 {size_small}²", T, orbit, dc, SMALL_DEEP[3],
-                         res.max_ref_iteration(), (True, False))
-    stats["lav2_full"].update(ms=ms, plain_ms=pms)
+    _, st = k2_both(f"1e8 {size_small}²", T, orbit, dc, SMALL_DEEP[3],
+                    res.max_ref_iteration(), (True, False))
+    stats["lav2_full"].update(st)
     f, res_s, la, T, orbit, dc_s, backend = deep_inputs(6, size_small, device)
-    st_s, _, _ = k2_both(f"View #6 {size_small}²", T, orbit, dc_s,
-                         f.num_iterations, res_s.max_ref_iteration(),
-                         (False, True))
+    st_s, _ = k2_both(f"View #6 {size_small}²", T, orbit, dc_s,
+                      f.num_iterations, res_s.max_ref_iteration(),
+                      (False, True))
 
     # K2 phase-1 and K3 (identity anchors) on View #6 at the main path's
     # size; K3 over real compressed anchors at the small size
     f, res, la, T, orbit, dc, backend = deep_inputs(6, size_deep, device)
     n = f.num_iterations
-    ks, ms, pms = k2_both(f"View #6 {size_deep}²", T, orbit, dc, n,
-                          res.max_ref_iteration(), (True,))
-    stats["lav2_phase1"].update(ms=ms, plain_ms=pms)
+    ks, st = k2_both(f"View #6 {size_deep}²", T, orbit, dc, n,
+                     res.max_ref_iteration(), (True,))
+    stats["lav2_phase1"].update(st)
 
     def k3(comp, state, dc, label):
         A = ps.anchors_on(comp, device)
@@ -236,17 +315,149 @@ def phase_kernels(device, size_escape=1024, size_deep=256,
         rp, pms = timed(plain, device)
         compare(f"K3 {label} remaining budget", rk, rp, stats["rc_tail"])
         log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
-        return ms, pms
+        done = float(((n - state[6]).reshape(-1) - rk).clamp(min=0).sum())
+        return dict(ms=ms, plain_ms=pms, **bound(
+            nbytes(A.index, A.val, *dc, *state[2:7], rk),
+            rc_tail_ops(done), F32_OPS_PER_S))
 
-    ms, pms = k3(CompressedOrbit.identity(res), ks, dc,
-                 f"identity anchors View #6 {size_deep}²")
-    stats["rc_tail"].update(ms=ms, plain_ms=pms)
+    stats["rc_tail"].update(k3(CompressedOrbit.identity(res), ks, dc,
+                               f"identity anchors View #6 {size_deep}²"))
     comp = CompressedOrbit.from_uncompressed(res_s, error_exp=8)
     log(f"    compressed orbit: {len(comp.anchors_x)} anchors of "
         f"{comp.total_count} (ratio {comp.compression_ratio():.2f})")
     k3(comp, st_s, dc_s, f"compressed anchors (error_exp 8) View #6 "
        f"{size_small}²")
     return stats, backend
+
+
+def view30_center():
+    from fractalshark_tpu_torch.core.views import get_view_preset
+    ptz = get_view_preset(30).ptz
+    return ptz.pt_x, ptz.pt_y, ptz.radius
+
+
+def phase_orbit_kernels(device, stats, reps=20, steps=3):
+    """K4 and K5 against their twins, digit for digit, for a few steps
+    from the View #30 centre at each limb count; times and bounds."""
+    import torch
+
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+
+    log("[4] K4/K5 vs plain versions on the card (View #30 centre)")
+    cx, cy, _ = view30_center()
+    for key in ("ntt_orbit", "orbit_tail"):
+        stats[key]["by_limbs"] = {}
+    for limbs in ORBIT_LIMBS:
+        spec = FP.FixedSpec.for_limbs(limbs)
+        scx, cxd = FP.hp_to_digits(cx, spec)
+        scy, cyd = FP.hp_to_digits(cy, spec)
+        cxt = torch.from_numpy(cxd.astype("int32")).to(device)
+        cyt = torch.from_numpy(cyd.astype("int32")).to(device)
+        x, y = cxt.clone(), cyt.clone()
+        row = torch.from_numpy(FP.shadow_row_np(scx, cxd, scy, cyd)).to(
+            device)
+        for step in range(steps):
+            coef = FP.orbit_products(x, y, spec)
+            want = FP.orbit_products_plain(x, y, spec.nfft)
+            compare(f"K4 {limbs} limbs step {step}", coef, want,
+                    stats["ntt_orbit"])
+            got = FP.orbit_tail(coef, row, scx, cxt, scy, cyt, spec)
+            plain = FP.orbit_tail_plain(want, row, scx, cxt, scy, cyt, spec)
+            for name, a, b in zip(("x", "y", "row"), got, plain):
+                compare(f"K5 {limbs} limbs step {step} {name}", a, b,
+                        stats["orbit_tail"])
+            x, y, row = got
+        _, k4ms = timed(lambda: FP.orbit_products(x, y, spec), device, reps)
+        _, k4pms = timed(lambda: FP.orbit_products_plain(x, y, spec.nfft),
+                         device)
+        _, k5ms = timed(lambda: FP.orbit_tail(coef, row, scx, cxt, scy, cyt,
+                                              spec), device, reps)
+        _, k5pms = timed(lambda: FP.orbit_tail_plain(
+            coef, row, scx, cxt, scy, cyt, spec), device)
+        log(f"    {limbs} limbs: K4 {k4ms:.4f} ms (plain {k4pms:.3f}), "
+            f"K5 {k5ms:.4f} ms (plain {k5pms:.3f})")
+        n, D = spec.nfft, spec.digits
+        for key, ms, pms, nb, ops in (
+                ("ntt_orbit", k4ms, k4pms, 2 * D * 4 + 2 * n * 8,
+                 ntt_ops(n)),
+                ("orbit_tail", k5ms, k5pms,
+                 2 * n * 8 + 4 * D * 4 + 2 * 12 * 4, tail_ops(n))):
+            st = dict(ms=ms, plain_ms=pms, **bound(nb, ops, I32_OPS_PER_S))
+            stats[key]["by_limbs"][limbs] = st
+            stats[key].update(st)       # the last, largest size stays
+
+
+def phase_device_orbit(device):
+    """The device orbit on its own: the digit state after ORACLE_STEPS
+    steps at 16,384 limbs against exact Python ints, then bounded
+    sessions and their time per iteration at each limb count."""
+    import torch
+
+    from fractalshark_tpu_torch.core.views import get_view_preset
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+    from fractalshark_tpu_torch.ops.bignum import orbit as O
+
+    log("[5] device orbit")
+    cx, cy, rad = view30_center()
+    spec = FP.FixedSpec.for_limbs(max(ORBIT_LIMBS))
+    scx, cxd = FP.hp_to_digits(cx, spec)
+    scy, cyd = FP.hp_to_digits(cy, spec)
+    cxt = torch.from_numpy(cxd.astype("int32")).to(device)
+    cyt = torch.from_numpy(cyd.astype("int32")).to(device)
+    state = O.OrbitState(scx, cxd, scy, cyd, device)
+    t0 = time.perf_counter()
+    O.orbit_chunk(state, scx, cxt, scy, cyt, spec, ORACLE_STEPS)
+    sx, x, sy, y = state.numpy()
+    dev_s = time.perf_counter() - t0
+    # the exact recurrence: x' = rhu(x² − y² + cx·2^16F), y' = rhu(2xy +
+    # cy·2^16F), rhu(v) = sign(v + h)·(|v + h| >> 16F)
+    t0 = time.perf_counter()
+    shift = 16 * spec.frac_digits
+    half = 1 << (shift - 1)
+    cxi = scx * FP.digits_to_int(cxd)
+    cyi = scy * FP.digits_to_int(cyd)
+    xi, yi = cxi, cyi
+    sgx = sgy = 1
+
+    def rhu(v):
+        t = v + half
+        return (1 if t >= 0 else -1), abs(t) >> shift
+
+    for _ in range(ORACLE_STEPS):
+        (sgx, mx), (sgy, my) = (rhu((xi + yi) * (xi - yi) + (cxi << shift)),
+                                rhu(2 * xi * yi + (cyi << shift)))
+        xi, yi = sgx * mx, sgy * my
+    ok = (FP.digits_to_int(x) == abs(xi) and FP.digits_to_int(y) == abs(yi)
+          and (int(sx), int(sy)) == (sgx, sgy))
+    log(f"  View #30 centre, {max(ORBIT_LIMBS)} limbs, {ORACLE_STEPS} "
+        f"steps: digits {'equal' if ok else 'DIFFER'} to the Python-int "
+        f"recurrence (device {dev_s:.2f} s, Python ints "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        raise AssertionError("device orbit differs from the exact recurrence")
+
+    per_iter = {}
+    v6 = get_view_preset(6).ptz
+    for limbs in ORBIT_LIMBS:
+        # View #30's centre is i + 2^-26000: held to 32 limbs it leaves
+        # the repelling cycle of i and escapes within a thousand steps,
+        # so 32 limbs (View #6's own width) runs View #6's centre
+        name, (x0, y0, r0) = (("View #6", (v6.pt_x, v6.pt_y, v6.radius))
+                              if limbs < 2048 else ("View #30", (cx, cy, rad)))
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        res = O.compute_reference_orbit_device(
+            x0, y0, SESSION_BUDGET, r0, limbs32=limbs, periodicity=False,
+            chunk_steps=4096, device=device)
+        wall = time.perf_counter() - t0
+        n_it = res.count_orbit_entries() - 1
+        per_iter[limbs] = wall / n_it * 1e6
+        log(f"  session {name} {limbs} limbs: {n_it} iterations in "
+            f"{wall:.3f} s, {per_iter[limbs]:.2f} us/iter, timers "
+            f"{res.extra['session_timers']}")
+        if n_it != SESSION_BUDGET or res.escaped_at:
+            raise AssertionError(f"{limbs} limbs: session stopped at {n_it}")
+    return per_iter
 
 
 def cli_run(argv):
@@ -263,19 +474,22 @@ def cli_run(argv):
 
 
 def phase_slice(outdir, device="cuda"):
-    """The main path through the CLI, with the kernels' counters."""
+    """The paths through the CLI, each path's launch counts from 0."""
     from fractalshark_tpu_torch import kernels
-    log("[4] the slice through fractalshark_tpu_torch.cli.main")
-    kernels.reset_counts()
+    log("[6] the paths through fractalshark_tpu_torch.cli.main")
+    total = {k: 0 for k in kernels.launches}
     runs = {}
 
     def run(label, argv, want_alg, want_kernels):
-        before = dict(kernels.launches)
+        kernels.reset_counts()
         s, wall = cli_run(argv + ["--stats", "--device", device])
-        grew = {k: kernels.launches[k] - before[k] for k in kernels.launches}
-        log(f"  {label}: {s['algorithm']} via {s['kernel']}, iter_sum "
-            f"{s['iter_sum']}, crc32 {s['crc32']}, wall {wall:.3f} s, "
-            f"launches {grew}")
+        grew = dict(kernels.launches)
+        for k, v in grew.items():
+            total[k] += v
+        log(f"  {label}: {s['algorithm']} via {s['kernel']} (orbit "
+            f"{s['orbit_backend']}, {s['orbit_len']} entries, period "
+            f"{s['orbit_period']}), iter_sum {s['iter_sum']}, crc32 "
+            f"{s['crc32']}, wall {wall:.3f} s, launches {grew}")
         log(f"    timings {json.dumps(s['timings'])}")
         if s["algorithm"] != want_alg:
             raise AssertionError(f"{label}: algorithm {s['algorithm']}")
@@ -311,7 +525,26 @@ def phase_slice(outdir, device="cuda"):
     log(f"  View #6 256² iter_sum {runs['View #6 AUTO 256²']['iter_sum']}; "
         f"known other values: TPU v5e {VIEW6_256_TPU} (BENCH_r05), JAX CPU "
         f"with FMA contraction {VIEW6_256_JAX_CPU_FMA}")
-    return dict(kernels.launches), runs
+    for size, want in VIEW6_GPU_ORBIT.items():
+        s = run(f"View #6 --perturbation-alg GPU {size}²",
+                ["--view", "6", "--width", str(size), "--height", str(size),
+                 "--perturbation-alg", "GPU"],
+                "GpuHDRx32PerturbedLAv2",
+                ["ntt_orbit", "orbit_tail", "lav2_phase1", "rc_tail"])
+        got = (s["iter_sum"], s["crc32"])
+        native = runs[f"View #6 AUTO {size}²"]
+        log(f"    expected (JAX CPU, FMA off, --perturbation-alg GPU) "
+            f"{want}, got {got}; native-orbit frame "
+            f"{(native['iter_sum'], native['crc32'])}; device orbit "
+            f"{s['timings']['ref_orbit_s'] / s['orbit_len'] * 1e6:.2f} "
+            f"us/iter over {s['orbit_len']} entries")
+        if s["orbit_backend"] != "device" or got != want:
+            raise AssertionError(f"View #6 GPU orbit {size}²: {got} != "
+                                 f"{want}")
+        if s["orbit_period"] != VIEW6_PERIOD:
+            raise AssertionError(f"View #6 GPU orbit period "
+                                 f"{s['orbit_period']} != {VIEW6_PERIOD}")
+    return total, runs
 
 
 def main() -> int:
@@ -334,10 +567,13 @@ def main() -> int:
     phase_build()
     stats, backend = phase_kernels(device)
     log(f"    orbit backend: {backend}")
+    phase_orbit_kernels(device, stats)
+    per_iter = phase_device_orbit(device)
     with tempfile.TemporaryDirectory() as outdir:  # the frames' PNGs
         launches, runs = phase_slice(outdir)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    if any(m.split(".")[0] in ("jax", "fractalshark_tpu")
+           for m in sys.modules):
+        raise AssertionError("jax or the JAX package was imported")
     kernels_out = []
     for name, (src, replaces) in KERNEL_META.items():
         st = stats[name]
@@ -345,7 +581,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": st["max_abs_err"], "ms": st["ms"],
-            "plain_ms": st["plain_ms"]})
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+            "bound_by": st["bound_by"], "library_ms": None})
+    log("orbit us/iter (session wall): " + json.dumps(
+        {str(k): round(v, 3) for k, v in per_iter.items()}))
+    log("K4/K5 by limbs: " + json.dumps(
+        {k: stats[k]["by_limbs"] for k in ("ntt_orbit", "orbit_tail")}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels_out}))

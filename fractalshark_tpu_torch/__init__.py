@@ -6,20 +6,14 @@ hand-written CUDA kernels (``csrc/``), with a plain PyTorch twin of
 every kernel for CPU tensors.  The JAX package stays the reference.
 
 The host layer (high-precision view maths, the native GMP reference
-orbit, the LA table builder, presets, palette, PNG writer) is imported
-from ``fractalshark_tpu`` unchanged.  That package imports jax at import
-time unless both switches below are set, so they are set (as defaults,
-never overriding a caller's choice) before the first
-``fractalshark_tpu`` import.  The port itself never imports jax.
+orbit, the LA table builder, presets, palette, PNG writer) is the
+port's own copy of the JAX package's jax-free modules, under the same
+sub-package names (``core/``, ``io/``, ``utils/``, ``engine/``).  The
+port imports neither jax nor ``fractalshark_tpu``.
 """
 
-import os
-
-os.environ.setdefault("FRACTALSHARK_NO_X64", "1")
-os.environ.setdefault("FRACTALSHARK_NO_COMPILE_CACHE", "1")
-
-from fractalshark_tpu.core.highprecision import HighPrecision  # noqa: E402
-from fractalshark_tpu.core.pointzoom import PointZoomBBConverter  # noqa: E402
+from fractalshark_tpu_torch.core.highprecision import HighPrecision
+from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
 
 __version__ = "0.1.0"
 

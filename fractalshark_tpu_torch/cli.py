@@ -5,6 +5,9 @@ runs the kernels' plain PyTorch twins).
 
     python -m fractalshark_tpu_torch.cli --view 6 --width 256 \\
         --height 256 --output-png out.png --stats
+    # the reference orbit on the card (K4/K5) instead of native GMP
+    python -m fractalshark_tpu_torch.cli --view 6 --width 256 \\
+        --height 256 --perturbation-alg GPU --stats
 """
 
 from __future__ import annotations
@@ -33,6 +36,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--height", type=int, default=1024)
     p.add_argument("--output-png", default=None)
     p.add_argument("--png-bit-depth", type=int, default=8, choices=[8, 16])
+    p.add_argument("--perturbation-alg", default="Auto",
+                   choices=["Auto", "ST", "MT", "Native", "GPU", "TPU"],
+                   help="reference-orbit backend: Auto picks native C++ "
+                        "when available; GPU/TPU = the on-device NTT orbit "
+                        "(kernels K4/K5 on --device); ST/MT = Python host")
     p.add_argument("--stats", action="store_true",
                    help="print iteration min/max/sum, the grid's CRC-32 "
                         "and phase timings as JSON")
@@ -51,9 +59,9 @@ def grid_crc32(iters) -> int:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    from fractalshark_tpu.core.algorithms import get_algorithm
-    from fractalshark_tpu.core.highprecision import HighPrecision
-    from fractalshark_tpu.core.pointzoom import PointZoomBBConverter
+    from fractalshark_tpu_torch.core.algorithms import get_algorithm
+    from fractalshark_tpu_torch.core.highprecision import HighPrecision
+    from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
     from fractalshark_tpu_torch.engine.fractal import Fractal
 
     try:
@@ -83,12 +91,17 @@ def main(argv=None) -> int:
         try:
             f.set_view_preset(args.view if args.view is not None else 0)
         except KeyError:
-            from fractalshark_tpu.core.views import num_views
+            from fractalshark_tpu_torch.core.views import num_views
             print(f"error: no such view preset {args.view} "
                   f"(valid: 0..{num_views() - 1})", file=sys.stderr)
             return 2
     if args.iterations is not None:
         f.num_iterations = args.iterations
+    if args.perturbation_alg != "Auto":
+        from fractalshark_tpu_torch.engine.renderers import get_orbit_calc
+        get_orbit_calc(f).orbit_backend = {
+            "ST": "host", "MT": "host", "Native": "native",
+            "GPU": "device", "TPU": "device"}[args.perturbation_alg]
 
     t0 = time.perf_counter()
     if args.output_png:
@@ -118,6 +131,8 @@ def main(argv=None) -> int:
             "backend": f.backend,
             "kernel": bm.extra.get("kernel"),
             "orbit_backend": bm.extra.get("backend"),
+            "orbit_len": bm.extra.get("orbit_len"),
+            "orbit_period": bm.extra.get("period"),
             "timings": timings,
         }))
     return 0

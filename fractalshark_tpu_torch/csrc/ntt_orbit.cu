@@ -1,0 +1,300 @@
+// K4: the products of one orbit step, exactly.  From the digit vectors
+// x and y (D digits below 2^16) it computes the integer coefficient
+// sequences of x^2 - y^2 (signed) and x*y, int64 [2][n], n >= 2D.
+//
+// Replaces: fractalshark_tpu/ops/bignum/ntt_mxu.py:800 _iter_paired_kernel
+// (B5; call :863, API mxu_iter_products_paired :879; nfft >= 32768) and
+// ntt_mxu.py:618 _iter_kernel (B8a; call :660, API mxu_iter_products :636;
+// nfft 8192-16384).  Both compute this one function on the TPU
+// (routing fixedpoint.py:399-423); this kernel computes it at every size.
+// The TPU's balanced-int8 phase matrices exist for Mosaic's matrix unit
+// and are not copied.
+//
+// Method: cyclic convolution of length n by NTT modulo the two 31-bit
+// primes of ntt.py (p1 = 15*2^27+1, p2 = 27*2^26+1), Montgomery products
+// (R = 2^32), CRT.  Exactness: a coefficient of x^2, y^2 or x*y is a sum
+// of at most D products below 2^32, so below 2^48 for D <= 2^16; x^2 - y^2
+// lies in (-2^48, 2^48) and x*y in [0, 2^48), far inside p1*p2/2 ~ 2^60.7,
+// and n >= 2D means no coefficient wraps.  The CRT value, read as negative
+// above p1*p2/2 for x^2 - y^2, is therefore the exact integer.
+//
+// Layout: a four-step NTT of n = n1*n2 points, a[r*n2 + c] with
+// n1 = 2^floor(m/2) rows and n2 = 2^ceil(m/2) columns:
+//   col_fwd   per column, a DIF NTT of length n1 in shared memory (natural
+//             order in, bit-reversed out), for x and y and both primes;
+//   row_pass  per row r, holding frequency k1 = bitrev(r): the twiddle
+//             w_n^(c*k1), a DIF NTT of length n2, the pointwise X^2 - Y^2
+//             and X*Y, the inverse DIT of length n2 (bit-reversed in,
+//             natural out) and the inverse twiddle w_n^(-c*k1);
+//   col_inv   per column, the inverse DIT of length n1, the scale
+//             n^-1 * R^2 (which also cancels the R^-1 of the pointwise
+//             Montgomery products) and the CRT to int64.
+// Frequency-domain values stay in bit-reversed order, so there is no
+// permutation pass.  Twiddles of every sub-transform are read from the
+// n-point root tables, copied per block into shared memory with the data
+// (w_(2h)^j = w_n^(j*n/(2h))).
+//
+// Bound on the H100: at 16,384 limbs (n = 65,536) one step moves about
+// 3.3 MB, all of it L2-resident, and runs 8 transforms of 2^19 butterflies
+// (about 34 M integer operations, 2 us at the int32 rate); launch and
+// __syncthreads latency set the time.  The design keeps every transform
+// row or column in shared memory so that a step is three launches; the
+// column passes fill a quarter of the card or less.  Reading the twiddles
+// from the global tables at every butterfly cost 40% of the time there.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr uint32_t kP1 = 2013265921u;   // ntt.P1
+constexpr uint32_t kP2 = 1811939329u;   // ntt.P2
+constexpr uint32_t kPp1 = 2013265919u;  // -p1^-1 mod 2^32 (ntt.mont_const)
+constexpr uint32_t kPp2 = 1811939327u;  // -p2^-1 mod 2^32
+constexpr uint64_t kP1P2 = 3647915701995307009ull;
+constexpr int kThreads = 256;
+constexpr int kLogColBlock = 3;   // 8 columns a block in the column passes
+
+__device__ __forceinline__ uint32_t prime(int i) { return i ? kP2 : kP1; }
+__device__ __forceinline__ uint32_t pprime(int i) { return i ? kPp2 : kPp1; }
+
+// a*b*R^-1 mod p for a, b < p < 2^31: t + m*p < 2^62 + 2^63 fits, result < 2p
+__device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b,
+                                             uint32_t p, uint32_t pp) {
+  const uint64_t t = static_cast<uint64_t>(a) * b;
+  const uint32_t m = static_cast<uint32_t>(t) * pp;
+  const uint32_t u =
+      static_cast<uint32_t>((t + static_cast<uint64_t>(m) * p) >> 32);
+  return u >= p ? u - p : u;
+}
+
+__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
+                                            uint32_t p) {
+  const uint32_t s = a + b;
+  return s >= p ? s - p : s;
+}
+
+__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b,
+                                            uint32_t p) {
+  return a >= b ? a - b : a + p - b;
+}
+
+// The twiddles of a length-M transform (M = 2^lg), both primes, into
+// shared memory: tws[pr][e] = w_M^e for e < M/2, which is the n-point root
+// table at e*n/M.  The caller synchronises before use.
+template <bool kForward>
+__device__ void load_twiddles(uint32_t *tws, int lg, int m,
+                              const uint32_t *__restrict__ tw) {
+  const int half = 1 << (lg - 1);
+  for (int i = threadIdx.x; i < 2 * half; i += blockDim.x) {
+    const int pr = i >> (lg - 1);
+    tws[i] = tw[((kForward ? 0 : 2) + pr) * (1 << m) +
+                ((i & (half - 1)) << (m - lg))];
+  }
+}
+
+// In-place radix-2 transforms of length 2^lg in shared memory, over
+// (array a, column cc) sequences: element i of a sequence sits at
+// a*astride + cc + i*stride; there are 2^lgc columns and array a uses
+// prime (a & 1) and its twiddles tws (load_twiddles).
+//   DIF (forward): natural in, bit-reversed out, twiddle after the
+//   difference; DIT (inverse): bit-reversed in, natural out, twiddle before.
+// A butterfly of half-span h = 2^sh at offset j takes w_(2h)^j, which is
+// w_M^(j << (lg - 1 - sh)).
+template <bool kForward>
+__device__ void transform(uint32_t *sm, int arrays, int lgc, int astride,
+                          int stride, int lg, const uint32_t *tws) {
+  const int half_len = 1 << (lg - 1);
+  const int total = arrays << (lgc + lg - 1);
+  for (int s = 0; s < lg; ++s) {
+    const int sh = kForward ? lg - 1 - s : s;
+    const int h = 1 << sh;
+    for (int b = threadIdx.x; b < total; b += blockDim.x) {
+      const int cc = b & ((1 << lgc) - 1);
+      const int k = (b >> lgc) & (half_len - 1);
+      const int a = b >> (lgc + lg - 1);
+      const int pr = a & 1;
+      const uint32_t p = prime(pr);
+      const uint32_t pp = pprime(pr);
+      const int j = k & (h - 1);
+      const int i0 = 2 * (k - j) + j;
+      uint32_t *x0 = sm + a * astride + cc + i0 * stride;
+      uint32_t *x1 = x0 + h * stride;
+      const uint32_t w = tws[pr * half_len + (j << (lg - 1 - sh))];
+      const uint32_t u = *x0;
+      if (kForward) {
+        const uint32_t v = *x1;
+        *x0 = add_mod(u, v, p);
+        *x1 = mont_mul(sub_mod(u, v, p), w, p, pp);
+      } else {
+        const uint32_t v = mont_mul(*x1, w, p, pp);
+        *x0 = add_mod(u, v, p);
+        *x1 = sub_mod(u, v, p);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// grid (n2 / cb, 2): blockIdx.y picks x or y; work[(input*2 + prime)*n + i]
+__global__ void __launch_bounds__(kThreads)
+col_fwd(const uint32_t *__restrict__ x, const uint32_t *__restrict__ y,
+        uint32_t *__restrict__ work, const uint32_t *__restrict__ tw, int D,
+        int m, int m1, int lgc) {
+  extern __shared__ uint32_t sm[];
+  const int n = 1 << m;
+  const int n1 = 1 << m1;
+  const int n2 = n >> m1;
+  const int cb = 1 << lgc;
+  const int input = blockIdx.y;
+  const uint32_t *src = input ? y : x;
+  const int c0 = blockIdx.x * cb;
+  const int tile = n1 * cb;
+  uint32_t *tws = sm + 2 * tile;
+  load_twiddles<true>(tws, m1, m, tw);
+  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
+    const int r = i / cb;
+    const int idx = r * n2 + c0 + (i - r * cb);
+    const uint32_t v = idx < D ? src[idx] : 0u;
+    sm[i] = v;          // digits < 2^16 are already reduced mod both primes
+    sm[tile + i] = v;
+  }
+  __syncthreads();
+  transform<true>(sm, 2, lgc, tile, cb, m1, tws);
+  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
+    const int r = i / cb;
+    const int idx = r * n2 + c0 + (i - r * cb);
+    work[(input * 2) * n + idx] = sm[i];
+    work[(input * 2 + 1) * n + idx] = sm[tile + i];
+  }
+}
+
+// grid n1: one row of all four arrays (x p1, x p2, y p1, y p2) per block
+__global__ void __launch_bounds__(kThreads)
+row_pass(uint32_t *__restrict__ work, const uint32_t *__restrict__ tw, int m,
+         int m1) {
+  extern __shared__ uint32_t sm[];
+  const int n = 1 << m;
+  const int m2 = m - m1;
+  const int n2 = 1 << m2;
+  const int r = blockIdx.x;
+  const int k1 = m1 ? static_cast<int>(__brev(r) >> (32 - m1)) : 0;
+  uint32_t *tws_f = sm + 4 * n2;
+  uint32_t *tws_i = tws_f + n2;
+  load_twiddles<true>(tws_f, m2, m, tw);
+  load_twiddles<false>(tws_i, m2, m, tw);
+  for (int i = threadIdx.x; i < 4 * n2; i += blockDim.x) {
+    const int a = i >> m2;
+    const int c = i & (n2 - 1);
+    const int pr = a & 1;
+    sm[i] = mont_mul(work[a * n + r * n2 + c], tw[pr * n + c * k1], prime(pr),
+                     pprime(pr));
+  }
+  __syncthreads();
+  transform<true>(sm, 4, 0, n2, 1, m2, tws_f);
+  for (int i = threadIdx.x; i < 2 * n2; i += blockDim.x) {
+    const int pr = i >> m2;
+    const uint32_t p = prime(pr);
+    const uint32_t pp = pprime(pr);
+    const uint32_t X = sm[i];
+    const uint32_t Y = sm[2 * n2 + i];
+    sm[i] = sub_mod(mont_mul(X, X, p, pp), mont_mul(Y, Y, p, pp), p);
+    sm[2 * n2 + i] = mont_mul(X, Y, p, pp);
+  }
+  __syncthreads();
+  transform<false>(sm, 4, 0, n2, 1, m2, tws_i);
+  for (int i = threadIdx.x; i < 4 * n2; i += blockDim.x) {
+    const int a = i >> m2;
+    const int c = i & (n2 - 1);
+    const int pr = a & 1;
+    work[a * n + r * n2 + c] = mont_mul(sm[i], tw[(2 + pr) * n + c * k1],
+                                        prime(pr), pprime(pr));
+  }
+}
+
+// grid n2 / cb: arrays (x^2-y^2 p1, p2, xy p1, p2) of cb columns per block
+__global__ void __launch_bounds__(kThreads)
+col_inv(const uint32_t *__restrict__ work, int64_t *__restrict__ coef,
+        const uint32_t *__restrict__ tw, int m, int m1, int lgc) {
+  extern __shared__ uint32_t sm[];
+  const int n = 1 << m;
+  const int n1 = 1 << m1;
+  const int n2 = n >> m1;
+  const int cb = 1 << lgc;
+  const int c0 = blockIdx.x * cb;
+  const int tile = n1 * cb;
+  uint32_t *tws = sm + 4 * tile;
+  load_twiddles<false>(tws, m1, m, tw);
+  for (int i = threadIdx.x; i < 4 * tile; i += blockDim.x) {
+    const int a = i / tile;
+    const int e = i - a * tile;
+    const int r = e / cb;
+    sm[i] = work[a * n + r * n2 + c0 + (e - r * cb)];
+  }
+  __syncthreads();
+  transform<false>(sm, 4, lgc, tile, cb, m1, tws);
+  const uint32_t scale1 = tw[4 * n];
+  const uint32_t scale2 = tw[4 * n + 1];
+  const uint32_t crt = tw[4 * n + 2];   // p1^-1 * R mod p2
+  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
+    const int r = i / cb;
+    const int idx = r * n2 + c0 + (i - r * cb);
+    for (int q = 0; q < 2; ++q) {
+      const uint32_t r1 = mont_mul(sm[(2 * q) * tile + i], scale1, kP1, kPp1);
+      const uint32_t r2 =
+          mont_mul(sm[(2 * q + 1) * tile + i], scale2, kP2, kPp2);
+      const uint32_t r1m = r1 >= kP2 ? r1 - kP2 : r1;   // p1 < 2*p2
+      const uint32_t t = mont_mul(sub_mod(r2, r1m, kP2), crt, kP2, kPp2);
+      const uint64_t rec =
+          static_cast<uint64_t>(r1) + static_cast<uint64_t>(kP1) * t;
+      coef[q * n + idx] = (q == 0 && rec > kP1P2 / 2)
+                              ? static_cast<int64_t>(rec) -
+                                    static_cast<int64_t>(kP1P2)
+                              : static_cast<int64_t>(rec);
+    }
+  }
+}
+
+int launch_smem(const void *fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}
+
+}  // namespace
+
+// x, y: uint32 [D]; coef: int64 [2][n]; work: uint32 [4n] scratch;
+// tables: uint32 [4n + 4] (ntt.kernel_tables).  n = 2^log2n, 2 <= n <= 2^20.
+extern "C" int fs_ntt_orbit(const void *x, const void *y, void *coef,
+                            void *work, const void *tables, int D, int log2n,
+                            void *stream) {
+  if (log2n < 2 || log2n > 20 || D < 1 || 2 * D > (1 << log2n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int m = log2n;
+  const int m1 = m / 2;
+  const int n2 = 1 << (m - m1);
+  const int n1 = 1 << m1;
+  const int lgc = (m - m1) < kLogColBlock ? (m - m1) : kLogColBlock;
+  const int cb = 1 << lgc;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto xw = static_cast<uint32_t *>(work);
+  auto tw = static_cast<const uint32_t *>(tables);
+  // data tiles, then the twiddles of the length-n1 column transforms
+  const size_t fwd_bytes = (2ull * n1 * cb + n1) * sizeof(uint32_t);
+  const size_t inv_bytes = (4ull * n1 * cb + n1) * sizeof(uint32_t);
+  int rc = launch_smem(reinterpret_cast<const void *>(col_fwd), fwd_bytes);
+  if (!rc) rc = launch_smem(reinterpret_cast<const void *>(col_inv), inv_bytes);
+  if (rc) return rc;
+  col_fwd<<<dim3(n2 / cb, 2), kThreads, fwd_bytes, st>>>(
+      static_cast<const uint32_t *>(x), static_cast<const uint32_t *>(y), xw,
+      tw, D, m, m1, lgc);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  // four row arrays, then forward and inverse twiddles of length n2
+  row_pass<<<n1, kThreads, 6ull * n2 * sizeof(uint32_t), st>>>(xw, tw, m, m1);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  col_inv<<<n2 / cb, kThreads, inv_bytes, st>>>(
+      xw, static_cast<int64_t *>(coef), tw, m, m1, lgc);
+  return static_cast<int>(cudaGetLastError());
+}

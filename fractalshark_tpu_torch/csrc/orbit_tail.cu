@@ -1,0 +1,507 @@
+// K5: from the products of one orbit step to the next z.  Per component
+// (block 0: x' = x^2 - y^2 + cx, block 1: y' = 2xy + cy) it forms the
+// signed digit sums acc_j over L = n >= 2D positions,
+//   acc = coef[0] + scx*cx<<F + h          (x)
+//   acc = 2*sx*sy*coef[1] + scy*cy<<F + h  (y),   h = 2^15 at digit F-1,
+// resolves every carry exactly, finishes in sign-magnitude form (sign -1
+// iff the sum is negative; digits F..F+D-1 of its magnitude), and writes
+// the [12] shadow row of the new z: per component the 4 digits ending at
+// the top nonzero digit and their base index, then the two signs
+// (fractalshark_tpu/ops/bignum/orbit.py:72-80, 145-148).
+//
+// Replaces: fractalshark_tpu/ops/bignum/ntt_pallas.py:1530
+// _tail_paired_kernel (B6; call :1585, API fused_tail_paired :1564;
+// nfft >= 32768) and :1134 _tail_split_kernel (B8c; call :1370, API
+// fused_tail :1326).  Both compute this one function on the TPU from CRT
+// residues; here K4 hands over exact int64 coefficients, so the CRT is
+// K4's and this kernel starts from integers.
+//
+// Carries, exactly.  The number is cut into segments of S >= 4 digits:
+//   1. each segment's sums are rippled sequentially (int64): digits in
+//      [0, 2^16) and a signed carry-out C_s, |C_s| < 2^34 since
+//      |acc| < 2^50;
+//   2. each segment adds C_(s-1): with S >= 4 digits its carry-out e_s is
+//      -1, 0 or 1, and its map from a carry-in c in {-1, 0, 1} to its
+//      carry-out, f_s(c) = e_s + [c = 1, all digits 0xFFFF] - [c = -1, all
+//      digits 0], stays in {-1, 0, 1};
+//   3. a scan composes the maps (2 bits per value), giving every
+//      segment's carry-in and the carry out of the top, so no carry
+//      ripples across segments (the imaginary part of View #30's centre,
+//      just below 1, starts with 1,661 fractional digits of 0xFFFF);
+//   4. each segment applies its carry-in; if the total (digits plus
+//      (C_last + top carry) * 2^(16L)) is negative, the digits are negated
+//      in two's complement from the lowest nonzero digit.
+// The JAX tail's overflow-count plane (ntt_pallas.py:1418-1527) is what
+// this replaces; its exactness is kept, its layout is not.
+//
+// Two forms of the same steps, chosen by size:
+//   narrow (L < 16,384, below 4,096 limbs): one launch, one block of 1,024
+//     threads per component, thread t owning S = max(4, L/1024) digits and
+//     a Hillis-Steele scan over the block.  Each thread walks its own
+//     segment, so every warp access touches 32 sectors; on the H100 this
+//     form took 0.26 ms at 16,384 limbs (two SMs' load/store throughput).
+//   wide (L >= 16,384): six launches over L/1,024 blocks of 256 threads
+//     per component, S = 4 digits a thread, so a warp covers 128
+//     consecutive digits and the whole card works: local ripple,
+//     maps with a block scan, a one-block scan of the block aggregates,
+//     apply, finish, shadow row.  The lowest and highest nonzero digits
+//     meet in atomics.
+//
+// Bound on the H100: at 16,384 limbs it reads 2 x 512 KB of coefficients
+// and writes 128 KB; the arithmetic is a few operations per digit, so the
+// bound is the bytes (0.5 us); launch latency dominates the wide form.
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 1024;
+
+// a map {-1, 0, 1} -> {-1, 0, 1}, two bits per value (value + 1)
+__device__ __forceinline__ uint32_t enc(int fm, int f0, int fp) {
+  return static_cast<uint32_t>((fm + 1) | ((f0 + 1) << 2) | ((fp + 1) << 4));
+}
+__device__ __forceinline__ int apply(uint32_t f, int c) {
+  return static_cast<int>((f >> (2 * (c + 1))) & 3u) - 1;
+}
+// g after f
+__device__ __forceinline__ uint32_t compose(uint32_t g, uint32_t f) {
+  return enc(apply(g, apply(f, -1)), apply(g, apply(f, 0)),
+             apply(g, apply(f, 1)));
+}
+
+__device__ int block_min(int v, int *red) {
+  for (int o = 16; o; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    v = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : INT_MAX;
+    for (int o = 16; o; o >>= 1)
+      v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+    if (threadIdx.x == 0) red[32] = v;
+  }
+  __syncthreads();
+  v = red[32];
+  __syncthreads();
+  return v;
+}
+
+__device__ int block_max(int v, int *red) {
+  return -block_min(-v, red);
+}
+
+__global__ void __launch_bounds__(kThreads)
+orbit_tail_kernel(const int64_t *__restrict__ coef,
+                  const int32_t *__restrict__ row_in,
+                  int32_t *__restrict__ row_out,
+                  const uint32_t *__restrict__ cx,
+                  const uint32_t *__restrict__ cy, int scx, int scy,
+                  uint32_t *__restrict__ nx, uint32_t *__restrict__ ny,
+                  uint32_t *__restrict__ scratch, int D, int m) {
+  __shared__ int64_t carry[kThreads];
+  __shared__ uint32_t maps[2][kThreads];
+  __shared__ int red[33];
+  const int comp = blockIdx.x;
+  const int L = 1 << m;
+  const int F = D - 2;
+  const int S = (L >> 10) > 4 ? (L >> 10) : 4;
+  const int T = L / S;
+  const int t = threadIdx.x;
+  const bool active = t < T;
+  const int base = t * S;
+  uint32_t *dig = scratch + static_cast<size_t>(comp) * L;
+  const int64_t *cf = coef + static_cast<size_t>(comp) * L;
+  const uint32_t *c = comp ? cy : cx;
+  const int64_t sc = comp ? scy : scx;
+  const int64_t mul =
+      comp ? 2 * static_cast<int64_t>(row_in[10]) * row_in[11] : 1;
+
+  // 1. ripple the segment's own sums
+  int64_t cr = 0;
+  if (active) {
+    for (int k = 0; k < S; ++k) {
+      const int j = base + k;
+      int64_t a = mul * cf[j] + cr;
+      if (j >= F && j < F + D) a += sc * static_cast<int64_t>(c[j - F]);
+      if (j == F - 1) a += 1 << 15;
+      dig[j] = static_cast<uint32_t>(a & 0xFFFF);
+      cr = a >> 16;
+    }
+  }
+  carry[t] = cr;
+  __syncthreads();
+
+  // 2. absorb the carry of the segment below; the segment's carry map
+  uint32_t f = enc(-1, 0, 1);   // identity for threads past the number
+  if (active) {
+    int64_t ci = t ? carry[t - 1] : 0;
+    bool all_ffff = true;
+    bool all_zero = true;
+    for (int k = 0; k < S; ++k) {
+      const int j = base + k;
+      uint32_t d = dig[j];
+      if (ci) {
+        const int64_t a = static_cast<int64_t>(d) + ci;
+        d = static_cast<uint32_t>(a & 0xFFFF);
+        ci = a >> 16;
+        dig[j] = d;
+      }
+      all_ffff &= d == 0xFFFFu;
+      all_zero &= d == 0u;
+    }
+    const int e = static_cast<int>(ci);
+    f = enc(e - (all_zero ? 1 : 0), e, e + (all_ffff ? 1 : 0));
+  }
+
+  // 3. inclusive scan of the maps: maps[t] = f_t o ... o f_0
+  maps[0][t] = f;
+  __syncthreads();
+  int src = 0;
+  for (int off = 1; off < kThreads; off <<= 1) {
+    uint32_t cur = maps[src][t];
+    if (t >= off) cur = compose(cur, maps[src][t - off]);
+    maps[src ^ 1][t] = cur;
+    __syncthreads();
+    src ^= 1;
+  }
+  const int cin = t ? apply(maps[src][t - 1], 0) : 0;
+  const int64_t top = carry[T - 1] + apply(maps[src][T - 1], 0);
+
+  // 4. apply the carry-in: +1 over a run of 0xFFFF, -1 over a run of 0
+  if (active && cin) {
+    for (int k = 0; k < S; ++k) {
+      const int j = base + k;
+      const uint32_t d = dig[j];
+      if (cin > 0) {
+        dig[j] = (d + 1u) & 0xFFFFu;
+        if (d != 0xFFFFu) break;
+      } else {
+        dig[j] = (d - 1u) & 0xFFFFu;
+        if (d != 0u) break;
+      }
+    }
+  }
+  __syncthreads();
+  const bool neg = top < 0;
+  if (neg) {
+    int lo = INT_MAX;
+    if (active) {
+      for (int k = 0; k < S; ++k) {
+        if (dig[base + k]) {
+          lo = base + k;
+          break;
+        }
+      }
+    }
+    lo = block_min(lo, red);
+    if (active) {
+      for (int k = 0; k < S; ++k) {
+        const int j = base + k;
+        const uint32_t d = dig[j];
+        dig[j] = j < lo ? 0u : (j == lo ? 0x10000u - d : 0xFFFFu - d);
+      }
+    }
+    __syncthreads();
+  }
+
+  // 5. digits F..F+D-1 out, then the shadow row of the new value
+  uint32_t *out = comp ? ny : nx;
+  int hi = -1;
+  for (int i = t; i < D; i += kThreads) {
+    const uint32_t d = dig[F + i];
+    out[i] = d;
+    if (d) hi = i;
+  }
+  hi = block_max(hi, red);
+  if (t == 0) {
+    int b = hi - 3;
+    b = b < 0 ? 0 : (b > D - 4 ? D - 4 : b);
+    for (int k = 0; k < 4; ++k)
+      row_out[5 * comp + k] = static_cast<int32_t>(dig[F + b + k]);
+    row_out[5 * comp + 4] = b;
+    row_out[10 + comp] = neg ? -1 : 1;
+  }
+}
+
+constexpr int kWideThreads = 256;
+constexpr int kWideSeg = 4;           // digits per thread
+constexpr int kWideMinLog2 = 14;      // L >= 2^14 takes the wide form
+
+// the wide form's scratch, in uint32 words of a buffer of >= 4L: digits
+// [2][L], carries int64 [2][L/4], exclusive prefix maps uint8 [2][L/4],
+// block aggregates [2][G], block carry-ins int32 [2][G], then per
+// component neg, lowest and highest nonzero index
+struct Wide {
+  uint32_t *dig;
+  int64_t *carry;
+  uint8_t *prefix;
+  uint32_t *agg;
+  int32_t *bcin;
+  int32_t *flag;   // neg[2], lo[2], hi[2]
+};
+
+__device__ __forceinline__ Wide wide(uint32_t *s, int L) {
+  const int ns = L / kWideSeg;
+  const int g = ns / kWideThreads;
+  Wide w;
+  w.dig = s;
+  w.carry = reinterpret_cast<int64_t *>(s + 2 * L);
+  w.prefix = reinterpret_cast<uint8_t *>(s + 3 * L);
+  w.agg = s + 3 * L + ns / 2;
+  w.bcin = reinterpret_cast<int32_t *>(w.agg + 2 * g);
+  w.flag = w.bcin + 2 * g;
+  return w;
+}
+
+// inclusive Hillis-Steele scan of carry maps over the block; the result
+// is left in maps[0] for every thread to read
+__device__ uint32_t scan_maps(uint32_t f, uint32_t (*maps)[kThreads]) {
+  const int t = threadIdx.x;
+  maps[0][t] = f;
+  __syncthreads();
+  int src = 0;
+  for (int off = 1; off < static_cast<int>(blockDim.x); off <<= 1) {
+    uint32_t cur = maps[src][t];
+    if (t >= off) cur = compose(cur, maps[src][t - off]);
+    maps[src ^ 1][t] = cur;
+    __syncthreads();
+    src ^= 1;
+  }
+  const uint32_t inc = maps[src][t];
+  if (src) {
+    maps[0][t] = inc;
+    __syncthreads();
+  }
+  return inc;
+}
+
+// W1: each segment's own ripple (grid (G, 2))
+__global__ void __launch_bounds__(kWideThreads)
+wide_local(const int64_t *__restrict__ coef,
+           const int32_t *__restrict__ row_in,
+           const uint32_t *__restrict__ cx, const uint32_t *__restrict__ cy,
+           int scx, int scy, uint32_t *__restrict__ scratch, int D, int m) {
+  const int comp = blockIdx.y;
+  const int L = 1 << m;
+  const int F = D - 2;
+  const Wide w = wide(scratch, L);
+  const int s = blockIdx.x * kWideThreads + threadIdx.x;
+  const int64_t *cf = coef + static_cast<size_t>(comp) * L;
+  const uint32_t *c = comp ? cy : cx;
+  const int64_t sc = comp ? scy : scx;
+  const int64_t mul =
+      comp ? 2 * static_cast<int64_t>(row_in[10]) * row_in[11] : 1;
+  int64_t cr = 0;
+  for (int q = 0; q < kWideSeg; ++q) {
+    const int j = s * kWideSeg + q;
+    int64_t a = mul * cf[j] + cr;
+    if (j >= F && j < F + D) a += sc * static_cast<int64_t>(c[j - F]);
+    if (j == F - 1) a += 1 << 15;
+    w.dig[comp * L + j] = static_cast<uint32_t>(a & 0xFFFF);
+    cr = a >> 16;
+  }
+  w.carry[comp * (L / kWideSeg) + s] = cr;
+}
+
+// W2: absorb the carry of the segment below, the segment's map, the
+// block's scan of maps (grid (G, 2))
+__global__ void __launch_bounds__(kWideThreads)
+wide_maps(uint32_t *__restrict__ scratch, int m) {
+  __shared__ uint32_t maps[2][kThreads];
+  const int comp = blockIdx.y;
+  const int L = 1 << m;
+  const int ns = L / kWideSeg;
+  const Wide w = wide(scratch, L);
+  const int t = threadIdx.x;
+  const int s = blockIdx.x * kWideThreads + t;
+  uint32_t *dig = w.dig + comp * L + s * kWideSeg;
+  int64_t ci = s ? w.carry[comp * ns + s - 1] : 0;
+  bool all_ffff = true;
+  bool all_zero = true;
+  for (int q = 0; q < kWideSeg; ++q) {
+    uint32_t d = dig[q];
+    if (ci) {
+      const int64_t a = static_cast<int64_t>(d) + ci;
+      d = static_cast<uint32_t>(a & 0xFFFF);
+      ci = a >> 16;
+      dig[q] = d;
+    }
+    all_ffff &= d == 0xFFFFu;
+    all_zero &= d == 0u;
+  }
+  const int e = static_cast<int>(ci);
+  const uint32_t inc = scan_maps(
+      enc(e - (all_zero ? 1 : 0), e, e + (all_ffff ? 1 : 0)), maps);
+  w.prefix[comp * ns + s] =
+      static_cast<uint8_t>(t ? maps[0][t - 1] : enc(-1, 0, 1));
+  if (t == kWideThreads - 1)
+    w.agg[comp * (ns / kWideThreads) + blockIdx.x] = inc;
+}
+
+// W3: scan of the block aggregates, the block carry-ins, the sign
+// (grid 2, 1,024 threads >= G)
+__global__ void __launch_bounds__(kThreads)
+wide_blocks(uint32_t *__restrict__ scratch, int m) {
+  __shared__ uint32_t maps[2][kThreads];
+  const int comp = blockIdx.x;
+  const int L = 1 << m;
+  const int ns = L / kWideSeg;
+  const int g = ns / kWideThreads;
+  const Wide w = wide(scratch, L);
+  const int t = threadIdx.x;
+  scan_maps(t < g ? w.agg[comp * g + t] : enc(-1, 0, 1), maps);
+  const uint32_t *inc = maps[0];
+  if (t < g) w.bcin[comp * g + t] = t ? apply(inc[t - 1], 0) : 0;
+  if (t == 0) {
+    const int64_t top = w.carry[comp * ns + ns - 1] + apply(inc[g - 1], 0);
+    w.flag[comp] = top < 0;
+    w.flag[2 + comp] = INT_MAX;
+    w.flag[4 + comp] = -1;
+  }
+}
+
+// W4: apply each segment's carry-in; the lowest nonzero digit (grid (G, 2))
+__global__ void __launch_bounds__(kWideThreads)
+wide_apply(uint32_t *__restrict__ scratch, int m) {
+  __shared__ int red[33];
+  const int comp = blockIdx.y;
+  const int L = 1 << m;
+  const int ns = L / kWideSeg;
+  const int g = ns / kWideThreads;
+  const Wide w = wide(scratch, L);
+  const int s = blockIdx.x * kWideThreads + threadIdx.x;
+  uint32_t *dig = w.dig + comp * L + s * kWideSeg;
+  const int cin =
+      apply(w.prefix[comp * ns + s], w.bcin[comp * g + blockIdx.x]);
+  int run = cin;   // +1 runs over 0xFFFF digits, -1 over 0 digits
+  int lo = INT_MAX;
+  for (int q = 0; q < kWideSeg; ++q) {
+    uint32_t d = dig[q];
+    if (run > 0) {
+      d = (d + 1u) & 0xFFFFu;
+      dig[q] = d;
+      if (d != 0u) run = 0;
+    } else if (run < 0) {
+      d = (d - 1u) & 0xFFFFu;
+      dig[q] = d;
+      if (d != 0xFFFFu) run = 0;
+    }
+    if (d && lo == INT_MAX) lo = s * kWideSeg + q;
+  }
+  lo = block_min(lo, red);
+  if (threadIdx.x == 0 && lo != INT_MAX) atomicMin(&w.flag[2 + comp], lo);
+}
+
+// W5: negate if the sum is negative, write digits F..F+D-1, the highest
+// nonzero one (grid (G, 2))
+__global__ void __launch_bounds__(kWideThreads)
+wide_finish(uint32_t *__restrict__ scratch, uint32_t *__restrict__ nx,
+            uint32_t *__restrict__ ny, int D, int m) {
+  __shared__ int red[33];
+  const int comp = blockIdx.y;
+  const int L = 1 << m;
+  const int F = D - 2;
+  const Wide w = wide(scratch, L);
+  const int s = blockIdx.x * kWideThreads + threadIdx.x;
+  const uint32_t *dig = w.dig + comp * L + s * kWideSeg;
+  const bool neg = w.flag[comp];
+  const int lo = w.flag[2 + comp];
+  uint32_t *out = comp ? ny : nx;
+  int hi = -1;
+  for (int q = 0; q < kWideSeg; ++q) {
+    const int j = s * kWideSeg + q;
+    uint32_t d = dig[q];
+    if (neg) d = j < lo ? 0u : (j == lo ? 0x10000u - d : 0xFFFFu - d);
+    if (j >= F && j < F + D) {
+      out[j - F] = d;
+      if (d) hi = j - F;
+    }
+  }
+  hi = block_max(hi, red);
+  if (threadIdx.x == 0 && hi >= 0) atomicMax(&w.flag[4 + comp], hi);
+}
+
+// W6: the shadow row of the new value (one thread per component)
+__global__ void wide_row(uint32_t *__restrict__ scratch,
+                         int32_t *__restrict__ row_out,
+                         const uint32_t *__restrict__ nx,
+                         const uint32_t *__restrict__ ny, int D, int m) {
+  const int comp = threadIdx.x;
+  if (comp > 1) return;
+  const Wide w = wide(scratch, 1 << m);
+  const uint32_t *out = comp ? ny : nx;
+  int b = w.flag[4 + comp] - 3;
+  b = b < 0 ? 0 : (b > D - 4 ? D - 4 : b);
+  for (int k = 0; k < 4; ++k)
+    row_out[5 * comp + k] = static_cast<int32_t>(out[b + k]);
+  row_out[5 * comp + 4] = b;
+  row_out[10 + comp] = w.flag[comp] ? -1 : 1;
+}
+
+}  // namespace
+
+extern "C" int fs_ntt_orbit(const void *x, const void *y, void *coef,
+                            void *work, const void *tables, int D, int log2n,
+                            void *stream);
+
+// coef: int64 [2][n]; row_in/row_out: int32 [12]; cx, cy, nx, ny: uint32
+// [D]; scratch: uint32 [4n].  n = 2^log2n >= 2D, 16 <= D.
+extern "C" int fs_orbit_tail(const void *coef, const void *row_in,
+                             void *row_out, const void *cx, const void *cy,
+                             int scx, int scy, void *nx, void *ny,
+                             void *scratch, int D, int log2n, void *stream) {
+  if (D < 16 || log2n > 20 || (1 << log2n) < 2 * D)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto cf = static_cast<const int64_t *>(coef);
+  auto rin = static_cast<const int32_t *>(row_in);
+  auto rout = static_cast<int32_t *>(row_out);
+  auto ux = static_cast<const uint32_t *>(cx);
+  auto uy = static_cast<const uint32_t *>(cy);
+  auto ox = static_cast<uint32_t *>(nx);
+  auto oy = static_cast<uint32_t *>(ny);
+  auto sc = static_cast<uint32_t *>(scratch);
+  if (log2n < kWideMinLog2) {
+    orbit_tail_kernel<<<2, kThreads, 0, st>>>(cf, rin, rout, ux, uy, scx, scy,
+                                              ox, oy, sc, D, log2n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid((1 << log2n) / (kWideThreads * kWideSeg), 2);
+  int rc;
+  wide_local<<<grid, kWideThreads, 0, st>>>(cf, rin, ux, uy, scx, scy, sc, D,
+                                            log2n);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  wide_maps<<<grid, kWideThreads, 0, st>>>(sc, log2n);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  wide_blocks<<<2, kThreads, 0, st>>>(sc, log2n);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  wide_apply<<<grid, kWideThreads, 0, st>>>(sc, log2n);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  wide_finish<<<grid, kWideThreads, 0, st>>>(sc, ox, oy, D, log2n);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  wide_row<<<1, 32, 0, st>>>(sc, rout, ox, oy, D, log2n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `steps` orbit steps in place on x, y (uint32 [D]): K4 then K5 per step.
+// rows: int32 [steps + 1][12], row 0 holding the state's row on entry;
+// step k reads its signs from row k and writes row k + 1.  coef (int64
+// [2n]) and work (uint32 [4n]) are scratch; K5's scratch reuses work,
+// which K4 has finished with by then (same stream).
+extern "C" int fs_orbit_chunk(void *x, void *y, void *rows, const void *cx,
+                              const void *cy, int scx, int scy, void *coef,
+                              void *work, const void *tables, int D,
+                              int log2n, int steps, void *stream) {
+  auto r = static_cast<int32_t *>(rows);
+  for (int k = 0; k < steps; ++k) {
+    int rc = fs_ntt_orbit(x, y, coef, work, tables, D, log2n, stream);
+    if (rc) return rc;
+    rc = fs_orbit_tail(coef, r + 12 * k, r + 12 * (k + 1), cx, cy, scx, scy,
+                       x, y, work, D, log2n, stream);
+    if (rc) return rc;
+  }
+  return 0;
+}

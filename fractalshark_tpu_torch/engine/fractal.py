@@ -12,12 +12,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from fractalshark_tpu.core.algorithms import (
+from fractalshark_tpu_torch.core.algorithms import (
     Family, RenderAlgorithm, auto_select, get_algorithm)
-from fractalshark_tpu.core.palette import FractalPalette
-from fractalshark_tpu.core.pointzoom import PointZoomBBConverter
-from fractalshark_tpu.core.views import get_view_preset
-from fractalshark_tpu.io.png import write_png
+from fractalshark_tpu_torch.core.palette import FractalPalette
+from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
+from fractalshark_tpu_torch.core.views import get_view_preset
+from fractalshark_tpu_torch.io.png import write_png
 from fractalshark_tpu_torch.ops import escape
 from fractalshark_tpu_torch.ops.coloring import (
     color_from_iters, iteration_stats, rgba16_to_numpy, rgba16_to_rgba8)

@@ -21,10 +21,11 @@ import time
 
 import torch
 
-from fractalshark_tpu.core.algorithms import Family, LAMode, RenderAlgorithm
-from fractalshark_tpu.engine.la_reference import get_or_build_la
-from fractalshark_tpu.engine.perturbation_results import CompressedOrbit
-from fractalshark_tpu.engine.reforbit import RefOrbitCalc
+from fractalshark_tpu_torch.core.algorithms import (
+    Family, LAMode, RenderAlgorithm)
+from fractalshark_tpu_torch.engine.la_reference import get_or_build_la
+from fractalshark_tpu_torch.engine.perturbation_results import CompressedOrbit
+from fractalshark_tpu_torch.engine.reforbit import RefOrbitCalc
 from fractalshark_tpu_torch.ops import la_kernel
 from fractalshark_tpu_torch.ops.perturb_stream import (
     anchors_on, perturb_render_stream_rc)
@@ -35,13 +36,15 @@ _NOT_PORTED = {
            "(Gpu1x64PerturbedLAv2 band, 2^46-2^200)",
     "po": "ROADMAP A11: PO mode (B10/B11 perturbation-only kernels)",
     "bla": "ROADMAP A11: BLA and Scaled perturbation families",
-    "device_orbit": "ROADMAP A8: the device reference orbit (B5/B6/B9)",
 }
 
 
 def get_orbit_calc(fractal) -> RefOrbitCalc:
+    """The fractal's orbit cache; its device orbit runs on the fractal's
+    device."""
     if fractal._orbit_cache is None:
         fractal._orbit_cache = RefOrbitCalc()
+    fractal._orbit_cache.device = str(fractal.device)
     return fractal._orbit_cache
 
 
@@ -55,8 +58,6 @@ def calc_perturbed(fractal, alg: RenderAlgorithm) -> torch.Tensor:
     if alg.la_mode is LAMode.PO:
         raise NotImplementedError(f"{alg.name}: {_NOT_PORTED['po']}")
     calc = get_orbit_calc(fractal)
-    if calc.orbit_backend == "device":
-        raise NotImplementedError(_NOT_PORTED["device_orbit"])
     w, h = fractal._render_dims()
     bm = fractal.benchmark
 

@@ -1,7 +1,8 @@
 """Build, load and count the port's CUDA kernels.
 
-``csrc/*.cu`` is compiled by ``nvcc`` at first use into one shared
-library with a plain C interface, cached under
+``csrc/*.cu`` is compiled by ``nvcc`` at first use (one process per
+source, in parallel, then one link) into one shared library with a
+plain C interface, cached under
 ``fractalshark_tpu_torch/build/`` by a hash of the sources and flags,
 and loaded with ctypes.  Nothing here runs at import: the CPU tests
 import every module of the port on machines without nvcc or a card.
@@ -42,11 +43,13 @@ BUILD_DIR = _PKG / "build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-ftz=true", "-prec-div=true",
-              "-prec-sqrt=true", "-shared", "-Xcompiler", "-fPIC"]
+              "-prec-sqrt=true", "-Xcompiler", "-fPIC"]
 
 # launch counters: K2 is counted per mode (full = the reference's
-# one-kernel la_pallas render, phase1 = its la_only machine)
-KERNELS = ("escape", "lav2_full", "lav2_phase1", "rc_tail")
+# one-kernel la_pallas render, phase1 = its la_only machine); K4
+# (ntt_orbit, three CUDA kernels) and K5 (orbit_tail) once per orbit step
+KERNELS = ("escape", "lav2_full", "lav2_phase1", "rc_tail", "ntt_orbit",
+           "orbit_tail")
 launches = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -68,6 +71,15 @@ _SIGNATURES = {
     # rc_tail: dc(3) anchor index, values | state(8) | scalars | stream
     "fs_rc_tail": [_P] * 13 + [_I32, _I64, _I64, _F32, _F32, _F32, _F32,
                                _F32, _F32, _I64, _I64, _I32, _P],
+    # ntt_orbit: x y coef work tables | D log2n | stream
+    "fs_ntt_orbit": [_P] * 5 + [_I32, _I32, _P],
+    # orbit_tail: coef row_in row_out cx cy | scx scy | nx ny scratch |
+    # D log2n | stream
+    "fs_orbit_tail": [_P] * 5 + [_I32, _I32] + [_P] * 3 + [_I32, _I32, _P],
+    # orbit_chunk: x y rows cx cy | scx scy | coef work tables |
+    # D log2n steps | stream
+    "fs_orbit_chunk": [_P] * 5 + [_I32, _I32] + [_P] * 3
+    + [_I32, _I32, _I32, _P],
 }
 
 
@@ -98,19 +110,41 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu unless the hashed library exists; return it."""
+    """Compile csrc/*.cu unless the hashed library exists; return it.
+    One nvcc per source, all started together, then one link."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sorted(SRC_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + proc.stderr[-4000:])
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    jobs = []
+    for src in sorted(SRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors, logs = [], []
+    for obj, proc in jobs:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            errors.append(err[-4000:])
+    try:
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *(str(o) for o, _ in jobs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stderr[-4000:])
+    finally:
+        for obj, _ in jobs:
+            obj.unlink(missing_ok=True)
     if verbose:
-        print(proc.stderr)
+        print("".join(logs))
     os.replace(tmp, so)
     return so
 

@@ -1,0 +1,360 @@
+"""Fixed-point big numbers on 16-bit digits and one orbit step on them:
+the port of ``fractalshark_tpu/ops/bignum/fixedpoint.py`` that the
+device reference orbit needs, through kernels K4 (``csrc/ntt_orbit.cu``,
+the step's products) and K5 (``csrc/orbit_tail.cu``, products to the
+next z).
+
+A value is sign-magnitude fixed point, as in the JAX package:
+
+    value = sign · Σ d_i·2^(16·i) / 2^(16·F),   F = D − INT_DIGITS,
+
+with ``D`` digits below 2^16 (int32 tensors here, read as uint32 by the
+kernels; numpy uint32 at the host converters) and an int32 sign of ±1.
+
+One step z ← z² + c (``iterate_z``) is exactly, with h = 2^(16F − 1),
+
+    x' = rhu(x² − y² + cx·2^(16F)),   y' = rhu(2xy + cy·2^(16F)),
+    rhu(v) = sign(v + h) · (|v + h| >> 16F),
+
+the sign of a zero result being +1 unless v + h < 0.  K4 computes the
+exact coefficient sequences of x² − y² and x·y (two-prime NTT
+convolution, CRT); K5 adds ±c and the round bit, propagates the carries
+over all 2D digits and finishes in sign-magnitude form, emitting the
+next step's shadow row.  The plain twins below compute the same two
+functions with torch int64 tensors (exact modular arithmetic, then a
+carry scan); a wrapper takes its twin only for CPU tensors and launches
+its kernel, or raises, for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from fractalshark_tpu_torch import kernels
+from fractalshark_tpu_torch.core.highprecision import HighPrecision
+from fractalshark_tpu_torch.ops.bignum import ntt as N
+
+INT_DIGITS = 2          # 32 integer bits: |z²+c| < 256 plus headroom
+DIGIT_BITS = 16
+DIGIT_MASK = 0xFFFF
+
+WINDOW = 4              # top digits in a shadow row (64 bits ≥ f64)
+# shadow row: win_x[4], base_x, win_y[4], base_y, sx, sy
+ROW = 12
+
+
+@dataclass(frozen=True)
+class FixedSpec:
+    """Shape/precision of one fixed-point format."""
+    digits: int              # D: total 16-bit digits
+    nfft: int                # transform size ≥ 2D
+
+    @property
+    def frac_digits(self) -> int:
+        return self.digits - INT_DIGITS
+
+    @property
+    def frac_bits(self) -> int:
+        return DIGIT_BITS * self.frac_digits
+
+    @staticmethod
+    def for_limbs(limbs32: int) -> "FixedSpec":
+        d = 2 * limbs32
+        nfft = 1 << (2 * d - 1).bit_length()
+        return FixedSpec(digits=d, nfft=nfft)
+
+
+# ----------------------------------------------------------- host converts
+
+
+def hp_to_digits(x: HighPrecision, spec: FixedSpec) -> tuple[int, np.ndarray]:
+    """(sign, digit array) of round(x · 2^frac_bits)."""
+    sh = x.exp + spec.frac_bits
+    mant = x.mant << sh if sh >= 0 else _round_shift(x.mant, -sh)
+    sign = -1 if mant < 0 else 1
+    mant = abs(mant)
+    out = np.zeros(spec.digits, np.uint32)
+    i = 0
+    while mant and i < spec.digits:
+        out[i] = mant & 0xFFFF
+        mant >>= 16
+        i += 1
+    if mant:
+        raise OverflowError("value exceeds fixed-point range")
+    return sign, out
+
+
+def _round_shift(m: int, s: int) -> int:
+    if s == 0:
+        return m
+    half = 1 << (s - 1)
+    return (m + half) >> s if m >= 0 else -((-m + half) >> s)
+
+
+def digits_to_int(digits) -> int:
+    v = 0
+    for i, d in enumerate(np.asarray(digits).tolist()):
+        v += int(d) << (16 * i)
+    return v
+
+
+def digits_to_float(sign: int, digits, spec: FixedSpec) -> float:
+    v = digits_to_int(digits)
+    if v == 0:
+        return 0.0
+    nb = v.bit_length()
+    top = v >> max(0, nb - 56)
+    return sign * math.ldexp(top, max(0, nb - 56) - spec.frac_bits)
+
+
+def shadow_row_np(sx: int, x: np.ndarray, sy: int,
+                  y: np.ndarray) -> np.ndarray:
+    """The [12] int32 shadow row of a state (``orbit.py:72-80,145-148``):
+    per component the WINDOW digits ending at the top nonzero digit and
+    the window's base index (zero value: base 0), then the two signs."""
+    row = np.zeros(ROW, np.int32)
+    for c, d in enumerate((np.asarray(x), np.asarray(y))):
+        nz = np.nonzero(d)[0]
+        idx = int(nz[-1]) if nz.size else -1
+        base = min(max(idx - (WINDOW - 1), 0), d.shape[0] - WINDOW)
+        row[5 * c:5 * c + WINDOW] = d[base:base + WINDOW]
+        row[5 * c + WINDOW] = base
+    row[10], row[11] = sx, sy
+    return row
+
+
+# ------------------------------------------------------------ plain twins
+
+
+_plans: dict = {}
+
+
+def _plan(n: int, device) -> dict:
+    """The twin's per-size constants on ``device``, cached: the primes,
+    each stage's twiddles (DIF forward, DIT inverse, ``ntt.py:145-192``)
+    and n^-1 per prime."""
+    key = (n, str(device))
+    if key not in _plans:
+        fwd, inv = (torch.from_numpy(t).to(device)
+                    for t in N.root_tables(n))
+        stages = n.bit_length() - 1
+        idx = torch.arange(n // 2, device=device)
+        _plans[key] = {
+            "p": torch.tensor([N.P1, N.P2], dtype=torch.int64,
+                              device=device).view(2, 1, 1, 1),
+            "dif": [fwd[:, idx[:n >> (s + 1)] << s].view(2, 1, 1, -1)
+                    for s in range(stages)],
+            "dit": [inv[:, idx[:1 << s] << (stages - 1 - s)]
+                    .view(2, 1, 1, -1) for s in range(stages)],
+            "ninv": torch.tensor([pow(n, -1, N.P1), pow(n, -1, N.P2)],
+                                 dtype=torch.int64,
+                                 device=device).view(2, 1, 1),
+        }
+    return _plans[key]
+
+
+def _dif(a: torch.Tensor, plan: dict) -> torch.Tensor:
+    """Radix-2 decimation-in-frequency NTT of [2 primes, B, n] int64:
+    natural order in, bit-reversed order out (``ntt.py:145-169``)."""
+    _, b, n = a.shape
+    p = plan["p"]
+    for s, tw in enumerate(plan["dif"]):
+        y = a.view(2, b, 1 << s, 2, n >> (s + 1))
+        u, v = y[..., 0, :], y[..., 1, :]
+        a = torch.stack([(u + v) % p, (u - v) * tw % p], dim=-2)
+        a = a.view(2, b, n)
+    return a
+
+
+def _dit(a: torch.Tensor, plan: dict) -> torch.Tensor:
+    """Radix-2 decimation-in-time inverse NTT: bit-reversed order in,
+    natural order out, unscaled (``ntt.py:172-192``)."""
+    _, b, n = a.shape
+    p = plan["p"]
+    for s, tw in enumerate(plan["dit"]):
+        y = a.view(2, b, n >> (s + 1), 2, 1 << s)
+        u, v = y[..., 0, :], y[..., 1, :] * tw % p
+        a = torch.stack([(u + v) % p, (u - v) % p], dim=-2)
+        a = a.view(2, b, n)
+    return a
+
+
+def orbit_products_plain(x: torch.Tensor, y: torch.Tensor,
+                         n: int) -> torch.Tensor:
+    """K4's function: int64 [2, n] = (coefficients of x² − y², of x·y)
+    for digit vectors x, y, by an NTT modulo each prime and CRT."""
+    plan = _plan(n, x.device)
+    a = torch.zeros(2, 2, n, dtype=torch.int64, device=x.device)
+    a[:, 0, :x.shape[0]] = x
+    a[:, 1, :y.shape[0]] = y
+    f = _dif(a, plan)
+    fx, fy = f[:, 0], f[:, 1]
+    pp = plan["p"].view(2, 1)
+    prod = torch.stack([(fx * fx - fy * fy) % pp, fx * fy % pp], dim=1)
+    r = _dit(prod, plan) * plan["ninv"] % plan["p"].view(2, 1, 1)
+    r1, r2 = r[0], r[1]
+    t = (r2 - r1) % N.P2 * pow(N.P1, -1, N.P2) % N.P2
+    rec = r1 + N.P1 * t                                   # [0, p1·p2)
+    half = N.P1 * N.P2 // 2
+    d = torch.where(rec[0] > half, rec[0] - N.P1 * N.P2, rec[0])
+    return torch.stack([d, rec[1]])
+
+
+def _carry_resolve(acc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact base-2^16 normalization of signed digit sums [K, L] (each
+    |sum| < 2^50): (digits in [0, 2^16), top) with
+    Σ sum_j 2^(16j) = Σ digit_j 2^(16j) + top · 2^(16L).
+
+    Four split-and-shift rounds leave every position in [−1, 2^16]; the
+    remaining carries are each in {−1, 0, 1}, so position j maps its
+    carry-in c to its carry-out f_j(c) = ⌊(acc_j + c) / 2^16⌋ within
+    {−1, 0, 1}.  A Hillis-Steele scan composes those maps, giving every
+    carry-in at once (no ripple along runs of 0xFFFF or 0 digits)."""
+    top = torch.zeros(acc.shape[0], dtype=torch.int64, device=acc.device)
+    for _ in range(4):
+        hi = acc >> DIGIT_BITS
+        top = top + hi[:, -1]
+        acc = acc & DIGIT_MASK
+        acc[:, 1:] += hi[:, :-1]
+    cs = torch.tensor([-1, 0, 1], dtype=torch.int64, device=acc.device)
+    g = ((acc.unsqueeze(-1) + cs) >> DIGIT_BITS) + 1   # maps as indices
+    length = acc.shape[1]
+    k = 1
+    while k < length:
+        g = torch.cat([g[:, :k], torch.gather(g[:, k:], 2, g[:, :-k])], 1)
+        k <<= 1
+    cin = torch.cat([torch.zeros_like(acc[:, :1]), g[:, :-1, 1] - 1], 1)
+    return (acc + cin) & DIGIT_MASK, top + g[:, -1, 1] - 1
+
+
+def _negate(d: torch.Tensor) -> torch.Tensor:
+    """Two's complement of [K, L] digit rows modulo 2^(16L)."""
+    L = d.shape[1]
+    pos = torch.arange(L, device=d.device)
+    j0 = torch.where(d != 0, pos, L).min(dim=1, keepdim=True).values
+    return torch.where(pos < j0, 0,
+                       torch.where(pos == j0, (1 << 16) - d, DIGIT_MASK - d))
+
+
+def shadow_rows(mags: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
+    """shadow_row_np for [2, D] digit rows and [2] signs, on their device."""
+    D = mags.shape[1]
+    pos = torch.arange(D, device=mags.device)
+    idx = torch.where(mags != 0, pos, -1).max(dim=1).values
+    base = (idx - (WINDOW - 1)).clamp(0, D - WINDOW)
+    win = torch.gather(mags, 1, base.unsqueeze(1)
+                       + torch.arange(WINDOW, device=mags.device))
+    rows = torch.cat([win, base.unsqueeze(1)], 1).to(torch.int32)
+    return torch.cat([rows.reshape(-1), signs.to(torch.int32)])
+
+
+def orbit_tail_plain(coef: torch.Tensor, row_in: torch.Tensor, scx: int,
+                     cx: torch.Tensor, scy: int, cy: torch.Tensor,
+                     spec: FixedSpec):
+    """K5's function: (x' digits, y' digits, row of z') from K4's
+    coefficients, the pre-update signs in ``row_in[10:12]`` and c."""
+    D, F = spec.digits, spec.frac_digits
+    sxy = (row_in[10] * row_in[11]).to(torch.int64)
+    acc = torch.stack([coef[0], 2 * sxy * coef[1]])
+    acc[0, F:F + D] += scx * cx.to(torch.int64)
+    acc[1, F:F + D] += scy * cy.to(torch.int64)
+    acc[:, F - 1] += 1 << (DIGIT_BITS - 1)
+    dig, top = _carry_resolve(acc)
+    neg = top < 0
+    mag = torch.where(neg.unsqueeze(1), _negate(dig), dig)[:, F:F + D]
+    signs = torch.where(neg, -1, 1)
+    mag = mag.to(torch.int32)
+    return mag[0], mag[1], shadow_rows(mag, signs)
+
+
+# --------------------------------------------------------------- wrappers
+
+
+_tables: dict = {}
+
+
+def device_tables(n: int, device) -> torch.Tensor:
+    """K4's root tables (``ntt.kernel_tables``) on ``device``, cached."""
+    key = (n, str(device))
+    if key not in _tables:
+        _tables[key] = torch.from_numpy(
+            N.kernel_tables(n).view(np.int32)).to(device)
+    return _tables[key]
+
+
+def _check_state(spec: FixedSpec, *digits: torch.Tensor) -> None:
+    if spec.nfft < 2 * spec.digits or spec.nfft & (spec.nfft - 1):
+        raise ValueError(f"{spec}: nfft must be a power of two ≥ 2D")
+    for t in digits:
+        if t.shape != (spec.digits,) or t.dtype != torch.int32 or \
+                not t.is_contiguous():
+            raise ValueError(f"digit vectors must be contiguous int32 "
+                             f"[{spec.digits}], got {t.dtype}"
+                             f"{tuple(t.shape)}")
+        if t.device != digits[0].device:
+            raise ValueError("digit vectors on different devices")
+    if digits[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {digits[0].device}")
+
+
+def orbit_products(x: torch.Tensor, y: torch.Tensor,
+                   spec: FixedSpec) -> torch.Tensor:
+    """int64 [2, nfft]: coefficients of x² − y² and x·y (K4 on CUDA)."""
+    _check_state(spec, x, y)
+    if x.device.type == "cpu":
+        return orbit_products_plain(x, y, spec.nfft)
+    n = spec.nfft
+    coef = torch.empty(2, n, dtype=torch.int64, device=x.device)
+    work = torch.empty(4 * n, dtype=torch.int32, device=x.device)
+    rc = kernels.lib().fs_ntt_orbit(
+        x.data_ptr(), y.data_ptr(), coef.data_ptr(), work.data_ptr(),
+        device_tables(n, x.device).data_ptr(), spec.digits,
+        n.bit_length() - 1, kernels.stream(x.device))
+    kernels.check(rc, "ntt_orbit")
+    kernels.launches["ntt_orbit"] += 1
+    return coef
+
+
+def orbit_tail(coef: torch.Tensor, row_in: torch.Tensor, scx: int,
+               cx: torch.Tensor, scy: int, cy: torch.Tensor,
+               spec: FixedSpec):
+    """(x', y', row of z') from K4's coefficients (K5 on CUDA)."""
+    _check_state(spec, cx, cy)
+    if coef.shape != (2, spec.nfft) or coef.dtype != torch.int64 or \
+            row_in.shape != (ROW,) or row_in.dtype != torch.int32:
+        raise ValueError("orbit_tail: coef must be int64 [2, nfft] and "
+                         "row_in int32 [12]")
+    if coef.device.type == "cpu":
+        return orbit_tail_plain(coef, row_in, scx, cx, scy, cy, spec)
+    D = spec.digits
+    nx = torch.empty(D, dtype=torch.int32, device=coef.device)
+    ny = torch.empty_like(nx)
+    row = torch.empty(ROW, dtype=torch.int32, device=coef.device)
+    scratch = torch.empty(4 * spec.nfft, dtype=torch.int32,
+                          device=coef.device)
+    rc = kernels.lib().fs_orbit_tail(
+        coef.contiguous().data_ptr(), row_in.contiguous().data_ptr(),
+        row.data_ptr(), cx.data_ptr(), cy.data_ptr(), int(scx), int(scy),
+        nx.data_ptr(), ny.data_ptr(), scratch.data_ptr(), D,
+        spec.nfft.bit_length() - 1, kernels.stream(coef.device))
+    kernels.check(rc, "orbit_tail")
+    kernels.launches["orbit_tail"] += 1
+    return nx, ny, row
+
+
+def iterate_z(sx, x: torch.Tensor, sy, y: torch.Tensor, scx: int,
+              cx: torch.Tensor, scy: int, cy: torch.Tensor,
+              spec: FixedSpec):
+    """ONE z ← z² + c update on sign-magnitude digits: K4 then K5 on CUDA
+    tensors, their plain twins on CPU tensors.  Signs are ints or int32
+    0-d tensors; returns (nsx, nx, nsy, ny) with 0-d int32 signs."""
+    row_in = torch.zeros(ROW, dtype=torch.int32, device=x.device)
+    row_in[10] = torch.as_tensor(sx)
+    row_in[11] = torch.as_tensor(sy)
+    coef = orbit_products(x, y, spec)
+    nx, ny, row = orbit_tail(coef, row_in, scx, cx, scy, cy, spec)
+    return row[10], nx, row[11], ny

@@ -1,0 +1,452 @@
+"""The high-precision reference orbit computed on the device: the port of
+``fractalshark_tpu/ops/bignum/orbit.py`` in its split-bookkeeping form
+(``orbit.py:150-246``, the route the JAX package takes on the TPU).
+
+* device: ``orbit_chunk`` runs ``steps`` iterations of z ← z² + c on
+  the digit state (K4 then K5 per step, the loop itself in C behind one
+  ctypes call) and emits, per step, the [12] int32 shadow row of the
+  PRE-update z (``fixedpoint.shadow_row_np``);
+* host: ``host_bookkeeping`` turns a chunk's rows into f64 shadows, runs
+  the periodicity (dzdc) and escape checks with exact IEEE f64
+  (``PeriodicityChecker.h:46-95``), and ``CudaOrbitSession`` stops the
+  session at period, escape or budget.
+
+The device and the host meet once per chunk.  On CPU tensors the same
+session runs the kernels' plain twins.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from fractalshark_tpu_torch import kernels
+from fractalshark_tpu_torch.core.hdr_host import HD
+from fractalshark_tpu_torch.core.highprecision import HighPrecision
+from fractalshark_tpu_torch.engine.perturbation_results import (
+    PerturbationResults)
+from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+
+# chunks dispatched ahead of the one being read back (orbit.py:742)
+PIPELINE_DEPTH = 3
+
+
+class OrbitState:
+    """The device digit state of a session: x and y digits (int32 [D])
+    and the shadow row of z (int32 [12], signs at 10 and 11)."""
+
+    def __init__(self, sx: int, x: np.ndarray, sy: int, y: np.ndarray,
+                 device):
+        self.x = torch.from_numpy(np.asarray(x).astype(np.int32)).to(device)
+        self.y = torch.from_numpy(np.asarray(y).astype(np.int32)).to(device)
+        self.row = torch.from_numpy(FP.shadow_row_np(sx, x, sy, y)).to(device)
+
+    def numpy(self) -> tuple:
+        """(sx, x, sy, y) on the host, the JAX session's state tuple."""
+        row = self.row.cpu().numpy()
+        return (np.int32(row[10]), self.x.cpu().numpy().astype(np.uint32),
+                np.int32(row[11]), self.y.cpu().numpy().astype(np.uint32))
+
+
+class _Scratch:
+    """Per-session device buffers of the CUDA chunk loop."""
+
+    def __init__(self, spec: FP.FixedSpec, device):
+        n = spec.nfft
+        self.coef = torch.empty(2, n, dtype=torch.int64, device=device)
+        self.work = torch.empty(4 * n, dtype=torch.int32, device=device)
+        self.tables = FP.device_tables(n, device)
+
+
+def orbit_chunk(state: OrbitState, scx: int, cx: torch.Tensor, scy: int,
+                cy: torch.Tensor, spec: FP.FixedSpec, steps: int,
+                scratch: _Scratch | None = None) -> torch.Tensor:
+    """Advance ``state`` by ``steps`` iterations in place; return the
+    rows [steps, 12] int32 of the pre-update z of each step (on the
+    state's device; on CUDA the call returns before the work is done)."""
+    dev = state.x.device
+    rows = torch.empty(steps + 1, FP.ROW, dtype=torch.int32, device=dev)
+    rows[0] = state.row
+    if dev.type == "cpu":
+        for k in range(steps):
+            coef = FP.orbit_products_plain(state.x, state.y, spec.nfft)
+            nx, ny, rows[k + 1] = FP.orbit_tail_plain(
+                coef, rows[k], scx, cx, scy, cy, spec)
+            state.x.copy_(nx)
+            state.y.copy_(ny)
+    else:
+        if scratch is None:
+            scratch = _Scratch(spec, dev)
+        rc = kernels.lib().fs_orbit_chunk(
+            state.x.data_ptr(), state.y.data_ptr(), rows.data_ptr(),
+            cx.data_ptr(), cy.data_ptr(), int(scx), int(scy),
+            scratch.coef.data_ptr(), scratch.work.data_ptr(),
+            scratch.tables.data_ptr(), spec.digits,
+            spec.nfft.bit_length() - 1, steps, kernels.stream(dev))
+        kernels.check(rc, "orbit_chunk")
+        kernels.launches["ntt_orbit"] += steps
+        kernels.launches["orbit_tail"] += steps
+    state.row = rows[steps]
+    return rows[:steps]
+
+
+def host_bookkeeping(rows: np.ndarray, dz, rad_m: float, rad_e: int,
+                     cxf: float, cyf: float, frac_bits: int,
+                     periodicity: bool = True):
+    """Exact host bookkeeping of one chunk (``orbit.py:366-467``): rows
+    [12, steps] i32 = (win_x[4], base_x, win_y[4], base_y, sx, sy) per
+    step; dz = (dx_m, dy_m, d_e) host floats.  Returns (packed [7, steps]
+    f64 = (lzx, lzy, period, escape, sh_mx, sh_my, e_sh), the advanced
+    dz).  Every operation is exact-rounded IEEE f64 (ldexp/frexp), so
+    results are machine-independent.
+
+    The sequential dzdc/periodicity loop runs in plain Python floats and
+    stops once a terminating flag fires: flags past the first stop are
+    never consumed by the session."""
+    steps = rows.shape[1]
+    F = frac_bits
+    sgx = rows[10].astype(np.float64)
+    sgy = rows[11].astype(np.float64)
+    wx = rows[0:4].astype(np.float64)
+    wy = rows[5:9].astype(np.float64)
+    # explicit sum order == the device scan's _row_shadow/_shadow_hdr
+    mzx = (wx[0] + wx[1] * 65536.0 + wx[2] * 65536.0 ** 2
+           + wx[3] * 65536.0 ** 3) * sgx
+    mzy = (wy[0] + wy[1] * 65536.0 + wy[2] * 65536.0 ** 2
+           + wy[3] * 65536.0 ** 3) * sgy
+    ezx = 16 * rows[4].astype(np.int64) - F
+    ezy = 16 * rows[9].astype(np.int64) - F
+    lzx = np.ldexp(mzx, ezx)
+    lzy = np.ldexp(mzy, ezy)
+    e_sh = np.maximum(ezx, ezy)
+    sh_mx = np.ldexp(mzx, ezx - e_sh)
+    sh_my = np.ldexp(mzy, ezy - e_sh)
+    tx = lzx + cxf
+    ty = lzy + cyf
+    escape = tx * tx + ty * ty > 256.0
+
+    def vnorm1(m, e):
+        _, fe = np.frexp(m)
+        s = np.where(m > 0.0, fe.astype(np.int64) - 1, 0)
+        return np.ldexp(m, -s), e + s
+
+    axm, axe = vnorm1(np.abs(mzx), ezx)
+    aym, aye = vnorm1(np.abs(mzy), ezy)
+    ge = (axe > aye) | ((axe == aye) & (axm >= aym))
+    n2m = np.where(ge, axm, aym)
+    n2e = np.where(ge, axe, aye)
+    n2z = np.maximum(np.abs(mzx), np.abs(mzy)) == 0.0
+
+    def pnorm1(m: float, e: int):
+        if m > 0.0:
+            s = math.frexp(m)[1] - 1
+            return math.ldexp(m, -s), e + s
+        return m, e
+
+    eidx = int(np.argmax(escape)) if escape.any() else steps
+    limit = min(steps, eidx + 1)
+    period = np.zeros(steps, np.float64)
+    dx_m, dy_m, d_e = float(dz[0]), float(dz[1]), int(dz[2])
+    rad_m = float(rad_m)
+    rad_e = int(rad_e)
+    for k in range(limit):
+        dxm, dxe = pnorm1(abs(dx_m), d_e)
+        dym, dye = pnorm1(abs(dy_m), d_e)
+        if (dxe > dye) or (dxe == dye and dxm >= dym):
+            dmm, dme = dxm, dxe
+        else:
+            dmm, dme = dym, dye
+        n3m, n3e = pnorm1(rad_m * dmm, rad_e + dme + 1)
+        if n2z[k]:
+            pk = True
+        else:
+            pk = (n2e[k] < n3e) or (n2e[k] == n3e and n2m[k] < n3m)
+        if pk:
+            period[k] = 1.0
+            if periodicity:
+                break
+        mzxk, mzyk = float(mzx[k]), float(mzy[k])
+        exk, eyk = int(ezx[k]), int(ezy[k])
+        ezz = max(exk, eyk)
+        azx = math.ldexp(mzxk, exk - ezz)
+        azy = math.ldexp(mzyk, eyk - ezz)
+        px = azx * dx_m - azy * dy_m
+        py = azx * dy_m + azy * dx_m
+        pe = ezz + d_e + 1
+        res_e = max(pe, 0)
+        ndx = math.ldexp(px, pe - res_e) + math.ldexp(1.0, -res_e)
+        ndy = math.ldexp(py, pe - res_e)
+        amax = max(abs(ndx), abs(ndy))
+        if amax > 0.0:
+            s = math.frexp(amax)[1] - 1
+            ndx = math.ldexp(ndx, -s)
+            ndy = math.ldexp(ndy, -s)
+        else:
+            s = 0
+        dx_m, dy_m, d_e = ndx, ndy, res_e + s
+    packed = np.stack([
+        lzx, lzy, period, escape.astype(np.float64),
+        sh_mx, sh_my, e_sh.astype(np.float64)])
+    return packed, (dx_m, dy_m, d_e)
+
+
+@dataclass
+class CudaOrbitSession:
+    """The counterpart of ``TpuOrbitSession`` (``orbit.py:538-827``), the
+    reference's GpuOrbitSession (``KernelInvoke.h:63``): one orbit on
+    one device, chunk by chunk."""
+    spec: FP.FixedSpec
+    center_x: HighPrecision
+    center_y: HighPrecision
+    max_radius: HighPrecision
+    chunk_steps: int = 256
+    device: str | torch.device = "cuda"
+
+    def run(self, max_iterations: int, periodicity: bool = True,
+            abort_flag: threading.Event | None = None,
+            progress_cb=None,
+            store_path: str | None = None,
+            reuse_frac_bits: int | None = None,
+            checkpoint_path: str | None = None,
+            checkpoint_every_s: float = 300.0) -> PerturbationResults:
+        """store_path: the orbit accumulates in memory-mapped file-backed
+        GrowableArrays (<path>.x / <path>.y).
+
+        checkpoint_path: atomic resume-exactly checkpoints: the orbit
+        accumulates at ``<path>.x/.y/.e`` and the exact digit state, the
+        host dzdc and the count land in ``<path>.state.npz`` every
+        ``checkpoint_every_s`` seconds (pipeline drained first).  A later
+        run() with the same path resumes bit-exactly; ``max_iterations``
+        is the TOTAL cap across all runs.  Exclusive with store_path.
+
+        reuse_frac_bits (the reuse digits of ``orbit_chunk``) is not
+        ported yet (ROADMAP A8) and raises."""
+        if reuse_frac_bits is not None:
+            raise NotImplementedError(
+                "ROADMAP A8: reuse digits on the device orbit are not "
+                "ported yet")
+        spec = self.spec
+        dev = torch.device(self.device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but CUDA is not "
+                               "available")
+        scx, cx_d = FP.hp_to_digits(self.center_x, spec)
+        scy, cy_d = FP.hp_to_digits(self.center_y, spec)
+        cxt = torch.from_numpy(cx_d.astype(np.int32)).to(dev)
+        cyt = torch.from_numpy(cy_d.astype(np.int32)).to(dev)
+        # z starts at c (RefOrbitCalc.cpp:509-511); dzdc = 1 + 0i
+        state = OrbitState(scx, cx_d, scy, cy_d, dev)
+        dz = (1.0, 0.0, 0)
+        radius = HD.from_hp(self.max_radius)
+        cxf = float(self.center_x)
+        cyf = float(self.center_y)
+        scratch = _Scratch(spec, dev) if dev.type == "cuda" else None
+
+        from fractalshark_tpu_torch.utils.growable import (AddPointOptions,
+                                                           GrowableArray)
+        ck_file = None
+        count = 1
+        if checkpoint_path is not None:
+            if store_path is not None:
+                raise ValueError("checkpoint_path is mutually exclusive "
+                                 "with store_path")
+            store_path = checkpoint_path
+            ck_file = checkpoint_path + ".state.npz"
+        if store_path is not None:
+            opt = AddPointOptions.ENABLE_WITH_SAVE
+            if ck_file is not None and os.path.exists(ck_file) and \
+                    os.path.exists(store_path + ".x.meta"):
+                # resume: the npz is the authoritative count (meta may be
+                # one checkpoint ahead if the writer died between the
+                # growable flush and the npz rename)
+                with np.load(ck_file) as ck:
+                    count = int(ck["count"])
+                    state = OrbitState(int(ck["st0"]), ck["st1"],
+                                       int(ck["st2"]), ck["st3"], dev)
+                    dzv = ck["dz"]
+                    dz = (float(dzv[0]), float(dzv[1]), int(dzv[2]))
+                gx = GrowableArray.open_existing(store_path + ".x")
+                gy = GrowableArray.open_existing(store_path + ".y")
+                ge = GrowableArray.open_existing(store_path + ".e")
+                gx._n = gy._n = ge._n = count
+            else:
+                gx = GrowableArray(np.float64, store_path + ".x", opt)
+                gy = GrowableArray(np.float64, store_path + ".y", opt)
+                ge = GrowableArray(np.int32, store_path + ".e", opt) \
+                    if ck_file is not None else GrowableArray(np.int32)
+        else:
+            gx = GrowableArray(np.float64)
+            gy = GrowableArray(np.float64)
+            ge = GrowableArray(np.int32)
+        if count == 1:
+            gx.append(0.0)  # zero seed entry (PerturbationResults.cpp:866)
+            gy.append(0.0)
+            ge.append(0)
+        period = 0
+        escaped_at = 0
+        t0 = time.perf_counter()
+        done = False
+        timers = {"dispatch_s": 0.0, "readback_s": 0.0, "bookkeep_s": 0.0}
+
+        def _process(out, steps):
+            """Read one chunk's rows back and run the host bookkeeping;
+            sets period/escape/done."""
+            nonlocal count, period, escaped_at, done, dz
+            tr = time.perf_counter()
+            rows = out.cpu().numpy().T
+            timers["readback_s"] += time.perf_counter() - tr
+            tr = time.perf_counter()
+            arr, dz = host_bookkeeping(
+                rows, dz, float(radius.m), int(radius.e), cxf, cyf,
+                spec.frac_bits, periodicity=periodicity)
+            lzx, lzy, sh_mx, sh_my = arr[0], arr[1], arr[4], arr[5]
+            pflag = arr[2] != 0.0
+            eflag = arr[3] != 0.0
+            e_sh = arr[6].astype(np.int32)
+            pidx = int(np.argmax(pflag)) if (periodicity and
+                                             pflag.any()) else steps
+            eidx = int(np.argmax(eflag)) if eflag.any() else steps
+            take = min(steps, pidx + 1, eidx + 1)
+            # HDR form (mantissa, exponent) where either component's
+            # plain f64 shadow underflowed (PeriodicityChecker.h:32-33)
+            dip = (((lzx[:take] == 0.0) & (sh_mx[:take] != 0.0)) |
+                   ((lzy[:take] == 0.0) & (sh_my[:take] != 0.0)))
+            gx.extend(np.where(dip, sh_mx[:take], lzx[:take]))
+            gy.extend(np.where(dip, sh_my[:take], lzy[:take]))
+            ge.extend(np.where(dip, e_sh[:take], 0).astype(np.int32))
+            count += take
+            if periodicity and pidx < steps and pidx <= eidx:
+                period = count
+                done = True
+            elif eidx < steps:
+                escaped_at = count
+                done = True
+            timers["bookkeep_s"] += time.perf_counter() - tr
+
+        def _checkpoint():
+            """Atomic resume point: growables flushed first, then the
+            exact digit state + host dzdc + count in one npz renamed into
+            place (a crash between the two leaves the npz authoritative)."""
+            for g in (gx, gy, ge):
+                g.finalize()
+            sx, x, sy, y = state.numpy()
+            payload = {"st0": sx, "st1": x, "st2": sy, "st3": y,
+                       "n_state": np.int64(4),
+                       "dz": np.asarray([dz[0], dz[1], float(dz[2])],
+                                        np.float64),
+                       "count": np.int64(count)}
+            tmp = ck_file + ".tmp"
+            with open(tmp, "wb") as f:
+                np.savez(f, **payload)
+            os.replace(tmp, ck_file)
+
+        # Pipelined chunk loop: up to PIPELINE_DEPTH chunks are queued on
+        # the device before chunk k's rows are read back, so the device
+        # computes while the host runs the bookkeeping
+        # (RefOrbitCalc.cpp:2205-2233).  Chunks past a period or escape
+        # are discarded: z iterating on past it is harmless.
+        it = count - 1          # iterations dispatched (resume-aware)
+        processed = count - 1   # iterations processed on host
+        last_ck = time.perf_counter()
+        ck_mark = processed     # never two checkpoints without work between
+        pending = deque()       # (rows, steps) chunks in flight
+        while True:
+            if abort_flag is not None and abort_flag.is_set():
+                while pending:
+                    out, steps = pending.popleft()
+                    _process(out, steps)
+                    processed += steps
+                break
+            ck_due = (ck_file is not None and processed > ck_mark and
+                      time.perf_counter() - last_ck >= checkpoint_every_s)
+            while (not done and it < max_iterations
+                   and len(pending) < PIPELINE_DEPTH and not ck_due):
+                steps = min(self.chunk_steps, max_iterations - it)
+                td = time.perf_counter()
+                out = orbit_chunk(state, scx, cxt, scy, cyt, spec, steps,
+                                  scratch)
+                timers["dispatch_s"] += time.perf_counter() - td
+                it += steps
+                pending.append((out, steps))
+            if pending:
+                out, steps = pending.popleft()
+                _process(out, steps)
+                processed += steps
+                if progress_cb is not None:
+                    progress_cb(processed, max_iterations,
+                                time.perf_counter() - t0)
+            if done:
+                pending.clear()
+            elif ck_due and not pending:
+                # pipeline drained: the device state matches the
+                # processed count exactly, safe to snapshot
+                _checkpoint()
+                last_ck = time.perf_counter()
+                ck_mark = processed
+            if not pending and (done or it >= max_iterations):
+                break
+        if ck_file is not None and not done:
+            _checkpoint()   # budget-capped/aborted runs resume exactly
+
+        xs = gx.finalize()
+        ys = gy.finalize()
+        es = ge.finalize()
+        orbit_e = np.asarray(es, np.int32) if (np.asarray(es) != 0).any() \
+            else None
+        res = PerturbationResults(
+            center_x=self.center_x, center_y=self.center_y,
+            orbit_x=np.asarray(xs, np.float64),
+            orbit_y=np.asarray(ys, np.float64),
+            max_radius=self.max_radius,
+            period=period, escaped_at=escaped_at,
+            max_iterations=max_iterations,
+            precision_bits=spec.frac_bits,
+            orbit_e=orbit_e)
+        timers["wall_s"] = round(time.perf_counter() - t0, 3)
+        res.extra["session_timers"] = {
+            k: round(v, 3) for k, v in timers.items()}
+        return res
+
+
+def compute_reference_orbit_device(center_x: HighPrecision,
+                                   center_y: HighPrecision,
+                                   max_iterations: int,
+                                   max_radius: HighPrecision,
+                                   limbs32: int | None = None,
+                                   periodicity: bool = True,
+                                   chunk_steps: int = 256,
+                                   abort_flag=None,
+                                   mesh=None,
+                                   reuse_frac_bits: int | None = None,
+                                   progress_cb=None,
+                                   checkpoint_path: str | None = None,
+                                   checkpoint_every_s: float = 300.0,
+                                   device="cuda") -> PerturbationResults:
+    """Device-orbit entry point (the analogue of
+    RefOrbitCalc::AddPerturbationReferencePointGPU,
+    RefOrbitCalc.cpp:2167-2260).  ``mesh`` (the limb-sharded multi-chip
+    orbit) is not ported yet (ROADMAP A12) and raises."""
+    if mesh is not None:
+        raise NotImplementedError("ROADMAP A12: the mesh-sharded device "
+                                  "orbit is not ported yet")
+    if limbs32 is None:
+        prec = max(center_x.prec, center_y.prec)
+        limbs32 = max(8, -(-(prec + 64) // 32))
+        limbs32 = 1 << (limbs32 - 1).bit_length()  # round up to pow2
+    spec = FP.FixedSpec.for_limbs(limbs32)
+    session = CudaOrbitSession(spec=spec, center_x=center_x,
+                               center_y=center_y, max_radius=max_radius,
+                               chunk_steps=chunk_steps, device=device)
+    return session.run(max_iterations, periodicity=periodicity,
+                       abort_flag=abort_flag,
+                       reuse_frac_bits=reuse_frac_bits,
+                       progress_cb=progress_cb,
+                       checkpoint_path=checkpoint_path,
+                       checkpoint_every_s=checkpoint_every_s)

@@ -23,7 +23,7 @@ from dataclasses import dataclass
 
 import torch
 
-from fractalshark_tpu.core.pointzoom import PointZoomBBConverter
+from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
 from fractalshark_tpu_torch import kernels
 from fractalshark_tpu_torch.ops.hdrfloat import ftz
 

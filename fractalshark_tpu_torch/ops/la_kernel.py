@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from fractalshark_tpu.core.pointzoom import PointZoomBBConverter
+from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
 from fractalshark_tpu_torch import kernels
 from fractalshark_tpu_torch.ops import hdrfloat as hdr
 from fractalshark_tpu_torch.ops.hdrfloat import HDR, HDRComplex

@@ -10,8 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fractalshark_tpu.core.highprecision import HighPrecision
-from fractalshark_tpu.core.pointzoom import PointZoomBBConverter
+from fractalshark_tpu_torch.core.highprecision import HighPrecision
+from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
 from fractalshark_tpu_torch.ops import hdrfloat as hdr
 from fractalshark_tpu_torch.ops.hdrfloat import HDR, HDRComplex
 

@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fractalshark_tpu.core.pointzoom import PointZoomBBConverter
+from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
 from fractalshark_tpu_torch import kernels
 from fractalshark_tpu_torch.ops import dblflt as dfm
 from fractalshark_tpu_torch.ops import hdrfloat as hdr

@@ -2,10 +2,11 @@
 the LA table and the orbit anchors, as the port's device tensors.
 
 This system has no weights; its state is these three tables, built on
-the host by the reused layer of ``fractalshark_tpu`` (native GMP orbit,
-LA builder, ``CompressedOrbit``).  Each function turns those numpy
-arrays into tensors on an explicit ``device``, so the JAX package and
-the port compute from the same host tables.  Float tables are flushed
+the host by the port's host layer (native GMP or device orbit, LA
+builder, ``CompressedOrbit``: copies of the JAX package's modules).
+Each function turns those numpy arrays into tensors on an explicit
+``device``, so the JAX package and the port compute from the same host
+tables.  Float tables are flushed
 of subnormals on the way (see ``hdrfloat.ftz``).
 
 Layouts:

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import test_torch_jaxref as ref
-from fractalshark_tpu.core.views import get_view_preset
+from fractalshark_tpu_torch.core.views import get_view_preset
 from fractalshark_tpu_torch.ops import escape
 
 GOLDEN_ESCAPE_VIEW0_256 = 3586676062  # tests/test_escape.py:111

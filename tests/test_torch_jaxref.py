@@ -11,10 +11,6 @@ instructions disabled (``--xla_cpu_max_isa=AVX``): the same program,
 each ``*`` and ``+`` rounded on its own.  That flag has to be set
 before XLA starts, so the reference runs in a subprocess; each test
 module computes all of its JAX references in one such call.
-
-Importing this module imports the port with the environment switches
-it sets restored afterwards, so that other tests' subprocesses of the
-JAX package still start with x64 on.
 """
 
 from __future__ import annotations
@@ -29,16 +25,6 @@ import torch
 # the plain twins run thousands of small tensor steps: one intra-op
 # thread is faster than many and leaves the other test workers alone
 torch.set_num_threads(1)
-
-_SWITCHES = ("FRACTALSHARK_NO_X64", "FRACTALSHARK_NO_COMPILE_CACHE")
-_saved = {k: os.environ.get(k) for k in _SWITCHES}
-import fractalshark_tpu_torch  # noqa: E402,F401
-
-for _k, _v in _saved.items():
-    if _v is None:
-        os.environ.pop(_k, None)
-    else:
-        os.environ[_k] = _v
 
 TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(TESTS_DIR)
@@ -66,7 +52,8 @@ def run_jax_reference(module: str, func: str, workdir, inputs=None,
     inp = os.path.join(str(workdir), f"{module}.{func}.in.npz")
     out = os.path.join(str(workdir), f"{module}.{func}.out.npz")
     np.savez(inp, **(inputs or {}))
-    env = {k: v for k, v in os.environ.items() if k not in _SWITCHES}
+    env = dict(os.environ)
+    env.pop("FRACTALSHARK_NO_X64", None)
     # x64 on, as the JAX package's own tests run it; no compile cache
     # written under the home directory
     env.update(JAX_PLATFORMS="cpu", XLA_FLAGS=NOFMA_XLA_FLAGS,
@@ -80,6 +67,26 @@ def run_jax_reference(module: str, func: str, workdir, inputs=None,
     assert proc.returncode == 0, proc.stderr[-4000:]
     with np.load(out) as z:
         return {k: z[k] for k in z.files}
+
+
+def host_layer(pkg: str):
+    """The host-layer names the port's tests build views, orbits and LA
+    tables with, from ``pkg``: the port (``fractalshark_tpu_torch``, its
+    own copies) or, inside a JAX reference, ``fractalshark_tpu``."""
+    import importlib
+    import types
+
+    def mod(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    la = mod("engine.la_reference")
+    return types.SimpleNamespace(
+        HD=mod("core.hdr_host").HD,
+        PointZoomBBConverter=mod("core.pointzoom").PointZoomBBConverter,
+        get_view_preset=mod("core.views").get_view_preset,
+        LAReferenceHost=la.LAReferenceHost,
+        get_or_build_la=la.get_or_build_la,
+        RefOrbitCalc=mod("engine.reforbit").RefOrbitCalc)
 
 
 def bits_equal(a, b) -> bool:

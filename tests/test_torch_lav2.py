@@ -14,12 +14,6 @@ import pytest
 import torch
 
 import test_torch_jaxref as ref
-from fractalshark_tpu.core.hdr_host import HD
-from fractalshark_tpu.core.pointzoom import PointZoomBBConverter
-from fractalshark_tpu.core.views import get_view_preset
-from fractalshark_tpu.engine.la_reference import (LAReferenceHost,
-                                                  get_or_build_la)
-from fractalshark_tpu.engine.reforbit import RefOrbitCalc
 from fractalshark_tpu_torch.ops import la_kernel
 
 SIZE, BUDGET = 64, 2000
@@ -29,22 +23,27 @@ VIEW6_32 = (817_235_786, 2_300_363_464)
 STATE = ("s", "j", "ref_iter", "dzr", "dzi", "dze", "it", "done")
 
 
-def _fixture():
-    ptz = PointZoomBBConverter(
+def _fixture(pkg="fractalshark_tpu_torch"):
+    """The 1e8 frame's view, orbit and LA table, built by the host layer
+    of ``pkg``: the port's own, or the JAX package's in its reference."""
+    h = ref.host_layer(pkg)
+    ptz = h.PointZoomBBConverter(
         pt_x="-0.743643887037158704752191506114774",
         pt_y="0.131825904205311970493132056385139",
         zoom_factor="1e8", prec=512).square_aspect_ratio(SIZE, SIZE)
-    res = RefOrbitCalc().get_and_create_useful_results(ptz, BUDGET)
-    la = LAReferenceHost.generate(res.orbit_x, res.orbit_y,
-                                  HD.from_hp(res.max_radius))
+    res = h.RefOrbitCalc().get_and_create_useful_results(ptz, BUDGET)
+    la = h.LAReferenceHost.generate(res.orbit_x, res.orbit_y,
+                                    h.HD.from_hp(res.max_radius))
     return ptz, res, la
 
 
-def _view6():
-    v = get_view_preset(6)
+def _view6(pkg="fractalshark_tpu_torch"):
+    h = ref.host_layer(pkg)
+    v = h.get_view_preset(6)
     ptz = v.ptz.square_aspect_ratio(V6, V6)
-    res = RefOrbitCalc().get_and_create_useful_results(ptz, v.num_iterations)
-    la = get_or_build_la(types.SimpleNamespace(la_parameters=None), res)
+    res = h.RefOrbitCalc().get_and_create_useful_results(ptz,
+                                                         v.num_iterations)
+    la = h.get_or_build_la(types.SimpleNamespace(la_parameters=None), res)
     return ptz, res, la, v.num_iterations
 
 
@@ -61,7 +60,7 @@ def _jax_reference(_inputs):
     from fractalshark_tpu.ops import la_kernel as jla
     from fractalshark_tpu.ops.la_pallas import la_render_pallas
 
-    ptz, res, la = _fixture()
+    ptz, res, la = _fixture("fractalshark_tpu")
     out = {"sha": _tables_sha(res, la)}
     out["full"] = np.asarray(jla.la_perturb_render(
         res, la, ptz, SIZE, SIZE, BUDGET, sub_dtype=np.float32))
@@ -72,7 +71,7 @@ def _jax_reference(_inputs):
                                return_state=True)
     for name, a in zip(STATE, st):
         out["state_" + name] = np.asarray(a)
-    ptz, res, la, n = _view6()
+    ptz, res, la, n = _view6("fractalshark_tpu")
     out["v6_sha"] = _tables_sha(res, la)
     out["v6"] = np.asarray(jla.la_perturb_render(
         res, la, ptz, V6, V6, n, sub_dtype=np.float32))

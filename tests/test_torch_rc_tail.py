@@ -11,11 +11,8 @@ import pytest
 import torch
 
 import test_torch_jaxref as ref
-from fractalshark_tpu.core.hdr_host import HD
-from fractalshark_tpu.core.pointzoom import PointZoomBBConverter
-from fractalshark_tpu.engine.la_reference import LAReferenceHost
-from fractalshark_tpu.engine.perturbation_results import CompressedOrbit
-from fractalshark_tpu.engine.reforbit import RefOrbitCalc
+from fractalshark_tpu_torch.engine.perturbation_results import (
+    CompressedOrbit)
 from fractalshark_tpu_torch.engine.renderers import two_phase_render
 from fractalshark_tpu_torch.ops import la_kernel
 from fractalshark_tpu_torch.ops import perturb_stream as ps
@@ -24,14 +21,16 @@ SIZE, N = 32, 1800
 STATE = ("s", "j", "ref_iter", "dzr", "dzi", "dze", "it", "done")
 
 
-def _fixture():
-    ptz = PointZoomBBConverter(
+def _fixture(pkg="fractalshark_tpu_torch"):
+    """View, orbit and LA table from the host layer of ``pkg``."""
+    h = ref.host_layer(pkg)
+    ptz = h.PointZoomBBConverter(
         pt_x="-0.743643887037158704752191506114774",
         pt_y="0.131825904205311970493132056385139",
         zoom_factor="1e8", prec=512).square_aspect_ratio(64, 64)
-    res = RefOrbitCalc().get_and_create_useful_results(ptz, 2000)
-    la = LAReferenceHost.generate(res.orbit_x, res.orbit_y,
-                                  HD.from_hp(res.max_radius))
+    res = h.RefOrbitCalc().get_and_create_useful_results(ptz, 2000)
+    la = h.LAReferenceHost.generate(res.orbit_x, res.orbit_y,
+                                    h.HD.from_hp(res.max_radius))
     return ptz, res, la
 
 
@@ -50,10 +49,11 @@ def _inits(state, max_ref):
 
 
 def _jax_reference(_inputs):
+    from fractalshark_tpu.engine.perturbation_results import CompressedOrbit
     from fractalshark_tpu.ops import la_kernel as jla
     from fractalshark_tpu.ops.perturb_stream import perturb_render_stream_rc
 
-    ptz, res, la = _fixture()
+    ptz, res, la = _fixture("fractalshark_tpu")
     out = {"full": np.asarray(jla.la_perturb_render(
         res, la, ptz, SIZE, SIZE, N, sub_dtype=np.float32))}
     state = jla.la_perturb_render(res, la, ptz, SIZE, SIZE, N,

@@ -76,7 +76,8 @@ def test_deep_frame_equals_jax(jax_ref):
 
 def test_render_never_imports_jax(tmp_path):
     """A deep render and a shallow one through the port, in a fresh
-    interpreter whose environment does not preset the port's switches."""
+    interpreter whose environment sets none of the JAX package's
+    switches: neither jax nor the JAX package gets imported."""
     code = (
         "import sys\n"
         "from fractalshark_tpu_torch.cli import main\n"
@@ -84,6 +85,7 @@ def test_render_never_imports_jax(tmp_path):
         "    assert main(['--view', v, '--width', '16', '--height', '16',\n"
         "                 '--device', 'cpu', '--stats']) == 0\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert 'fractalshark_tpu' not in sys.modules, 'JAX package'\n"
         "print('NO_JAX_OK')\n")
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("FRACTALSHARK_")}
@@ -95,15 +97,40 @@ def test_render_never_imports_jax(tmp_path):
     assert "NO_JAX_OK" in proc.stdout
 
 
-def test_package_sources_do_not_import_jax():
+def _port_sources():
     root = os.path.join(ref.ROOT, "fractalshark_tpu_torch")
     for dirpath, dirnames, files in os.walk(root):
         if dirpath == root and "build" in dirnames:
             dirnames.remove("build")  # kernel build output, not sources
         for fn in files:
             if fn.endswith(".py"):
-                text = open(os.path.join(dirpath, fn)).read()
-                assert "import jax" not in text and "from jax" not in text, fn
+                yield os.path.join(dirpath, fn)
+    yield os.path.join(ref.ROOT, "chip_smoke.py")
+
+
+def test_package_sources_do_not_import_jax():
+    for path in _port_sources():
+        text = open(path).read()
+        assert "import jax" not in text and "from jax" not in text, path
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """No module of the port, and not chip_smoke.py, imports jax or
+    fractalshark_tpu, at any level of any function (AST walk)."""
+    import ast
+    banned = ("jax", "fractalshark_tpu")
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in banned, (path, node.lineno,
+                                                          name)
 
 
 def test_cuda_device_without_cuda_is_an_error(capsys):
