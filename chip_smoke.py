@@ -8,35 +8,43 @@ reference.
     python3 chip_smoke.py
 
 Phases: (1) card, (2) build, (3) K1-K3 vs plain on the card at the main
-path's shapes, bit-identical, (4) K4/K5 (one device-orbit step) vs plain
-at 32, 2,048 and 16,384 limbs from the View #30 centre, digit for digit,
-(5) the device orbit: View #30 at 16,384 limbs against the exact
+path's shapes, bit-identical, (3b) K2 with f64 mantissas and the K6
+instances vs plain, bit-identical, (4) K4/K5 (one device-orbit step) vs
+plain at 32, 2,048 and 16,384 limbs from the View #30 centre, digit for
+digit, (5) the device orbit: View #30 at 16,384 limbs against the exact
 Python-int recurrence after 256 steps, then bounded sessions and their
 time per iteration at 16,384, 2,048 and 32 limbs, (6) the paths through
 ``fractalshark_tpu_torch.cli.main``, each with the launch counts set to 0
 just before it and read just after: View 0 AUTO at 1024² (K1), a
 small-table deep frame (K2 full mode), View #6 AUTO at 64² and 256² (K2
-phase 1 + K3), and View #6 with ``--perturbation-alg GPU`` at 64² and
-256² (K4 + K5 for the orbit, then K2 phase 1 + K3).  Exits non-zero if
-any phase fails, and at once when no CUDA device is present.  The
-next-to-last lines are the card's ``nvidia-smi`` name and power limit and
-a JSON object of the kernels; the last line is ``{"ok": true, ...}``.
+phase 1 + K3), View #6 with ``--perturbation-alg GPU`` at 64² and 256²
+(K4 + K5 for the orbit, then K2 phase 1 + K3), View #5 AUTO at 64², 256²
+and 1024² (``Gpu1x64PerturbedLAv2``: K2-f64), View #3 LAO (K2-f64
+``la_only``), View #2 AUTO at 64² and 256² and its HDRx64 name (no valid
+LA table: K6 f64 float and HDR-f64), and the perturbation-only names on
+the 1e8 frame (K6 on B10's route, and f32 float) and on View #6 at 16²
+and 256² (K6 on B11's route).  Exits non-zero if any phase fails, and at
+once when no CUDA device is present.  The next-to-last lines are the
+card's ``nvidia-smi`` name and power limit and a JSON object of the
+kernels; the last line is ``{"ok": true, ...}``.
 
-Expected View #6 values are those of the JAX package on the CPU with
-FMA contraction off (``XLA_FLAGS=--xla_cpu_max_isa=AVX``): the port's
-kernels round every * and + on their own (``nvcc -fmad=false``), while
-XLA:CPU's default contracts a*b+c.  With ``--perturbation-alg GPU`` the
-JAX package gives the same two frames as with its native orbit.
+Expected frame values are those of the JAX package on the CPU with FMA
+contraction off (``XLA_FLAGS=--xla_cpu_max_isa=AVX``), taken through its
+CLI with the same algorithm name (``Gpu1x64PerturbedLAv2`` where the
+card's AUTO picks it): the port's kernels round every * and + on their
+own (``nvcc -fmad=false``), while XLA:CPU's default contracts a*b+c.
+With ``--perturbation-alg GPU`` the JAX package gives the same two View
+#6 frames as with its native orbit.
 
 Bounds (``bound_ms``): the larger of the bytes a kernel must move (each
 input read once, each output written once) over 3.35 TB/s and the
 operations its function needs on this run's inputs over the card's peak
-rate for their type: 67 TFLOP/s f32 (NVIDIA's H100 SXM data sheet) and,
-for the integer kernels K4 and K5, 16.7 Tops/s int32 (a quarter of the
-f32 figure: 64 INT32 lanes per SM against 128 FP32 lanes that each count
-an FMA as two, Hopper white paper).  Where the count depends on the
-data, it is a lower bound of what these inputs need, as each ``*_ops``
-function says.
+rate for their type: 67 TFLOP/s f32 and 34 TFLOP/s f64 outside the
+tensor cores (NVIDIA's H100 SXM data sheet) and, for the integer kernels
+K4 and K5, 16.7 Tops/s int32 (a quarter of the f32 figure: 64 INT32
+lanes per SM against 128 FP32 lanes that each count an FMA as two,
+Hopper white paper).  Where the count depends on the data, it is a lower
+bound of what these inputs need, as each ``*_ops`` function says.
 """
 
 from __future__ import annotations
@@ -57,6 +65,19 @@ VIEW6_64 = (3_268_937_305, 2_518_423_760)
 VIEW6_256 = (52_302_966_139, 1_647_051_423)
 VIEW6_GPU_ORBIT = {64: VIEW6_64, 256: VIEW6_256}
 VIEW6_PERIOD = 457_977
+# the f64 band and the perturbation-only routes, (iter_sum, CRC-32),
+# JAX package on the CPU with FMA off, same algorithm name
+VIEW5_F64 = {64: (368_487_031, 1_798_867_883),
+             256: (5_811_856_715, 3_730_178_401)}
+VIEW2_F64 = {64: (239_779, 2_524_369_276), 256: (3_835_560, 1_365_795_567)}
+VIEW2_HDR64_64 = (239_779, 2_524_369_276)
+VIEW3_LAO64_64 = (58_903_876, 1_899_311_131)
+SMALL_DEEP_PO_64 = (5_005_495, 1_005_249_289)   # HDR-f32 and f32 float
+VIEW6_PO_16 = (231_680_604, 3_835_526_492)
+# budgets the plain twins can finish on the card (cut from 4,718,592
+# and 196,608)
+VIEW6_PO_CUT = 10_000
+VIEW3_HDR64_CUT = 10_000
 # the same frames with XLA:CPU's default FMA contraction, and the TPU
 # v5e's bench record (BENCH_r05.json deep_iter_sum): printed, not targets
 VIEW6_256_JAX_CPU_FMA = 52_302_949_912
@@ -81,10 +102,26 @@ KERNEL_META = {
                   "fractalshark_tpu/ops/bignum/ntt_mxu.py:800"),
     "orbit_tail": ("fractalshark_tpu_torch/csrc/orbit_tail.cu",
                    "fractalshark_tpu/ops/bignum/ntt_pallas.py:1530"),
+    # the f64 instance of B2 (_lav2_impl with sub_dtype=np.float64)
+    "lav2_full_f64": ("fractalshark_tpu_torch/csrc/lav2.cu",
+                      "fractalshark_tpu/ops/la_kernel.py:99"),
+    "lav2_lao_f64": ("fractalshark_tpu_torch/csrc/lav2.cu",
+                     "fractalshark_tpu/ops/la_kernel.py:99"),
+    "perturb_pallas": ("fractalshark_tpu_torch/csrc/perturb.cu",
+                       "fractalshark_tpu/ops/perturb_pallas.py:50"),
+    "perturb_stream": ("fractalshark_tpu_torch/csrc/perturb.cu",
+                       "fractalshark_tpu/ops/perturb_stream.py:112"),
+    "perturb_hdr64": ("fractalshark_tpu_torch/csrc/perturb.cu",
+                      "fractalshark_tpu/ops/perturb.py:177"),
+    "perturb_f64": ("fractalshark_tpu_torch/csrc/perturb.cu",
+                    "fractalshark_tpu/ops/perturb.py:112"),
+    "perturb_f32": ("fractalshark_tpu_torch/csrc/perturb.cu",
+                    "fractalshark_tpu/ops/perturb.py:112"),
 }
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
 I32_OPS_PER_S = 67e12 / 4
 
 
@@ -92,10 +129,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def timed(fn, device, reps: int = 1):
-    """(result, ms per call) with CUDA events after one warm-up call."""
+def timed(fn, device, reps: int = 1, warm: bool = True):
+    """(result, ms per call) with CUDA events, after one warm-up call
+    unless `warm` is False (the plain twins: nothing to warm, and a
+    second run of them costs seconds)."""
     import torch
-    out = fn()
+    out = fn() if warm else None
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize(device)
@@ -162,31 +201,40 @@ def phase_build():
 
 
 def deep_inputs(view_or_center, size, device):
-    """Host tables and dc grid of a deep frame, via the engine."""
+    """Host tables and f32 dc grid of a deep frame, via the engine."""
+    from fractalshark_tpu_torch.engine.renderers import get_orbit_calc
+    from fractalshark_tpu_torch.ops import la_kernel
+    from fractalshark_tpu_torch.ops.perturb import _dc_grids_hdr, delta_params
+
+    f, res, la = frame_inputs(view_or_center, size, device)
+    T, orbit = la_kernel.device_tables(res, la, f.device)
+    dx, dy, cxo, cyo = delta_params(f.ptz, res.center_x, res.center_y,
+                                    size, size)
+    dc = _dc_grids_hdr(dx, dy, cxo, cyo, size, size, f.device)
+    return (f, res, la, T, orbit, dc,
+            get_orbit_calc(f).last_details.get("backend"))
+
+
+def frame_inputs(view_or_center, size, device):
+    """Host orbit and LA table of a frame (a preset index or a
+    (x, y, zoom, budget) tuple), via the engine."""
     from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
     from fractalshark_tpu_torch.engine.fractal import Fractal
     from fractalshark_tpu_torch.engine.la_reference import get_or_build_la
     from fractalshark_tpu_torch.engine.renderers import get_orbit_calc
-    from fractalshark_tpu_torch.ops import la_kernel
-    from fractalshark_tpu_torch.ops.perturb import _dc_grids_hdr, delta_params
 
     if isinstance(view_or_center, int):
         f = Fractal(width=size, height=size, view=view_or_center,
                     device=device)
     else:
         x, y, zoom, n = view_or_center
-        ptz = PointZoomBBConverter(pt_x=x, pt_y=y, zoom_factor=zoom,
-                                   prec=512)
-        f = Fractal(width=size, height=size, view=ptz, num_iterations=n,
+        f = Fractal(width=size, height=size, num_iterations=n,
+                    view=PointZoomBBConverter(pt_x=x, pt_y=y,
+                                              zoom_factor=zoom, prec=512),
                     device=device)
-    calc = get_orbit_calc(f)
-    res = calc.get_and_create_useful_results(f.ptz, f.num_iterations)
-    la = get_or_build_la(f, res)
-    T, orbit = la_kernel.device_tables(res, la, f.device)
-    dx, dy, cxo, cyo = delta_params(f.ptz, res.center_x, res.center_y,
-                                    size, size)
-    dc = _dc_grids_hdr(dx, dy, cxo, cyo, size, size, f.device)
-    return f, res, la, T, orbit, dc, calc.last_details.get("backend")
+    res = get_orbit_calc(f).get_and_create_useful_results(f.ptz,
+                                                          f.num_iterations)
+    return f, res, get_or_build_la(f, res)
 
 
 def escape_ops(iters, budget: int) -> float:
@@ -246,7 +294,8 @@ def phase_kernels(device, size_escape=1024, size_deep=256,
         k, ms = timed(lambda: escape.escape_kernel(
             p, size_escape, size_escape, 256, tdt, device), device, reps=5)
         pl, pms = timed(lambda: escape.escape_plain(
-            p, size_escape, size_escape, 256, tdt, device), device)
+            p, size_escape, size_escape, 256, tdt, device), device,
+            warm=False)
         compare(f"K1 escape {dt} View 0 {size_escape}² x256", k, pl,
                 stats["escape"])
         log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
@@ -262,7 +311,7 @@ def phase_kernels(device, size_escape=1024, size_deep=256,
             T, orbit, flat, la_kernel.init_state_plain(T, flat, n), n,
             max_ref, la_only)
         ks, ms = timed(kern, device, reps=3)
-        ps_, pms = timed(plain, device)
+        ps_, pms = timed(plain, device, warm=False)
         return ks, [t.reshape(dc.re.shape) for t in ps_], ms, pms
 
     def k2_both(label, T, orbit, dc, n, max_ref, modes):
@@ -312,7 +361,7 @@ def phase_kernels(device, size_escape=1024, size_deep=256,
             return ps.rc_tail_plain(A, flat, st)[3]
 
         rk, ms = timed(kern, device, reps=3)
-        rp, pms = timed(plain, device)
+        rp, pms = timed(plain, device, warm=False)
         compare(f"K3 {label} remaining budget", rk, rp, stats["rc_tail"])
         log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
         done = float(((n - state[6]).reshape(-1) - rk).clamp(min=0).sum())
@@ -328,6 +377,90 @@ def phase_kernels(device, size_escape=1024, size_deep=256,
     k3(comp, st_s, dc_s, f"compressed anchors (error_exp 8) View #6 "
        f"{size_small}²")
     return stats, backend
+
+
+def perturb_ops(iters, budget: int, hdr_mode: bool) -> float:
+    """K6: one step per iteration done plus the escaping step of each
+    pixel below the budget; an HDR step is about 60 operations (2·Z·dz +
+    dz² + dc with the aligned adds, two reductions, the norms and
+    compares), a float step 17."""
+    steps = float(iters.sum()) + float((iters < budget).sum())
+    return (60.0 if hdr_mode else 17.0) * steps
+
+
+def phase_f64_perturb_kernels(device, stats, size=64):
+    """K2 with f64 mantissas (View #3 and View #5, full and la_only) and
+    the K6 instances against their plain versions on the card, at
+    `size`²."""
+    import torch
+
+    from fractalshark_tpu_torch.ops import la_kernel, perturb
+    from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
+    from fractalshark_tpu_torch.ops.tables import orbit_on
+
+    log("[3b] K2-f64 and K6 vs plain versions on the card")
+    f64 = torch.float64
+    for view, modes in ((3, (False, True)), (5, (False, True))):
+        f, res, la = frame_inputs(view, size, device)
+        n, mr = f.num_iterations, res.max_ref_iteration()
+        T, orbit = la_kernel.device_tables(res, la, device, f64)
+        dc = perturb._dc_grids_hdr(*perturb.delta_params(
+            f.ptz, res.center_x, res.center_y, size, size), size, size,
+            device, f64)
+        flat = HDRComplex(*(t.reshape(-1) for t in dc))
+        for la_only in modes:
+            key = "lav2_lao_f64" if la_only else "lav2_full_f64"
+            ks, ms = timed(lambda: la_kernel.lav2_run(
+                T, orbit, dc, n, mr, la_only), device, reps=3)
+            pl, pms = timed(lambda: la_kernel.lav2_plain(
+                T, orbit, flat, la_kernel.init_state_plain(T, flat, n), n,
+                mr, la_only), device, warm=False)
+            for i, name in enumerate(la_kernel._STATE):
+                compare(f"K2-f64 {key} View #{view} {size}² {name}",
+                        ks[i].reshape(-1), pl[i], stats[key])
+            log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms (iter_sum "
+                f"{int(ks[6].sum())})")
+            # the main paths: View #5 full (AUTO), View #3 la_only (LAO)
+            if (view, la_only) in ((5, False), (3, True)):
+                stats[key].update(ms=ms, plain_ms=pms, **bound(
+                    nbytes(T.nodes, T.side, T.stages, orbit, *dc, *ks),
+                    lav2_ops(T, dc.re.numel()), F64_OPS_PER_S))
+
+    def k6(key, label, frame, size, budget, dtype, hdr_mode):
+        f, res, _ = frame_inputs(frame, size, device)
+        n = budget or f.num_iterations
+        mr = res.max_ref_iteration()
+        orbit = orbit_on(res, device, dtype)
+        grids = perturb._dc_grids_hdr if hdr_mode else perturb._dc_grids_float
+        dc = grids(*perturb.delta_params(f.ptz, res.center_x, res.center_y,
+                                         size, size), size, size, device,
+                   dtype)
+        flat = HDRComplex(*(t.reshape(-1) for t in dc))
+        k, ms = timed(lambda: perturb.perturb_run(orbit, dc, n, mr, hdr_mode,
+                                                  key), device, reps=3)
+        pl, pms = timed(lambda: perturb.perturb_plain(
+            orbit, flat, perturb.init_state_plain(flat, n, hdr_mode), n, mr,
+            hdr_mode), device, warm=False)
+        compare(f"K6 {key} {label} {size}² budget {n} iterations",
+                k.reshape(-1), pl[4], stats[key])
+        log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms (iter_sum "
+            f"{int(k.sum())})")
+        rate = F64_OPS_PER_S if dtype == f64 else F32_OPS_PER_S
+        # a pixel reads orbit rows up to its count at most
+        rows = orbit[:int(k.max()) + 1]
+        stats[key].update(ms=ms, plain_ms=pms, **bound(
+            nbytes(rows, *(dc if hdr_mode else dc[:2]), k),
+            perturb_ops(k, n, hdr_mode), rate))
+
+    k6("perturb_pallas", "HDR-f32 1e8 frame", SMALL_DEEP, size, None,
+       torch.float32, True)
+    k6("perturb_stream", "HDR-f32 View #6", 6, size, VIEW6_PO_CUT,
+       torch.float32, True)
+    k6("perturb_hdr64", "HDR-f64 View #3", 3, size, VIEW3_HDR64_CUT, f64,
+       True)
+    k6("perturb_f64", "f64 float View #2", 2, size, None, f64, False)
+    k6("perturb_f32", "f32 float View #2", 2, size, None, torch.float32,
+       False)
 
 
 def view30_center():
@@ -544,7 +677,64 @@ def phase_slice(outdir, device="cuda"):
         if s["orbit_period"] != VIEW6_PERIOD:
             raise AssertionError(f"View #6 GPU orbit period "
                                  f"{s['orbit_period']} != {VIEW6_PERIOD}")
+
+    def pinned(label, argv, want_alg, want_kernels, want):
+        s = run(label, argv, want_alg, want_kernels)
+        got = (s["iter_sum"], s["crc32"])
+        log(f"    expected (JAX CPU, FMA off) {want}, got {got}")
+        if got != want:
+            raise AssertionError(f"{label}: {got} != {want}")
+        return s
+
+    def size(n):
+        return ["--width", str(n), "--height", str(n)]
+
+    # the f64 band: View #5 with a valid LA table, View #2 without
+    for n, want in VIEW5_F64.items():
+        pinned(f"View #5 AUTO {n}²", ["--view", "5"] + size(n),
+               "Gpu1x64PerturbedLAv2", ["lav2_full_f64"], want)
+    for n, want in VIEW2_F64.items():
+        pinned(f"View #2 AUTO {n}²", ["--view", "2"] + size(n),
+               "Gpu1x64PerturbedLAv2", ["perturb_f64"], want)
+    pinned("View #2 GpuHDRx64PerturbedLAv2 64²",
+           ["--view", "2", "--render-algorithm", "GpuHDRx64PerturbedLAv2"]
+           + size(64), "GpuHDRx64PerturbedLAv2", ["perturb_hdr64"],
+           VIEW2_HDR64_64)
+    pinned("View #3 Gpu1x64PerturbedLAv2LAO 64²",
+           ["--view", "3", "--render-algorithm", "Gpu1x64PerturbedLAv2LAO"]
+           + size(64), "Gpu1x64PerturbedLAv2LAO", ["lav2_lao_f64"],
+           VIEW3_LAO64_64)
+    # perturbation only: B10's route (short orbit, small budget), then
+    # B11's (View #6's orbit of 457,977 entries, the preset's budget)
+    x, y, zoom, budget = SMALL_DEEP
+    deep = ["--center-x", x, "--center-y", y, "--zoom", zoom,
+            "--iterations", str(budget)] + size(64)
+    for alg, key in (("GpuHDRx32PerturbedLAv2PO", "perturb_pallas"),
+                     ("Gpu1x32PerturbedLAv2PO", "perturb_f32")):
+        pinned(f"1e8 frame {alg} 64²", deep + ["--render-algorithm", alg],
+               alg, [key], SMALL_DEEP_PO_64)
+    po6 = ["--view", "6", "--render-algorithm", "GpuHDRx32PerturbedLAv2PO"]
+    pinned("View #6 GpuHDRx32PerturbedLAv2PO 16²", po6 + size(16),
+           "GpuHDRx32PerturbedLAv2PO", ["perturb_stream"], VIEW6_PO_16)
+    s = run("View #6 GpuHDRx32PerturbedLAv2PO 256²", po6 + size(256),
+            "GpuHDRx32PerturbedLAv2PO", ["perturb_stream"])
+    plausible("View #6 PO 256²", s, 4_718_592)
+    # a size users render, at the preset's full budget
+    s = run("View #5 AUTO 1024²", ["--view", "5"] + size(1024),
+            "Gpu1x64PerturbedLAv2", ["lav2_full_f64"])
+    plausible("View #5 1024²", s, 4_718_592)
     return total, runs
+
+
+def plausible(label, s, budget):
+    """A frame without a pinned value: counts within the budget, some
+    pixels at it and some below (the view shows both)."""
+    ok = (0 <= s["iter_min"] < s["iter_max"] <= budget
+          and s["iter_max"] == budget and s["iter_sum"] > 0)
+    log(f"    {label}: min {s['iter_min']}, max {s['iter_max']}, sum "
+        f"{s['iter_sum']}: {'plausible' if ok else 'NOT plausible'}")
+    if not ok:
+        raise AssertionError(f"{label} is not plausible")
 
 
 def main() -> int:
@@ -567,6 +757,7 @@ def main() -> int:
     phase_build()
     stats, backend = phase_kernels(device)
     log(f"    orbit backend: {backend}")
+    phase_f64_perturb_kernels(device, stats)
     phase_orbit_kernels(device, stats)
     per_iter = phase_device_orbit(device)
     with tempfile.TemporaryDirectory() as outdir:  # the frames' PNGs

@@ -1,18 +1,26 @@
 // HDRFloat on the device: the twin of fractalshark_tpu_torch/ops/hdrfloat.py
 // (itself the port of fractalshark_tpu/ops/hdrfloat.py).
 //
-// value = mantissa * 2^exp, f32 mantissa, int32 exponent; the mantissa
-// stays unreduced between operations and is renormalised to +-[1, 2) at
-// explicit reduce points.  Each function follows the plain PyTorch op
-// operation for operation, so a kernel and its plain twin round alike.
+// value = mantissa * 2^exp, f32 or f64 mantissa (the template parameter T),
+// int32 exponent; the mantissa stays unreduced between operations and is
+// renormalised to +-[1, 2) at explicit reduce points.  Each function
+// follows the plain PyTorch op operation for operation, so a kernel and its
+// plain twin round alike.  Hdr/HdrC name the f32 instances.
 //
 // Floating-point mode (set by the build, fractalshark_tpu_torch/kernels.py):
-//   -fmad=false  no a*b+c contraction: every * and + rounds on its own.
-//   -ftz=true    subnormal results flush to zero, as on the reference's
-//                CPU backend (XLA:CPU runs with FTZ/DAZ); the plain twins
-//                flush explicitly.
+//   -fmad=false  no a*b+c contraction: every * and + rounds on its own
+//                (f32 and f64 alike).
+//   -ftz=true    f32 subnormal results flush to zero, as on the reference's
+//                CPU backend (XLA:CPU runs with FTZ/DAZ for f32 and f64).
+//                The card has no flush mode for f64, so every f64 result
+//                passes through ftz() below, at the places where the plain
+//                twin calls hdrfloat.ftz; for f32 ftz() is the identity and
+//                the hardware flushes.
 // Exponent sums can wrap in the reference's int32 arithmetic; signed
-// overflow is undefined in C++, so they are done in uint32_t here.
+// overflow is undefined in C++, so they are done in uint32_t here.  The
+// exponent-gap clamp of the adds is 126 for both mantissa types
+// (hdrfloat.py:162), so an aligned f64 operand never goes below 2^-126
+// times its mantissa.
 #pragma once
 
 #include <cstdint>
@@ -22,15 +30,20 @@ namespace fs {
 constexpr int32_t kMinBigExponent = -268435456;  // INT32_MIN >> 3
 constexpr int32_t kExpDiffClamp = 120 + 6;       // EXPONENT_DIFF_IGNORED + 6
 
-struct Hdr {
-  float m;
+template <typename T>
+struct HdrT {
+  T m;
   int32_t e;
 };
 
-struct HdrC {
-  float re, im;
+template <typename T>
+struct HdrCT {
+  T re, im;
   int32_t e;
 };
+
+using Hdr = HdrT<float>;
+using HdrC = HdrCT<float>;
 
 __device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) +
@@ -46,9 +59,19 @@ __device__ __forceinline__ int32_t imin(int32_t a, int32_t b) {
   return a < b ? a : b;
 }
 
+// flush a subnormal result to a zero of its sign (hdrfloat.ftz)
+__device__ __forceinline__ float ftz(float x) { return x; }
+__device__ __forceinline__ double ftz(double x) {
+  return fabs(x) < 2.2250738585072014e-308 ? x * 0.0 : x;
+}
+
 // torch.maximum: NaN-propagating
 __device__ __forceinline__ float fmax_nan(float a, float b) {
   if (a != a || b != b) return __int_as_float(0x7FC00000);
+  return a > b ? a : b;
+}
+__device__ __forceinline__ double fmax_nan(double a, double b) {
+  if (a != a || b != b) return __longlong_as_double(0x7FF8000000000000LL);
   return a > b ? a : b;
 }
 
@@ -63,80 +86,123 @@ __device__ __forceinline__ void frexp2(float m, float &mm, int32_t &e) {
   mm = zero ? m : norm;
   e = zero ? 0 : f_exp;
 }
+// the f64 twin takes torch.frexp, the reference jnp.frexp: the same for
+// normal numbers (the only ones the flushed arithmetic makes); inf and NaN
+// come back as (2m, -1), as frexp's (m, 0) gives there
+__device__ __forceinline__ void frexp2(double m, double &mm, int32_t &e) {
+  const int64_t bits = __double_as_longlong(m);
+  const int32_t raw = static_cast<int32_t>((bits >> 52) & 0x7FF);
+  const double norm = __longlong_as_double(
+      (bits & static_cast<int64_t>(0x800FFFFFFFFFFFFFull)) |
+      0x3FF0000000000000LL);
+  if (m == 0.0) {
+    mm = m;
+    e = 0;
+  } else if (raw == 0x7FF) {
+    mm = m * 2.0;
+    e = -1;
+  } else {
+    mm = norm;
+    e = raw - 1023;
+  }
+}
 
-// 2^shift, exact; shift clamped to [-126, 127] (hdrfloat.py:82-91)
-__device__ __forceinline__ float pow2i(int32_t shift) {
+// 2^shift, exact; shift clamped to the normal range (hdrfloat.py:82-91)
+template <typename T>
+__device__ __forceinline__ T pow2i(int32_t shift);
+template <>
+__device__ __forceinline__ float pow2i<float>(int32_t shift) {
   const int32_t s = shift < -126 ? -126 : (shift > 127 ? 127 : shift);
   return __int_as_float((s + 127) << 23);
 }
+template <>
+__device__ __forceinline__ double pow2i<double>(int32_t shift) {
+  const int64_t s = shift < -1022 ? -1022 : (shift > 1023 ? 1023 : shift);
+  return __longlong_as_double((s + 1023) << 52);
+}
 
-__device__ __forceinline__ Hdr reduce(Hdr x) {
-  float mm;
+template <typename T>
+__device__ __forceinline__ HdrT<T> reduce(HdrT<T> x) {
+  T mm;
   int32_t fe;
   frexp2(x.m, mm, fe);
-  return {mm, x.m == 0.0f ? kMinBigExponent : wadd(x.e, fe)};
+  return {mm, x.m == T(0) ? kMinBigExponent : wadd(x.e, fe)};
 }
 
-__device__ __forceinline__ HdrC reduce_complex(HdrC z) {
-  const float big = fmax_nan(fabsf(z.re), fabsf(z.im));
-  float unused;
+template <typename T>
+__device__ __forceinline__ HdrCT<T> reduce_complex(HdrCT<T> z) {
+  const T big = fmax_nan(fabs(z.re), fabs(z.im));
+  T unused;
   int32_t fe;
   frexp2(big, unused, fe);
-  const bool zero = (big == 0.0f);
+  const bool zero = (big == T(0));
   fe = zero ? 0 : fe;
-  const float scale = pow2i(wsub(0, fe));
-  return {z.re * scale, z.im * scale, zero ? kMinBigExponent : wadd(z.e, fe)};
+  const T scale = pow2i<T>(wsub(0, fe));
+  return {ftz(z.re * scale), ftz(z.im * scale),
+          zero ? kMinBigExponent : wadd(z.e, fe)};
 }
 
-__device__ __forceinline__ HdrC complex_add(HdrC a, HdrC b) {
+template <typename T>
+__device__ __forceinline__ HdrCT<T> complex_add(HdrCT<T> a, HdrCT<T> b) {
   const bool a_big = a.e >= b.e;
   const int32_t e = a_big ? a.e : b.e;
   const int32_t diff = imin(wsub(e, a_big ? b.e : a.e), kExpDiffClamp);
-  const float s = pow2i(wsub(0, diff));
-  if (a_big) return {a.re + b.re * s, a.im + b.im * s, e};
-  return {b.re + a.re * s, b.im + a.im * s, e};
+  const T s = pow2i<T>(wsub(0, diff));
+  if (a_big) return {ftz(a.re + ftz(b.re * s)), ftz(a.im + ftz(b.im * s)), e};
+  return {ftz(b.re + ftz(a.re * s)), ftz(b.im + ftz(a.im * s)), e};
 }
 
-__device__ __forceinline__ HdrC complex_mul(HdrC a, HdrC b) {
-  return {a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re,
-          wadd(a.e, b.e)};
+template <typename T>
+__device__ __forceinline__ HdrCT<T> complex_mul(HdrCT<T> a, HdrCT<T> b) {
+  return {ftz(ftz(a.re * b.re) - ftz(a.im * b.im)),
+          ftz(ftz(a.re * b.im) + ftz(a.im * b.re)), wadd(a.e, b.e)};
 }
 
-__device__ __forceinline__ HdrC complex_sqr(HdrC a) {
-  return {a.re * a.re - a.im * a.im, (2.0f * a.re) * a.im, wadd(a.e, a.e)};
+template <typename T>
+__device__ __forceinline__ HdrCT<T> complex_sqr(HdrCT<T> a) {
+  return {ftz(ftz(a.re * a.re) - ftz(a.im * a.im)),
+          ftz(ftz(T(2) * a.re) * a.im), wadd(a.e, a.e)};
 }
 
-__device__ __forceinline__ HdrC complex_mul_pow2(HdrC a, int32_t k) {
+template <typename T>
+__device__ __forceinline__ HdrCT<T> complex_mul_pow2(HdrCT<T> a, int32_t k) {
   return {a.re, a.im, wadd(a.e, k)};
 }
 
-__device__ __forceinline__ Hdr norm_squared(HdrC a) {
-  return {a.re * a.re + a.im * a.im, wadd(a.e, a.e)};
+template <typename T>
+__device__ __forceinline__ HdrT<T> norm_squared(HdrCT<T> a) {
+  return {ftz(ftz(a.re * a.re) + ftz(a.im * a.im)), wadd(a.e, a.e)};
 }
 
-__device__ __forceinline__ Hdr chebychev_norm(HdrC a) {
-  return {fmax_nan(fabsf(a.re), fabsf(a.im)), a.e};
+template <typename T>
+__device__ __forceinline__ HdrT<T> chebychev_norm(HdrCT<T> a) {
+  return {fmax_nan(fabs(a.re), fabs(a.im)), a.e};
 }
 
-__device__ __forceinline__ bool gt_reduced(Hdr a, Hdr b) {
+template <typename T>
+__device__ __forceinline__ bool gt_reduced(HdrT<T> a, HdrT<T> b) {
   return (a.e > b.e) || ((a.e == b.e) && (a.m > b.m));
 }
 
-__device__ __forceinline__ bool lt_reduced(Hdr a, Hdr b) {
+template <typename T>
+__device__ __forceinline__ bool lt_reduced(HdrT<T> a, HdrT<T> b) {
   return (a.e < b.e) || ((a.e == b.e) && (a.m < b.m));
 }
 
-__device__ __forceinline__ bool lte_reduced(Hdr a, Hdr b) {
+template <typename T>
+__device__ __forceinline__ bool lte_reduced(HdrT<T> a, HdrT<T> b) {
   return !gt_reduced(a, b);
 }
 
 // unreduced compares (proof: fractalshark_tpu/ops/hdrfloat.py:220-238)
-__device__ __forceinline__ bool lt_unreduced(Hdr a, Hdr b) {
-  return a.m < b.m * pow2i(wsub(b.e, a.e));
+template <typename T>
+__device__ __forceinline__ bool lt_unreduced(HdrT<T> a, HdrT<T> b) {
+  return a.m < ftz(b.m * pow2i<T>(wsub(b.e, a.e)));
 }
 
-__device__ __forceinline__ bool gt_pow2_unreduced(Hdr a, int32_t k) {
-  return a.m > pow2i(wsub(k, a.e));
+template <typename T>
+__device__ __forceinline__ bool gt_pow2_unreduced(HdrT<T> a, int32_t k) {
+  return a.m > pow2i<T>(wsub(k, a.e));
 }
 
 }  // namespace fs

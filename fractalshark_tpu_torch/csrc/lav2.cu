@@ -13,8 +13,15 @@
 //   LA step and rebase                                     :289-304
 //   tail with the orbit gather                             :306-325
 //   merge and done                                         :327-343
+// Mantissas: one template over T = float (fs_lav2: the HDRx32 family) and
+// T = double (fs_lav2_f64: the reference's sub_dtype=np.float64 instance
+// of _lav2_impl, la_kernel.py:374-376, which AUTO runs for every zoom from
+// 2^46 to 2^200 as Gpu1x64PerturbedLAv2).  The float tables are of T; their
+// integer fields are bit-cast (f32) or exactly converted (f64), the
+// reference's _pack_nodes convention (ibits below).  f64 subnormals: see
+// hdr.cuh; every f64 result is flushed as the plain twin flushes it.
 // Modes: full (run to escape or budget) and la_only (done on leaving
-// stage 0; the state is the phase-2 handoff).  Counters and positions
+// stage 0; the state is the phase-2 handoff, or the LAO render).  Counters and positions
 // are int64; the node table's integer fields come from the int64 side
 // table, so nothing wraps at 2^31.
 //
@@ -23,7 +30,8 @@
 // walks its own pixel and reads its own row (64 B) and orbit row (16 B)
 // per step from device memory through L1/L2 (the tables are small
 // enough to stay cache-resident: ~270k nodes = 17 MB at View #6).
-// Bound: latency of those dependent loads plus ~100 FP32 ops per step;
+// Bound: latency of those dependent loads plus ~100 FP32 (or FP64) ops per
+// step;
 // divergence between the LA and tail branches within a warp.  The state
 // lives in registers and goes back to memory once per launch: launches
 // are bounded by chunk_steps body steps per pixel and resume from it.
@@ -36,8 +44,10 @@
 
 namespace {
 
-using fs::Hdr;
-using fs::HdrC;
+template <typename T>
+using Hdr = fs::HdrT<T>;
+template <typename T>
+using HdrC = fs::HdrCT<T>;
 
 struct Lav2Params {
   int n_pixels;
@@ -51,45 +61,72 @@ struct Lav2Params {
   int init;
 };
 
-__device__ __forceinline__ Hdr cheb_r(HdrC z) {
+template <typename T>
+__device__ __forceinline__ Hdr<T> cheb_r(HdrC<T> z) {
   return fs::reduce(fs::chebychev_norm(z));
 }
 
+// an integer field of a float table (tables.py ibits_np)
 __device__ __forceinline__ int32_t bits(float v) { return __float_as_int(v); }
+__device__ __forceinline__ int32_t bits(double v) {
+  return static_cast<int32_t>(v);
+}
 
+// one [16] node row: four 16-byte loads for f32, eight for f64
+__device__ __forceinline__ void load_row(const float *r, float *g) {
+  const float4 *v = reinterpret_cast<const float4 *>(r);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4 q = v[k];
+    g[4 * k] = q.x;
+    g[4 * k + 1] = q.y;
+    g[4 * k + 2] = q.z;
+    g[4 * k + 3] = q.w;
+  }
+}
+__device__ __forceinline__ void load_row(const double *r, double *g) {
+  const double2 *v = reinterpret_cast<const double2 *>(r);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const double2 q = v[k];
+    g[2 * k] = q.x;
+    g[2 * k + 1] = q.y;
+  }
+}
+
+template <typename T>
 __global__ void lav2_kernel(
-    const float *__restrict__ dcr, const float *__restrict__ dci,
-    const int32_t *__restrict__ dce, const float *__restrict__ nodes,
-    const int64_t *__restrict__ side, const float *__restrict__ orbit,
-    const int32_t *__restrict__ stages, const float *__restrict__ at,
-    int32_t *st_s, int32_t *st_j, int64_t *st_ref, float *st_dzr,
-    float *st_dzi, int32_t *st_dze, int64_t *st_it, uint8_t *st_done,
-    Lav2Params P) {
+    const T *__restrict__ dcr, const T *__restrict__ dci,
+    const int32_t *__restrict__ dce, const T *__restrict__ nodes,
+    const int64_t *__restrict__ side, const T *__restrict__ orbit,
+    const T *__restrict__ stages, const T *__restrict__ at, int32_t *st_s,
+    int32_t *st_j, int64_t *st_ref, T *st_dzr, T *st_dzi, int32_t *st_dze,
+    int64_t *st_it, uint8_t *st_done, Lav2Params P) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P.n_pixels) return;
-  const HdrC dc = {dcr[p], dci[p], dce[p]};
-  const Hdr dc_cheb = cheb_r(dc);
+  const HdrC<T> dc = {dcr[p], dci[p], dce[p]};
+  const Hdr<T> dc_cheb = cheb_r(dc);
   const int64_t n = P.max_iter;
 
   int32_t s, j;
   int64_t ref_iter, it;
-  HdrC dz;
+  HdrC<T> dz;
   bool done;
   if (P.init) {
     // ---------------- AT head skip (ATInfo.h:157-188) -------------------
     it = 0;
-    dz = {0.0f, 0.0f, fs::kMinBigExponent};
+    dz = {T(0), T(0), fs::kMinBigExponent};
     if (P.at_step > 0) {
-      const Hdr thrc = {at[0], bits(at[1])};
-      const Hdr sqr_esc = {at[2], bits(at[3])};
-      const HdrC refc = {at[4], at[5], bits(at[6])};
-      const HdrC cc = {at[7], at[8], bits(at[9])};
-      const HdrC invzc = {at[10], at[11], bits(at[12])};
+      const Hdr<T> thrc = {at[0], bits(at[1])};
+      const Hdr<T> sqr_esc = {at[2], bits(at[3])};
+      const HdrC<T> refc = {at[4], at[5], bits(at[6])};
+      const HdrC<T> cc = {at[7], at[8], bits(at[9])};
+      const HdrC<T> invzc = {at[10], at[11], bits(at[12])};
       if (fs::lte_reduced(dc_cheb, thrc)) {
-        const HdrC c_at =
+        const HdrC<T> c_at =
             fs::reduce_complex(fs::complex_add(fs::complex_mul(dc, cc), refc));
         const int64_t at_max = n / P.at_step;
-        HdrC z = {0.0f, 0.0f, fs::kMinBigExponent};
+        HdrC<T> z = {T(0), T(0), fs::kMinBigExponent};
         int64_t cnt = 0;
         while (cnt < at_max) {
           if (fs::gt_reduced(fs::reduce(fs::norm_squared(z)), sqr_esc)) break;
@@ -113,28 +150,28 @@ __global__ void lav2_kernel(
     done = st_done[p] != 0;
   }
 
-  const Hdr two56 = {1.0f, 8};
+  const Hdr<T> two56 = {T(1), 8};
   for (int64_t k = 0; !done && (P.chunk_steps == 0 || k < P.chunk_steps);
        ++k) {
     if (s >= 0) {
       // ---------------- LA branch ---------------------------------------
-      const int32_t *st = stages + 4 * s;
-      const Hdr thrc0 = {__int_as_float(st[2]), st[3]};
+      const T *st = stages + 4 * s;
+      const Hdr<T> thrc0 = {st[2], bits(st[3])};
       const bool valid = fs::lt_reduced(dc_cheb, thrc0);
       const int32_t j_eff = (j < 0) ? static_cast<int32_t>(ref_iter) : j;
       if (!valid) {
         s -= 1;
         j = -1;
       } else {
-        int64_t node = static_cast<int64_t>(st[0]) + j_eff;
+        int64_t node = static_cast<int64_t>(bits(st[0])) + j_eff;
         node = node < 0 ? 0 : (node > P.n_nodes - 1 ? P.n_nodes - 1 : node);
-        const float4 *row = reinterpret_cast<const float4 *>(nodes + 16 * node);
-        const float4 g0 = row[0], g1 = row[1], g2 = row[2], g3 = row[3];
+        T g[16];
+        load_row(nodes + 16 * node, g);
         const int64_t l = side[2 * node];
-        const HdrC ref = {g0.x, g0.y, bits(g0.z)};
-        const Hdr thr = {g2.y, bits(g2.z)};
-        const HdrC t = fs::complex_add(fs::complex_mul_pow2(ref, 1), dz);
-        const HdrC newdz = fs::reduce_complex(fs::complex_mul(t, dz));
+        const HdrC<T> ref = {g[0], g[1], bits(g[2])};
+        const Hdr<T> thr = {g[9], bits(g[10])};
+        const HdrC<T> t = fs::complex_add(fs::complex_mul_pow2(ref, 1), dz);
+        const HdrC<T> newdz = fs::reduce_complex(fs::complex_mul(t, dz));
         const bool usable =
             (it + l) <= n && fs::lt_reduced(cheb_r(newdz), thr);
         if (!usable) {
@@ -142,15 +179,16 @@ __global__ void lav2_kernel(
           s -= 1;
           j = -1;
         } else {
-          const HdrC zc = {g0.w, g1.x, bits(g1.y)};
-          const HdrC cc = {g1.z, g1.w, bits(g2.x)};
-          const HdrC dz_ev = fs::reduce_complex(fs::complex_add(
+          const HdrC<T> zc = {g[3], g[4], bits(g[5])};
+          const HdrC<T> cc = {g[6], g[7], bits(g[8])};
+          const HdrC<T> dz_ev = fs::reduce_complex(fs::complex_add(
               fs::complex_mul(newdz, zc), fs::complex_mul(dc, cc)));
-          const HdrC refp1 = {g3.y, g3.z, bits(g3.w)};
-          const HdrC z_full = fs::reduce_complex(fs::complex_add(refp1, dz_ev));
+          const HdrC<T> refp1 = {g[13], g[14], bits(g[15])};
+          const HdrC<T> z_full =
+              fs::reduce_complex(fs::complex_add(refp1, dz_ev));
           const int32_t j_next = j_eff + 1;
           const bool reb = fs::lt_reduced(cheb_r(z_full), cheb_r(dz_ev)) ||
-                           j_next >= st[1];
+                           j_next >= bits(st[1]);
           dz = reb ? z_full : dz_ev;
           j = reb ? 0 : j_next;
           it += l;
@@ -160,15 +198,15 @@ __global__ void lav2_kernel(
       // ---------------- tail branch -------------------------------------
       const int64_t oj =
           ref_iter < 0 ? 0 : (ref_iter > P.max_ref ? P.max_ref : ref_iter);
-      const float4 og = reinterpret_cast<const float4 *>(orbit)[oj];
-      const HdrC zj = {og.x, og.y, 0};
-      const HdrC t2 = fs::complex_add(fs::complex_mul_pow2(zj, 1), dz);
-      const HdrC ndz =
+      const T *og = orbit + 4 * oj;
+      const HdrC<T> zj = {og[0], og[1], 0};
+      const HdrC<T> t2 = fs::complex_add(fs::complex_mul_pow2(zj, 1), dz);
+      const HdrC<T> ndz =
           fs::reduce_complex(fs::complex_add(fs::complex_mul(t2, dz), dc));
-      const HdrC zf =
-          fs::reduce_complex(fs::complex_add(HdrC{og.z, og.w, 0}, ndz));
-      const Hdr nsq = fs::reduce(fs::norm_squared(zf));
-      const Hdr dsq = fs::reduce(fs::norm_squared(ndz));
+      const HdrC<T> zf =
+          fs::reduce_complex(fs::complex_add(HdrC<T>{og[2], og[3], 0}, ndz));
+      const Hdr<T> nsq = fs::reduce(fs::norm_squared(zf));
+      const Hdr<T> dsq = fs::reduce(fs::norm_squared(ndz));
       if (fs::gt_reduced(nsq, two56)) {
         done = true;
       } else {
@@ -193,29 +231,49 @@ __global__ void lav2_kernel(
   st_done[p] = done ? 1 : 0;
 }
 
-}  // namespace
-
-extern "C" int fs_lav2(const void *dcr, const void *dci, const void *dce,
-                       const void *nodes, const void *side, const void *orbit,
-                       const void *stages, const void *at, void *st_s,
-                       void *st_j, void *st_ref, void *st_dzr, void *st_dzi,
-                       void *st_dze, void *st_it, void *st_done,
-                       int32_t n_pixels, int32_t n_nodes, int32_t stage_count,
-                       int64_t max_ref, int64_t max_iter, int64_t chunk_steps,
-                       int64_t at_step, int32_t flags, void *stream) {
+template <typename T>
+int launch(const void *dcr, const void *dci, const void *dce,
+           const void *nodes, const void *side, const void *orbit,
+           const void *stages, const void *at, void *st_s, void *st_j,
+           void *st_ref, void *st_dzr, void *st_dzi, void *st_dze,
+           void *st_it, void *st_done, int32_t n_pixels, int32_t n_nodes,
+           int32_t stage_count, int64_t max_ref, int64_t max_iter,
+           int64_t chunk_steps, int64_t at_step, int32_t flags,
+           void *stream) {
   const Lav2Params P = {n_pixels, n_nodes,    stage_count, max_ref,
                         max_iter, chunk_steps, at_step,     flags & 1,
                         (flags >> 1) & 1};
   const int block = 128;
   const int grid = (n_pixels + block - 1) / block;
-  lav2_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float *>(dcr), static_cast<const float *>(dci),
-      static_cast<const int32_t *>(dce), static_cast<const float *>(nodes),
-      static_cast<const int64_t *>(side), static_cast<const float *>(orbit),
-      static_cast<const int32_t *>(stages), static_cast<const float *>(at),
+  lav2_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T *>(dcr), static_cast<const T *>(dci),
+      static_cast<const int32_t *>(dce), static_cast<const T *>(nodes),
+      static_cast<const int64_t *>(side), static_cast<const T *>(orbit),
+      static_cast<const T *>(stages), static_cast<const T *>(at),
       static_cast<int32_t *>(st_s), static_cast<int32_t *>(st_j),
-      static_cast<int64_t *>(st_ref), static_cast<float *>(st_dzr),
-      static_cast<float *>(st_dzi), static_cast<int32_t *>(st_dze),
+      static_cast<int64_t *>(st_ref), static_cast<T *>(st_dzr),
+      static_cast<T *>(st_dzi), static_cast<int32_t *>(st_dze),
       static_cast<int64_t *>(st_it), static_cast<uint8_t *>(st_done), P);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+#define FS_LAV2_ARGS                                                         \
+  const void *dcr, const void *dci, const void *dce, const void *nodes,      \
+      const void *side, const void *orbit, const void *stages,               \
+      const void *at, void *st_s, void *st_j, void *st_ref, void *st_dzr,    \
+      void *st_dzi, void *st_dze, void *st_it, void *st_done,                \
+      int32_t n_pixels, int32_t n_nodes, int32_t stage_count,                \
+      int64_t max_ref, int64_t max_iter, int64_t chunk_steps,                \
+      int64_t at_step, int32_t flags, void *stream
+#define FS_LAV2_PASS                                                         \
+  dcr, dci, dce, nodes, side, orbit, stages, at, st_s, st_j, st_ref, st_dzr, \
+      st_dzi, st_dze, st_it, st_done, n_pixels, n_nodes, stage_count,        \
+      max_ref, max_iter, chunk_steps, at_step, flags, stream
+
+extern "C" int fs_lav2(FS_LAV2_ARGS) { return launch<float>(FS_LAV2_PASS); }
+
+extern "C" int fs_lav2_f64(FS_LAV2_ARGS) {
+  return launch<double>(FS_LAV2_PASS);
 }

@@ -1,0 +1,170 @@
+// K6: perturbation-only rendering (no LA), one thread per pixel.
+//
+// Replaces: fractalshark_tpu/ops/perturb_pallas.py:50 _kernel (B10, Pallas:
+// HDR-f32 with the orbit resident in VMEM, orbits of at most 8,192 entries
+// and budgets of at most 200,000), fractalshark_tpu/ops/perturb_stream.py:112
+// _kernel (B11, Pallas: HDR-f32 lockstep sweeps that stream the orbit from
+// HBM, 64-bit budgets), and the XLA loops they are held to,
+// fractalshark_tpu/ops/perturb.py:177 _perturb_hdr_impl (HDR, f32 or f64
+// mantissas) and :112 _perturb_float_impl (native f32 or f64).
+//
+// Per pixel, from dz = 0 at orbit position j = 0 (perturb.py:6-11):
+//   dz <- dz(2Z[j] + dz) + dc;  z = Z[j+1] + dz
+//   |z|^2 > 256: escaped, the count stays;
+//   else count += 1, and dz <- z, j <- 0 if |z|^2 < |dz|^2 or j+1 reaches
+//   max_ref, else j <- j+1.
+// The HDR step is K2's tail step (lav2.cu), with the reduced compares of
+// _perturb_hdr_impl; B11's unreduced compares are boolean-identical
+// (fractalshark_tpu/ops/hdrfloat.py:220-238).  The float step rounds and
+// flushes every * and + on its own, in _perturb_float_impl's order.
+//
+// Design: the TPU kernels keep every pixel of a tile in lockstep and bring
+// Z[j] to the tile, by a select-gather over VMEM rows (B10) or by sweeping
+// one orbit position for all pixels at once (B11), because Mosaic has no
+// vector gather.  A GPU thread gathers its own row (Z[j], Z[j+1]) of the
+// packed [M, 4] orbit: 16 bytes (f32) or 32 bytes (f64) per step, and the
+// orbit stays in L2 (View #6's 457,977 entries are 7.3 MB in f32).  So
+// neither B10's length cap nor B11's sweep is needed, and a rebased pixel
+// goes on at once instead of stalling until the next sweep.  Counters are
+// int64, so budgets of 2^31 and more need no (hi, lo) pairs.  The state
+// lives in registers and goes to memory once per launch; a launch runs at
+// most chunk_steps steps per pixel, and the first one starts from the zero
+// state (dze = MIN_BIG_EXPONENT in HDR form, perturb_pallas.py:99-103).
+// Bound: one dependent gather and ~60 FP32 (FP64) operations per step;
+// warps diverge where neighbouring pixels escape at different counts.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "hdr.cuh"
+
+namespace {
+
+template <typename T>
+using Hdr = fs::HdrT<T>;
+template <typename T>
+using HdrC = fs::HdrCT<T>;
+
+struct PerturbParams {
+  int n_pixels;
+  int64_t max_ref;
+  int64_t max_iter;
+  int64_t chunk_steps;
+  int init;
+};
+
+template <typename T, bool kHdr>
+__global__ void perturb_kernel(const T *__restrict__ dcr,
+                               const T *__restrict__ dci,
+                               const int32_t *__restrict__ dce,
+                               const T *__restrict__ orbit, T *st_dzr,
+                               T *st_dzi, int32_t *st_dze, int64_t *st_j,
+                               int64_t *st_it, uint8_t *st_done,
+                               PerturbParams P) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P.n_pixels) return;
+  const HdrC<T> dc = {dcr[p], dci[p], kHdr ? dce[p] : 0};
+  HdrC<T> dz;
+  int64_t j, it;
+  bool done;
+  if (P.init) {
+    dz = {T(0), T(0), kHdr ? fs::kMinBigExponent : 0};
+    j = 0;
+    it = 0;
+    done = P.max_iter <= 0;
+  } else {
+    dz = {st_dzr[p], st_dzi[p], st_dze[p]};
+    j = st_j[p];
+    it = st_it[p];
+    done = st_done[p] != 0;
+  }
+  const int64_t jmax = P.max_ref - 1 > 0 ? P.max_ref - 1 : 0;
+  const Hdr<T> two56 = {T(1), 8};
+
+  for (int64_t k = 0; !done && (P.chunk_steps == 0 || k < P.chunk_steps);
+       ++k) {
+    const T *og = orbit + 4 * (j < 0 ? 0 : (j > jmax ? jmax : j));
+    HdrC<T> ndz, zf;
+    bool esc, lower;
+    if (kHdr) {
+      const HdrC<T> zj = {og[0], og[1], 0};
+      const HdrC<T> t = fs::complex_add(fs::complex_mul_pow2(zj, 1), dz);
+      ndz = fs::reduce_complex(fs::complex_add(fs::complex_mul(t, dz), dc));
+      zf = fs::reduce_complex(fs::complex_add(HdrC<T>{og[2], og[3], 0}, ndz));
+      const Hdr<T> nsq = fs::reduce(fs::norm_squared(zf));
+      const Hdr<T> dsq = fs::reduce(fs::norm_squared(ndz));
+      esc = fs::gt_reduced(nsq, two56);
+      lower = fs::lt_reduced(nsq, dsq);
+    } else {
+      using fs::ftz;
+      const T tx = ftz(ftz(T(2) * og[0]) + dz.re);
+      const T ty = ftz(ftz(T(2) * og[1]) + dz.im);
+      ndz = {ftz(ftz(ftz(tx * dz.re) - ftz(ty * dz.im)) + dc.re),
+             ftz(ftz(ftz(tx * dz.im) + ftz(ty * dz.re)) + dc.im), 0};
+      zf = {ftz(og[2] + ndz.re), ftz(og[3] + ndz.im), 0};
+      const T nsq = ftz(ftz(zf.re * zf.re) + ftz(zf.im * zf.im));
+      const T dsq = ftz(ftz(ndz.re * ndz.re) + ftz(ndz.im * ndz.im));
+      esc = nsq > T(256);
+      lower = nsq < dsq;
+    }
+    if (esc) {
+      done = true;
+      break;
+    }
+    const bool reb = lower || (j + 1) >= P.max_ref;
+    dz = reb ? zf : ndz;
+    j = reb ? 0 : j + 1;
+    it += 1;
+    if (it >= P.max_iter) done = true;
+  }
+
+  st_dzr[p] = dz.re;
+  st_dzi[p] = dz.im;
+  st_dze[p] = dz.e;
+  st_j[p] = j;
+  st_it[p] = it;
+  st_done[p] = done ? 1 : 0;
+}
+
+template <typename T>
+int launch(const void *dcr, const void *dci, const void *dce,
+           const void *orbit, void *st_dzr, void *st_dzi, void *st_dze,
+           void *st_j, void *st_it, void *st_done, int32_t n_pixels,
+           int64_t max_ref, int64_t max_iter, int64_t chunk_steps,
+           int32_t flags, void *stream) {
+  const PerturbParams P = {n_pixels, max_ref, max_iter, chunk_steps,
+                           flags & 1};
+  const int block = 128;
+  const int grid = (n_pixels + block - 1) / block;
+  const auto kernel =
+      (flags & 2) ? perturb_kernel<T, true> : perturb_kernel<T, false>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T *>(dcr), static_cast<const T *>(dci),
+      static_cast<const int32_t *>(dce), static_cast<const T *>(orbit),
+      static_cast<T *>(st_dzr), static_cast<T *>(st_dzi),
+      static_cast<int32_t *>(st_dze), static_cast<int64_t *>(st_j),
+      static_cast<int64_t *>(st_it), static_cast<uint8_t *>(st_done), P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// flags: bit 0 = start from the zero state, bit 1 = HDR form (else native
+// float)
+#define FS_PERTURB_ARGS                                                      \
+  const void *dcr, const void *dci, const void *dce, const void *orbit,      \
+      void *st_dzr, void *st_dzi, void *st_dze, void *st_j, void *st_it,     \
+      void *st_done, int32_t n_pixels, int64_t max_ref, int64_t max_iter,    \
+      int64_t chunk_steps, int32_t flags, void *stream
+#define FS_PERTURB_PASS                                                      \
+  dcr, dci, dce, orbit, st_dzr, st_dzi, st_dze, st_j, st_it, st_done,        \
+      n_pixels, max_ref, max_iter, chunk_steps, flags, stream
+
+extern "C" int fs_perturb_f32(FS_PERTURB_ARGS) {
+  return launch<float>(FS_PERTURB_PASS);
+}
+
+extern "C" int fs_perturb_f64(FS_PERTURB_ARGS) {
+  return launch<double>(FS_PERTURB_PASS);
+}

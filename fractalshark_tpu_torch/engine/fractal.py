@@ -1,7 +1,9 @@
 """The render engine: view state, algorithm resolution and render
 orchestration.  The port of ``fractalshark_tpu/engine/fractal.py``
-limited to the slice: the direct f32/f64 escapes and the LAv2 HDRx32
-family.  Every tensor lives on the fractal's explicit ``device``.
+limited to the slice: the direct f32/f64 escapes and the LAv2 families
+of f32, f64, hdr32 and hdr64 mantissas in every LA mode (and 2x32 and
+hdr2x32 with a valid LA table).  Every tensor lives on the fractal's
+explicit ``device``.
 """
 
 from __future__ import annotations

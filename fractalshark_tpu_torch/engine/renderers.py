@@ -1,16 +1,24 @@
-"""Perturbed-render orchestration for the LAv2 HDRx32 family: the port
-of ``fractalshark_tpu/engine/renderers.py`` (``calc_perturbed``,
+"""Perturbed-render orchestration for the LAv2 families: the port of
+``fractalshark_tpu/engine/renderers.py`` (``calc_perturbed``,
 ``la_rc_render``, ``two_phase_render``, ``_handoff_init``).
 
 Routing follows the reference's accelerator route
-(``renderers.py:59-96``):
+(``renderers.py:30-179``).  With a valid LA table (FULL and LAO modes):
 
-* FULL mode, orbit ≤ 8,192 entries and table ≤ 2,048 nodes (the
-  reference's one-kernel Pallas caps) → K2 in full mode;
-* otherwise → two-phase: K2 in phase-1 (``la_only``) mode, the handoff,
-  then K3 over identity anchors (every orbit position stored);
-* the RC variants → two-phase with K3 over the real compressed anchors;
-* LAO → K2 with ``la_only``.
+* f32 mantissas (dtypes f32, hdr32, 2x32, hdr2x32): RC in FULL mode →
+  two-phase with K3 over the real compressed anchors; LAO → K2
+  ``la_only``; FULL within the reference's one-kernel Pallas caps (orbit
+  ≤ 8,192 entries, table ≤ 2,048 nodes) → K2 in full mode; otherwise →
+  two-phase: K2 ``la_only``, the handoff, then K3 over identity anchors;
+* f64 mantissas (f64, hdr64: the ``Gpu1x64PerturbedLAv2`` band AUTO
+  picks from 2^46 to 2^200) → K2-f64 in full or ``la_only`` mode, the
+  reference's one route for them (its RC, Pallas and two-phase routes
+  take f32 only).
+
+PO mode, or no valid LA table: the perturbation-only renders of
+``ops/perturb.py`` (K6): f32/f64 → native float; hdr32 with RC → K3 from
+the zero state; hdr32 → B10's route within its caps, else B11's; hdr64
+→ HDR with f64 mantissas.
 
 On the CPU the same routes run the kernels' plain twins.
 """
@@ -19,6 +27,7 @@ from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from fractalshark_tpu_torch.core.algorithms import (
@@ -26,17 +35,24 @@ from fractalshark_tpu_torch.core.algorithms import (
 from fractalshark_tpu_torch.engine.la_reference import get_or_build_la
 from fractalshark_tpu_torch.engine.perturbation_results import CompressedOrbit
 from fractalshark_tpu_torch.engine.reforbit import RefOrbitCalc
-from fractalshark_tpu_torch.ops import la_kernel
+from fractalshark_tpu_torch.ops import la_kernel, perturb
+from fractalshark_tpu_torch.ops.perturb_pallas import perturb_render_pallas
 from fractalshark_tpu_torch.ops.perturb_stream import (
-    anchors_on, perturb_render_stream_rc)
+    anchors_on, perturb_render_stream, perturb_render_stream_rc)
 
-# ROADMAP items that own the algorithms this slice does not port yet
+# ROADMAP items that own the routes this port does not have yet
 _NOT_PORTED = {
-    "f64": "ROADMAP A11/B-queue 1: the f64-mantissa K2 "
-           "(Gpu1x64PerturbedLAv2 band, 2^46-2^200)",
-    "po": "ROADMAP A11: PO mode (B10/B11 perturbation-only kernels)",
-    "bla": "ROADMAP A11: BLA and Scaled perturbation families",
+    Family.PERTURB_BLA: "ROADMAP A11: the BLA perturbation family "
+                        "(ops/bla_kernel.py)",
+    Family.PERTURB_SCALED: "ROADMAP A11: the Scaled perturbation family "
+                           "(ops/scaled.py)",
+    "hdr_df": "ROADMAP A11: the double-float perturbation render without "
+              "an LA table (ops/hdr_df.py), which the 2x32 and hdr2x32 "
+              "names take in PO mode or when no LA table is valid",
 }
+
+# dtypes whose LA machine runs with f32 mantissas (renderers.py:61-62)
+_SUB_F32 = ("f32", "hdr32", "2x32", "hdr2x32")
 
 
 def get_orbit_calc(fractal) -> RefOrbitCalc:
@@ -50,13 +66,11 @@ def get_orbit_calc(fractal) -> RefOrbitCalc:
 
 def calc_perturbed(fractal, alg: RenderAlgorithm) -> torch.Tensor:
     """Iteration grid (int64, on the fractal's device) of a perturbed
-    algorithm of the LAv2 HDRx32 family."""
+    algorithm of the LAv2 families."""
+    if alg.family in _NOT_PORTED:
+        raise NotImplementedError(f"{alg.name}: {_NOT_PORTED[alg.family]}")
     if alg.family is not Family.PERTURB_LAV2:
-        raise NotImplementedError(f"{alg.name}: {_NOT_PORTED['bla']}")
-    if alg.dtype != "hdr32":
-        raise NotImplementedError(f"{alg.name}: {_NOT_PORTED['f64']}")
-    if alg.la_mode is LAMode.PO:
-        raise NotImplementedError(f"{alg.name}: {_NOT_PORTED['po']}")
+        raise NotImplementedError(f"{alg.name}: family {alg.family}")
     calc = get_orbit_calc(fractal)
     w, h = fractal._render_dims()
     bm = fractal.benchmark
@@ -67,13 +81,22 @@ def calc_perturbed(fractal, alg: RenderAlgorithm) -> torch.Tensor:
     bm.ref_orbit_s = time.perf_counter() - t0
     bm.extra.update(calc.last_details)
 
-    t0 = time.perf_counter()
-    la = get_or_build_la(fractal, results)
-    bm.la_generation_s = time.perf_counter() - t0
+    la = None
+    if alg.la_mode in (LAMode.FULL, LAMode.LAO):
+        t0 = time.perf_counter()
+        la = get_or_build_la(fractal, results)
+        bm.la_generation_s = time.perf_counter() - t0
     if la is None:
-        raise NotImplementedError(
-            f"{alg.name}: no valid LA table for this view; the "
-            f"perturbation-only fallback is {_NOT_PORTED['po']}")
+        return _perturb_only(fractal, alg, results, w, h)
+    if alg.dtype not in _SUB_F32:
+        return _timed(fractal, "lav2-lao-f64" if alg.la_mode is LAMode.LAO
+                      else "lav2-f64", "phase1_s",
+                      lambda: la_kernel.la_perturb_render(
+                          results, la, fractal.ptz, w, h,
+                          fractal.num_iterations, sub_dtype=torch.float64,
+                          la_only=alg.la_mode is LAMode.LAO,
+                          abort_monitor=fractal.abort_monitor,
+                          device=fractal.device))
 
     dev = fractal.device
     n = fractal.num_iterations
@@ -81,29 +104,81 @@ def calc_perturbed(fractal, alg: RenderAlgorithm) -> torch.Tensor:
         bm.extra["kernel"] = "lav2-rc"
         return la_rc_render(fractal, results, la, w, h)
     if alg.la_mode is LAMode.LAO:
-        bm.extra["kernel"] = "lav2-lao"
-        t0 = time.perf_counter()
-        out = la_kernel.la_perturb_render(
-            results, la, fractal.ptz, w, h, n, la_only=True,
-            abort_monitor=fractal.abort_monitor, device=dev)
-        _sync(dev)
-        bm.extra["phase1_s"] = time.perf_counter() - t0
-        return out
+        return _timed(fractal, "lav2-lao", "phase1_s",
+                      lambda: la_kernel.la_perturb_render(
+                          results, la, fractal.ptz, w, h, n, la_only=True,
+                          abort_monitor=fractal.abort_monitor, device=dev))
     t0 = time.perf_counter()
     T, _ = la_kernel.device_tables(results, la, dev)
     _sync(dev)
     bm.extra["tables_s"] = time.perf_counter() - t0
     if la_kernel.fits_full_mode(results, T, n):
-        bm.extra["kernel"] = "lav2-full"
-        t0 = time.perf_counter()
-        out = la_kernel.la_perturb_render(
-            results, la, fractal.ptz, w, h, n,
-            abort_monitor=fractal.abort_monitor, device=dev)
-        _sync(dev)
-        bm.extra["phase1_s"] = time.perf_counter() - t0
-        return out
+        return _timed(fractal, "lav2-full", "phase1_s",
+                      lambda: la_kernel.la_perturb_render(
+                          results, la, fractal.ptz, w, h, n,
+                          abort_monitor=fractal.abort_monitor, device=dev))
     bm.extra["kernel"] = "lav2-two-phase"
     return la_rc_render(fractal, results, la, w, h, identity=True)
+
+
+def _perturb_only(fractal, alg: RenderAlgorithm, results, w: int,
+                  h: int) -> torch.Tensor:
+    """PO mode, or no valid LA table (``renderers.py:117-178``)."""
+    n = fractal.num_iterations
+    kw = dict(abort_monitor=fractal.abort_monitor, device=fractal.device)
+    if alg.dtype in ("f32", "f64"):
+        dt = np.float32 if alg.dtype == "f32" else np.float64
+        return _timed(fractal, f"perturb-{alg.dtype}", "perturb_s",
+                      lambda: perturb.perturb_render_float(
+                          results, fractal.ptz, w, h, n, dtype=dt, **kw))
+    if alg.dtype == "hdr64":
+        return _timed(fractal, "perturb-hdr64", "perturb_s",
+                      lambda: perturb.perturb_render_hdr(
+                          results, fractal.ptz, w, h, n,
+                          sub_dtype=np.float64, **kw))
+    if alg.dtype != "hdr32":
+        raise NotImplementedError(f"{alg.name}: {_NOT_PORTED['hdr_df']}")
+    if alg.runtime_decompression:
+        # render straight from the compressed orbit: K3 from the zero
+        # state rebuilds the reference values on the card
+        comp = _compressed(fractal, results)
+        return _timed(fractal, "perturb-rc-stream", "perturb_s",
+                      lambda: perturb_render_stream_rc(
+                          comp, results.center_x, results.center_y,
+                          fractal.ptz, w, h, n, **kw))
+    out = _timed(fractal, "perturb-pallas", "perturb_s",
+                 lambda: perturb_render_pallas(results, fractal.ptz, w, h,
+                                               n, **kw))
+    if out is not None:
+        return out
+    # past B10's caps: the streaming route, no length cap
+    return _timed(fractal, "perturb-stream", "perturb_s",
+                  lambda: perturb_render_stream(results, fractal.ptz, w, h,
+                                                n, **kw))
+
+
+def _timed(fractal, kernel: str, timer: str, render):
+    """Run `render`, synchronised, under the route name `kernel` and the
+    timing `timer`."""
+    t0 = time.perf_counter()
+    out = render()
+    _sync(fractal.device)
+    if out is not None:
+        fractal.benchmark.extra["kernel"] = kernel
+        fractal.benchmark.extra[timer] = time.perf_counter() - t0
+    return out
+
+
+def _compressed(fractal, results) -> CompressedOrbit:
+    """The results' compressed orbit (built once), its ratio noted."""
+    comp = results.extra.get("compressed_orbit")
+    if comp is None:
+        comp = results.extra["compressed_orbit"] = \
+            CompressedOrbit.from_uncompressed(
+                results, error_exp=fractal.compression_error_exp)
+    fractal.benchmark.extra["compression_ratio"] = round(
+        comp.compression_ratio(), 2)
+    return comp
 
 
 def _sync(device) -> None:
@@ -122,13 +197,7 @@ def la_rc_render(fractal, results, la, w: int, h: int,
             comp = results.extra["identity_compressed"] = \
                 CompressedOrbit.identity(results)
     else:
-        comp = results.extra.get("compressed_orbit")
-        if comp is None:
-            comp = results.extra["compressed_orbit"] = \
-                CompressedOrbit.from_uncompressed(
-                    results, error_exp=fractal.compression_error_exp)
-        fractal.benchmark.extra["compression_ratio"] = round(
-            comp.compression_ratio(), 2)
+        comp = _compressed(fractal, results)
     anchors_on(comp, fractal.device)
     _sync(fractal.device)
     fractal.benchmark.extra["anchors_s"] = time.perf_counter() - t0

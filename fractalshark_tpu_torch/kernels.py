@@ -15,9 +15,10 @@ Build flags, and why:
   ``two_prod``) and changes the HDR mantissas' rounding, so every
   ``*`` and ``+`` rounds on its own, as in the plain PyTorch twins.
 * ``-ftz=true``: the reference's CPU backend (XLA:CPU) runs with
-  subnormals flushed to zero; the f32 kernels flush likewise (the plain
-  twins flush explicitly, ``ops/hdrfloat.ftz``).  f64 has no flush mode
-  on the card.
+  subnormals flushed to zero, f32 and f64 alike; the f32 kernels flush
+  likewise (the plain twins flush explicitly, ``ops/hdrfloat.ftz``).
+  f64 has no flush mode on the card: the f64 kernels flush each result
+  in code (``csrc/hdr.cuh`` ``ftz``).
 * ``-prec-div=true -prec-sqrt=true``: IEEE division and square root
   (no ``--use_fast_math``).
 
@@ -45,11 +46,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-ftz=true", "-prec-div=true",
               "-prec-sqrt=true", "-Xcompiler", "-fPIC"]
 
-# launch counters: K2 is counted per mode (full = the reference's
-# one-kernel la_pallas render, phase1 = its la_only machine); K4
-# (ntt_orbit, three CUDA kernels) and K5 (orbit_tail) once per orbit step
+# launch counters, one per kernel instance: K2 per mantissa type and
+# mode (full = the reference's one-kernel la_pallas render, phase1 = its
+# la_only machine, lao_f64 = the f64 LAO render); K4 (ntt_orbit, three
+# CUDA kernels) and K5 (orbit_tail) once per orbit step; K6 per entry
+# point (perturb_pallas and perturb_stream: the HDR-f32 routes of B10 and
+# B11; perturb_hdr32/hdr64: perturb_render_hdr; perturb_f32/f64:
+# perturb_render_float)
 KERNELS = ("escape", "lav2_full", "lav2_phase1", "rc_tail", "ntt_orbit",
-           "orbit_tail")
+           "orbit_tail", "lav2_full_f64", "lav2_lao_f64", "perturb_pallas",
+           "perturb_stream", "perturb_hdr32", "perturb_hdr64", "perturb_f32",
+           "perturb_f64")
 launches = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -68,6 +75,12 @@ _SIGNATURES = {
     # lav2: dc(3) nodes side orbit stages at | state(8) | scalars | stream
     "fs_lav2": [_P] * 16 + [_I32, _I32, _I32, _I64, _I64, _I64, _I64, _I32,
                             _P],
+    "fs_lav2_f64": [_P] * 16 + [_I32, _I32, _I32, _I64, _I64, _I64, _I64,
+                                _I32, _P],
+    # perturb: dc(3) orbit | state(6) | n max_ref max_iter chunk flags |
+    # stream
+    "fs_perturb_f32": [_P] * 10 + [_I32, _I64, _I64, _I64, _I32, _P],
+    "fs_perturb_f64": [_P] * 10 + [_I32, _I64, _I64, _I64, _I32, _P],
     # rc_tail: dc(3) anchor index, values | state(8) | scalars | stream
     "fs_rc_tail": [_P] * 13 + [_I32, _I64, _I64, _F32, _F32, _F32, _F32,
                                _F32, _F32, _I64, _I64, _I32, _P],

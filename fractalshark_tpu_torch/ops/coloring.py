@@ -33,9 +33,17 @@ def color_from_iters(iters: torch.Tensor, palette: np.ndarray,
 
 
 def iteration_stats(iters: torch.Tensor) -> dict:
-    """{min, max, sum} of the iteration counts (one host readback)."""
-    v = torch.stack([iters.min(), iters.max(), iters.sum()]).cpu()
-    return {"min": int(v[0]), "max": int(v[1]), "sum": int(v[2])}
+    """{min, max, sum} of the iteration counts (one host readback).  The
+    sum is the reference's uint64 sum (``jnp.sum`` of uint64): int64 row
+    sums cannot overflow (a row of 2^16 pixels stays below 2^63 at any
+    budget under 2^47), and their exact total is taken modulo 2^64 on the
+    host."""
+    flat = iters.reshape(iters.shape[0], -1) if iters.dim() > 1 \
+        else iters.reshape(1, -1)
+    rows = flat.sum(dim=1).cpu().tolist()
+    mm = torch.stack([iters.min(), iters.max()]).cpu()
+    return {"min": int(mm[0]), "max": int(mm[1]),
+            "sum": sum(rows) % (1 << 64)}
 
 
 def rgba16_to_rgba8(rgba16) -> np.ndarray:

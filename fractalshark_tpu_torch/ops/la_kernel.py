@@ -11,6 +11,12 @@ entered, take it from ref_iter"), ``ref_iter`` (node index handed to the
 next stage, then the orbit position in the tail), dz (HDR complex), the
 iteration count ``it`` and ``done``.  Counters and positions are int64.
 
+Mantissas are f32 (the HDRx32 family and the LAv2 f32, 2x32 and
+hdr2x32 names) or f64 (``sub_dtype=float64``: the ``Gpu1x64PerturbedLAv2``
+band of 2^46-2^200 zoom and the hdr64 names), as in the reference's
+``la_perturb_render(sub_dtype=...)``; K2 is one CUDA template over the
+two.
+
 Modes: full (returns the iteration grid) and ``la_only`` (a pixel is
 done when it leaves stage 0; with ``return_state`` the state is
 exported for the perturbation tail).  Both run in bounded chunks of
@@ -31,7 +37,8 @@ from fractalshark_tpu_torch import kernels
 from fractalshark_tpu_torch.ops import hdrfloat as hdr
 from fractalshark_tpu_torch.ops.hdrfloat import HDR, HDRComplex
 from fractalshark_tpu_torch.ops.perturb import _dc_grids_hdr, delta_params
-from fractalshark_tpu_torch.ops.tables import la_tables, orbit_table
+from fractalshark_tpu_torch.ops.tables import (ibits, la_tables, orbit_on,
+                                               torch_dtype)
 
 # body steps per pixel per launch: bounds one launch and sets the
 # abort-poll granularity
@@ -56,7 +63,7 @@ def _at_vals(at: torch.Tensor):
     """Unpack the [13] AT row: thrc, sqr_esc (HDR); refc, cc, invzc."""
     a = at.cpu()
     f = [float(v) for v in a]
-    i = [int(v) for v in a.view(torch.int32)]
+    i = [int(v) for v in ibits(a)]
     return ((f[0], i[1]), (f[2], i[3]), (f[4], f[5], i[6]),
             (f[7], f[8], i[9]), (f[10], f[11], i[12]))
 
@@ -66,20 +73,21 @@ def init_state_plain(T, dc: HDRComplex, max_iter: int) -> tuple:
     init launch)."""
     shape = dc.re.shape
     dev = dc.re.device
+    fdt = dict(dtype=dc.re.dtype, device=dev)
     i64 = dict(dtype=torch.int64, device=dev)
     it0 = torch.zeros(shape, **i64)
-    dz0 = hdr.complex_zero(shape, device=dev)
+    dz0 = hdr.complex_zero(shape, dc.re.dtype, device=dev)
     if T.at_step > 0:
         thrc, sqr, refc, cc, invzc = _at_vals(T.at)
 
         def bc_c(v):
-            return HDRComplex(torch.full(shape, v[0], device=dev),
-                              torch.full(shape, v[1], device=dev),
+            return HDRComplex(torch.full(shape, v[0], **fdt),
+                              torch.full(shape, v[1], **fdt),
                               torch.full(shape, v[2], dtype=torch.int32,
                                          device=dev))
 
         def bc_s(v):
-            return HDR(torch.full(shape, v[0], device=dev),
+            return HDR(torch.full(shape, v[0], **fdt),
                        torch.full(shape, v[1], dtype=torch.int32, device=dev))
 
         dc_cheb = _cheb_r(dc)
@@ -88,7 +96,7 @@ def init_state_plain(T, dc: HDRComplex, max_iter: int) -> tuple:
             hdr.complex_mul(dc, bc_c(cc)), bc_c(refc)))
         at_max = max_iter // T.at_step
         sqr_esc = bc_s(sqr)
-        z = hdr.complex_zero(shape, device=dev)
+        z = hdr.complex_zero(shape, dc.re.dtype, device=dev)
         cnt = torch.zeros(shape, **i64)
         active = at_ok.clone()
         i = 0
@@ -118,19 +126,20 @@ def lav2_plain(T, orbit: torch.Tensor, dc: HDRComplex, state: tuple,
     n = int(max_iter)
     S = T.stage_count
     N = T.nodes.shape[0]
-    nodes_i = T.nodes.view(torch.int32)
+    nodes_i = ibits(T.nodes)
     shape = dc.re.shape
     dev = dc.re.device
     dc_cheb = _cheb_r(dc)
-    two56 = HDR(torch.ones(shape, device=dev),
+    two56 = HDR(torch.ones(shape, dtype=dc.re.dtype, device=dev),
                 torch.full(shape, 8, dtype=torch.int32, device=dev))
     zero_e = torch.zeros(shape, dtype=torch.int32, device=dev)
     if S > 0:
-        st_rows = T.stages.long()
-        thrc_m = T.stages[:, 2].contiguous().view(torch.float32)
+        st_i = ibits(T.stages)
+        st_rows = st_i.long()
+        thrc_m = T.stages[:, 2]
         stage_valid = torch.stack([
             hdr.lt_reduced(dc_cheb, HDR(thrc_m[k].expand(shape),
-                                        T.stages[k, 3].expand(shape)))
+                                        st_i[k, 3].expand(shape)))
             for k in range(S)])
     s, j, ref_iter, dzr, dzi, dze, it, done = state
     steps = 0
@@ -218,26 +227,26 @@ def lav2_kernel(T, orbit: torch.Tensor, dc: HDRComplex, state: tuple | None,
     runs the AT head skip and initialises the state itself.  The state
     tensors are updated in place and returned."""
     dev = dc.re.device
+    fdt = dc.re.dtype
     P = dc.re.numel()
     init = state is None
     if init:
-        state = (torch.empty(P, dtype=torch.int32, device=dev),
-                 torch.empty(P, dtype=torch.int32, device=dev),
-                 torch.empty(P, dtype=torch.int64, device=dev),
-                 torch.empty(P, dtype=torch.float32, device=dev),
-                 torch.empty(P, dtype=torch.float32, device=dev),
-                 torch.empty(P, dtype=torch.int32, device=dev),
-                 torch.empty(P, dtype=torch.int64, device=dev),
-                 torch.empty(P, dtype=torch.bool, device=dev))
-    _check_state(state, P, dev)
+        state = tuple(torch.empty(P, dtype=dt, device=dev)
+                      for dt in _state_dtypes(fdt))
+    _check_state(state, P, dev, fdt)
     tabs = (T.nodes, T.side, orbit, T.stages, T.at)
     for t in (*dc, *tabs):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("K2 inputs must be contiguous on one device")
+    for t in (*dc[:2], T.nodes, orbit, T.stages, T.at):
+        if t.dtype != fdt:
+            raise ValueError(f"K2 tables must all be {fdt}, not {t.dtype}")
     at = T.at if T.at.numel() else T.nodes  # never read when at_step == 0
     lib = kernels.lib()
-    kernels.launches["lav2_phase1" if la_only else "lav2_full"] += 1
-    kernels.check(lib.fs_lav2(
+    f64 = fdt == torch.float64
+    kernels.launches[_COUNTER[f64, bool(la_only)]] += 1
+    fn = lib.fs_lav2_f64 if f64 else lib.fs_lav2
+    kernels.check(fn(
         *(t.data_ptr() for t in dc), T.nodes.data_ptr(),
         T.side.data_ptr(), orbit.data_ptr(), T.stages.data_ptr(),
         at.data_ptr(), *(t.data_ptr() for t in state),
@@ -247,10 +256,20 @@ def lav2_kernel(T, orbit: torch.Tensor, dc: HDRComplex, state: tuple | None,
     return state
 
 
-def _check_state(state, P, dev):
-    want = (torch.int32, torch.int32, torch.int64, torch.float32,
-            torch.float32, torch.int32, torch.int64, torch.bool)
-    for t, dt, name in zip(state, want, _STATE):
+# launch counter per (f64 mantissas, la_only): K2 full mode is the
+# reference's one-kernel render, la_only its phase 1 (f32) or the LAO
+# algorithms' machine (f64)
+_COUNTER = {(False, False): "lav2_full", (False, True): "lav2_phase1",
+            (True, False): "lav2_full_f64", (True, True): "lav2_lao_f64"}
+
+
+def _state_dtypes(fdt):
+    return (torch.int32, torch.int32, torch.int64, fdt, fdt, torch.int32,
+            torch.int64, torch.bool)
+
+
+def _check_state(state, P, dev, fdt):
+    for t, dt, name in zip(state, _state_dtypes(fdt), _STATE):
         if t.dtype != dt or t.numel() != P or t.device != dev \
                 or not t.is_contiguous():
             raise ValueError(f"K2 state {name}: {t.dtype} {tuple(t.shape)}")
@@ -283,37 +302,35 @@ def lav2_run(T, orbit, dc: HDRComplex, max_iter: int, max_ref: int,
 
 
 def la_perturb_render(results, la, ptz: PointZoomBBConverter, width: int,
-                      height: int, max_iter: int, la_only: bool = False,
-                      chunk_steps: int | None = None, abort_monitor=None,
-                      return_state: bool = False, device="cuda"):
-    """Full LAv2 render: AT skip → LA stages → perturbation tail.
-    Returns the int64 iteration grid [height, width], or with
-    `return_state` the machine state
-    (s, j, ref_iter, dzr, dzi, dze, it, done)."""
+                      height: int, max_iter: int, sub_dtype=torch.float32,
+                      la_only: bool = False, chunk_steps: int | None = None,
+                      abort_monitor=None, return_state: bool = False,
+                      device="cuda"):
+    """Full LAv2 render: AT skip → LA stages → perturbation tail, with
+    f32 or f64 mantissas (`sub_dtype`, numpy or torch).  Returns the
+    int64 iteration grid [height, width], or with `return_state` the
+    machine state (s, j, ref_iter, dzr, dzi, dze, it, done)."""
     device = torch.device(device)
-    T, orbit = device_tables(results, la, device)
+    fdt = torch_dtype(sub_dtype)
+    T, orbit = device_tables(results, la, device, fdt)
     dx, dy, cxo, cyo = delta_params(ptz, results.center_x,
                                     results.center_y, width, height)
-    dc = _dc_grids_hdr(dx, dy, cxo, cyo, width, height, device)
+    dc = _dc_grids_hdr(dx, dy, cxo, cyo, width, height, device, fdt)
     state = lav2_run(T, orbit, dc, max_iter, results.max_ref_iteration(),
                      la_only, chunk_steps, abort_monitor)
     return state if return_state else state[6]
 
 
-def device_tables(results, la, device):
-    """LA and orbit tables on `device`, cached on the host objects for
-    the lifetime of that LA table / orbit."""
-    key = ("torch_tables", str(device))
+def device_tables(results, la, device, dtype=torch.float32):
+    """LA and orbit tables on `device` with `dtype` mantissas, cached on
+    the host objects for the lifetime of that LA table / orbit."""
+    key = ("torch_tables", str(device), dtype)
     cache = getattr(la, "_torch_cache", None)
     if cache is None:
         cache = la._torch_cache = {}
     if key not in cache:
-        cache[key] = la_tables(la, device)
-    okey = ("torch_orbit", str(device))
-    orbit = results.extra.get(okey)
-    if orbit is None:
-        orbit = results.extra[okey] = orbit_table(results, device)
-    return cache[key], orbit
+        cache[key] = la_tables(la, device, dtype)
+    return cache[key], orbit_on(results, device, dtype)
 
 
 def fits_full_mode(results, T, max_iter: int) -> bool:

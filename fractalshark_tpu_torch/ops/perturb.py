@@ -1,8 +1,33 @@
-"""Pixel-delta (dc) grids for the perturbation kernels: the port of
-``delta_params`` and ``_dc_grids_hdr`` (``fractalshark_tpu/ops/perturb.py:43-110``).
+"""Perturbation-only rendering: the port of
+``fractalshark_tpu/ops/perturb.py`` (``delta_params``, the dc grids,
+``_perturb_float_impl``, ``perturb_render_float``, ``_perturb_hdr_impl``
+and ``perturb_render_hdr``) through kernel K6 (``csrc/perturb.cu``).
+
+Per-pixel semantics (``perturb.py:6-11``), from dz = 0 at orbit
+position j = 0:
+
+    dz ← dz·(2·Z[j] + dz) + dc ;  z = Z[j+1] + dz
+    escaped  when |z|² > 256          (the count stays where it is)
+    rebase   when |z|² < |dz|² or j+1 == maxRefIteration:
+             dz ← z ; j ← 0           (else j ← j+1); count += 1
 
 Pixel deltas: dc = (dx·x - centerX, -dy·y - centerY) with
 centerX = refX - minX, centerY = refY - maxY (``Fractal.cpp:2235-2237``).
+
+Numeric forms, each a K6 instance with its plain twin here:
+
+* HDR, f32 or f64 mantissas (``_perturb_hdr_impl``): the HDRx32 and
+  HDRx64 perturbation-only renders, and the no-LA fallback of their LAv2
+  names.  The f32 instance is also what the reference's Pallas kernels
+  B10 (``perturb_pallas.py``) and B11 (``perturb_stream.py``) compute;
+  their entry points are in the modules of those names.
+* plain float, f32 or f64 (``_perturb_float_impl``): the ``Gpu1x32`` and
+  ``Gpu1x64`` LAv2 names without a valid LA table.
+
+The reference steps every pixel in lockstep and counts the iterations
+in int32; K6 gives each thread its own pixel and int64 counters, so
+budgets of 2^31 and more work, and a launch runs at most
+``chunk_steps`` steps per pixel and resumes from the state.
 """
 
 from __future__ import annotations
@@ -10,10 +35,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fractalshark_tpu_torch import kernels
 from fractalshark_tpu_torch.core.highprecision import HighPrecision
 from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
 from fractalshark_tpu_torch.ops import hdrfloat as hdr
-from fractalshark_tpu_torch.ops.hdrfloat import HDR, HDRComplex
+from fractalshark_tpu_torch.ops.hdrfloat import HDR, HDRComplex, flush_np, ftz
+from fractalshark_tpu_torch.ops.tables import orbit_on, torch_dtype
+
+# steps per pixel per launch: bounds one launch and sets the abort-poll
+# granularity
+DEFAULT_CHUNK_STEPS = 1 << 16
+
+# written by the run loop after every render
+last_run_stats: dict = {}
+
+_STATE = ("dzr", "dzi", "dze", "j", "it", "done")
 
 
 def delta_params(ptz: PointZoomBBConverter, ref_x: HighPrecision,
@@ -25,28 +61,231 @@ def delta_params(ptz: PointZoomBBConverter, ref_x: HighPrecision,
 
 
 def _dc_grids_hdr(dx, dy, cx_off, cy_off, width: int, height: int,
-                  device) -> HDRComplex:
-    """dc grids as an HDRComplex with f32 mantissas (shared exponent),
-    exact at any zoom.  Built on `device` with the plain HDR ops: this
-    is a one-off elementwise pass per frame."""
+                  device, dtype=torch.float32) -> HDRComplex:
+    """dc grids as an HDRComplex with `dtype` mantissas (shared
+    exponent), exact at any zoom.  Built on `device` with the plain HDR
+    ops: this is a one-off elementwise pass per frame."""
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+
     def hp(v):
         m, e = v.mantissa_exp2()
-        return float(np.float32(m)), int(np.int32(e))
+        return float(npdt(m)), int(np.int32(e))
 
     (dxm, dxe), (dym, dye) = hp(dx), hp(dy)
     (cxm, cxe), (cym, cye) = hp(cx_off), hp(cy_off)
     shape = (height, width)
-    f32 = dict(dtype=torch.float32, device=device)
+    fl = dict(dtype=dtype, device=device)
     i32 = dict(dtype=torch.int32, device=device)
-    xs = torch.arange(width, **f32)
-    ys = torch.arange(height, **f32)
+    xs = torch.arange(width, **fl)
+    ys = torch.arange(height, **fl)
     x_dx = HDR(hdr.ftz(xs[None, :] * dxm).expand(shape),
                torch.full(shape, dxe, **i32))
     y_dy = HDR(hdr.ftz(ys[:, None] * dym).expand(shape),
                torch.full(shape, dye, **i32))
-    cx_h = HDR(torch.full(shape, cxm, **f32), torch.full(shape, cxe, **i32))
-    cy_h = HDR(torch.full(shape, cym, **f32), torch.full(shape, cye, **i32))
+    cx_h = HDR(torch.full(shape, cxm, **fl), torch.full(shape, cxe, **i32))
+    cy_h = HDR(torch.full(shape, cym, **fl), torch.full(shape, cye, **i32))
     dcx = hdr.reduce(hdr.sub(hdr.reduce(x_dx), cx_h))
     dcy = hdr.reduce(hdr.sub(hdr.negate(hdr.reduce(y_dy)), cy_h))
     dc = hdr.complex_from_hdr(dcx, dcy)
     return HDRComplex(*(t.contiguous() for t in dc))
+
+
+def _dc_grids_float(dx, dy, cx_off, cy_off, width: int, height: int,
+                    device, dtype=torch.float64) -> HDRComplex:
+    """dc grids in native float: dcx = x·dx - centerX, dcy = -y·dy -
+    centerY, computed in numpy as the reference does, then flushed of
+    subnormals (the reference's kernels read them with DAZ).  Returned
+    as an HDRComplex with a zero exponent, the form K6 takes."""
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    fdx, fdy = npdt(float(dx)), npdt(float(dy))
+    fcx, fcy = npdt(float(cx_off)), npdt(float(cy_off))
+    xs = np.arange(width, dtype=npdt)
+    ys = np.arange(height, dtype=npdt)
+    dcx = np.broadcast_to(xs[None, :] * fdx - fcx, (height, width))
+    dcy = np.broadcast_to(-ys[:, None] * fdy - fcy, (height, width))
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(flush_np(a))).to(device)
+
+    return HDRComplex(up(dcx), up(dcy),
+                      torch.zeros((height, width), dtype=torch.int32,
+                                  device=device))
+
+
+# --------------------------------------------------------------------------
+# K6 and its plain twin
+# --------------------------------------------------------------------------
+
+
+def init_state_plain(dc: HDRComplex, max_iter: int, hdr_mode: bool) -> tuple:
+    """The zero state: dz = 0 (HDR zero: exponent MIN_BIG_EXPONENT), at
+    orbit position 0, no iteration done."""
+    shape, dev = dc.re.shape, dc.re.device
+    zero = torch.zeros(shape, dtype=dc.re.dtype, device=dev)
+    dze = torch.full(shape, hdr.MIN_BIG_EXPONENT if hdr_mode else 0,
+                     dtype=torch.int32, device=dev)
+    i64 = torch.zeros(shape, dtype=torch.int64, device=dev)
+    return (zero, zero.clone(), dze, i64, i64.clone(),
+            torch.full(shape, int(max_iter) <= 0, device=dev))
+
+
+def _step_hdr(og, dz: HDRComplex, dc: HDRComplex):
+    """One HDR step (``_perturb_hdr_impl``): (ndz, zf, escaped, z < dz)."""
+    zero_e = torch.zeros_like(dz.e)
+    zj = HDRComplex(og[:, 0], og[:, 1], zero_e)
+    t = hdr.complex_add(hdr.complex_mul_pow2(zj, 1), dz)
+    ndz = hdr.reduce_complex(hdr.complex_add(hdr.complex_mul(t, dz), dc))
+    zf = hdr.reduce_complex(hdr.complex_add(
+        HDRComplex(og[:, 2], og[:, 3], zero_e), ndz))
+    nsq = hdr.reduce(hdr.norm_squared(zf))
+    dsq = hdr.reduce(hdr.norm_squared(ndz))
+    two56 = HDR(torch.ones_like(nsq.m), torch.full_like(nsq.e, 8))
+    return ndz, zf, hdr.gt_reduced(nsq, two56), hdr.lt_reduced(nsq, dsq)
+
+
+def _step_float(og, dz: HDRComplex, dc: HDRComplex):
+    """One native-float step (``_perturb_float_impl``), every * and +
+    rounded and flushed on its own."""
+    tx = ftz(ftz(2.0 * og[:, 0]) + dz.re)
+    ty = ftz(ftz(2.0 * og[:, 1]) + dz.im)
+    ndzx = ftz(ftz(ftz(tx * dz.re) - ftz(ty * dz.im)) + dc.re)
+    ndzy = ftz(ftz(ftz(tx * dz.im) + ftz(ty * dz.re)) + dc.im)
+    zfx = ftz(og[:, 2] + ndzx)
+    zfy = ftz(og[:, 3] + ndzy)
+    nsq = ftz(ftz(zfx * zfx) + ftz(zfy * zfy))
+    dsq = ftz(ftz(ndzx * ndzx) + ftz(ndzy * ndzy))
+    return (HDRComplex(ndzx, ndzy, dz.e), HDRComplex(zfx, zfy, dz.e),
+            nsq > 256.0, nsq < dsq)
+
+
+def perturb_plain(orbit: torch.Tensor, dc: HDRComplex, state: tuple,
+                  max_iter: int, max_ref: int, hdr_mode: bool,
+                  chunk_steps: int = 0) -> tuple:
+    """Plain PyTorch twin of K6 over flat pixel tensors: at most
+    `chunk_steps` lockstep steps (0 = until every pixel is done).
+    Returns the state."""
+    dzr, dzi, dze, j, it, done = state
+    step = _step_hdr if hdr_mode else _step_float
+    steps = 0
+    while not bool(done.all()) and (chunk_steps == 0 or steps < chunk_steps):
+        steps += 1
+        live = ~done
+        og = orbit[j.clamp(0, max(max_ref - 1, 0))]
+        ndz, zf, esc, lower = step(og, HDRComplex(dzr, dzi, dze), dc)
+        reb = lower | ((j + 1) >= max_ref)
+        upd = live & ~esc
+        dzr = torch.where(upd, torch.where(reb, zf.re, ndz.re), dzr)
+        dzi = torch.where(upd, torch.where(reb, zf.im, ndz.im), dzi)
+        dze = torch.where(upd, torch.where(reb, zf.e, ndz.e), dze)
+        j = torch.where(upd, torch.where(reb, 0, j + 1), j)
+        it = it + upd.to(torch.int64)
+        done = done | (live & esc) | (it >= max_iter)
+    return (dzr, dzi, dze, j, it, done)
+
+
+def perturb_kernel(orbit: torch.Tensor, dc: HDRComplex, state: tuple | None,
+                   max_iter: int, max_ref: int, hdr_mode: bool,
+                   chunk_steps: int, key: str) -> tuple:
+    """Launch K6 once on a CUDA device, counted under `key` (the entry
+    point's instance name).  With `state` None the launch starts every
+    pixel from the zero state itself.  The state tensors are updated in
+    place and returned."""
+    dev = dc.re.device
+    fdt = dc.re.dtype
+    P = dc.re.numel()
+    init = state is None
+    if init:
+        state = tuple(torch.empty(P, dtype=dt, device=dev)
+                      for dt in _state_dtypes(fdt))
+    for t, dt, name in zip(state, _state_dtypes(fdt), _STATE):
+        if t.dtype != dt or t.numel() != P or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"K6 state {name}: {t.dtype} {tuple(t.shape)}")
+    for t in (*dc, orbit):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("K6 inputs must be contiguous on one device")
+    if orbit.dtype != fdt or orbit.shape[-1] != 4:
+        raise ValueError(f"K6 orbit must be {fdt} [M, 4], not "
+                         f"{orbit.dtype} {tuple(orbit.shape)}")
+    lib = kernels.lib()
+    kernels.launches[key] += 1
+    fn = lib.fs_perturb_f64 if fdt == torch.float64 else lib.fs_perturb_f32
+    kernels.check(fn(
+        *(t.data_ptr() for t in dc), orbit.data_ptr(),
+        *(t.data_ptr() for t in state), P, int(max_ref), int(max_iter),
+        int(chunk_steps), int(init) | (int(hdr_mode) << 1),
+        kernels.stream(dev)), "fs_perturb")
+    return state
+
+
+def _state_dtypes(fdt):
+    return (fdt, fdt, torch.int32, torch.int64, torch.int64, torch.bool)
+
+
+def perturb_run(orbit: torch.Tensor, dc: HDRComplex, max_iter: int,
+                max_ref: int, hdr_mode: bool, key: str,
+                chunk_steps: int | None = None,
+                abort_monitor=None) -> torch.Tensor:
+    """Run every pixel to its escape or the budget (or to an abort) in
+    bounded launches: K6 for CUDA tensors, the plain twin for CPU
+    tensors.  Returns the int64 iteration grid in dc's shape."""
+    dev = dc.re.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    cuda = dev.type == "cuda"
+    flat = HDRComplex(*(t.reshape(-1).contiguous() for t in dc))
+    if chunk_steps is None:
+        chunk_steps = DEFAULT_CHUNK_STEPS if cuda else 0
+    state = None if cuda else init_state_plain(flat, max_iter, hdr_mode)
+    launches = 0
+    while True:
+        if cuda:
+            state = perturb_kernel(orbit, flat, state, max_iter, max_ref,
+                                   hdr_mode, chunk_steps, key)
+        else:
+            state = perturb_plain(orbit, flat, state, max_iter, max_ref,
+                                  hdr_mode, chunk_steps)
+        launches += 1
+        if bool(state[-1].all()) or (abort_monitor is not None
+                                     and abort_monitor.aborted()):
+            break
+    last_run_stats["dispatches"] = launches
+    return state[4].reshape(dc.re.shape)
+
+
+def _render(results, ptz, width, height, max_iter, dtype, hdr_mode, key,
+            chunk_steps, abort_monitor, device):
+    device = torch.device(device)
+    orbit = orbit_on(results, device, dtype)
+    dx, dy, cxo, cyo = delta_params(ptz, results.center_x, results.center_y,
+                                    width, height)
+    grids = _dc_grids_hdr if hdr_mode else _dc_grids_float
+    dc = grids(dx, dy, cxo, cyo, width, height, device, dtype)
+    return perturb_run(orbit, dc, max_iter, results.max_ref_iteration(),
+                       hdr_mode, key, chunk_steps, abort_monitor)
+
+
+def perturb_render_float(results, ptz: PointZoomBBConverter, width: int,
+                         height: int, max_iter: int, dtype=np.float64,
+                         chunk_steps: int | None = None, abort_monitor=None,
+                         device="cuda") -> torch.Tensor:
+    """Full perturbation render with native-float deltas (f32 or f64,
+    numpy or torch dtype).  Returns the int64 iteration grid."""
+    fdt = torch_dtype(dtype)
+    key = "perturb_f64" if fdt == torch.float64 else "perturb_f32"
+    return _render(results, ptz, width, height, max_iter, fdt, False, key,
+                   chunk_steps, abort_monitor, device)
+
+
+def perturb_render_hdr(results, ptz: PointZoomBBConverter, width: int,
+                       height: int, max_iter: int, sub_dtype=np.float32,
+                       chunk_steps: int | None = None, abort_monitor=None,
+                       device="cuda", key: str | None = None) -> torch.Tensor:
+    """Full perturbation render with HDR deltas of f32 or f64 mantissas.
+    Returns the int64 iteration grid.  `key` names the launch counter
+    (the B10/B11 entry points pass theirs)."""
+    fdt = torch_dtype(sub_dtype)
+    if key is None:
+        key = "perturb_hdr64" if fdt == torch.float64 else "perturb_hdr32"
+    return _render(results, ptz, width, height, max_iter, fdt, True, key,
+                   chunk_steps, abort_monitor, device)

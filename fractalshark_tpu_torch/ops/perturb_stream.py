@@ -1,6 +1,18 @@
-"""The RC perturbation tail: the port of the RC part of
-``fractalshark_tpu/ops/perturb_stream.py`` (``_rc_kernel``, B3) through
-kernel K3 (``csrc/rc_tail.cu``).
+"""The streaming perturbation renders: the port of
+``fractalshark_tpu/ops/perturb_stream.py``.
+
+``perturb_render_stream`` (B11, ``_kernel``) is the HDR-f32
+perturbation render for orbits of any length and 64-bit budgets; on the
+card it is kernel K6 (``ops/perturb.py``, ``csrc/perturb.cu``), which
+gathers each pixel's orbit row itself where the reference sweeps the
+orbit in lockstep windows.  Its contract stays: no orbit-length cap,
+64-bit budgets (int64 counters here; ``Fractal.iters_numpy`` gives
+uint64 from a budget of 2^31 up, ``perturb_stream.py:100-109``), bounded
+relaunches (``launch_windows`` windows of 1,024 steps per pixel per
+launch) and an abort check between launches.
+
+The rest is the RC part (``_rc_kernel``, B3) through kernel K3
+(``csrc/rc_tail.cu``).
 
 The reference sweeps one serial reconstruction cursor over the orbit
 in lockstep for a whole pixel tile (the TPU has no vector gather).  On
@@ -33,10 +45,14 @@ from fractalshark_tpu_torch import kernels
 from fractalshark_tpu_torch.ops import dblflt as dfm
 from fractalshark_tpu_torch.ops import hdrfloat as hdr
 from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
-from fractalshark_tpu_torch.ops.perturb import _dc_grids_hdr, delta_params
+from fractalshark_tpu_torch.ops.perturb import (_dc_grids_hdr, delta_params,
+                                               perturb_render_hdr)
 from fractalshark_tpu_torch.ops.tables import Anchors, anchor_table
 
 DEFAULT_CHUNK_STEPS = 1 << 16
+# orbit entries per streamed window in the reference; here the unit of
+# `launch_windows`
+WIN = 1024
 
 _STATE = ("dzr", "dzi", "dze", "rem", "pos", "aptr", "z", "done")
 
@@ -252,3 +268,19 @@ def perturb_render_stream_rc(compressed, center_x, center_y,
                       wrap_value(compressed, A.max_ref), chunk_steps,
                       abort_monitor)
     return (max_iter - rem).reshape(height, width)
+
+
+def perturb_render_stream(results, ptz: PointZoomBBConverter, width: int,
+                          height: int, max_iter: int, tile_h: int = 64,
+                          launch_windows: int | None = None,
+                          abort_monitor=None, device="cuda") -> torch.Tensor:
+    """HDR-f32 perturbation render with no orbit-length cap (B11's
+    route).  Each launch runs at most `launch_windows` × 1,024 steps per
+    pixel (default ``DEFAULT_CHUNK_STEPS``), and the abort monitor is
+    polled between launches.  `tile_h` is the reference's pixel-tile
+    height and has no role on the card.  Returns the int64 iteration
+    grid."""
+    chunk = None if launch_windows is None else int(launch_windows) * WIN
+    return perturb_render_hdr(results, ptz, width, height, max_iter,
+                              np.float32, chunk, abort_monitor, device,
+                              key="perturb_stream")

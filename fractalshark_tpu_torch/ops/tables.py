@@ -11,14 +11,20 @@ of subnormals on the way (see ``hdrfloat.ftz``).
 
 Layouts:
 
-* LA nodes: ``[N, 16]`` f32 rows in the layout of the reference's
-  ``la_kernel._pack_nodes`` (``fractalshark_tpu/ops/la_kernel.py:43-81``;
-  integer columns bit-cast), plus an int64 ``[N, 2]`` side table
-  (step_length, next_stage_la_index).  The kernels read both integer
-  fields from the side table, so no column wraps at 2^31.
-* Stages: int32 ``[S, 4]`` (first node index, macro iteration count,
-  bit-cast LAThresholdC mantissa and exponent of the stage's first node).
-* Orbit: ``[M, 4]`` f32 rows (Z[j], Z[j+1]) from ``_pack_orbit``
+The float tables come in the mantissa type of the render (f32 or f64),
+and their integer fields follow the reference's ``_pack_nodes``
+convention (``ibits``): bit-cast for f32, exactly converted for f64.
+
+* LA nodes: ``[N, 16]`` rows in the layout of the reference's
+  ``la_kernel._pack_nodes`` (``fractalshark_tpu/ops/la_kernel.py:43-81``),
+  plus an int64 ``[N, 2]`` side table (step_length,
+  next_stage_la_index).  The kernels read both integer fields from the
+  side table, so no column wraps at 2^31.
+* Stages: ``[S, 4]`` (first node index, macro iteration count, and the
+  LAThresholdC mantissa and exponent of the stage's first node).
+* AT: ``[13]`` (threshold_c, sqr_escape_radius, ref_c, ccoeff,
+  inv_zcoeff), or empty without an AT head skip.
+* Orbit: ``[M, 4]`` rows (Z[j], Z[j+1]) from ``_pack_orbit``
   (``:84-94``).
 * Anchors: int64 positions plus (hi, lo) f32 pairs of x and y, from
   ``perturb_stream._prep_anchors`` (``ops/perturb_stream.py:747-770``)
@@ -37,28 +43,48 @@ from fractalshark_tpu_torch.ops.hdrfloat import flush_np
 PACK_COLS = 16
 
 
-def _i32_bits(a) -> np.ndarray:
-    return np.ascontiguousarray(np.asarray(a).astype(np.int32)).view(
-        np.float32)
+def torch_dtype(sub_dtype) -> torch.dtype:
+    """The mantissa type from a numpy or torch dtype (f32 or f64)."""
+    if sub_dtype in (torch.float32, torch.float64):
+        return sub_dtype
+    name = np.dtype(sub_dtype).name
+    if name not in ("float32", "float64"):
+        raise ValueError(f"unsupported mantissa type {sub_dtype}")
+    return getattr(torch, name)
 
 
-def pack_nodes_np(arrs: dict) -> np.ndarray:
-    """[N, 16] f32 node rows (``la_kernel._pack_nodes`` layout)."""
+def ibits_np(a, dtype) -> np.ndarray:
+    """Integers stored in a float table: bit-cast into f32, exactly
+    converted into f64 (``la_kernel._pack_nodes``' ``ibits``)."""
+    a = np.ascontiguousarray(np.asarray(a).astype(np.int32))
+    return a.view(np.float32) if np.dtype(dtype) == np.float32 \
+        else a.astype(np.float64)
+
+
+def ibits(t: torch.Tensor) -> torch.Tensor:
+    """The int32 values of a float table's integer field (inverse of
+    ``ibits_np``)."""
+    return t.view(torch.int32) if t.dtype == torch.float32 \
+        else t.to(torch.int32)
+
+
+def pack_nodes_np(arrs: dict, dtype=np.float32) -> np.ndarray:
+    """[N, 16] node rows (``la_kernel._pack_nodes`` layout)."""
     n = arrs["ref_e"].shape[0]
-    P = np.empty((n, PACK_COLS), np.float32)
+    P = np.empty((n, PACK_COLS), dtype)
     P[:, 0] = arrs["ref_m"][:, 0]
     P[:, 1] = arrs["ref_m"][:, 1]
-    P[:, 2] = _i32_bits(arrs["ref_e"])
+    P[:, 2] = ibits_np(arrs["ref_e"], dtype)
     P[:, 3] = arrs["zc_m"][:, 0]
     P[:, 4] = arrs["zc_m"][:, 1]
-    P[:, 5] = _i32_bits(arrs["zc_e"])
+    P[:, 5] = ibits_np(arrs["zc_e"], dtype)
     P[:, 6] = arrs["cc_m"][:, 0]
     P[:, 7] = arrs["cc_m"][:, 1]
-    P[:, 8] = _i32_bits(arrs["cc_e"])
+    P[:, 8] = ibits_np(arrs["cc_e"], dtype)
     P[:, 9] = arrs["thr_m"]
-    P[:, 10] = _i32_bits(arrs["thr_e"])
-    P[:, 11] = _i32_bits(arrs["step_length"].astype(np.int64))
-    P[:, 12] = _i32_bits(arrs["next_stage_la_index"])
+    P[:, 10] = ibits_np(arrs["thr_e"], dtype)
+    P[:, 11] = ibits_np(arrs["step_length"].astype(np.int64), dtype)
+    P[:, 12] = ibits_np(arrs["next_stage_la_index"], dtype)
     P[:-1, 13:16] = P[1:, 0:3]
     P[-1, 13:16] = P[-1, 0:3]
     for c in (0, 1, 3, 4, 6, 7, 9, 13, 14):
@@ -68,45 +94,45 @@ def pack_nodes_np(arrs: dict) -> np.ndarray:
 
 @dataclass
 class LATables:
-    nodes: torch.Tensor      # f32 [N, 16]
+    nodes: torch.Tensor      # T [N, 16]
     side: torch.Tensor       # int64 [N, 2]
-    stages: torch.Tensor     # int32 [S, 4]
-    at: torch.Tensor         # f32 [13] (ints bit-cast); empty if no AT
+    stages: torch.Tensor     # T [S, 4]
+    at: torch.Tensor         # T [13]; empty if no AT
     at_step: int             # 0 = no AT head skip
     stage_count: int
     max_step: int            # longest step_length in the table
 
 
-def la_tables(la, device) -> LATables:
-    """LA table → device tensors (``la.device_arrays(np.float32)``)."""
-    arrs = la.device_arrays(np.float32)
-    nodes = pack_nodes_np(arrs)
+def la_tables(la, device, dtype=torch.float32) -> LATables:
+    """LA table → device tensors with `dtype` mantissas
+    (``la.device_arrays``)."""
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    arrs = la.device_arrays(npdt)
+    nodes = pack_nodes_np(arrs, npdt)
     side = np.stack([arrs["step_length"].astype(np.int64),
                      arrs["next_stage_la_index"].astype(np.int64)], axis=1)
     heads = np.asarray(arrs["stage_la_index"], np.int64)
-    stages = np.zeros((len(heads), 4), np.int32)
-    stages[:, 0] = heads
-    stages[:, 1] = arrs["stage_macro_it_count"]
-    stages[:, 2] = flush_np(arrs["thrc_m"][heads].astype(np.float32)).view(
-        np.int32)
-    stages[:, 3] = arrs["thrc_e"][heads]
-    at_vals = np.zeros(0, np.float32)
+    stages = np.zeros((len(heads), 4), npdt)
+    stages[:, 0] = ibits_np(heads, npdt)
+    stages[:, 1] = ibits_np(arrs["stage_macro_it_count"], npdt)
+    stages[:, 2] = flush_np(arrs["thrc_m"][heads].astype(npdt))
+    stages[:, 3] = ibits_np(arrs["thrc_e"][heads], npdt)
+    at_vals = np.zeros(0, npdt)
     at_step = 0
     if la.use_at and la.at is not None:
         at = la.at
-        f = np.float32
 
         def s2(v):
-            return [f(v.m), np.int32(v.e)]
+            return [npdt(v.m), np.int32(v.e)]
 
         def c3(z):
-            return [f(z.m.real), f(z.m.imag), np.int32(z.e)]
+            return [npdt(z.m.real), npdt(z.m.imag), np.int32(z.e)]
 
         vals = (s2(at.threshold_c) + s2(at.sqr_escape_radius) +
                 c3(at.ref_c) + c3(at.ccoeff) + c3(at.inv_zcoeff))
         at_vals = np.array(
-            [flush_np(np.float32(v)) if isinstance(v, np.float32)
-             else np.int32(v).view(np.float32) for v in vals], np.float32)
+            [flush_np(v) if isinstance(v, npdt) else ibits_np([v], npdt)[0]
+             for v in vals], npdt)
         at_step = int(at.step_length)
 
     def up(a):
@@ -132,12 +158,23 @@ def pack_orbit_np(ox: np.ndarray, oy: np.ndarray, max_ref: int) -> np.ndarray:
     return OP
 
 
-def orbit_table(results, device) -> torch.Tensor:
-    """Reference orbit → f32 [M, 4] on `device`."""
-    ox, oy = results.device_orbit(np.float32)
+def orbit_table(results, device, dtype=torch.float32) -> torch.Tensor:
+    """Reference orbit → [M, 4] of `dtype` on `device`."""
+    ox, oy = results.device_orbit(
+        np.float32 if dtype == torch.float32 else np.float64)
     packed = flush_np(pack_orbit_np(np.asarray(ox), np.asarray(oy),
                                     int(results.max_ref_iteration())))
     return torch.from_numpy(np.ascontiguousarray(packed)).to(device)
+
+
+def orbit_on(results, device, dtype=torch.float32) -> torch.Tensor:
+    """``orbit_table`` cached on the results, for the lifetime of that
+    orbit."""
+    key = ("torch_orbit", str(device), dtype)
+    orbit = results.extra.get(key)
+    if orbit is None:
+        orbit = results.extra[key] = orbit_table(results, device, dtype)
+    return orbit
 
 
 @dataclass

@@ -2,6 +2,9 @@
 ``ops/dblflt.py``) against the JAX package's, bit for bit, on seeded
 random inputs plus edges: zero sentinels, exponent gaps of 120, 126 and
 127, negative values, products that underflow (flushed on both sides).
+The HDR ops run with f32 and with f64 mantissas (the ``_f64`` cases:
+the same exponents, mantissas from 1e-160 to 1e150, so f64 products
+underflow too).
 """
 
 import numpy as np
@@ -29,6 +32,14 @@ def _inputs():
             m = np.where(k == 3, np.sign(m) * (1 + np.abs(m) % 1), m)
         return m.astype(np.float32)
 
+    def mant64():
+        m = rng.standard_normal(N)
+        k = rng.integers(0, 6, N)
+        m = np.where(k == 0, 0.0, m)
+        m = np.where(k == 1, m * 1e-160, m)
+        m = np.where(k == 2, m * 1e150, m)
+        return np.where(k == 3, np.sign(m) * (1 + np.abs(m) % 1), m)
+
     e1 = rng.integers(-200, 200, N).astype(np.int32)
     gap = rng.choice(np.array([0, 1, 119, 120, 121, 125, 126, 127, 128, 300],
                               np.int32), N)
@@ -38,8 +49,10 @@ def _inputs():
            "re2": mant(), "im2": mant(), "e2": e2,
            "shift": rng.integers(-300, 300, N).astype(np.int32),
            "f64": rng.standard_normal(N) * 10.0 ** rng.integers(-300, 300, N)}
+    for name in ("re1", "im1", "re2", "im2"):
+        out[name + "_64"] = mant64()
     for a, e in (("re1", "e1"), ("re2", "e2")):
-        zero = (out[a] == 0)
+        zero = (out[a] == 0) | (out[a + "_64"] == 0)
         out[e] = np.where(zero & (rng.random(N) < 0.5), MIN_E,
                           out[e]).astype(np.int32)
     x = rng.standard_normal(N) * 10.0 ** rng.integers(-8, 8, N)
@@ -51,23 +64,19 @@ def _inputs():
     return out
 
 
-def _ops(H, D, T, inp, k=5):
-    """The op table, written once for both packages: H/D are the
-    hdrfloat/dblflt modules, T turns an input into that side's array
-    type."""
-    a = H.HDR(T(inp["re1"]), T(inp["e1"]))
-    b = H.HDR(T(inp["re2"]), T(inp["e2"]))
-    ca = H.HDRComplex(T(inp["re1"]), T(inp["im1"]), T(inp["e1"]))
-    cb = H.HDRComplex(T(inp["re2"]), T(inp["im2"]), T(inp["e2"]))
+def _hdr_ops(H, T, inp, key="", name="", k=5):
+    """The HDR ops on the mantissas `re1{key}`... (f32: key "", f64:
+    key "_64"), named with the suffix `name`."""
+    a = H.HDR(T(inp["re1" + key]), T(inp["e1"]))
+    b = H.HDR(T(inp["re2" + key]), T(inp["e2"]))
+    ca = H.HDRComplex(T(inp["re1" + key]), T(inp["im1" + key]),
+                      T(inp["e1"]))
+    cb = H.HDRComplex(T(inp["re2" + key]), T(inp["im2" + key]),
+                      T(inp["e2"]))
     ra, rb = H.reduce(a), H.reduce(b)
     pa = H.HDR(abs(ra.m), ra.e)
     pb = H.HDR(abs(rb.m), rb.e)
-    xa = D.DF(T(inp["xh"]), T(inp["xl"]))
-    xb = D.DF(T(inp["yh"]), T(inp["yl"]))
-    return {
-        "frexp2_f32": lambda: H._frexp2(T(inp["re1"])),
-        "frexp2_f64": lambda: H._frexp2(T(inp["f64"])),
-        "pow2i_f32": lambda: H.pow2i(T(inp["shift"]), T(inp["re1"]).dtype),
+    ops = {
         "reduce": lambda: ra,
         "reduce_complex": lambda: H.reduce_complex(ca),
         "add": lambda: H.add(a, b),
@@ -85,6 +94,24 @@ def _ops(H, D, T, inp, k=5):
         "lte_reduced": lambda: H.lte_reduced(ra, rb),
         "lt_unreduced": lambda: H.lt_unreduced(pa, pb),
         "gt_pow2_unreduced": lambda: H.gt_pow2_unreduced(pa, 8),
+    }
+    return {op + name: fn for op, fn in ops.items()}
+
+
+def _ops(H, D, T, inp):
+    """The op table, written once for both packages: H/D are the
+    hdrfloat/dblflt modules, T turns an input into that side's array
+    type."""
+    xa = D.DF(T(inp["xh"]), T(inp["xl"]))
+    xb = D.DF(T(inp["yh"]), T(inp["yl"]))
+    return {
+        "frexp2_f32": lambda: H._frexp2(T(inp["re1"])),
+        "frexp2_f64": lambda: H._frexp2(T(inp["f64"])),
+        "pow2i_f32": lambda: H.pow2i(T(inp["shift"]), T(inp["re1"]).dtype),
+        "pow2i_f64": lambda: H.pow2i(T(inp["shift"]),
+                                     T(inp["re1_64"]).dtype),
+        **_hdr_ops(H, T, inp),
+        **_hdr_ops(H, T, inp, "_64", "_f64"),
         "two_sum": lambda: D.two_sum(xa.hi, xb.hi),
         "quick_two_sum": lambda: D.quick_two_sum(xa.hi, xa.lo),
         "split": lambda: D.split(xa.hi),
@@ -154,6 +181,9 @@ def test_edges_are_exercised():
     assert (inp["re1"] < 0).any()
     prod = inp["re1"].astype(np.float64) * inp["re2"]
     assert ((np.abs(prod) < np.finfo(np.float32).tiny) & (prod != 0)).any()
+    prod64 = inp["re1_64"] * inp["re2_64"]
+    assert ((np.abs(prod64) < np.finfo(np.float64).tiny) &
+            (inp["re1_64"] != 0) & (inp["re2_64"] != 0)).any()
 
 
 def test_frexp2_zero_and_pow2i_clamp():

@@ -3,9 +3,10 @@ about the JAX reference's floating point that it rests on.
 
 XLA:CPU, which runs the JAX package in these tests, contracts
 ``a*b + c`` into fused multiply-adds wherever its backend finds the
-pattern, and runs with subnormals flushed to zero.  The port's kernels
-do no contraction (``nvcc -fmad=false``) and flush f32 subnormals
-(``-ftz=true``), and so do their plain PyTorch twins.  The reference the
+pattern, and runs with subnormals flushed to zero, f32 and f64 alike.
+The port's kernels do no contraction (``nvcc -fmad=false``) and flush
+subnormals (``-ftz=true`` for f32, in code for f64), and so do their
+plain PyTorch twins.  The reference the
 port is held to bit for bit is therefore the JAX package with FMA
 instructions disabled (``--xla_cpu_max_isa=AVX``): the same program,
 each ``*`` and ``+`` rounded on its own.  That flag has to be set
@@ -111,11 +112,13 @@ def _fp_mode(inputs):
 
     a, b, c, d = (jnp.asarray(inputs[k]) for k in "abcd")
     tiny = jnp.asarray(inputs["tiny"])
+    tiny64 = jnp.asarray(inputs["tiny64"])
     return {
         "fma_pattern": np.asarray(jax.jit(lambda a, b, c: a * b + c)(a, b, c)),
         "cmul_pattern": np.asarray(
             jax.jit(lambda a, b, c, d: a * b - c * d)(a, b, c, d)),
         "underflow": np.asarray(jax.jit(lambda t: t * t)(tiny)),
+        "underflow64": np.asarray(jax.jit(lambda t: t * t)(tiny64)),
     }
 
 
@@ -129,11 +132,15 @@ def test_reference_has_ieee_products_and_flushes_subnormals(tmp_path):
               for k in "abcd"}
     inputs["tiny"] = np.float32(1e-20) * rng.standard_normal(64).astype(
         np.float32)
+    # f64 products below 2^-1022 flush too: the f64 kernels flush in code
+    inputs["tiny64"] = 1e-160 * rng.standard_normal(64)
     ref = run_jax_reference("test_torch_jaxref", "_fp_mode", tmp_path, inputs)
     a, b, c, d = (inputs[k] for k in "abcd")
     assert bits_equal(ref["fma_pattern"], a * b + c)
     assert bits_equal(ref["cmul_pattern"], a * b - c * d)
-    t = torch.from_numpy(inputs["tiny"])
-    assert (ref["underflow"] == 0).all()
-    assert bits_equal(ref["underflow"], ftz(t * t).numpy())
-    assert not (inputs["tiny"] * inputs["tiny"] == 0).all()
+    for key in ("tiny", "tiny64"):
+        t = torch.from_numpy(inputs[key])
+        under = ref[key.replace("tiny", "underflow")]
+        assert (under == 0).all()
+        assert bits_equal(under, ftz(t * t).numpy())
+        assert not (inputs[key] * inputs[key] == 0).all()

@@ -2,7 +2,9 @@
 the JAX package's LAv2 machine, bit for bit: full mode against
 ``la_kernel.la_perturb_render`` and the Pallas ``la_render_pallas``
 (interpret mode) on the 1e8 fixture of ``tests/test_la_pallas.py``, the
-``la_only`` phase-1 state, and View #6 at 32².
+``la_only`` phase-1 state, and View #6 at 32²; then K2 with f64
+mantissas (``sub_dtype=np.float64``): the packed f64 tables, full mode
+and the ``la_only`` state on the same fixture.
 """
 
 import hashlib
@@ -56,12 +58,34 @@ def _tables_sha(res, la) -> np.ndarray:
     return np.frombuffer(h.digest(), np.uint8)
 
 
+def _packed_sha(pack_nodes, pack_orbit, res, la, dtype) -> np.ndarray:
+    """sha256 of the packed node and orbit tables of `dtype`, from the
+    given packers (the reference's ``_pack_nodes``/``_pack_orbit`` or
+    the port's)."""
+    ox, oy = res.device_orbit(dtype)
+    h = hashlib.sha256()
+    for a in (pack_nodes(la.device_arrays(dtype), dtype),
+              pack_orbit(np.asarray(ox), np.asarray(oy),
+                         int(res.max_ref_iteration()))):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return np.frombuffer(h.digest(), np.uint8)
+
+
 def _jax_reference(_inputs):
     from fractalshark_tpu.ops import la_kernel as jla
     from fractalshark_tpu.ops.la_pallas import la_render_pallas
 
     ptz, res, la = _fixture("fractalshark_tpu")
-    out = {"sha": _tables_sha(res, la)}
+    out = {"sha": _tables_sha(res, la),
+           "sha64": _packed_sha(jla._pack_nodes, jla._pack_orbit, res, la,
+                                np.float64)}
+    out["full64"] = np.asarray(jla.la_perturb_render(
+        res, la, ptz, SIZE, SIZE, BUDGET, sub_dtype=np.float64))
+    st = jla.la_perturb_render(res, la, ptz, SIZE, SIZE, BUDGET,
+                               sub_dtype=np.float64, la_only=True,
+                               return_state=True)
+    for name, a in zip(STATE, st):
+        out["state64_" + name] = np.asarray(a)
     out["full"] = np.asarray(jla.la_perturb_render(
         res, la, ptz, SIZE, SIZE, BUDGET, sub_dtype=np.float32))
     out["pallas"] = np.asarray(la_render_pallas(
@@ -97,6 +121,14 @@ def full(deep):
 
 
 @pytest.fixture(scope="module")
+def la_only_state64(deep):
+    ptz, res, la = deep
+    return la_kernel.la_perturb_render(res, la, ptz, SIZE, SIZE, BUDGET,
+                                       sub_dtype=np.float64, la_only=True,
+                                       return_state=True, device="cpu")
+
+
+@pytest.fixture(scope="module")
 def la_only_state(deep):
     ptz, res, la = deep
     return la_kernel.la_perturb_render(res, la, ptz, SIZE, SIZE, BUDGET,
@@ -121,6 +153,41 @@ def test_la_only_state_matches(jax_ref, la_only_state, name):
     got = la_only_state[STATE.index(name)].numpy()
     want = jax_ref["state_" + name]
     if name in ("dzr", "dzi"):
+        assert ref.bits_equal(got, want)
+    else:
+        np.testing.assert_array_equal(got.astype(np.int64),
+                                      want.astype(np.int64))
+
+
+def test_f64_packed_tables_equal_jax(jax_ref, deep):
+    """The port's f64 node and orbit tables are the reference's
+    ``_pack_nodes``/``_pack_orbit`` at f64, byte for byte (no f64
+    mantissa of a node is subnormal, so the upload flush changes
+    nothing)."""
+    from fractalshark_tpu_torch.ops.tables import pack_nodes_np, pack_orbit_np
+    _, res, la = deep
+    np.testing.assert_array_equal(
+        _packed_sha(pack_nodes_np, pack_orbit_np, res, la, np.float64),
+        jax_ref["sha64"])
+    T, orbit = la_kernel.device_tables(res, la, torch.device("cpu"),
+                                       torch.float64)
+    assert T.nodes.dtype == orbit.dtype == T.stages.dtype == torch.float64
+
+
+def test_full_mode_f64_matches_jax(jax_ref, deep):
+    ptz, res, la = deep
+    got = la_kernel.la_perturb_render(res, la, ptz, SIZE, SIZE, BUDGET,
+                                      sub_dtype=np.float64, device="cpu")
+    np.testing.assert_array_equal(got.numpy(),
+                                  jax_ref["full64"].astype(np.int64))
+
+
+@pytest.mark.parametrize("name", STATE)
+def test_la_only_f64_state_matches(jax_ref, la_only_state64, name):
+    got = la_only_state64[STATE.index(name)].numpy()
+    want = jax_ref["state64_" + name]
+    if name in ("dzr", "dzi"):
+        assert got.dtype == np.float64
         assert ref.bits_equal(got, want)
     else:
         np.testing.assert_array_equal(got.astype(np.int64),
@@ -162,19 +229,22 @@ def test_small_table_fits_full_mode(deep):
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card(deep):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_matches_plain_on_card(deep, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     ptz, res, la = deep
     for la_only in (False, True):
         k = la_kernel.la_perturb_render(res, la, ptz, SIZE, SIZE, BUDGET,
-                                        la_only=la_only, return_state=True,
-                                        device="cuda")
-        T, orbit = la_kernel.device_tables(res, la, torch.device("cuda"))
+                                        sub_dtype=dtype, la_only=la_only,
+                                        return_state=True, device="cuda")
+        T, orbit = la_kernel.device_tables(res, la, torch.device("cuda"),
+                                           dtype)
         from fractalshark_tpu_torch.ops.perturb import (_dc_grids_hdr,
                                                         delta_params)
         dc = _dc_grids_hdr(*delta_params(ptz, res.center_x, res.center_y,
-                                         SIZE, SIZE), SIZE, SIZE, "cuda")
+                                         SIZE, SIZE), SIZE, SIZE, "cuda",
+                           dtype)
         flat = type(dc)(*(t.reshape(-1) for t in dc))
         p = la_kernel.lav2_plain(
             T, orbit, flat, la_kernel.init_state_plain(T, flat, BUDGET),

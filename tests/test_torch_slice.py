@@ -1,6 +1,8 @@
 """The port's slice end to end on the CPU (``--device cpu``, the kernels'
 plain twins): ``Fractal`` and the CLI against ``fractalshark_tpu``'s
-CLI, and the proof that a render never imports jax.
+CLI (View 0, View #6, and the ``Gpu1x64PerturbedLAv2`` band on Views
+#2, #3 and #5), every LAv2 algorithm's route, and the proof that a
+render never imports jax.
 """
 
 import contextlib
@@ -24,6 +26,26 @@ DEEP = ["--view", "6", "--width", "32", "--height", "32",
 VIEW6_32 = (817_235_786, 2_300_363_464)  # JAX CPU, FMA contraction off
 STAT_KEYS = ("algorithm", "width", "height", "iterations_budget",
              "iter_min", "iter_max", "iter_sum")
+# 32² frames of the f64 band (2^46-2^200 zoom), (iter_sum, CRC-32 of the
+# grid as <u4), JAX CPU with FMA contraction off: View #2 has no valid LA
+# table, so Gpu1x64PerturbedLAv2 falls back to the f64 float render and
+# the PO name renders HDR-f32; Views #3 and #5 run the f64 LA machine
+BAND = {
+    "v2": (["--view", "2", "--render-algorithm", "Gpu1x64PerturbedLAv2"],
+           (59_958, 538_599_484), "perturb-f64"),
+    "v2_po": (["--view", "2", "--render-algorithm",
+               "GpuHDRx32PerturbedLAv2PO"], (59_958, 538_599_484),
+              "perturb-pallas"),
+    "v3": (["--view", "3", "--render-algorithm", "Gpu1x64PerturbedLAv2"],
+           (15_395_230, 724_198_528), "lav2-f64"),
+    "v5": (["--view", "5", "--render-algorithm", "Gpu1x64PerturbedLAv2"],
+           (89_887_493, 1_005_684_374), "lav2-f64"),
+    # AUTO on the CPU: Cpu64PerturbedBLAV2HDR, hdr64 without an LA table
+    "v2_auto": (["--view", "2"], (59_958, 538_599_484), "perturb-hdr64"),
+}
+SMALL_DEEP = ["--center-x", "-0.743643887037158704752191506114774",
+              "--center-y", "0.131825904205311970493132056385139",
+              "--zoom", "1e8", "--iterations", "2000"]
 
 
 def _run(main, argv):
@@ -32,6 +54,29 @@ def _run(main, argv):
         rc = main(argv)
     assert rc in (0, None)
     return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _jax_cli_with_crc(argv) -> dict:
+    """The JAX CLI's --stats, plus the CRC-32 of its grid as <u4."""
+    import zlib
+
+    from fractalshark_tpu.cli import main
+    from fractalshark_tpu.engine import fractal as F
+
+    grids = []
+    stats = F.Fractal.stats
+
+    def keep(self, iters=None):
+        grids.append(np.asarray(self._iters_cache))
+        return stats(self, iters)
+
+    F.Fractal.stats = keep
+    try:
+        s = _run(main, argv + ["--stats"])
+    finally:
+        F.Fractal.stats = stats
+    s["crc32"] = zlib.crc32(grids[-1].astype("<u4").tobytes())
+    return s
 
 
 def _jax_reference(inputs):
@@ -45,6 +90,10 @@ def _jax_reference(inputs):
     for k, v in _run(main, DEEP + ["--stats"]).items():
         if k in STAT_KEYS:
             out["deep_" + k] = np.asarray(v)
+    for name, (argv, _, _) in BAND.items():
+        s = _jax_cli_with_crc(argv + ["--width", "32", "--height", "32"])
+        for k in STAT_KEYS + ("crc32",):
+            out[f"{name}_{k}"] = np.asarray(s[k])
     return out
 
 
@@ -75,13 +124,14 @@ def test_deep_frame_equals_jax(jax_ref):
 
 
 def test_render_never_imports_jax(tmp_path):
-    """A deep render and a shallow one through the port, in a fresh
-    interpreter whose environment sets none of the JAX package's
-    switches: neither jax nor the JAX package gets imported."""
+    """A shallow render, a perturbation-only one (View #2, no valid LA
+    table) and a deep LA one through the port, in a fresh interpreter
+    whose environment sets none of the JAX package's switches: neither
+    jax nor the JAX package gets imported."""
     code = (
         "import sys\n"
         "from fractalshark_tpu_torch.cli import main\n"
-        "for v in ('0', '6'):\n"
+        "for v in ('0', '2', '6'):\n"
         "    assert main(['--view', v, '--width', '16', '--height', '16',\n"
         "                 '--device', 'cpu', '--stats']) == 0\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
@@ -140,8 +190,23 @@ def test_cuda_device_without_cuda_is_an_error(capsys):
     assert "CUDA is not available" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("alg", ["Gpu1x64PerturbedLAv2",
-                                 "GpuHDRx32PerturbedLAv2PO",
+@pytest.mark.parametrize("name", list(BAND))
+def test_f64_band_frame_equals_jax(jax_ref, name):
+    """The zoom band AUTO resolves to Gpu1x64PerturbedLAv2 on the card
+    (Cpu64PerturbedBLAV2HDR on the CPU), through the CLI at 32²."""
+    argv, pinned, kernel = BAND[name]
+    s = _run(cli.main, argv + ["--width", "32", "--height", "32", "--stats",
+                               "--device", "cpu"])
+    for k in STAT_KEYS + ("crc32",):
+        assert s[k] == jax_ref[f"{name}_{k}"].item(), k
+    assert (s["iter_sum"], s["crc32"]) == pinned
+    assert s["kernel"] == kernel
+    if name == "v2_auto":
+        assert s["algorithm"] == "Cpu64PerturbedBLAV2HDR"
+
+
+@pytest.mark.parametrize("alg", ["Gpu2x32PerturbedLAv2PO",
+                                 "GpuHDRx2x32PerturbedLAv2PO",
                                  "GpuHDRx32PerturbedBLA",
                                  "GpuHDRx32PerturbedScaled",
                                  "Gpu2x32", "GpuHDRx32"])
@@ -149,6 +214,59 @@ def test_unported_algorithms_raise(alg):
     f = Fractal(width=8, height=8, view=6, algorithm=alg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         f.calc_fractal()
+
+
+def _lav2_names():
+    from fractalshark_tpu_torch.core.algorithms import Family, all_algorithms
+    return sorted(a.name for a in all_algorithms()
+                  if a.family is Family.PERTURB_LAV2)
+
+
+# each LA mode's route on a frame with a valid LA table (the 1e8 frame,
+# its budget cut)
+ROUTE_BUDGET = 400
+_ROUTES = {
+    ("f32", "full"): "lav2-full", ("f32", "lao"): "lav2-lao",
+    ("f64", "full"): "lav2-f64", ("f64", "lao"): "lav2-lao-f64",
+    ("f32", "po"): "perturb-f32", ("f64", "po"): "perturb-f64",
+    ("hdr32", "po"): "perturb-pallas", ("hdr64", "po"): "perturb-hdr64",
+}
+
+
+@pytest.mark.parametrize("name", _lav2_names())
+def test_every_lav2_algorithm_renders(name):
+    """Every LAv2 name of f32, f64, hdr32 or hdr64 mantissas renders in
+    each LA mode (RC too), and so do the 2x32 and hdr2x32 names while
+    their LA table is valid; only their PO mode (the hdr_df route) still
+    raises."""
+    from fractalshark_tpu_torch.core.algorithms import get_algorithm
+    from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
+    alg = get_algorithm(name)
+    ptz = PointZoomBBConverter(pt_x=SMALL_DEEP[1], pt_y=SMALL_DEEP[3],
+                               zoom_factor=SMALL_DEEP[5], prec=512)
+    f = Fractal(width=8, height=8, view=ptz, algorithm=name,
+                num_iterations=ROUTE_BUDGET, device="cpu")
+    if alg.dtype in ("2x32", "hdr2x32") and alg.la_mode.value == "po":
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            f.calc_fractal()
+        return
+    iters = f.calc_fractal()
+    assert iters.shape == (8, 8) and iters.dtype == torch.int64
+    assert 0 <= int(iters.min()) and int(iters.max()) <= ROUTE_BUDGET
+    assert int(iters.sum()) > 0
+    sub = {"2x32": "f32", "hdr2x32": "f32", "hdr32": "f32",
+           "hdr64": "f64"}.get(alg.dtype, alg.dtype)
+    mode = alg.la_mode.value
+    kernel = f.benchmark.extra["kernel"]
+    if alg.runtime_decompression and mode != "lao" and sub == "f32":
+        want = "perturb-rc-stream" if mode == "po" else "lav2-rc"
+        if alg.dtype == "f32" and mode == "po":
+            want = "perturb-f32"
+        assert kernel == want
+    elif mode == "po":
+        assert kernel == _ROUTES[alg.dtype, mode]
+    else:
+        assert kernel == _ROUTES[sub, mode]
 
 
 def test_auto_ladder_on_cuda_names():
@@ -159,3 +277,5 @@ def test_auto_ladder_on_cuda_names():
     assert f.resolve_algorithm().name == "Gpu1x32"
     f.set_view_preset(6)
     assert f.resolve_algorithm().name == "GpuHDRx32PerturbedLAv2"
+    f.set_view_preset(5)
+    assert f.resolve_algorithm().name == "Gpu1x64PerturbedLAv2"
