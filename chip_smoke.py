@@ -12,8 +12,9 @@ path's shapes, bit-identical, (3b) K2 with f64 mantissas and the K6
 instances vs plain, bit-identical, (4) K4/K5 (one device-orbit step) vs
 plain at 32, 2,048 and 16,384 limbs from the View #30 centre, digit for
 digit, (5) the device orbit: View #30 at 16,384 limbs against the exact
-Python-int recurrence after 256 steps, then bounded sessions and their
-time per iteration at 16,384, 2,048 and 32 limbs, (6) the paths through
+Python-int recurrence after 256 steps (the NR chunk too), then bounded
+sessions and their time per iteration at 16,384, 2,048 and 32 limbs,
+(6) the paths through
 ``fractalshark_tpu_torch.cli.main``, each with the launch counts set to 0
 just before it and read just after: View 0 AUTO at 1024² (K1), a
 small-table deep frame (K2 full mode), View #6 AUTO at 64² and 256² (K2
@@ -23,10 +24,20 @@ and 1024² (``Gpu1x64PerturbedLAv2``: K2-f64), View #3 LAO (K2-f64
 ``la_only``), View #2 AUTO at 64² and 256² and its HDRx64 name (no valid
 LA table: K6 f64 float and HDR-f64), and the perturbation-only names on
 the 1e8 frame (K6 on B10's route, and f32 float) and on View #6 at 16²
-and 256² (K6 on B11's route).  Exits non-zero if any phase fails, and at
-once when no CUDA device is present.  The next-to-last lines are the
-card's ``nvidia-smi`` name and power limit and a JSON object of the
-kernels; the last line is ``{"ok": true, ...}``.
+and 256² (K6 on B11's route), (7) K4-NR/K5-NR (one NR step: z and
+dz/dc) vs plain and vs the exact step at 8, 16, 2,048 and 16,384 limbs
+from random states whose dz/dc wraps, (8) the feature finder: NR chunks
+of 256 steps vs the exact wrapped Python-int recurrence at 16 and 2,048
+limbs (16,384 in phase 5, beside the orbit's), then, with the launch
+counts set to 0 just before and read just after, the device evaluator
+(c = (−0.15, 0.4) against the host evaluator; View #6's centre at full
+width against the wrapped recurrence and the host evaluator) and device
+refinement to the period-858 and period-3 nuclei, then
+``--feature-find``/``--feature-scan`` through the CLI against the JAX
+package's JSON.  Exits non-zero if any phase fails, and at once when no
+CUDA device is present.  The next-to-last lines are the card's
+``nvidia-smi`` name and power limit and a JSON object of the kernels;
+the last line is ``{"ok": true, ...}``.
 
 Expected frame values are those of the JAX package on the CPU with FMA
 contraction off (``XLA_FLAGS=--xla_cpu_max_isa=AVX``), taken through its
@@ -78,6 +89,29 @@ VIEW6_PO_16 = (231_680_604, 3_835_526_492)
 # and 196,608)
 VIEW6_PO_CUT = 10_000
 VIEW3_HDR64_CUT = 10_000
+# the feature finder, JAX package on the CPU: the CLI's JSON lines for
+# --feature-scan 3x3 on tests/test_cli.py:80-90's input (each Phase-A
+# mode) and for --feature-find on the 1e8 frame with
+# --feature-max-period 3000; the device refinement of period 858 from
+# that frame's centre (40-digit centre, NR steps)
+_SCAN_3 = ('{"found": 1, "features": [{"center_x": '
+           '"-1.754877666246692760049508896358528691895e+00", "center_y": '
+           '"0", "period": 3, "size_exp2": -4, "residual_exp2": -195, '
+           '"nr_iterations": 3}]}')
+FEATURE_SCAN = {"direct": _SCAN_3, "pt": _SCAN_3, "la": _SCAN_3}
+SCAN_ARGS = ["--center-x", "-1.75487766624669276", "--center-y", "0",
+             "--zoom", "100000", "--feature-scan", "3x3",
+             "--feature-max-period", "64", "--width", "32", "--height", "32"]
+FEATURE_FIND_1E8 = (
+    '{"center_x": "-7.436439788719175333769749883804773785841e-01", '
+    '"center_y": "1.318259410297359947061587497198248392972e-01", '
+    '"period": 858, "size_exp2": -31, "residual_exp2": -192, '
+    '"nr_iterations": 22}')
+REFINE_858 = (("-7.436439788719175333769749883804773785841e-01",
+               "1.318259410297359947061587497198248392972e-01"), 22)
+PERIOD3_RE = -1.754877666246692760049520
+NR_LIMBS = (8, 16, 2048, 16384)
+NR_CHUNK_LIMBS = (16, 2048)     # 16,384 runs in phase 5
 # the same frames with XLA:CPU's default FMA contraction, and the TPU
 # v5e's bench record (BENCH_r05.json deep_iter_sum): printed, not targets
 VIEW6_256_JAX_CPU_FMA = 52_302_949_912
@@ -117,6 +151,12 @@ KERNEL_META = {
                     "fractalshark_tpu/ops/perturb.py:112"),
     "perturb_f32": ("fractalshark_tpu_torch/csrc/perturb.cu",
                     "fractalshark_tpu/ops/perturb.py:112"),
+    # K4-NR (B8b; B7 computes the same on packed pairs) and K5-NR (the NR
+    # configuration of B8c's tail; B6's paired tail likewise)
+    "ntt_nr": ("fractalshark_tpu_torch/csrc/ntt_orbit.cu",
+               "fractalshark_tpu/ops/bignum/ntt_mxu.py:557"),
+    "nr_tail": ("fractalshark_tpu_torch/csrc/orbit_tail.cu",
+                "fractalshark_tpu/ops/bignum/ntt_pallas.py:1134"),
 }
 
 HBM_BYTES_PER_S = 3.35e12
@@ -271,6 +311,20 @@ def tail_ops(n: int) -> float:
     return 2 * n * 8.0
 
 
+def ntt_nr_ops(n: int) -> float:
+    """K4-NR: 16 transforms of n/2·log2(n) butterflies at 8 integer
+    operations, the pointwise products (10 Montgomery products of 6
+    operations and 4 signed combines per point and prime) and the CRT of
+    4 rows (about 12 per coefficient)."""
+    lg = n.bit_length() - 1
+    return 16 * (n // 2) * lg * 8 + 2 * n * (10 * 6 + 4 * 2) + 4 * n * 12
+
+
+def nr_tail_ops(n: int) -> float:
+    """K5-NR: K5's 8 operations per digit sum over four components."""
+    return 4 * n * 8.0
+
+
 def phase_kernels(device, size_escape=1024, size_deep=256,
                   size_small=64):
     """K1-K3 against their plain versions on the card."""
@@ -299,9 +353,10 @@ def phase_kernels(device, size_escape=1024, size_deep=256,
         compare(f"K1 escape {dt} View 0 {size_escape}² x256", k, pl,
                 stats["escape"])
         log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        b = bound(nbytes(k), escape_ops(k, 256),
+                  F32_OPS_PER_S if dt == "f32" else F64_OPS_PER_S)
         if dt == "f32":
-            stats["escape"].update(ms=ms, plain_ms=pms, **bound(
-                nbytes(k), escape_ops(k, 256), F32_OPS_PER_S))
+            stats["escape"].update(ms=ms, plain_ms=pms, **b)
 
     def k2(T, orbit, dc, n, max_ref, la_only):
         flat = HDRComplex(*(t.reshape(-1) for t in dc))
@@ -520,54 +575,102 @@ def phase_orbit_kernels(device, stats, reps=20, steps=3):
             stats[key].update(st)       # the last, largest size stays
 
 
-def phase_device_orbit(device):
+def exact_steps(spec, cx: int, cy: int, steps: int, start=None):
+    """The exact recurrence of the device digits, with Python ints: from
+    ``start`` = (x, y, dx, dy) (default z = c and dz/dc = 1), ``steps``
+    times x' = rhu(x² − y² + cx·2^16F),
+    y' = rhu(2xy + cy·2^16F), dx' = rhu(2(x·dx − y·dy) + 2^32F),
+    dy' = rhu(2(x·dy + y·dx)), rhu(v) = sign(v + h)·((|v + h| >> 16F) mod
+    2^16D); cx, cy signed fixed-point ints.  Returns (x, y, dx, dy) and
+    the number of steps where a magnitude of dz/dc wrapped."""
+    shift = 16 * spec.frac_digits
+    half = 1 << (shift - 1)
+    mod = 1 << (16 * spec.digits)
+    one = 1 << (2 * shift)
+    wraps = 0
+
+    def rhu(v):
+        t = v + half
+        m = abs(t) >> shift
+        return (m % mod if t >= 0 else -(m % mod)), m >= mod
+
+    x, y, dx, dy = start or (cx, cy, 1 << shift, 0)
+    for _ in range(steps):
+        k1 = dx * (x + y)          # x·dx − y·dy = k1 − k3, x·dy + y·dx
+        k2 = x * (dy - dx)         # = k1 + k2, three products
+        k3 = y * (dx + dy)
+        (dx, w1), (dy, w2) = rhu(2 * (k1 - k3) + one), rhu(2 * (k1 + k2))
+        (x, _), (y, _) = (rhu((x + y) * (x - y) + (cx << shift)),
+                          rhu(2 * x * y + (cy << shift)))
+        wraps += w1 or w2
+    return (x, y, dx, dy), wraps
+
+
+def state_ints(signs_digits) -> list:
+    """Signed Python ints of (s0, d0, s1, d1, ...) host state tuples."""
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+    it = iter(signs_digits)
+    return [int(s) * FP.digits_to_int(d) for s, d in zip(it, it)]
+
+
+def check_chunks(cx, cy, limbs: int, steps: int, name: str, device,
+                 nr_us: dict) -> None:
+    """From c = (cx, cy) at ``limbs``: the orbit chunk (K4/K5) and the
+    NR chunk (K4-NR/K5-NR) of ``steps`` steps against one exact Python-int
+    recurrence, digit for digit; the NR chunk's µs per step (CUDA
+    events) into ``nr_us``.  A zero magnitude's sign is compared only
+    through the exact ints here; the twins' tests pin it."""
+    import torch
+
+    from fractalshark_tpu_torch.core.highprecision import HighPrecision
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+    from fractalshark_tpu_torch.ops.bignum import orbit as O
+
+    spec = FP.FixedSpec.for_limbs(limbs)
+    scx, cxd = FP.hp_to_digits(cx, spec)
+    scy, cyd = FP.hp_to_digits(cy, spec)
+    one_s, one_d = FP.hp_to_digits(HighPrecision(1, prec=64), spec)
+    cxt = torch.from_numpy(cxd.astype("int32")).to(device)
+    cyt = torch.from_numpy(cyd.astype("int32")).to(device)
+    state = O.OrbitState(scx, cxd, scy, cyd, device)
+    nr = O.NRState((scx, scy, one_s, 1), cxd, cyd, one_d,
+                   0 * one_d, device)
+    t0 = time.perf_counter()
+    O.orbit_chunk(state, scx, cxt, scy, cyt, spec, steps)
+    _, ms = timed(lambda: O.orbit_nr_chunk(nr, scx, cxt, scy, cyt, spec,
+                                           steps), device, warm=False)
+    z = state_ints(state.numpy())
+    got = state_ints(nr.numpy())
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, wraps = exact_steps(spec, scx * FP.digits_to_int(cxd),
+                              scy * FP.digits_to_int(cyd), steps)
+    ok = z == list(want[:2]) and got == list(want)
+    nr_us[limbs] = ms / steps * 1e3
+    log(f"  {name}, {limbs} limbs, {steps} steps: z (K4/K5) and z, dz/dc "
+        f"(K4-NR/K5-NR) {'equal' if ok else 'DIFFER'} to the Python-int "
+        f"recurrence; |dz/dc| wrapped at {wraps} steps; NR chunk "
+        f"{nr_us[limbs]:.2f} us/step (device {dev_s:.2f} s, Python ints "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        raise AssertionError(f"{limbs} limbs: device chunks differ from "
+                             f"the exact recurrence")
+
+
+def phase_device_orbit(device, nr_us):
     """The device orbit on its own: the digit state after ORACLE_STEPS
-    steps at 16,384 limbs against exact Python ints, then bounded
-    sessions and their time per iteration at each limb count."""
+    steps at 16,384 limbs against exact Python ints (with the NR chunk
+    from the same start), then bounded sessions and their time per
+    iteration at each limb count."""
     import torch
 
     from fractalshark_tpu_torch.core.views import get_view_preset
-    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
     from fractalshark_tpu_torch.ops.bignum import orbit as O
 
     log("[5] device orbit")
     cx, cy, rad = view30_center()
-    spec = FP.FixedSpec.for_limbs(max(ORBIT_LIMBS))
-    scx, cxd = FP.hp_to_digits(cx, spec)
-    scy, cyd = FP.hp_to_digits(cy, spec)
-    cxt = torch.from_numpy(cxd.astype("int32")).to(device)
-    cyt = torch.from_numpy(cyd.astype("int32")).to(device)
-    state = O.OrbitState(scx, cxd, scy, cyd, device)
-    t0 = time.perf_counter()
-    O.orbit_chunk(state, scx, cxt, scy, cyt, spec, ORACLE_STEPS)
-    sx, x, sy, y = state.numpy()
-    dev_s = time.perf_counter() - t0
-    # the exact recurrence: x' = rhu(x² − y² + cx·2^16F), y' = rhu(2xy +
-    # cy·2^16F), rhu(v) = sign(v + h)·(|v + h| >> 16F)
-    t0 = time.perf_counter()
-    shift = 16 * spec.frac_digits
-    half = 1 << (shift - 1)
-    cxi = scx * FP.digits_to_int(cxd)
-    cyi = scy * FP.digits_to_int(cyd)
-    xi, yi = cxi, cyi
-    sgx = sgy = 1
-
-    def rhu(v):
-        t = v + half
-        return (1 if t >= 0 else -1), abs(t) >> shift
-
-    for _ in range(ORACLE_STEPS):
-        (sgx, mx), (sgy, my) = (rhu((xi + yi) * (xi - yi) + (cxi << shift)),
-                                rhu(2 * xi * yi + (cyi << shift)))
-        xi, yi = sgx * mx, sgy * my
-    ok = (FP.digits_to_int(x) == abs(xi) and FP.digits_to_int(y) == abs(yi)
-          and (int(sx), int(sy)) == (sgx, sgy))
-    log(f"  View #30 centre, {max(ORBIT_LIMBS)} limbs, {ORACLE_STEPS} "
-        f"steps: digits {'equal' if ok else 'DIFFER'} to the Python-int "
-        f"recurrence (device {dev_s:.2f} s, Python ints "
-        f"{time.perf_counter() - t0:.1f} s)")
-    if not ok:
-        raise AssertionError("device orbit differs from the exact recurrence")
+    check_chunks(cx, cy, max(ORBIT_LIMBS), ORACLE_STEPS, "View #30 centre",
+                 device, nr_us)
 
     per_iter = {}
     v6 = get_view_preset(6).ptz
@@ -726,6 +829,221 @@ def phase_slice(outdir, device="cuda"):
     return total, runs
 
 
+def cli_line(argv, device) -> str:
+    """The last line the port's CLI prints on ``device``; fails unless it
+    exits 0."""
+    from fractalshark_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + ["--device", str(device)])
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv)} exited {rc}")
+    return buf.getvalue().strip().splitlines()[-1]
+
+
+def nr_random_state(limbs: int, seed: int):
+    """(spec, [sx, x, sy, y, sdx, dx, sdy, dy, scx, cx, scy, cy]): z and c
+    below 4, every digit of dz/dc random (|dz/dc| near 2^32, so
+    |2·z·dz/dc| wraps), signs (+, −, −, +) for z and dz/dc."""
+    import numpy as np
+
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+    spec = FP.FixedSpec.for_limbs(limbs)
+    rng = np.random.default_rng(seed)
+    st = []
+    for k, sign in enumerate((1, -1, -1, 1, -1, 1)):
+        d = rng.integers(0, 1 << 16, size=spec.digits, dtype=np.uint32)
+        if k not in (2, 3):
+            d[-1] = 0
+            d[-2] &= 3
+        st += [sign, d]
+    return spec, st
+
+
+def phase_nr_kernels(device, stats):
+    """K4-NR and K5-NR against their twins and the exact step, digit for
+    digit, at each of NR_LIMBS from a state whose dz/dc wraps; times and
+    bounds."""
+    import torch
+
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+
+    log("[7] K4-NR/K5-NR vs plain versions on the card (random states, "
+        "dz/dc wrapping)")
+    for key in ("ntt_nr", "nr_tail"):
+        stats[key]["by_limbs"] = {}
+    for limbs in NR_LIMBS:
+        spec, st = nr_random_state(limbs, limbs)
+        n, D = spec.nfft, spec.digits
+
+        def t(a):
+            return torch.from_numpy(a.astype("int32")).to(device)
+        mags = [t(st[k]) for k in (1, 3, 5, 7)]
+        signs = FP.sign_row(*st[0:8:2], device)
+        cx, cy = t(st[9]), t(st[11])
+        coef = FP.nr_products(*mags, signs, spec)
+        want = FP.nr_products_plain(*mags, signs, n)
+        compare(f"K4-NR {limbs} limbs", coef, want, stats["ntt_nr"])
+        got = FP.nr_tail(coef, st[8], cx, st[10], cy, spec)
+        plain = FP.nr_tail_plain(want, st[8], cx, st[10], cy, spec)
+        for name, a, b in zip(("x", "y", "dx", "dy", "signs"), got, plain):
+            compare(f"K5-NR {limbs} limbs {name}", a, b, stats["nr_tail"])
+        ints = state_ints(st)
+        exact, wraps = exact_steps(spec, ints[4], ints[5], 1, ints[:4])
+        dev = [int(s) * FP.digits_to_int(m.cpu().numpy())
+               for s, m in zip(got[4].cpu(), got[:4])]
+        log(f"    exact step: {'equal' if dev == list(exact) else 'DIFFER'}"
+            f", dz/dc wrapped: {bool(wraps)}")
+        if dev != list(exact) or not wraps:
+            raise AssertionError(f"{limbs} limbs: NR step differs from the "
+                                 f"exact step or did not wrap")
+        _, k4ms = timed(lambda: FP.nr_products(*mags, signs, spec), device,
+                        reps=20)
+        _, k4pms = timed(lambda: FP.nr_products_plain(*mags, signs, n),
+                         device)
+        _, k5ms = timed(lambda: FP.nr_tail(coef, st[8], cx, st[10], cy,
+                                           spec), device, reps=20)
+        _, k5pms = timed(lambda: FP.nr_tail_plain(coef, st[8], cx, st[10],
+                                                  cy, spec), device)
+        log(f"    {limbs} limbs: K4-NR {k4ms:.4f} ms (plain {k4pms:.3f}), "
+            f"K5-NR {k5ms:.4f} ms (plain {k5pms:.3f})")
+        for key, ms, pms, nb, ops in (
+                ("ntt_nr", k4ms, k4pms, 4 * D * 4 + 16 + 4 * n * 8,
+                 ntt_nr_ops(n)),
+                ("nr_tail", k5ms, k5pms, 4 * n * 8 + 6 * D * 4 + 16,
+                 nr_tail_ops(n))):
+            b = dict(ms=ms, plain_ms=pms, **bound(nb, ops, I32_OPS_PER_S))
+            stats[key]["by_limbs"][limbs] = b
+            stats[key].update(b)        # the last, largest size stays
+
+
+def phase_feature(device, nr_us):
+    """NR chunks against the exact recurrence at NR_CHUNK_LIMBS; the
+    feature finder's device path through its library entry points (the
+    launch counts from 0 just before, read just after); the CLI's
+    feature commands against the JAX package's JSON."""
+    from fractalshark_tpu_torch import kernels
+    from fractalshark_tpu_torch.core.highprecision import HighPrecision
+    from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
+    from fractalshark_tpu_torch.core.precision import precision_from_view
+    from fractalshark_tpu_torch.core.views import get_view_preset
+    from fractalshark_tpu_torch.engine import feature_finder as FF
+    from fractalshark_tpu_torch.engine.native_orbit import (
+        compute_reference_orbit_native)
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+    from fractalshark_tpu_torch.ops.bignum import orbit as O
+
+    log("[8] feature finder: NR chunks, the device evaluator and "
+        "refinement, the CLI")
+    cx, cy, _ = view30_center()
+    for limbs in NR_CHUNK_LIMBS:
+        check_chunks(cx, cy, limbs, ORACLE_STEPS, "View #30 centre", device,
+                     nr_us)
+
+    def close(label, host, dev, rel_bits=150):
+        """Every component within 2^-rel_bits relative of the host's."""
+        errs = [(h - d).exponent2() - h.exponent2()
+                if not (h - d).is_zero() else None
+                for h, d in zip(host, dev)]
+        log(f"    {label}: device - host, log2 relative per component: "
+            f"{errs}")
+        if any(e is not None and e >= -rel_bits for e in errs):
+            raise AssertionError(f"{label}: device and host evaluators "
+                                 f"differ")
+
+    # (a) tests/test_nr_device.py:39-48
+    hx, hy = HighPrecision("-0.15", prec=200), HighPrecision("0.4", prec=200)
+    close("(a) c = (-0.15, 0.4), period 12, 200 bits",
+          FF.evaluate_critical_orbit_and_derivs(hx, hy, 12, 200)[:4],
+          O.evaluate_critical_orbit_and_derivs_device(hx, hy, 12, 200,
+                                                      device=device))
+
+    kernels.reset_counts()
+    # (b) refinement to the period-858 nucleus from the 1e8 frame's centre
+    ptz = PointZoomBBConverter(pt_x=SMALL_DEEP[0], pt_y=SMALL_DEEP[1],
+                               zoom_factor=SMALL_DEEP[2], prec=512)
+    prec = precision_from_view(ptz) + 64
+    t0 = time.perf_counter()
+    fs = FF.refine_periodic_point(ptz.pt_x.with_precision(prec),
+                                  ptz.pt_y.with_precision(prec), 858, prec,
+                                  backend="device", device=device)
+    got = ((fs.center_x.to_string(40), fs.center_y.to_string(40)),
+           fs.nr_iterations)
+    log(f"  (b) refine_periodic_point(backend='device') period 858 at "
+        f"{prec} bits: {got} in {time.perf_counter() - t0:.2f} s; JAX CPU "
+        f"{REFINE_858}")
+    if got != REFINE_858:
+        raise AssertionError("device refinement of period 858 differs")
+
+    # (c) View #6's centre at full width: the period from the native
+    # orbit's periodicity test, as find_periodic_point takes it
+    v6 = get_view_preset(6).ptz
+    prec = precision_from_view(v6) + 64
+    vx, vy = v6.pt_x.with_precision(prec), v6.pt_y.with_precision(prec)
+    period = compute_reference_orbit_native(
+        vx, vy, 1_000_000, v6.radius, periodicity=True).period - 1
+    t0 = time.perf_counter()
+    spec, st = O.critical_orbit_state_device(vx, vy, period, prec,
+                                             device=device)
+    dev_ints = state_ints(st.numpy())
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = FF.evaluate_critical_orbit_and_derivs(vx, vy, period, prec)
+    host_s = time.perf_counter() - t0
+    scx, cxd = FP.hp_to_digits(vx, spec)
+    scy, cyd = FP.hp_to_digits(vy, spec)
+    t0 = time.perf_counter()
+    exact, wraps = exact_steps(spec, scx * FP.digits_to_int(cxd),
+                               scy * FP.digits_to_int(cyd), period - 1)
+    limbs = spec.digits // 2
+    log(f"  (c) View #6 centre, period {period}, {prec} bits ({limbs} "
+        f"limbs): device {dev_s:.3f} s ({dev_s / (period - 1) * 1e6:.2f} "
+        f"us/step), host evaluator {host_s:.3f} s, exact recurrence "
+        f"{time.perf_counter() - t0:.1f} s; digits "
+        f"{'equal' if dev_ints == list(exact) else 'DIFFER'}; |dz/dc| "
+        f"wrapped at {wraps} steps (host |dz/dc| ~ 2^{host[2].exponent2()})")
+    if dev_ints != list(exact):
+        raise AssertionError("View #6 device evaluation differs from the "
+                             "exact recurrence")
+    zdev = [HighPrecision.from_mant_exp(v, -spec.frac_bits, prec=prec)
+            for v in dev_ints[:2]]
+    close("(c) View #6 z", host[:2], zdev)
+
+    # (4) tests/test_nr_device.py:51-58
+    fs = FF.refine_periodic_point(HighPrecision("-1.754", prec=256),
+                                  HighPrecision("0.0004", prec=256), 3, 256,
+                                  backend="device", device=device)
+    err = (abs(float(fs.center_x) - PERIOD3_RE), abs(float(fs.center_y)))
+    log(f"  refine period 3 from (-1.754, 0.0004): {fs.nr_iterations} steps"
+        f", |error| {err}")
+    if max(err) >= 1e-18:
+        raise AssertionError("device refinement missed the period-3 nucleus")
+    launches = dict(kernels.launches)
+    log(f"  launches on the feature path: {launches}")
+    for k in ("ntt_nr", "nr_tail"):
+        if launches[k] <= 0:
+            raise AssertionError(f"feature path: kernel {k} never launched")
+
+    # (5) the CLI, against the JAX package's JSON
+    size = ["--width", "32", "--height", "32"]
+    t0 = time.perf_counter()
+    line = cli_line(["--center-x", SMALL_DEEP[0], "--center-y",
+                     SMALL_DEEP[1], "--zoom", SMALL_DEEP[2],
+                     "--feature-find", "--feature-max-period", "3000"] + size,
+                    device)
+    log(f"  --feature-find 1e8 frame ({time.perf_counter() - t0:.2f} s): "
+        f"{'equal' if line == FEATURE_FIND_1E8 else 'DIFFERS'}: {line}")
+    if line != FEATURE_FIND_1E8:
+        raise AssertionError("--feature-find differs from the JAX package")
+    for mode, want in FEATURE_SCAN.items():
+        line = cli_line(SCAN_ARGS + ["--feature-mode", mode], device)
+        log(f"  --feature-scan 3x3 {mode}: "
+            f"{'equal' if line == want else 'DIFFERS'}: {line}")
+        if line != want:
+            raise AssertionError(f"--feature-scan {mode} differs")
+    return launches
+
+
 def plausible(label, s, budget):
     """A frame without a pinned value: counts within the budget, some
     pixels at it and some below (the view shows both)."""
@@ -753,15 +1071,28 @@ def main() -> int:
         return 1
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
+    phase_s = {}
+
+    def run(name, fn, *args):
+        """One phase, its wall time kept for the summary."""
+        tp = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - tp, 1)
+        return out
+
     card = phase_card(torch)
-    phase_build()
-    stats, backend = phase_kernels(device)
+    run("2", phase_build)
+    stats, backend = run("3", phase_kernels, device)
     log(f"    orbit backend: {backend}")
-    phase_f64_perturb_kernels(device, stats)
-    phase_orbit_kernels(device, stats)
-    per_iter = phase_device_orbit(device)
+    run("3b", phase_f64_perturb_kernels, device, stats)
+    run("4", phase_orbit_kernels, device, stats)
+    nr_us = {}
+    per_iter = run("5", phase_device_orbit, device, nr_us)
     with tempfile.TemporaryDirectory() as outdir:  # the frames' PNGs
-        launches, runs = phase_slice(outdir)
+        launches, runs = run("6", phase_slice, outdir)
+    run("7", phase_nr_kernels, device, stats)
+    for k, v in run("8", phase_feature, device, nr_us).items():
+        launches[k] += v
     if any(m.split(".")[0] in ("jax", "fractalshark_tpu")
            for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
@@ -778,6 +1109,11 @@ def main() -> int:
         {str(k): round(v, 3) for k, v in per_iter.items()}))
     log("K4/K5 by limbs: " + json.dumps(
         {k: stats[k]["by_limbs"] for k in ("ntt_orbit", "orbit_tail")}))
+    log("K4-NR/K5-NR by limbs: " + json.dumps(
+        {k: stats[k]["by_limbs"] for k in ("ntt_nr", "nr_tail")}))
+    log("NR chunk us/step: " + json.dumps(
+        {str(k): round(v, 3) for k, v in sorted(nr_us.items())}))
+    log(f"phase wall s: {json.dumps(phase_s)}")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels_out}))

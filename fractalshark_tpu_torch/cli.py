@@ -8,6 +8,8 @@ runs the kernels' plain PyTorch twins).
     # the reference orbit on the card (K4/K5) instead of native GMP
     python -m fractalshark_tpu_torch.cli --view 6 --width 256 \\
         --height 256 --perturbation-alg GPU --stats
+    # find and refine the minibrot at the view centre (host evaluator)
+    python -m fractalshark_tpu_torch.cli --view 6 --feature-find
 """
 
 from __future__ import annotations
@@ -44,10 +46,56 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stats", action="store_true",
                    help="print iteration min/max/sum, the grid's CRC-32 "
                         "and phase timings as JSON")
+    p.add_argument("--feature-find", action="store_true",
+                   help="find+refine a periodic point (minibrot) at the "
+                        "view center; prints a JSON summary")
+    p.add_argument("--feature-scan", default=None, metavar="NXxNY",
+                   help="grid-scan the view for periodic points "
+                        "(e.g. 12x12); prints JSON summaries")
+    p.add_argument("--feature-mode", default="direct",
+                   choices=["direct", "pt", "la"],
+                   help="Phase-A evaluator policy for --feature-scan "
+                        "(FeatureFinderMode Direct/PT/LA)")
+    p.add_argument("--feature-max-period", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (kernels) or cpu (plain "
                         "PyTorch versions)")
     return p
+
+
+def feature_summary(fs) -> dict:
+    """The JSON record of one found feature (``fractalshark_tpu/cli.py``
+    ``_summary``)."""
+    return {"center_x": fs.center_x.to_string(40),
+            "center_y": fs.center_y.to_string(40),
+            "period": fs.period,
+            "size_exp2": int(fs.size_estimate.e),
+            "residual_exp2": fs.residual_exp2,
+            "nr_iterations": fs.nr_iterations}
+
+
+def feature_main(f, args) -> int:
+    """--feature-find / --feature-scan: one JSON line, exit code 2 on a
+    malformed grid (``fractalshark_tpu/cli.py:274-305``)."""
+    max_period = (args.feature_max_period or
+                  min(f.num_iterations, 1_000_000))
+    if args.feature_scan:
+        from fractalshark_tpu_torch.engine.feature_finder import \
+            find_periodic_points_scan
+        try:
+            nx, ny = (int(v) for v in args.feature_scan.lower().split("x"))
+        except ValueError:
+            print(f"error: --feature-scan expects NXxNY, got "
+                  f"{args.feature_scan!r}", file=sys.stderr)
+            return 2
+        feats = find_periodic_points_scan(f.ptz, max_period, grid=(nx, ny),
+                                          mode=args.feature_mode)
+        print(json.dumps({"found": len(feats),
+                          "features": [feature_summary(x) for x in feats]}))
+    else:
+        fs = f.try_find_periodic_point(max_period=max_period)
+        print(json.dumps(feature_summary(fs) if fs else None))
+    return 0
 
 
 def grid_crc32(iters) -> int:
@@ -102,6 +150,8 @@ def main(argv=None) -> int:
         get_orbit_calc(f).orbit_backend = {
             "ST": "host", "MT": "host", "Native": "native",
             "GPU": "device", "TPU": "device"}[args.perturbation_alg]
+    if args.feature_find or args.feature_scan:
+        return feature_main(f, args)
 
     t0 = time.perf_counter()
     if args.output_png:

@@ -34,6 +34,22 @@
 // The JAX tail's overflow-count plane (ntt_pallas.py:1418-1527) is what
 // this replaces; its exactness is kept, its layout is not.
 //
+// K5-NR, the same steps over K = 4 components, is the tail of one
+// Newton-Raphson step (fixedpoint.py:797-827; on the TPU fused_tail(nr=
+// True), ntt_pallas.py:1326 with the cfg of :1338-1344, B8c, and
+// fused_tail_paired(nr=True), :1564-1590, B6).  From K4-NR's signed
+// coefficients (x^2 - y^2, sx*sy*xy, u, v):
+//   x'  : acc = coef[0] + scx*cx<<F + h
+//   y'  : acc = 2*coef[1] + scy*cy<<F + h
+//   dx' : acc = 2*coef[2] + 2^(16*2F) + h     (the +1 of dz/dc = 2z*dz/dc + 1
+//                                             sits at digit 2F of the stream)
+//   dy' : acc = 2*coef[3] + h
+// and it writes the four signs to a device row, with no shadow row.  Its
+// digits are F..F+D-1 of each magnitude as for z, so |dz/dc| wraps modulo
+// 2^32, as in the reference.  Bound: |coef| < 2D*2^32 for u and v, so
+// |acc| < D*2^34 + 2^32 < 2^50 for D < 2^16 (32,768 limbs), which the
+// segment carries above need; the wrapper refuses larger D.
+//
 // Two forms of the same steps, chosen by size:
 //   narrow (L < 16,384, below 4,096 limbs): one launch, one block of 1,024
 //     threads per component, thread t owning S = max(4, L/1024) digits and
@@ -50,6 +66,7 @@
 // Bound on the H100: at 16,384 limbs it reads 2 x 512 KB of coefficients
 // and writes 128 KB; the arithmetic is a few operations per digit, so the
 // bound is the bytes (0.5 us); launch latency dominates the wide form.
+// K5-NR moves twice that.
 
 #include <cuda_runtime.h>
 
@@ -93,14 +110,46 @@ __device__ int block_max(int v, int *red) {
   return -block_min(-v, red);
 }
 
+// One instance's inputs and outputs.  K = 2 (K5): row_in holds the
+// pre-update z's signs at 10 and 11, row_out gets the shadow row [12] of
+// the new z.  K = 4 (K5-NR): row_in is unused, row_out gets the signs [4].
+struct Tail {
+  const int64_t *coef;     // [K][L]
+  const int32_t *row_in;
+  int32_t *row_out;
+  const uint32_t *cx, *cy;
+  int scx, scy;
+  uint32_t *out[4];        // digits F..F+D-1 of each magnitude
+};
+
+// the multiplier of a component's coefficients
+template <int K>
+__device__ __forceinline__ int64_t tail_mul(const Tail &t, int comp) {
+  if (!comp) return 1;
+  if (K == 2) return 2 * static_cast<int64_t>(t.row_in[10]) * t.row_in[11];
+  return 2;
+}
+
+// digit sum j of a component: its scaled coefficient, the addend (c at
+// digit F, the +1 of dz/dc at digit 2F) and the round bit
+template <int K>
+__device__ __forceinline__ int64_t digit_sum(const Tail &t, int comp,
+                                             int64_t mul, int j, int D,
+                                             int L) {
+  const int F = D - 2;
+  int64_t a = mul * t.coef[static_cast<size_t>(comp) * L + j];
+  if (comp < 2 && j >= F && j < F + D)
+    a += (comp ? t.scy : t.scx) *
+         static_cast<int64_t>((comp ? t.cy : t.cx)[j - F]);
+  if (K == 4 && comp == 2 && j == 2 * F) a += 1;
+  if (j == F - 1) a += 1 << 15;
+  return a;
+}
+
+// grid K: one block of kThreads per component
+template <int K>
 __global__ void __launch_bounds__(kThreads)
-orbit_tail_kernel(const int64_t *__restrict__ coef,
-                  const int32_t *__restrict__ row_in,
-                  int32_t *__restrict__ row_out,
-                  const uint32_t *__restrict__ cx,
-                  const uint32_t *__restrict__ cy, int scx, int scy,
-                  uint32_t *__restrict__ nx, uint32_t *__restrict__ ny,
-                  uint32_t *__restrict__ scratch, int D, int m) {
+tail_kernel(Tail tl, uint32_t *__restrict__ scratch, int D, int m) {
   __shared__ int64_t carry[kThreads];
   __shared__ uint32_t maps[2][kThreads];
   __shared__ int red[33];
@@ -113,20 +162,14 @@ orbit_tail_kernel(const int64_t *__restrict__ coef,
   const bool active = t < T;
   const int base = t * S;
   uint32_t *dig = scratch + static_cast<size_t>(comp) * L;
-  const int64_t *cf = coef + static_cast<size_t>(comp) * L;
-  const uint32_t *c = comp ? cy : cx;
-  const int64_t sc = comp ? scy : scx;
-  const int64_t mul =
-      comp ? 2 * static_cast<int64_t>(row_in[10]) * row_in[11] : 1;
+  const int64_t mul = tail_mul<K>(tl, comp);
 
   // 1. ripple the segment's own sums
   int64_t cr = 0;
   if (active) {
     for (int k = 0; k < S; ++k) {
       const int j = base + k;
-      int64_t a = mul * cf[j] + cr;
-      if (j >= F && j < F + D) a += sc * static_cast<int64_t>(c[j - F]);
-      if (j == F - 1) a += 1 << 15;
+      const int64_t a = digit_sum<K>(tl, comp, mul, j, D, L) + cr;
       dig[j] = static_cast<uint32_t>(a & 0xFFFF);
       cr = a >> 16;
     }
@@ -207,22 +250,27 @@ orbit_tail_kernel(const int64_t *__restrict__ coef,
     __syncthreads();
   }
 
-  // 5. digits F..F+D-1 out, then the shadow row of the new value
-  uint32_t *out = comp ? ny : nx;
+  // 5. digits F..F+D-1 out, then the shadow row of the new value (K5) or
+  // the sign (K5-NR)
+  uint32_t *out = tl.out[comp];
   int hi = -1;
   for (int i = t; i < D; i += kThreads) {
     const uint32_t d = dig[F + i];
     out[i] = d;
     if (d) hi = i;
   }
+  if (K == 4) {
+    if (t == 0) tl.row_out[comp] = neg ? -1 : 1;
+    return;
+  }
   hi = block_max(hi, red);
   if (t == 0) {
     int b = hi - 3;
     b = b < 0 ? 0 : (b > D - 4 ? D - 4 : b);
     for (int k = 0; k < 4; ++k)
-      row_out[5 * comp + k] = static_cast<int32_t>(dig[F + b + k]);
-    row_out[5 * comp + 4] = b;
-    row_out[10 + comp] = neg ? -1 : 1;
+      tl.row_out[5 * comp + k] = static_cast<int32_t>(dig[F + b + k]);
+    tl.row_out[5 * comp + 4] = b;
+    tl.row_out[10 + comp] = neg ? -1 : 1;
   }
 }
 
@@ -230,29 +278,30 @@ constexpr int kWideThreads = 256;
 constexpr int kWideSeg = 4;           // digits per thread
 constexpr int kWideMinLog2 = 14;      // L >= 2^14 takes the wide form
 
-// the wide form's scratch, in uint32 words of a buffer of >= 4L: digits
-// [2][L], carries int64 [2][L/4], exclusive prefix maps uint8 [2][L/4],
-// block aggregates [2][G], block carry-ins int32 [2][G], then per
-// component neg, lowest and highest nonzero index
+// the wide form's scratch, in uint32 words of a buffer of >= 4L (K = 2)
+// or 7L (K = 4): digits [K][L], carries int64 [K][L/4], exclusive prefix
+// maps uint8 [K][L/4], block aggregates [K][G], block carry-ins int32
+// [K][G], then per component neg, lowest and highest nonzero index
 struct Wide {
   uint32_t *dig;
   int64_t *carry;
   uint8_t *prefix;
   uint32_t *agg;
   int32_t *bcin;
-  int32_t *flag;   // neg[2], lo[2], hi[2]
+  int32_t *flag;   // neg[K], lo[K], hi[K]
 };
 
+template <int K>
 __device__ __forceinline__ Wide wide(uint32_t *s, int L) {
   const int ns = L / kWideSeg;
   const int g = ns / kWideThreads;
   Wide w;
   w.dig = s;
-  w.carry = reinterpret_cast<int64_t *>(s + 2 * L);
-  w.prefix = reinterpret_cast<uint8_t *>(s + 3 * L);
-  w.agg = s + 3 * L + ns / 2;
-  w.bcin = reinterpret_cast<int32_t *>(w.agg + 2 * g);
-  w.flag = w.bcin + 2 * g;
+  w.carry = reinterpret_cast<int64_t *>(s + K * L);
+  w.prefix = reinterpret_cast<uint8_t *>(s + K * L + K * L / 2);
+  w.agg = s + K * L + K * L / 2 + K * ns / 4;
+  w.bcin = reinterpret_cast<int32_t *>(w.agg + K * g);
+  w.flag = w.bcin + K * g;
   return w;
 }
 
@@ -278,28 +327,19 @@ __device__ uint32_t scan_maps(uint32_t f, uint32_t (*maps)[kThreads]) {
   return inc;
 }
 
-// W1: each segment's own ripple (grid (G, 2))
+// W1: each segment's own ripple (grid (G, K))
+template <int K>
 __global__ void __launch_bounds__(kWideThreads)
-wide_local(const int64_t *__restrict__ coef,
-           const int32_t *__restrict__ row_in,
-           const uint32_t *__restrict__ cx, const uint32_t *__restrict__ cy,
-           int scx, int scy, uint32_t *__restrict__ scratch, int D, int m) {
+wide_local(Tail tl, uint32_t *__restrict__ scratch, int D, int m) {
   const int comp = blockIdx.y;
   const int L = 1 << m;
-  const int F = D - 2;
-  const Wide w = wide(scratch, L);
+  const Wide w = wide<K>(scratch, L);
   const int s = blockIdx.x * kWideThreads + threadIdx.x;
-  const int64_t *cf = coef + static_cast<size_t>(comp) * L;
-  const uint32_t *c = comp ? cy : cx;
-  const int64_t sc = comp ? scy : scx;
-  const int64_t mul =
-      comp ? 2 * static_cast<int64_t>(row_in[10]) * row_in[11] : 1;
+  const int64_t mul = tail_mul<K>(tl, comp);
   int64_t cr = 0;
   for (int q = 0; q < kWideSeg; ++q) {
     const int j = s * kWideSeg + q;
-    int64_t a = mul * cf[j] + cr;
-    if (j >= F && j < F + D) a += sc * static_cast<int64_t>(c[j - F]);
-    if (j == F - 1) a += 1 << 15;
+    const int64_t a = digit_sum<K>(tl, comp, mul, j, D, L) + cr;
     w.dig[comp * L + j] = static_cast<uint32_t>(a & 0xFFFF);
     cr = a >> 16;
   }
@@ -307,14 +347,15 @@ wide_local(const int64_t *__restrict__ coef,
 }
 
 // W2: absorb the carry of the segment below, the segment's map, the
-// block's scan of maps (grid (G, 2))
+// block's scan of maps (grid (G, K))
+template <int K>
 __global__ void __launch_bounds__(kWideThreads)
 wide_maps(uint32_t *__restrict__ scratch, int m) {
   __shared__ uint32_t maps[2][kThreads];
   const int comp = blockIdx.y;
   const int L = 1 << m;
   const int ns = L / kWideSeg;
-  const Wide w = wide(scratch, L);
+  const Wide w = wide<K>(scratch, L);
   const int t = threadIdx.x;
   const int s = blockIdx.x * kWideThreads + t;
   uint32_t *dig = w.dig + comp * L + s * kWideSeg;
@@ -342,7 +383,8 @@ wide_maps(uint32_t *__restrict__ scratch, int m) {
 }
 
 // W3: scan of the block aggregates, the block carry-ins, the sign
-// (grid 2, 1,024 threads >= G)
+// (grid K, 1,024 threads >= G)
+template <int K>
 __global__ void __launch_bounds__(kThreads)
 wide_blocks(uint32_t *__restrict__ scratch, int m) {
   __shared__ uint32_t maps[2][kThreads];
@@ -350,7 +392,7 @@ wide_blocks(uint32_t *__restrict__ scratch, int m) {
   const int L = 1 << m;
   const int ns = L / kWideSeg;
   const int g = ns / kWideThreads;
-  const Wide w = wide(scratch, L);
+  const Wide w = wide<K>(scratch, L);
   const int t = threadIdx.x;
   scan_maps(t < g ? w.agg[comp * g + t] : enc(-1, 0, 1), maps);
   const uint32_t *inc = maps[0];
@@ -358,12 +400,13 @@ wide_blocks(uint32_t *__restrict__ scratch, int m) {
   if (t == 0) {
     const int64_t top = w.carry[comp * ns + ns - 1] + apply(inc[g - 1], 0);
     w.flag[comp] = top < 0;
-    w.flag[2 + comp] = INT_MAX;
-    w.flag[4 + comp] = -1;
+    w.flag[K + comp] = INT_MAX;
+    w.flag[2 * K + comp] = -1;
   }
 }
 
-// W4: apply each segment's carry-in; the lowest nonzero digit (grid (G, 2))
+// W4: apply each segment's carry-in; the lowest nonzero digit (grid (G, K))
+template <int K>
 __global__ void __launch_bounds__(kWideThreads)
 wide_apply(uint32_t *__restrict__ scratch, int m) {
   __shared__ int red[33];
@@ -371,7 +414,7 @@ wide_apply(uint32_t *__restrict__ scratch, int m) {
   const int L = 1 << m;
   const int ns = L / kWideSeg;
   const int g = ns / kWideThreads;
-  const Wide w = wide(scratch, L);
+  const Wide w = wide<K>(scratch, L);
   const int s = blockIdx.x * kWideThreads + threadIdx.x;
   uint32_t *dig = w.dig + comp * L + s * kWideSeg;
   const int cin =
@@ -392,24 +435,24 @@ wide_apply(uint32_t *__restrict__ scratch, int m) {
     if (d && lo == INT_MAX) lo = s * kWideSeg + q;
   }
   lo = block_min(lo, red);
-  if (threadIdx.x == 0 && lo != INT_MAX) atomicMin(&w.flag[2 + comp], lo);
+  if (threadIdx.x == 0 && lo != INT_MAX) atomicMin(&w.flag[K + comp], lo);
 }
 
 // W5: negate if the sum is negative, write digits F..F+D-1, the highest
-// nonzero one (grid (G, 2))
+// nonzero one (grid (G, K))
+template <int K>
 __global__ void __launch_bounds__(kWideThreads)
-wide_finish(uint32_t *__restrict__ scratch, uint32_t *__restrict__ nx,
-            uint32_t *__restrict__ ny, int D, int m) {
+wide_finish(Tail tl, uint32_t *__restrict__ scratch, int D, int m) {
   __shared__ int red[33];
   const int comp = blockIdx.y;
   const int L = 1 << m;
   const int F = D - 2;
-  const Wide w = wide(scratch, L);
+  const Wide w = wide<K>(scratch, L);
   const int s = blockIdx.x * kWideThreads + threadIdx.x;
   const uint32_t *dig = w.dig + comp * L + s * kWideSeg;
   const bool neg = w.flag[comp];
-  const int lo = w.flag[2 + comp];
-  uint32_t *out = comp ? ny : nx;
+  const int lo = w.flag[K + comp];
+  uint32_t *out = tl.out[comp];
   int hi = -1;
   for (int q = 0; q < kWideSeg; ++q) {
     const int j = s * kWideSeg + q;
@@ -420,25 +463,55 @@ wide_finish(uint32_t *__restrict__ scratch, uint32_t *__restrict__ nx,
       if (d) hi = j - F;
     }
   }
+  if (K == 4) return;   // no shadow row
   hi = block_max(hi, red);
-  if (threadIdx.x == 0 && hi >= 0) atomicMax(&w.flag[4 + comp], hi);
+  if (threadIdx.x == 0 && hi >= 0) atomicMax(&w.flag[2 * K + comp], hi);
 }
 
-// W6: the shadow row of the new value (one thread per component)
-__global__ void wide_row(uint32_t *__restrict__ scratch,
-                         int32_t *__restrict__ row_out,
-                         const uint32_t *__restrict__ nx,
-                         const uint32_t *__restrict__ ny, int D, int m) {
+// W6: the shadow row of the new value (K5) or the signs (K5-NR), one
+// thread per component
+template <int K>
+__global__ void wide_row(Tail tl, uint32_t *__restrict__ scratch, int D,
+                         int m) {
   const int comp = threadIdx.x;
-  if (comp > 1) return;
-  const Wide w = wide(scratch, 1 << m);
-  const uint32_t *out = comp ? ny : nx;
-  int b = w.flag[4 + comp] - 3;
+  if (comp >= K) return;
+  const Wide w = wide<K>(scratch, 1 << m);
+  const int neg = w.flag[comp];
+  if (K == 4) {
+    tl.row_out[comp] = neg ? -1 : 1;
+    return;
+  }
+  const uint32_t *out = tl.out[comp];
+  int b = w.flag[2 * K + comp] - 3;
   b = b < 0 ? 0 : (b > D - 4 ? D - 4 : b);
   for (int k = 0; k < 4; ++k)
-    row_out[5 * comp + k] = static_cast<int32_t>(out[b + k]);
-  row_out[5 * comp + 4] = b;
-  row_out[10 + comp] = w.flag[comp] ? -1 : 1;
+    tl.row_out[5 * comp + k] = static_cast<int32_t>(out[b + k]);
+  tl.row_out[5 * comp + 4] = b;
+  tl.row_out[10 + comp] = neg ? -1 : 1;
+}
+
+// one instance's launches: the narrow form below L = 2^14, else the wide
+template <int K>
+int tail(const Tail &tl, void *scratch, int D, int log2n, cudaStream_t st) {
+  auto sc = static_cast<uint32_t *>(scratch);
+  if (log2n < kWideMinLog2) {
+    tail_kernel<K><<<K, kThreads, 0, st>>>(tl, sc, D, log2n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid((1 << log2n) / (kWideThreads * kWideSeg), K);
+  int rc;
+  wide_local<K><<<grid, kWideThreads, 0, st>>>(tl, sc, D, log2n);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  wide_maps<K><<<grid, kWideThreads, 0, st>>>(sc, log2n);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  wide_blocks<K><<<K, kThreads, 0, st>>>(sc, log2n);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  wide_apply<K><<<grid, kWideThreads, 0, st>>>(sc, log2n);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  wide_finish<K><<<grid, kWideThreads, 0, st>>>(tl, sc, D, log2n);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  wide_row<K><<<1, 32, 0, st>>>(tl, sc, D, log2n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -455,36 +528,47 @@ extern "C" int fs_orbit_tail(const void *coef, const void *row_in,
                              void *scratch, int D, int log2n, void *stream) {
   if (D < 16 || log2n > 20 || (1 << log2n) < 2 * D)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  auto cf = static_cast<const int64_t *>(coef);
-  auto rin = static_cast<const int32_t *>(row_in);
-  auto rout = static_cast<int32_t *>(row_out);
-  auto ux = static_cast<const uint32_t *>(cx);
-  auto uy = static_cast<const uint32_t *>(cy);
-  auto ox = static_cast<uint32_t *>(nx);
-  auto oy = static_cast<uint32_t *>(ny);
-  auto sc = static_cast<uint32_t *>(scratch);
-  if (log2n < kWideMinLog2) {
-    orbit_tail_kernel<<<2, kThreads, 0, st>>>(cf, rin, rout, ux, uy, scx, scy,
-                                              ox, oy, sc, D, log2n);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const dim3 grid((1 << log2n) / (kWideThreads * kWideSeg), 2);
-  int rc;
-  wide_local<<<grid, kWideThreads, 0, st>>>(cf, rin, ux, uy, scx, scy, sc, D,
-                                            log2n);
-  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-  wide_maps<<<grid, kWideThreads, 0, st>>>(sc, log2n);
-  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-  wide_blocks<<<2, kThreads, 0, st>>>(sc, log2n);
-  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-  wide_apply<<<grid, kWideThreads, 0, st>>>(sc, log2n);
-  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-  wide_finish<<<grid, kWideThreads, 0, st>>>(sc, ox, oy, D, log2n);
-  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-  wide_row<<<1, 32, 0, st>>>(sc, rout, ox, oy, D, log2n);
-  return static_cast<int>(cudaGetLastError());
+  const Tail tl = {static_cast<const int64_t *>(coef),
+                   static_cast<const int32_t *>(row_in),
+                   static_cast<int32_t *>(row_out),
+                   static_cast<const uint32_t *>(cx),
+                   static_cast<const uint32_t *>(cy),
+                   scx,
+                   scy,
+                   {static_cast<uint32_t *>(nx), static_cast<uint32_t *>(ny),
+                    nullptr, nullptr}};
+  return tail<2>(tl, scratch, D, log2n, static_cast<cudaStream_t>(stream));
 }
+
+// K5-NR.  coef: int64 [4][n]; signs: int32 [4] out (sx, sy, sdx, sdy);
+// cx, cy, nx, ny, ndx, ndy: uint32 [D]; scratch: uint32 [7n].
+// n = 2^log2n >= 2D, 16 <= D < 2^16.
+extern "C" int fs_nr_tail(const void *coef, void *signs, const void *cx,
+                          const void *cy, int scx, int scy, void *nx,
+                          void *ny, void *ndx, void *ndy, void *scratch,
+                          int D, int log2n, void *stream) {
+  if (D < 16 || D >= (1 << 16) || log2n > 17 || (1 << log2n) < 2 * D)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Tail tl = {static_cast<const int64_t *>(coef),
+                   nullptr,
+                   static_cast<int32_t *>(signs),
+                   static_cast<const uint32_t *>(cx),
+                   static_cast<const uint32_t *>(cy),
+                   scx,
+                   scy,
+                   {static_cast<uint32_t *>(nx), static_cast<uint32_t *>(ny),
+                    static_cast<uint32_t *>(ndx),
+                    static_cast<uint32_t *>(ndy)}};
+  return tail<4>(tl, scratch, D, log2n, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fs_ntt_orbit(const void *x, const void *y, void *coef,
+                            void *work, const void *tables, int D, int log2n,
+                            void *stream);
+extern "C" int fs_ntt_nr(const void *x, const void *y, const void *dx,
+                         const void *dy, const void *signs, void *coef,
+                         void *work, const void *tables, int D, int log2n,
+                         void *stream);
 
 // `steps` orbit steps in place on x, y (uint32 [D]): K4 then K5 per step.
 // rows: int32 [steps + 1][12], row 0 holding the state's row on entry;
@@ -501,6 +585,27 @@ extern "C" int fs_orbit_chunk(void *x, void *y, void *rows, const void *cx,
     if (rc) return rc;
     rc = fs_orbit_tail(coef, r + 12 * k, r + 12 * (k + 1), cx, cy, scx, scy,
                        x, y, work, D, log2n, stream);
+    if (rc) return rc;
+  }
+  return 0;
+}
+
+// `steps` NR steps in place on x, y, dx, dy (uint32 [D]) and their signs
+// (int32 [4], device): K4-NR then K5-NR per step.  K4-NR reads the signs,
+// K5-NR then overwrites them (same stream), so the host never waits
+// inside a chunk.  coef (int64 [4n]) and work (uint32 [8n]) are scratch;
+// K5-NR's scratch reuses work.
+extern "C" int fs_nr_chunk(void *x, void *y, void *dx, void *dy,
+                           void *signs, const void *cx, const void *cy,
+                           int scx, int scy, void *coef, void *work,
+                           const void *tables, int D, int log2n, int steps,
+                           void *stream) {
+  for (int k = 0; k < steps; ++k) {
+    int rc = fs_ntt_nr(x, y, dx, dy, signs, coef, work, tables, D, log2n,
+                       stream);
+    if (rc) return rc;
+    rc = fs_nr_tail(coef, signs, cx, cy, scx, scy, x, y, dx, dy, work, D,
+                    log2n, stream);
     if (rc) return rc;
   }
   return 0;

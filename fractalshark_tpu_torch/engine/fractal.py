@@ -2,8 +2,8 @@
 orchestration.  The port of ``fractalshark_tpu/engine/fractal.py``
 limited to the slice: the direct f32/f64 escapes and the LAv2 families
 of f32, f64, hdr32 and hdr64 mantissas in every LA mode (and 2x32 and
-hdr2x32 with a valid LA table).  Every tensor lives on the fractal's
-explicit ``device``.
+hdr2x32 with a valid LA table), and the feature finder's entry points.
+Every tensor lives on the fractal's explicit ``device``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 
 from fractalshark_tpu_torch.core.algorithms import (
     Family, RenderAlgorithm, auto_select, get_algorithm)
+from fractalshark_tpu_torch.core.highprecision import HighPrecision
 from fractalshark_tpu_torch.core.palette import FractalPalette
 from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
 from fractalshark_tpu_torch.core.views import get_view_preset
@@ -90,6 +91,30 @@ class Fractal:
     def set_view(self, ptz: PointZoomBBConverter) -> None:
         self.ptz = ptz.square_aspect_ratio(self.width, self.height)
         self._iters_cache = None
+
+    # --------------------------------------------------------- feature find
+
+    def try_find_periodic_point(self, max_period: int | None = None,
+                                method: str = "newton",
+                                checkpoint_path: str | None = None):
+        """Find + refine a minibrot near the view center
+        (Fractal::TryFindPeriodicPoint, Fractal.cpp:1847)."""
+        from fractalshark_tpu_torch.engine.feature_finder import \
+            find_periodic_point
+        return find_periodic_point(
+            self.ptz, max_period or min(self.num_iterations, 1_000_000),
+            method=method, checkpoint_path=checkpoint_path)
+
+    def zoom_to_feature(self, feature, frame_scale: float = 8.0) -> None:
+        """Recenter on a found feature, framed a few× its size."""
+        size = feature.size_estimate
+        zoom = HighPrecision.from_mant_exp(
+            int(frame_scale * 16), -size.e - 4, prec=64)
+        self.set_view(PointZoomBBConverter(
+            pt_x=feature.center_x, pt_y=feature.center_y,
+            zoom_factor=zoom))
+
+    # ------------------------------------------------------------ algorithm
 
     def resolve_algorithm(self) -> RenderAlgorithm:
         alg = get_algorithm(self.algorithm_name)

@@ -52,11 +52,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # CUDA kernels) and K5 (orbit_tail) once per orbit step; K6 per entry
 # point (perturb_pallas and perturb_stream: the HDR-f32 routes of B10 and
 # B11; perturb_hdr32/hdr64: perturb_render_hdr; perturb_f32/f64:
-# perturb_render_float)
+# perturb_render_float); K4-NR (ntt_nr) and K5-NR (nr_tail) once per NR
+# step, whether launched alone or by the NR chunk loop (fs_nr_chunk)
 KERNELS = ("escape", "lav2_full", "lav2_phase1", "rc_tail", "ntt_orbit",
            "orbit_tail", "lav2_full_f64", "lav2_lao_f64", "perturb_pallas",
            "perturb_stream", "perturb_hdr32", "perturb_hdr64", "perturb_f32",
-           "perturb_f64")
+           "perturb_f64", "ntt_nr", "nr_tail")
 launches = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -92,6 +93,15 @@ _SIGNATURES = {
     # orbit_chunk: x y rows cx cy | scx scy | coef work tables |
     # D log2n steps | stream
     "fs_orbit_chunk": [_P] * 5 + [_I32, _I32] + [_P] * 3
+    + [_I32, _I32, _I32, _P],
+    # ntt_nr: x y dx dy signs coef work tables | D log2n | stream
+    "fs_ntt_nr": [_P] * 8 + [_I32, _I32, _P],
+    # nr_tail: coef signs cx cy | scx scy | nx ny ndx ndy scratch |
+    # D log2n | stream
+    "fs_nr_tail": [_P] * 4 + [_I32, _I32] + [_P] * 5 + [_I32, _I32, _P],
+    # nr_chunk: x y dx dy signs cx cy | scx scy | coef work tables |
+    # D log2n steps | stream
+    "fs_nr_chunk": [_P] * 7 + [_I32, _I32] + [_P] * 3
     + [_I32, _I32, _I32, _P],
 }
 

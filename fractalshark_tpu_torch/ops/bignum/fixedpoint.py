@@ -1,8 +1,9 @@
 """Fixed-point big numbers on 16-bit digits and one orbit step on them:
 the port of ``fractalshark_tpu/ops/bignum/fixedpoint.py`` that the
-device reference orbit needs, through kernels K4 (``csrc/ntt_orbit.cu``,
-the step's products) and K5 (``csrc/orbit_tail.cu``, products to the
-next z).
+device reference orbit and the feature finder's device Newton-Raphson
+evaluator need, through kernels K4 (``csrc/ntt_orbit.cu``, the step's
+products) and K5 (``csrc/orbit_tail.cu``, products to the next z), and
+their NR instances K4-NR and K5-NR (``iterate_z_nr``: z and dz/dc).
 
 A value is sign-magnitude fixed point, as in the JAX package:
 
@@ -24,6 +25,22 @@ next step's shadow row.  The plain twins below compute the same two
 functions with torch int64 tensors (exact modular arithmetic, then a
 carry scan); a wrapper takes its twin only for CPU tensors and launches
 its kernel, or raises, for CUDA tensors.
+
+One NR step (``iterate_z_nr``, ``fractalshark_tpu/ops/bignum/fixedpoint.py:743-827``)
+updates z and dz/dc together, dz/dc from the pre-update z:
+
+    x'  = rhu(x² − y² + cx·2^(16F)),   y'  = rhu(2·xy + cy·2^(16F)),
+    dx' = rhu(2u + 2^(32F)),           dy' = rhu(2v),
+    u = x·dx − y·dy,   v = x·dy + y·dx   (signed values),
+
+the +1 of dz/dc sitting at digit 2F of the product stream.  K4-NR
+computes the exact signed coefficients of x² − y², xy, u and v (the
+signs folded in the frequency domain); K5-NR adds ±c, the +1 and the
+round bit, resolves the carries and keeps digits F..F+D−1 of each
+magnitude.  dz/dc lives in the orbit's format, with 2 integer digits,
+so its magnitude wraps modulo 2^32 once |dz/dc| ≥ 2^32, exactly as in
+the reference; the host evaluator (``engine/feature_finder.py``) does
+not wrap.
 """
 
 from __future__ import annotations
@@ -45,6 +62,11 @@ DIGIT_MASK = 0xFFFF
 WINDOW = 4              # top digits in a shadow row (64 bits ≥ f64)
 # shadow row: win_x[4], base_x, win_y[4], base_y, sx, sy
 ROW = 12
+# the NR state's sign row: sx, sy, sdx, sdy
+NR_ROW = 4
+# K5-NR's carries are exact while every digit sum |2u| < 2·2D·2^32 stays
+# below 2^50 (``csrc/orbit_tail.cu``), so D < 2^16 (32,768 limbs)
+NR_MAX_DIGITS = (1 << 16) - 1
 
 
 @dataclass(frozen=True)
@@ -183,25 +205,64 @@ def _dit(a: torch.Tensor, plan: dict) -> torch.Tensor:
     return a
 
 
+def _crt_signed(r: torch.Tensor) -> torch.Tensor:
+    """Residues [2 primes, K, n] → the signed int64 integers [K, n] they
+    represent, read as negative above p1·p2/2."""
+    r1, r2 = r[0], r[1]
+    t = (r2 - r1) % N.P2 * pow(N.P1, -1, N.P2) % N.P2
+    rec = r1 + N.P1 * t                                   # [0, p1·p2)
+    return torch.where(rec > N.P1 * N.P2 // 2, rec - N.P1 * N.P2, rec)
+
+
+def _forward(values, n: int) -> tuple[torch.Tensor, dict]:
+    """Spectra [2 primes, len(values), n] of digit vectors and the plan."""
+    plan = _plan(n, values[0].device)
+    a = torch.zeros(2, len(values), n, dtype=torch.int64,
+                    device=values[0].device)
+    for k, v in enumerate(values):
+        a[:, k, :v.shape[0]] = v
+    return _dif(a, plan), plan
+
+
+def _inverse(prod: torch.Tensor, plan: dict) -> torch.Tensor:
+    """Signed integer coefficients [K, n] of spectra [2 primes, K, n]."""
+    return _crt_signed(_dit(prod, plan) * plan["ninv"] %
+                       plan["p"].view(2, 1, 1))
+
+
 def orbit_products_plain(x: torch.Tensor, y: torch.Tensor,
                          n: int) -> torch.Tensor:
     """K4's function: int64 [2, n] = (coefficients of x² − y², of x·y)
     for digit vectors x, y, by an NTT modulo each prime and CRT."""
-    plan = _plan(n, x.device)
-    a = torch.zeros(2, 2, n, dtype=torch.int64, device=x.device)
-    a[:, 0, :x.shape[0]] = x
-    a[:, 1, :y.shape[0]] = y
-    f = _dif(a, plan)
+    f, plan = _forward((x, y), n)
     fx, fy = f[:, 0], f[:, 1]
     pp = plan["p"].view(2, 1)
-    prod = torch.stack([(fx * fx - fy * fy) % pp, fx * fy % pp], dim=1)
-    r = _dit(prod, plan) * plan["ninv"] % plan["p"].view(2, 1, 1)
-    r1, r2 = r[0], r[1]
-    t = (r2 - r1) % N.P2 * pow(N.P1, -1, N.P2) % N.P2
-    rec = r1 + N.P1 * t                                   # [0, p1·p2)
-    half = N.P1 * N.P2 // 2
-    d = torch.where(rec[0] > half, rec[0] - N.P1 * N.P2, rec[0])
-    return torch.stack([d, rec[1]])
+    return _inverse(torch.stack([(fx * fx - fy * fy) % pp, fx * fy % pp],
+                                dim=1), plan)
+
+
+def nr_products_plain(x: torch.Tensor, y: torch.Tensor, dx: torch.Tensor,
+                      dy: torch.Tensor, signs: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """K4-NR's function: int64 [4, n] = coefficients of x² − y², sx·sy·xy,
+    u = sx·sdx·x·dx − sy·sdy·y·dy and v = sx·sdy·x·dy + sy·sdx·y·dx for
+    magnitudes x, y, dx, dy and ``signs`` = int32 [4] (sx, sy, sdx, sdy)
+    on their device.  A sign multiplies its product's spectrum by ±1 mod
+    p, as the reference negates spectra (``fixedpoint.py:777-780``)."""
+    f, plan = _forward((x, y, dx, dy), n)
+    fx, fy, fdx, fdy = f[:, 0], f[:, 1], f[:, 2], f[:, 3]
+    pp = plan["p"].view(2, 1)
+    s = signs.to(torch.int64)
+
+    def signed(sgn, a, b):
+        prod = a * b % pp
+        return torch.where(sgn > 0, prod, (pp - prod) % pp)
+
+    u = signed(s[0] * s[2], fx, fdx) - signed(s[1] * s[3], fy, fdy)
+    v = signed(s[0] * s[3], fx, fdy) + signed(s[1] * s[2], fy, fdx)
+    return _inverse(torch.stack([(fx * fx - fy * fy) % pp,
+                                 signed(s[0] * s[1], fx, fy),
+                                 u % pp, v % pp], dim=1), plan)
 
 
 def _carry_resolve(acc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -252,6 +313,17 @@ def shadow_rows(mags: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
     return torch.cat([rows.reshape(-1), signs.to(torch.int32)])
 
 
+def _sign_magnitude(acc: torch.Tensor, spec: FixedSpec):
+    """Digit sums [K, L] (round bit included) → (magnitudes int32 [K, D]
+    = digits F..F+D−1 of |Σ acc_j 2^(16j)|, signs int32 [K], −1 iff the
+    sum is negative)."""
+    F, D = spec.frac_digits, spec.digits
+    dig, top = _carry_resolve(acc)
+    neg = top < 0
+    mag = torch.where(neg.unsqueeze(1), _negate(dig), dig)[:, F:F + D]
+    return mag.to(torch.int32), torch.where(neg, -1, 1).to(torch.int32)
+
+
 def orbit_tail_plain(coef: torch.Tensor, row_in: torch.Tensor, scx: int,
                      cx: torch.Tensor, scy: int, cy: torch.Tensor,
                      spec: FixedSpec):
@@ -263,12 +335,25 @@ def orbit_tail_plain(coef: torch.Tensor, row_in: torch.Tensor, scx: int,
     acc[0, F:F + D] += scx * cx.to(torch.int64)
     acc[1, F:F + D] += scy * cy.to(torch.int64)
     acc[:, F - 1] += 1 << (DIGIT_BITS - 1)
-    dig, top = _carry_resolve(acc)
-    neg = top < 0
-    mag = torch.where(neg.unsqueeze(1), _negate(dig), dig)[:, F:F + D]
-    signs = torch.where(neg, -1, 1)
-    mag = mag.to(torch.int32)
+    mag, signs = _sign_magnitude(acc, spec)
     return mag[0], mag[1], shadow_rows(mag, signs)
+
+
+def nr_tail_plain(coef: torch.Tensor, scx: int, cx: torch.Tensor, scy: int,
+                  cy: torch.Tensor, spec: FixedSpec):
+    """K5-NR's function: (x', y', dx', dy' digits, signs int32 [4]) from
+    K4-NR's coefficients and c: x² − y² + cx, 2·xy + cy, 2u + 1 (at digit
+    2F) and 2v, each with the round bit at digit F − 1
+    (``fixedpoint.py:812-827``)."""
+    D, F = spec.digits, spec.frac_digits
+    acc = coef * torch.tensor([1, 2, 2, 2], dtype=torch.int64,
+                              device=coef.device).view(4, 1)
+    acc[0, F:F + D] += scx * cx.to(torch.int64)
+    acc[1, F:F + D] += scy * cy.to(torch.int64)
+    acc[2, 2 * F] += 1
+    acc[:, F - 1] += 1 << (DIGIT_BITS - 1)
+    mag, signs = _sign_magnitude(acc, spec)
+    return mag[0], mag[1], mag[2], mag[3], signs
 
 
 # --------------------------------------------------------------- wrappers
@@ -358,3 +443,86 @@ def iterate_z(sx, x: torch.Tensor, sy, y: torch.Tensor, scx: int,
     coef = orbit_products(x, y, spec)
     nx, ny, row = orbit_tail(coef, row_in, scx, cx, scy, cy, spec)
     return row[10], nx, row[11], ny
+
+
+def check_nr(spec: FixedSpec) -> None:
+    if not 16 <= spec.digits <= NR_MAX_DIGITS:
+        raise ValueError(f"{spec}: the NR step needs 16 ≤ D < 2^16 digits "
+                         f"(8 to 16,384 limbs; K5-NR's carries are exact "
+                         f"only while |2u| < 2^50)")
+
+
+def _check_signs(signs: torch.Tensor, like: torch.Tensor) -> None:
+    if signs.shape != (NR_ROW,) or signs.dtype != torch.int32 or \
+            signs.device != like.device or not signs.is_contiguous():
+        raise ValueError("signs must be a contiguous int32 [4] on the "
+                         "digits' device")
+
+
+def nr_products(x: torch.Tensor, y: torch.Tensor, dx: torch.Tensor,
+                dy: torch.Tensor, signs: torch.Tensor,
+                spec: FixedSpec) -> torch.Tensor:
+    """int64 [4, nfft]: coefficients of x² − y², sx·sy·xy, u and v
+    (K4-NR on CUDA)."""
+    _check_state(spec, x, y, dx, dy)
+    check_nr(spec)
+    _check_signs(signs, x)
+    if x.device.type == "cpu":
+        return nr_products_plain(x, y, dx, dy, signs, spec.nfft)
+    n = spec.nfft
+    coef = torch.empty(4, n, dtype=torch.int64, device=x.device)
+    work = torch.empty(8 * n, dtype=torch.int32, device=x.device)
+    rc = kernels.lib().fs_ntt_nr(
+        x.data_ptr(), y.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+        signs.data_ptr(), coef.data_ptr(), work.data_ptr(),
+        device_tables(n, x.device).data_ptr(), spec.digits,
+        n.bit_length() - 1, kernels.stream(x.device))
+    kernels.check(rc, "ntt_nr")
+    kernels.launches["ntt_nr"] += 1
+    return coef
+
+
+def nr_tail(coef: torch.Tensor, scx: int, cx: torch.Tensor, scy: int,
+            cy: torch.Tensor, spec: FixedSpec):
+    """(x', y', dx', dy', signs int32 [4]) from K4-NR's coefficients
+    (K5-NR on CUDA)."""
+    _check_state(spec, cx, cy)
+    check_nr(spec)
+    if coef.shape != (4, spec.nfft) or coef.dtype != torch.int64 or \
+            coef.device != cx.device:
+        raise ValueError("nr_tail: coef must be int64 [4, nfft] on c's "
+                         "device")
+    if coef.device.type == "cpu":
+        return nr_tail_plain(coef, scx, cx, scy, cy, spec)
+    D, n = spec.digits, spec.nfft
+    out = torch.empty(4, D, dtype=torch.int32, device=coef.device)
+    signs = torch.empty(NR_ROW, dtype=torch.int32, device=coef.device)
+    scratch = torch.empty(8 * n, dtype=torch.int32, device=coef.device)
+    rc = kernels.lib().fs_nr_tail(
+        coef.contiguous().data_ptr(), signs.data_ptr(), cx.data_ptr(),
+        cy.data_ptr(), int(scx), int(scy), out[0].data_ptr(),
+        out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(),
+        scratch.data_ptr(), D, n.bit_length() - 1,
+        kernels.stream(coef.device))
+    kernels.check(rc, "nr_tail")
+    kernels.launches["nr_tail"] += 1
+    return out[0], out[1], out[2], out[3], signs
+
+
+def sign_row(sx, sy, sdx, sdy, device) -> torch.Tensor:
+    """The int32 [4] sign row of an NR state; each sign an int or an
+    int32 0-d tensor."""
+    return torch.stack([torch.as_tensor(s, dtype=torch.int32, device=device)
+                        for s in (sx, sy, sdx, sdy)])
+
+
+def iterate_z_nr(sx, x, sy, y, sdx, dx, sdy, dy, scx: int, cx, scy: int,
+                 cy, spec: FixedSpec):
+    """ONE fused NR update, z ← z² + c and dz/dc ← 2·z·dz/dc + 1 with
+    dz/dc from the PRE-update z (MpirOrbitEval order): K4-NR then K5-NR
+    on CUDA tensors, their plain twins on CPU tensors.  Returns (nsx,
+    nx, nsy, ny, nsdx, ndx, nsdy, ndy) with 0-d int32 signs."""
+    signs = sign_row(sx, sy, sdx, sdy, x.device)
+    coef = nr_products(x, y, dx, dy, signs, spec)
+    nx, ny, ndx, ndy, ns = nr_tail(coef, scx, cx, scy, cy, spec)
+    return ns[0], nx, ns[1], ny, ns[2], ndx, ns[3], ndy

@@ -13,6 +13,11 @@
 
 The device and the host meet once per chunk.  On CPU tensors the same
 session runs the kernels' plain twins.
+
+The feature finder's device evaluator (``evaluate_critical_orbit_and_derivs_device``,
+``orbit.py:480-535``) runs z and dz/dc together in the NR chunk
+(``orbit_nr_chunk``: K4-NR then K5-NR per step, the signs kept on the
+device), and reads the state back once at the end.
 """
 
 from __future__ import annotations
@@ -95,6 +100,105 @@ def orbit_chunk(state: OrbitState, scx: int, cx: torch.Tensor, scy: int,
         kernels.launches["orbit_tail"] += steps
     state.row = rows[steps]
     return rows[:steps]
+
+
+class NRState:
+    """The device state of an NR evaluation: z and dz/dc digits (int32
+    [D] each) and their signs (int32 [4]: sx, sy, sdx, sdy)."""
+
+    def __init__(self, signs, x, y, dx, dy, device):
+        def dev(a):
+            return torch.from_numpy(np.asarray(a).astype(np.int32)).to(device)
+        self.x, self.y, self.dx, self.dy = dev(x), dev(y), dev(dx), dev(dy)
+        self.signs = dev(np.asarray(signs))
+
+    def numpy(self) -> tuple:
+        """(sx, x, sy, y, sdx, dx, sdy, dy) on the host, the JAX state
+        tuple's order."""
+        s = self.signs.cpu().numpy()
+        out = ()
+        for k, d in enumerate((self.x, self.y, self.dx, self.dy)):
+            out += (np.int32(s[k]), d.cpu().numpy().astype(np.uint32))
+        return out
+
+
+def orbit_nr_chunk(state: NRState, scx: int, cx: torch.Tensor, scy: int,
+                   cy: torch.Tensor, spec: FP.FixedSpec, steps: int) -> None:
+    """Advance ``state`` by ``steps`` NR updates in place (z ← z² + c and
+    dz/dc ← 2·z·dz/dc + 1, ``orbit.py:480-498``); on CUDA one C call runs
+    the whole chunk and returns before the work is done."""
+    dev = state.x.device
+    FP.check_nr(spec)
+    if dev.type == "cpu":
+        for _ in range(steps):
+            coef = FP.nr_products_plain(state.x, state.y, state.dx, state.dy,
+                                        state.signs, spec.nfft)
+            *mags, state.signs = FP.nr_tail_plain(coef, scx, cx, scy, cy,
+                                                  spec)
+            for t, m in zip((state.x, state.y, state.dx, state.dy), mags):
+                t.copy_(m)
+        return
+    n = spec.nfft
+    coef = torch.empty(4, n, dtype=torch.int64, device=dev)
+    work = torch.empty(8 * n, dtype=torch.int32, device=dev)
+    rc = kernels.lib().fs_nr_chunk(
+        state.x.data_ptr(), state.y.data_ptr(), state.dx.data_ptr(),
+        state.dy.data_ptr(), state.signs.data_ptr(), cx.data_ptr(),
+        cy.data_ptr(), int(scx), int(scy), coef.data_ptr(), work.data_ptr(),
+        FP.device_tables(n, dev).data_ptr(), spec.digits, n.bit_length() - 1,
+        steps, kernels.stream(dev))
+    kernels.check(rc, "nr_chunk")
+    kernels.launches["ntt_nr"] += steps
+    kernels.launches["nr_tail"] += steps
+
+
+def nr_limbs(precision_bits: int) -> int:
+    """The evaluator's limb count (``orbit.py:510-512``): a power of two
+    of at least 8 covering ``precision_bits`` + 80 bits."""
+    return 1 << max(3, (-(-(precision_bits + 80) // 32) - 1).bit_length())
+
+
+def critical_orbit_state_device(cx: HighPrecision, cy: HighPrecision,
+                                period: int, precision_bits: int,
+                                chunk_steps: int = 256, device="cuda"):
+    """(spec, NRState) after period−1 NR updates from z = c, dz/dc = 1 on
+    ``device``, at the evaluator's limb count (``orbit.py:510-527``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but CUDA is not "
+                           "available")
+    spec = FP.FixedSpec.for_limbs(nr_limbs(precision_bits))
+    scx, cxd = FP.hp_to_digits(cx, spec)
+    scy, cyd = FP.hp_to_digits(cy, spec)
+    one_s, one_d = FP.hp_to_digits(HighPrecision(1, prec=64), spec)
+    state = NRState((scx, scy, one_s, 1), cxd, cyd, one_d,
+                    np.zeros(spec.digits, np.uint32), dev)
+    cxt, cyt = state.x.clone(), state.y.clone()
+    remaining = period - 1
+    while remaining > 0:
+        steps = min(chunk_steps, remaining)
+        orbit_nr_chunk(state, scx, cxt, scy, cyt, spec, steps)
+        remaining -= steps
+    return spec, state
+
+
+def evaluate_critical_orbit_and_derivs_device(cx: HighPrecision,
+                                              cy: HighPrecision,
+                                              period: int,
+                                              precision_bits: int,
+                                              chunk_steps: int = 256,
+                                              device="cuda"):
+    """Device counterpart of feature_finder's host evaluator: returns
+    (z_x, z_y, dzdc_x, dzdc_y) as HighPrecision after period−1 updates
+    from z = c, dzdc = 1 (EvaluateCriticalOrbitAndDerivs_GPU analogue,
+    KernelInvoke.h:148-169).  dz/dc is held in the orbit's fixed point,
+    so its magnitude wraps modulo 2^32, as in the reference."""
+    spec, state = critical_orbit_state_device(cx, cy, period, precision_bits,
+                                              chunk_steps, device)
+    st = state.numpy()
+    return tuple(HighPrecision.from_mant_exp(
+        int(st[2 * k]) * FP.digits_to_int(st[2 * k + 1]), -spec.frac_bits,
+        prec=precision_bits) for k in range(4))
 
 
 def host_bookkeeping(rows: np.ndarray, dz, rad_m: float, rad_e: int,
