@@ -34,8 +34,20 @@ counts set to 0 just before and read just after, the device evaluator
 width against the wrapped recurrence and the host evaluator) and device
 refinement to the period-858 and period-3 nuclei, then
 ``--feature-find``/``--feature-scan`` through the CLI against the JAX
-package's JSON.  Exits non-zero if any phase fails, and at once when no
-CUDA device is present.  The next-to-last lines are the card's
+package's JSON, (9) K1-seq: the View 0 zoom sequence (8 frames, ×1.3
+each, 512 iterations) at 1024² against its plain version and each frame
+against K1 f32, the f64 instance, then ``escape_sequence`` at 4096²
+(launch count from 0) and its median time, (10) K7: the streaming LA
+phase against its plain version on the 1e8 frame at 64², its handoff on
+View #6 at 256² against K2's ``la_only`` state, and View #6 256² through
+the CLI with ``FRACTALSHARK_LA_PHASE=stream`` (launch counts from 0)
+against the two-phase frame's iter_sum and CRC, (11) K8: every phase of
+the four-step at n = 8,192, 65,536 and 131,072 with 4, 6, 8 and 14 rows,
+forward and inverse, against its plain version, then the generic
+multiplies (``multiply_3way`` with the launch count from 0,
+``multiply_nr``) at 2,048 and 16,384 limbs against Python ints and the
+debug checksum tool against its host mirror.  Exits non-zero if any
+phase fails, and at once when no CUDA device is present.  The next-to-last lines are the card's
 ``nvidia-smi`` name and power limit and a JSON object of the kernels;
 the last line is ``{"ok": true, ...}``.
 
@@ -52,7 +64,7 @@ input read once, each output written once) over 3.35 TB/s and the
 operations its function needs on this run's inputs over the card's peak
 rate for their type: 67 TFLOP/s f32 and 34 TFLOP/s f64 outside the
 tensor cores (NVIDIA's H100 SXM data sheet) and, for the integer kernels
-K4 and K5, 16.7 Tops/s int32 (a quarter of the f32 figure: 64 INT32
+K4, K5 and K8, 16.7 Tops/s int32 (a quarter of the f32 figure: 64 INT32
 lanes per SM against 128 FP32 lanes that each count an FMA as two,
 Hopper white paper).  Where the count depends on the data, it is a lower
 bound of what these inputs need, as each ``*_ops`` function says.
@@ -122,6 +134,19 @@ SMALL_DEEP = ("-0.743643887037158704752191506114774",
 ORBIT_LIMBS = (32, 2048, 16384)
 ORACLE_STEPS = 256
 SESSION_BUDGET = 16384
+# K1-seq: the JAX bench's headline sequence (bench.py _headline): View 0,
+# 8 frames each 1.3x deeper, 512 iterations, f32; compared at 1024²,
+# timed at 4096²
+SEQ_FRAMES, SEQ_FACTOR, SEQ_BUDGET = 8, 1.3, 512
+SEQ_SMALL, SEQ_BIG = 1024, 4096
+# K8: the four-step sizes (2,048, 16,384 and 32,768 limbs: the View #32
+# operand) and row counts (4/6: a multiply's forward/inverse, 8/14:
+# multiply_nr's)
+NTT_SIZES = (8192, 65536, 131072)
+NTT_ROWS = (4, 6, 8, 14)
+MUL_LIMBS = (2048, 16384)
+# K7's frames: View #6 at this size, with the pinned two-phase frame
+STREAM_SIZE, STREAM_PIN = 256, VIEW6_256
 
 KERNEL_META = {
     "escape": ("fractalshark_tpu_torch/csrc/escape.cu",
@@ -157,6 +182,13 @@ KERNEL_META = {
                "fractalshark_tpu/ops/bignum/ntt_mxu.py:557"),
     "nr_tail": ("fractalshark_tpu_torch/csrc/orbit_tail.cu",
                 "fractalshark_tpu/ops/bignum/ntt_pallas.py:1134"),
+    "escape_seq": ("fractalshark_tpu_torch/csrc/escape.cu",
+                   "fractalshark_tpu/ops/escape.py:220"),
+    "la_stream": ("fractalshark_tpu_torch/csrc/la_stream.cu",
+                  "fractalshark_tpu/ops/la_stream.py:69"),
+    # B9b; K8 also replaces B9a, ntt_mxu.py:243 (the same function)
+    "ntt_phase": ("fractalshark_tpu_torch/csrc/ntt_phase.cu",
+                  "fractalshark_tpu/ops/bignum/ntt_pallas.py:1661"),
 }
 
 HBM_BYTES_PER_S = 3.35e12
@@ -1044,6 +1076,250 @@ def phase_feature(device, nr_us):
     return launches
 
 
+def phase_escape_seq(device, stats, card):
+    """K1-seq against its plain version and K1, then the headline
+    sequence through ``escape_sequence`` (its launch count from 0) and
+    the kernel's median time of 3."""
+    import torch
+
+    from fractalshark_tpu_torch import kernels
+    from fractalshark_tpu_torch.core.views import get_view_preset
+    from fractalshark_tpu_torch.ops import escape
+
+    log("[9] K1-seq (B13): the View 0 zoom sequence")
+    st = stats["escape_seq"]
+    f32, n = torch.float32, SEQ_BUDGET
+
+    def frames(size, count=SEQ_FRAMES):
+        ptz = get_view_preset(0).ptz.square_aspect_ratio(size, size)
+        return escape.zoom_sequence(
+            escape.PlainParams.from_view(ptz, size, size), size, size, count,
+            SEQ_FACTOR)
+
+    S = SEQ_SMALL
+    fs = frames(S)
+    k, ms = timed(lambda: escape.escape_sequence_kernel(fs, S, S, n, f32,
+                                                        device), device, 3)
+    pl, pms = timed(lambda: escape.escape_sequence_plain(fs, S, S, n, f32,
+                                                         device), device,
+                    warm=False)
+    compare(f"K1-seq f32 {SEQ_FRAMES} frames {S}² x{n}", k, pl, st)
+    log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    for i, p in enumerate(fs):
+        compare(f"K1-seq frame {i} vs K1 f32", k[i].to(torch.int64),
+                escape.escape_kernel(p, S, S, n, f32, device), st)
+    st.update(ms=ms, plain_ms=pms, **bound(nbytes(k), escape_ops(k, n),
+                                            F32_OPS_PER_S))
+    f2 = frames(256, 3)
+    compare("K1-seq f64 3 frames 256²", escape.escape_sequence_kernel(
+        f2, 256, 256, n, torch.float64, device),
+        escape.escape_sequence_plain(f2, 256, 256, n, torch.float64, device),
+        st)
+
+    B = SEQ_BIG
+    fb = frames(B)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    out = escape.escape_sequence(fb, B, B, n, device=device)
+    wall = time.perf_counter() - t0
+    launches = kernels.launches["escape_seq"]
+    ok = (out.shape == (SEQ_FRAMES, B, B) and str(out.dtype) == "uint32"
+          and int(out.max()) == n and int(out.min()) < n)
+    log(f"  escape_sequence {SEQ_FRAMES} frames {B}² x{n}: {launches} "
+        f"launch, wall {wall:.3f} s (with the copy to the host), iter sums "
+        f"{[int(v) for v in out.reshape(SEQ_FRAMES, -1).sum(axis=1)]}")
+    if not ok or launches != 1:
+        raise AssertionError("escape_sequence at 4096² is not plausible")
+    ts = [timed(lambda: escape.escape_sequence_kernel(fb, B, B, n, f32,
+                                                      device), device,
+                warm=False)[1] for _ in range(3)]
+    med = sorted(ts)[1]
+    log(f"  headline (K1-seq, {SEQ_FRAMES} × {B}² × {n}, f32): median "
+        f"{med:.3f} ms of {[round(t, 3) for t in ts]}, "
+        f"{SEQ_FRAMES * B * B / (med / 1e3) / 1e6:.1f} Mpix/s on {card}")
+    return {"escape_seq": launches}
+
+
+def phase_la_stream(device, stats):
+    """K7 against its plain version and K2's la_only state, then View #6
+    through the CLI with FRACTALSHARK_LA_PHASE=stream (launch counts from
+    0)."""
+    import torch
+
+    from fractalshark_tpu_torch import kernels
+    from fractalshark_tpu_torch.ops import la_kernel
+    from fractalshark_tpu_torch.ops import la_stream as LS
+    from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
+    from fractalshark_tpu_torch.ops.perturb import _dc_grids_hdr, delta_params
+
+    log("[10] K7 (B12): the streaming LA phase")
+    st = stats["la_stream"]
+    _, _, _, T, _, dc, _ = deep_inputs(SMALL_DEEP, 64, device)
+    n = SMALL_DEEP[3]
+    flat = HDRComplex(*(t.reshape(-1).contiguous() for t in dc))
+    chunk = LS.DEFAULT_CHUNK_STEPS
+    ks, ms = timed(lambda: LS.run_stages(T, flat, n, chunk), device, 3)
+    ps, pms = timed(lambda: LS.run_stages(T, flat, n, chunk, plain=True),
+                    device, warm=False)
+    for name, a, b in zip(LS._STATE, ks, ps):
+        compare(f"K7 1e8 frame 64² {name}", a, b, st)
+    log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    st.update(ms=ms, plain_ms=pms, **bound(
+        nbytes(T.nodes, T.side, T.stages, *dc, *ks),
+        lav2_ops(T, dc.re.numel()), F32_OPS_PER_S))
+
+    S = STREAM_SIZE
+    f, res, la = frame_inputs(6, S, device)
+    n6 = f.num_iterations
+    got = LS.la_phase_stream(res, la, f.ptz, S, S, n6, device=device)
+    _, _, ref_iter, dzr, dzi, dze, it, _ = la_kernel.la_perturb_render(
+        res, la, f.ptz, S, S, n6, la_only=True, return_state=True,
+        device=device)
+    want = {"it": it, "jwait": ref_iter, "done": it >= n6, "dzr": dzr,
+            "dzi": dzi, "dze": dze}
+    for key, b in want.items():
+        compare(f"K7 handoff vs K2 la_only View #6 {S}² {key}", got[key], b,
+                st)
+    T6 = la_kernel.la_tables_on(la, device)
+    dc6 = _dc_grids_hdr(*delta_params(f.ptz, res.center_x, res.center_y, S,
+                                      S), S, S, device)
+    f6 = HDRComplex(*(t.reshape(-1).contiguous() for t in dc6))
+    _, ms6 = timed(lambda: LS.run_stages(T6, f6, n6, chunk), device, 3)
+    log(f"  K7 View #6 {S}² (every stage, {T6.stage_count} stages): "
+        f"{ms6:.3f} ms")
+
+    os.environ["FRACTALSHARK_LA_PHASE"] = "stream"
+    try:
+        kernels.reset_counts()
+        s, wall = cli_run(["--view", "6", "--width", str(S), "--height",
+                           str(S), "--stats", "--device", str(device)])
+        launches = dict(kernels.launches)
+    finally:
+        del os.environ["FRACTALSHARK_LA_PHASE"]
+    got = (s["iter_sum"], s["crc32"])
+    log(f"  View #6 {S}² FRACTALSHARK_LA_PHASE=stream: la_phase "
+        f"{s['la_phase']}, iter_sum {got[0]}, crc32 {got[1]} (two-phase "
+        f"{STREAM_PIN}), wall {wall:.3f} s, timings "
+        f"{json.dumps(s['timings'])}, launches {launches}")
+    if s["la_phase"] != "stream" or got != STREAM_PIN or \
+            launches["la_stream"] <= 0 or launches["rc_tail"] <= 0 or \
+            launches["lav2_phase1"] != 0:
+        raise AssertionError("the stream-phase View #6 frame differs")
+    return {"la_stream": launches["la_stream"]}
+
+
+def ntt_phase_ops(rows: int, m: int, lanes: int) -> float:
+    """K8: m/2·log2(m) butterflies per column at 8 integer operations (a
+    Montgomery product of 6, an add and a subtract)."""
+    return rows * lanes * (m // 2) * (m.bit_length() - 1) * 8.0
+
+
+def phase_ntt(device, stats):
+    """K8 against its plain version at every four-step phase shape, then
+    the generic multiplies against Python ints (multiply_3way's launch
+    count from 0) and the checksum tool against its host mirror."""
+    import numpy as np
+    import torch
+
+    from fractalshark_tpu_torch import kernels
+    from fractalshark_tpu_torch.ops.bignum import debug as DBG
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+    from fractalshark_tpu_torch.ops.bignum import ntt as N
+
+    log("[11] K8 (B9a/B9b): four-step NTT phases; the generic multiplies")
+    st = stats["ntt_phase"]
+    rng = np.random.default_rng(11)
+
+    def residues(shape):
+        a = np.stack([rng.integers(0, (N.P1, N.P2)[r % 2], shape[1:])
+                      for r in range(shape[0])])
+        return torch.from_numpy(a.astype(np.int32)).to(device)
+
+    for n in NTT_SIZES:
+        n1, n2 = N.split_n(n)
+        bad = 0
+        for rows in NTT_ROWS:
+            for m, lanes in ((n1, n2), (n2, n1)):
+                y = residues((rows, m, lanes))
+                for inv in (False, True):
+                    a = N.phase_kernel(y, m, inv)
+                    b = N.phase_transform_plain(y, m, inv)
+                    bad += int((a != b).sum())
+        log(f"  K8 n = {n} ({n1} × {n2}), rows {NTT_ROWS}, both phases, "
+            f"forward and inverse: {bad} elements differ")
+        if bad:
+            raise AssertionError(f"K8 disagrees with its plain version at "
+                                 f"n = {n}")
+    st["max_abs_err"] = 0.0
+    times = {}
+    for rows, m, lanes in ((4, 256, 256), (6, 256, 256), (14, 256, 512),
+                           (14, 512, 256)):
+        y = residues((rows, m, lanes))
+        _, ms = timed(lambda: N.phase_kernel(y, m, False), device, 20)
+        _, pms = timed(lambda: N.phase_transform_plain(y, m, False), device)
+        times[f"{rows}x{m}x{lanes}"] = (round(ms, 4), round(pms, 3))
+        if (rows, m, lanes) == (4, 256, 256):   # 16,384 limbs, forward
+            st.update(ms=ms, plain_ms=pms, **bound(
+                2 * nbytes(y), ntt_phase_ops(rows, m, lanes), I32_OPS_PER_S))
+    log(f"  K8 ms (kernel, plain) by [rows x m x lanes]: {times}")
+
+    def operands(spec, k):
+        """k random magnitudes below 4 (in the fixed-point range)."""
+        out = []
+        for _ in range(k):
+            v = rng.integers(0, 1 << 16, spec.digits, dtype=np.uint32)
+            v[-1], v[-2] = 0, v[-2] & 3
+            out.append(v)
+        return out
+
+    launches = 0
+    for limbs in MUL_LIMBS:
+        spec = FP.FixedSpec.for_limbs(limbs)
+        d = operands(spec, 4)
+        ints = [FP.digits_to_int(v) for v in d]
+        half = 1 << (spec.frac_bits - 1)
+
+        def rs(v):
+            return (v + half) >> spec.frac_bits
+
+        t0 = time.perf_counter()
+        if limbs == max(MUL_LIMBS):
+            kernels.reset_counts()
+        x3 = FP.multiply_3way(d[0], d[1], spec, device=device)
+        if limbs == max(MUL_LIMBS):
+            launches = kernels.launches["ntt_phase"]
+        nr = FP.multiply_nr(*d, spec, device=device)
+        torch.cuda.synchronize(device)
+        dev_s = time.perf_counter() - t0
+        x, y, dx, dy = ints
+        want = [rs(a * b) for a, b in ((x, x), (y, y), (x, y), (x, dx),
+                                       (x, dy), (y, dx), (y, dy))]
+        got = [FP.digits_to_int(t.cpu().numpy()) for t in (*x3, *nr)]
+        ok = got == want[:3] + want
+        log(f"  {limbs} limbs: multiply_3way and multiply_nr "
+            f"{'equal' if ok else 'DIFFER from'} the Python-int products "
+            f"({dev_s:.3f} s on the card)")
+        if not ok:
+            raise AssertionError(f"{limbs} limbs: generic multiplies differ")
+    # four phases on the four-step route, one each way on the flat one
+    want = 4 if spec.nfft >= N.FOURSTEP_MIN else 2
+    log(f"  multiply_3way at {max(MUL_LIMBS)} limbs: {launches} K8 launches "
+        f"(expected {want})")
+    if launches != want:
+        raise AssertionError("multiply_3way did not run its K8 phases")
+
+    spec = FP.FixedSpec.for_limbs(2048)
+    dx, dy = operands(spec, 2)
+    diff = DBG.diff_checksums(
+        DBG.checksum_multiply_3way(dx, dy, spec, device=device),
+        DBG.host_multiply_3way_checksums(dx, dy, spec))
+    log(f"  checksum_multiply_3way at 2,048 limbs against the host mirror: "
+        f"diverging stages {diff}")
+    if diff:
+        raise AssertionError("the debug checksums diverge")
+    return {"ntt_phase": launches}
+
+
 def plausible(label, s, budget):
     """A frame without a pinned value: counts within the budget, some
     pixels at it and some below (the view shows both)."""
@@ -1093,6 +1369,9 @@ def main() -> int:
     run("7", phase_nr_kernels, device, stats)
     for k, v in run("8", phase_feature, device, nr_us).items():
         launches[k] += v
+    launches.update(run("9", phase_escape_seq, device, stats, card))
+    launches.update(run("10", phase_la_stream, device, stats))
+    launches.update(run("11", phase_ntt, device, stats))
     if any(m.split(".")[0] in ("jax", "fractalshark_tpu")
            for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")

@@ -183,6 +183,7 @@ def main(argv=None) -> int:
             "orbit_backend": bm.extra.get("backend"),
             "orbit_len": bm.extra.get("orbit_len"),
             "orbit_period": bm.extra.get("period"),
+            "la_phase": bm.extra.get("la_phase"),
             "timings": timings,
         }))
     return 0

@@ -19,10 +19,26 @@
 // write is 8 bytes per pixel.  Warps diverge where neighbouring pixels
 // escape at different counts, as on any SIMT machine; the early exit
 // per thread replaces the reference's per-tile "all resolved" check.
+//
+// K1-seq: a sequence of K frames in one launch, frame k = blockIdx.z.
+// Replaces: fractalshark_tpu/ops/escape.py:220 _escape_seq_kernel (Pallas,
+// B13; launch _escape_seq_impl :285, API escape_pallas_sequence :310).
+// Every frame has _escape_tile's semantics (escape.py:144-208) in BOTH
+// types: the interior shortcut, counting while |z|^2 <= 4, the clamp.
+// The [K,5] table (min_x, max_y, dx, dy, budget) is in the frame type in
+// device memory, as the reference's SMEM table; the budget is converted
+// to int32 in the kernel (f32: 2^24 + 1 reads as 2^24, as the reference's
+// .astype(int32) does; the conversion saturates).  Counting stops at the
+// first |z|^2 > 4: past it z diverges monotonically (escape.py:149-153),
+// so no later step counts, as in the reference.  f64 results are flushed
+// (hdr.cuh ftz), as XLA:CPU flushes the reference's f64 tile.  Output
+// int32 [K,H,W], 4 bytes per pixel.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hdr.cuh"
 
 namespace {
 
@@ -74,6 +90,56 @@ int launch(void *out, int width, int height, T min_x, T max_y, T dx, T dy,
   return static_cast<int>(cudaGetLastError());
 }
 
+// _escape_tile for pixel (x, y) of frame k; every result passes ftz
+// (the identity for float: -ftz=true flushes f32 in hardware)
+template <typename T>
+__global__ void escape_seq_kernel(int32_t *__restrict__ out,
+                                  const T *__restrict__ params, int width,
+                                  int height) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= width || y >= height) return;
+  const T *p = params + 5 * blockIdx.z;
+  const int32_t budget = static_cast<int32_t>(p[4]);
+  const T cx = fs::ftz(p[0] + fs::ftz(static_cast<T>(x) * p[2]));
+  const T cy = fs::ftz(p[1] - fs::ftz(static_cast<T>(y) * p[3]));
+  const int64_t at =
+      (static_cast<int64_t>(blockIdx.z) * height + y) * width + x;
+  const T xq = fs::ftz(cx - static_cast<T>(0.25));
+  const T cy2 = fs::ftz(cy * cy);
+  const T q = fs::ftz(fs::ftz(xq * xq) + cy2);
+  const T cx1 = fs::ftz(cx + static_cast<T>(1.0));
+  if (fs::ftz(q * fs::ftz(q + xq)) <= fs::ftz(static_cast<T>(0.25) * cy2) ||
+      fs::ftz(fs::ftz(cx1 * cx1) + cy2) <= static_cast<T>(0.0625)) {
+    out[at] = budget;
+    return;
+  }
+  T zx = cx, zy = cy;
+  int32_t it = 0;
+  while (it < budget) {
+    const T zx2 = fs::ftz(zx * zx);
+    const T zy2 = fs::ftz(zy * zy);
+    if (!(fs::ftz(zx2 + zy2) <= static_cast<T>(4.0))) break;
+    const T nzy = fs::ftz(fs::ftz(fs::ftz(zx + zx) * zy) + cy);
+    zx = fs::ftz(fs::ftz(zx2 - zy2) + cx);
+    zy = nzy;
+    ++it;
+  }
+  out[at] = it;
+}
+
+template <typename T>
+int launch_seq(void *out, const void *params, int frames, int width,
+               int height, void *stream) {
+  const dim3 block(32, 8);
+  const dim3 grid((width + block.x - 1) / block.x,
+                  (height + block.y - 1) / block.y, frames);
+  escape_seq_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t *>(out), static_cast<const T *>(params), width,
+      height);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -94,6 +160,16 @@ int fs_escape_f64(void *out, int32_t width, int32_t height, double min_x,
                   void *stream) {
   return launch<double, false>(out, width, height, min_x, max_y, dx, dy,
                                max_iter, stream);
+}
+
+int fs_escape_seq_f32(void *out, const void *params, int32_t frames,
+                      int32_t width, int32_t height, void *stream) {
+  return launch_seq<float>(out, params, frames, width, height, stream);
+}
+
+int fs_escape_seq_f64(void *out, const void *params, int32_t frames,
+                      int32_t width, int32_t height, void *stream) {
+  return launch_seq<double>(out, params, frames, width, height, stream);
 }
 
 }  // extern "C"

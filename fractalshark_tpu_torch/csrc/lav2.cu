@@ -41,6 +41,7 @@
 #include <cstdint>
 
 #include "hdr.cuh"
+#include "la_common.cuh"
 
 namespace {
 
@@ -61,38 +62,9 @@ struct Lav2Params {
   int init;
 };
 
-template <typename T>
-__device__ __forceinline__ Hdr<T> cheb_r(HdrC<T> z) {
-  return fs::reduce(fs::chebychev_norm(z));
-}
-
-// an integer field of a float table (tables.py ibits_np)
-__device__ __forceinline__ int32_t bits(float v) { return __float_as_int(v); }
-__device__ __forceinline__ int32_t bits(double v) {
-  return static_cast<int32_t>(v);
-}
-
-// one [16] node row: four 16-byte loads for f32, eight for f64
-__device__ __forceinline__ void load_row(const float *r, float *g) {
-  const float4 *v = reinterpret_cast<const float4 *>(r);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float4 q = v[k];
-    g[4 * k] = q.x;
-    g[4 * k + 1] = q.y;
-    g[4 * k + 2] = q.z;
-    g[4 * k + 3] = q.w;
-  }
-}
-__device__ __forceinline__ void load_row(const double *r, double *g) {
-  const double2 *v = reinterpret_cast<const double2 *>(r);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const double2 q = v[k];
-    g[2 * k] = q.x;
-    g[2 * k + 1] = q.y;
-  }
-}
+using fs::bits;
+using fs::cheb_r;
+using fs::load_row;
 
 template <typename T>
 __global__ void lav2_kernel(
@@ -116,27 +88,7 @@ __global__ void lav2_kernel(
     // ---------------- AT head skip (ATInfo.h:157-188) -------------------
     it = 0;
     dz = {T(0), T(0), fs::kMinBigExponent};
-    if (P.at_step > 0) {
-      const Hdr<T> thrc = {at[0], bits(at[1])};
-      const Hdr<T> sqr_esc = {at[2], bits(at[3])};
-      const HdrC<T> refc = {at[4], at[5], bits(at[6])};
-      const HdrC<T> cc = {at[7], at[8], bits(at[9])};
-      const HdrC<T> invzc = {at[10], at[11], bits(at[12])};
-      if (fs::lte_reduced(dc_cheb, thrc)) {
-        const HdrC<T> c_at =
-            fs::reduce_complex(fs::complex_add(fs::complex_mul(dc, cc), refc));
-        const int64_t at_max = n / P.at_step;
-        HdrC<T> z = {T(0), T(0), fs::kMinBigExponent};
-        int64_t cnt = 0;
-        while (cnt < at_max) {
-          if (fs::gt_reduced(fs::reduce(fs::norm_squared(z)), sqr_esc)) break;
-          z = fs::reduce_complex(fs::complex_add(fs::complex_sqr(z), c_at));
-          ++cnt;
-        }
-        dz = fs::reduce_complex(fs::complex_mul(z, invzc));
-        it = cnt * P.at_step;
-      }
-    }
+    fs::at_head_skip(at, dc, dc_cheb, n, P.at_step, dz, it);
     s = P.stage_count - 1;
     j = 0;  // the top stage is entered with j = 0
     ref_iter = 0;

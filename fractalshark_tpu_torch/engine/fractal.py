@@ -21,6 +21,7 @@ from fractalshark_tpu_torch.core.palette import FractalPalette
 from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
 from fractalshark_tpu_torch.core.views import get_view_preset
 from fractalshark_tpu_torch.io.png import write_png
+from fractalshark_tpu_torch.kernels import resolve_device
 from fractalshark_tpu_torch.ops import escape
 from fractalshark_tpu_torch.ops.coloring import (
     color_from_iters, iteration_stats, rgba16_to_numpy, rgba16_to_rgba8)
@@ -34,18 +35,6 @@ class BenchmarkData:
     ref_orbit_s: float = 0.0
     la_generation_s: float = 0.0
     extra: dict = field(default_factory=dict)
-
-
-def resolve_device(device) -> torch.device:
-    """The device a render runs on; CUDA must really be there."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but CUDA is not "
-                           "available (pass --device cpu to run the plain "
-                           "PyTorch versions)")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 class Fractal:

@@ -20,11 +20,19 @@ PO mode, or no valid LA table: the perturbation-only renders of
 the zero state; hdr32 → B10's route within its caps, else B11's; hdr64
 → HDR with f64 mantissas.
 
+``FRACTALSHARK_LA_PHASE=stream`` makes phase 1 of the two-phase routes
+the streaming LA phase (K7, ``ops/la_stream.py``) on a CUDA device, as
+the reference does on its TPU (``renderers.py:215-240``); on the CPU the
+variable is ignored.  Unlike the reference, a K7 failure raises (no
+catch-all fallback) and any value other than unset or ``stream`` raises
+``ValueError``.
+
 On the CPU the same routes run the kernels' plain twins.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -36,6 +44,7 @@ from fractalshark_tpu_torch.engine.la_reference import get_or_build_la
 from fractalshark_tpu_torch.engine.perturbation_results import CompressedOrbit
 from fractalshark_tpu_torch.engine.reforbit import RefOrbitCalc
 from fractalshark_tpu_torch.ops import la_kernel, perturb
+from fractalshark_tpu_torch.ops.la_stream import la_phase_stream
 from fractalshark_tpu_torch.ops.perturb_pallas import perturb_render_pallas
 from fractalshark_tpu_torch.ops.perturb_stream import (
     anchors_on, perturb_render_stream, perturb_render_stream_rc)
@@ -186,10 +195,28 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+LA_PHASE_ENV = "FRACTALSHARK_LA_PHASE"
+
+
+def use_stream_phase(device) -> bool:
+    """Phase 1 is K7 where ``FRACTALSHARK_LA_PHASE=stream`` and the device
+    is CUDA (the reference: on its TPU).  The variable is unset or
+    ``stream``; anything else raises, on every device (the reference
+    silently ignores a typo)."""
+    v = os.environ.get(LA_PHASE_ENV)
+    if v not in (None, "stream"):
+        raise ValueError(f"{LA_PHASE_ENV}={v!r}: the only value is "
+                         f"'stream' (or leave it unset)")
+    return v == "stream" and torch.device(device).type == "cuda"
+
+
 def la_rc_render(fractal, results, la, w: int, h: int,
                  identity: bool = False) -> torch.Tensor:
     """Two-phase LAv2 over identity anchors (exact streaming of the
-    uncompressed orbit) or the real compressed orbit (RC)."""
+    uncompressed orbit) or the real compressed orbit (RC); phase 1 is the
+    streaming LA phase where ``FRACTALSHARK_LA_PHASE=stream`` selects it
+    on a CUDA device."""
+    stream = use_stream_phase(fractal.device)
     t0 = time.perf_counter()
     if identity:
         comp = results.extra.get("identity_compressed")
@@ -205,7 +232,7 @@ def la_rc_render(fractal, results, la, w: int, h: int,
                             fractal.num_iterations, comp=comp,
                             abort_monitor=fractal.abort_monitor,
                             device=fractal.device,
-                            timings=fractal.benchmark.extra)
+                            timings=fractal.benchmark.extra, stream=stream)
 
 
 def _handoff_init(ref_iter, it, n: int) -> tuple:
@@ -215,22 +242,30 @@ def _handoff_init(ref_iter, it, n: int) -> tuple:
 
 def two_phase_render(results, la, ptz, w: int, h: int, n: int, *, comp=None,
                      abort_monitor=None, device="cuda",
-                     timings: dict | None = None) -> torch.Tensor:
+                     timings: dict | None = None,
+                     stream: bool = False) -> torch.Tensor:
     """Phase 1: the LA machine to each pixel's tail entry (K2,
-    ``la_only``); phase 2: the RC tail from each pixel's orbit position
+    ``la_only``; with `stream` the streaming LA phase, K7, unless it
+    returns None); phase 2: the RC tail from each pixel's orbit position
     (K3).  Returns the int64 iteration grid [h, w]."""
     if comp is None:
         comp = CompressedOrbit.identity(results)
     t0 = time.perf_counter()
-    state = la_kernel.la_perturb_render(
-        results, la, ptz, w, h, n, la_only=True, return_state=True,
-        abort_monitor=abort_monitor, device=device)
+    init = la_phase_stream(results, la, ptz, w, h, n,
+                           abort_monitor=abort_monitor,
+                           device=device) if stream else None
+    if init is None:
+        state = la_kernel.la_perturb_render(
+            results, la, ptz, w, h, n, la_only=True, return_state=True,
+            abort_monitor=abort_monitor, device=device)
+        _, _, ref_iter, dzr, dzi, dze, it, _ = state
+        it, jwait, done = _handoff_init(ref_iter, it, n)
+        init = {"dzr": dzr, "dzi": dzi, "dze": dze, "it": it,
+                "jwait": jwait, "done": done}
+    elif timings is not None:
+        timings["la_phase"] = "stream"
     _sync(device)
     t1 = time.perf_counter()
-    _, _, ref_iter, dzr, dzi, dze, it, _ = state
-    it, jwait, done = _handoff_init(ref_iter, it, n)
-    init = {"dzr": dzr, "dzi": dzi, "dze": dze, "it": it, "jwait": jwait,
-            "done": done}
     out = perturb_render_stream_rc(
         comp, results.center_x, results.center_y, ptz, w, h, n,
         init_state=init, abort_monitor=abort_monitor, device=device)

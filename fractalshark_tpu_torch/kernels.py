@@ -53,11 +53,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # point (perturb_pallas and perturb_stream: the HDR-f32 routes of B10 and
 # B11; perturb_hdr32/hdr64: perturb_render_hdr; perturb_f32/f64:
 # perturb_render_float); K4-NR (ntt_nr) and K5-NR (nr_tail) once per NR
-# step, whether launched alone or by the NR chunk loop (fs_nr_chunk)
+# step, whether launched alone or by the NR chunk loop (fs_nr_chunk);
+# K1-seq (escape_seq) once per frame sequence, K7 (la_stream) per init
+# or stage launch, K8 (ntt_phase) per phase transform
 KERNELS = ("escape", "lav2_full", "lav2_phase1", "rc_tail", "ntt_orbit",
            "orbit_tail", "lav2_full_f64", "lav2_lao_f64", "perturb_pallas",
            "perturb_stream", "perturb_hdr32", "perturb_hdr64", "perturb_f32",
-           "perturb_f64", "ntt_nr", "nr_tail")
+           "perturb_f64", "ntt_nr", "nr_tail", "escape_seq", "la_stream",
+           "ntt_phase")
 launches = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -103,6 +106,15 @@ _SIGNATURES = {
     # D log2n steps | stream
     "fs_nr_chunk": [_P] * 7 + [_I32, _I32] + [_P] * 3
     + [_I32, _I32, _I32, _P],
+    # escape_seq: out params | frames width height | stream
+    "fs_escape_seq_f32": [_P, _P, _I32, _I32, _I32, _P],
+    "fs_escape_seq_f64": [_P, _P, _I32, _I32, _I32, _P],
+    # la_stream: dc(3) nodes side stages at | state(8) | n_pixels n_nodes
+    # stage max_iter chunk_steps at_step mode | stream
+    "fs_la_stream": [_P] * 15 + [_I32, _I32, _I32, _I64, _I64, _I64, _I32,
+                                 _P],
+    # ntt_phase: y out tw | rows m lanes inverse | stream
+    "fs_ntt_phase": [_P] * 3 + [_I32, _I32, _I32, _I32, _P],
 }
 
 
@@ -186,6 +198,19 @@ def lib():
             handle.fs_error_string.restype = ctypes.c_char_p
             _lib = handle
     return _lib
+
+
+def resolve_device(device):
+    """``device`` as a torch device; CUDA must really be there."""
+    import torch
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but CUDA is not "
+                           "available (pass --device cpu to run the plain "
+                           "PyTorch versions)")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
 
 
 def check(rc: int, name: str) -> None:

@@ -3,7 +3,10 @@ the port of ``fractalshark_tpu/ops/bignum/fixedpoint.py`` that the
 device reference orbit and the feature finder's device Newton-Raphson
 evaluator need, through kernels K4 (``csrc/ntt_orbit.cu``, the step's
 products) and K5 (``csrc/orbit_tail.cu``, products to the next z), and
-their NR instances K4-NR and K5-NR (``iterate_z_nr``: z and dz/dc).
+their NR instances K4-NR and K5-NR (``iterate_z_nr``: z and dz/dc); and
+the reference's generic multiplies (``multiply_3way``, ``multiply_iter``,
+``multiply_nr``, ``multiply_nr_iter``) through the generic transforms of
+``ntt.py`` (kernel K8), at the end of this module.
 
 A value is sign-magnitude fixed point, as in the JAX package:
 
@@ -526,3 +529,185 @@ def iterate_z_nr(sx, x, sy, y, sdx, dx, sdy, dy, scx: int, cx, scy: int,
     coef = nr_products(x, y, dx, dy, signs, spec)
     nx, ny, ndx, ndy, ns = nr_tail(coef, scx, cx, scy, cy, spec)
     return ns[0], nx, ns[1], ny, ns[2], ndx, ns[3], ndy
+
+
+# ------------------------------------------------------ generic multiplies
+# The reference's generic routes (``fixedpoint.py:299,510,830,896``; for
+# multiply_iter its XLA branch ``:538-552``, whose outputs its TPU routes
+# B8a and B-f1 equal): NTTs of the padded digit vectors modulo both primes
+# (the four-step with K8 phases from nfft 8,192, the flat transform
+# below), Montgomery pointwise products, the inverse scaled by n^-1·R, and
+# the digit-domain tails (CRT, digit sums, carries, signed finish) in plain
+# torch on the digits' device, as XLA runs them in the reference.
+#
+# Exactness, the reference's limits: nfft is a power of two >= 2D, so no
+# coefficient wraps (FixedSpec.for_limbs), and at most 2^24 (K8's phases,
+# m <= 4,096; the flat route below 8,192); every coefficient is below
+# p1·p2/2 ~ 2^60.7 in magnitude (D·2^32 for a product, 2D·2^32 for u and
+# v), so the CRT is exact.  A product of 2D digits keeps digits
+# F..F+D−1 after the round bit at F − 1 (round half up), i.e. it is
+# ((v + 2^(16F−1)) >> 16F) mod 2^(16D); a signed result splits its
+# coefficients into a positive and a negative digit stream, each held
+# modulo 2^(32D) before the signed subtract, and its sign is −1 iff the
+# positive stream is below the negative one, +1 for a zero magnitude.
+# In-range operands (|value| < 4) never wrap a stream; full-width random
+# digits can, and then the port wraps as the reference does.
+
+
+def digit_rows(values, device) -> torch.Tensor:
+    """int32 [K, D] digit rows from numpy arrays or tensors."""
+    return torch.stack([torch.as_tensor(np.asarray(v, np.int64)
+                                        if isinstance(v, np.ndarray) else v)
+                        .to(device=device, dtype=torch.int32)
+                        for v in values])
+
+
+def _forward_rows(rows: torch.Tensor, nf: int) -> torch.Tensor:
+    """Spectra of digit rows [K, D], zero-padded to nf."""
+    x = torch.zeros(rows.shape[0], nf, dtype=torch.int32, device=rows.device)
+    x[:, :rows.shape[1]] = rows
+    return (N.fourstep_forward(x, nf) if nf >= N.FOURSTEP_MIN
+            else N.shoup_forward(x, nf))
+
+
+def _inverse_rows(prod: torch.Tensor, nf: int) -> torch.Tensor:
+    return (N.fourstep_inverse_scaled(prod, nf, extra_scale_r=True)
+            if nf >= N.FOURSTEP_MIN
+            else N.shoup_inverse_scaled(prod, nf, extra_scale_r=True))
+
+
+def _crt_rec(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """int64 rec = CRT(r1 mod p1, r2 mod p2) in [0, p1·p2)."""
+    t = (r2.to(torch.int64) - r1) % N.P2 * pow(N.P1, -1, N.P2) % N.P2
+    return r1.to(torch.int64) + N.P1 * t
+
+
+def _parts_acc(rec: torch.Tensor, out_digits: int) -> torch.Tensor:
+    """Each coefficient's four 16-bit parts added at digit positions
+    k..k+3, cut to ``out_digits`` positions (int64 [..., L])."""
+    L = out_digits
+    acc = torch.zeros(rec.shape[:-1] + (L,), dtype=torch.int64,
+                      device=rec.device)
+    for k in range(4):
+        acc[..., k:] += ((rec >> (16 * k)) & DIGIT_MASK)[..., :L - k]
+    return acc
+
+
+def carry_propagate(acc: torch.Tensor) -> torch.Tensor:
+    """Canonical 16-bit digits of non-negative digit sums along the last
+    axis, modulo 2^(16L) (int64)."""
+    dig, _ = _carry_resolve(acc.reshape(-1, acc.shape[-1]))
+    return dig.reshape(acc.shape)
+
+
+def signed_add(sa, a: torch.Tensor, sb, b: torch.Tensor):
+    """(sign, magnitude) of sa·A + sb·B for canonical digit rows
+    [..., L] and signs ±1 (ints or tensors of the rows' leading shape);
+    the sign of a zero magnitude is +1 (``fixedpoint.py:195-205``)."""
+    L = a.shape[-1]
+    lead = a.shape[:-1]
+    a2, b2 = a.reshape(-1, L), b.reshape(-1, L)
+    sa = torch.as_tensor(sa, device=a.device).expand(lead).reshape(-1)
+    sb = torch.as_tensor(sb, device=a.device).expand(lead).reshape(-1)
+    total, _ = _carry_resolve(a2 + b2)
+    diff, top = _carry_resolve(a2 - b2)
+    b_big = top < 0                     # A < B
+    mag = torch.where((sa == sb)[:, None], total,
+                      torch.where(b_big[:, None], _negate(diff), diff))
+    sign = torch.where(sa == sb, sa, torch.where(b_big, sb, sa))
+    sign = torch.where((mag == 0).all(dim=1), 1, sign)
+    return sign.to(torch.int32).reshape(lead), mag.reshape(a.shape)
+
+
+def _crt_to_digit_sums(r1, r2, out_digits: int, round_digit: int):
+    """Canonical digits [..., out_digits] of non-negative convolution
+    coefficients given mod p1 and p2, the half-ulp added at
+    ``round_digit``."""
+    acc = _parts_acc(_crt_rec(r1, r2), out_digits)
+    if round_digit >= 0:
+        acc[..., round_digit] += 1 << (DIGIT_BITS - 1)
+    return carry_propagate(acc)
+
+
+def _crt_to_digit_sums_signed(r1, r2, out_digits: int, round_digit: int):
+    """(sign, digits) of signed coefficients (read as negative above
+    p1·p2/2), the half-ulp added to the positive stream."""
+    rec = _crt_rec(r1, r2)
+    neg = rec > (N.P1 * N.P2) // 2
+    acc_p = _parts_acc(torch.where(neg, 0, rec), out_digits)
+    acc_n = _parts_acc(torch.where(neg, N.P1 * N.P2 - rec, 0), out_digits)
+    if round_digit >= 0:
+        acc_p[..., round_digit] += 1 << (DIGIT_BITS - 1)
+    return signed_add(1, carry_propagate(acc_p), -1, carry_propagate(acc_n))
+
+
+def _keep(digits: torch.Tensor, spec: FixedSpec) -> torch.Tensor:
+    F = spec.frac_digits
+    return digits[..., F:F + spec.digits].to(torch.int32)
+
+
+def multiply_3way(ax, ay, spec: FixedSpec, device="cuda"):
+    """(x², y², x·y) of magnitudes x, y, fixed-point scaled: int32 [D]
+    each (``fixedpoint.py:896-941``)."""
+    x, y = digit_rows((ax, ay), kernels.resolve_device(device))
+    f = _forward_rows(torch.stack([x, x, y, y]), spec.nfft)
+    prod = N.mont_mul_rows(f[[0, 1, 2, 3, 0, 1]], f[[0, 1, 2, 3, 2, 3]])
+    inv = _inverse_rows(prod, spec.nfft)
+    out = _keep(_crt_to_digit_sums(inv[0::2], inv[1::2], 2 * spec.digits,
+                                   spec.frac_digits - 1), spec)
+    return out[0], out[1], out[2]
+
+
+def multiply_iter(ax, ay, spec: FixedSpec, device="cuda"):
+    """((sign, x² − y²), x·y), the difference taken in the frequency
+    domain (``fixedpoint.py:510-559``)."""
+    x, y = digit_rows((ax, ay), kernels.resolve_device(device))
+    f = _forward_rows(torch.stack([x, x, y, y]), spec.nfft)
+    sq = N.mont_mul_rows(f, f)
+    prod = torch.cat([N.mod_sub_rows(sq[0:2], sq[2:4]),
+                      N.mont_mul_rows(f[0:2], f[2:4])])
+    inv = _inverse_rows(prod, spec.nfft)
+    L, rd = 2 * spec.digits, spec.frac_digits - 1
+    sd, dd = _crt_to_digit_sums_signed(inv[0], inv[1], L, rd)
+    xy = _crt_to_digit_sums(inv[2], inv[3], L, rd)
+    return (sd, _keep(dd, spec)), _keep(xy, spec)
+
+
+def multiply_nr(ax, ay, adx, ady, spec: FixedSpec, device="cuda"):
+    """x², y², x·y and the four cross products x·dx, x·dy, y·dx, y·dy,
+    fixed-point scaled: seven int32 [D] (``fixedpoint.py:299-336``)."""
+    x, y, dx, dy = digit_rows((ax, ay, adx, ady),
+                               kernels.resolve_device(device))
+    f = _forward_rows(torch.stack([x, x, y, y, dx, dx, dy, dy]), spec.nfft)
+    pairs = ((0, 0), (1, 1), (0, 1), (0, 2), (0, 3), (1, 2), (1, 3))
+    a = [2 * i + pr for i, _ in pairs for pr in range(2)]
+    b = [2 * j + pr for _, j in pairs for pr in range(2)]
+    inv = _inverse_rows(N.mont_mul_rows(f[a], f[b]), spec.nfft)
+    out = _keep(_crt_to_digit_sums(inv[0::2], inv[1::2], 2 * spec.digits,
+                                   spec.frac_digits - 1), spec)
+    return tuple(out)
+
+
+def multiply_nr_iter(sx, ax, sy, ay, sdx, adx, sdy, ady, spec: FixedSpec,
+                     device="cuda"):
+    """((s, x² − y²), (s, x·y), (s, x·dx − y·dy), (s, x·dy + y·dx)) of
+    signed values, the signs folded into the spectra
+    (``fixedpoint.py:830-893``)."""
+    dev = kernels.resolve_device(device)
+    x, y, dx, dy = digit_rows((ax, ay, adx, ady), dev)
+    f = _forward_rows(torch.stack([x, x, y, y, dx, dx, dy, dy]), spec.nfft)
+    signs = torch.tensor([int(s) for s in (sx, sx, sy, sy, sdx, sdx, sdy,
+                                           sdy)], device=dev)
+    f = torch.where((signs < 0)[:, None], N.mod_sub_rows(torch.zeros_like(f),
+                                                         f), f)
+    fx, fy, fdx, fdy = f[0:2], f[2:4], f[4:6], f[6:8]
+    mul = N.mont_mul_rows
+    prod = torch.cat([N.mod_sub_rows(mul(fx, fx), mul(fy, fy)),
+                      mul(fx, fy),
+                      N.mod_sub_rows(mul(fx, fdx), mul(fy, fdy)),
+                      N.mod_add_rows(mul(fx, fdy), mul(fy, fdx))])
+    inv = _inverse_rows(prod, spec.nfft)
+    sg, mag = _crt_to_digit_sums_signed(inv[0::2], inv[1::2],
+                                        2 * spec.digits, spec.frac_digits - 1)
+    mag = _keep(mag, spec)
+    return tuple((sg[k], mag[k]) for k in range(4))

@@ -1,7 +1,9 @@
-"""The number-theoretic transform's constants and tables: the two 31-bit
-primes of ``fractalshark_tpu/ops/bignum/ntt.py:35-38`` and their
-root-of-unity tables, shared by the CUDA product kernel K4
-(``csrc/ntt_orbit.cu``) and its plain twin (``fixedpoint.py``).
+"""The number-theoretic transform: the two 31-bit primes of
+``fractalshark_tpu/ops/bignum/ntt.py:35-38`` and their root-of-unity
+tables, shared by the CUDA product kernel K4 (``csrc/ntt_orbit.cu``) and
+its plain twin (``fixedpoint.py``); and the generic transforms of the
+reference (``ntt.py:195-735``) that its generic multiplies and the debug
+checksum tool run, through the phase kernel K8 (``csrc/ntt_phase.cu``).
 
 Why two 31-bit primes and not one 64-bit prime: the plain twin runs in
 torch int64, where a product of two residues below 2^31 is exact; a
@@ -12,13 +14,24 @@ sign.
 
 Tables are numpy, built once per transform size and cached; the kernel
 gets them in Montgomery form (R = 2^32), the twin in plain form.
+
+The generic transforms work on int32 tensors [R, ...] of canonical
+residues, row r modulo p1 if r is even and p2 if r is odd; the plain
+code runs in exact int64 on the tensors' device.  Every reference
+operation (Montgomery, Shoup or plain modular product, add, subtract)
+yields the canonical residue, so exact arithmetic mod p gives its
+outputs bit for bit, scrambled orders included.
 """
 
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+from fractalshark_tpu_torch import kernels
 
 P1 = 2013265921  # 15 * 2^27 + 1
 P2 = 1811939329  # 27 * 2^26 + 1
@@ -80,3 +93,275 @@ def kernel_tables(n: int) -> np.ndarray:
     consts = [pow(n, -1, p) * _R * _R % p for p, _ in PRIMES]
     consts += [pow(P1, -1, P2) * _R % P2, 0]
     return np.concatenate(rows + [np.asarray(consts, np.uint32)])
+
+
+# ------------------------------------------------------ generic transforms
+
+# K8 holds one phase column per lane in shared memory: m <= 4,096, so the
+# four-step covers n = n1·n2 <= 2^24
+MAX_PHASE = 4096
+# the generic multiplies take the four-step from this size, the flat
+# transform below it (``fixedpoint.py:313,542,919``)
+FOURSTEP_MIN = 8192
+
+
+def _check_pow2(n: int, lo: int, hi: int, what: str) -> None:
+    if n & (n - 1) or not lo <= n <= hi:
+        raise ValueError(f"{what} {n} is not a power of two in [{lo}, {hi}]")
+
+
+def _row_idx(rows: int, device) -> torch.Tensor:
+    """Each row's prime index (r % 2)."""
+    return torch.arange(rows, device=device) % 2
+
+
+def _per_row(values, a: torch.Tensor) -> torch.Tensor:
+    """int64 per-prime values, one per row of a (row r takes values[r %
+    2]), shaped to broadcast over a."""
+    t = torch.tensor(values, dtype=torch.int64, device=a.device)
+    return t[_row_idx(a.shape[0], a.device)].view(
+        (-1,) + (1,) * (a.dim() - 1))
+
+
+_PS = [p for p, _ in PRIMES]
+
+
+def mul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a·b mod p per row, exactly (int32 residues, b broadcast)."""
+    return (a.to(torch.int64) * b.to(torch.int64)
+            % _per_row(_PS, a)).to(torch.int32)
+
+
+def mont_mul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a·b·R^-1 mod p per row: the reference's ``_mont_mul_rows``."""
+    return mul_rows(mul_rows(a, b),
+                    _per_row([pow(_R, -1, p) for p in _PS], a))
+
+
+def mod_add_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return ((a.to(torch.int64) + b) % _per_row(_PS, a)).to(torch.int32)
+
+
+def mod_sub_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return ((a.to(torch.int64) - b) % _per_row(_PS, a)).to(torch.int32)
+
+
+def split_n(n: int) -> tuple[int, int]:
+    """The four-step split n = n1·n2, n1 = 2^floor(log2(n)/2)
+    (``ntt.py:434-437``)."""
+    s = n.bit_length() - 1
+    n1 = 1 << (s // 2)
+    return n1, n // n1
+
+
+@functools.lru_cache(maxsize=32)
+def phase_twiddles(m: int, inverse: bool) -> np.ndarray:
+    """int64 [2 primes, m/2]: w_m^k (forward) or w_m^-k (inverse), the
+    roots every stage of a length-m phase indexes
+    (``_fourstep_consts.stage_tws``)."""
+    fwd, inv = root_tables(m)
+    return (inv if inverse else fwd)[:, :m // 2].copy()
+
+
+@functools.lru_cache(maxsize=64)
+def stage_twiddles(m: int, rows: int, inverse: bool) -> tuple:
+    """Per stage, the twiddles int64 [rows, h] of a length-m phase
+    (forward DIF stage s: h = m >> (s+1), w_m^(j << s); inverse DIT stage
+    s: h = 2^s, w_m^-(j << (lg-1-s))): the values of ``_stage_tw_shoup``
+    and of ``_fourstep_consts``' ``tw*`` pairs."""
+    tw = phase_twiddles(m, inverse)
+    lg = m.bit_length() - 1
+    out = []
+    for s in range(lg):
+        idx = np.arange(1 << s) << (lg - 1 - s) if inverse \
+            else np.arange(m >> (s + 1)) << s
+        out.append(np.stack([tw[r % 2, idx] for r in range(rows)]))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=16)
+def fourstep_twiddles(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """(t1, t1i), int64 [2 primes, n1, n2]: t1[i, row, c] =
+    w_n^(bitrev(row)·c) and t1i its inverse, the twiddle matrices between
+    the phases (``_fourstep_consts`` ``t1``/``t1i``)."""
+    n1, n2 = split_n(n)
+    bits1 = n1.bit_length() - 1
+    rev1 = np.array([int(format(k, f"0{bits1}b")[::-1], 2) if bits1 else 0
+                     for k in range(n1)], np.int64)
+    expo = (rev1[:, None] * np.arange(n2)[None, :]) % n
+    t1, t1i = [], []
+    for p, g in PRIMES:
+        w = pow(g, (p - 1) // n, p)
+        t1.append(_powers(w, n, p).astype(np.int64)[expo])
+        t1i.append(_powers(pow(w, p - 2, p), n, p).astype(np.int64)[expo])
+    return np.stack(t1), np.stack(t1i)
+
+
+def scale_consts(n: int, extra_scale_r: bool) -> np.ndarray:
+    """int64 [2 primes]: n^-1 mod p, times R when it also cancels a
+    Montgomery pointwise product's R^-1."""
+    return np.array([pow(n, -1, p) * (_R if extra_scale_r else 1) % p
+                     for p, _ in PRIMES], np.int64)
+
+
+_dev_cache: dict = {}
+
+
+def _on(key, device, make) -> torch.Tensor:
+    """A host table moved to ``device`` once (cached by key and device)."""
+    k = key + (str(device),)
+    if k not in _dev_cache:
+        _dev_cache[k] = torch.from_numpy(make()).to(device)
+    return _dev_cache[k]
+
+
+def phase_transform_plain(y: torch.Tensor, m: int,
+                          inverse: bool) -> torch.Tensor:
+    """Plain twin of K8 on [R, m, L]: the reference's ``_axis0_dif``
+    (forward) or ``_axis0_dit`` (inverse), ``ntt.py:598-632``."""
+    rows, _, lanes = y.shape
+    p = _per_row(_PS, y).view(rows, 1, 1, 1)
+    a = y.to(torch.int64)
+    for s, w_np in enumerate(stage_twiddles(m, rows, inverse)):
+        h = w_np.shape[1]
+        w = torch.from_numpy(w_np).to(y.device).view(rows, 1, h, 1)
+        if inverse:
+            y4 = a.view(rows, m >> (s + 1), 2, h, lanes)
+            u = y4[:, :, 1] * w % p
+            a = torch.stack([(y4[:, :, 0] + u) % p, (y4[:, :, 0] - u) % p],
+                            dim=2)
+        else:
+            y4 = a.view(rows, 1 << s, 2, h, lanes)
+            a0, a1 = y4[:, :, 0], y4[:, :, 1]
+            a = torch.stack([(a0 + a1) % p, (a0 - a1) % p * w % p], dim=2)
+        a = a.view(rows, m, lanes)
+    return a.to(torch.int32)
+
+
+def _k8_table(m: int, inverse: bool) -> np.ndarray:
+    """K8's twiddles: phase_twiddles in Montgomery form (w·R mod p; w < 2^31,
+    so w·R < 2^63), uint32 read as int32."""
+    tw = phase_twiddles(m, inverse) * _R % np.array([[p] for p in _PS])
+    return tw.astype(np.uint32).view(np.int32)
+
+
+def phase_kernel(y: torch.Tensor, m: int, inverse: bool) -> torch.Tensor:
+    """Launch K8 once on a CUDA device."""
+    rows, _, lanes = y.shape
+    if not 0 < rows < (1 << 16):
+        raise ValueError(f"K8 takes 1 to 65,535 rows, not {rows}")
+    y = y.contiguous()
+    out = torch.empty_like(y)
+    tw = _on(("k8", m, inverse), y.device, lambda: _k8_table(m, inverse))
+    rc = kernels.lib().fs_ntt_phase(
+        y.data_ptr(), out.data_ptr(), tw.data_ptr(), rows, m, lanes,
+        int(inverse), kernels.stream(y.device))
+    kernels.check(rc, "ntt_phase")
+    kernels.launches["ntt_phase"] += 1
+    return out
+
+
+def phase_transform(y: torch.Tensor, m: int, inverse: bool) -> torch.Tensor:
+    """All radix-2 stages along axis 1 of int32 [R, m, L] (row r mod
+    p1/p2 by r % 2): forward DIF, natural → bit-reversed; inverse DIT,
+    bit-reversed → natural, unscaled.  K8 for CUDA tensors, the plain twin
+    for CPU tensors; equal to B9a and B9b bit for bit."""
+    _check_pow2(m, 2, MAX_PHASE, "phase length")
+    if y.dim() != 3 or y.shape[1] != m or y.dtype != torch.int32:
+        raise ValueError(f"phase_transform takes int32 [R, {m}, L], not "
+                         f"{y.dtype}{tuple(y.shape)}")
+    if y.device.type == "cuda":
+        return phase_kernel(y, m, inverse)
+    if y.device.type != "cpu":
+        raise ValueError(f"unsupported device {y.device}")
+    return phase_transform_plain(y, m, inverse)
+
+
+def _scale(y: torch.Tensor, n: int, extra_scale_r: bool) -> torch.Tensor:
+    return mul_rows(y, _per_row(scale_consts(n, extra_scale_r).tolist(), y))
+
+
+def fourstep_forward(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Four-step forward of int32 [R, n]: phase of n1 over [R, n1, n2],
+    the twiddle matrix, transpose, phase of n2 over [R, n2, n1]; the
+    reference's scrambled spectra (``ntt.py:678-692``)."""
+    _check_pow2(n, 4, MAX_PHASE * MAX_PHASE, "transform size")
+    rows = x.shape[0]
+    n1, n2 = split_n(n)
+    t1 = _on(("t1", n), x.device, lambda: fourstep_twiddles(n)[0])
+    b = phase_transform(x.reshape(rows, n1, n2), n1, False)
+    b = mul_rows(b, t1[_row_idx(rows, x.device)])
+    e = phase_transform(b.transpose(1, 2).contiguous(), n2, False)
+    return e.reshape(rows, n)
+
+
+def fourstep_inverse_scaled(x: torch.Tensor, n: int,
+                            extra_scale_r: bool = True) -> torch.Tensor:
+    """Inverse of fourstep_forward, scaled by n^-1 (·R optionally)
+    (``ntt.py:695-718``)."""
+    _check_pow2(n, 4, MAX_PHASE * MAX_PHASE, "transform size")
+    rows = x.shape[0]
+    n1, n2 = split_n(n)
+    t1i = _on(("t1i", n), x.device, lambda: fourstep_twiddles(n)[1])
+    bt = phase_transform(x.reshape(rows, n2, n1), n2, True)
+    b = mul_rows(bt.transpose(1, 2).contiguous(),
+                 t1i[_row_idx(rows, x.device)])
+    a = phase_transform(b, n1, True)
+    return _scale(a.reshape(rows, n), n, extra_scale_r)
+
+
+def shoup_forward(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The flat forward DIF of int32 [R, n] (``ntt.py:368-386``): one
+    phase of length n over one lane."""
+    return phase_transform(x.reshape(x.shape[0], n, 1), n,
+                           False).reshape(x.shape[0], n)
+
+
+def shoup_inverse_scaled(x: torch.Tensor, n: int,
+                         extra_scale_r: bool = True) -> torch.Tensor:
+    """The flat inverse DIT, scaled by n^-1 (·R optionally)
+    (``ntt.py:389-419``)."""
+    y = phase_transform(x.reshape(x.shape[0], n, 1), n, True)
+    return _scale(y.reshape(x.shape[0], n), n, extra_scale_r)
+
+
+# -------------------------------------- Montgomery-domain batched transforms
+# The reference's plan-based transforms (``ntt.py:53-314``, XLA there),
+# which the debug checksum tool runs: plain torch on the tensors' device.
+# A butterfly's Montgomery product with a twiddle in Montgomery form is
+# the exact product with the plain twiddle, so the plain phase code
+# computes them.
+
+
+@dataclass(frozen=True)
+class NTTPlan:
+    n: int
+    stages: int
+
+
+def make_plan(n: int) -> NTTPlan:
+    _check_pow2(n, 2, 1 << MAX_LOG2N, "transform size")
+    return NTTPlan(n=n, stages=n.bit_length() - 1)
+
+
+def batched_forward(x: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
+    """DIF over int32 [R, n] (Montgomery domain), bit-reversed out."""
+    return phase_transform_plain(x.reshape(x.shape[0], plan.n, 1), plan.n,
+                                 False).reshape(x.shape)
+
+
+def batched_inverse(x: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
+    """DIT over int32 [R, n], natural out, scaled by n^-1."""
+    y = phase_transform_plain(x.reshape(x.shape[0], plan.n, 1), plan.n,
+                              True).reshape(x.shape)
+    return _scale(y, plan.n, False)
+
+
+def batched_to_mont(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """x·R mod p per row (canonical inputs)."""
+    return mul_rows(x, _per_row([_R % p for p in _PS], x))
+
+
+def batched_from_mont(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """x·R^-1 mod p per row."""
+    return mont_mul_rows(x, torch.ones_like(x))

@@ -1,26 +1,31 @@
 """Plain (non-perturbed) escape time: the port of
-``fractalshark_tpu/ops/escape.py`` (``escape_jax`` and the Pallas
-``_escape_kernel``), through kernel K1 (``csrc/escape.cu``).
+``fractalshark_tpu/ops/escape.py`` (``escape_jax``, the Pallas
+``_escape_kernel`` and ``_escape_seq_kernel``), through kernels K1 and
+K1-seq (``csrc/escape.cu``).
 
-Two semantics, one per precision, each matching the reference route
-that renders it:
+Two semantics, each matching the reference route that renders it:
 
-* f32 (``Gpu1x32``, the reference's Pallas ``_escape_kernel``): pixels
-  inside the main cardioid or the period-2 bulb are set to the budget
-  up front; every other pixel counts steps while ``|z|² <= 4`` and the
-  count is clamped to the budget.
-* f64 (``Gpu1x64`` and ``Cpu64``, the reference's ``escape_jax``): the
-  plain loop ``while i < N: if |z|² > 4: break; z = z² + c; i += 1``,
-  with no interior shortcut.
+* the tile (f32 ``Gpu1x32``, the reference's Pallas ``_escape_tile``;
+  and every frame of a sequence, f32 or f64): pixels inside the main
+  cardioid or the period-2 bulb are set to the budget up front; every
+  other pixel counts steps while ``|z|² <= 4`` and the count is clamped
+  to the budget; every result is flushed of subnormals, as XLA:CPU
+  flushes the reference's f32 and f64 alike.
+* f64 single frames (``Gpu1x64`` and ``Cpu64``, the reference's
+  ``escape_jax``): the plain loop ``while i < N: if |z|² > 4: break;
+  z = z² + c; i += 1``, with no interior shortcut.
 
 Pixel coordinates: cx = min_x + x*dx, cy = max_y - y*dy in the working
-type.  Grids are int64 tensors inside the port.
+type.  Single-frame grids are int64 tensors inside the port; a sequence
+is int32 on the device and numpy uint32 [K, H, W] at its public entry
+point, as the reference's.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
@@ -50,29 +55,31 @@ class PlainParams:
         )
 
 
-def _coords(params: PlainParams, width: int, height: int, dtype, device):
+def _coords(params: PlainParams, width: int, height: int, dtype, device,
+            fl=lambda t: t):
     def s(v):
         return torch.tensor(v, dtype=dtype, device=device)
 
     xs = torch.arange(width, dtype=dtype, device=device)
     ys = torch.arange(height, dtype=dtype, device=device)
-    cx = (s(params.min_x) + xs * s(params.dx))[None, :].expand(height, width)
-    cy = (s(params.max_y) - ys * s(params.dy))[:, None].expand(height, width)
-    return cx.contiguous(), cy.contiguous()
+    cx = fl(s(params.min_x) + fl(xs * s(params.dx)))
+    cy = fl(s(params.max_y) - fl(ys * s(params.dy)))
+    return (cx[None, :].expand(height, width).contiguous(),
+            cy[:, None].expand(height, width).contiguous())
 
 
 def escape_plain(params: PlainParams, width: int, height: int,
-                 max_iter: int, dtype=torch.float64,
-                 device="cpu") -> torch.Tensor:
-    """Plain PyTorch twin of K1 (lockstep over the whole grid)."""
-    f32 = dtype == torch.float32
-    fl = ftz if f32 else (lambda t: t)
-    cx, cy = _coords(params, width, height, dtype, device)
-    if f32:
-        cx, cy = fl(cx), fl(cy)
+                 max_iter: int, dtype=torch.float64, device="cpu",
+                 tile: bool | None = None) -> torch.Tensor:
+    """Plain PyTorch twin of K1 (lockstep over the whole grid).  `tile`
+    picks the reference's tile semantics (default: for f32 only)."""
+    if tile is None:
+        tile = dtype == torch.float32
+    fl = ftz if tile else (lambda t: t)
+    cx, cy = _coords(params, width, height, dtype, device, fl)
     it = torch.zeros((height, width), dtype=torch.int64, device=device)
     active = torch.ones((height, width), dtype=torch.bool, device=device)
-    if f32:
+    if tile:
         xq = fl(cx - 0.25)
         cy2 = fl(cy * cy)
         q = fl(fl(xq * xq) + cy2)
@@ -87,7 +94,7 @@ def escape_plain(params: PlainParams, width: int, height: int,
         zx2 = fl(zx * zx)
         zy2 = fl(zy * zy)
         mag = fl(zx2 + zy2)
-        cont = active & ((mag <= 4.0) if f32 else ~(mag > 4.0))
+        cont = active & ((mag <= 4.0) if tile else ~(mag > 4.0))
         if k % 64 == 0 and not bool(cont.any()):
             break
         nzy = fl(fl(fl(2.0 * zx) * zy) + cy)
@@ -127,3 +134,92 @@ def escape(params: PlainParams, width: int, height: int, max_iter: int,
     if device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return escape_plain(params, width, height, max_iter, dtype, device)
+
+
+# ------------------------------------------------------------- sequences
+
+
+def _np_dtype(dtype):
+    return np.float32 if dtype == torch.float32 else np.float64
+
+
+def _seq_table(params_seq, max_iter: int, dtype) -> np.ndarray:
+    """The reference's [K, 5] table (min_x, max_y, dx, dy, budget) in the
+    frame type (``escape.py:322-327``, which refuses budgets of 2^31);
+    1 to 65,535 frames (the kernel's grid z)."""
+    if max_iter >= (1 << 31):
+        raise ValueError("escape_sequence supports max_iter < 2^31")
+    if not 0 < len(params_seq) < (1 << 16):
+        raise ValueError(f"escape_sequence renders 1 to 65,535 frames, not "
+                         f"{len(params_seq)}")
+    return np.array([[p.min_x, p.max_y, p.dx, p.dy, float(max_iter)]
+                     for p in params_seq], _np_dtype(dtype))
+
+
+def seq_budget(max_iter: int, dtype) -> int:
+    """The budget a frame of the sequence runs: the budget in the frame
+    type, converted back to int32 as the reference's ``.astype(int32)``
+    (f32: 2^24 + 1 reads as 2^24), saturating as the card's conversion."""
+    return min(int(_np_dtype(dtype)(max_iter)), (1 << 31) - 1)
+
+
+def escape_sequence_plain(params_seq, width: int, height: int,
+                          max_iter: int, dtype=torch.float32,
+                          device="cpu") -> torch.Tensor:
+    """Plain twin of K1-seq: int32 [K, height, width], each frame
+    ``_escape_tile``'s grid at the frame type's budget."""
+    tab = _seq_table(params_seq, max_iter, dtype)
+    n = seq_budget(max_iter, dtype)
+    return torch.stack([
+        escape_plain(PlainParams(*(float(v) for v in row[:4])), width,
+                     height, n, dtype, device, tile=True)
+        for row in tab]).to(torch.int32)
+
+
+def escape_sequence_kernel(params_seq, width: int, height: int,
+                           max_iter: int, dtype, device) -> torch.Tensor:
+    """Launch K1-seq on a CUDA device: int32 [K, height, width]."""
+    tab = torch.from_numpy(_seq_table(params_seq, max_iter, dtype)).to(device)
+    frames = tab.shape[0]
+    out = torch.empty((frames, height, width), dtype=torch.int32,
+                      device=device)
+    name = "fs_escape_seq_f32" if dtype == torch.float32 \
+        else "fs_escape_seq_f64"
+    lib = kernels.lib()
+    kernels.launches["escape_seq"] += 1
+    kernels.check(getattr(lib, name)(
+        out.data_ptr(), tab.data_ptr(), frames, width, height,
+        kernels.stream(out.device)), name)
+    return out
+
+
+def escape_sequence(params_seq, width: int, height: int, max_iter: int,
+                    dtype: str | torch.dtype = "f32",
+                    device="cuda") -> np.ndarray:
+    """A whole frame sequence (zoom animation, AA passes) in one launch,
+    ``escape_pallas_sequence``'s counterpart: numpy uint32 [K, height,
+    width].  K1-seq on a CUDA device, the plain twin on the CPU."""
+    dtype = _DTYPES.get(dtype, dtype)
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"escape_sequence supports f32/f64, not {dtype}")
+    device = kernels.resolve_device(device)
+    run = escape_sequence_kernel if device.type == "cuda" \
+        else escape_sequence_plain
+    out = run(list(params_seq), width, height, max_iter, dtype, device)
+    return out.cpu().numpy().astype(np.uint32)
+
+
+def zoom_sequence(p0: PlainParams, width: int, height: int, frames: int,
+                  factor: float = 1.3) -> list[PlainParams]:
+    """The frames of a zoom animation about the view centre, each
+    `factor` times deeper than the last (the JAX bench's headline
+    sequence, ``bench.py`` ``_headline``)."""
+    cx = p0.min_x + p0.dx * width / 2
+    cy = p0.max_y - p0.dy * height / 2
+    out = []
+    for k in range(frames):
+        s = factor ** k
+        out.append(PlainParams(min_x=cx - (cx - p0.min_x) / s,
+                               max_y=cy + (p0.max_y - cy) / s,
+                               dx=p0.dx / s, dy=p0.dy / s))
+    return out

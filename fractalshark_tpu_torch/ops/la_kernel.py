@@ -321,16 +321,22 @@ def la_perturb_render(results, la, ptz: PointZoomBBConverter, width: int,
     return state if return_state else state[6]
 
 
-def device_tables(results, la, device, dtype=torch.float32):
-    """LA and orbit tables on `device` with `dtype` mantissas, cached on
-    the host objects for the lifetime of that LA table / orbit."""
+def la_tables_on(la, device, dtype=torch.float32):
+    """The LA table on `device` with `dtype` mantissas, cached on the host
+    object for the lifetime of that LA table."""
     key = ("torch_tables", str(device), dtype)
     cache = getattr(la, "_torch_cache", None)
     if cache is None:
         cache = la._torch_cache = {}
     if key not in cache:
         cache[key] = la_tables(la, device, dtype)
-    return cache[key], orbit_on(results, device, dtype)
+    return cache[key]
+
+
+def device_tables(results, la, device, dtype=torch.float32):
+    """LA and orbit tables on `device` with `dtype` mantissas, cached on
+    the host objects for the lifetime of that LA table / orbit."""
+    return la_tables_on(la, device, dtype), orbit_on(results, device, dtype)
 
 
 def fits_full_mode(results, T, max_iter: int) -> bool:
