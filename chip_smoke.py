@@ -73,6 +73,7 @@ bound of what these inputs need, as each ``*_ops`` function says.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -97,10 +98,15 @@ VIEW2_HDR64_64 = (239_779, 2_524_369_276)
 VIEW3_LAO64_64 = (58_903_876, 1_899_311_131)
 SMALL_DEEP_PO_64 = (5_005_495, 1_005_249_289)   # HDR-f32 and f32 float
 VIEW6_PO_16 = (231_680_604, 3_835_526_492)
-# budgets the plain twins can finish on the card (cut from 4,718,592
-# and 196,608)
+# budgets of K6's timed runs on View #6 and View #3 (cut from 4,718,592
+# and 196,608; the CLI frames of phase 6 run the full budgets)
 VIEW6_PO_CUT = 10_000
 VIEW3_HDR64_CUT = 10_000
+# the budgets at which phases 3/3b hold K2, K2-f64, K3 and K6 against
+# their plain twins (lockstep loops, a few ms a step on the card): a few
+# seconds a twin; each kernel is also timed at its main budget
+TWIN_BUDGET = 256
+PO_TWIN_BUDGET = 500
 # the feature finder, JAX package on the CPU: the CLI's JSON lines for
 # --feature-scan 3x3 on tests/test_cli.py:80-90's input (each Phase-A
 # mode) and for --feature-find on the 1e8 frame with
@@ -147,6 +153,31 @@ NTT_ROWS = (4, 6, 8, 14)
 MUL_LIMBS = (2048, 16384)
 # K7's frames: View #6 at this size, with the pinned two-phase frame
 STREAM_SIZE, STREAM_PIN = 256, VIEW6_256
+# phase 12: K9 at these transform sizes (the 3-way, NR, iteration and
+# signed NR-iteration plans, both forms), K10 at these (orbit and NR, with
+# and without shadows, both forms), K11 at these limb counts
+FUSED_NFFT = (2048, 16384, 32768, 131072)
+TAIL_NFFT = (2048, 65536)
+FULL_LIMBS = (2048, 16384)
+# the flag settings of the flagged routes and their limb counts: the
+# product flags with MXU_ITER off where nfft >= 8,192 (the reference's
+# precedence), each with and without BATCHED_TAIL; then MXU_ITER_FULL
+FLAG_RUNS = [
+    ("PALLAS_NTT", {"FP.PALLAS_NTT": True}, 512),
+    ("PALLAS_NTT", {"FP.PALLAS_NTT": True, "NM.MXU_ITER": False}, 2048),
+    ("PALLAS_NTT_SPLIT", {"FP.PALLAS_NTT_SPLIT": True, "NM.MXU_ITER": False},
+     16384),
+    ("PALLAS_NTT_SPLIT + WHOLE_ALIGNED", {
+        "FP.PALLAS_NTT_SPLIT": True, "NM.MXU_ITER": False,
+        "NP.WHOLE_ALIGNED": True}, 16384),
+]
+FLAG_RUNS = [(label + tail, dict(flags, **extra), limbs)
+             for label, flags, limbs in FLAG_RUNS
+             for tail, extra in (("", {}),
+                                 (" + BATCHED_TAIL", {"NP.BATCHED_TAIL": True}))
+             ] + [("MXU_ITER_FULL", {"NM.MXU_ITER_FULL": True}, limbs)
+                  for limbs in FULL_LIMBS]
+FLAG_SESSION_BUDGET = 2048
 
 KERNEL_META = {
     "escape": ("fractalshark_tpu_torch/csrc/escape.cu",
@@ -189,6 +220,19 @@ KERNEL_META = {
     # B9b; K8 also replaces B9a, ntt_mxu.py:243 (the same function)
     "ntt_phase": ("fractalshark_tpu_torch/csrc/ntt_phase.cu",
                   "fractalshark_tpu/ops/bignum/ntt_pallas.py:1661"),
+    # K9's whole form: B-f1 (and, under WHOLE_ALIGNED, B-f3 :764); its
+    # split form: B-f2 (the trio :593/:612/:650)
+    "ntt_products_whole": ("fractalshark_tpu_torch/csrc/ntt_products.cu",
+                           "fractalshark_tpu/ops/bignum/ntt_pallas.py:308"),
+    "ntt_products_split": ("fractalshark_tpu_torch/csrc/ntt_products.cu",
+                           "fractalshark_tpu/ops/bignum/ntt_pallas.py:593"),
+    # K10 gridded (B8c's form on residue rows) and batched (B-f4)
+    "fused_tail_grid": ("fractalshark_tpu_torch/csrc/orbit_tail.cu",
+                        "fractalshark_tpu/ops/bignum/ntt_pallas.py:1134"),
+    "fused_tail_batched": ("fractalshark_tpu_torch/csrc/orbit_tail.cu",
+                           "fractalshark_tpu/ops/bignum/ntt_pallas.py:1265"),
+    "iterate_full": ("fractalshark_tpu_torch/csrc/iterate_full.cu",
+                     "fractalshark_tpu/ops/bignum/ntt_mxu.py:920"),
 }
 
 HBM_BYTES_PER_S = 3.35e12
@@ -391,78 +435,92 @@ def phase_kernels(device, size_escape=1024, size_deep=256,
             stats["escape"].update(ms=ms, plain_ms=pms, **b)
 
     def k2(T, orbit, dc, n, max_ref, la_only):
+        """K2 at budget n, timed; K2 and its plain twin at the twin budget
+        (both from the zero state), for the comparison."""
         flat = HDRComplex(*(t.reshape(-1) for t in dc))
-        kern = lambda: la_kernel.lav2_run(  # noqa: E731
-            T, orbit, dc, n, max_ref, la_only)
-        plain = lambda: la_kernel.lav2_plain(  # noqa: E731
-            T, orbit, flat, la_kernel.init_state_plain(T, flat, n), n,
-            max_ref, la_only)
-        ks, ms = timed(kern, device, reps=3)
-        ps_, pms = timed(plain, device, warm=False)
-        return ks, [t.reshape(dc.re.shape) for t in ps_], ms, pms
+        nc = min(n, TWIN_BUDGET)
+        ks, ms = timed(lambda: la_kernel.lav2_run(
+            T, orbit, dc, n, max_ref, la_only), device, reps=3)
+        kc = la_kernel.lav2_run(T, orbit, dc, nc, max_ref, la_only)
+        ps_, pms = timed(lambda: la_kernel.lav2_plain(
+            T, orbit, flat, la_kernel.init_state_plain(T, flat, nc), nc,
+            max_ref, la_only), device, warm=False)
+        return ks, kc, [t.reshape(dc.re.shape) for t in ps_], ms, pms, nc
 
     def k2_both(label, T, orbit, dc, n, max_ref, modes):
         """K2 against its plain twin, every state array; the last mode's
-        state, times and bound."""
+        states (main budget, twin budget), times and bound."""
         for la_only in modes:
             key = "lav2_phase1" if la_only else "lav2_full"
-            ks, pls, ms, pms = k2(T, orbit, dc, n, max_ref, la_only)
+            ks, kc, pls, ms, pms, nc = k2(T, orbit, dc, n, max_ref, la_only)
             for i, name in enumerate(la_kernel._STATE):
-                compare(f"K2 {key} {label} {name}", ks[i], pls[i], stats[key])
-            log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
+                compare(f"K2 {key} {label} budget {nc} {name}", kc[i], pls[i],
+                        stats[key])
+            log(f"    kernel {ms:.3f} ms (budget {n}), plain {pms:.3f} ms "
+                f"(budget {nc})")
         b = bound(nbytes(T.nodes, T.side, T.stages, orbit, *dc, *ks),
                   lav2_ops(T, dc.re.numel()), F32_OPS_PER_S)
-        return ks, dict(ms=ms, plain_ms=pms, **b)
+        return ks, kc, dict(ms=ms, plain_ms=pms, **b)
 
     # K2 in both modes on the small-table deep frame (full mode is its
     # main-path route) and on View #6, at the small size
     f, res, la, T, orbit, dc, backend = deep_inputs(SMALL_DEEP, size_small,
                                                     device)
-    _, st = k2_both(f"1e8 {size_small}²", T, orbit, dc, SMALL_DEEP[3],
-                    res.max_ref_iteration(), (True, False))
+    _, _, st = k2_both(f"1e8 {size_small}²", T, orbit, dc, SMALL_DEEP[3],
+                       res.max_ref_iteration(), (True, False))
     stats["lav2_full"].update(st)
     f, res_s, la, T, orbit, dc_s, backend = deep_inputs(6, size_small, device)
-    st_s, _ = k2_both(f"View #6 {size_small}²", T, orbit, dc_s,
-                      f.num_iterations, res_s.max_ref_iteration(),
-                      (False, True))
+    st_s, stc_s, _ = k2_both(f"View #6 {size_small}²", T, orbit, dc_s,
+                             f.num_iterations, res_s.max_ref_iteration(),
+                             (False, True))
+    n_s = f.num_iterations
 
     # K2 phase-1 and K3 (identity anchors) on View #6 at the main path's
     # size; K3 over real compressed anchors at the small size
     f, res, la, T, orbit, dc, backend = deep_inputs(6, size_deep, device)
     n = f.num_iterations
-    ks, st = k2_both(f"View #6 {size_deep}²", T, orbit, dc, n,
-                     res.max_ref_iteration(), (True,))
+    ks, kc, st = k2_both(f"View #6 {size_deep}²", T, orbit, dc, n,
+                         res.max_ref_iteration(), (True,))
     stats["lav2_phase1"].update(st)
 
-    def k3(comp, state, dc, label):
+    def k3(comp, state, state_c, dc, n, label):
+        """K3 from K2's la_only state at budget n, timed; K3 and its plain
+        twin from K2's state at the twin budget, compared."""
         A = ps.anchors_on(comp, device)
-        init = {"dzr": state[3], "dzi": state[4], "dze": state[5],
-                "it": state[6], "jwait": state[2], "done": state[6] >= n}
         z_mr = ps.wrap_value(comp, A.max_ref)
         flat = HDRComplex(*(t.reshape(-1) for t in dc))
-        kern = lambda: ps.rc_tail_run(A, dc, init, n, z_mr)  # noqa: E731
+        nc = min(n, TWIN_BUDGET)
+
+        def init(s, nb):
+            return {"dzr": s[3], "dzi": s[4], "dze": s[5], "it": s[6],
+                    "jwait": s[2], "done": s[6] >= nb}
+
+        rk, ms = timed(lambda: ps.rc_tail_run(A, dc, init(state, n), n,
+                                              z_mr), device, reps=3)
+        rc_ = ps.rc_tail_run(A, dc, init(state_c, nc), nc, z_mr)
 
         def plain():
-            st = ps.rc_init_plain(A, ps.handoff_state(init, device), n,
-                                  z_mr)
+            st = ps.rc_init_plain(A, ps.handoff_state(init(state_c, nc),
+                                                      device), nc, z_mr)
             return ps.rc_tail_plain(A, flat, st)[3]
 
-        rk, ms = timed(kern, device, reps=3)
         rp, pms = timed(plain, device, warm=False)
-        compare(f"K3 {label} remaining budget", rk, rp, stats["rc_tail"])
-        log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        compare(f"K3 {label} budget {nc} remaining budget", rc_, rp,
+                stats["rc_tail"])
+        log(f"    kernel {ms:.3f} ms (budget {n}), plain {pms:.3f} ms "
+            f"(budget {nc})")
         done = float(((n - state[6]).reshape(-1) - rk).clamp(min=0).sum())
         return dict(ms=ms, plain_ms=pms, **bound(
             nbytes(A.index, A.val, *dc, *state[2:7], rk),
             rc_tail_ops(done), F32_OPS_PER_S))
 
-    stats["rc_tail"].update(k3(CompressedOrbit.identity(res), ks, dc,
+    stats["rc_tail"].update(k3(CompressedOrbit.identity(res), ks, kc, dc, n,
                                f"identity anchors View #6 {size_deep}²"))
     comp = CompressedOrbit.from_uncompressed(res_s, error_exp=8)
     log(f"    compressed orbit: {len(comp.anchors_x)} anchors of "
         f"{comp.total_count} (ratio {comp.compression_ratio():.2f})")
-    k3(comp, st_s, dc_s, f"compressed anchors (error_exp 8) View #6 "
-       f"{size_small}²")
+    k3(comp, st_s, stc_s, dc_s, n_s, f"compressed anchors (error_exp 8) "
+       f"View #6 {size_small}²")
     return stats, backend
 
 
@@ -497,16 +555,18 @@ def phase_f64_perturb_kernels(device, stats, size=64):
         flat = HDRComplex(*(t.reshape(-1) for t in dc))
         for la_only in modes:
             key = "lav2_lao_f64" if la_only else "lav2_full_f64"
+            nc = min(n, TWIN_BUDGET)
             ks, ms = timed(lambda: la_kernel.lav2_run(
                 T, orbit, dc, n, mr, la_only), device, reps=3)
+            kc = la_kernel.lav2_run(T, orbit, dc, nc, mr, la_only)
             pl, pms = timed(lambda: la_kernel.lav2_plain(
-                T, orbit, flat, la_kernel.init_state_plain(T, flat, n), n,
+                T, orbit, flat, la_kernel.init_state_plain(T, flat, nc), nc,
                 mr, la_only), device, warm=False)
             for i, name in enumerate(la_kernel._STATE):
-                compare(f"K2-f64 {key} View #{view} {size}² {name}",
-                        ks[i].reshape(-1), pl[i], stats[key])
-            log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms (iter_sum "
-                f"{int(ks[6].sum())})")
+                compare(f"K2-f64 {key} View #{view} {size}² budget {nc} "
+                        f"{name}", kc[i].reshape(-1), pl[i], stats[key])
+            log(f"    kernel {ms:.3f} ms (budget {n}, iter_sum "
+                f"{int(ks[6].sum())}), plain {pms:.3f} ms (budget {nc})")
             # the main paths: View #5 full (AUTO), View #3 la_only (LAO)
             if (view, la_only) in ((5, False), (3, True)):
                 stats[key].update(ms=ms, plain_ms=pms, **bound(
@@ -523,15 +583,17 @@ def phase_f64_perturb_kernels(device, stats, size=64):
                                          size, size), size, size, device,
                    dtype)
         flat = HDRComplex(*(t.reshape(-1) for t in dc))
+        nc = min(n, PO_TWIN_BUDGET)
         k, ms = timed(lambda: perturb.perturb_run(orbit, dc, n, mr, hdr_mode,
                                                   key), device, reps=3)
+        kc = perturb.perturb_run(orbit, dc, nc, mr, hdr_mode, key)
         pl, pms = timed(lambda: perturb.perturb_plain(
-            orbit, flat, perturb.init_state_plain(flat, n, hdr_mode), n, mr,
+            orbit, flat, perturb.init_state_plain(flat, nc, hdr_mode), nc, mr,
             hdr_mode), device, warm=False)
-        compare(f"K6 {key} {label} {size}² budget {n} iterations",
-                k.reshape(-1), pl[4], stats[key])
-        log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms (iter_sum "
-            f"{int(k.sum())})")
+        compare(f"K6 {key} {label} {size}² budget {nc} iterations",
+                kc.reshape(-1), pl[4], stats[key])
+        log(f"    kernel {ms:.3f} ms (budget {n}, iter_sum {int(k.sum())}), "
+            f"plain {pms:.3f} ms (budget {nc})")
         rate = F64_OPS_PER_S if dtype == f64 else F32_OPS_PER_S
         # a pixel reads orbit rows up to its count at most
         rows = orbit[:int(k.max()) + 1]
@@ -607,6 +669,7 @@ def phase_orbit_kernels(device, stats, reps=20, steps=3):
             stats[key].update(st)       # the last, largest size stays
 
 
+@functools.lru_cache(maxsize=16)
 def exact_steps(spec, cx: int, cy: int, steps: int, start=None):
     """The exact recurrence of the device digits, with Python ints: from
     ``start`` = (x, y, dx, dy) (default z = c and dz/dc = 1), ``steps``
@@ -921,7 +984,8 @@ def phase_nr_kernels(device, stats):
         for name, a, b in zip(("x", "y", "dx", "dy", "signs"), got, plain):
             compare(f"K5-NR {limbs} limbs {name}", a, b, stats["nr_tail"])
         ints = state_ints(st)
-        exact, wraps = exact_steps(spec, ints[4], ints[5], 1, ints[:4])
+        exact, wraps = exact_steps(spec, ints[4], ints[5], 1,
+                                   tuple(ints[:4]))
         dev = [int(s) * FP.digits_to_int(m.cpu().numpy())
                for s, m in zip(got[4].cpu(), got[:4])]
         log(f"    exact step: {'equal' if dev == list(exact) else 'DIFFER'}"
@@ -1320,6 +1384,214 @@ def phase_ntt(device, stats):
     return {"ntt_phase": launches}
 
 
+def products_ops(n: int, V: int, pair_plan) -> float:
+    """K9: V forward and K inverse transforms per prime of n/2·log2(n)
+    butterflies at 8 integer operations, 6 per Montgomery product and 2
+    per combine at every point and prime, the scale (6 per point)."""
+    lg = n.bit_length() - 1
+    K = len(pair_plan)
+    terms = sum(len(t) for t in pair_plan)
+    return 2 * ((V + K) * (n // 2) * lg * 8 + n * (terms * 8 + K * 6))
+
+
+def tail_fused_ops(K: int, n: int, L: int) -> float:
+    """K10: the CRT of each coefficient (about 20 integer operations) and
+    about 16 per digit sum (four parts, the addends, the ripple)."""
+    return K * (20.0 * n + 16.0 * L)
+
+
+def _flags(spec):
+    """Set module flags from {"FP.NAME": value}; returns the old values."""
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+    from fractalshark_tpu_torch.ops.bignum import ntt_mxu as NM
+    from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
+    mods = {"FP": FP, "NM": NM, "NP": NP}
+    old = {}
+    for key, v in spec.items():
+        mod, name = key.split(".")
+        old[key] = getattr(mods[mod], name)
+        setattr(mods[mod], name, v)
+    return old
+
+
+def phase_fused(device, stats):
+    """K9, K10 and K11 against their plain twins (K11 also against K4 +
+    K5), then the flagged routes: under each flag setting of FLAG_RUNS,
+    with the launch counts set to 0 just before and read just after, the
+    View #30 centre's 256 steps against the exact recurrence and a bounded
+    session against the default route's; an NR chunk under PALLAS_NTT
+    against the exact wrapped recurrence.  The flags are restored after
+    each run, also when it fails."""
+    import numpy as np
+    import torch
+
+    from fractalshark_tpu_torch import kernels
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+    from fractalshark_tpu_torch.ops.bignum import ntt_mxu as NM
+    from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
+    from fractalshark_tpu_torch.ops.bignum import orbit as O
+
+    log("[12] K9-K11 (B-f1..B-f5): the flag-off bignum kernels")
+    rng = np.random.default_rng(12)
+    P = (2013265921, 1811939329)
+    plans = {"3way": (2, NP.PLAN_3WAY), "nr": (4, NP.PLAN_NR),
+             "iter": (2, NP.PLAN_ITER), "nriter": (4, NP.PLAN_NR_ITER)}
+    signs = torch.tensor([1, -1, -1, 1], dtype=torch.int32, device=device)
+    times = {}
+    for n in FUSED_NFFT:
+        x = torch.zeros(4, n, dtype=torch.int32, device=device)
+        x[:, :n // 2] = torch.from_numpy(rng.integers(
+            0, 1 << 16, (4, n // 2)).astype(np.int32)).to(device)
+        for name, (V, plan) in plans.items():
+            sg = signs if name == "nriter" else None
+            want, pms = timed(lambda: NP.products_plain(x[:V], sg, n, plan),
+                              device, warm=False)
+            for form in ("whole", "split"):
+                key = f"ntt_products_{form}"
+                got, ms = timed(lambda: NP.launch_products(
+                    list(x[:V]), n, sg, n, plan, form), device, reps=10)
+                compare(f"K9 {form} n={n} {name}", got, want, stats[key])
+                times[f"{form} {n} {name}"] = (round(ms, 4), round(pms, 3))
+                if n == 16384 and name == "iter":
+                    stats[key].update(ms=ms, plain_ms=pms, **bound(
+                        nbytes(x[:V], got), products_ops(n, V, plan),
+                        I32_OPS_PER_S))
+    log(f"  K9 ms (kernel, plain) by form, nfft, plan: {times}")
+    times = {}
+    for n in TAIL_NFFT:
+        for K in (2, 4):
+            inv = torch.from_numpy(np.stack([np.stack([
+                rng.integers(0, p, n, dtype=np.uint64) for p in P])
+                for _ in range(K)]).astype(np.int32)).to(device)
+            cadd = torch.from_numpy(rng.integers(0, 1 << 16, (K, n)).astype(
+                np.int32)).to(device)
+            rnd = torch.zeros(n, dtype=torch.int32, device=device)
+            rnd[n // 2 - 3] = 1 << 15
+            cfg = NP.tail_cfg((1, -1, -1, 0), K == 4)
+            for fd in (None, (n // 2 - 2, n // 2)):
+                want, pms = timed(lambda: NP.fused_tail_plain(
+                    inv, cadd, rnd, cfg, fd), device, warm=False)
+                for batched in (False, True):
+                    key = "fused_tail_batched" if batched \
+                        else "fused_tail_grid"
+                    got, ms = timed(lambda: NP.launch_tail(
+                        inv, cadd, rnd, cfg, fd, batched), device, reps=10)
+                    label = f"K10 {key[11:]} n={n} K={K}" + \
+                        (" shadows" if fd else "")
+                    for a, b in zip(got, want):
+                        compare(label, a, b, stats[key])
+                    times[label[4:]] = (round(ms, 4), round(pms, 3))
+                    if n == 65536 and K == 2 and fd:
+                        stats[key].update(ms=ms, plain_ms=pms, **bound(
+                            nbytes(inv, cadd, rnd, *got),
+                            tail_fused_ops(K, n, n), I32_OPS_PER_S))
+    log(f"  K10 ms (kernel, plain): {times}")
+    cx, cy, rad = view30_center()
+    for limbs in FULL_LIMBS:
+        spec = FP.FixedSpec.for_limbs(limbs)
+        n, D, F = spec.nfft, spec.digits, spec.frac_digits
+        scx, cxd = FP.hp_to_digits(cx, spec)
+        scy, cyd = FP.hp_to_digits(cy, spec)
+        cxt = torch.from_numpy(cxd.astype("int32")).to(device)
+        cyt = torch.from_numpy(cyd.astype("int32")).to(device)
+        cadd, rnd = FP.addend_planes(cxt, cyt, spec)
+        cfg = NP.tail_cfg((scx, scy, scx * scy, 0), False)
+        got, ms = timed(lambda: NM.mxu_iterate_full(cxt, cyt, cadd, rnd, cfg,
+                                                    n, (F, D)), device, 20)
+        want, pms = timed(lambda: NM.mxu_iterate_full_plain(
+            cxt, cyt, cadd, rnd, cfg, n, (F, D)), device, warm=False)
+        for a, b in zip(got, want):
+            compare(f"K11 {limbs} limbs", a, b, stats["iterate_full"])
+        nx, ny, row = FP.iterate_z_row(
+            cxt, cyt, torch.from_numpy(FP.shadow_row_np(scx, cxd, scy, cyd))
+            .to(device), scx, cxt, scy, cyt, spec)
+        dig, sgn, shw = got
+        same = (torch.equal(dig[0, F:F + D], nx) and
+                torch.equal(dig[1, F:F + D], ny) and
+                torch.equal(torch.cat([shw.reshape(-1), sgn]), row))
+        log(f"  K11 {limbs} limbs: {ms:.4f} ms (plain {pms:.3f}), "
+            f"{'equal' if same else 'DIFFERS from'} K4 + K5")
+        if not same:
+            raise AssertionError(f"K11 differs from K4 + K5 at {limbs} limbs")
+        stats["iterate_full"].update(ms=ms, plain_ms=pms, **bound(
+            nbytes(cxt, cyt, cadd, rnd, *got),
+            products_ops(n, 2, NP.PLAN_ITER) + tail_fused_ops(2, n, n),
+            I32_OPS_PER_S))
+
+    # the flagged routes, each run's launch counts from 0
+    launches = {k: 0 for k in ("ntt_products_whole", "ntt_products_split",
+                               "fused_tail_grid", "fused_tail_batched",
+                               "iterate_full")}
+    exact, default, us = {}, {}, {}
+    for label, flags, limbs in FLAG_RUNS:
+        spec = FP.FixedSpec.for_limbs(limbs)
+        scx, cxd = FP.hp_to_digits(cx, spec)
+        scy, cyd = FP.hp_to_digits(cy, spec)
+        if limbs not in exact:
+            exact[limbs] = list(exact_steps(
+                spec, scx * FP.digits_to_int(cxd),
+                scy * FP.digits_to_int(cyd), ORACLE_STEPS)[0][:2])
+            t0 = time.perf_counter()
+            default[limbs] = O.compute_reference_orbit_device(
+                cx, cy, FLAG_SESSION_BUDGET, rad, limbs32=limbs,
+                periodicity=False, chunk_steps=256, device=device)
+            us[(limbs, "default")] = (time.perf_counter() - t0) / \
+                FLAG_SESSION_BUDGET * 1e6
+        old = _flags(flags)
+        try:
+            kernels.reset_counts()
+            state = O.OrbitState(scx, cxd, scy, cyd, device)
+            O.orbit_chunk(state, scx, torch.from_numpy(cxd.astype("int32"))
+                          .to(device), scy, torch.from_numpy(
+                              cyd.astype("int32")).to(device), spec,
+                          ORACLE_STEPS)
+            got = state_ints(state.numpy())
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            res = O.compute_reference_orbit_device(
+                cx, cy, FLAG_SESSION_BUDGET, rad, limbs32=limbs,
+                periodicity=False, chunk_steps=256, device=device)
+            us[(limbs, label)] = (time.perf_counter() - t0) / \
+                FLAG_SESSION_BUDGET * 1e6
+            run = {k: v for k, v in kernels.launches.items() if v}
+        finally:
+            _flags(old)
+        same = (np.array_equal(res.orbit_x, default[limbs].orbit_x) and
+                np.array_equal(res.orbit_y, default[limbs].orbit_y))
+        log(f"  {label}, {limbs} limbs: {ORACLE_STEPS} steps "
+            f"{'equal' if got == exact[limbs] else 'DIFFER from'} the "
+            f"Python-int recurrence; session of {FLAG_SESSION_BUDGET} "
+            f"{'equal to' if same else 'DIFFERS from'} the default route's; "
+            f"{us[(limbs, label)]:.2f} us/iter (default "
+            f"{us[(limbs, 'default')]:.2f}); launches {run}")
+        if got != exact[limbs] or not same:
+            raise AssertionError(f"{label} at {limbs} limbs differs")
+        routed = [k for k in launches if run.get(k)]
+        if not routed or run.get("ntt_orbit") or run.get("orbit_tail"):
+            raise AssertionError(f"{label}: not on the flagged kernels {run}")
+        for k in routed:
+            launches[k] += run[k]
+    # an NR chunk under PALLAS_NTT at 2,048 limbs (nfft 8,192: MXU_ITER
+    # off), against the exact wrapped recurrence
+    old = _flags({"FP.PALLAS_NTT": True, "NM.MXU_ITER": False})
+    try:
+        kernels.reset_counts()
+        check_chunks(cx, cy, 2048, ORACLE_STEPS, "View #30 centre, "
+                     "PALLAS_NTT", device, {})
+        run = {k: v for k, v in kernels.launches.items() if v}
+    finally:
+        _flags(old)
+    log(f"  NR chunk under PALLAS_NTT: launches {run}")
+    if not run.get("ntt_products_whole") or run.get("ntt_nr"):
+        raise AssertionError("the NR chunk did not take K9 + K10")
+    for k in launches:
+        launches[k] += run.get(k, 0)
+    log("  flagged routes, us/iter: " + json.dumps(
+        {f"{limbs} {label}": round(v, 3) for (limbs, label), v in
+         us.items()}))
+    return launches
+
+
 def plausible(label, s, budget):
     """A frame without a pinned value: counts within the budget, some
     pixels at it and some below (the view shows both)."""
@@ -1348,7 +1620,6 @@ def main() -> int:
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
     phase_s = {}
-
     def run(name, fn, *args):
         """One phase, its wall time kept for the summary."""
         tp = time.perf_counter()
@@ -1372,6 +1643,7 @@ def main() -> int:
     launches.update(run("9", phase_escape_seq, device, stats, card))
     launches.update(run("10", phase_la_stream, device, stats))
     launches.update(run("11", phase_ntt, device, stats))
+    launches.update(run("12", phase_fused, device, stats))
     if any(m.split(".")[0] in ("jax", "fractalshark_tpu")
            for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")

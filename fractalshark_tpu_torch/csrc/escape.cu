@@ -14,7 +14,11 @@
 //     (the reference clamps, :208).
 //   f64: escape_jax's loop, "if |z|^2 > 4 break" before each update, and
 //     no interior shortcut (escape_jax has none; the golden CRC of
-//     tests/test_escape.py is taken on it).
+//     tests/test_escape.py is taken on it).  f32 at budgets of 2^31 or
+//     more runs the same loop (fs_escape_f32_loop), as the reference
+//     sends them to escape_jax (engine/fractal.py:182-184); below that the
+//     wrapper passes the f32 value of the budget (2^24 + 1 runs as 2^24),
+//     as _escape_kernel reads it from its f32 table (escape.py:216).
 // Bound: pure FP32/FP64 arithmetic, about 7 flops per iteration; the
 // write is 8 bytes per pixel.  Warps diverge where neighbouring pixels
 // escape at different counts, as on any SIMT machine; the early exit
@@ -153,6 +157,13 @@ int fs_escape_f32(void *out, int32_t width, int32_t height, float min_x,
                   void *stream) {
   return launch<float, true>(out, width, height, min_x, max_y, dx, dy,
                              max_iter, stream);
+}
+
+int fs_escape_f32_loop(void *out, int32_t width, int32_t height, float min_x,
+                       float max_y, float dx, float dy, int64_t max_iter,
+                       void *stream) {
+  return launch<float, false>(out, width, height, min_x, max_y, dx, dy,
+                              max_iter, stream);
 }
 
 int fs_escape_f64(void *out, int32_t width, int32_t height, double min_x,

@@ -67,48 +67,22 @@
 // and writes 128 KB; the arithmetic is a few operations per digit, so the
 // bound is the bytes (0.5 us); launch latency dominates the wide form.
 // K5-NR moves twice that.
+//
+// K10 (fused_tail.cuh, launched here) is the same carry machinery on
+// residue rows: the reference's fused_tail, gridded or batched (B-f4,
+// ntt_pallas.py:1265).  The carry maps are in tail_common.cuh.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
+#include "fused_tail.cuh"
+#include "tail_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
-
-// a map {-1, 0, 1} -> {-1, 0, 1}, two bits per value (value + 1)
-__device__ __forceinline__ uint32_t enc(int fm, int f0, int fp) {
-  return static_cast<uint32_t>((fm + 1) | ((f0 + 1) << 2) | ((fp + 1) << 4));
-}
-__device__ __forceinline__ int apply(uint32_t f, int c) {
-  return static_cast<int>((f >> (2 * (c + 1))) & 3u) - 1;
-}
-// g after f
-__device__ __forceinline__ uint32_t compose(uint32_t g, uint32_t f) {
-  return enc(apply(g, apply(f, -1)), apply(g, apply(f, 0)),
-             apply(g, apply(f, 1)));
-}
-
-__device__ int block_min(int v, int *red) {
-  for (int o = 16; o; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    v = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : INT_MAX;
-    for (int o = 16; o; o >>= 1)
-      v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-    if (threadIdx.x == 0) red[32] = v;
-  }
-  __syncthreads();
-  v = red[32];
-  __syncthreads();
-  return v;
-}
-
-__device__ int block_max(int v, int *red) {
-  return -block_min(-v, red);
-}
 
 // One instance's inputs and outputs.  K = 2 (K5): row_in holds the
 // pre-update z's signs at 10 and 11, row_out gets the shadow row [12] of
@@ -514,7 +488,39 @@ int tail(const Tail &tl, void *scratch, int D, int log2n, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// K10: fused_tail.cuh's tail of K components, gridded (one block per
+// component) or batched (all K in one block)
+__global__ void __launch_bounds__(kTailThreads)
+fused_tail_kernel(FusedTail t, int batched) {
+  __shared__ TailShared sh;
+  if (batched) {
+    for (int c = 0; c < t.K; ++c) tail_component(t, c, sh);
+  } else {
+    tail_component(t, blockIdx.x, sh);
+  }
+}
+
 }  // namespace
+
+// K10.  inv: uint32 [K][2][n] residue rows; cadd: uint32 [K][L]; rnd:
+// uint32 [L]; cfg: int32 host [4K] (double, gswap, csign, 0); zsign: int32
+// [2] on the card or null (component 1's gswap = zsign[0]*zsign[1]); dig:
+// uint32 [K][L] out; sgn: int32 [K] out; shw: int32 [K][5] out or null
+// (the slice [F, F+D)).  n = 2^log2n <= 2^17, L <= n a multiple of 4.
+extern "C" int fs_fused_tail(const void *inv, const void *cadd,
+                             const void *rnd, const void *cfg,
+                             const void *zsign, void *dig, void *sgn,
+                             void *shw, int K, int log2n, int L, int F,
+                             int D, int batched, void *stream) {
+  FusedTail t;
+  const int rc = make_tail(&t, inv, cadd, rnd,
+                           static_cast<const int32_t *>(cfg), zsign, dig,
+                           sgn, shw, K, log2n, L, F, D);
+  if (rc) return rc;
+  fused_tail_kernel<<<batched ? 1 : K, kTailThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(t, batched);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int fs_ntt_orbit(const void *x, const void *y, void *coef,
                             void *work, const void *tables, int D, int log2n,

@@ -27,6 +27,27 @@ from fractalshark_tpu_torch.ops.coloring import (
     color_from_iters, iteration_stats, rgba16_to_numpy, rgba16_to_rgba8)
 
 
+# the routes whose reference returns uint32 at any budget: the XLA
+# perturbation-only loops (``ops/perturb.py:154,222``) and B10
+# (``ops/perturb_pallas.py:105``)
+_ALWAYS_U32 = ("perturb-f32", "perturb-f64", "perturb-hdr64",
+               "perturb-pallas")
+
+
+def public_dtype(route: str | None, max_iter: int):
+    """The numpy dtype of a grid at the public boundary, by the route that
+    rendered it (``BenchmarkData.extra["kernel"]``), as each of the
+    reference's routes returns it: the direct escapes uint32 below 2^32
+    (``escape.py:69-70``); the LA renders and the streaming tails uint32
+    below 2^31 (``la_kernel.py:515``, ``perturb_stream.py:100-109``);
+    the XLA perturbation-only loops and B10 uint32 always; uint64
+    above those budgets."""
+    if route in _ALWAYS_U32:
+        return np.uint32
+    cut = 1 << (32 if route == "escape" else 31)
+    return np.uint64 if max_iter >= cut else np.uint32
+
+
 @dataclass
 class BenchmarkData:
     """Phase timers (reference BenchmarkData.h:28-46)."""
@@ -153,11 +174,11 @@ class Fractal:
                 else self.calc_fractal())
 
     def iters_numpy(self, iters=None) -> np.ndarray:
-        """The grid as numpy uint32 (uint64 for budgets >= 2^31), the
-        reference's public convention."""
+        """The grid as numpy, in the dtype the reference's route returns
+        (``public_dtype`` of the route the last render took)."""
         a = self._iters(iters).cpu().numpy()
-        return a.astype(np.uint64 if self.num_iterations >= (1 << 31)
-                        else np.uint32)
+        return a.astype(public_dtype(self.benchmark.extra.get("kernel"),
+                                     self.num_iterations))
 
     def color(self, iters=None) -> torch.Tensor:
         """RGBA16 [H, W, 4] on the device."""

@@ -23,7 +23,11 @@ Build flags, and why:
   (no ``--use_fast_math``).
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
-``check`` raises on anything but 0.  ``launches`` counts each kernel's
+``check`` raises on anything but 0.  The cooperative launches of K9's
+whole form and K11 (``coop_launch`` in ``csrc/ntt_products.cuh``) size
+their grid by what can be co-resident and return the launch's refusal
+(e.g. ``cudaErrorCooperativeLaunchTooLarge``), which ``check`` raises:
+no cooperative launch falls back to another form.  ``launches`` counts each kernel's
 launches: a wrapper adds one where it launches its kernel and nowhere
 else.
 """
@@ -55,12 +59,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # perturb_render_float); K4-NR (ntt_nr) and K5-NR (nr_tail) once per NR
 # step, whether launched alone or by the NR chunk loop (fs_nr_chunk);
 # K1-seq (escape_seq) once per frame sequence, K7 (la_stream) per init
-# or stage launch, K8 (ntt_phase) per phase transform
+# or stage launch, K8 (ntt_phase) per phase transform; K9 once per
+# multiply per form (ntt_products_whole: one cooperative launch;
+# ntt_products_split: three launches), K10 once per tail per form
+# (fused_tail_grid, fused_tail_batched) and K11 (iterate_full) once per
+# step, also inside the flagged chunk loops
 KERNELS = ("escape", "lav2_full", "lav2_phase1", "rc_tail", "ntt_orbit",
            "orbit_tail", "lav2_full_f64", "lav2_lao_f64", "perturb_pallas",
            "perturb_stream", "perturb_hdr32", "perturb_hdr64", "perturb_f32",
            "perturb_f64", "ntt_nr", "nr_tail", "escape_seq", "la_stream",
-           "ntt_phase")
+           "ntt_phase", "ntt_products_whole", "ntt_products_split",
+           "fused_tail_grid", "fused_tail_batched", "iterate_full")
 launches = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -75,6 +84,8 @@ _F64 = ctypes.c_double
 # argtypes of every C entry point (pointers and the stream as c_void_p)
 _SIGNATURES = {
     "fs_escape_f32": [_P, _I32, _I32, _F32, _F32, _F32, _F32, _I64, _P],
+    "fs_escape_f32_loop": [_P, _I32, _I32, _F32, _F32, _F32, _F32, _I64,
+                           _P],
     "fs_escape_f64": [_P, _I32, _I32, _F64, _F64, _F64, _F64, _I64, _P],
     # lav2: dc(3) nodes side orbit stages at | state(8) | scalars | stream
     "fs_lav2": [_P] * 16 + [_I32, _I32, _I32, _I64, _I64, _I64, _I64, _I32,
@@ -115,6 +126,24 @@ _SIGNATURES = {
                                  _P],
     # ntt_phase: y out tw | rows m lanes inverse | stream
     "fs_ntt_phase": [_P] * 3 + [_I32, _I32, _I32, _I32, _P],
+    # ntt_products: v0..v3 | V din | signs plan out work tables | log2n
+    # whole | stream
+    "fs_ntt_products": [_P] * 4 + [_I32, _I32] + [_P] * 5
+    + [_I32, _I32, _P],
+    # fused_tail: inv cadd rnd cfg zsign dig sgn shw | K log2n L F D
+    # batched | stream
+    "fs_fused_tail": [_P] * 8 + [_I32] * 6 + [_P],
+    # iterate_full: x y | din | cadd rnd cfg zsign dig sgn shw scratch
+    # tables | log2n F D | stream
+    "fs_iterate_full": [_P, _P, _I32] + [_P] * 9 + [_I32] * 3 + [_P],
+    # orbit_chunk_fused: x y rows cadd rnd | scx scy | dig inv work tables
+    # | D log2n steps route batched | stream
+    "fs_orbit_chunk_fused": [_P] * 5 + [_I32, _I32] + [_P] * 4
+    + [_I32] * 5 + [_P],
+    # nr_chunk_fused: x y dx dy signs cadd rnd | scx scy | dig inv work
+    # tables | D log2n steps route batched | stream
+    "fs_nr_chunk_fused": [_P] * 7 + [_I32, _I32] + [_P] * 4
+    + [_I32] * 5 + [_P],
 }
 
 

@@ -6,7 +6,11 @@ products) and K5 (``csrc/orbit_tail.cu``, products to the next z), and
 their NR instances K4-NR and K5-NR (``iterate_z_nr``: z and dz/dc); and
 the reference's generic multiplies (``multiply_3way``, ``multiply_iter``,
 ``multiply_nr``, ``multiply_nr_iter``) through the generic transforms of
-``ntt.py`` (kernel K8), at the end of this module.
+``ntt.py`` (kernel K8), at the end of this module.  The reference's
+flag-off routes of the step and of ``multiply_iter``/``multiply_nr_iter``
+(``PALLAS_NTT``, ``PALLAS_NTT_SPLIT`` here, ``ntt_pallas.WHOLE_ALIGNED``,
+``ntt_pallas.BATCHED_TAIL``, ``ntt_mxu.MXU_ITER_FULL``) go to kernels K9,
+K10 and K11 (``ntt_pallas.py``, ``ntt_mxu.py``).
 
 A value is sign-magnitude fixed point, as in the JAX package:
 
@@ -434,17 +438,121 @@ def orbit_tail(coef: torch.Tensor, row_in: torch.Tensor, scx: int,
     return nx, ny, row
 
 
+# ------------------------------------------------------------- the routes
+# The reference's flag-off product routes (``fixedpoint.py:339-379``):
+# ``PALLAS_NTT`` sends the step's products to K9 (B-f1's function) for
+# ntt_pallas.supported sizes, ``PALLAS_NTT_SPLIT`` for supported_split
+# sizes (B-f2, or B-f3 under ``ntt_pallas.WHOLE_ALIGNED``), each followed
+# by K10's tail; ``ntt_mxu.MXU_ITER_FULL`` runs the whole step as K11.
+# The precedence is the reference's (``:668-690``, ``:757-770``):
+# ``ntt_mxu.MXU_ITER`` takes the step first at its sizes (K4 in the port),
+# so K9 is reached there only with it off.  With every flag at its
+# default the step is K4 then K5 at every size.  (The reference's
+# ``PALLAS_FUSED_TAIL`` has no counterpart: on the card the tail is
+# always fused, by K5 or K10.)
+PALLAS_NTT: bool = False
+PALLAS_NTT_SPLIT: bool = False
+
+
+def _use_pallas(nf: int) -> bool:
+    from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
+    return PALLAS_NTT and NP.supported(nf)
+
+
+def _use_pallas_split(nf: int) -> bool:
+    from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
+    return PALLAS_NTT_SPLIT and NP.supported_split(nf)
+
+
+def _any_pallas(nf: int) -> bool:
+    return _use_pallas(nf) or _use_pallas_split(nf)
+
+
+def _use_mxu_iter(nf: int) -> bool:
+    from fractalshark_tpu_torch.ops.bignum import ntt_mxu as NM
+    return NM.use_iter_kernel(nf)
+
+
+def _use_fused_tail(nf: int, D: int) -> bool:
+    """The layout B-f5's tail needs (``fixedpoint.py:391-397``)."""
+    return 2 * D == nf and nf % 128 == 0 and nf >= 2048
+
+
+def step_route(spec: FixedSpec) -> str:
+    """The orbit step's route: "k4" (K4 then K5), "products" (K9 then
+    K10) or "full" (K11)."""
+    from fractalshark_tpu_torch.ops.bignum import ntt_mxu as NM
+    nf = spec.nfft
+    if NM.MXU_ITER_FULL and _use_mxu_iter(nf) and \
+            _use_fused_tail(nf, spec.digits):
+        return "full"
+    if _use_mxu_iter(nf) or not _any_pallas(nf):
+        return "k4"
+    return "products"
+
+
+def nr_route(spec: FixedSpec) -> str:
+    """The NR step's route: "k4" (K4-NR then K5-NR) or "products" (K9
+    then K10)."""
+    nf = spec.nfft
+    return "k4" if _use_mxu_iter(nf) or not _any_pallas(nf) else "products"
+
+
+def addend_planes(cx: torch.Tensor, cy: torch.Tensor, spec: FixedSpec,
+                  nr: bool = False):
+    """The tail's addend planes over L = 2D digits (``fixedpoint.py:
+    700-706, 800-806``): int32 [K, L] (c at digit F; for NR also the +1
+    of dz/dc at digit 2F) and the round plane int32 [L] (2^15 at F − 1)."""
+    D, F = spec.digits, spec.frac_digits
+    cadd = torch.zeros(4 if nr else 2, 2 * D, dtype=torch.int32,
+                       device=cx.device)
+    cadd[0, F:F + D] = cx
+    cadd[1, F:F + D] = cy
+    if nr:
+        cadd[2, 2 * F] = 1
+    rnd = torch.zeros(2 * D, dtype=torch.int32, device=cx.device)
+    rnd[F - 1] = 1 << (DIGIT_BITS - 1)
+    return cadd, rnd
+
+
+def iterate_z_row(x: torch.Tensor, y: torch.Tensor, row_in: torch.Tensor,
+                  scx: int, cx: torch.Tensor, scy: int, cy: torch.Tensor,
+                  spec: FixedSpec, planes=None):
+    """(x', y', row of z') of one step from the digits and the [12] row
+    of z (its signs at 10 and 11), on the step's route."""
+    route = step_route(spec)
+    if route == "k4":
+        return orbit_tail(orbit_products(x, y, spec), row_in, scx, cx, scy,
+                          cy, spec)
+    from fractalshark_tpu_torch.ops.bignum import ntt_mxu as NM
+    from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
+    _check_state(spec, x, y, cx, cy)
+    F, D, nf = spec.frac_digits, spec.digits, spec.nfft
+    cadd, rnd = planes if planes is not None else addend_planes(cx, cy, spec)
+    cfg = NP.tail_cfg((scx, scy, 1, 0), nr=False)
+    zsign = row_in[10:12]
+    if route == "full":
+        dig, sgn, shw = NM.mxu_iterate_full(x, y, cadd, rnd, cfg, nf,
+                                            (F, D), zsign=zsign)
+    else:
+        inv = NP.products(torch.stack([x, y]), None, nf, NP.PLAN_ITER)
+        dig, sgn, shw = NP.tail(inv, cadd, rnd, cfg, (F, D), zsign=zsign)
+    row = torch.cat([shw.reshape(-1), sgn])
+    return (dig[0, F:F + D].contiguous(), dig[1, F:F + D].contiguous(),
+            row)
+
+
 def iterate_z(sx, x: torch.Tensor, sy, y: torch.Tensor, scx: int,
               cx: torch.Tensor, scy: int, cy: torch.Tensor,
               spec: FixedSpec):
     """ONE z ← z² + c update on sign-magnitude digits: K4 then K5 on CUDA
-    tensors, their plain twins on CPU tensors.  Signs are ints or int32
-    0-d tensors; returns (nsx, nx, nsy, ny) with 0-d int32 signs."""
+    tensors (or K9 then K10, or K11, under the flags above), their plain
+    twins on CPU tensors.  Signs are ints or int32 0-d tensors; returns
+    (nsx, nx, nsy, ny) with 0-d int32 signs."""
     row_in = torch.zeros(ROW, dtype=torch.int32, device=x.device)
     row_in[10] = torch.as_tensor(sx)
     row_in[11] = torch.as_tensor(sy)
-    coef = orbit_products(x, y, spec)
-    nx, ny, row = orbit_tail(coef, row_in, scx, cx, scy, cy, spec)
+    nx, ny, row = iterate_z_row(x, y, row_in, scx, cx, scy, cy, spec)
     return row[10], nx, row[11], ny
 
 
@@ -526,9 +634,19 @@ def iterate_z_nr(sx, x, sy, y, sdx, dx, sdy, dy, scx: int, cx, scy: int,
     on CUDA tensors, their plain twins on CPU tensors.  Returns (nsx,
     nx, nsy, ny, nsdx, ndx, nsdy, ndy) with 0-d int32 signs."""
     signs = sign_row(sx, sy, sdx, sdy, x.device)
-    coef = nr_products(x, y, dx, dy, signs, spec)
-    nx, ny, ndx, ndy, ns = nr_tail(coef, scx, cx, scy, cy, spec)
-    return ns[0], nx, ns[1], ny, ns[2], ndx, ns[3], ndy
+    if nr_route(spec) == "k4":
+        coef = nr_products(x, y, dx, dy, signs, spec)
+        nx, ny, ndx, ndy, ns = nr_tail(coef, scx, cx, scy, cy, spec)
+        return ns[0], nx, ns[1], ny, ns[2], ndx, ns[3], ndy
+    from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
+    _check_state(spec, x, y, dx, dy, cx, cy)
+    F, D = spec.frac_digits, spec.digits
+    inv = NP.products(torch.stack([x, y, dx, dy]), signs, spec.nfft,
+                      NP.PLAN_NR_ITER)
+    cadd, rnd = addend_planes(cx, cy, spec, nr=True)
+    dig, ns = NP.tail(inv, cadd, rnd, NP.tail_cfg((scx, scy, 0, 0), nr=True))
+    m = dig[:, F:F + D]
+    return ns[0], m[0], ns[1], m[1], ns[2], m[2], ns[3], m[3]
 
 
 # ------------------------------------------------------ generic multiplies
@@ -662,11 +780,15 @@ def multiply_iter(ax, ay, spec: FixedSpec, device="cuda"):
     """((sign, x² − y²), x·y), the difference taken in the frequency
     domain (``fixedpoint.py:510-559``)."""
     x, y = digit_rows((ax, ay), kernels.resolve_device(device))
-    f = _forward_rows(torch.stack([x, x, y, y]), spec.nfft)
-    sq = N.mont_mul_rows(f, f)
-    prod = torch.cat([N.mod_sub_rows(sq[0:2], sq[2:4]),
-                      N.mont_mul_rows(f[0:2], f[2:4])])
-    inv = _inverse_rows(prod, spec.nfft)
+    if not _use_mxu_iter(spec.nfft) and _any_pallas(spec.nfft):
+        from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
+        inv = NP.ntt_iter_products(x, y, spec.nfft)
+    else:
+        f = _forward_rows(torch.stack([x, x, y, y]), spec.nfft)
+        sq = N.mont_mul_rows(f, f)
+        prod = torch.cat([N.mod_sub_rows(sq[0:2], sq[2:4]),
+                          N.mont_mul_rows(f[0:2], f[2:4])])
+        inv = _inverse_rows(prod, spec.nfft)
     L, rd = 2 * spec.digits, spec.frac_digits - 1
     sd, dd = _crt_to_digit_sums_signed(inv[0], inv[1], L, rd)
     xy = _crt_to_digit_sums(inv[2], inv[3], L, rd)
@@ -695,18 +817,24 @@ def multiply_nr_iter(sx, ax, sy, ay, sdx, adx, sdy, ady, spec: FixedSpec,
     (``fixedpoint.py:830-893``)."""
     dev = kernels.resolve_device(device)
     x, y, dx, dy = digit_rows((ax, ay, adx, ady), dev)
-    f = _forward_rows(torch.stack([x, x, y, y, dx, dx, dy, dy]), spec.nfft)
-    signs = torch.tensor([int(s) for s in (sx, sx, sy, sy, sdx, sdx, sdy,
-                                           sdy)], device=dev)
-    f = torch.where((signs < 0)[:, None], N.mod_sub_rows(torch.zeros_like(f),
-                                                         f), f)
-    fx, fy, fdx, fdy = f[0:2], f[2:4], f[4:6], f[6:8]
-    mul = N.mont_mul_rows
-    prod = torch.cat([N.mod_sub_rows(mul(fx, fx), mul(fy, fy)),
-                      mul(fx, fy),
-                      N.mod_sub_rows(mul(fx, fdx), mul(fy, fdy)),
-                      N.mod_add_rows(mul(fx, fdy), mul(fy, fdx))])
-    inv = _inverse_rows(prod, spec.nfft)
+    if _any_pallas(spec.nfft):
+        from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
+        inv = NP.ntt_nr_iter_products(x, y, dx, dy, sign_row(
+            sx, sy, sdx, sdy, dev), spec.nfft)
+    else:
+        f = _forward_rows(torch.stack([x, x, y, y, dx, dx, dy, dy]),
+                          spec.nfft)
+        signs = torch.tensor([int(s) for s in (sx, sx, sy, sy, sdx, sdx,
+                                               sdy, sdy)], device=dev)
+        f = torch.where((signs < 0)[:, None],
+                        N.mod_sub_rows(torch.zeros_like(f), f), f)
+        fx, fy, fdx, fdy = f[0:2], f[2:4], f[4:6], f[6:8]
+        mul = N.mont_mul_rows
+        prod = torch.cat([N.mod_sub_rows(mul(fx, fx), mul(fy, fy)),
+                          mul(fx, fy),
+                          N.mod_sub_rows(mul(fx, fdx), mul(fy, fdy)),
+                          N.mod_add_rows(mul(fx, fdy), mul(fy, fdx))])
+        inv = _inverse_rows(prod, spec.nfft)
     sg, mag = _crt_to_digit_sums_signed(inv[0::2], inv[1::2],
                                         2 * spec.digits, spec.frac_digits - 1)
     mag = _keep(mag, spec)

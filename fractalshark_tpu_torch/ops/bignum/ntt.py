@@ -1,7 +1,9 @@
 """The number-theoretic transform: the two 31-bit primes of
 ``fractalshark_tpu/ops/bignum/ntt.py:35-38`` and their root-of-unity
-tables, shared by the CUDA product kernel K4 (``csrc/ntt_orbit.cu``) and
-its plain twin (``fixedpoint.py``); and the generic transforms of the
+tables, shared by the CUDA product kernels K4 (``csrc/ntt_orbit.cu``),
+K9 and K11 (``csrc/ntt_products.cu``, ``csrc/iterate_full.cu``: the same
+``kernel_tables`` operand) and their plain twins (``fixedpoint.py``,
+``ntt_pallas.py``); and the generic transforms of the
 reference (``ntt.py:195-735``) that its generic multiplies and the debug
 checksum tool run, through the phase kernel K8 (``csrc/ntt_phase.cu``).
 
@@ -80,7 +82,7 @@ def root_tables(n: int) -> tuple[np.ndarray, np.ndarray]:
 
 @functools.lru_cache(maxsize=8)
 def kernel_tables(n: int) -> np.ndarray:
-    """K4's table operand, uint32 [4n + 4]: forward roots mod p1, mod p2,
+    """K4's, K9's and K11's table operand, uint32 [4n + 4]: forward roots mod p1, mod p2,
     inverse roots mod p1, mod p2 (each n entries, Montgomery form), then
     ``n^-1·R² mod p1``, ``n^-1·R² mod p2`` (the inverse transform's scale,
     which also cancels the R^-1 of the pointwise Montgomery products)

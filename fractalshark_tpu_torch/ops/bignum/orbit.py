@@ -12,7 +12,10 @@
   session at period, escape or budget.
 
 The device and the host meet once per chunk.  On CPU tensors the same
-session runs the kernels' plain twins.
+session runs the kernels' plain twins.  Under the reference's flag-off
+routes (``fixedpoint.step_route``) a chunk's steps are K9 then K10, or
+K11, still in one C call per chunk; the rows, and so the period, escape
+and checkpoint behaviour, are the same.
 
 The feature finder's device evaluator (``evaluate_critical_orbit_and_derivs_device``,
 ``orbit.py:480-535``) runs z and dz/dc together in the NR chunk
@@ -61,13 +64,49 @@ class OrbitState:
 
 
 class _Scratch:
-    """Per-session device buffers of the CUDA chunk loop."""
+    """Per-session device buffers of the CUDA chunk loop: K4/K5's, and for
+    the flagged routes (``fixedpoint.step_route``) the addend planes and
+    K9/K10/K11's digits, residue rows and work (``values`` values, K
+    components)."""
 
-    def __init__(self, spec: FP.FixedSpec, device):
+    def __init__(self, spec: FP.FixedSpec, device, values: int = 2):
         n = spec.nfft
-        self.coef = torch.empty(2, n, dtype=torch.int64, device=device)
-        self.work = torch.empty(4 * n, dtype=torch.int32, device=device)
+        self.coef = torch.empty(values, n, dtype=torch.int64, device=device)
+        self.work = torch.empty(2 * values * n, dtype=torch.int32,
+                                device=device)
         self.tables = FP.device_tables(n, device)
+        self.fused = None
+
+    def fused_buffers(self, spec: FP.FixedSpec, cx, cy, nr: bool = False):
+        """(cadd, rnd, dig, inv, work) of the flagged routes, made once."""
+        if self.fused is None:
+            n, K = spec.nfft, 4 if nr else 2
+            dev = cx.device
+            cadd, rnd = FP.addend_planes(cx, cy, spec, nr)
+            self.fused = (cadd, rnd,
+                          torch.empty(K, 2 * spec.digits, dtype=torch.int32,
+                                      device=dev),
+                          torch.empty(K, 2, n, dtype=torch.int32,
+                                      device=dev),
+                          torch.empty(4 * K * n, dtype=torch.int32,
+                                      device=dev))
+        return self.fused
+
+
+# the C chunk loops' routes of the flagged steps
+_ROUTES = {"whole": 1, "split": 2, "full": 3}
+
+
+def _fused_route(spec: FP.FixedSpec, route: str) -> tuple[int, list]:
+    """(route code, counters) of a flagged chunk: K9 in the form the
+    reference routes nfft to, then K10 (batched under BATCHED_TAIL); or
+    K11."""
+    from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
+    if route == "full":
+        return _ROUTES["full"], ["iterate_full"]
+    form = NP.product_form(spec.nfft)
+    tail = "fused_tail_batched" if NP.BATCHED_TAIL else "fused_tail_grid"
+    return _ROUTES[form], [f"ntt_products_{form}", tail]
 
 
 def orbit_chunk(state: OrbitState, scx: int, cx: torch.Tensor, scy: int,
@@ -75,20 +114,25 @@ def orbit_chunk(state: OrbitState, scx: int, cx: torch.Tensor, scy: int,
                 scratch: _Scratch | None = None) -> torch.Tensor:
     """Advance ``state`` by ``steps`` iterations in place; return the
     rows [steps, 12] int32 of the pre-update z of each step (on the
-    state's device; on CUDA the call returns before the work is done)."""
+    state's device; on CUDA the call returns before the work is done).
+    Each step takes ``fixedpoint.step_route``: K4 then K5 by default."""
+    from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
     dev = state.x.device
     rows = torch.empty(steps + 1, FP.ROW, dtype=torch.int32, device=dev)
     rows[0] = state.row
+    route = FP.step_route(spec)
     if dev.type == "cpu":
+        planes = FP.addend_planes(cx, cy, spec) if route != "k4" else None
         for k in range(steps):
-            coef = FP.orbit_products_plain(state.x, state.y, spec.nfft)
-            nx, ny, rows[k + 1] = FP.orbit_tail_plain(
-                coef, rows[k], scx, cx, scy, cy, spec)
+            nx, ny, rows[k + 1] = FP.iterate_z_row(
+                state.x, state.y, rows[k], scx, cx, scy, cy, spec, planes)
             state.x.copy_(nx)
             state.y.copy_(ny)
-    else:
-        if scratch is None:
-            scratch = _Scratch(spec, dev)
+        state.row = rows[steps]
+        return rows[:steps]
+    if scratch is None:
+        scratch = _Scratch(spec, dev)
+    if route == "k4":
         rc = kernels.lib().fs_orbit_chunk(
             state.x.data_ptr(), state.y.data_ptr(), rows.data_ptr(),
             cx.data_ptr(), cy.data_ptr(), int(scx), int(scy),
@@ -96,8 +140,20 @@ def orbit_chunk(state: OrbitState, scx: int, cx: torch.Tensor, scy: int,
             scratch.tables.data_ptr(), spec.digits,
             spec.nfft.bit_length() - 1, steps, kernels.stream(dev))
         kernels.check(rc, "orbit_chunk")
-        kernels.launches["ntt_orbit"] += steps
-        kernels.launches["orbit_tail"] += steps
+        counters = ["ntt_orbit", "orbit_tail"]
+    else:
+        code, counters = _fused_route(spec, route)
+        cadd, rnd, dig, inv, work = scratch.fused_buffers(spec, cx, cy)
+        rc = kernels.lib().fs_orbit_chunk_fused(
+            state.x.data_ptr(), state.y.data_ptr(), rows.data_ptr(),
+            cadd.data_ptr(), rnd.data_ptr(), int(scx), int(scy),
+            dig.data_ptr(), inv.data_ptr(), work.data_ptr(),
+            scratch.tables.data_ptr(), spec.digits,
+            spec.nfft.bit_length() - 1, steps, code, int(NP.BATCHED_TAIL),
+            kernels.stream(dev))
+        kernels.check(rc, "orbit_chunk_fused")
+    for name in counters:
+        kernels.launches[name] += steps
     state.row = rows[steps]
     return rows[:steps]
 
@@ -125,31 +181,49 @@ class NRState:
 def orbit_nr_chunk(state: NRState, scx: int, cx: torch.Tensor, scy: int,
                    cy: torch.Tensor, spec: FP.FixedSpec, steps: int) -> None:
     """Advance ``state`` by ``steps`` NR updates in place (z ← z² + c and
-    dz/dc ← 2·z·dz/dc + 1, ``orbit.py:480-498``); on CUDA one C call runs
-    the whole chunk and returns before the work is done."""
+    dz/dc ← 2·z·dz/dc + 1, ``orbit.py:480-498``) on
+    ``fixedpoint.nr_route``; on CUDA one C call runs the whole chunk and
+    returns before the work is done."""
+    from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
     dev = state.x.device
-    FP.check_nr(spec)
+    route = FP.nr_route(spec)
+    if route == "k4":
+        FP.check_nr(spec)
     if dev.type == "cpu":
         for _ in range(steps):
-            coef = FP.nr_products_plain(state.x, state.y, state.dx, state.dy,
-                                        state.signs, spec.nfft)
-            *mags, state.signs = FP.nr_tail_plain(coef, scx, cx, scy, cy,
-                                                  spec)
-            for t, m in zip((state.x, state.y, state.dx, state.dy), mags):
+            st = FP.iterate_z_nr(state.signs[0], state.x, state.signs[1],
+                                 state.y, state.signs[2], state.dx,
+                                 state.signs[3], state.dy, scx, cx, scy, cy,
+                                 spec)
+            state.signs = torch.stack(st[0::2]).to(torch.int32)
+            for t, m in zip((state.x, state.y, state.dx, state.dy), st[1::2]):
                 t.copy_(m)
         return
     n = spec.nfft
-    coef = torch.empty(4, n, dtype=torch.int64, device=dev)
-    work = torch.empty(8 * n, dtype=torch.int32, device=dev)
-    rc = kernels.lib().fs_nr_chunk(
-        state.x.data_ptr(), state.y.data_ptr(), state.dx.data_ptr(),
-        state.dy.data_ptr(), state.signs.data_ptr(), cx.data_ptr(),
-        cy.data_ptr(), int(scx), int(scy), coef.data_ptr(), work.data_ptr(),
-        FP.device_tables(n, dev).data_ptr(), spec.digits, n.bit_length() - 1,
-        steps, kernels.stream(dev))
-    kernels.check(rc, "nr_chunk")
-    kernels.launches["ntt_nr"] += steps
-    kernels.launches["nr_tail"] += steps
+    scratch = _Scratch(spec, dev, values=4)
+    if route == "k4":
+        rc = kernels.lib().fs_nr_chunk(
+            state.x.data_ptr(), state.y.data_ptr(), state.dx.data_ptr(),
+            state.dy.data_ptr(), state.signs.data_ptr(), cx.data_ptr(),
+            cy.data_ptr(), int(scx), int(scy), scratch.coef.data_ptr(),
+            scratch.work.data_ptr(), scratch.tables.data_ptr(), spec.digits,
+            n.bit_length() - 1, steps, kernels.stream(dev))
+        kernels.check(rc, "nr_chunk")
+        counters = ["ntt_nr", "nr_tail"]
+    else:
+        code, counters = _fused_route(spec, route)
+        cadd, rnd, dig, inv, work = scratch.fused_buffers(spec, cx, cy,
+                                                          nr=True)
+        rc = kernels.lib().fs_nr_chunk_fused(
+            state.x.data_ptr(), state.y.data_ptr(), state.dx.data_ptr(),
+            state.dy.data_ptr(), state.signs.data_ptr(), cadd.data_ptr(),
+            rnd.data_ptr(), int(scx), int(scy), dig.data_ptr(),
+            inv.data_ptr(), work.data_ptr(), scratch.tables.data_ptr(),
+            spec.digits, n.bit_length() - 1, steps, code,
+            int(NP.BATCHED_TAIL), kernels.stream(dev))
+        kernels.check(rc, "nr_chunk_fused")
+    for name in counters:
+        kernels.launches[name] += steps
 
 
 def nr_limbs(precision_bits: int) -> int:

@@ -12,8 +12,15 @@ Two semantics, each matching the reference route that renders it:
   to the budget; every result is flushed of subnormals, as XLA:CPU
   flushes the reference's f32 and f64 alike.
 * f64 single frames (``Gpu1x64`` and ``Cpu64``, the reference's
-  ``escape_jax``): the plain loop ``while i < N: if |z|² > 4: break;
-  z = z² + c; i += 1``, with no interior shortcut.
+  ``escape_jax``), and f32 single frames at budgets of 2^31 or more,
+  which the reference also sends to ``escape_jax``
+  (``engine/fractal.py:182-184``): the plain loop ``while i < N: if
+  |z|² > 4: break; z = z² + c; i += 1``, with no interior shortcut (f32
+  results flushed, as XLA:CPU flushes them).
+
+A tile reads its budget from a table in the frame type, as the
+reference's ``scalar_ref[4].astype(int32)`` does (``escape.py:216``):
+an f32 budget of 2^24 + 1 runs as 2^24 (``seq_budget``).
 
 Pixel coordinates: cx = min_x + x*dx, cy = max_y - y*dy in the working
 type.  Single-frame grids are int64 tensors inside the port; a sequence
@@ -68,14 +75,23 @@ def _coords(params: PlainParams, width: int, height: int, dtype, device,
             cy[:, None].expand(height, width).contiguous())
 
 
+def tile_semantics(max_iter: int, dtype) -> bool:
+    """Whether a single frame runs the reference's Pallas tile: f32 below
+    a budget of 2^31 (``engine/fractal.py:182-184``)."""
+    return dtype == torch.float32 and max_iter < (1 << 31)
+
+
 def escape_plain(params: PlainParams, width: int, height: int,
                  max_iter: int, dtype=torch.float64, device="cpu",
                  tile: bool | None = None) -> torch.Tensor:
     """Plain PyTorch twin of K1 (lockstep over the whole grid).  `tile`
-    picks the reference's tile semantics (default: for f32 only)."""
+    picks the reference's tile semantics (default: ``tile_semantics``),
+    which run the budget in the frame type."""
     if tile is None:
-        tile = dtype == torch.float32
-    fl = ftz if tile else (lambda t: t)
+        tile = tile_semantics(max_iter, dtype)
+    if tile:
+        max_iter = seq_budget(max_iter, dtype)
+    fl = ftz if tile or dtype == torch.float32 else (lambda t: t)
     cx, cy = _coords(params, width, height, dtype, device, fl)
     it = torch.zeros((height, width), dtype=torch.int64, device=device)
     active = torch.ones((height, width), dtype=torch.bool, device=device)
@@ -109,9 +125,15 @@ def escape_plain(params: PlainParams, width: int, height: int,
 
 def escape_kernel(params: PlainParams, width: int, height: int,
                   max_iter: int, dtype, device) -> torch.Tensor:
-    """Launch K1 on a CUDA device."""
+    """Launch K1 on a CUDA device: the f32 tile below a budget of 2^31,
+    else ``escape_jax``'s loop in the frame type."""
     out = torch.empty((height, width), dtype=torch.int64, device=device)
-    name = "fs_escape_f32" if dtype == torch.float32 else "fs_escape_f64"
+    if dtype == torch.float64:
+        name = "fs_escape_f64"
+    elif tile_semantics(max_iter, dtype):
+        name, max_iter = "fs_escape_f32", seq_budget(max_iter, dtype)
+    else:
+        name = "fs_escape_f32_loop"
     lib = kernels.lib()
     kernels.launches["escape"] += 1
     kernels.check(getattr(lib, name)(

@@ -245,13 +245,19 @@ def test_iterate_z_shadow_row():
 
 
 def test_kernel_constants_match_ntt():
-    """The primes and Montgomery constants compiled into K4 are ntt.py's."""
-    src = open(FP.kernels.SRC_DIR / "ntt_orbit.cu").read()
+    """The primes and Montgomery constants compiled into K4 (and K9-K11,
+    from the header K4 includes) are ntt.py's, and K10's CRT constant is
+    p1^-1·R mod p2."""
+    src = open(FP.kernels.SRC_DIR / "ntt_common.cuh").read()
+    assert '#include "ntt_common.cuh"' in open(
+        FP.kernels.SRC_DIR / "ntt_orbit.cu").read()
     for name, want in (("kP1", N.P1), ("kP2", N.P2),
                        ("kPp1", N.mont_const(N.P1)[0]),
                        ("kPp2", N.mont_const(N.P2)[0]),
                        ("kP1P2", N.P1 * N.P2)):
         assert f" {name} = {want}u" in src, name
+    tail = open(FP.kernels.SRC_DIR / "fused_tail.cuh").read()
+    assert f" kCrtConst = {pow(N.P1, -1, N.P2) * 2 ** 32 % N.P2}u" in tail
 
 
 # ----------------------------------------------------------- session
