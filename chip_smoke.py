@@ -10,16 +10,20 @@ reference.
 Phases: (1) card, (2) build, (3) K1-K3 vs plain on the card at the main
 path's shapes, bit-identical, (3b) K2 with f64 mantissas and the K6
 instances vs plain, bit-identical, (4) K4/K5 (one device-orbit step) vs
-plain at 32, 2,048 and 16,384 limbs from the View #30 centre, digit for
-digit, (5) the device orbit: View #30 at 16,384 limbs against the exact
-Python-int recurrence after 256 steps (the NR chunk too), then bounded
-sessions and their time per iteration at 16,384, 2,048 and 32 limbs,
-(6) the paths through
+plain at 32, 2,048, 16,384 and 32,768 limbs from the View #30 centre,
+digit for digit, (5) the device orbit: View #30 at 16,384 limbs against
+the exact Python-int recurrence after 256 steps (the NR chunk too), then,
+with the launch counts from 0, bounded sessions (K12) and their time per
+iteration at 16,384, 2,048 and 32 limbs and the device's busy share over
+a 32-limb session, then, counts from 0, a session at 32,768 limbs, past
+K12's D < 2^16, on the per-step loop of K4 then K5 against the
+16,384-limb orbit, (6) the paths through
 ``fractalshark_tpu_torch.cli.main``, each with the launch counts set to 0
 just before it and read just after: View 0 AUTO at 1024² (K1), a
 small-table deep frame (K2 full mode), View #6 AUTO at 64² and 256² (K2
 phase 1 + K3), View #6 with ``--perturbation-alg GPU`` at 64² and 256²
-(K4 + K5 for the orbit, then K2 phase 1 + K3), View #5 AUTO at 64², 256²
+(K12's block form for the orbit, then K2 phase 1 + K3), View #30 with
+the device orbit at 512² (K12's grid form), View #5 AUTO at 64², 256²
 and 1024² (``Gpu1x64PerturbedLAv2``: K2-f64), View #3 LAO (K2-f64
 ``la_only``), View #2 AUTO at 64² and 256² and its HDRx64 name (no valid
 LA table: K6 f64 float and HDR-f64), and the perturbation-only names on
@@ -32,7 +36,9 @@ limbs (16,384 in phase 5, beside the orbit's), then, with the launch
 counts set to 0 just before and read just after, the device evaluator
 (c = (−0.15, 0.4) against the host evaluator; View #6's centre at full
 width against the wrapped recurrence and the host evaluator) and device
-refinement to the period-858 and period-3 nuclei, then
+refinement to the period-858 and period-3 nuclei (K12's block form),
+then, counts from 0, the evaluator at View #30's centre and precision
+(K12's grid form) against the wrapped recurrence, then
 ``--feature-find``/``--feature-scan`` through the CLI against the JAX
 package's JSON, (9) K1-seq: the View 0 zoom sequence (8 frames, ×1.3
 each, 512 iterations) at 1024² against its plain version and each frame
@@ -46,7 +52,15 @@ the four-step at n = 8,192, 65,536 and 131,072 with 4, 6, 8 and 14 rows,
 forward and inverse, against its plain version, then the generic
 multiplies (``multiply_3way`` with the launch count from 0,
 ``multiply_nr``) at 2,048 and 16,384 limbs against Python ints and the
-debug checksum tool against its host mirror.  Exits non-zero if any
+debug checksum tool against its host mirror, (12) K9-K11 and the
+flag-off routes, (13) K12: every form that takes each size against the
+plain chunk and, bit for bit, against the per-step loop of K4 then K5
+(and K4-NR then K5-NR), timed in turns with it, then 2,048 steps of the
+orbit and of NR in 256-step chunks, the row carried between them, in
+both.  The kernels line takes K12's launches from the View #6 and View
+#30 device-orbit frames and the feature evaluator's two runs, K4/K5's
+from the 32,768-limb session; K4-NR/K5-NR are on no path (0).
+Exits non-zero if any
 phase fails, and at once when no CUDA device is present.  The next-to-last lines are the card's
 ``nvidia-smi`` name and power limit and a JSON object of the kernels;
 the last line is ``{"ok": true, ...}``.
@@ -140,6 +154,10 @@ SMALL_DEEP = ("-0.743643887037158704752191506114774",
 ORBIT_LIMBS = (32, 2048, 16384)
 ORACLE_STEPS = 256
 SESSION_BUDGET = 16384
+# the orbit past K12's D < 2^16 (65,536 digits), where the default route
+# keeps K4 then K5 per step: a session from View #30's centre
+WIDE_SESSION_LIMBS = 32768
+WIDE_SESSION_BUDGET = 1024
 # K1-seq: the JAX bench's headline sequence (bench.py _headline): View 0,
 # 8 frames each 1.3x deeper, 512 iterations, f32; compared at 1024²,
 # timed at 4096²
@@ -178,6 +196,28 @@ FLAG_RUNS = [(label + tail, dict(flags, **extra), limbs)
              ] + [("MXU_ITER_FULL", {"NM.MXU_ITER_FULL": True}, limbs)
                   for limbs in FULL_LIMBS]
 FLAG_SESSION_BUDGET = 2048
+# phase 13, K12: the orbit chunk at these limb counts (View #6's centre
+# below 2,048 limbs, View #30's above), the NR chunk at these (128 and 256
+# limbs: the crossover of the block and grid forms); a few steps
+# of every form that takes the size against the plain chunk, a chunk of
+# CHUNK_STEPS against the per-step loop and timed in turns with it, and
+# CHUNK_SESSION steps in both; the kernels line takes each entry's times
+# at its main path's size (View #6 and its NR evaluation at 32 limbs,
+# View #30 and its NR evaluation at 16,384)
+CHUNK_ORBIT_LIMBS = (32, 128, 256, 512, 2048, 16384)
+CHUNK_NR_LIMBS = (16, 32, 128, 256, 2048, 16384)
+CHUNK_STEPS = 256
+CHUNK_TWIN_STEPS = 3
+CHUNK_SESSION = 2048
+CHUNK_SESSION_LIMBS = (32, 2048, 16384)
+CHUNK_MAIN = {"orbit_chunk_block": 32, "orbit_chunk_grid": 16384,
+              "nr_chunk_block": 32, "nr_chunk_grid": 16384}
+# View #30 at 512² with the device orbit (data/records.json:view30_e2e)
+VIEW30_PERIOD = 669_773
+VIEW30_512_ITER_SUM = 351_206_692_131
+# the device-orbit frames whose runs give K12's orbit launches
+VIEW6_GPU_MAIN = "View #6 --perturbation-alg GPU 256²"
+VIEW30_MAIN = "View #30 --perturbation-alg GPU 512²"
 
 KERNEL_META = {
     "escape": ("fractalshark_tpu_torch/csrc/escape.cu",
@@ -233,6 +273,17 @@ KERNEL_META = {
                            "fractalshark_tpu/ops/bignum/ntt_pallas.py:1265"),
     "iterate_full": ("fractalshark_tpu_torch/csrc/iterate_full.cu",
                      "fractalshark_tpu/ops/bignum/ntt_mxu.py:920"),
+    # K12, a chunk of steps in one launch: the block form replaces the
+    # unpaired step (B8a, with B8c's tail), the grid form the paired one
+    # (B5, with B6's tail); the NR instance B8b and B7 likewise
+    "orbit_chunk_block": ("fractalshark_tpu_torch/csrc/orbit_chunk.cu",
+                          "fractalshark_tpu/ops/bignum/ntt_mxu.py:618"),
+    "orbit_chunk_grid": ("fractalshark_tpu_torch/csrc/orbit_chunk.cu",
+                         "fractalshark_tpu/ops/bignum/ntt_mxu.py:800"),
+    "nr_chunk_block": ("fractalshark_tpu_torch/csrc/orbit_chunk.cu",
+                       "fractalshark_tpu/ops/bignum/ntt_mxu.py:557"),
+    "nr_chunk_grid": ("fractalshark_tpu_torch/csrc/orbit_chunk.cu",
+                      "fractalshark_tpu/ops/bignum/ntt_mxu.py:812"),
 }
 
 HBM_BYTES_PER_S = 3.35e12
@@ -620,7 +671,9 @@ def view30_center():
 
 def phase_orbit_kernels(device, stats, reps=20, steps=3):
     """K4 and K5 against their twins, digit for digit, for a few steps
-    from the View #30 centre at each limb count; times and bounds."""
+    from the View #30 centre at each limb count and at the per-step
+    route's WIDE_SESSION_LIMBS (whose times the kernels line keeps);
+    times and bounds."""
     import torch
 
     from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
@@ -629,7 +682,7 @@ def phase_orbit_kernels(device, stats, reps=20, steps=3):
     cx, cy, _ = view30_center()
     for key in ("ntt_orbit", "orbit_tail"):
         stats[key]["by_limbs"] = {}
-    for limbs in ORBIT_LIMBS:
+    for limbs in ORBIT_LIMBS + (WIDE_SESSION_LIMBS,):
         spec = FP.FixedSpec.for_limbs(limbs)
         scx, cxd = FP.hp_to_digits(cx, spec)
         scy, cyd = FP.hp_to_digits(cy, spec)
@@ -710,8 +763,8 @@ def state_ints(signs_digits) -> list:
 
 def check_chunks(cx, cy, limbs: int, steps: int, name: str, device,
                  nr_us: dict) -> None:
-    """From c = (cx, cy) at ``limbs``: the orbit chunk (K4/K5) and the
-    NR chunk (K4-NR/K5-NR) of ``steps`` steps against one exact Python-int
+    """From c = (cx, cy) at ``limbs``: the orbit chunk and the NR chunk of
+    ``steps`` steps (K12 on the default route) against one exact Python-int
     recurrence, digit for digit; the NR chunk's µs per step (CUDA
     events) into ``nr_us``.  A zero magnitude's sign is compared only
     through the exact ints here; the twins' tests pin it."""
@@ -742,11 +795,11 @@ def check_chunks(cx, cy, limbs: int, steps: int, name: str, device,
                               scy * FP.digits_to_int(cyd), steps)
     ok = z == list(want[:2]) and got == list(want)
     nr_us[limbs] = ms / steps * 1e3
-    log(f"  {name}, {limbs} limbs, {steps} steps: z (K4/K5) and z, dz/dc "
-        f"(K4-NR/K5-NR) {'equal' if ok else 'DIFFER'} to the Python-int "
-        f"recurrence; |dz/dc| wrapped at {wraps} steps; NR chunk "
-        f"{nr_us[limbs]:.2f} us/step (device {dev_s:.2f} s, Python ints "
-        f"{time.perf_counter() - t0:.1f} s)")
+    log(f"  {name}, {limbs} limbs, {steps} steps: z and z, dz/dc (the "
+        f"orbit and NR chunks) {'equal' if ok else 'DIFFER'} to the "
+        f"Python-int recurrence; |dz/dc| wrapped at {wraps} steps; NR "
+        f"chunk {nr_us[limbs]:.2f} us/step (device {dev_s:.2f} s, Python "
+        f"ints {time.perf_counter() - t0:.1f} s)")
     if not ok:
         raise AssertionError(f"{limbs} limbs: device chunks differ from "
                              f"the exact recurrence")
@@ -755,10 +808,17 @@ def check_chunks(cx, cy, limbs: int, steps: int, name: str, device,
 def phase_device_orbit(device, nr_us):
     """The device orbit on its own: the digit state after ORACLE_STEPS
     steps at 16,384 limbs against exact Python ints (with the NR chunk
-    from the same start), then bounded sessions and their time per
-    iteration at each limb count."""
+    from the same start); then, with the launch counts from 0 just before
+    and read just after, bounded sessions and their time per iteration at
+    each limb count (K12), and the device's busy share over a 32-limb
+    session (torch.profiler); then, its counts from 0 too, a session at
+    WIDE_SESSION_LIMBS, past K12's D < 2^16, on the per-step loop of K4
+    then K5, against the 16,384-limb session's orbit.  Returns (µs/iter
+    by limbs, that session's launches)."""
+    import numpy as np
     import torch
 
+    from fractalshark_tpu_torch import kernels
     from fractalshark_tpu_torch.core.views import get_view_preset
     from fractalshark_tpu_torch.ops.bignum import orbit as O
 
@@ -767,28 +827,96 @@ def phase_device_orbit(device, nr_us):
     check_chunks(cx, cy, max(ORBIT_LIMBS), ORACLE_STEPS, "View #30 centre",
                  device, nr_us)
 
-    per_iter = {}
+    def session(name, x0, y0, r0, limbs, budget):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        res = O.compute_reference_orbit_device(
+            x0, y0, budget, r0, limbs32=limbs, periodicity=False,
+            chunk_steps=4096, device=device)
+        wall = time.perf_counter() - t0
+        n_it = res.count_orbit_entries() - 1
+        log(f"  session {name} {limbs} limbs: {n_it} iterations in "
+            f"{wall:.3f} s, {wall / n_it * 1e6:.2f} us/iter, timers "
+            f"{res.extra['session_timers']}")
+        if n_it != budget or res.escaped_at:
+            raise AssertionError(f"{limbs} limbs: session stopped at "
+                                 f"{n_it}")
+        return res, wall / n_it * 1e6
+
+    per_iter, sessions = {}, {}
     v6 = get_view_preset(6).ptz
+    kernels.reset_counts()
     for limbs in ORBIT_LIMBS:
         # View #30's centre is i + 2^-26000: held to 32 limbs it leaves
         # the repelling cycle of i and escapes within a thousand steps,
         # so 32 limbs (View #6's own width) runs View #6's centre
         name, (x0, y0, r0) = (("View #6", (v6.pt_x, v6.pt_y, v6.radius))
                               if limbs < 2048 else ("View #30", (cx, cy, rad)))
-        torch.cuda.synchronize(device)
+        sessions[limbs], per_iter[limbs] = session(name, x0, y0, r0, limbs,
+                                                   SESSION_BUDGET)
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    log(f"  launches of the sessions: {launches}")
+    for k in ("orbit_chunk_block", "orbit_chunk_grid"):
+        if not launches.get(k):
+            raise AssertionError(f"device orbit: kernel {k} never launched")
+    if launches.get("ntt_orbit") or launches.get("orbit_tail"):
+        raise AssertionError("device orbit: K4/K5 on K12's sizes")
+    busy_share(device, (v6.pt_x, v6.pt_y, v6.radius))
+
+    kernels.reset_counts()
+    res, per_iter[WIDE_SESSION_LIMBS] = session(
+        "View #30", cx, cy, rad, WIDE_SESSION_LIMBS, WIDE_SESSION_BUDGET)
+    wide = dict(kernels.launches)
+    log(f"  launches of the {WIDE_SESSION_LIMBS}-limb session: "
+        f"{ {k: v for k, v in wide.items() if v} }")
+    if not (wide["ntt_orbit"] and wide["orbit_tail"]) or any(
+            wide[k] for k in wide if k.startswith("orbit_chunk_")):
+        raise AssertionError(f"{WIDE_SESSION_LIMBS} limbs: not on the "
+                             f"per-step loop")
+    ref, m = sessions[max(ORBIT_LIMBS)], WIDE_SESSION_BUDGET + 1
+    same = (np.array_equal(res.orbit_x[:m], ref.orbit_x[:m]) and
+            np.array_equal(res.orbit_y[:m], ref.orbit_y[:m]))
+    log(f"  {WIDE_SESSION_LIMBS}-limb orbit "
+        f"{'equal to' if same else 'DIFFERS from'} the "
+        f"{max(ORBIT_LIMBS)}-limb one over {m} entries")
+    if not same:
+        raise AssertionError(f"{WIDE_SESSION_LIMBS}-limb orbit differs")
+    return per_iter, wide
+
+
+def busy_share(device, view):
+    """The device's busy share over one 32-limb session of SESSION_BUDGET
+    steps (View #6's centre): the union of the kernel intervals that
+    torch.profiler records, over the window's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fractalshark_tpu_torch.ops.bignum import orbit as O
+    x0, y0, r0 = view
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = O.compute_reference_orbit_device(
-            x0, y0, SESSION_BUDGET, r0, limbs32=limbs, periodicity=False,
+        O.compute_reference_orbit_device(
+            x0, y0, SESSION_BUDGET, r0, limbs32=32, periodicity=False,
             chunk_steps=4096, device=device)
+        torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
-        n_it = res.count_orbit_entries() - 1
-        per_iter[limbs] = wall / n_it * 1e6
-        log(f"  session {name} {limbs} limbs: {n_it} iterations in "
-            f"{wall:.3f} s, {per_iter[limbs]:.2f} us/iter, timers "
-            f"{res.extra['session_timers']}")
-        if n_it != SESSION_BUDGET or res.escaped_at:
-            raise AssertionError(f"{limbs} limbs: session stopped at {n_it}")
-    return per_iter
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if not spans:
+        log("  device busy share, 32-limb session: not measured (the "
+            "profiler recorded no device time)")
+        return
+    log(f"  device busy share, 32-limb session of {SESSION_BUDGET} steps: "
+        f"{busy / 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
+        f"({busy / 1e4 / wall:.1f} %), {len(spans)} device events")
 
 
 def cli_run(argv):
@@ -827,6 +955,7 @@ def phase_slice(outdir, device="cuda"):
         for k in want_kernels:
             if grew[k] <= 0:
                 raise AssertionError(f"{label}: kernel {k} never launched")
+        s["launches"] = grew
         runs[label] = s
         return s
 
@@ -861,7 +990,9 @@ def phase_slice(outdir, device="cuda"):
                 ["--view", "6", "--width", str(size), "--height", str(size),
                  "--perturbation-alg", "GPU"],
                 "GpuHDRx32PerturbedLAv2",
-                ["ntt_orbit", "orbit_tail", "lav2_phase1", "rc_tail"])
+                ["orbit_chunk_block", "lav2_phase1", "rc_tail"])
+        if s["launches"]["ntt_orbit"] or s["launches"]["orbit_tail"]:
+            raise AssertionError("View #6 GPU orbit: K4/K5 on the path")
         got = (s["iter_sum"], s["crc32"])
         native = runs[f"View #6 AUTO {size}²"]
         log(f"    expected (JAX CPU, FMA off, --perturbation-alg GPU) "
@@ -886,6 +1017,19 @@ def phase_slice(outdir, device="cuda"):
 
     def size(n):
         return ["--width", str(n), "--height", str(n)]
+
+    # View #30 with the device orbit: 669,773 steps at 16,384 limbs on
+    # K12's grid form (data/records.json:view30_e2e)
+    s = run(VIEW30_MAIN,
+            ["--view", "30", "--width", "512", "--height", "512",
+             "--perturbation-alg", "GPU"], "GpuHDRx32PerturbedLAv2",
+            ["orbit_chunk_grid"])
+    log(f"    expected period {VIEW30_PERIOD}, iter_sum "
+        f"{VIEW30_512_ITER_SUM}; device orbit "
+        f"{s['timings']['ref_orbit_s'] / s['orbit_len'] * 1e6:.2f} us/iter")
+    if (s["orbit_period"], s["iter_sum"]) != (VIEW30_PERIOD,
+                                              VIEW30_512_ITER_SUM):
+        raise AssertionError("View #30 512² differs from the record")
 
     # the f64 band: View #5 with a valid LA table, View #2 without
     for n, want in VIEW5_F64.items():
@@ -1035,6 +1179,7 @@ def phase_feature(device, nr_us):
     for limbs in NR_CHUNK_LIMBS:
         check_chunks(cx, cy, limbs, ORACLE_STEPS, "View #30 centre", device,
                      nr_us)
+    kernels.reset_counts()
 
     def close(label, host, dev, rel_bits=150):
         """Every component within 2^-rel_bits relative of the host's."""
@@ -1054,7 +1199,6 @@ def phase_feature(device, nr_us):
           O.evaluate_critical_orbit_and_derivs_device(hx, hy, 12, 200,
                                                       device=device))
 
-    kernels.reset_counts()
     # (b) refinement to the period-858 nucleus from the 1e8 frame's centre
     ptz = PointZoomBBConverter(pt_x=SMALL_DEEP[0], pt_y=SMALL_DEEP[1],
                                zoom_factor=SMALL_DEEP[2], prec=512)
@@ -1115,10 +1259,41 @@ def phase_feature(device, nr_us):
     if max(err) >= 1e-18:
         raise AssertionError("device refinement missed the period-3 nucleus")
     launches = dict(kernels.launches)
-    log(f"  launches on the feature path: {launches}")
-    for k in ("ntt_nr", "nr_tail"):
-        if launches[k] <= 0:
-            raise AssertionError(f"feature path: kernel {k} never launched")
+    log(f"  launches on the feature path: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if launches["nr_chunk_block"] <= 0:
+        raise AssertionError("feature path: kernel nr_chunk_block never "
+                             "launched")
+    if launches["ntt_nr"] or launches["nr_tail"]:
+        raise AssertionError("feature path: K4-NR/K5-NR on the path")
+
+    # (d) the evaluator at View #30's centre and precision (16,384 limbs:
+    # K12's grid form), its launch counts from 0, over ORACLE_STEPS
+    # steps against the exact recurrence of phase 5's NR chunk
+    v30 = get_view_preset(30).ptz
+    prec = precision_from_view(v30) + 64
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    spec, st = O.critical_orbit_state_device(v30.pt_x, v30.pt_y,
+                                             ORACLE_STEPS + 1, prec,
+                                             device=device)
+    dev_ints = state_ints(st.numpy())
+    dev_s = time.perf_counter() - t0
+    wide = dict(kernels.launches)
+    scx, cxd = FP.hp_to_digits(v30.pt_x, spec)
+    scy, cyd = FP.hp_to_digits(v30.pt_y, spec)
+    exact, wraps = exact_steps(spec, scx * FP.digits_to_int(cxd),
+                               scy * FP.digits_to_int(cyd), ORACLE_STEPS)
+    log(f"  (d) View #30 centre, {ORACLE_STEPS + 1} as the period, {prec} "
+        f"bits ({spec.digits // 2} limbs): device {dev_s:.3f} s; digits "
+        f"{'equal' if dev_ints == list(exact) else 'DIFFER'} to the exact "
+        f"recurrence (|dz/dc| wrapped at {wraps} steps); launches "
+        f"{ {k: v for k, v in wide.items() if v} }")
+    if dev_ints != list(exact):
+        raise AssertionError("View #30 device evaluation differs from the "
+                             "exact recurrence")
+    if wide["nr_chunk_grid"] <= 0 or wide["ntt_nr"] or wide["nr_tail"]:
+        raise AssertionError("View #30 evaluation: not on K12's grid form")
 
     # (5) the CLI, against the JAX package's JSON
     size = ["--width", "32", "--height", "32"]
@@ -1137,7 +1312,7 @@ def phase_feature(device, nr_us):
             f"{'equal' if line == want else 'DIFFERS'}: {line}")
         if line != want:
             raise AssertionError(f"--feature-scan {mode} differs")
-    return launches
+    return launches, wide
 
 
 def phase_escape_seq(device, stats, card):
@@ -1592,6 +1767,243 @@ def phase_fused(device, stats):
     return launches
 
 
+def chunk_centre(limbs: int):
+    """(spec, scx, cx digits, scy, cy digits, radius) of a chunk's c:
+    View #6's centre below 2,048 limbs (View #30's, i + 2^-26000, leaves
+    the cycle of i when held to so few digits), View #30's above."""
+    from fractalshark_tpu_torch.core.views import get_view_preset
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+    spec = FP.FixedSpec.for_limbs(limbs)
+    if limbs < 2048:
+        v6 = get_view_preset(6).ptz
+        x0, y0, r0 = v6.pt_x, v6.pt_y, v6.radius
+    else:
+        x0, y0, r0 = view30_center()
+    scx, cxd = FP.hp_to_digits(x0, spec)
+    scy, cyd = FP.hp_to_digits(y0, spec)
+    return spec, (x0, y0, r0), scx, cxd, scy, cyd
+
+
+def k12_forms(spec, values: int) -> list:
+    """K12's forms that take ``spec``'s size, the default one first."""
+    from fractalshark_tpu_torch.ops.bignum import orbit as O
+    forms = [O.chunk_form(spec)]
+    for form in ("block", "grid"):
+        if form not in forms:
+            try:
+                O.check_chunk(spec, form, values)
+            except ValueError:
+                continue
+            forms.append(form)
+    return forms
+
+
+def chunk_ops(n: int, values: int) -> float:
+    """One step of K12: K4's and K5's operations (ntt_ops + tail_ops), or
+    K4-NR's and K5-NR's."""
+    return ntt_ops(n) + tail_ops(n) if values == 2 else \
+        ntt_nr_ops(n) + nr_tail_ops(n)
+
+
+def phase_chunk(device, stats):
+    """K12 against the plain chunk (a few steps from c and from a
+    mid-orbit state, every form that takes the size) and against the
+    per-step loop (a chunk of CHUNK_STEPS, bit for bit), the two timed in
+    turns (loop, K12, K12, loop) with CUDA events; then CHUNK_SESSION
+    steps in chunks of CHUNK_STEPS, the row carried between them as a
+    session carries it, in the default form and in the per-step loop,
+    bit for bit.  These launches are the yardstick's, not a path's: the
+    kernels line does not count them."""
+    import torch
+
+    from fractalshark_tpu_torch.core.highprecision import HighPrecision
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+    from fractalshark_tpu_torch.ops.bignum import orbit as O
+
+    log("[13] K12: the orbit and NR chunks in one launch")
+    one = HighPrecision(1, prec=64)
+    per_step = {}
+
+    def t32(a):
+        return torch.from_numpy(a.astype("int32")).to(device)
+
+    def same(label, got, want):
+        ok = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, want))
+        log(f"  {label}: {'equal' if ok else 'DIFFER'}")
+        if not ok:
+            raise AssertionError(f"{label}: K12 differs")
+
+    def time_turns(label, run, forms, n, values, D):
+        """ms per chunk of each form, in turns with the loop's."""
+        out = {}
+        for form in forms:
+            ms = {"steps": [], form: []}
+            for f in ("steps", form, form, "steps"):
+                ms[f].append(timed(lambda: run(f), device, reps=4)[1])
+            out[form] = sum(ms[form]) / 2
+            out["steps"] = min(out.get("steps", 1e9), sum(ms["steps"]) / 2)
+        per_step[label] = {f: round(v / CHUNK_STEPS * 1e3, 3)
+                           for f, v in out.items()}
+        log(f"    {label}: us/step {per_step[label]} (loop, K12 forms; "
+            f"{CHUNK_STEPS}-step chunks, in turns)")
+        return out
+
+    def record(key, limbs, ms, plain_ms, n, D, values):
+        st = stats[key]
+        st.update(ms=ms, plain_ms=plain_ms, **bound(
+            2 * values * D * 4 + 2 * D * 4 + (
+                12 * 4 * (CHUNK_STEPS + 1) if values == 2 else 32),
+            CHUNK_STEPS * chunk_ops(n, values), I32_OPS_PER_S))
+        st["limbs"] = limbs
+
+    # the orbit
+    for limbs in CHUNK_ORBIT_LIMBS:
+        spec, _, scx, cxd, scy, cyd = chunk_centre(limbs)
+        n, D = spec.nfft, spec.digits
+        cxt, cyt = t32(cxd), t32(cyd)
+        scratch = O._Scratch(spec, device)
+        forms = k12_forms(spec, 2)
+
+        def copy(st):
+            s = O.OrbitState(1, cxd, 1, cyd, device)
+            s.x, s.y, s.row = st.x.clone(), st.y.clone(), st.row.clone()
+            return s
+
+        def run(form, st, steps):
+            rows = torch.empty(steps + 1, 12, dtype=torch.int32,
+                               device=device)
+            rows[0] = st.row
+            O.launch_orbit_chunk(st, rows, scx, cxt, scy, cyt, spec, steps,
+                                 scratch, form)
+            st.row = rows[steps]
+            return rows
+
+        start = O.OrbitState(scx, cxd, scy, cyd, device)
+        mid = copy(start)
+        run(forms[0], mid, CHUNK_STEPS)
+        for name, st in (("c", start), ("mid-orbit", mid)):
+            want = O.orbit_chunk_plain(st.x, st.y, st.row, scx, cxt, scy,
+                                       cyt, spec, CHUNK_TWIN_STEPS)
+            for form in forms:
+                s = copy(st)
+                rows = run(form, s, CHUNK_TWIN_STEPS)
+                label = f"K12 {form} {limbs} limbs from {name}"
+                for a, b in zip((s.x, s.y, rows), want):
+                    compare(label, a, b, stats[f"orbit_chunk_{form}"])
+        ref = copy(mid)
+        want_rows = run("steps", ref, CHUNK_STEPS)
+        for form in forms:
+            s = copy(mid)
+            rows = run(form, s, CHUNK_STEPS)
+            same(f"K12 {form} {limbs} limbs, {CHUNK_STEPS} steps vs the "
+                 f"per-step loop (signs of row 0: {mid.row[10:].tolist()})",
+                 (s.x, s.y, rows), (ref.x, ref.y, want_rows))
+        bench = copy(mid)
+        ms = time_turns(f"orbit {limbs} limbs",
+                        lambda f: run(f, bench, CHUNK_STEPS), forms, n, 2,
+                        D)
+        for form in forms:
+            key = f"orbit_chunk_{form}"
+            if CHUNK_MAIN[key] == limbs:
+                s = copy(mid)
+                _, pms = timed(lambda: O.orbit_chunk_plain(
+                    s.x, s.y, s.row, scx, cxt, scy, cyt, spec, CHUNK_STEPS),
+                    device, warm=False)
+                record(key, limbs, ms[form], pms, n, D, 2)
+
+    # the NR instance
+    for limbs in CHUNK_NR_LIMBS:
+        spec, st = nr_random_state(limbs, 100 + limbs)
+        n, D = spec.nfft, spec.digits
+        cx, cy = t32(st[9]), t32(st[11])
+        scratch = O._Scratch(spec, device, values=4)
+        forms = k12_forms(spec, 4)
+
+        def nr_state(sgn, mags):
+            return O.NRState(sgn, *mags, device)
+
+        signs = [s for s in st[0:8:2]]
+        mags = [m for m in st[1:8:2]]
+        want = O.nr_chunk_plain(FP.sign_row(*signs, device),
+                                *[t32(m) for m in mags], st[8], cx, st[10],
+                                cy, spec, CHUNK_TWIN_STEPS)
+        for form in forms:
+            s = nr_state(signs, mags)
+            O.launch_nr_chunk(s, st[8], cx, st[10], cy, spec,
+                              CHUNK_TWIN_STEPS, scratch, form)
+            for a, b in zip((s.signs, s.x, s.y, s.dx, s.dy), want):
+                compare(f"K12-NR {form} {limbs} limbs", a, b,
+                        stats[f"nr_chunk_{form}"])
+        # from z = c, dz/dc = 1 at the chunk's centre
+        spec, _, scx, cxd, scy, cyd = chunk_centre(limbs)
+        cxt, cyt = t32(cxd), t32(cyd)
+        one_s, one_d = FP.hp_to_digits(one, spec)
+        start = ((scx, scy, one_s, 1), (cxd, cyd, one_d, 0 * one_d))
+        outs = {}
+        for form in ["steps"] + forms:
+            s = nr_state(*start)
+            O.launch_nr_chunk(s, scx, cxt, scy, cyt, spec, CHUNK_STEPS,
+                              scratch, form)
+            outs[form] = (s.signs, s.x, s.y, s.dx, s.dy)
+        for form in forms:
+            same(f"K12-NR {form} {limbs} limbs, {CHUNK_STEPS} steps vs the "
+                 f"per-step loop", outs[form], outs["steps"])
+        bench = nr_state(*start)
+        ms = time_turns(f"NR {limbs} limbs", lambda f: O.launch_nr_chunk(
+            bench, scx, cxt, scy, cyt, spec, CHUNK_STEPS, scratch, f),
+            forms, n, 4, D)
+        for form in forms:
+            key = f"nr_chunk_{form}"
+            if CHUNK_MAIN[key] == limbs:
+                s = nr_state(*start)
+                _, pms = timed(lambda: O.nr_chunk_plain(
+                    s.signs, s.x, s.y, s.dx, s.dy, scx, cxt, scy, cyt, spec,
+                    CHUNK_STEPS), device, warm=False)
+                record(key, limbs, ms[form], pms, n, D, 4)
+
+    # CHUNK_SESSION steps as a session runs them, chunk after chunk with
+    # the row (the NR signs) carried: the default form against the
+    # per-step loop, bit for bit
+    for limbs in CHUNK_SESSION_LIMBS:
+        spec, _, scx, cxd, scy, cyd = chunk_centre(limbs)
+        cxt, cyt = t32(cxd), t32(cyd)
+        one_d = FP.hp_to_digits(one, spec)[1]
+        got = {}
+        for form in (O.chunk_form(spec), "steps"):
+            scratch = O._Scratch(spec, device)
+            nscratch = O._Scratch(spec, device, values=4)
+            st = O.OrbitState(scx, cxd, scy, cyd, device)
+            nr = O.NRState((scx, scy, 1, 1), cxd, cyd, one_d, 0 * cxd,
+                           device)
+            rows = torch.empty(CHUNK_SESSION + 1, 12, dtype=torch.int32,
+                               device=device)
+            rows[0] = st.row
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            for k in range(0, CHUNK_SESSION, CHUNK_STEPS):
+                O.launch_orbit_chunk(st, rows[k:k + CHUNK_STEPS + 1], scx,
+                                     cxt, scy, cyt, spec, CHUNK_STEPS,
+                                     scratch, form)
+                st.row = rows[k + CHUNK_STEPS]
+            torch.cuda.synchronize(device)
+            orbit_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for _ in range(0, CHUNK_SESSION, CHUNK_STEPS):
+                O.launch_nr_chunk(nr, scx, cxt, scy, cyt, spec, CHUNK_STEPS,
+                                  nscratch, form)
+            torch.cuda.synchronize(device)
+            nr_s = time.perf_counter() - t0
+            got[form] = (st.x, st.y, rows, nr.signs, nr.x, nr.y, nr.dx,
+                         nr.dy)
+            log(f"  {form}, {limbs} limbs: {CHUNK_SESSION} orbit steps in "
+                f"{orbit_s * 1e3:.3f} ms, {CHUNK_SESSION} NR steps in "
+                f"{nr_s * 1e3:.3f} ms")
+        a, b = got.values()
+        same(f"{limbs} limbs, {CHUNK_SESSION} steps in {CHUNK_STEPS}-step "
+             f"chunks: K12's orbit and NR vs the per-step loop's", a, b)
+    log("  K12 us/step by size (loop, K12 forms): " + json.dumps(per_step))
+
+
 def plausible(label, s, budget):
     """A frame without a pinned value: counts within the budget, some
     pixels at it and some below (the view shows both)."""
@@ -1634,16 +2046,28 @@ def main() -> int:
     run("3b", phase_f64_perturb_kernels, device, stats)
     run("4", phase_orbit_kernels, device, stats)
     nr_us = {}
-    per_iter = run("5", phase_device_orbit, device, nr_us)
+    per_iter, wide_orbit = run("5", phase_device_orbit, device, nr_us)
     with tempfile.TemporaryDirectory() as outdir:  # the frames' PNGs
         launches, runs = run("6", phase_slice, outdir)
     run("7", phase_nr_kernels, device, stats)
-    for k, v in run("8", phase_feature, device, nr_us).items():
-        launches[k] += v
+    feature, wide_nr = run("8", phase_feature, device, nr_us)
     launches.update(run("9", phase_escape_seq, device, stats, card))
     launches.update(run("10", phase_la_stream, device, stats))
     launches.update(run("11", phase_ntt, device, stats))
     launches.update(run("12", phase_fused, device, stats))
+    run("13", phase_chunk, device, stats)
+    # K12's and K4/K5's launches, each from its own path's run: View #6's
+    # and View #30's device-orbit frames, the feature evaluator at View
+    # #6's sizes and at View #30's, and the orbit past K12's D < 2^16.
+    # K4-NR/K5-NR are on no path since K12 took every NR size (0).
+    frame = {k: runs[label]["launches"][k] for label, k in (
+        (VIEW6_GPU_MAIN, "orbit_chunk_block"),
+        (VIEW30_MAIN, "orbit_chunk_grid"))}
+    launches.update(frame, nr_chunk_block=feature["nr_chunk_block"],
+                    nr_chunk_grid=wide_nr["nr_chunk_grid"],
+                    ntt_orbit=wide_orbit["ntt_orbit"],
+                    orbit_tail=wide_orbit["orbit_tail"], ntt_nr=0,
+                    nr_tail=0)
     if any(m.split(".")[0] in ("jax", "fractalshark_tpu")
            for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")

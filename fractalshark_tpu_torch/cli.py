@@ -5,7 +5,7 @@ runs the kernels' plain PyTorch twins).
 
     python -m fractalshark_tpu_torch.cli --view 6 --width 256 \\
         --height 256 --output-png out.png --stats
-    # the reference orbit on the card (K4/K5) instead of native GMP
+    # the reference orbit on the card (K12) instead of native GMP
     python -m fractalshark_tpu_torch.cli --view 6 --width 256 \\
         --height 256 --perturbation-alg GPU --stats
     # find and refine the minibrot at the view centre (host evaluator)
@@ -42,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["Auto", "ST", "MT", "Native", "GPU", "TPU"],
                    help="reference-orbit backend: Auto picks native C++ "
                         "when available; GPU/TPU = the on-device NTT orbit "
-                        "(kernels K4/K5 on --device); ST/MT = Python host")
+                        "(kernel K12 on --device); ST/MT = Python host")
     p.add_argument("--stats", action="store_true",
                    help="print iteration min/max/sum, the grid's CRC-32 "
                         "and phase timings as JSON")

@@ -61,166 +61,43 @@
 // n = 2^16, which caps it at n <= 2^17.
 //
 // The primes, Montgomery products, twiddle loads and shared-memory
-// transforms are in ntt_common.cuh, which K9 and K11 share.
+// transforms are in ntt_common.cuh, which K9 and K11 share; the three
+// passes' bodies are in ntt_orbit.cuh, which K12 (orbit_chunk.cu) shares.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "ntt_common.cuh"
+#include "ntt_orbit.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kLogColBlock = 3;   // 8 columns a block in the column passes
-
-// the digit vectors of one instance: x, y (K4) or x, y, dx, dy (K4-NR)
-struct Values {
-  const uint32_t *v[4];
-};
-
-// grid (n2 / cb, V): blockIdx.y picks the value; work[(value*2 + prime)*n
-// + i]
-__global__ void __launch_bounds__(kThreads)
+// grid (n2 / cb, V): blockIdx.y picks the value
+__global__ void __launch_bounds__(kOrbitThreads)
 col_fwd(Values in, uint32_t *__restrict__ work,
-        const uint32_t *__restrict__ tw, int D, int m, int m1, int lgc) {
+        const uint32_t *__restrict__ tw, int D, Split s) {
   extern __shared__ uint32_t sm[];
-  const int n = 1 << m;
-  const int n1 = 1 << m1;
-  const int n2 = n >> m1;
-  const int cb = 1 << lgc;
-  const int input = blockIdx.y;
-  const uint32_t *src = in.v[input];
-  const int c0 = blockIdx.x * cb;
-  const int tile = n1 * cb;
-  uint32_t *tws = sm + 2 * tile;
-  load_twiddles<true>(tws, m1, m, tw);
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const int r = i / cb;
-    const int idx = r * n2 + c0 + (i - r * cb);
-    const uint32_t v = idx < D ? src[idx] : 0u;
-    sm[i] = v;          // digits < 2^16 are already reduced mod both primes
-    sm[tile + i] = v;
-  }
-  __syncthreads();
-  transform<true>(sm, 2, lgc, tile, cb, m1, tws);
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const int r = i / cb;
-    const int idx = r * n2 + c0 + (i - r * cb);
-    work[(input * 2) * n + idx] = sm[i];
-    work[(input * 2 + 1) * n + idx] = sm[tile + i];
-  }
-}
-
-// The pointwise products of a row's spectra, in place: value k of prime
-// pr at sm[(2k + pr)*n2 + c], product q written where value q was.
-// V = 2: X^2 - Y^2, X*Y.  V = 4: X^2 - Y^2, sx*sy*X*Y,
-// sx*sdx*X*DX - sy*sdy*Y*DY, sx*sdy*X*DY + sy*sdx*Y*DX.
-template <int V>
-__device__ void pointwise(uint32_t *sm, int n2,
-                          const int32_t *__restrict__ signs) {
-  int sx = 1, sy = 1, sdx = 1, sdy = 1;
-  if (V == 4) {
-    sx = signs[0];
-    sy = signs[1];
-    sdx = signs[2];
-    sdy = signs[3];
-  }
-  for (int i = threadIdx.x; i < 2 * n2; i += blockDim.x) {
-    const int pr = i / n2;
-    const uint32_t p = prime(pr);
-    const uint32_t pp = pprime(pr);
-    const uint32_t X = sm[i];
-    const uint32_t Y = sm[2 * n2 + i];
-    sm[i] = sub_mod(mont_mul(X, X, p, pp), mont_mul(Y, Y, p, pp), p);
-    if (V == 2) {
-      sm[2 * n2 + i] = mont_mul(X, Y, p, pp);
-    } else {
-      const uint32_t DX = sm[4 * n2 + i];
-      const uint32_t DY = sm[6 * n2 + i];
-      sm[2 * n2 + i] = signed_mod(sx * sy, mont_mul(X, Y, p, pp), p);
-      sm[4 * n2 + i] =
-          sub_mod(signed_mod(sx * sdx, mont_mul(X, DX, p, pp), p),
-                  signed_mod(sy * sdy, mont_mul(Y, DY, p, pp), p), p);
-      sm[6 * n2 + i] =
-          add_mod(signed_mod(sx * sdy, mont_mul(X, DY, p, pp), p),
-                  signed_mod(sy * sdx, mont_mul(Y, DX, p, pp), p), p);
-    }
-  }
+  col_fwd_item(in, work, tw, D, s, blockIdx.x, blockIdx.y, sm);
 }
 
 // grid n1: one row of all 2V arrays (value x prime) per block
 template <int V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kOrbitThreads)
 row_pass(uint32_t *__restrict__ work, const uint32_t *__restrict__ tw,
-         const int32_t *__restrict__ signs, int m, int m1) {
+         const int32_t *__restrict__ signs, Split s) {
   extern __shared__ uint32_t sm[];
-  const int n = 1 << m;
-  const int m2 = m - m1;
-  const int n2 = 1 << m2;
-  const int r = blockIdx.x;
-  const int k1 = m1 ? static_cast<int>(__brev(r) >> (32 - m1)) : 0;
-  uint32_t *tws_f = sm + 2 * V * n2;
-  uint32_t *tws_i = tws_f + n2;
-  load_twiddles<true>(tws_f, m2, m, tw);
-  load_twiddles<false>(tws_i, m2, m, tw);
-  for (int i = threadIdx.x; i < 2 * V * n2; i += blockDim.x) {
-    const int a = i >> m2;
-    const int c = i & (n2 - 1);
-    const int pr = a & 1;
-    sm[i] = mont_mul(work[a * n + r * n2 + c], tw[pr * n + c * k1], prime(pr),
-                     pprime(pr));
-  }
-  __syncthreads();
-  transform<true>(sm, 2 * V, 0, n2, 1, m2, tws_f);
-  pointwise<V>(sm, n2, signs);
-  __syncthreads();
-  transform<false>(sm, 2 * V, 0, n2, 1, m2, tws_i);
-  for (int i = threadIdx.x; i < 2 * V * n2; i += blockDim.x) {
-    const int a = i >> m2;
-    const int c = i & (n2 - 1);
-    const int pr = a & 1;
-    work[a * n + r * n2 + c] = mont_mul(sm[i], tw[(2 + pr) * n + c * k1],
-                                        prime(pr), pprime(pr));
-  }
+  row_item<V>(work, tw, signs, s, blockIdx.x, sm);
 }
 
 // grid n2 / cb: the 2V product arrays (product x prime) of cb columns per
 // block; coef[q][i] the signed integer of product q
 template <int V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kOrbitThreads)
 col_inv(const uint32_t *__restrict__ work, int64_t *__restrict__ coef,
-        const uint32_t *__restrict__ tw, int m, int m1, int lgc) {
+        const uint32_t *__restrict__ tw, Split s) {
   extern __shared__ uint32_t sm[];
-  const int n = 1 << m;
-  const int n1 = 1 << m1;
-  const int n2 = n >> m1;
-  const int cb = 1 << lgc;
-  const int c0 = blockIdx.x * cb;
-  const int tile = n1 * cb;
-  uint32_t *tws = sm + 2 * V * tile;
-  load_twiddles<false>(tws, m1, m, tw);
-  for (int i = threadIdx.x; i < 2 * V * tile; i += blockDim.x) {
-    const int a = i / tile;
-    const int e = i - a * tile;
-    const int r = e / cb;
-    sm[i] = work[a * n + r * n2 + c0 + (e - r * cb)];
-  }
-  __syncthreads();
-  transform<false>(sm, 2 * V, lgc, tile, cb, m1, tws);
-  const uint32_t scale1 = tw[4 * n];
-  const uint32_t scale2 = tw[4 * n + 1];
-  const uint32_t crt = tw[4 * n + 2];   // p1^-1 * R mod p2
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const int r = i / cb;
-    const int idx = r * n2 + c0 + (i - r * cb);
-    for (int q = 0; q < V; ++q) {
-      const uint32_t r1 = mont_mul(sm[(2 * q) * tile + i], scale1, kP1, kPp1);
-      const uint32_t r2 =
-          mont_mul(sm[(2 * q + 1) * tile + i], scale2, kP2, kPp2);
-      coef[q * n + idx] = crt_signed(crt_rec(r1, r2, crt));
-    }
-  }
+  col_inv_item<V>(work, coef, tw, s, blockIdx.x, sm);
 }
 
 // The three launches of one instance.  tables: uint32 [4n + 4]
@@ -228,29 +105,22 @@ col_inv(const uint32_t *__restrict__ work, int64_t *__restrict__ coef,
 template <int V>
 int products(Values in, const int32_t *signs, void *coef, void *work,
              const void *tables, int D, int m, cudaStream_t st) {
-  const int m1 = m / 2;
-  const int n2 = 1 << (m - m1);
-  const int n1 = 1 << m1;
-  const int lgc = (m - m1) < kLogColBlock ? (m - m1) : kLogColBlock;
-  const int cb = 1 << lgc;
+  const Split s = split_of(m);
   auto xw = static_cast<uint32_t *>(work);
   auto tw = static_cast<const uint32_t *>(tables);
-  // data tiles, then the twiddles of the length-n1 column transforms
-  const size_t fwd_bytes = (2ull * n1 * cb + n1) * sizeof(uint32_t);
-  const size_t inv_bytes = (2ull * V * n1 * cb + n1) * sizeof(uint32_t);
-  int rc = launch_smem(reinterpret_cast<const void *>(col_fwd), fwd_bytes);
+  int rc = launch_smem(reinterpret_cast<const void *>(col_fwd), fwd_bytes(s));
   if (!rc)
-    rc = launch_smem(reinterpret_cast<const void *>(col_inv<V>), inv_bytes);
+    rc = launch_smem(reinterpret_cast<const void *>(col_inv<V>),
+                     inv_bytes(s, V));
   if (rc) return rc;
-  col_fwd<<<dim3(n2 / cb, V), kThreads, fwd_bytes, st>>>(in, xw, tw, D, m, m1,
-                                                         lgc);
+  col_fwd<<<dim3(col_tiles(s), V), kOrbitThreads, fwd_bytes(s), st>>>(
+      in, xw, tw, D, s);
   if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-  // 2V row arrays, then forward and inverse twiddles of length n2
-  row_pass<V><<<n1, kThreads, (2ull * V + 2) * n2 * sizeof(uint32_t), st>>>(
-      xw, tw, signs, m, m1);
+  row_pass<V><<<1 << s.m1, kOrbitThreads, row_bytes(s, V), st>>>(
+      xw, tw, signs, s);
   if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-  col_inv<V><<<n2 / cb, kThreads, inv_bytes, st>>>(
-      xw, static_cast<int64_t *>(coef), tw, m, m1, lgc);
+  col_inv<V><<<col_tiles(s), kOrbitThreads, inv_bytes(s, V), st>>>(
+      xw, static_cast<int64_t *>(coef), tw, s);
   return static_cast<int>(cudaGetLastError());
 }
 

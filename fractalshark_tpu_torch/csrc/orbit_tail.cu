@@ -70,7 +70,9 @@
 //
 // K10 (fused_tail.cuh, launched here) is the same carry machinery on
 // residue rows: the reference's fused_tail, gridded or batched (B-f4,
-// ntt_pallas.py:1265).  The carry maps are in tail_common.cuh.
+// ntt_pallas.py:1265).  The carry maps are in tail_common.cuh; the digit
+// sums, the wide form's layout and its last two phases in orbit_tail.cuh,
+// which K12 (orbit_chunk.cu) shares.
 
 #include <cuda_runtime.h>
 
@@ -78,47 +80,12 @@
 #include <cstdint>
 
 #include "fused_tail.cuh"
+#include "orbit_tail.cuh"
 #include "tail_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-
-// One instance's inputs and outputs.  K = 2 (K5): row_in holds the
-// pre-update z's signs at 10 and 11, row_out gets the shadow row [12] of
-// the new z.  K = 4 (K5-NR): row_in is unused, row_out gets the signs [4].
-struct Tail {
-  const int64_t *coef;     // [K][L]
-  const int32_t *row_in;
-  int32_t *row_out;
-  const uint32_t *cx, *cy;
-  int scx, scy;
-  uint32_t *out[4];        // digits F..F+D-1 of each magnitude
-};
-
-// the multiplier of a component's coefficients
-template <int K>
-__device__ __forceinline__ int64_t tail_mul(const Tail &t, int comp) {
-  if (!comp) return 1;
-  if (K == 2) return 2 * static_cast<int64_t>(t.row_in[10]) * t.row_in[11];
-  return 2;
-}
-
-// digit sum j of a component: its scaled coefficient, the addend (c at
-// digit F, the +1 of dz/dc at digit 2F) and the round bit
-template <int K>
-__device__ __forceinline__ int64_t digit_sum(const Tail &t, int comp,
-                                             int64_t mul, int j, int D,
-                                             int L) {
-  const int F = D - 2;
-  int64_t a = mul * t.coef[static_cast<size_t>(comp) * L + j];
-  if (comp < 2 && j >= F && j < F + D)
-    a += (comp ? t.scy : t.scx) *
-         static_cast<int64_t>((comp ? t.cy : t.cx)[j - F]);
-  if (K == 4 && comp == 2 && j == 2 * F) a += 1;
-  if (j == F - 1) a += 1 << 15;
-  return a;
-}
+constexpr int kThreads = 1024;   // the narrow form's block
 
 // grid K: one block of kThreads per component
 template <int K>
@@ -169,8 +136,7 @@ tail_kernel(Tail tl, uint32_t *__restrict__ scratch, int D, int m) {
       all_ffff &= d == 0xFFFFu;
       all_zero &= d == 0u;
     }
-    const int e = static_cast<int>(ci);
-    f = enc(e - (all_zero ? 1 : 0), e, e + (all_ffff ? 1 : 0));
+    f = segment_map(static_cast<int>(ci), all_ffff, all_zero);
   }
 
   // 3. inclusive scan of the maps: maps[t] = f_t o ... o f_0
@@ -248,58 +214,7 @@ tail_kernel(Tail tl, uint32_t *__restrict__ scratch, int D, int m) {
   }
 }
 
-constexpr int kWideThreads = 256;
-constexpr int kWideSeg = 4;           // digits per thread
 constexpr int kWideMinLog2 = 14;      // L >= 2^14 takes the wide form
-
-// the wide form's scratch, in uint32 words of a buffer of >= 4L (K = 2)
-// or 7L (K = 4): digits [K][L], carries int64 [K][L/4], exclusive prefix
-// maps uint8 [K][L/4], block aggregates [K][G], block carry-ins int32
-// [K][G], then per component neg, lowest and highest nonzero index
-struct Wide {
-  uint32_t *dig;
-  int64_t *carry;
-  uint8_t *prefix;
-  uint32_t *agg;
-  int32_t *bcin;
-  int32_t *flag;   // neg[K], lo[K], hi[K]
-};
-
-template <int K>
-__device__ __forceinline__ Wide wide(uint32_t *s, int L) {
-  const int ns = L / kWideSeg;
-  const int g = ns / kWideThreads;
-  Wide w;
-  w.dig = s;
-  w.carry = reinterpret_cast<int64_t *>(s + K * L);
-  w.prefix = reinterpret_cast<uint8_t *>(s + K * L + K * L / 2);
-  w.agg = s + K * L + K * L / 2 + K * ns / 4;
-  w.bcin = reinterpret_cast<int32_t *>(w.agg + K * g);
-  w.flag = w.bcin + K * g;
-  return w;
-}
-
-// inclusive Hillis-Steele scan of carry maps over the block; the result
-// is left in maps[0] for every thread to read
-__device__ uint32_t scan_maps(uint32_t f, uint32_t (*maps)[kThreads]) {
-  const int t = threadIdx.x;
-  maps[0][t] = f;
-  __syncthreads();
-  int src = 0;
-  for (int off = 1; off < static_cast<int>(blockDim.x); off <<= 1) {
-    uint32_t cur = maps[src][t];
-    if (t >= off) cur = compose(cur, maps[src][t - off]);
-    maps[src ^ 1][t] = cur;
-    __syncthreads();
-    src ^= 1;
-  }
-  const uint32_t inc = maps[src][t];
-  if (src) {
-    maps[0][t] = inc;
-    __syncthreads();
-  }
-  return inc;
-}
 
 // W1: each segment's own ripple (grid (G, K))
 template <int K>
@@ -325,7 +240,7 @@ wide_local(Tail tl, uint32_t *__restrict__ scratch, int D, int m) {
 template <int K>
 __global__ void __launch_bounds__(kWideThreads)
 wide_maps(uint32_t *__restrict__ scratch, int m) {
-  __shared__ uint32_t maps[2][kThreads];
+  __shared__ uint32_t maps[2][kWideThreads];
   const int comp = blockIdx.y;
   const int L = 1 << m;
   const int ns = L / kWideSeg;
@@ -347,9 +262,8 @@ wide_maps(uint32_t *__restrict__ scratch, int m) {
     all_ffff &= d == 0xFFFFu;
     all_zero &= d == 0u;
   }
-  const int e = static_cast<int>(ci);
-  const uint32_t inc = scan_maps(
-      enc(e - (all_zero ? 1 : 0), e, e + (all_ffff ? 1 : 0)), maps);
+  const uint32_t inc =
+      scan_maps(segment_map(static_cast<int>(ci), all_ffff, all_zero), maps);
   w.prefix[comp * ns + s] =
       static_cast<uint8_t>(t ? maps[0][t - 1] : enc(-1, 0, 1));
   if (t == kWideThreads - 1)
@@ -412,56 +326,19 @@ wide_apply(uint32_t *__restrict__ scratch, int m) {
   if (threadIdx.x == 0 && lo != INT_MAX) atomicMin(&w.flag[K + comp], lo);
 }
 
-// W5: negate if the sum is negative, write digits F..F+D-1, the highest
-// nonzero one (grid (G, K))
+// W5 and W6 (orbit_tail.cuh, which K12 shares): one block per item, one
+// thread per component
 template <int K>
 __global__ void __launch_bounds__(kWideThreads)
 wide_finish(Tail tl, uint32_t *__restrict__ scratch, int D, int m) {
   __shared__ int red[33];
-  const int comp = blockIdx.y;
-  const int L = 1 << m;
-  const int F = D - 2;
-  const Wide w = wide<K>(scratch, L);
-  const int s = blockIdx.x * kWideThreads + threadIdx.x;
-  const uint32_t *dig = w.dig + comp * L + s * kWideSeg;
-  const bool neg = w.flag[comp];
-  const int lo = w.flag[K + comp];
-  uint32_t *out = tl.out[comp];
-  int hi = -1;
-  for (int q = 0; q < kWideSeg; ++q) {
-    const int j = s * kWideSeg + q;
-    uint32_t d = dig[q];
-    if (neg) d = j < lo ? 0u : (j == lo ? 0x10000u - d : 0xFFFFu - d);
-    if (j >= F && j < F + D) {
-      out[j - F] = d;
-      if (d) hi = j - F;
-    }
-  }
-  if (K == 4) return;   // no shadow row
-  hi = block_max(hi, red);
-  if (threadIdx.x == 0 && hi >= 0) atomicMax(&w.flag[2 * K + comp], hi);
+  wide_finish_item<K>(tl, scratch, D, m, blockIdx.x, blockIdx.y, red);
 }
 
-// W6: the shadow row of the new value (K5) or the signs (K5-NR), one
-// thread per component
 template <int K>
 __global__ void wide_row(Tail tl, uint32_t *__restrict__ scratch, int D,
                          int m) {
-  const int comp = threadIdx.x;
-  if (comp >= K) return;
-  const Wide w = wide<K>(scratch, 1 << m);
-  const int neg = w.flag[comp];
-  if (K == 4) {
-    tl.row_out[comp] = neg ? -1 : 1;
-    return;
-  }
-  const uint32_t *out = tl.out[comp];
-  int b = w.flag[2 * K + comp] - 3;
-  b = b < 0 ? 0 : (b > D - 4 ? D - 4 : b);
-  for (int k = 0; k < 4; ++k)
-    tl.row_out[5 * comp + k] = static_cast<int32_t>(out[b + k]);
-  tl.row_out[5 * comp + 4] = b;
-  tl.row_out[10 + comp] = neg ? -1 : 1;
+  if (threadIdx.x < K) wide_row_item<K>(tl, scratch, D, m, threadIdx.x);
 }
 
 // one instance's launches: the narrow form below L = 2^14, else the wide

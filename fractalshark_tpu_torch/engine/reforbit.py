@@ -198,7 +198,7 @@ class RefOrbitCalc:
     # "auto"  = native if buildable, else host
     # "native"= C++/GMP mpn fixed-point evaluator (MT3-CPU analogue)
     # "host"  = fixed-point Python-int orbit (portable fallback)
-    # "device"= NTT bignum pipeline on the card, kernels K4/K5
+    # "device"= NTT bignum pipeline on the card, kernel K12
     #           (GPU-orbit analogue, RefOrbitCalc.cpp:2167)
     orbit_backend: str = "auto"
     # torch device of the "device" backend: "cuda" runs the kernels,

@@ -27,9 +27,11 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 whole form and K11 (``coop_launch`` in ``csrc/ntt_products.cuh``) size
 their grid by what can be co-resident and return the launch's refusal
 (e.g. ``cudaErrorCooperativeLaunchTooLarge``), which ``check`` raises:
-no cooperative launch falls back to another form.  ``launches`` counts each kernel's
-launches: a wrapper adds one where it launches its kernel and nowhere
-else.
+no cooperative launch falls back to another form.  K12
+(``csrc/orbit_chunk.cu``) likewise returns a refused opt-in to its block
+form's shared memory or a refused cooperative launch of its grid form.
+``launches`` counts each kernel's launches: a wrapper adds one where it
+launches its kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launch counters, one per kernel instance: K2 per mantissa type and
 # mode (full = the reference's one-kernel la_pallas render, phase1 = its
 # la_only machine, lao_f64 = the f64 LAO render); K4 (ntt_orbit, three
-# CUDA kernels) and K5 (orbit_tail) once per orbit step; K6 per entry
+# CUDA kernels) and K5 (orbit_tail) once per orbit step, whether launched
+# alone or by the per-step chunk loop (fs_orbit_chunk); K6 per entry
 # point (perturb_pallas and perturb_stream: the HDR-f32 routes of B10 and
 # B11; perturb_hdr32/hdr64: perturb_render_hdr; perturb_f32/f64:
 # perturb_render_float); K4-NR (ntt_nr) and K5-NR (nr_tail) once per NR
@@ -63,13 +66,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # multiply per form (ntt_products_whole: one cooperative launch;
 # ntt_products_split: three launches), K10 once per tail per form
 # (fused_tail_grid, fused_tail_batched) and K11 (iterate_full) once per
-# step, also inside the flagged chunk loops
+# step, also inside the flagged chunk loops; K12 once per chunk per form
+# and instance (orbit_chunk_block, orbit_chunk_grid, nr_chunk_block,
+# nr_chunk_grid)
 KERNELS = ("escape", "lav2_full", "lav2_phase1", "rc_tail", "ntt_orbit",
            "orbit_tail", "lav2_full_f64", "lav2_lao_f64", "perturb_pallas",
            "perturb_stream", "perturb_hdr32", "perturb_hdr64", "perturb_f32",
            "perturb_f64", "ntt_nr", "nr_tail", "escape_seq", "la_stream",
            "ntt_phase", "ntt_products_whole", "ntt_products_split",
-           "fused_tail_grid", "fused_tail_batched", "iterate_full")
+           "fused_tail_grid", "fused_tail_batched", "iterate_full",
+           "orbit_chunk_block", "orbit_chunk_grid", "nr_chunk_block",
+           "nr_chunk_grid")
 launches = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -144,6 +151,16 @@ _SIGNATURES = {
     # tables | D log2n steps route batched | stream
     "fs_nr_chunk_fused": [_P] * 7 + [_I32, _I32] + [_P] * 4
     + [_I32] * 5 + [_P],
+    # orbit_chunk_k12: x y rows cx cy | scx scy | work coef scratch tables
+    # | D log2n steps grid | stream
+    "fs_orbit_chunk_k12": [_P] * 5 + [_I32, _I32] + [_P] * 4
+    + [_I32] * 4 + [_P],
+    # nr_chunk_k12: x y dx dy signs cx cy | scx scy | work coef scratch
+    # tables | D log2n steps grid | stream
+    "fs_nr_chunk_k12": [_P] * 7 + [_I32, _I32] + [_P] * 4
+    + [_I32] * 4 + [_P],
+    # k12_block_bytes: log2n D V
+    "fs_k12_block_bytes": [_I32] * 3,
 }
 
 

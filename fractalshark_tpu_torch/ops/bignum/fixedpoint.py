@@ -3,7 +3,8 @@ the port of ``fractalshark_tpu/ops/bignum/fixedpoint.py`` that the
 device reference orbit and the feature finder's device Newton-Raphson
 evaluator need, through kernels K4 (``csrc/ntt_orbit.cu``, the step's
 products) and K5 (``csrc/orbit_tail.cu``, products to the next z), and
-their NR instances K4-NR and K5-NR (``iterate_z_nr``: z and dz/dc); and
+their NR instances K4-NR and K5-NR (``iterate_z_nr``: z and dz/dc), one
+step at a time (a chunk of steps is K12, ``orbit.py``); and
 the reference's generic multiplies (``multiply_3way``, ``multiply_iter``,
 ``multiply_nr``, ``multiply_nr_iter``) through the generic transforms of
 ``ntt.py`` (kernel K8), at the end of this module.  The reference's
@@ -447,7 +448,8 @@ def orbit_tail(coef: torch.Tensor, row_in: torch.Tensor, scx: int,
 # The precedence is the reference's (``:668-690``, ``:757-770``):
 # ``ntt_mxu.MXU_ITER`` takes the step first at its sizes (K4 in the port),
 # so K9 is reached there only with it off.  With every flag at its
-# default the step is K4 then K5 at every size.  (The reference's
+# default the step is K4 then K5 at every size, which a chunk of steps
+# runs as K12 (``orbit.orbit_chunk``).  (The reference's
 # ``PALLAS_FUSED_TAIL`` has no counterpart: on the card the tail is
 # always fused, by K5 or K10.)
 PALLAS_NTT: bool = False

@@ -3,24 +3,34 @@
 (``orbit.py:150-246``, the route the JAX package takes on the TPU).
 
 * device: ``orbit_chunk`` runs ``steps`` iterations of z ← z² + c on
-  the digit state (K4 then K5 per step, the loop itself in C behind one
-  ctypes call) and emits, per step, the [12] int32 shadow row of the
-  PRE-update z (``fixedpoint.shadow_row_np``);
+  the digit state in one launch of K12 (``csrc/orbit_chunk.cu``: K4's
+  and K5's function for every step of the chunk) and emits, per step,
+  the [12] int32 shadow row of the PRE-update z
+  (``fixedpoint.shadow_row_np``);
 * host: ``host_bookkeeping`` turns a chunk's rows into f64 shadows, runs
   the periodicity (dzdc) and escape checks with exact IEEE f64
   (``PeriodicityChecker.h:46-95``), and ``CudaOrbitSession`` stops the
   session at period, escape or budget.
 
 The device and the host meet once per chunk.  On CPU tensors the same
-session runs the kernels' plain twins.  Under the reference's flag-off
-routes (``fixedpoint.step_route``) a chunk's steps are K9 then K10, or
-K11, still in one C call per chunk; the rows, and so the period, escape
-and checkpoint behaviour, are the same.
+session runs the kernels' plain twins (``orbit_chunk_plain``).  Under
+the reference's flag-off routes (``fixedpoint.step_route``) a chunk's
+steps are K9 then K10, or K11, in one C call per chunk; the rows, and
+so the period, escape and checkpoint behaviour, are the same.
 
 The feature finder's device evaluator (``evaluate_critical_orbit_and_derivs_device``,
 ``orbit.py:480-535``) runs z and dz/dc together in the NR chunk
-(``orbit_nr_chunk``: K4-NR then K5-NR per step, the signs kept on the
-device), and reads the state back once at the end.
+(``orbit_nr_chunk``: K12's NR instance, the signs kept on the device;
+``nr_chunk_plain`` on the CPU), and reads the state back once at the
+end.
+
+K12 has two forms, chosen by the transform size alone (``chunk_form``):
+the block form, one CTA with the state in shared memory, up to
+``BLOCK_MAX_NFFT``; the grid form, one cooperative launch with K4's
+passes and K5's wide tail spread over the card between grid-wide
+barriers, above it.  Sizes K12 does not take (D ≥ 2^16 digits, or
+nfft > 2^17) keep the per-step loop of K4 then K5 (``fs_orbit_chunk``,
+one C call per chunk), which is also ``chip_smoke.py``'s yardstick.
 """
 
 from __future__ import annotations
@@ -64,18 +74,43 @@ class OrbitState:
 
 
 class _Scratch:
-    """Per-session device buffers of the CUDA chunk loop: K4/K5's, and for
-    the flagged routes (``fixedpoint.step_route``) the addend planes and
+    """Per-session device buffers of a chunk: the per-step loop's (K4's
+    coefficients and work, which K5's scratch reuses) and K12's grid
+    form's (work, coefficients and the wide tail's scratch, the same
+    sizes plus 4n or 7n words), made at first use; for the flagged
+    routes (``fixedpoint.step_route``) the addend planes and
     K9/K10/K11's digits, residue rows and work (``values`` values, K
     components)."""
 
     def __init__(self, spec: FP.FixedSpec, device, values: int = 2):
-        n = spec.nfft
-        self.coef = torch.empty(values, n, dtype=torch.int64, device=device)
-        self.work = torch.empty(2 * values * n, dtype=torch.int32,
-                                device=device)
-        self.tables = FP.device_tables(n, device)
+        self.spec, self.values, self.device = spec, values, device
+        self.tables = FP.device_tables(spec.nfft, device)
+        self._loop = None
+        self._tail = None
         self.fused = None
+
+    def loop(self):
+        """(coef int64 [V, n], work int32 [2Vn]): K4's outputs and work,
+        K5's scratch inside it."""
+        if self._loop is None:
+            n, v = self.spec.nfft, self.values
+            self._loop = (
+                torch.empty(v, n, dtype=torch.int64, device=self.device),
+                torch.empty(2 * v * n, dtype=torch.int32,
+                            device=self.device))
+        return self._loop
+
+    def grid(self):
+        """(work, coef, scratch) of K12's grid form: the loop's buffers
+        and the wide tail's own scratch, uint32 [4n] (orbit) or [7n]
+        (NR), which it reads while the next step's first pass writes
+        work."""
+        coef, work = self.loop()
+        if self._tail is None:
+            words = (7 if self.values == 4 else 4) * self.spec.nfft
+            self._tail = torch.empty(words, dtype=torch.int32,
+                                     device=self.device)
+        return work, coef, self._tail
 
     def fused_buffers(self, spec: FP.FixedSpec, cx, cy, nr: bool = False):
         """(cadd, rnd, dig, inv, work) of the flagged routes, made once."""
@@ -109,38 +144,164 @@ def _fused_route(spec: FP.FixedSpec, route: str) -> tuple[int, list]:
     return _ROUTES[form], [f"ntt_products_{form}", tail]
 
 
+# ------------------------------------------------------------------ K12
+# The block form takes a chunk up to this transform size, the grid form
+# above it (both instances).  Fixed by the crossover measured on the H100
+# (PERF.md §6): at 256 limbs (nfft 1,024) the grid form is the faster for
+# the orbit and for NR, at 128 limbs (512) the block form.
+BLOCK_MAX_NFFT = 512
+# The C entry point's limits, mirrored so that a size is refused before
+# any launch (csrc/orbit_chunk.cu: kMaxSmem, kChunkMaxLog2, kGridMinLog2
+# and the checks of chunk()): D < 2^16 keeps |acc| < 2^50 for the exact
+# carries, nfft <= 2^17 is K4-NR's cap and the grid form's one-block scan
+# of the tail's block aggregates; a block may opt in to SMEM_PER_BLOCK
+# bytes of shared memory.  The cuda-marked test in
+# tests/test_torch_orbit_chunk.py holds these and block_smem_bytes to the
+# C's own reckoning (fs_k12_block_bytes) and refusals.
+K12_MAX_DIGITS = (1 << 16) - 1
+K12_MAX_NFFT = 1 << 17
+K12_GRID_MIN_NFFT = 1 << 10
+SMEM_PER_BLOCK = 232_448
+
+
+def block_smem_bytes(nfft: int, digits: int, values: int) -> int:
+    """The block form's shared memory, ``block_bytes`` of
+    ``csrc/orbit_chunk.cu``: digit sums int64 [V][n], residues [2V][n],
+    the state [V][D], c [2][D], twiddles [2][n] and 16 ints."""
+    return 4 * (4 * values * nfft + values * digits + 2 * digits
+                + 2 * nfft + 16)
+
+
+def chunk_form(spec: FP.FixedSpec) -> str:
+    """The default route's form of a chunk, orbit or NR, at ``spec``'s
+    size: K12's "block" or "grid", or "steps" (K4 then K5 per step, one C
+    call) for the orbit past K12's D < 2^16, which K5 still takes."""
+    if spec.digits > K12_MAX_DIGITS:
+        return "steps"
+    return "block" if spec.nfft <= BLOCK_MAX_NFFT else "grid"
+
+
+def check_chunk(spec: FP.FixedSpec, form: str, values: int) -> None:
+    """Refuse, before any launch, what K12's C entry points refuse
+    (``values``: 2 for the orbit, 4 for NR)."""
+    if form == "steps":
+        return
+    if not 16 <= spec.digits <= K12_MAX_DIGITS or \
+            spec.nfft > K12_MAX_NFFT or spec.nfft < 2 * spec.digits:
+        raise ValueError(f"{spec}: K12 takes 16 ≤ D < 2^16 digits and "
+                         f"2D ≤ nfft ≤ 2^17")
+    if form == "block" and block_smem_bytes(
+            spec.nfft, spec.digits, values) > SMEM_PER_BLOCK:
+        raise ValueError(f"{spec}: the block form needs more than "
+                         f"{SMEM_PER_BLOCK} bytes of shared memory")
+    if form == "grid" and spec.nfft < K12_GRID_MIN_NFFT:
+        raise ValueError(f"{spec}: the grid form needs nfft ≥ 1,024")
+    if form not in ("block", "grid"):
+        raise ValueError(f"unknown chunk form {form!r}")
+
+
+def _grid_ptrs(scratch: _Scratch, form: str) -> list:
+    """K12's work, coefficient and tail-scratch pointers: the grid form's
+    buffers, or null for the block form, which keeps all in shared
+    memory."""
+    if form == "grid":
+        return [t.data_ptr() for t in scratch.grid()]
+    return [None] * 3
+
+
+def orbit_chunk_plain(x: torch.Tensor, y: torch.Tensor, row: torch.Tensor,
+                      scx: int, cx: torch.Tensor, scy: int,
+                      cy: torch.Tensor, spec: FP.FixedSpec, steps: int):
+    """K12's function for the orbit on the tensors' device: ``steps``
+    times K4's twin then K5's twin from digits x, y (int32 [D]) and the
+    state's row (int32 [12]).  Returns (x', y', rows int32 [steps + 1,
+    12]) with rows[0] = ``row`` and rows[k + 1] the row after step k."""
+    rows = [row]
+    for _ in range(steps):
+        x, y, r = FP.orbit_tail_plain(FP.orbit_products_plain(
+            x, y, spec.nfft), rows[-1], scx, cx, scy, cy, spec)
+        rows.append(r)
+    return x, y, torch.stack(rows)
+
+
+def nr_chunk_plain(signs: torch.Tensor, x, y, dx, dy, scx: int,
+                   cx: torch.Tensor, scy: int, cy: torch.Tensor,
+                   spec: FP.FixedSpec, steps: int):
+    """K12's function for NR on the tensors' device: ``steps`` times
+    K4-NR's twin then K5-NR's twin.  Returns (signs int32 [4], x, y, dx,
+    dy)."""
+    for _ in range(steps):
+        coef = FP.nr_products_plain(x, y, dx, dy, signs, spec.nfft)
+        x, y, dx, dy, signs = FP.nr_tail_plain(coef, scx, cx, scy, cy,
+                                               spec)
+    return signs, x, y, dx, dy
+
+
+def launch_orbit_chunk(state: "OrbitState", rows: torch.Tensor, scx: int,
+                       cx: torch.Tensor, scy: int, cy: torch.Tensor,
+                       spec: FP.FixedSpec, steps: int, scratch: _Scratch,
+                       form: str) -> None:
+    """One C call for a chunk on CUDA tensors, in ``form``: "block" or
+    "grid" (K12, one launch) or "steps" (K4 then K5 per step).
+    ``orbit_chunk`` passes ``chunk_form``'s; ``chip_smoke.py`` times the
+    others at the same sizes."""
+    check_chunk(spec, form, 2)
+    lg = spec.nfft.bit_length() - 1
+    if form == "steps":
+        coef, work = scratch.loop()
+        rc = kernels.lib().fs_orbit_chunk(
+            state.x.data_ptr(), state.y.data_ptr(), rows.data_ptr(),
+            cx.data_ptr(), cy.data_ptr(), int(scx), int(scy),
+            coef.data_ptr(), work.data_ptr(), scratch.tables.data_ptr(),
+            spec.digits, lg, steps, kernels.stream(state.x.device))
+        kernels.check(rc, "orbit_chunk")
+        kernels.launches["ntt_orbit"] += steps
+        kernels.launches["orbit_tail"] += steps
+        return
+    rc = kernels.lib().fs_orbit_chunk_k12(
+        state.x.data_ptr(), state.y.data_ptr(), rows.data_ptr(),
+        cx.data_ptr(), cy.data_ptr(), int(scx), int(scy),
+        *_grid_ptrs(scratch, form), scratch.tables.data_ptr(), spec.digits,
+        lg, steps, int(form == "grid"), kernels.stream(state.x.device))
+    kernels.check(rc, f"orbit_chunk_{form}")
+    kernels.launches[f"orbit_chunk_{form}"] += 1
+
+
 def orbit_chunk(state: OrbitState, scx: int, cx: torch.Tensor, scy: int,
                 cy: torch.Tensor, spec: FP.FixedSpec, steps: int,
                 scratch: _Scratch | None = None) -> torch.Tensor:
     """Advance ``state`` by ``steps`` iterations in place; return the
     rows [steps, 12] int32 of the pre-update z of each step (on the
     state's device; on CUDA the call returns before the work is done).
-    Each step takes ``fixedpoint.step_route``: K4 then K5 by default."""
+    By default a chunk is one launch of K12 in ``chunk_form``'s form; under
+    the flagged routes (``fixedpoint.step_route``) K9 then K10, or K11,
+    per step."""
     from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
     dev = state.x.device
     rows = torch.empty(steps + 1, FP.ROW, dtype=torch.int32, device=dev)
     rows[0] = state.row
     route = FP.step_route(spec)
     if dev.type == "cpu":
-        planes = FP.addend_planes(cx, cy, spec) if route != "k4" else None
-        for k in range(steps):
-            nx, ny, rows[k + 1] = FP.iterate_z_row(
-                state.x, state.y, rows[k], scx, cx, scy, cy, spec, planes)
-            state.x.copy_(nx)
-            state.y.copy_(ny)
+        if route == "k4":
+            x, y, rows = orbit_chunk_plain(state.x, state.y, state.row, scx,
+                                           cx, scy, cy, spec, steps)
+            state.x.copy_(x)
+            state.y.copy_(y)
+        else:
+            planes = FP.addend_planes(cx, cy, spec)
+            for k in range(steps):
+                nx, ny, rows[k + 1] = FP.iterate_z_row(
+                    state.x, state.y, rows[k], scx, cx, scy, cy, spec,
+                    planes)
+                state.x.copy_(nx)
+                state.y.copy_(ny)
         state.row = rows[steps]
         return rows[:steps]
     if scratch is None:
         scratch = _Scratch(spec, dev)
     if route == "k4":
-        rc = kernels.lib().fs_orbit_chunk(
-            state.x.data_ptr(), state.y.data_ptr(), rows.data_ptr(),
-            cx.data_ptr(), cy.data_ptr(), int(scx), int(scy),
-            scratch.coef.data_ptr(), scratch.work.data_ptr(),
-            scratch.tables.data_ptr(), spec.digits,
-            spec.nfft.bit_length() - 1, steps, kernels.stream(dev))
-        kernels.check(rc, "orbit_chunk")
-        counters = ["ntt_orbit", "orbit_tail"]
+        launch_orbit_chunk(state, rows, scx, cx, scy, cy, spec, steps,
+                           scratch, chunk_form(spec))
     else:
         code, counters = _fused_route(spec, route)
         cadd, rnd, dig, inv, work = scratch.fused_buffers(spec, cx, cy)
@@ -152,8 +313,8 @@ def orbit_chunk(state: OrbitState, scx: int, cx: torch.Tensor, scy: int,
             spec.nfft.bit_length() - 1, steps, code, int(NP.BATCHED_TAIL),
             kernels.stream(dev))
         kernels.check(rc, "orbit_chunk_fused")
-    for name in counters:
-        kernels.launches[name] += steps
+        for name in counters:
+            kernels.launches[name] += steps
     state.row = rows[steps]
     return rows[:steps]
 
@@ -178,18 +339,56 @@ class NRState:
         return out
 
 
+def launch_nr_chunk(state: "NRState", scx: int, cx: torch.Tensor, scy: int,
+                    cy: torch.Tensor, spec: FP.FixedSpec, steps: int,
+                    scratch: _Scratch, form: str) -> None:
+    """One C call for an NR chunk on CUDA tensors, in ``form``: "block" or
+    "grid" (K12's NR instance, one launch) or "steps" (K4-NR then K5-NR
+    per step)."""
+    check_chunk(spec, form, 4)
+    lg = spec.nfft.bit_length() - 1
+    ptrs = (state.x.data_ptr(), state.y.data_ptr(), state.dx.data_ptr(),
+            state.dy.data_ptr(), state.signs.data_ptr(), cx.data_ptr(),
+            cy.data_ptr(), int(scx), int(scy))
+    if form == "steps":
+        coef, work = scratch.loop()
+        rc = kernels.lib().fs_nr_chunk(
+            *ptrs, coef.data_ptr(), work.data_ptr(),
+            scratch.tables.data_ptr(), spec.digits, lg, steps,
+            kernels.stream(state.x.device))
+        kernels.check(rc, "nr_chunk")
+        kernels.launches["ntt_nr"] += steps
+        kernels.launches["nr_tail"] += steps
+        return
+    rc = kernels.lib().fs_nr_chunk_k12(
+        *ptrs, *_grid_ptrs(scratch, form), scratch.tables.data_ptr(),
+        spec.digits, lg, steps, int(form == "grid"),
+        kernels.stream(state.x.device))
+    kernels.check(rc, f"nr_chunk_{form}")
+    kernels.launches[f"nr_chunk_{form}"] += 1
+
+
 def orbit_nr_chunk(state: NRState, scx: int, cx: torch.Tensor, scy: int,
-                   cy: torch.Tensor, spec: FP.FixedSpec, steps: int) -> None:
+                   cy: torch.Tensor, spec: FP.FixedSpec, steps: int,
+                   scratch: _Scratch | None = None) -> None:
     """Advance ``state`` by ``steps`` NR updates in place (z ← z² + c and
     dz/dc ← 2·z·dz/dc + 1, ``orbit.py:480-498``) on
-    ``fixedpoint.nr_route``; on CUDA one C call runs the whole chunk and
-    returns before the work is done."""
+    ``fixedpoint.nr_route``: by default one launch of K12's NR instance
+    in ``chunk_form``'s form (the call returns before the work is done);
+    under the flagged routes K9 then K10 per step, in one C call."""
     from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
     dev = state.x.device
     route = FP.nr_route(spec)
     if route == "k4":
         FP.check_nr(spec)
     if dev.type == "cpu":
+        if route == "k4":
+            out = nr_chunk_plain(state.signs, state.x, state.y, state.dx,
+                                 state.dy, scx, cx, scy, cy, spec, steps)
+            state.signs = out[0]
+            for t, m in zip((state.x, state.y, state.dx, state.dy), out[1:]):
+                t.copy_(m)
+            return
         for _ in range(steps):
             st = FP.iterate_z_nr(state.signs[0], state.x, state.signs[1],
                                  state.y, state.signs[2], state.dx,
@@ -199,29 +398,22 @@ def orbit_nr_chunk(state: NRState, scx: int, cx: torch.Tensor, scy: int,
             for t, m in zip((state.x, state.y, state.dx, state.dy), st[1::2]):
                 t.copy_(m)
         return
-    n = spec.nfft
-    scratch = _Scratch(spec, dev, values=4)
+    if scratch is None:
+        scratch = _Scratch(spec, dev, values=4)
     if route == "k4":
-        rc = kernels.lib().fs_nr_chunk(
-            state.x.data_ptr(), state.y.data_ptr(), state.dx.data_ptr(),
-            state.dy.data_ptr(), state.signs.data_ptr(), cx.data_ptr(),
-            cy.data_ptr(), int(scx), int(scy), scratch.coef.data_ptr(),
-            scratch.work.data_ptr(), scratch.tables.data_ptr(), spec.digits,
-            n.bit_length() - 1, steps, kernels.stream(dev))
-        kernels.check(rc, "nr_chunk")
-        counters = ["ntt_nr", "nr_tail"]
-    else:
-        code, counters = _fused_route(spec, route)
-        cadd, rnd, dig, inv, work = scratch.fused_buffers(spec, cx, cy,
-                                                          nr=True)
-        rc = kernels.lib().fs_nr_chunk_fused(
-            state.x.data_ptr(), state.y.data_ptr(), state.dx.data_ptr(),
-            state.dy.data_ptr(), state.signs.data_ptr(), cadd.data_ptr(),
-            rnd.data_ptr(), int(scx), int(scy), dig.data_ptr(),
-            inv.data_ptr(), work.data_ptr(), scratch.tables.data_ptr(),
-            spec.digits, n.bit_length() - 1, steps, code,
-            int(NP.BATCHED_TAIL), kernels.stream(dev))
-        kernels.check(rc, "nr_chunk_fused")
+        launch_nr_chunk(state, scx, cx, scy, cy, spec, steps, scratch,
+                        chunk_form(spec))
+        return
+    code, counters = _fused_route(spec, route)
+    cadd, rnd, dig, inv, work = scratch.fused_buffers(spec, cx, cy, nr=True)
+    rc = kernels.lib().fs_nr_chunk_fused(
+        state.x.data_ptr(), state.y.data_ptr(), state.dx.data_ptr(),
+        state.dy.data_ptr(), state.signs.data_ptr(), cadd.data_ptr(),
+        rnd.data_ptr(), int(scx), int(scy), dig.data_ptr(), inv.data_ptr(),
+        work.data_ptr(), scratch.tables.data_ptr(), spec.digits,
+        spec.nfft.bit_length() - 1, steps, code, int(NP.BATCHED_TAIL),
+        kernels.stream(dev))
+    kernels.check(rc, "nr_chunk_fused")
     for name in counters:
         kernels.launches[name] += steps
 
@@ -248,10 +440,11 @@ def critical_orbit_state_device(cx: HighPrecision, cy: HighPrecision,
     state = NRState((scx, scy, one_s, 1), cxd, cyd, one_d,
                     np.zeros(spec.digits, np.uint32), dev)
     cxt, cyt = state.x.clone(), state.y.clone()
+    scratch = _Scratch(spec, dev, values=4) if dev.type == "cuda" else None
     remaining = period - 1
     while remaining > 0:
         steps = min(chunk_steps, remaining)
-        orbit_nr_chunk(state, scx, cxt, scy, cyt, spec, steps)
+        orbit_nr_chunk(state, scx, cxt, scy, cyt, spec, steps, scratch)
         remaining -= steps
     return spec, state
 
