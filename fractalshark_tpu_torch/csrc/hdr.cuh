@@ -129,15 +129,44 @@ __device__ __forceinline__ HdrT<T> reduce(HdrT<T> x) {
   return {mm, x.m == T(0) ? kMinBigExponent : wadd(x.e, fe)};
 }
 
-template <typename T>
-__device__ __forceinline__ HdrCT<T> reduce_complex(HdrCT<T> z) {
-  const T big = fmax_nan(fabs(z.re), fabs(z.im));
-  T unused;
-  int32_t fe;
-  frexp2(big, unused, fe);
-  const bool zero = (big == T(0));
-  fe = zero ? 0 : fe;
-  const T scale = pow2i<T>(wsub(0, fe));
+// reduce_complex: z scaled by 2^-fe, fe the frexp exponent of
+// big = fmax_nan(|re|, |im|) (0 when big is 0), the scale pow2i(-fe).  The
+// forms below read fe and the scale off the bits of the larger magnitude
+// without forming big, and give the same bits for every input:
+//  * f32: for non-negative floats the order of the bit patterns is the
+//    order of the values, and every NaN pattern lies above +inf, so the
+//    integer max of |re| and |im| has big's biased exponent b (255 when
+//    either is NaN, as fmax_nan's canonical NaN has) and is 0 exactly
+//    when big is.  fe = b - 127 (frexp2 does not special-case 255), and
+//    pow2i(-fe) = 2^(127-b) clamped to [2^-126, 2^127], which is
+//    max(254 - b, 1) << 23 as bits for b in [1, 255]; for b = 0 (both
+//    zero) the scale differs (2^127 for 1) but multiplies two zeros into
+//    the same signed zeros, and the exponent is the zero sentinel.
+//  * f64: the same on the high words (the biased exponent is in bits
+//    20-30 of the high word, and |x| is 0 exactly when both words of it
+//    are).  frexp2 maps b = 2047 (inf, NaN) to fe = -1 and the scale 2,
+//    and every other nonzero b (a subnormal too) to fe = b - 1023 and
+//    max(2046 - b, 1) << 52.
+__device__ __forceinline__ HdrCT<float> reduce_complex(HdrCT<float> z) {
+  const int32_t mb = max(__float_as_int(z.re) & 0x7FFFFFFF,
+                         __float_as_int(z.im) & 0x7FFFFFFF);
+  const int32_t b = mb >> 23;
+  const float scale = __int_as_float(max(254 - b, 1) << 23);
+  return {z.re * scale, z.im * scale,
+          mb == 0 ? kMinBigExponent : wadd(z.e, b - 127)};
+}
+__device__ __forceinline__ HdrCT<double> reduce_complex(HdrCT<double> z) {
+  const int32_t hr = __double2hiint(z.re) & 0x7FFFFFFF;
+  const int32_t hi = __double2hiint(z.im) & 0x7FFFFFFF;
+  const bool zero = (hr | hi | __double2loint(z.re) | __double2loint(z.im))
+                    == 0;
+  const int32_t b = max(hr, hi) >> 20;
+  const bool special = b == 0x7FF;
+  const double scale =
+      special ? 2.0
+              : __longlong_as_double(static_cast<int64_t>(max(2046 - b, 1))
+                                     << 52);
+  const int32_t fe = special ? -1 : b - 1023;
   return {ftz(z.re * scale), ftz(z.im * scale),
           zero ? kMinBigExponent : wadd(z.e, fe)};
 }

@@ -1,4 +1,4 @@
-// K6: perturbation-only rendering (no LA), one thread per pixel.
+// K6: perturbation-only rendering (no LA), one lane per pixel.
 //
 // Replaces: fractalshark_tpu/ops/perturb_pallas.py:50 _kernel (B10, Pallas:
 // HDR-f32 with the orbit resident in VMEM, orbits of at most 8,192 entries
@@ -21,23 +21,35 @@
 // Design: the TPU kernels keep every pixel of a tile in lockstep and bring
 // Z[j] to the tile, by a select-gather over VMEM rows (B10) or by sweeping
 // one orbit position for all pixels at once (B11), because Mosaic has no
-// vector gather.  A GPU thread gathers its own row (Z[j], Z[j+1]) of the
-// packed [M, 4] orbit: 16 bytes (f32) or 32 bytes (f64) per step, and the
-// orbit stays in L2 (View #6's 457,977 entries are 7.3 MB in f32).  So
-// neither B10's length cap nor B11's sweep is needed, and a rebased pixel
-// goes on at once instead of stalling until the next sweep.  Counters are
-// int64, so budgets of 2^31 and more need no (hi, lo) pairs.  The state
-// lives in registers and goes to memory once per launch; a launch runs at
-// most chunk_steps steps per pixel, and the first one starts from the zero
-// state (dze = MIN_BIG_EXPONENT in HDR form, perturb_pallas.py:99-103).
-// Bound: one dependent gather and ~60 FP32 (FP64) operations per step;
-// warps diverge where neighbouring pixels escape at different counts.
+// vector gather.  Here each lane runs its own pixel and reads its own row
+// (Z[j], Z[j+1]) of the packed [M, 4] orbit, so neither B10's length cap
+// nor B11's sweep is needed.  What bounds a deep frame is one pixel's
+// chain of steps: View #6 runs 4,718,592 steps on its deepest pixels, each
+// step a chain of ~60 dependent HDR operations (its serial floor, one
+// pixel over a one-row orbit, is ~177 ns a step in HDR-f32 on the H100).
+// So:
+//  * the row a step needs is loaded a step ahead (csrc/pixel_loop.cuh
+//    OrbitCursor): row 0, the rebase target, is held for the launch, and
+//    row j+1 is loaded during step j, so the 7.3 MB orbit of View #6 is
+//    read from L2 beside the arithmetic instead of in front of it;
+//  * reduce_complex reads its scale off the bits (csrc/hdr.cuh), a shorter
+//    chain with the same bits;
+//  * between launches ops/perturb.py hands the kernel only the pixels
+//    still live (its work list), one lane each, so a launch after the
+//    first runs dense warps instead of warps whose escaped pixels idle.
+// The order in which pixels run changes nothing: each pixel's steps depend
+// on its own state alone.  Counters are int64, so budgets of 2^31 and more
+// need no (hi, lo) pairs.  The state goes to memory once per pixel per
+// launch; a launch runs at most chunk_steps steps per pixel, and the first
+// one starts from the zero state (dze = MIN_BIG_EXPONENT in HDR form,
+// perturb_pallas.py:99-103).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "hdr.cuh"
+#include "pixel_loop.cuh"
 
 namespace {
 
@@ -46,8 +58,11 @@ using Hdr = fs::HdrT<T>;
 template <typename T>
 using HdrC = fs::HdrCT<T>;
 
+// threads per block
+constexpr int kBlock = 128;
+
 struct PerturbParams {
-  int n_pixels;
+  int n_work;
   int64_t max_ref;
   int64_t max_iter;
   int64_t chunk_steps;
@@ -55,16 +70,21 @@ struct PerturbParams {
 };
 
 template <typename T, bool kHdr>
-__global__ void perturb_kernel(const T *__restrict__ dcr,
-                               const T *__restrict__ dci,
-                               const int32_t *__restrict__ dce,
-                               const T *__restrict__ orbit, T *st_dzr,
-                               T *st_dzi, int32_t *st_dze, int64_t *st_j,
-                               int64_t *st_it, uint8_t *st_done,
-                               PerturbParams P) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P.n_pixels) return;
+__global__ void __launch_bounds__(kBlock)
+    perturb_kernel(const T *__restrict__ dcr, const T *__restrict__ dci,
+                   const int32_t *__restrict__ dce,
+                   const T *__restrict__ orbit, T *st_dzr, T *st_dzi,
+                   int32_t *st_dze, int64_t *st_j, int64_t *st_it,
+                   uint8_t *st_done, const int32_t *__restrict__ work,
+                   PerturbParams P) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= P.n_work) return;
+  const int p = work ? work[i] : i;
+  const int64_t jmax = P.max_ref - 1 > 0 ? P.max_ref - 1 : 0;
+  const fs::OrbitCursor<T> oc(orbit, jmax);
+  const Hdr<T> two56 = {T(1), 8};
   const HdrC<T> dc = {dcr[p], dci[p], kHdr ? dce[p] : 0};
+
   HdrC<T> dz;
   int64_t j, it;
   bool done;
@@ -79,44 +99,47 @@ __global__ void perturb_kernel(const T *__restrict__ dcr,
     it = st_it[p];
     done = st_done[p] != 0;
   }
-  const int64_t jmax = P.max_ref - 1 > 0 ? P.max_ref - 1 : 0;
-  const Hdr<T> two56 = {T(1), 8};
 
+  fs::Row<T> og = oc.at(j);  // the row of the step about to run
   for (int64_t k = 0; !done && (P.chunk_steps == 0 || k < P.chunk_steps);
        ++k) {
-    const T *og = orbit + 4 * (j < 0 ? 0 : (j > jmax ? jmax : j));
+    const fs::Row<T> nx = oc.ahead(j);
     HdrC<T> ndz, zf;
     bool esc, lower;
     if (kHdr) {
-      const HdrC<T> zj = {og[0], og[1], 0};
+      const HdrC<T> zj = {og.z0r, og.z0i, 0};
       const HdrC<T> t = fs::complex_add(fs::complex_mul_pow2(zj, 1), dz);
       ndz = fs::reduce_complex(fs::complex_add(fs::complex_mul(t, dz), dc));
-      zf = fs::reduce_complex(fs::complex_add(HdrC<T>{og[2], og[3], 0}, ndz));
+      zf = fs::reduce_complex(
+          fs::complex_add(HdrC<T>{og.z1r, og.z1i, 0}, ndz));
       const Hdr<T> nsq = fs::reduce(fs::norm_squared(zf));
       const Hdr<T> dsq = fs::reduce(fs::norm_squared(ndz));
       esc = fs::gt_reduced(nsq, two56);
       lower = fs::lt_reduced(nsq, dsq);
     } else {
       using fs::ftz;
-      const T tx = ftz(ftz(T(2) * og[0]) + dz.re);
-      const T ty = ftz(ftz(T(2) * og[1]) + dz.im);
+      const T tx = ftz(ftz(T(2) * og.z0r) + dz.re);
+      const T ty = ftz(ftz(T(2) * og.z0i) + dz.im);
       ndz = {ftz(ftz(ftz(tx * dz.re) - ftz(ty * dz.im)) + dc.re),
              ftz(ftz(ftz(tx * dz.im) + ftz(ty * dz.re)) + dc.im), 0};
-      zf = {ftz(og[2] + ndz.re), ftz(og[3] + ndz.im), 0};
+      zf = {ftz(og.z1r + ndz.re), ftz(og.z1i + ndz.im), 0};
       const T nsq = ftz(ftz(zf.re * zf.re) + ftz(zf.im * zf.im));
       const T dsq = ftz(ftz(ndz.re * ndz.re) + ftz(ndz.im * ndz.im));
       esc = nsq > T(256);
       lower = nsq < dsq;
     }
+    // an escaped pixel is done and never reads its next row, so the row
+    // is picked on every step
+    const bool reb = lower || (j + 1) >= P.max_ref;
+    og = oc.pick(reb, nx);
     if (esc) {
       done = true;
-      break;
+    } else {
+      dz = reb ? zf : ndz;
+      j = reb ? 0 : j + 1;
+      it += 1;
+      if (it >= P.max_iter) done = true;
     }
-    const bool reb = lower || (j + 1) >= P.max_ref;
-    dz = reb ? zf : ndz;
-    j = reb ? 0 : j + 1;
-    it += 1;
-    if (it >= P.max_iter) done = true;
   }
 
   st_dzr[p] = dz.re;
@@ -127,44 +150,55 @@ __global__ void perturb_kernel(const T *__restrict__ dcr,
   st_done[p] = done ? 1 : 0;
 }
 
-template <typename T>
+template <typename T, bool kHdr>
 int launch(const void *dcr, const void *dci, const void *dce,
            const void *orbit, void *st_dzr, void *st_dzi, void *st_dze,
-           void *st_j, void *st_it, void *st_done, int32_t n_pixels,
-           int64_t max_ref, int64_t max_iter, int64_t chunk_steps,
-           int32_t flags, void *stream) {
-  const PerturbParams P = {n_pixels, max_ref, max_iter, chunk_steps,
-                           flags & 1};
-  const int block = 128;
-  const int grid = (n_pixels + block - 1) / block;
-  const auto kernel =
-      (flags & 2) ? perturb_kernel<T, true> : perturb_kernel<T, false>;
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+           void *st_j, void *st_it, void *st_done, const void *work,
+           int32_t n_work, int64_t max_ref, int64_t max_iter,
+           int64_t chunk_steps, int32_t init, cudaStream_t stream) {
+  const PerturbParams P = {n_work, max_ref, max_iter, chunk_steps, init};
+  const int grid = static_cast<int>((n_work + int64_t{kBlock} - 1) / kBlock);
+  perturb_kernel<T, kHdr><<<grid, kBlock, 0, stream>>>(
       static_cast<const T *>(dcr), static_cast<const T *>(dci),
       static_cast<const int32_t *>(dce), static_cast<const T *>(orbit),
       static_cast<T *>(st_dzr), static_cast<T *>(st_dzi),
       static_cast<int32_t *>(st_dze), static_cast<int64_t *>(st_j),
-      static_cast<int64_t *>(st_it), static_cast<uint8_t *>(st_done), P);
+      static_cast<int64_t *>(st_it), static_cast<uint8_t *>(st_done),
+      static_cast<const int32_t *>(work), P);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void *dcr, const void *dci, const void *dce,
+             const void *orbit, void *st_dzr, void *st_dzi, void *st_dze,
+             void *st_j, void *st_it, void *st_done, const void *work,
+             int32_t n_work, int64_t max_ref, int64_t max_iter,
+             int64_t chunk_steps, int32_t flags, void *stream) {
+  if (n_work <= 0) return 0;
+  const auto go = (flags & 2) ? launch<T, true> : launch<T, false>;
+  return go(dcr, dci, dce, orbit, st_dzr, st_dzi, st_dze, st_j, st_it,
+            st_done, work, n_work, max_ref, max_iter, chunk_steps, flags & 1,
+            static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// flags: bit 0 = start from the zero state, bit 1 = HDR form (else native
-// float)
+// work: the launch's pixel indices (int32 [n_work]), or null for pixels
+// 0..n_work-1, one lane each.  flags: bit 0 = start from the zero state,
+// bit 1 = HDR form (else native float).
 #define FS_PERTURB_ARGS                                                      \
   const void *dcr, const void *dci, const void *dce, const void *orbit,      \
       void *st_dzr, void *st_dzi, void *st_dze, void *st_j, void *st_it,     \
-      void *st_done, int32_t n_pixels, int64_t max_ref, int64_t max_iter,    \
-      int64_t chunk_steps, int32_t flags, void *stream
+      void *st_done, const void *work, int32_t n_work, int64_t max_ref,      \
+      int64_t max_iter, int64_t chunk_steps, int32_t flags, void *stream
 #define FS_PERTURB_PASS                                                      \
-  dcr, dci, dce, orbit, st_dzr, st_dzi, st_dze, st_j, st_it, st_done,        \
-      n_pixels, max_ref, max_iter, chunk_steps, flags, stream
+  dcr, dci, dce, orbit, st_dzr, st_dzi, st_dze, st_j, st_it, st_done, work,  \
+      n_work, max_ref, max_iter, chunk_steps, flags, stream
 
 extern "C" int fs_perturb_f32(FS_PERTURB_ARGS) {
-  return launch<float>(FS_PERTURB_PASS);
+  return dispatch<float>(FS_PERTURB_PASS);
 }
 
 extern "C" int fs_perturb_f64(FS_PERTURB_ARGS) {
-  return launch<double>(FS_PERTURB_PASS);
+  return dispatch<double>(FS_PERTURB_PASS);
 }

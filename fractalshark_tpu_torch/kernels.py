@@ -94,15 +94,16 @@ _SIGNATURES = {
     "fs_escape_f32_loop": [_P, _I32, _I32, _F32, _F32, _F32, _F32, _I64,
                            _P],
     "fs_escape_f64": [_P, _I32, _I32, _F64, _F64, _F64, _F64, _I64, _P],
-    # lav2: dc(3) nodes side orbit stages at | state(8) | scalars | stream
-    "fs_lav2": [_P] * 16 + [_I32, _I32, _I32, _I64, _I64, _I64, _I64, _I32,
-                            _P],
-    "fs_lav2_f64": [_P] * 16 + [_I32, _I32, _I32, _I64, _I64, _I64, _I64,
-                                _I32, _P],
-    # perturb: dc(3) orbit | state(6) | n max_ref max_iter chunk flags |
+    # lav2: dc(3) nodes side orbit stages at | state(8) | work counter |
+    # n_work n_nodes stage_count | max_ref max_iter chunk at_step | flags |
     # stream
-    "fs_perturb_f32": [_P] * 10 + [_I32, _I64, _I64, _I64, _I32, _P],
-    "fs_perturb_f64": [_P] * 10 + [_I32, _I64, _I64, _I64, _I32, _P],
+    "fs_lav2": [_P] * 18 + [_I32] * 3 + [_I64] * 4 + [_I32, _P],
+    "fs_lav2_f64": [_P] * 18 + [_I32] * 3 + [_I64] * 4 + [_I32, _P],
+    "fs_lav2_lanes": [_I32, _I32],
+    # perturb: dc(3) orbit | state(6) | work | n_work max_ref max_iter
+    # chunk flags | stream
+    "fs_perturb_f32": [_P] * 11 + [_I32, _I64, _I64, _I64, _I32, _P],
+    "fs_perturb_f64": [_P] * 11 + [_I32, _I64, _I64, _I64, _I32, _P],
     # rc_tail: dc(3) anchor index, values | state(8) | scalars | stream
     "fs_rc_tail": [_P] * 13 + [_I32, _I64, _I64, _F32, _F32, _F32, _F32,
                                _F32, _F32, _I64, _I64, _I32, _P],

@@ -24,8 +24,11 @@ body steps with relaunches between them, polling an abort monitor, as
 the reference does (``la_kernel.py:484-506``).
 
 The plain version below runs every pixel in lockstep over flat tensors;
-K2 runs one thread per pixel through the same body.  Each pixel's
-trajectory depends only on its own state, so both give the same grid.
+K2 runs one lane per pixel through the same body, its lanes taking
+pixels from a work queue.  Between launches the run loop hands the next
+launch only the pixels still live, on the card and on the CPU alike
+(``perturb.live_pixels``).  Each pixel's trajectory depends only on its
+own state, so both give the same grid.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
 from fractalshark_tpu_torch import kernels
 from fractalshark_tpu_torch.ops import hdrfloat as hdr
 from fractalshark_tpu_torch.ops.hdrfloat import HDR, HDRComplex
-from fractalshark_tpu_torch.ops.perturb import _dc_grids_hdr, delta_params
+from fractalshark_tpu_torch.ops.perturb import (_dc_grids_hdr, delta_params,
+                                               live_pixels, on_subset)
 from fractalshark_tpu_torch.ops.tables import (ibits, la_tables, orbit_on,
                                                torch_dtype)
 
@@ -44,10 +48,15 @@ from fractalshark_tpu_torch.ops.tables import (ibits, la_tables, orbit_on,
 # abort-poll granularity
 DEFAULT_CHUNK_STEPS = 1 << 14
 
-# written by la_perturb_render after every render
+# written by the run loop after every render: launches ("dispatches")
+# and the pixels each launch ran ("work")
 last_run_stats: dict = {}
 
 _STATE = ("s", "j", "ref_iter", "dzr", "dzi", "dze", "it", "done")
+
+# K2's phases, by their code in csrc/lav2.cu (kPhaseBoth, kPhaseLa,
+# kPhaseTail): which steps a launch runs
+PHASES = ("both", "la", "tail")
 
 
 def _select(c, a: HDRComplex, b: HDRComplex) -> HDRComplex:
@@ -119,10 +128,15 @@ def init_state_plain(T, dc: HDRComplex, max_iter: int) -> tuple:
 
 def lav2_plain(T, orbit: torch.Tensor, dc: HDRComplex, state: tuple,
                max_iter: int, max_ref: int, la_only: bool,
-               chunk_steps: int = 0) -> tuple:
+               chunk_steps: int = 0, phase: str = "both") -> tuple:
     """Plain PyTorch twin of K2: run the machine over flat pixel
     tensors for at most `chunk_steps` lockstep body steps (0 = until
-    every pixel is done).  Returns the state."""
+    every pixel is done).  With `phase` "la" only the pixels in the LA
+    stages step (a pixel stops when it leaves them), with "tail" only
+    those in the perturbation tail, as K2's launches of those `PHASES`.
+    Returns the state."""
+    if phase not in PHASES:
+        raise ValueError(f"K2 phase {phase!r}")
     n = int(max_iter)
     S = T.stage_count
     N = T.nodes.shape[0]
@@ -143,10 +157,14 @@ def lav2_plain(T, orbit: torch.Tensor, dc: HDRComplex, state: tuple,
             for k in range(S)])
     s, j, ref_iter, dzr, dzi, dze, it, done = state
     steps = 0
-    while not bool(done.all()) and (chunk_steps == 0 or steps < chunk_steps):
+    while chunk_steps == 0 or steps < chunk_steps:
+        live = ~done
+        if phase != "both":
+            live = live & ((s >= 0) if phase == "la" else (s < 0))
+        if not bool(live.any()):
+            break
         steps += 1
         dz = HDRComplex(dzr, dzi, dze)
-        live = ~done
         in_la = live & (s >= 0)
         in_tail = live & (s < 0)
 
@@ -220,17 +238,49 @@ def lav2_plain(T, orbit: torch.Tensor, dc: HDRComplex, state: tuple,
     return (s, j, ref_iter, dzr, dzi, dze, it, done)
 
 
+_LANES: dict = {}
+_SCRATCH: dict = {}
+
+
+def lanes_on(T, dev, dtype) -> int:
+    """Lanes of K2 the card holds at once for the table `T` (the C side's
+    resident blocks times its block size); raises on a CUDA error."""
+    key = (T.stage_count, dtype == torch.float64, str(dev))
+    if key not in _LANES:
+        n = kernels.lib().fs_lav2_lanes(T.stage_count, int(key[1]))
+        if n < 0:
+            kernels.check(-n, "fs_lav2_lanes")
+        _LANES[key] = n
+    return _LANES[key]
+
+
+def _counter(dev) -> torch.Tensor:
+    """One int32 of device scratch for a launch's work queue (the C entry
+    zeroes it on the stream before the launch)."""
+    key = str(dev)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _SCRATCH[key]
+
+
 def lav2_kernel(T, orbit: torch.Tensor, dc: HDRComplex, state: tuple | None,
                 max_iter: int, max_ref: int, la_only: bool,
-                chunk_steps: int) -> tuple:
-    """Launch K2 once on a CUDA device: with `state` None the launch
-    runs the AT head skip and initialises the state itself.  The state
-    tensors are updated in place and returned."""
+                chunk_steps: int, work=None, phase: str = "both") -> tuple:
+    """Launch K2 once on a CUDA device over the pixels `work` (int32
+    indices; None: every pixel), in one of the `PHASES`: "la" steps a
+    pixel while it is in the LA stages, "tail" while it is in the
+    perturbation tail, "both" either.  With `state` None the launch runs
+    the AT head skip and initialises the state itself (and `work` must
+    be None, the phase not "tail").  The state tensors are updated in
+    place and returned."""
     dev = dc.re.device
     fdt = dc.re.dtype
     P = dc.re.numel()
     init = state is None
     if init:
+        if work is not None or phase == "tail":
+            raise ValueError("K2's first launch runs every pixel from its "
+                             "LA stages")
         state = tuple(torch.empty(P, dtype=dt, device=dev)
                       for dt in _state_dtypes(fdt))
     _check_state(state, P, dev, fdt)
@@ -241,17 +291,25 @@ def lav2_kernel(T, orbit: torch.Tensor, dc: HDRComplex, state: tuple | None,
     for t in (*dc[:2], T.nodes, orbit, T.stages, T.at):
         if t.dtype != fdt:
             raise ValueError(f"K2 tables must all be {fdt}, not {t.dtype}")
+    n_work = P
+    if work is not None:
+        if work.dtype != torch.int32 or work.device != dev \
+                or not work.is_contiguous():
+            raise ValueError("K2 work must be contiguous int32 on the device")
+        n_work = work.numel()
     at = T.at if T.at.numel() else T.nodes  # never read when at_step == 0
-    lib = kernels.lib()
     f64 = fdt == torch.float64
+    lib = kernels.lib()
     kernels.launches[_COUNTER[f64, bool(la_only)]] += 1
     fn = lib.fs_lav2_f64 if f64 else lib.fs_lav2
     kernels.check(fn(
         *(t.data_ptr() for t in dc), T.nodes.data_ptr(),
         T.side.data_ptr(), orbit.data_ptr(), T.stages.data_ptr(),
         at.data_ptr(), *(t.data_ptr() for t in state),
-        P, T.nodes.shape[0], T.stage_count, int(max_ref), int(max_iter),
-        int(chunk_steps), int(T.at_step), int(la_only) | (int(init) << 1),
+        None if work is None else work.data_ptr(), _counter(dev).data_ptr(),
+        n_work, T.nodes.shape[0], T.stage_count, int(max_ref),
+        int(max_iter), int(chunk_steps), int(T.at_step),
+        int(la_only) | (int(init) << 1) | (PHASES.index(phase) << 2),
         kernels.stream(dev)), "fs_lav2")
     return state
 
@@ -275,11 +333,45 @@ def _check_state(state, P, dev, fdt):
             raise ValueError(f"K2 state {name}: {t.dtype} {tuple(t.shape)}")
 
 
+def split_phases(n_pixels: int, lanes: int) -> bool:
+    """Whether a run launches the LA and tail phases apart: when its
+    pixels outnumber the lanes the card holds at once, lanes take new
+    pixels while their warps are in the tail, and a newcomer's LA steps
+    would make the whole warp run the LA branch again; when every pixel
+    has a lane, both phases run in one launch, and no pixel's tail waits
+    for the others' LA steps.  (A la_only pixel is done when it leaves
+    the LA stages, so its launches run its LA steps alone either way.)"""
+    return n_pixels > lanes
+
+
+def next_work(state: tuple, split: bool):
+    """The next launch's pixels and phase: every live pixel in "both"; or,
+    when the run splits its phases, those still in the LA stages while
+    there are any (every pixel runs its LA steps before its tail), then
+    those in the tail.  (None, _) when every pixel is done."""
+    s, done = state[0], state[-1]
+    if not split:
+        if bool(done.all()):
+            return None, "both"
+        return live_pixels(done), "both"
+    la = ~done & (s >= 0)
+    n_la, n_live = torch.stack([la.sum(), (~done).sum()]).tolist()
+    if n_live == 0:
+        return None, "tail"
+    if n_la:
+        return live_pixels(~la), "la"
+    return live_pixels(done), "tail"
+
+
 def lav2_run(T, orbit, dc: HDRComplex, max_iter: int, max_ref: int,
              la_only: bool, chunk_steps: int | None = None,
              abort_monitor=None) -> tuple:
-    """Run the machine to the end (or to an abort) in bounded launches:
-    K2 for CUDA tensors, the plain twin for CPU tensors."""
+    """Run the machine to the end (or to an abort) in bounded launches,
+    each over the pixels the last one left live: K2 for CUDA tensors, the
+    plain twin for CPU tensors.  On the card, a run with more pixels than
+    the card has lanes launches its phases apart (`split_phases`): first
+    the LA steps of every live pixel in the LA stages, then the tail
+    steps of those in the tail."""
     dev = dc.re.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
@@ -288,16 +380,25 @@ def lav2_run(T, orbit, dc: HDRComplex, max_iter: int, max_ref: int,
     if chunk_steps is None:
         chunk_steps = DEFAULT_CHUNK_STEPS if cuda else 0
     state = None if cuda else init_state_plain(T, flat, max_iter)
-    launches = 0
+    split = cuda and split_phases(flat.re.numel(),
+                                  lanes_on(T, dev, flat.re.dtype))
+    work, phase, sizes = None, "la" if split else "both", []
     while True:
-        run = lav2_kernel if cuda else lav2_plain
-        state = run(T, orbit, flat, state, max_iter, max_ref, la_only,
-                    chunk_steps)
-        launches += 1
-        if bool(state[-1].all()) or (abort_monitor is not None
-                                     and abort_monitor.aborted()):
+        sizes.append(flat.re.numel() if work is None else work.numel())
+        if cuda:
+            state = lav2_kernel(T, orbit, flat, state, max_iter, max_ref,
+                                la_only, chunk_steps, work, phase)
+        else:
+            state = on_subset(
+                lambda st, d: lav2_plain(T, orbit, d, st, max_iter, max_ref,
+                                         la_only, chunk_steps, phase),
+                state, flat, work)
+        work, phase = next_work(state, split)
+        if work is None or (abort_monitor is not None
+                            and abort_monitor.aborted()):
             break
-    last_run_stats["dispatches"] = launches
+    last_run_stats["dispatches"] = len(sizes)
+    last_run_stats["work"] = sizes
     return tuple(t.reshape(dc.re.shape) for t in state)
 
 

@@ -25,9 +25,14 @@ Numeric forms, each a K6 instance with its plain twin here:
   ``Gpu1x64`` LAv2 names without a valid LA table.
 
 The reference steps every pixel in lockstep and counts the iterations
-in int32; K6 gives each thread its own pixel and int64 counters, so
+in int32; K6 gives each lane its own pixel and int64 counters, so
 budgets of 2^31 and more work, and a launch runs at most
-``chunk_steps`` steps per pixel and resumes from the state.
+``chunk_steps`` steps per pixel and resumes from the state.  Between
+launches the run loop hands the next launch only the pixels still live
+(``live_pixels``), in index order, on the card and on the CPU alike:
+K6 gives each of them a lane, the plain twin steps that subset in
+lockstep.  Each pixel's steps depend on its own state alone,
+so the subsets change no result.
 """
 
 from __future__ import annotations
@@ -46,7 +51,8 @@ from fractalshark_tpu_torch.ops.tables import orbit_on, torch_dtype
 # granularity
 DEFAULT_CHUNK_STEPS = 1 << 16
 
-# written by the run loop after every render
+# written by the run loop after every render: launches ("dispatches")
+# and the pixels each launch ran ("work")
 last_run_stats: dict = {}
 
 _STATE = ("dzr", "dzi", "dze", "j", "it", "done")
@@ -183,18 +189,40 @@ def perturb_plain(orbit: torch.Tensor, dc: HDRComplex, state: tuple,
     return (dzr, dzi, dze, j, it, done)
 
 
+def live_pixels(done: torch.Tensor) -> torch.Tensor:
+    """The pixels of a flat state that are not done, as int32 indices in
+    ascending order: the next launch's work."""
+    return torch.nonzero(~done).flatten().to(torch.int32)
+
+
+def on_subset(step, state: tuple, dc: HDRComplex, work) -> tuple:
+    """`step(state, dc)` over the pixels `work` (None: all of them), the
+    others left as they are: how the plain twins run a launch's work."""
+    if work is None:
+        return step(state, dc)
+    w = work.long()
+    sub = step(tuple(t[w] for t in state), HDRComplex(*(t[w] for t in dc)))
+    out = tuple(t.clone() for t in state)
+    for o, v in zip(out, sub):
+        o[w] = v
+    return out
+
+
 def perturb_kernel(orbit: torch.Tensor, dc: HDRComplex, state: tuple | None,
                    max_iter: int, max_ref: int, hdr_mode: bool,
-                   chunk_steps: int, key: str) -> tuple:
+                   chunk_steps: int, key: str, work=None) -> tuple:
     """Launch K6 once on a CUDA device, counted under `key` (the entry
-    point's instance name).  With `state` None the launch starts every
-    pixel from the zero state itself.  The state tensors are updated in
-    place and returned."""
+    point's instance name), over the pixels `work` (int32 indices; None:
+    every pixel).  With `state` None the launch starts every pixel from
+    the zero state itself (and `work` must be None).  The state tensors
+    are updated in place and returned."""
     dev = dc.re.device
     fdt = dc.re.dtype
     P = dc.re.numel()
     init = state is None
     if init:
+        if work is not None:
+            raise ValueError("K6's first launch runs every pixel")
         state = tuple(torch.empty(P, dtype=dt, device=dev)
                       for dt in _state_dtypes(fdt))
     for t, dt, name in zip(state, _state_dtypes(fdt), _STATE):
@@ -207,14 +235,21 @@ def perturb_kernel(orbit: torch.Tensor, dc: HDRComplex, state: tuple | None,
     if orbit.dtype != fdt or orbit.shape[-1] != 4:
         raise ValueError(f"K6 orbit must be {fdt} [M, 4], not "
                          f"{orbit.dtype} {tuple(orbit.shape)}")
+    n_work = P
+    if work is not None:
+        if work.dtype != torch.int32 or work.device != dev \
+                or not work.is_contiguous():
+            raise ValueError("K6 work must be contiguous int32 on the device")
+        n_work = work.numel()
     lib = kernels.lib()
     kernels.launches[key] += 1
     fn = lib.fs_perturb_f64 if fdt == torch.float64 else lib.fs_perturb_f32
     kernels.check(fn(
         *(t.data_ptr() for t in dc), orbit.data_ptr(),
-        *(t.data_ptr() for t in state), P, int(max_ref), int(max_iter),
-        int(chunk_steps), int(init) | (int(hdr_mode) << 1),
-        kernels.stream(dev)), "fs_perturb")
+        *(t.data_ptr() for t in state),
+        None if work is None else work.data_ptr(), n_work, int(max_ref),
+        int(max_iter), int(chunk_steps),
+        int(init) | (int(hdr_mode) << 1), kernels.stream(dev)), "fs_perturb")
     return state
 
 
@@ -227,8 +262,9 @@ def perturb_run(orbit: torch.Tensor, dc: HDRComplex, max_iter: int,
                 chunk_steps: int | None = None,
                 abort_monitor=None) -> torch.Tensor:
     """Run every pixel to its escape or the budget (or to an abort) in
-    bounded launches: K6 for CUDA tensors, the plain twin for CPU
-    tensors.  Returns the int64 iteration grid in dc's shape."""
+    bounded launches, each over the pixels the last one left live: K6 for
+    CUDA tensors, the plain twin for CPU tensors.  Returns the int64
+    iteration grid in dc's shape."""
     dev = dc.re.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
@@ -237,19 +273,23 @@ def perturb_run(orbit: torch.Tensor, dc: HDRComplex, max_iter: int,
     if chunk_steps is None:
         chunk_steps = DEFAULT_CHUNK_STEPS if cuda else 0
     state = None if cuda else init_state_plain(flat, max_iter, hdr_mode)
-    launches = 0
+    work, sizes = None, []
     while True:
+        sizes.append(flat.re.numel() if work is None else work.numel())
         if cuda:
             state = perturb_kernel(orbit, flat, state, max_iter, max_ref,
-                                   hdr_mode, chunk_steps, key)
+                                   hdr_mode, chunk_steps, key, work)
         else:
-            state = perturb_plain(orbit, flat, state, max_iter, max_ref,
-                                  hdr_mode, chunk_steps)
-        launches += 1
+            state = on_subset(
+                lambda st, d: perturb_plain(orbit, d, st, max_iter, max_ref,
+                                            hdr_mode, chunk_steps),
+                state, flat, work)
         if bool(state[-1].all()) or (abort_monitor is not None
                                      and abort_monitor.aborted()):
             break
-    last_run_stats["dispatches"] = launches
+        work = live_pixels(state[-1])
+    last_run_stats["dispatches"] = len(sizes)
+    last_run_stats["work"] = sizes
     return state[4].reshape(dc.re.shape)
 
 

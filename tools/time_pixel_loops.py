@@ -1,0 +1,344 @@
+#!/usr/bin/env python3
+"""Time the port's per-pixel loops, K6 (``csrc/perturb.cu``) and K2
+(``csrc/lav2.cu``), at the main path's full budgets on one NVIDIA card.
+
+    python3 tools/time_pixel_loops.py [--tree DIR] [--reps N] [--cli]
+                                      [--profile] [--only NAME ...]
+
+For each frame it builds the orbit, the LA table and the dc grid through
+the port's engine, then runs the frame's K6 or K2 instance to the end
+(every chunked launch, ``perturb.perturb_run`` / ``la_kernel.lav2_run``)
+under CUDA events, ``--reps`` times after one warm-up run, and prints one
+JSON line per frame: the times (ms), the launches of one run, the
+iter_sum and the CRC-32 of the grid as ``<u4``.  It also prints the
+registers and spills ``ptxas -v`` reports for both kernels, and the
+serial floor: the per-step time of K6 on one pixel with a one-row orbit
+(``max_ref`` = 1, every step rebases onto row 0) that never escapes
+(c = -0.5), in each of K6's four forms, and the same pixel walking an
+orbit of 2^20 zero rows (a new row every step, no rebase).
+``--profile`` adds the pixels still live after each launch and the
+deepest pixel's body steps (K2, from launches of 64 steps).  ``--cli``
+renders the two frames the smoke pins (View #6 PO 256², View #5 1024²)
+through the CLI and prints their iter_sum and crc32.
+
+``--tree DIR`` imports ``fractalshark_tpu_torch`` from DIR (another
+checkout, e.g. a ``git archive`` of the parent commit), so two versions
+can be timed in turns in one run on one card.  Needs a CUDA device.
+
+``chip_smoke.py`` times the same frames through ``setup``,
+``time_frame`` and ``serial_floor`` below, so the two report one
+measurement.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import itertools
+import json
+import os
+import statistics
+import subprocess
+import sys
+import types
+import zlib
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# the small-table deep frame of chip_smoke.py (its budget)
+SMALL_DEEP = ("-0.743643887037158704752191506114774",
+              "0.131825904205311970493132056385139", "1e8", 2000)
+
+# name: (frame, size, kernel, launch-counter key, mantissa, hdr_mode /
+# la_only)
+FRAMES = {
+    "view6_po_16": (6, 16, "k6", "perturb_stream", "f32", True),
+    "view6_po_256": (6, 256, "k6", "perturb_stream", "f32", True),
+    "view2_f64_64": (2, 64, "k6", "perturb_f64", "f64", False),
+    "view2_f64_256": (2, 256, "k6", "perturb_f64", "f64", False),
+    "view2_hdr64_64": (2, 64, "k6", "perturb_hdr64", "f64", True),
+    "1e8_pallas_64": (SMALL_DEEP, 64, "k6", "perturb_pallas", "f32", True),
+    "1e8_f32_64": (SMALL_DEEP, 64, "k6", "perturb_f32", "f32", False),
+    "1e8_full_64": (SMALL_DEEP, 64, "k2", "lav2_full", "f32", False),
+    # more pixels than the card has lanes: K2 runs its phases apart
+    "1e8_full_1024": (SMALL_DEEP, 1024, "k2", "lav2_full", "f32", False),
+    "view6_phase1_256": (6, 256, "k2", "lav2_phase1", "f32", True),
+    "view6_phase1_1024": (6, 1024, "k2", "lav2_phase1", "f32", True),
+    "view5_f64_64": (5, 64, "k2", "lav2_full_f64", "f64", False),
+    "view5_f64_256": (5, 256, "k2", "lav2_full_f64", "f64", False),
+    "view5_f64_1024": (5, 1024, "k2", "lav2_full_f64", "f64", False),
+    # its LA phase alone (la_only: each pixel is done when it leaves the
+    # LA stages)
+    "view5_f64_1024_la": (5, 1024, "k2", "lav2_lao_f64", "f64", True),
+    "view3_lao_64": (3, 64, "k2", "lav2_lao_f64", "f64", True),
+}
+
+CLI_FRAMES = {
+    "View #6 GpuHDRx32PerturbedLAv2PO 256²": [
+        "--view", "6", "--render-algorithm", "GpuHDRx32PerturbedLAv2PO",
+        "--width", "256", "--height", "256"],
+    "View #5 AUTO 1024²": ["--view", "5", "--width", "1024", "--height",
+                           "1024"],
+}
+
+FLOOR_STEPS = 1 << 20
+# the streaming floor: the same pixel over this many rows of a zero orbit
+# (dz <- dz^2 + dc stays small, |z| = |dz|: no rebase), which it walks one
+# row a step until max_ref: the per-step time with a new row every step
+STREAM_ROWS = 1 << 20
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def crc(grid) -> int:
+    return zlib.crc32(grid.cpu().numpy().astype("<u4").tobytes())
+
+
+def ptxas_lines(text: str) -> list[str]:
+    """The ptxas -v lines of the K6 and K2 entry functions."""
+    out, keep = [], 0
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            keep = 4 if ("perturb" in line or "lav2" in line) else 0
+        if keep:
+            out.append(line.strip())
+            keep -= 1
+    return out
+
+
+def frame_inputs(frame, size, device):
+    """The Fractal and the reference orbit of a frame (a preset index or
+    a (x, y, zoom, budget) tuple) at size², via the engine."""
+    from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
+    from fractalshark_tpu_torch.engine.fractal import Fractal
+    from fractalshark_tpu_torch.engine.renderers import get_orbit_calc
+
+    if isinstance(frame, int):
+        f = Fractal(width=size, height=size, view=frame, device=device)
+    else:
+        x, y, zoom, n = frame
+        f = Fractal(width=size, height=size, num_iterations=n,
+                    view=PointZoomBBConverter(pt_x=x, pt_y=y,
+                                              zoom_factor=zoom, prec=512),
+                    device=device)
+    res = get_orbit_calc(f).get_and_create_useful_results(f.ptz,
+                                                          f.num_iterations)
+    return f, res
+
+
+def setup(name, device):
+    """A frame of FRAMES on `device`: its inputs (orbit, dc grid, for K2
+    the LA tables T), its budget n and max_ref mr, and ``run(budget=None,
+    chunk_steps=None)``, which runs its K6 or K2 instance through the run
+    loop (on the card: K6 or K2; on the CPU: the plain twin) and returns
+    the int64 grid (K6) or the state (K2)."""
+    import torch
+
+    from fractalshark_tpu_torch.engine.la_reference import get_or_build_la
+    from fractalshark_tpu_torch.ops import la_kernel, perturb
+    from fractalshark_tpu_torch.ops.tables import orbit_on
+
+    frame, size, kern, key, mant, mode = FRAMES[name]
+    fdt = torch.float32 if mant == "f32" else torch.float64
+    f, res = frame_inputs(frame, size, device)
+    n, mr = f.num_iterations, res.max_ref_iteration()
+    dpar = perturb.delta_params(f.ptz, res.center_x, res.center_y, size,
+                                size)
+    fr = types.SimpleNamespace(name=name, kern=kern, key=key, size=size,
+                               dtype=fdt, mode=mode, n=n, mr=mr, T=None)
+    if kern == "k6":
+        fr.orbit = orbit_on(res, device, fdt)
+        grids = perturb._dc_grids_hdr if mode else perturb._dc_grids_float
+        fr.dc = grids(*dpar, size, size, device, fdt)
+
+        def run(budget=None, chunk_steps=None):
+            return perturb.perturb_run(fr.orbit, fr.dc, budget or n, mr,
+                                       mode, key, chunk_steps)
+    else:
+        fr.T, fr.orbit = la_kernel.device_tables(
+            res, get_or_build_la(f, res), device, fdt)
+        fr.dc = perturb._dc_grids_hdr(*dpar, size, size, device, fdt)
+
+        def run(budget=None, chunk_steps=None):
+            return la_kernel.lav2_run(fr.T, fr.orbit, fr.dc, budget or n, mr,
+                                      mode, chunk_steps)
+    fr.run = run
+    return fr
+
+
+def grid_of(fr, out):
+    """The iteration grid of a run's result."""
+    return out if fr.kern == "k6" else out[6]
+
+
+def time_frame(fr, reps):
+    """Run the frame to the end `reps` times under CUDA events after one
+    warm-up run: (the last run's result, a record of the times, the
+    launches of one run, the grid's iter_sum and CRC-32)."""
+    import torch
+
+    from fractalshark_tpu_torch import kernels
+    from fractalshark_tpu_torch.ops import la_kernel, perturb
+
+    kernels.reset_counts()
+    out = fr.run()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    stats = (perturb if fr.kern == "k6" else la_kernel).last_run_stats
+    # the pixels each launch ran (a tree from before the live-pixel
+    # launches records none)
+    work = list(stats.get("work", []))
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        out = fr.run()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    grid = grid_of(fr, out)
+    return out, {"frame": fr.name, "budget": fr.n, "ms": times,
+                 "ms_median": statistics.median(times),
+                 "launches": launches, "work": work,
+                 "iter_sum": int(grid.sum()), "crc32": crc(grid),
+                 "max_iter": int(grid.max())}
+
+
+def deepest_body_steps(fr, chunk=16) -> int:
+    """An upper bound, within `chunk`, of the body steps of a K2 frame's
+    deepest pixel: `chunk` times the launches of the run in chunks of
+    `chunk`."""
+    from fractalshark_tpu_torch.ops import la_kernel
+    fr.run(chunk_steps=chunk)
+    return chunk * la_kernel.last_run_stats["dispatches"]
+
+
+def perturb_profile(fr, chunk):
+    """Live pixels after each launch of `chunk` steps."""
+    from fractalshark_tpu_torch.ops import perturb
+    from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
+    flat = HDRComplex(*(t.reshape(-1).contiguous() for t in fr.dc))
+    state, live, work = None, [], None
+    while True:
+        state = perturb.perturb_kernel(fr.orbit, flat, state, fr.n, fr.mr,
+                                       fr.mode, chunk, fr.key, work)
+        work = perturb.live_pixels(state[-1])
+        live.append(int(work.numel()))
+        if live[-1] == 0:
+            return live
+
+
+def lav2_profile(fr, chunk):
+    """Live pixels and pixels in the LA stages after each launch of
+    `chunk` body steps (every launch over all pixels in both phases)."""
+    from fractalshark_tpu_torch.ops import la_kernel
+    from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
+    flat = HDRComplex(*(t.reshape(-1) for t in fr.dc))
+    state, live = None, []
+    while True:
+        state = la_kernel.lav2_kernel(fr.T, fr.orbit, flat, state, fr.n,
+                                      fr.mr, fr.mode, chunk)
+        done = state[-1]
+        live.append((int((~done).sum()), int((~done & (state[0] >= 0)).sum())))
+        if live[-1][0] == 0:
+            return live
+
+
+def serial_floor(device, reps):
+    """K6's time per step (ns) on one never-escaping pixel with a one-row
+    orbit (max_ref = 1), each of its four forms (hdr_f32, hdr_f64,
+    float_f32, float_f64), and over a streamed zero orbit (the same names
+    with _stream)."""
+    import torch
+
+    from fractalshark_tpu_torch.ops import perturb
+    from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
+
+    out = {}
+    for (mant, hdr_mode), rows in itertools.product(
+            (("f32", True), ("f64", True), ("f32", False), ("f64", False)),
+            (1, STREAM_ROWS)):
+        fdt = torch.float32 if mant == "f32" else torch.float64
+        # one row (0, -0.5), or rows of a zero orbit: each row's second
+        # half is the next row's first, as pack_orbit_np packs them
+        orbit = (torch.tensor([[0.0, 0.0, -0.5, 0.0]], dtype=fdt,
+                              device=device) if rows == 1 else
+                 torch.zeros((rows, 4), dtype=fdt, device=device))
+        dc = HDRComplex(torch.tensor([1e-3], dtype=fdt, device=device),
+                        torch.zeros(1, dtype=fdt, device=device),
+                        torch.zeros(1, dtype=torch.int32, device=device))
+        fr = types.SimpleNamespace(
+            name=f"floor {mant} {rows}", kern="k6", n=FLOOR_STEPS,
+            run=lambda: perturb.perturb_run(orbit, dc, FLOOR_STEPS, rows,
+                                            hdr_mode, "perturb_hdr32"))
+        _, rec = time_frame(fr, reps)
+        if rec["max_iter"] != FLOOR_STEPS:
+            raise AssertionError(f"floor pixel escaped at {rec['max_iter']}")
+        ns = rec["ms_median"] * 1e6 / FLOOR_STEPS
+        name = f"{'hdr' if hdr_mode else 'float'}_{mant}"
+        out[name if rows == 1 else name + "_stream"] = ns
+        log(f"  serial floor {'HDR' if hdr_mode else 'float'}-{mant}, "
+            f"{rows} rows: {ns:.3f} ns a step (median of {reps}: "
+            f"{[round(t, 3) for t in rec['ms']]} ms for {FLOOR_STEPS} "
+            f"steps)")
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=ROOT)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--cli", action="store_true")
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--only", nargs="*")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.tree))
+    import torch
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device", file=sys.stderr)
+        return 1
+    from fractalshark_tpu_torch import kernels
+    device = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    log(f"tree {os.path.abspath(args.tree)}; card {card}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        kernels.build(verbose=True)
+    kernels.lib()
+    for line in ptxas_lines(buf.getvalue()):
+        log(f"  ptxas {line}")
+    floor = serial_floor(device, args.reps)
+    for name in args.only or FRAMES:
+        fr = setup(name, device)
+        _, rec = time_frame(fr, args.reps)
+        if args.profile:
+            chunk = 64 if fr.kern == "k2" else 65536
+            live = (lav2_profile if fr.kern == "k2" else perturb_profile)(
+                fr, chunk)
+            rec["deepest_steps_le"] = len(live) * chunk
+            rec["live"] = live if fr.kern == "k6" else live[::16] + [live[-1]]
+        log(json.dumps(rec))
+    if args.cli:
+        from fractalshark_tpu_torch import cli
+        for label, argv in CLI_FRAMES.items():
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv + ["--stats", "--device", "cuda"])
+            s = json.loads(out.getvalue().strip().splitlines()[-1])
+            log(json.dumps({"cli": label, "rc": rc, "iter_sum": s["iter_sum"],
+                            "crc32": s["crc32"],
+                            "timings": s.get("timings")}))
+    log(json.dumps({"card": card, "serial_floor_ns": floor}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
