@@ -7,8 +7,14 @@ reference.
 
     python3 chip_smoke.py
 
-Phases: (1) card, (2) build, (3) K1-K3 vs plain on the card at the main
-path's shapes, bit-identical (K2 in chunks over the live pixels), (3b)
+Phases: (1) card, (2) build, (3) K1 and K2 vs plain on the card at the
+main path's shapes, bit-identical (K2 in chunks over the live pixels),
+then the tails through tools/time_pixel_loops.py, each vs its twin at a
+cut budget in chunks over the live pixels and timed at its full budget:
+the two-phase tail (K6 resumed from K2's handoff) on View #6 256², K3
+over View #6's compressed orbit from K2's handoff at 64² and from the
+zero state at 16² (pinned to the frame K3 gave before its redesign),
+beside K3's serial floor, (3b)
 K2 with f64 mantissas and the K6 instances vs plain, bit-identical, in
 chunks over the live pixels, on the main path's frames (View #5 1024²,
 View #3 LAO 64², View #6 PO 16² and 256², View #2 64² and 256², the 1e8
@@ -28,16 +34,19 @@ K12's D < 2^16, on the per-step loop of K4 then K5 against the
 ``fractalshark_tpu_torch.cli.main``, each with the launch counts set to 0
 just before it and read just after: View 0 AUTO at 1024² (K1), a
 small-table deep frame (K2 full mode), View #6 AUTO at 64² and 256² (K2
-phase 1 + K3), View #6 with ``--perturbation-alg GPU`` at 64² and 256²
-(K12's block form for the orbit, then K2 phase 1 + K3), View #30 with
+phase 1 + the tail, K6 resumed: no anchor table), View #6 with
+``--perturbation-alg GPU`` at 64² and 256² (K12's block form for the
+orbit, then K2 phase 1 + the tail), View #30 with
 the device orbit at 512² (K12's grid form), View #5 AUTO at 64², 256²
 and 1024² (``Gpu1x64PerturbedLAv2``: K2-f64), View #3 LAO (K2-f64
 ``la_only``), View #2 AUTO at 64² and 256² and its HDRx64 name (no valid
 LA table: K6 f64 float and HDR-f64), and the perturbation-only names on
 the 1e8 frame (K6 on B10's route, and f32 float) and on View #6 at 16²
 and 256² (K6 on B11's route; 256² and View #5 1024² pinned to the
-frames K6 and K2 gave before their redesign), (7) K4-NR/K5-NR (one NR
-step: z and dz/dc) vs plain and vs the exact step at 8, 16, 2,048 and 16,384 limbs
+frames K6 and K2 gave before their redesign), and View #6 through the RC
+names at 256² (K2 phase 1 + K3) and 16² (``...RCLAv2PO``: K3 from the
+zero state), pinned to the frames K3 gave before its redesign, (7)
+K4-NR/K5-NR (one NR step: z and dz/dc) vs plain and vs the exact step at 8, 16, 2,048 and 16,384 limbs
 from random states whose dz/dc wraps, (8) the feature finder: NR chunks
 of 256 steps vs the exact wrapped Python-int recurrence at 16 and 2,048
 limbs (16,384 in phase 5, beside the orbit's), then, with the launch
@@ -51,11 +60,13 @@ then, counts from 0, the evaluator at View #30's centre and precision
 package's JSON, (9) K1-seq: the View 0 zoom sequence (8 frames, ×1.3
 each, 512 iterations) at 1024² against its plain version and each frame
 against K1 f32, the f64 instance, then ``escape_sequence`` at 4096²
-(launch count from 0) and its median time, (10) K7: the streaming LA
+(launch count from 0), each of its frames against K1 f32, and its
+median time with its bound at that size, (10) K7: the streaming LA
 phase against its plain version on the 1e8 frame at 64², its handoff on
 View #6 at 256² against K2's ``la_only`` state, and View #6 256² through
 the CLI with ``FRACTALSHARK_LA_PHASE=stream`` (launch counts from 0)
-against the two-phase frame's iter_sum and CRC, (11) K8: every phase of
+against the two-phase frame's iter_sum and CRC (K7 then K6's tail),
+(11) K8: every phase of
 the four-step at n = 8,192, 65,536 and 131,072 with 4, 6, 8 and 14 rows,
 forward and inverse, against its plain version, then the generic
 multiplies (``multiply_3way`` with the launch count from 0,
@@ -83,13 +94,14 @@ With ``--perturbation-alg GPU`` the JAX package gives the same two View
 
 Bounds (``bound_ms``): the larger of the bytes a kernel must move (each
 input read once, each output written once) over 3.35 TB/s and the
-operations its function needs on this run's inputs over the card's peak
-rate for their type: 67 TFLOP/s f32 and 34 TFLOP/s f64 outside the
-tensor cores (NVIDIA's H100 SXM data sheet) and, for the integer kernels
-K4, K5 and K8, 16.7 Tops/s int32 (a quarter of the f32 figure: 64 INT32
-lanes per SM against 128 FP32 lanes that each count an FMA as two,
-Hopper white paper).  Where the count depends on the data, it is a lower
-bound of what these inputs need, as each ``*_ops`` function says.
+operations its function needs on this run's inputs over the card's
+instruction rate for their type outside the tensor cores: 33.5e12 f32,
+16.7e12 f64 and 16.7e12 int32 a second (132 SMs × 128, 64 and 64 lanes
+× 1.98 GHz, Hopper white paper; with ``-fmad=false`` every counted * and
++ is one instruction, so the data sheet's 67 and 34 TFLOP/s, which count
+an FMA as two, do not apply).  Where the count depends on the data, it
+is a lower bound of what these inputs need, as each ``*_ops`` function
+says.
 """
 
 from __future__ import annotations
@@ -127,6 +139,11 @@ VIEW6_PO_16 = (231_680_604, 3_835_526_492)
 # bits
 VIEW6_PO_256 = (56_290_173_760, 4_071_284_753)
 VIEW5_1024 = (93_151_215_571, 721_975_011)
+# View #6 through the RC names (K3 over the compressed orbit, error_exp
+# 20), (iter_sum, CRC-32): the CLI on an NVIDIA H100 with K3 as it was
+# before its redesign; the redesign gives the same bits
+VIEW6_RC_256 = (52_302_961_633, 3_147_924_880)
+VIEW6_RC_PO_16 = (231_681_032, 2_118_348_537)
 # the budgets at which phases 3/3b hold K2, K2-f64, K3 and K6 against
 # their plain twins (lockstep loops, a few ms a step on the card): a few
 # seconds a twin; each kernel is also timed at its main budget.  K2 and
@@ -243,6 +260,10 @@ KERNEL_META = {
                     "fractalshark_tpu/ops/la_kernel.py:99"),
     "rc_tail": ("fractalshark_tpu_torch/csrc/rc_tail.cu",
                 "fractalshark_tpu/ops/perturb_stream.py:395"),
+    # B3 over identity anchors, the two-phase tail of an uncompressed
+    # orbit: K6 resumed from the handoff
+    "two_phase_tail": ("fractalshark_tpu_torch/csrc/perturb.cu",
+                       "fractalshark_tpu/ops/perturb_stream.py:395"),
     "ntt_orbit": ("fractalshark_tpu_torch/csrc/ntt_orbit.cu",
                   "fractalshark_tpu/ops/bignum/ntt_mxu.py:800"),
     "orbit_tail": ("fractalshark_tpu_torch/csrc/orbit_tail.cu",
@@ -302,9 +323,15 @@ KERNEL_META = {
 }
 
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-F64_OPS_PER_S = 34e12
-I32_OPS_PER_S = 67e12 / 4
+# instructions a second outside the tensor cores, H100 SXM (132 SMs at
+# the 1.98 GHz boost clock; per SM and clock 128 FP32, 64 FP64 and 64
+# INT32 lanes, Hopper white paper).  The kernels are built with
+# -fmad=false, so each counted * or + is one instruction: the data
+# sheet's 67 (f32) and 34 (f64) TFLOP/s count an FMA as two operations.
+SM_CLOCKS_PER_S = 132 * 1.98e9
+F32_OPS_PER_S = 128 * SM_CLOCKS_PER_S
+F64_OPS_PER_S = 64 * SM_CLOCKS_PER_S
+I32_OPS_PER_S = 64 * SM_CLOCKS_PER_S
 
 
 def log(msg: str) -> None:
@@ -419,11 +446,18 @@ def frame_inputs(view_or_center, size, device):
     return f, res, get_or_build_la(f, res)
 
 
-def escape_ops(iters, budget: int) -> float:
-    """K1: 7 f32 operations per iteration (z², |z|² and the update) over
-    the pixels that escape; pixels at the budget are left out, since the
-    kernel resolves cardioid and bulb pixels without iterating."""
-    return 7.0 * float(iters[iters < budget].sum())
+def escape_ops(iters, interior=None) -> float:
+    """K1 and K1-seq: 7 operations per iteration (z², |z|² and the
+    update) of every pixel the interior shortcut leaves, at the budget
+    too, plus 14 a pixel for its coordinate and the shortcut's test
+    (`interior`: the pixels the shortcut resolves, as the kernel tests
+    them; None: no shortcut, every pixel iterates)."""
+    import torch
+    iters = torch.as_tensor(iters)
+    if interior is None:
+        return 7.0 * float(iters.sum(dtype=torch.float64))
+    left = torch.where(torch.as_tensor(interior).to(iters.device), 0, iters)
+    return 7.0 * float(left.sum(dtype=torch.float64)) + 14.0 * iters.numel()
 
 
 def lav2_ops(T, pixels: int) -> float:
@@ -432,10 +466,6 @@ def lav2_ops(T, pixels: int) -> float:
     return 40.0 * pixels * T.stage_count
 
 
-def rc_tail_ops(done_iters: float) -> float:
-    """K3: one HDR perturbation step per tail iteration done (about 25
-    f32 operations: 2·Z·dz + dz² + dc, the norm, the rebase test)."""
-    return 25.0 * done_iters
 
 
 def ntt_ops(n: int) -> float:
@@ -473,10 +503,7 @@ def phase_kernels(device, size_escape=1024, size_deep=256,
     import torch
 
     from fractalshark_tpu_torch.core.views import get_view_preset
-    from fractalshark_tpu_torch.engine.perturbation_results import (
-        CompressedOrbit)
     from fractalshark_tpu_torch.ops import escape, la_kernel
-    from fractalshark_tpu_torch.ops import perturb_stream as ps
     from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
 
     stats = {k: {} for k in KERNEL_META}
@@ -495,7 +522,11 @@ def phase_kernels(device, size_escape=1024, size_deep=256,
         compare(f"K1 escape {dt} View 0 {size_escape}² x256", k, pl,
                 stats["escape"])
         log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
-        b = bound(nbytes(k), escape_ops(k, 256),
+        # the f32 frame is the tile (interior shortcut), f64 escape_jax's
+        # loop (none)
+        inside = escape.interior_mask(p, size_escape, size_escape, tdt,
+                                      device) if dt == "f32" else None
+        b = bound(nbytes(k), escape_ops(k, inside),
                   F32_OPS_PER_S if dt == "f32" else F64_OPS_PER_S)
         if dt == "f32":
             stats["escape"].update(ms=ms, plain_ms=pms, **b)
@@ -536,59 +567,80 @@ def phase_kernels(device, size_escape=1024, size_deep=256,
     _, _, st = k2_both(f"1e8 {size_small}²", T, orbit, dc, SMALL_DEEP[3],
                        res.max_ref_iteration(), (True, False))
     stats["lav2_full"].update(st)
-    f, res_s, la, T, orbit, dc_s, backend = deep_inputs(6, size_small, device)
-    st_s, stc_s, _ = k2_both(f"View #6 {size_small}²", T, orbit, dc_s,
-                             f.num_iterations, res_s.max_ref_iteration(),
-                             (False, True))
-    n_s = f.num_iterations
+    f, res, la, T, orbit, dc, backend = deep_inputs(6, size_small, device)
+    k2_both(f"View #6 {size_small}²", T, orbit, dc, f.num_iterations,
+            res.max_ref_iteration(), (False, True))
 
-    # K2 phase-1 and K3 (identity anchors) on View #6 at the main path's
-    # size; K3 over real compressed anchors at the small size
+    # K2 phase 1 on View #6 at the main path's size
     f, res, la, T, orbit, dc, backend = deep_inputs(6, size_deep, device)
     n = f.num_iterations
-    ks, kc, st = k2_both(f"View #6 {size_deep}²", T, orbit, dc, n,
-                         res.max_ref_iteration(), (True,))
+    _, _, st = k2_both(f"View #6 {size_deep}²", T, orbit, dc, n,
+                       res.max_ref_iteration(), (True,))
     stats["lav2_phase1"].update(st)
-
-    def k3(comp, state, state_c, dc, n, label):
-        """K3 from K2's la_only state at budget n, timed; K3 and its plain
-        twin from K2's state at the twin budget, compared."""
-        A = ps.anchors_on(comp, device)
-        z_mr = ps.wrap_value(comp, A.max_ref)
-        flat = HDRComplex(*(t.reshape(-1) for t in dc))
-        nc = min(n, TWIN_BUDGET)
-
-        def init(s, nb):
-            return {"dzr": s[3], "dzi": s[4], "dze": s[5], "it": s[6],
-                    "jwait": s[2], "done": s[6] >= nb}
-
-        rk, ms = timed(lambda: ps.rc_tail_run(A, dc, init(state, n), n,
-                                              z_mr), device, reps=3)
-        rc_ = ps.rc_tail_run(A, dc, init(state_c, nc), nc, z_mr)
-
-        def plain():
-            st = ps.rc_init_plain(A, ps.handoff_state(init(state_c, nc),
-                                                      device), nc, z_mr)
-            return ps.rc_tail_plain(A, flat, st)[3]
-
-        rp, pms = timed(plain, device, warm=False)
-        compare(f"K3 {label} budget {nc} remaining budget", rc_, rp,
-                stats["rc_tail"])
-        log(f"    kernel {ms:.3f} ms (budget {n}), plain {pms:.3f} ms "
-            f"(budget {nc})")
-        done = float(((n - state[6]).reshape(-1) - rk).clamp(min=0).sum())
-        return dict(ms=ms, plain_ms=pms, **bound(
-            nbytes(A.index, A.val, *dc, *state[2:7], rk),
-            rc_tail_ops(done), F32_OPS_PER_S))
-
-    stats["rc_tail"].update(k3(CompressedOrbit.identity(res), ks, kc, dc, n,
-                               f"identity anchors View #6 {size_deep}²"))
-    comp = CompressedOrbit.from_uncompressed(res_s, error_exp=8)
-    log(f"    compressed orbit: {len(comp.anchors_x)} anchors of "
-        f"{comp.total_count} (ratio {comp.compression_ratio():.2f})")
-    k3(comp, st_s, stc_s, dc_s, n_s, f"compressed anchors (error_exp 8) "
-       f"View #6 {size_small}²")
+    tail_frames(device, stats)
     return stats, backend
+
+
+def perturb_tail_ops(grid, start, budget: int) -> float:
+    """The two-phase tail and K3: one HDR step per tail iteration done
+    (60 operations, K6's count) plus the escaping step of each pixel that
+    escapes; a lower bound for K3, whose steps between anchors also run
+    the df32 recurrence."""
+    import torch
+    live = start < budget
+    done = torch.where(live, grid - start, 0)
+    return 60.0 * (float(done.sum()) + float((live & (grid < budget)).sum()))
+
+
+# phase 3's tail frames (tools/time_pixel_loops.py FRAMES): each held to
+# its twin at the cut budget (the first launch, then launches of the
+# chunk over the live pixels) and timed with all its launches at its full
+# budget; the pins; the kernels line's entry whose numbers it gives
+TAIL_FRAMES = [
+    ("view6_tail_256", None, "two_phase_tail"),
+    ("view6_rc_64", None, None),
+    ("view6_rc_po_16", VIEW6_RC_PO_16, "rc_tail"),
+]
+
+
+def tail_frames(device, stats):
+    """The two-phase tail (K6 resumed from K2's handoff) on View #6 256²
+    and K3 over View #6's compressed orbit (error_exp 8 from K2's handoff
+    at 64², the CLI's error_exp 20 from the zero state at 16²): each
+    against its twin at the cut budget, then timed at its full budget."""
+    tpl = pixel_loops()
+    floor = tpl.rc_floor(device, 1)
+    for name, pin, entry in TAIL_FRAMES:
+        fr = tpl.setup(name, device)
+        budget = TWIN_BUDGET if fr.kern == "tail" or fr.mode[1] \
+            else PO_TWIN_BUDGET
+        nc = min(fr.n, budget)
+        kc = fr.run(nc, TWIN_CHUNK)
+        pl, pms = timed(lambda: fr.plain(nc), device, warm=False)
+        compare(f"{fr.key} {name} budget {nc} (chunks of {TWIN_CHUNK} over "
+                f"the live pixels) iterations", kc.reshape(-1), pl,
+                stats[fr.key])
+        log(f"    plain {pms:.3f} ms (budget {nc})")
+        out, rec = tpl.time_frame(fr, 1 if fr.n > 10 ** 6 and fr.size < 64
+                                  else 3)
+        got = (rec["iter_sum"], rec["crc32"])
+        steps = int((out - fr.start).max()) + 1
+        log(f"  {fr.key} {name} budget {fr.n}: {rec['ms_median']:.3f} ms "
+            f"(of {[round(t, 3) for t in rec['ms']]}), "
+            f"{sum(rec['launches'].values())} launches over "
+            f"{rec['work'][:4]}{'...' if len(rec['work']) > 4 else ''} "
+            f"pixels, (iter_sum, crc32) {got} (expected {pin}); deepest "
+            f"pixel {steps} tail steps, K3's one-pixel floor "
+            f"{steps * floor['hit'] / 1e6:.3f} ms (anchor every step) / "
+            f"{steps * floor['df32'] / 1e6:.3f} ms (df32 every step)")
+        if pin is not None and got != pin:
+            raise AssertionError(f"{fr.key} {name}: {got} != {pin}")
+        if entry is None:
+            continue
+        tables = (fr.orbit,) if fr.kern == "tail" else (fr.A.index, fr.A.val)
+        stats[entry].update(ms=rec["ms_median"], plain_ms=pms, **bound(
+            nbytes(*tables, *fr.dc, fr.start, out),
+            perturb_tail_ops(out, fr.start, fr.n), F32_OPS_PER_S))
 
 
 def perturb_ops(iters, budget: int, hdr_mode: bool) -> float:
@@ -1053,8 +1105,11 @@ def phase_slice(outdir, device="cuda"):
         s = run(f"View #6 AUTO {size}²",
                 ["--view", "6", "--width", str(size), "--height", str(size),
                  "--output-png", png],
-                "GpuHDRx32PerturbedLAv2", ["lav2_phase1", "rc_tail"])
+                "GpuHDRx32PerturbedLAv2", ["lav2_phase1", "two_phase_tail"])
         got = (s["iter_sum"], s["crc32"])
+        if s["launches"]["rc_tail"] or "anchors_s" in s["timings"]:
+            raise AssertionError(f"View #6 {size}²: anchors on the "
+                                 f"uncompressed orbit's tail")
         log(f"    expected (JAX CPU, FMA off) {want}, got {got}")
         if got != want:
             raise AssertionError(f"View #6 {size}²: {got} != {want}")
@@ -1066,7 +1121,7 @@ def phase_slice(outdir, device="cuda"):
                 ["--view", "6", "--width", str(size), "--height", str(size),
                  "--perturbation-alg", "GPU"],
                 "GpuHDRx32PerturbedLAv2",
-                ["orbit_chunk_block", "lav2_phase1", "rc_tail"])
+                ["orbit_chunk_block", "lav2_phase1", "two_phase_tail"])
         if s["launches"]["ntt_orbit"] or s["launches"]["orbit_tail"]:
             raise AssertionError("View #6 GPU orbit: K4/K5 on the path")
         got = (s["iter_sum"], s["crc32"])
@@ -1142,6 +1197,17 @@ def phase_slice(outdir, device="cuda"):
     pinned("View #5 AUTO 1024²", ["--view", "5"] + size(1024),
            "Gpu1x64PerturbedLAv2", ["lav2_full_f64"], VIEW5_1024,
            "the kernels before their redesign")
+    # the RC names: K3 over View #6's compressed orbit, after K2's phase 1
+    # and from the zero state
+    rc6 = ["--view", "6", "--render-algorithm"]
+    pinned("View #6 GpuHDRx32PerturbedRCLAv2 256²",
+           rc6 + ["GpuHDRx32PerturbedRCLAv2"] + size(256),
+           "GpuHDRx32PerturbedRCLAv2", ["lav2_phase1", "rc_tail"],
+           VIEW6_RC_256, "K3 before its redesign")
+    pinned("View #6 GpuHDRx32PerturbedRCLAv2PO 16²",
+           rc6 + ["GpuHDRx32PerturbedRCLAv2PO"] + size(16),
+           "GpuHDRx32PerturbedRCLAv2PO", ["rc_tail"], VIEW6_RC_PO_16,
+           "K3 before its redesign")
     return total, runs
 
 
@@ -1394,8 +1460,9 @@ def phase_feature(device, nr_us):
 
 def phase_escape_seq(device, stats, card):
     """K1-seq against its plain version and K1, then the headline
-    sequence through ``escape_sequence`` (its launch count from 0) and
-    the kernel's median time of 3."""
+    sequence through ``escape_sequence`` (its launch count from 0), each
+    of its frames against K1, and the kernel's median time of 3 at its
+    size (tools/time_pixel_loops.py seq_4096), beside its bound there."""
     import torch
 
     from fractalshark_tpu_torch import kernels
@@ -1424,8 +1491,6 @@ def phase_escape_seq(device, stats, card):
     for i, p in enumerate(fs):
         compare(f"K1-seq frame {i} vs K1 f32", k[i].to(torch.int64),
                 escape.escape_kernel(p, S, S, n, f32, device), st)
-    st.update(ms=ms, plain_ms=pms, **bound(nbytes(k), escape_ops(k, n),
-                                            F32_OPS_PER_S))
     f2 = frames(256, 3)
     compare("K1-seq f64 3 frames 256²", escape.escape_sequence_kernel(
         f2, 256, 256, n, torch.float64, device),
@@ -1446,13 +1511,28 @@ def phase_escape_seq(device, stats, card):
         f"{[int(v) for v in out.reshape(SEQ_FRAMES, -1).sum(axis=1)]}")
     if not ok or launches != 1:
         raise AssertionError("escape_sequence at 4096² is not plausible")
-    ts = [timed(lambda: escape.escape_sequence_kernel(fb, B, B, n, f32,
-                                                      device), device,
-                warm=False)[1] for _ in range(3)]
-    med = sorted(ts)[1]
+    seq = torch.from_numpy(out.astype("int64"))
+    inside = torch.stack([escape.interior_mask(p, B, B, f32, device)
+                          for p in fb]).cpu()
+    for i, p in enumerate(fb):
+        compare(f"K1-seq {B}² frame {i} vs K1 f32", seq[i],
+                escape.escape_kernel(p, B, B, n, f32, device), st)
+    tpl = pixel_loops()
+    _, rec = tpl.time_frame(tpl.setup("seq_4096", device), 3)
+    med = rec["ms_median"]
+    if (rec["iter_sum"], rec["launches"]) != (int(seq.sum()),
+                                              {"escape_seq": 1}):
+        raise AssertionError("K1-seq's timed run differs")
     log(f"  headline (K1-seq, {SEQ_FRAMES} × {B}² × {n}, f32): median "
-        f"{med:.3f} ms of {[round(t, 3) for t in ts]}, "
-        f"{SEQ_FRAMES * B * B / (med / 1e3) / 1e6:.1f} Mpix/s on {card}")
+        f"{med:.3f} ms of {[round(t, 3) for t in rec['ms']]}, "
+        f"{SEQ_FRAMES * B * B / (med / 1e3) / 1e6:.1f} Mpix/s on {card}; "
+        f"pixels the shortcut leaves at the budget "
+        f"{int(((seq == n) & ~inside).sum())} of {seq.numel()}, "
+        f"{float(seq[~inside].sum()) / max(int((~inside).sum()), 1):.2f} "
+        f"iterations a pixel it leaves")
+    # ms and bound at the timed size; the plain version at 1024²
+    st.update(ms=med, plain_ms=pms, **bound(
+        seq.numel() * 4, escape_ops(seq, inside), F32_OPS_PER_S))
     return {"escape_seq": launches}
 
 
@@ -1518,7 +1598,8 @@ def phase_la_stream(device, stats):
         f"{STREAM_PIN}), wall {wall:.3f} s, timings "
         f"{json.dumps(s['timings'])}, launches {launches}")
     if s["la_phase"] != "stream" or got != STREAM_PIN or \
-            launches["la_stream"] <= 0 or launches["rc_tail"] <= 0 or \
+            launches["la_stream"] <= 0 or launches["two_phase_tail"] <= 0 \
+            or launches["rc_tail"] or \
             launches["lav2_phase1"] != 0:
         raise AssertionError("the stream-phase View #6 frame differs")
     return {"la_stream": launches["la_stream"]}

@@ -24,7 +24,7 @@
 // escape at different counts, as on any SIMT machine; the early exit
 // per thread replaces the reference's per-tile "all resolved" check.
 //
-// K1-seq: a sequence of K frames in one launch, frame k = blockIdx.z.
+// K1-seq: a sequence of K frames in one launch.
 // Replaces: fractalshark_tpu/ops/escape.py:220 _escape_seq_kernel (Pallas,
 // B13; launch _escape_seq_impl :285, API escape_pallas_sequence :310).
 // Every frame has _escape_tile's semantics (escape.py:144-208) in BOTH
@@ -37,6 +37,20 @@
 // so no later step counts, as in the reference.  f64 results are flushed
 // (hdr.cuh ftz), as XLA:CPU flushes the reference's f64 tile.  Output
 // int32 [K,H,W], 4 bytes per pixel.
+// What bounds it: the iterations (7 operations each) of the pixels the
+// shortcut leaves, most of them a few iterations, a few hundredths the
+// whole budget (in the set outside the cardioid and the bulb).  With one
+// lane per pixel a warp holding one such pixel runs the budget while its
+// other lanes idle (on the View 0 sequence the lanes' iterations are 2.7x
+// the pixels' own).  So the kernel runs in two passes, both launched by
+// the C entry with no sync between them: pass 1, one lane per pixel, runs
+// at most kSeqCap iterations and writes every pixel that ends there (the
+// shortcut's, the escaped, those at a budget <= kSeqCap); a warp appends
+// its other pixels to a list with one atomicAdd.  Pass 2, a grid of the
+// card's resident blocks, strides over the list, so its warps hold only
+// long pixels, and runs each from its coordinate to the end.  Each
+// pixel's count depends on its own coordinate alone, so neither the list's
+// order nor the restart changes a count.
 
 #include <cuda_runtime.h>
 
@@ -94,53 +108,158 @@ int launch(void *out, int width, int height, T min_x, T max_y, T dx, T dy,
   return static_cast<int>(cudaGetLastError());
 }
 
-// _escape_tile for pixel (x, y) of frame k; every result passes ftz
-// (the identity for float: -ftz=true flushes f32 in hardware)
+// K1-seq: iterations of pass 1, threads of a pass-2 block
+constexpr int32_t kSeqCap = 64;
+constexpr int kSeqBlock = 256;
+
+// frame k's coordinate of pixel (x, y) and budget, from the [K, 5] table
 template <typename T>
-__global__ void escape_seq_kernel(int32_t *__restrict__ out,
-                                  const T *__restrict__ params, int width,
-                                  int height) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width || y >= height) return;
-  const T *p = params + 5 * blockIdx.z;
-  const int32_t budget = static_cast<int32_t>(p[4]);
-  const T cx = fs::ftz(p[0] + fs::ftz(static_cast<T>(x) * p[2]));
-  const T cy = fs::ftz(p[1] - fs::ftz(static_cast<T>(y) * p[3]));
-  const int64_t at =
-      (static_cast<int64_t>(blockIdx.z) * height + y) * width + x;
+struct SeqPixel {
+  T cx, cy;
+  int32_t budget;
+};
+
+template <typename T>
+__device__ __forceinline__ SeqPixel<T> seq_pixel(const T *params, int k,
+                                                 int x, int y) {
+  const T *p = params + 5 * k;
+  return {fs::ftz(p[0] + fs::ftz(static_cast<T>(x) * p[2])),
+          fs::ftz(p[1] - fs::ftz(static_cast<T>(y) * p[3])),
+          static_cast<int32_t>(p[4])};
+}
+
+// _escape_tile's shortcut: c in the main cardioid or the period-2 bulb;
+// every result passes ftz (the identity for float: -ftz=true flushes f32
+// in hardware)
+template <typename T>
+__device__ __forceinline__ bool seq_interior(T cx, T cy) {
   const T xq = fs::ftz(cx - static_cast<T>(0.25));
   const T cy2 = fs::ftz(cy * cy);
   const T q = fs::ftz(fs::ftz(xq * xq) + cy2);
   const T cx1 = fs::ftz(cx + static_cast<T>(1.0));
-  if (fs::ftz(q * fs::ftz(q + xq)) <= fs::ftz(static_cast<T>(0.25) * cy2) ||
-      fs::ftz(fs::ftz(cx1 * cx1) + cy2) <= static_cast<T>(0.0625)) {
-    out[at] = budget;
-    return;
-  }
+  return fs::ftz(q * fs::ftz(q + xq)) <= fs::ftz(static_cast<T>(0.25) * cy2) ||
+         fs::ftz(fs::ftz(cx1 * cx1) + cy2) <= static_cast<T>(0.0625);
+}
+
+// one iteration of _escape_tile's loop: false (z kept) once |z|^2 > 4
+template <typename T>
+__device__ __forceinline__ bool seq_step(T &zx, T &zy, T cx, T cy) {
+  const T zx2 = fs::ftz(zx * zx);
+  const T zy2 = fs::ftz(zy * zy);
+  if (!(fs::ftz(zx2 + zy2) <= static_cast<T>(4.0))) return false;
+  const T nzy = fs::ftz(fs::ftz(fs::ftz(zx + zx) * zy) + cy);
+  zx = fs::ftz(fs::ftz(zx2 - zy2) + cx);
+  zy = nzy;
+  return true;
+}
+
+// _escape_tile's loop from z = c for at most `limit` iterations: the
+// count (below `limit` only if z escaped).  Four iterations a round while
+// four are left: one budget test for four.
+template <typename T>
+__device__ __forceinline__ int32_t seq_loop(T cx, T cy, int32_t limit) {
   T zx = cx, zy = cy;
   int32_t it = 0;
-  while (it < budget) {
-    const T zx2 = fs::ftz(zx * zx);
-    const T zy2 = fs::ftz(zy * zy);
-    if (!(fs::ftz(zx2 + zy2) <= static_cast<T>(4.0))) break;
-    const T nzy = fs::ftz(fs::ftz(fs::ftz(zx + zx) * zy) + cy);
-    zx = fs::ftz(fs::ftz(zx2 - zy2) + cx);
-    zy = nzy;
-    ++it;
+  while (it <= limit - 4) {
+    if (!seq_step(zx, zy, cx, cy)) return it;
+    if (!seq_step(zx, zy, cx, cy)) return it + 1;
+    if (!seq_step(zx, zy, cx, cy)) return it + 2;
+    if (!seq_step(zx, zy, cx, cy)) return it + 3;
+    it += 4;
   }
-  out[at] = it;
+  while (it < limit && seq_step(zx, zy, cx, cy)) ++it;
+  return it;
+}
+
+// pass 1: pixel (x, y) of frame blockIdx.z, one lane each (a warp is 32
+// pixels of a row); the pixels still running after kSeqCap iterations go
+// to the list `later`
+template <typename T>
+__global__ void escape_seq_pass1(int32_t *__restrict__ out,
+                                 const T *__restrict__ params, int width,
+                                 int height, uint32_t *__restrict__ later,
+                                 uint32_t *n_later) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int k = blockIdx.z;
+  const uint32_t at = (static_cast<uint32_t>(k) * height + y) * width + x;
+  bool keep = false;
+  if (x < width && y < height) {
+    const SeqPixel<T> c = seq_pixel(params, k, x, y);
+    if (seq_interior(c.cx, c.cy)) {
+      out[at] = c.budget;
+    } else {
+      const int32_t limit = c.budget < kSeqCap ? c.budget : kSeqCap;
+      const int32_t it = seq_loop(c.cx, c.cy, limit);
+      if (it < limit || it == c.budget)
+        out[at] = it;
+      else
+        keep = true;
+    }
+  }
+  // one atomicAdd a warp (blockDim.x is 32: a warp is one block row)
+  const unsigned m = __ballot_sync(~0u, keep);
+  if (m) {
+    const int lead = __ffs(m) - 1;
+    uint32_t base = 0;
+    if (static_cast<int>(threadIdx.x) == lead)
+      base = atomicAdd(n_later, static_cast<uint32_t>(__popc(m)));
+    base = __shfl_sync(~0u, base, lead);
+    if (keep) later[base + __popc(m & ((1u << threadIdx.x) - 1u))] = at;
+  }
+}
+
+// pass 2: the listed pixels, a lane each in turn, from z = c to the end
+template <typename T>
+__global__ void __launch_bounds__(kSeqBlock)
+    escape_seq_pass2(int32_t *__restrict__ out, const T *__restrict__ params,
+                     int width, int height,
+                     const uint32_t *__restrict__ later,
+                     const uint32_t *__restrict__ n_later) {
+  const uint32_t n = *n_later;
+  const uint32_t plane = static_cast<uint32_t>(width) * height;
+  for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const uint32_t at = later[i];
+    const uint32_t k = at / plane;
+    const uint32_t r = at - k * plane;
+    const uint32_t y = r / width;
+    const SeqPixel<T> c = seq_pixel(params, static_cast<int>(k),
+                                    static_cast<int>(r - y * width),
+                                    static_cast<int>(y));
+    out[at] = seq_loop(c.cx, c.cy, c.budget);
+  }
 }
 
 template <typename T>
 int launch_seq(void *out, const void *params, int frames, int width,
-               int height, void *stream) {
+               int height, void *later, void *counter, void *stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, escape_seq_pass2<T>, kSeqBlock, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (static_cast<uint64_t>(frames) * width * height >= (uint64_t{1} << 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(counter, 0, sizeof(uint32_t), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 block(32, 8);
   const dim3 grid((width + block.x - 1) / block.x,
                   (height + block.y - 1) / block.y, frames);
-  escape_seq_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  escape_seq_pass1<T><<<grid, block, 0, st>>>(
       static_cast<int32_t *>(out), static_cast<const T *>(params), width,
-      height);
+      height, static_cast<uint32_t *>(later),
+      static_cast<uint32_t *>(counter));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  escape_seq_pass2<T><<<per_sm * sms, kSeqBlock, 0, st>>>(
+      static_cast<int32_t *>(out), static_cast<const T *>(params), width,
+      height, static_cast<const uint32_t *>(later),
+      static_cast<const uint32_t *>(counter));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -173,14 +292,21 @@ int fs_escape_f64(void *out, int32_t width, int32_t height, double min_x,
                                max_iter, stream);
 }
 
+// later: device scratch of one uint32 a pixel (the pass-2 list);
+// counter: four bytes of device scratch, zeroed here on the stream; at
+// most 2^32 - 1 pixels
 int fs_escape_seq_f32(void *out, const void *params, int32_t frames,
-                      int32_t width, int32_t height, void *stream) {
-  return launch_seq<float>(out, params, frames, width, height, stream);
+                      int32_t width, int32_t height, void *later,
+                      void *counter, void *stream) {
+  return launch_seq<float>(out, params, frames, width, height, later,
+                           counter, stream);
 }
 
 int fs_escape_seq_f64(void *out, const void *params, int32_t frames,
-                      int32_t width, int32_t height, void *stream) {
-  return launch_seq<double>(out, params, frames, width, height, stream);
+                      int32_t width, int32_t height, void *later,
+                      void *counter, void *stream) {
+  return launch_seq<double>(out, params, frames, width, height, later,
+                            counter, stream);
 }
 
 }  // extern "C"

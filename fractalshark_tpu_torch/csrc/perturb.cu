@@ -54,8 +54,6 @@
 namespace {
 
 template <typename T>
-using Hdr = fs::HdrT<T>;
-template <typename T>
 using HdrC = fs::HdrCT<T>;
 
 // threads per block
@@ -67,6 +65,7 @@ struct PerturbParams {
   int64_t max_iter;
   int64_t chunk_steps;
   int init;
+  int handoff;
 };
 
 template <typename T, bool kHdr>
@@ -82,7 +81,6 @@ __global__ void __launch_bounds__(kBlock)
   const int p = work ? work[i] : i;
   const int64_t jmax = P.max_ref - 1 > 0 ? P.max_ref - 1 : 0;
   const fs::OrbitCursor<T> oc(orbit, jmax);
-  const Hdr<T> two56 = {T(1), 8};
   const HdrC<T> dc = {dcr[p], dci[p], kHdr ? dce[p] : 0};
 
   HdrC<T> dz;
@@ -99,6 +97,21 @@ __global__ void __launch_bounds__(kBlock)
     it = st_it[p];
     done = st_done[p] != 0;
   }
+  if (P.handoff) {
+    // an LA phase's handoff (j = jwait): a pixel at the budget is done; a
+    // live one handed over at max_ref rebases there (dz <- Z[max_ref] + dz,
+    // position 0) without spending an iteration, the others' positions
+    // are clamped to [0, max_ref - 1] (perturb_stream.py:671-716)
+    if (it >= P.max_iter) done = true;
+    if (!done && j >= P.max_ref) {
+      const fs::Row<T> last = oc.at(jmax);  // (Z[max_ref - 1], Z[max_ref])
+      dz = fs::reduce_complex(
+          fs::complex_add(HdrC<T>{last.z1r, last.z1i, 0}, dz));
+      j = 0;
+    } else if (!done) {
+      j = j < 0 ? 0 : (j > jmax ? jmax : j);
+    }
+  }
 
   fs::Row<T> og = oc.at(j);  // the row of the step about to run
   for (int64_t k = 0; !done && (P.chunk_steps == 0 || k < P.chunk_steps);
@@ -107,15 +120,12 @@ __global__ void __launch_bounds__(kBlock)
     HdrC<T> ndz, zf;
     bool esc, lower;
     if (kHdr) {
-      const HdrC<T> zj = {og.z0r, og.z0i, 0};
-      const HdrC<T> t = fs::complex_add(fs::complex_mul_pow2(zj, 1), dz);
-      ndz = fs::reduce_complex(fs::complex_add(fs::complex_mul(t, dz), dc));
-      zf = fs::reduce_complex(
-          fs::complex_add(HdrC<T>{og.z1r, og.z1i, 0}, ndz));
-      const Hdr<T> nsq = fs::reduce(fs::norm_squared(zf));
-      const Hdr<T> dsq = fs::reduce(fs::norm_squared(ndz));
-      esc = fs::gt_reduced(nsq, two56);
-      lower = fs::lt_reduced(nsq, dsq);
+      const fs::HdrStep<T> o =
+          fs::hdr_step<false>(og.z0r, og.z0i, og.z1r, og.z1i, dz, dc);
+      ndz = o.ndz;
+      zf = o.zf;
+      esc = o.esc;
+      lower = o.lower;
     } else {
       using fs::ftz;
       const T tx = ftz(ftz(T(2) * og.z0r) + dz.re);
@@ -155,8 +165,10 @@ int launch(const void *dcr, const void *dci, const void *dce,
            const void *orbit, void *st_dzr, void *st_dzi, void *st_dze,
            void *st_j, void *st_it, void *st_done, const void *work,
            int32_t n_work, int64_t max_ref, int64_t max_iter,
-           int64_t chunk_steps, int32_t init, cudaStream_t stream) {
-  const PerturbParams P = {n_work, max_ref, max_iter, chunk_steps, init};
+           int64_t chunk_steps, int32_t init, int32_t handoff,
+           cudaStream_t stream) {
+  const PerturbParams P = {n_work,      max_ref, max_iter,
+                           chunk_steps, init,    handoff};
   const int grid = static_cast<int>((n_work + int64_t{kBlock} - 1) / kBlock);
   perturb_kernel<T, kHdr><<<grid, kBlock, 0, stream>>>(
       static_cast<const T *>(dcr), static_cast<const T *>(dci),
@@ -176,16 +188,20 @@ int dispatch(const void *dcr, const void *dci, const void *dce,
              int64_t chunk_steps, int32_t flags, void *stream) {
   if (n_work <= 0) return 0;
   const auto go = (flags & 2) ? launch<T, true> : launch<T, false>;
+  // a handoff resumes a state: never with the zero state
+  if ((flags & 1) && (flags & 4))
+    return static_cast<int>(cudaErrorInvalidValue);
   return go(dcr, dci, dce, orbit, st_dzr, st_dzi, st_dze, st_j, st_it,
             st_done, work, n_work, max_ref, max_iter, chunk_steps, flags & 1,
-            static_cast<cudaStream_t>(stream));
+            (flags >> 2) & 1, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
 // work: the launch's pixel indices (int32 [n_work]), or null for pixels
 // 0..n_work-1, one lane each.  flags: bit 0 = start from the zero state,
-// bit 1 = HDR form (else native float).
+// bit 1 = HDR form (else native float), bit 2 = the state is an LA
+// phase's handoff (j holds jwait), which the launch applies first.
 #define FS_PERTURB_ARGS                                                      \
   const void *dcr, const void *dci, const void *dce, const void *orbit,      \
       void *st_dzr, void *st_dzi, void *st_dze, void *st_j, void *st_it,     \

@@ -1,6 +1,9 @@
-// Device code shared by the per-pixel loops K6 (csrc/perturb.cu) and K2
-// (csrc/lav2.cu): the orbit row and its load, and the orbit cursor (K6),
-// which has the row a step needs in registers when the step starts.
+// Device code shared by the per-pixel loops K6 (csrc/perturb.cu), K2
+// (csrc/lav2.cu) and K3 (csrc/rc_tail.cu): the orbit row and its load, the
+// orbit cursor (K6), which has the row a step needs in registers when the
+// step starts, the HDR perturbation step (K6 and K3), and the anchor cursor
+// (K3), which has the next anchor's position and value in registers before
+// a step needs them.
 //
 // Orbit rows: the packed [M, 4] table of ops/tables.py pack_orbit_np,
 // row r = (Z[r], Z[r+1]).  A step at position j reads row j; the next step
@@ -18,6 +21,9 @@
 #pragma once
 
 #include <cstdint>
+
+#include "df32.cuh"
+#include "hdr.cuh"
 
 namespace fs {
 
@@ -72,6 +78,105 @@ struct OrbitCursor {
   // the next step's row: row 0 on a rebase, else the row loaded ahead
   __device__ __forceinline__ Row<T> pick(bool rebase, Row<T> next) const {
     return rebase ? row0 : next;
+  }
+};
+
+// One HDR perturbation step from Z[j] = (z0r, z0i) and Z[j+1] = (z1r, z1i)
+// (perturb.py:6-11): ndz = dz(2Z[j] + dz) + dc, zf = Z[j+1] + ndz, escape
+// at |zf|^2 > 2^8, lower = |zf|^2 < |ndz|^2.  The compares: reduced, as
+// _perturb_hdr_impl (K6), or unreduced, as B11 and B3 (kUnreduced: K3);
+// the two are boolean-identical (fractalshark_tpu/ops/hdrfloat.py:220-238),
+// and each kernel takes the form it measured faster with (PERF.md §6).
+template <typename T>
+struct HdrStep {
+  HdrCT<T> ndz, zf;
+  bool esc, lower;
+};
+
+template <bool kUnreduced, typename T>
+__device__ __forceinline__ HdrStep<T> hdr_step(T z0r, T z0i, T z1r, T z1i,
+                                               HdrCT<T> dz, HdrCT<T> dc) {
+  const HdrCT<T> zj = {z0r, z0i, 0};
+  const HdrCT<T> t = complex_add(complex_mul_pow2(zj, 1), dz);
+  HdrStep<T> o;
+  o.ndz = reduce_complex(complex_add(complex_mul(t, dz), dc));
+  o.zf = reduce_complex(complex_add(HdrCT<T>{z1r, z1i, 0}, o.ndz));
+  if (kUnreduced) {
+    const HdrT<T> nsq = norm_squared(o.zf);
+    const HdrT<T> dsq = norm_squared(o.ndz);
+    o.esc = gt_pow2_unreduced(nsq, 8);
+    o.lower = lt_unreduced(nsq, dsq);
+  } else {
+    const HdrT<T> two56 = {T(1), 8};
+    const HdrT<T> nsq = reduce(norm_squared(o.zf));
+    const HdrT<T> dsq = reduce(norm_squared(o.ndz));
+    o.esc = gt_reduced(nsq, two56);
+    o.lower = lt_reduced(nsq, dsq);
+  }
+  return o;
+}
+
+// An anchor of a compressed orbit: Z at the anchor's position as df32
+// pairs (x hi, x lo, y hi, y lo), and the load of its position.
+__device__ __forceinline__ float4 load_anchor(const float *r) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(r));
+  return v;
+}
+__device__ __forceinline__ int32_t load_position(const int32_t *r) {
+  int32_t v;
+  asm volatile("ld.global.nc.s32 %0, [%1];" : "=r"(v) : "l"(r));
+  return v;
+}
+__device__ __forceinline__ int64_t load_position(const int64_t *r) {
+  int64_t v;
+  asm volatile("ld.global.nc.s64 %0, [%1];" : "=l"(v) : "l"(r));
+  return v;
+}
+
+// K3's cursor over a compressed orbit: m anchors at ascending positions
+// aidx[0..m-1] (aidx[0] = 0) with values aval[4a..4a+3].  A pixel at
+// anchor pointer a (the last anchor at or before its position) holds the
+// positions of anchors a+1 and a+2 and the value of anchor a+1.  A step
+// whose next position is anchor a+1 takes its value from registers and, when
+// it starts, loads the position of anchor a+3 and the value of anchor a+2:
+// the loads are a step ahead of their use, and no position load sits on a
+// step's chain.  Anchor 0's value, the rebase target, is held for the
+// launch; a rebase reloads what follows it (holding that too took more
+// registers and measured slower where many warps share an SM, PERF.md §6).
+// I is int32_t where every position fits (max_ref < 2^31 - 1), else
+// int64_t.
+template <typename I>
+struct NoAnchor;  // the position of the anchor past the last: never reached
+template <>
+struct NoAnchor<int32_t> {
+  static constexpr int32_t value = INT32_MAX;
+};
+template <>
+struct NoAnchor<int64_t> {
+  static constexpr int64_t value = INT64_MAX;
+};
+
+template <typename I>
+struct AnchorCursor {
+  static constexpr I kNone = NoAnchor<I>::value;
+  const I *aidx;
+  const float *aval;
+  I m;
+  float4 v0;  // anchor 0's value
+
+  __device__ __forceinline__ AnchorCursor(const I *aidx_, const float *aval_,
+                                          I m_)
+      : aidx(aidx_), aval(aval_), m(m_) {
+    v0 = load_anchor(aval);
+  }
+  __device__ __forceinline__ I position(I a) const {
+    return a < m ? load_position(aidx + a) : kNone;
+  }
+  __device__ __forceinline__ float4 value(I a) const {
+    return load_anchor(aval + 4 * (a < m ? a : m - 1));
   }
 };
 

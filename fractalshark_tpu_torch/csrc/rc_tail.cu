@@ -1,30 +1,50 @@
-// K3: the RC perturbation tail, one thread per pixel with its own
-// orbit-reconstruction cursor.
+// K3: the RC perturbation tail over a compressed orbit, one lane per pixel
+// with its own orbit-reconstruction cursor.
 //
 // Replaces: fractalshark_tpu/ops/perturb_stream.py:395 _rc_kernel (B3,
 // Pallas; launch _rc_launch :607, API perturb_render_stream_rc :773).
+// The reference also runs B3 over identity anchors (every orbit position an
+// anchor) as the two-phase tail of an uncompressed orbit; that tail never
+// reconstructs and its step is K6's, so the port runs it on K6 resumed from
+// the handoff (engine/renderers.py _identity_tail) and K3 takes only real
+// compressed orbits.
 //
 // The TPU kernel sweeps one serial reconstruction cursor over the orbit
 // for a whole tile in lockstep, because Mosaic has no vector gather.  A
-// GPU thread can gather, so each pixel keeps its own cursor (orbit
-// position, anchor pointer, df32 value), the design of the reference's
-// gather tail ops/rc_tail.py (df32 mode), which tests/test_rc_tail.py
-// pins bit-identical to the sweep.  The cost is then proportional to
-// each pixel's own work, not to the orbit length.
+// GPU lane can gather, so each pixel keeps its own cursor (orbit position,
+// anchor pointer, df32 value), the design of the reference's gather tail
+// ops/rc_tail.py (df32 mode), which tests/test_rc_tail.py pins
+// bit-identical to the sweep.  The cost is then proportional to each
+// pixel's own work, not to the orbit length.
 //
 // Init launch (the handoff, perturb_stream.py:671-716): a pixel handed
-// over at jwait >= max_ref rebases there (dz <- Z[max_ref] + dz,
-// position 0) without spending an iteration; others are clipped to
-// [0, max_ref-1].  Each thread binary-searches its last anchor <= its
-// position and catches up with the df32 recurrence (:480-489).
-// Tail (:492-520): HDR-f32 step against Z[pos] and Z[pos+1] (hi parts),
-// unreduced compares, escape at |z|^2 > 2^8, rebase on |z|^2 < |dz|^2 or
-// at the orbit's end, which restarts the pixel at position 0 / anchor 0.
-// The remaining budget and positions are int64 (the reference's
-// (hi, lo) i32 pairs are a Mosaic workaround).
-// Bound: the dependent 16-byte anchor loads and ~60 FP32 ops per step
-// (the df32 recurrence runs only between anchors); launches are bounded
-// by chunk_steps tail steps per pixel and resume from the state arrays.
+// over at jwait >= max_ref rebases there (dz <- Z[max_ref] + dz, position
+// 0) without spending an iteration; others are clipped to [0, max_ref-1].
+// Each lane binary-searches its last anchor <= its position and catches up
+// with the df32 recurrence (:480-489).
+// Tail (:492-520): the HDR-f32 step against Z[pos] and Z[pos+1] (hi parts;
+// csrc/pixel_loop.cuh hdr_step, K6's step with unreduced compares), escape
+// at |z|^2 > 2^8, rebase on |z|^2 < |dz|^2 or at the orbit's end, which
+// restarts the pixel at position 0 / anchor 0.  Z[pos+1] is the next anchor's value when an
+// anchor sits there, else one df32 step from Z[pos].
+//
+// What bounds it: one pixel's chain of steps, each the HDR step (~60 f32
+// operations) plus, between anchors, the df32 step (~40 more).  So:
+//  * the anchor cursor (pixel_loop.cuh AnchorCursor) holds the positions of
+//    the next two anchors and the next one's value in registers, and loads
+//    the ones after a step ahead, when a step that reaches an anchor starts:
+//    no index load decides a step;
+//  * anchor 0's value (the rebase target) is held for the launch;
+//  * the step's compares are B3's unreduced ones (pixel_loop.cuh hdr_step),
+//    which measured faster here than K6's reduced ones;
+//  * positions and anchor pointers are int32 where the orbit allows it
+//    (I = int32_t, max_ref < 2^31 - 1), and the remaining budget stays int64
+//    (64-bit budgets);
+//  * between launches ops/perturb_stream.py hands the kernel only the pixels
+//    still live, one lane each; with more pixels than the card holds lanes,
+//    lanes take further pixels from a work queue (kQueue, K2's form).
+// The order in which pixels run changes nothing: each pixel's steps depend
+// on its own state alone.
 
 #include <cuda_runtime.h>
 
@@ -32,16 +52,20 @@
 
 #include "df32.cuh"
 #include "hdr.cuh"
+#include "pixel_loop.cuh"
 
 namespace {
 
 using fs::DF;
-using fs::Hdr;
 using fs::HdrC;
 
+// threads per block
+constexpr int kBlock = 128;
+// steps a queue lane runs before it looks at the queue again (lav2.cu)
+constexpr int kRound = 32;
+
 struct RcParams {
-  int n_pixels;
-  int64_t n_anchor;
+  int n_work;
   int64_t max_ref;
   DF cx, cy;
   float zx_mr, zy_mr;
@@ -50,125 +74,210 @@ struct RcParams {
   int init;
 };
 
-__global__ void rc_tail_kernel(const float *__restrict__ dcr,
-                               const float *__restrict__ dci,
-                               const int32_t *__restrict__ dce,
-                               const int64_t *__restrict__ aidx,
-                               const float4 *__restrict__ aval, float *st_dzr,
-                               float *st_dzi, int32_t *st_dze, int64_t *st_rem,
-                               int64_t *st_pos, int64_t *st_aptr, float4 *st_z,
-                               uint8_t *st_done, RcParams P) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P.n_pixels) return;
-  const HdrC dc = {dcr[p], dci[p], dce[p]};
-  HdrC dz = {st_dzr[p], st_dzi[p], st_dze[p]};
-  int64_t rem = st_rem[p];
-  int64_t pos = st_pos[p];
-  int64_t aptr = st_aptr[p];
-  float4 z = st_z[p];
-  bool done = st_done[p] != 0;
+template <typename I, bool kQueue>
+__global__ void __launch_bounds__(kBlock)
+    rc_tail_kernel(const float *__restrict__ dcr,
+                   const float *__restrict__ dci,
+                   const int32_t *__restrict__ dce,
+                   const I *__restrict__ aidx,
+                   const float *__restrict__ aval, I n_anchor, float *st_dzr,
+                   float *st_dzi, int32_t *st_dze, int64_t *st_rem, I *st_pos,
+                   I *st_aptr, float4 *st_z, uint8_t *st_done,
+                   const int32_t *__restrict__ work, int32_t *counter,
+                   RcParams P) {
+  const fs::AnchorCursor<I> cur(aidx, aval, n_anchor);
+  const I max_ref = static_cast<I>(P.max_ref);
+  // steps a pixel may run in this launch (chunk_steps 0: no bound)
+  const int64_t chunk = P.chunk_steps > 0 ? P.chunk_steps : INT64_MAX;
+  const int lanes = gridDim.x * blockDim.x;
+  int item = blockIdx.x * blockDim.x + threadIdx.x;  // this lane's first
+  int p = -1;  // this lane's pixel, -1 while it has none
 
-  if (P.init) {
-    // on entry rem holds the completed iterations and pos the jwait
-    const int64_t it = rem, jw = pos;
-    if (jw >= P.max_ref && !done) {
-      dz = fs::reduce_complex(
-          fs::complex_add(HdrC{P.zx_mr, P.zy_mr, 0}, dz));
-      pos = 0;
-    } else {
-      const int64_t hi = P.max_ref - 1 > 0 ? P.max_ref - 1 : 0;
-      pos = jw < 0 ? 0 : (jw > hi ? hi : jw);
-    }
-    rem = P.max_iter - it > 0 ? P.max_iter - it : 0;
-    if (rem == 0) done = true;
-    if (!done) {
-      // last anchor <= pos (anchor 0 is position 0)
-      int64_t lo = 0, up = P.n_anchor;
-      while (lo < up) {
-        const int64_t mid = lo + (up - lo) / 2;
-        if (aidx[mid] <= pos) lo = mid + 1; else up = mid;
+  HdrC dc{}, dz{};
+  int64_t rem = 0, k = 0;
+  I pos = 0, a = 0;  // orbit position, last anchor at or before it
+  I n1 = 0, n2 = 0;  // positions of anchors a+1 and a+2
+  float4 z{}, nv{};  // Z[pos] and anchor a+1's value (df32 pairs)
+  bool done = true;
+
+  for (;;) {
+    if (p < 0) {
+      if (item < 0) item = kQueue ? lanes + atomicAdd(counter, 1) : P.n_work;
+      if (item >= P.n_work) break;
+      p = work ? work[item] : item;
+      item = -1;
+      dc = {dcr[p], dci[p], dce[p]};
+      dz = {st_dzr[p], st_dzi[p], st_dze[p]};
+      rem = st_rem[p];
+      pos = st_pos[p];
+      a = st_aptr[p];
+      z = st_z[p];
+      done = st_done[p] != 0;
+      if (P.init) {
+        // on entry rem holds the completed iterations and pos the jwait
+        const int64_t it = rem;
+        const I jw = pos;
+        if (jw >= max_ref && !done) {
+          dz = fs::reduce_complex(
+              fs::complex_add(HdrC{P.zx_mr, P.zy_mr, 0}, dz));
+          pos = 0;
+        } else {
+          const I hi = max_ref - 1 > 0 ? max_ref - 1 : 0;
+          pos = jw < 0 ? 0 : (jw > hi ? hi : jw);
+        }
+        rem = P.max_iter - it > 0 ? P.max_iter - it : 0;
+        if (rem == 0) done = true;
+        if (!done) {
+          // last anchor <= pos (anchor 0 is position 0)
+          I lo = 0, up = n_anchor;
+          while (lo < up) {
+            const I mid = lo + (up - lo) / 2;
+            if (aidx[mid] <= pos) lo = mid + 1; else up = mid;
+          }
+          a = lo - 1;
+          z = fs::load_anchor(aval + 4 * a);
+          DF zx = {z.x, z.y}, zy = {z.z, z.w};
+          for (I c = pos - aidx[a]; c > 0; --c)
+            fs::df_orbit_step(zx, zy, P.cx, P.cy);
+          z = make_float4(zx.hi, zx.lo, zy.hi, zy.lo);
+        }
       }
-      aptr = lo - 1;
-      z = aval[aptr];
-      DF zx = {z.x, z.y}, zy = {z.z, z.w};
-      for (int64_t c = pos - aidx[aptr]; c > 0; --c)
+      if (!done) {
+        n1 = cur.position(a + 1);
+        n2 = cur.position(a + 2);
+        nv = cur.value(a + 1);
+      }
+      k = 0;
+    }
+
+    // a round of up to kRound steps (the queue), or all of the launch's
+    const int64_t stop = kQueue && chunk - k > kRound ? k + kRound : chunk;
+    for (; !done && k < stop; ++k) {
+      // Z[pos+1]: anchor a+1's value if it sits there (then the next
+      // anchor's position and value are loaded now, for the steps after),
+      // else the recurrence
+      const bool hit = n1 == pos + 1;
+      I n3 = n2;
+      float4 nv2 = nv, zn = nv;
+      if (hit) {
+        n3 = cur.position(a + 3);
+        nv2 = cur.value(a + 2);
+      } else {
+        DF zx = {z.x, z.y}, zy = {z.z, z.w};
         fs::df_orbit_step(zx, zy, P.cx, P.cy);
-      z = make_float4(zx.hi, zx.lo, zy.hi, zy.lo);
+        zn = make_float4(zx.hi, zx.lo, zy.hi, zy.lo);
+      }
+      const fs::HdrStep<float> o =
+          fs::hdr_step<true>(z.x, z.z, zn.x, zn.z, dz, dc);
+      if (o.esc) {
+        done = true;
+        break;
+      }
+      rem -= 1;
+      if (o.lower || pos + 1 >= max_ref) {
+        dz = o.zf;
+        pos = 0;
+        a = 0;
+        z = cur.v0;
+        n1 = cur.position(1);
+        n2 = cur.position(2);
+        nv = cur.value(1);
+      } else {
+        dz = o.ndz;
+        pos += 1;
+        z = zn;
+        if (hit) {
+          a += 1;
+          n1 = n2;
+          n2 = n3;
+          nv = nv2;
+        }
+      }
+      if (rem == 0) done = true;
+    }
+
+    if (done || k >= chunk) {
+      st_dzr[p] = dz.re;
+      st_dzi[p] = dz.im;
+      st_dze[p] = dz.e;
+      st_rem[p] = rem;
+      st_pos[p] = pos;
+      st_aptr[p] = a;
+      st_z[p] = z;
+      st_done[p] = done ? 1 : 0;
+      p = -1;
     }
   }
+}
 
-  for (int64_t k = 0; !done && (P.chunk_steps == 0 || k < P.chunk_steps);
-       ++k) {
-    // Z[pos+1]: the next anchor if it sits there, else the recurrence
-    const bool hit = (aptr + 1 < P.n_anchor) && aidx[aptr + 1] == pos + 1;
-    float4 zn;
-    if (hit) {
-      zn = aval[aptr + 1];
-    } else {
-      DF zx = {z.x, z.y}, zy = {z.z, z.w};
-      fs::df_orbit_step(zx, zy, P.cx, P.cy);
-      zn = make_float4(zx.hi, zx.lo, zy.hi, zy.lo);
-    }
-    const HdrC zj = {z.x, z.z, 0};
-    const HdrC t = fs::complex_add(fs::complex_mul_pow2(zj, 1), dz);
-    const HdrC ndz =
-        fs::reduce_complex(fs::complex_add(fs::complex_mul(t, dz), dc));
-    const HdrC zf =
-        fs::reduce_complex(fs::complex_add(HdrC{zn.x, zn.z, 0}, ndz));
-    const Hdr nsq = fs::norm_squared(zf);
-    const Hdr dsq = fs::norm_squared(ndz);
-    if (fs::gt_pow2_unreduced(nsq, 8)) {
-      done = true;
-      break;
-    }
-    rem -= 1;
-    if (fs::lt_unreduced(nsq, dsq) || pos + 1 >= P.max_ref) {
-      dz = zf;
-      pos = 0;
-      aptr = 0;
-      z = aval[0];
-    } else {
-      dz = ndz;
-      pos += 1;
-      if (hit) aptr += 1;
-      z = zn;
-    }
-    if (rem == 0) done = true;
-  }
+// blocks of `kernel` the card holds at once (0 on a CUDA error, in *err)
+template <typename K>
+int64_t resident_blocks(K kernel, cudaError_t *err) {
+  int dev = 0, sms = 0, per_sm = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*err == cudaSuccess)
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         kBlock, 0);
+  return *err == cudaSuccess ? int64_t{per_sm} * sms : 0;
+}
 
-  st_dzr[p] = dz.re;
-  st_dzi[p] = dz.im;
-  st_dze[p] = dz.e;
-  st_rem[p] = rem;
-  st_pos[p] = pos;
-  st_aptr[p] = aptr;
-  st_z[p] = z;
-  st_done[p] = done ? 1 : 0;
+template <typename I>
+int launch(const void *dcr, const void *dci, const void *dce,
+           const void *aidx, const void *aval, void *st_dzr, void *st_dzi,
+           void *st_dze, void *st_rem, void *st_pos, void *st_aptr,
+           void *st_z, void *st_done, const void *work, void *counter,
+           int32_t n_work, int64_t n_anchor, const RcParams &P,
+           cudaStream_t stream) {
+  cudaError_t err;
+  const int64_t resident = resident_blocks(rc_tail_kernel<I, true>, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (resident < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // the queue only when some lane must take a second pixel
+  const int64_t want = (n_work + int64_t{kBlock} - 1) / kBlock;
+  const bool queue = want > resident;
+  err = cudaMemsetAsync(counter, 0, sizeof(int32_t), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto kernel =
+      queue ? rc_tail_kernel<I, true> : rc_tail_kernel<I, false>;
+  kernel<<<static_cast<int>(queue ? resident : want), kBlock, 0, stream>>>(
+      static_cast<const float *>(dcr), static_cast<const float *>(dci),
+      static_cast<const int32_t *>(dce), static_cast<const I *>(aidx),
+      static_cast<const float *>(aval), static_cast<I>(n_anchor),
+      static_cast<float *>(st_dzr), static_cast<float *>(st_dzi),
+      static_cast<int32_t *>(st_dze), static_cast<int64_t *>(st_rem),
+      static_cast<I *>(st_pos), static_cast<I *>(st_aptr),
+      static_cast<float4 *>(st_z), static_cast<uint8_t *>(st_done),
+      static_cast<const int32_t *>(work), static_cast<int32_t *>(counter),
+      P);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// work: the launch's pixel indices (int32 [n_work]), or null for pixels
+// 0..n_work-1; counter: one int32 of device scratch for the work queue.
+// aidx, st_pos and st_aptr are int32 (flags bit 1 clear; max_ref < 2^31 -
+// 1) or int64 (bit 1 set).  flags bit 0: the init launch (the handoff).
 extern "C" int fs_rc_tail(const void *dcr, const void *dci, const void *dce,
                           const void *aidx, const void *aval, void *st_dzr,
                           void *st_dzi, void *st_dze, void *st_rem,
                           void *st_pos, void *st_aptr, void *st_z,
-                          void *st_done, int32_t n_pixels, int64_t n_anchor,
-                          int64_t max_ref, float cxh, float cxl, float cyh,
-                          float cyl, float zx_mr, float zy_mr,
-                          int64_t max_iter, int64_t chunk_steps, int32_t init,
-                          void *stream) {
-  const RcParams P = {n_pixels, n_anchor, max_ref,  DF{cxh, cxl},
-                      DF{cyh, cyl}, zx_mr, zy_mr, max_iter,
-                      chunk_steps, init};
-  const int block = 128;
-  const int grid = (n_pixels + block - 1) / block;
-  rc_tail_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float *>(dcr), static_cast<const float *>(dci),
-      static_cast<const int32_t *>(dce), static_cast<const int64_t *>(aidx),
-      static_cast<const float4 *>(aval), static_cast<float *>(st_dzr),
-      static_cast<float *>(st_dzi), static_cast<int32_t *>(st_dze),
-      static_cast<int64_t *>(st_rem), static_cast<int64_t *>(st_pos),
-      static_cast<int64_t *>(st_aptr), static_cast<float4 *>(st_z),
-      static_cast<uint8_t *>(st_done), P);
-  return static_cast<int>(cudaGetLastError());
+                          void *st_done, const void *work, void *counter,
+                          int32_t n_work, int64_t n_anchor, int64_t max_ref,
+                          float cxh, float cxl, float cyh, float cyl,
+                          float zx_mr, float zy_mr, int64_t max_iter,
+                          int64_t chunk_steps, int32_t flags, void *stream) {
+  if (n_work <= 0) return 0;
+  const bool wide = (flags & 2) != 0;
+  if (n_anchor < 1 || (!wide && max_ref >= INT32_MAX))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RcParams P = {n_work,   max_ref,     DF{cxh, cxl}, DF{cyh, cyl},
+                      zx_mr,    zy_mr,       max_iter,     chunk_steps,
+                      flags & 1};
+  const auto go = wide ? launch<int64_t> : launch<int32_t>;
+  return go(dcr, dci, dce, aidx, aval, st_dzr, st_dzi, st_dze, st_rem,
+            st_pos, st_aptr, st_z, st_done, work, counter, n_work, n_anchor,
+            P, static_cast<cudaStream_t>(stream));
 }

@@ -9,7 +9,14 @@ Routing follows the reference's accelerator route
   two-phase with K3 over the real compressed anchors; LAO → K2
   ``la_only``; FULL within the reference's one-kernel Pallas caps (orbit
   ≤ 8,192 entries, table ≤ 2,048 nodes) → K2 in full mode; otherwise →
-  two-phase: K2 ``la_only``, the handoff, then K3 over identity anchors;
+  two-phase: K2 ``la_only``, the handoff, then the tail over the
+  uncompressed orbit.  The reference runs that tail as its RC kernel
+  over identity anchors (every orbit position an anchor, so the
+  reconstruction never runs); its step is K6's HDR-f32 step, so here it
+  is K6 resumed from the handoff state (``perturb.handoff_state``,
+  ``perturb.perturb_run``; K6's first launch applies the handoff) on the
+  packed orbit phase 1 already put on the device: no anchor table is
+  built or uploaded;
 * f64 mantissas (f64, hdr64: the ``Gpu1x64PerturbedLAv2`` band AUTO
   picks from 2^46 to 2^200) → K2-f64 in full or ``la_only`` mode, the
   reference's one route for them (its RC, Pallas and two-phase routes
@@ -48,6 +55,7 @@ from fractalshark_tpu_torch.ops.la_stream import la_phase_stream
 from fractalshark_tpu_torch.ops.perturb_pallas import perturb_render_pallas
 from fractalshark_tpu_torch.ops.perturb_stream import (
     anchors_on, perturb_render_stream, perturb_render_stream_rc)
+from fractalshark_tpu_torch.ops.tables import orbit_on
 
 # ROADMAP items that own the routes this port does not have yet
 _NOT_PORTED = {
@@ -212,22 +220,18 @@ def use_stream_phase(device) -> bool:
 
 def la_rc_render(fractal, results, la, w: int, h: int,
                  identity: bool = False) -> torch.Tensor:
-    """Two-phase LAv2 over identity anchors (exact streaming of the
-    uncompressed orbit) or the real compressed orbit (RC); phase 1 is the
-    streaming LA phase where ``FRACTALSHARK_LA_PHASE=stream`` selects it
-    on a CUDA device."""
+    """Two-phase LAv2 over the uncompressed orbit (`identity`: K6's tail)
+    or the real compressed orbit (RC: K3's tail over its anchors); phase 1
+    is the streaming LA phase where ``FRACTALSHARK_LA_PHASE=stream``
+    selects it on a CUDA device."""
     stream = use_stream_phase(fractal.device)
-    t0 = time.perf_counter()
-    if identity:
-        comp = results.extra.get("identity_compressed")
-        if comp is None:
-            comp = results.extra["identity_compressed"] = \
-                CompressedOrbit.identity(results)
-    else:
+    comp = None
+    if not identity:
+        t0 = time.perf_counter()
         comp = _compressed(fractal, results)
-    anchors_on(comp, fractal.device)
-    _sync(fractal.device)
-    fractal.benchmark.extra["anchors_s"] = time.perf_counter() - t0
+        anchors_on(comp, fractal.device)
+        _sync(fractal.device)
+        fractal.benchmark.extra["anchors_s"] = time.perf_counter() - t0
     return two_phase_render(results, la, fractal.ptz, w, h,
                             fractal.num_iterations, comp=comp,
                             abort_monitor=fractal.abort_monitor,
@@ -242,14 +246,15 @@ def _handoff_init(ref_iter, it, n: int) -> tuple:
 
 def two_phase_render(results, la, ptz, w: int, h: int, n: int, *, comp=None,
                      abort_monitor=None, device="cuda",
-                     timings: dict | None = None,
-                     stream: bool = False) -> torch.Tensor:
+                     timings: dict | None = None, stream: bool = False,
+                     chunk_steps: int | None = None) -> torch.Tensor:
     """Phase 1: the LA machine to each pixel's tail entry (K2,
     ``la_only``; with `stream` the streaming LA phase, K7, unless it
-    returns None); phase 2: the RC tail from each pixel's orbit position
-    (K3).  Returns the int64 iteration grid [h, w]."""
-    if comp is None:
-        comp = CompressedOrbit.identity(results)
+    returns None); phase 2: the tail from each pixel's orbit position,
+    over the uncompressed orbit (`comp` None: K6 resumed) or the
+    compressed orbit `comp` (K3).  Returns the int64 iteration grid
+    [h, w].  `chunk_steps` bounds the tail's launches (default: its
+    kernel's)."""
     t0 = time.perf_counter()
     init = la_phase_stream(results, la, ptz, w, h, n,
                            abort_monitor=abort_monitor,
@@ -266,11 +271,31 @@ def two_phase_render(results, la, ptz, w: int, h: int, n: int, *, comp=None,
         timings["la_phase"] = "stream"
     _sync(device)
     t1 = time.perf_counter()
-    out = perturb_render_stream_rc(
-        comp, results.center_x, results.center_y, ptz, w, h, n,
-        init_state=init, abort_monitor=abort_monitor, device=device)
+    if comp is None:
+        out = _identity_tail(results, ptz, w, h, n, init, chunk_steps,
+                             abort_monitor, device)
+    else:
+        out = perturb_render_stream_rc(
+            comp, results.center_x, results.center_y, ptz, w, h, n,
+            init_state=init, chunk_steps=chunk_steps,
+            abort_monitor=abort_monitor, device=device)
     _sync(device)
     if timings is not None:
         timings["phase1_s"] = t1 - t0
         timings["phase2_s"] = time.perf_counter() - t1
     return out
+
+
+def _identity_tail(results, ptz, w: int, h: int, n: int, init: dict,
+                   chunk_steps, abort_monitor, device) -> torch.Tensor:
+    """The two-phase tail over the uncompressed orbit: the handoff, then
+    K6 (HDR-f32) over the live pixels, counted as ``two_phase_tail``."""
+    device = torch.device(device)
+    orbit = orbit_on(results, device)
+    max_ref = results.max_ref_iteration()
+    dc = perturb._dc_grids_hdr(*perturb.delta_params(
+        ptz, results.center_x, results.center_y, w, h), w, h, device)
+    return perturb.perturb_run(orbit, dc, n, max_ref, True,
+                               "two_phase_tail", chunk_steps, abort_monitor,
+                               perturb.handoff_state(init, device),
+                               handoff=True)

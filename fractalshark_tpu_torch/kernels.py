@@ -59,8 +59,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # alone or by the per-step chunk loop (fs_orbit_chunk); K6 per entry
 # point (perturb_pallas and perturb_stream: the HDR-f32 routes of B10 and
 # B11; perturb_hdr32/hdr64: perturb_render_hdr; perturb_f32/f64:
-# perturb_render_float); K4-NR (ntt_nr) and K5-NR (nr_tail) once per NR
-# step, whether launched alone or by the NR chunk loop (fs_nr_chunk);
+# perturb_render_float; two_phase_tail: the two-phase LAv2 tail over the
+# uncompressed orbit, B3's identity-anchor form); K3 (rc_tail) once per
+# launch over compressed anchors; K4-NR (ntt_nr) and K5-NR (nr_tail)
+# once per NR step, whether launched alone or by the NR chunk loop
+# (fs_nr_chunk);
 # K1-seq (escape_seq) once per frame sequence, K7 (la_stream) per init
 # or stage launch, K8 (ntt_phase) per phase transform; K9 once per
 # multiply per form (ntt_products_whole: one cooperative launch;
@@ -72,11 +75,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("escape", "lav2_full", "lav2_phase1", "rc_tail", "ntt_orbit",
            "orbit_tail", "lav2_full_f64", "lav2_lao_f64", "perturb_pallas",
            "perturb_stream", "perturb_hdr32", "perturb_hdr64", "perturb_f32",
-           "perturb_f64", "ntt_nr", "nr_tail", "escape_seq", "la_stream",
-           "ntt_phase", "ntt_products_whole", "ntt_products_split",
-           "fused_tail_grid", "fused_tail_batched", "iterate_full",
-           "orbit_chunk_block", "orbit_chunk_grid", "nr_chunk_block",
-           "nr_chunk_grid")
+           "perturb_f64", "two_phase_tail", "ntt_nr", "nr_tail",
+           "escape_seq", "la_stream", "ntt_phase", "ntt_products_whole",
+           "ntt_products_split", "fused_tail_grid", "fused_tail_batched",
+           "iterate_full", "orbit_chunk_block", "orbit_chunk_grid",
+           "nr_chunk_block", "nr_chunk_grid")
 launches = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -104,8 +107,9 @@ _SIGNATURES = {
     # chunk flags | stream
     "fs_perturb_f32": [_P] * 11 + [_I32, _I64, _I64, _I64, _I32, _P],
     "fs_perturb_f64": [_P] * 11 + [_I32, _I64, _I64, _I64, _I32, _P],
-    # rc_tail: dc(3) anchor index, values | state(8) | scalars | stream
-    "fs_rc_tail": [_P] * 13 + [_I32, _I64, _I64, _F32, _F32, _F32, _F32,
+    # rc_tail: dc(3) anchor index, values | state(8) | work counter |
+    # scalars | stream
+    "fs_rc_tail": [_P] * 15 + [_I32, _I64, _I64, _F32, _F32, _F32, _F32,
                                _F32, _F32, _I64, _I64, _I32, _P],
     # ntt_orbit: x y coef work tables | D log2n | stream
     "fs_ntt_orbit": [_P] * 5 + [_I32, _I32, _P],
@@ -125,9 +129,9 @@ _SIGNATURES = {
     # D log2n steps | stream
     "fs_nr_chunk": [_P] * 7 + [_I32, _I32] + [_P] * 3
     + [_I32, _I32, _I32, _P],
-    # escape_seq: out params | frames width height | stream
-    "fs_escape_seq_f32": [_P, _P, _I32, _I32, _I32, _P],
-    "fs_escape_seq_f64": [_P, _P, _I32, _I32, _I32, _P],
+    # escape_seq: out params | frames width height | list counter stream
+    "fs_escape_seq_f32": [_P, _P, _I32, _I32, _I32, _P, _P, _P],
+    "fs_escape_seq_f64": [_P, _P, _I32, _I32, _I32, _P, _P, _P],
     # la_stream: dc(3) nodes side stages at | state(8) | n_pixels n_nodes
     # stage max_iter chunk_steps at_step mode | stream
     "fs_la_stream": [_P] * 15 + [_I32, _I32, _I32, _I64, _I64, _I64, _I32,
@@ -264,6 +268,20 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         msg = lib().fs_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+_COUNTERS: dict = {}
+
+
+def queue_counter(device):
+    """Eight bytes of device scratch for a launch's work counter (K2 and
+    K3 count their queue's pixels in its first four, K1-seq its pass-2
+    list); the C entry zeroes it on the stream before the launch."""
+    import torch
+    key = str(device)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _COUNTERS[key]
 
 
 def stream(device) -> int:

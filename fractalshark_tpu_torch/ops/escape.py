@@ -75,6 +75,24 @@ def _coords(params: PlainParams, width: int, height: int, dtype, device,
             cy[:, None].expand(height, width).contiguous())
 
 
+def _interior(cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
+    """The tile's shortcut (``escape.py:166-178``): c in the main
+    cardioid or the period-2 bulb, every result flushed."""
+    xq = ftz(cx - 0.25)
+    cy2 = ftz(cy * cy)
+    q = ftz(ftz(xq * xq) + cy2)
+    cx1 = ftz(cx + 1.0)
+    return (ftz(q * ftz(q + xq)) <= ftz(0.25 * cy2)) | \
+        (ftz(ftz(cx1 * cx1) + cy2) <= 0.0625)
+
+
+def interior_mask(params: PlainParams, width: int, height: int, dtype,
+                  device="cpu") -> torch.Tensor:
+    """The pixels of a tile frame that the shortcut resolves without
+    iterating, as the kernels test them (bool [height, width])."""
+    return _interior(*_coords(params, width, height, dtype, device, ftz))
+
+
 def tile_semantics(max_iter: int, dtype) -> bool:
     """Whether a single frame runs the reference's Pallas tile: f32 below
     a budget of 2^31 (``engine/fractal.py:182-184``)."""
@@ -96,12 +114,7 @@ def escape_plain(params: PlainParams, width: int, height: int,
     it = torch.zeros((height, width), dtype=torch.int64, device=device)
     active = torch.ones((height, width), dtype=torch.bool, device=device)
     if tile:
-        xq = fl(cx - 0.25)
-        cy2 = fl(cy * cy)
-        q = fl(fl(xq * xq) + cy2)
-        cx1 = fl(cx + 1.0)
-        interior = (fl(q * fl(q + xq)) <= fl(0.25 * cy2)) | \
-            (fl(fl(cx1 * cx1) + cy2) <= 0.0625)
+        interior = _interior(cx, cy)
         it = torch.where(interior, max_iter, it)
         active &= ~interior
     zx, zy = cx.clone(), cy.clone()
@@ -165,15 +178,19 @@ def _np_dtype(dtype):
     return np.float32 if dtype == torch.float32 else np.float64
 
 
-def _seq_table(params_seq, max_iter: int, dtype) -> np.ndarray:
+def _seq_table(params_seq, max_iter: int, dtype, width: int = 1,
+               height: int = 1) -> np.ndarray:
     """The reference's [K, 5] table (min_x, max_y, dx, dy, budget) in the
     frame type (``escape.py:322-327``, which refuses budgets of 2^31);
-    1 to 65,535 frames (the kernel's grid z)."""
+    1 to 65,535 frames (the kernel's grid z) of fewer than 2^32 pixels in
+    all (its pass-2 list's indices)."""
     if max_iter >= (1 << 31):
         raise ValueError("escape_sequence supports max_iter < 2^31")
     if not 0 < len(params_seq) < (1 << 16):
         raise ValueError(f"escape_sequence renders 1 to 65,535 frames, not "
                          f"{len(params_seq)}")
+    if len(params_seq) * width * height >= (1 << 32):
+        raise ValueError("escape_sequence renders fewer than 2^32 pixels")
     return np.array([[p.min_x, p.max_y, p.dx, p.dy, float(max_iter)]
                      for p in params_seq], _np_dtype(dtype))
 
@@ -190,7 +207,7 @@ def escape_sequence_plain(params_seq, width: int, height: int,
                           device="cpu") -> torch.Tensor:
     """Plain twin of K1-seq: int32 [K, height, width], each frame
     ``_escape_tile``'s grid at the frame type's budget."""
-    tab = _seq_table(params_seq, max_iter, dtype)
+    tab = _seq_table(params_seq, max_iter, dtype, width, height)
     n = seq_budget(max_iter, dtype)
     return torch.stack([
         escape_plain(PlainParams(*(float(v) for v in row[:4])), width,
@@ -201,7 +218,8 @@ def escape_sequence_plain(params_seq, width: int, height: int,
 def escape_sequence_kernel(params_seq, width: int, height: int,
                            max_iter: int, dtype, device) -> torch.Tensor:
     """Launch K1-seq on a CUDA device: int32 [K, height, width]."""
-    tab = torch.from_numpy(_seq_table(params_seq, max_iter, dtype)).to(device)
+    tab = torch.from_numpy(_seq_table(params_seq, max_iter, dtype, width,
+                                      height)).to(device)
     frames = tab.shape[0]
     out = torch.empty((frames, height, width), dtype=torch.int32,
                       device=device)
@@ -209,8 +227,11 @@ def escape_sequence_kernel(params_seq, width: int, height: int,
         else "fs_escape_seq_f64"
     lib = kernels.lib()
     kernels.launches["escape_seq"] += 1
+    # the pass-2 list: one uint32 a pixel at most
+    later = torch.empty(out.numel(), dtype=torch.int32, device=device)
     kernels.check(getattr(lib, name)(
         out.data_ptr(), tab.data_ptr(), frames, width, height,
+        later.data_ptr(), kernels.queue_counter(out.device).data_ptr(),
         kernels.stream(out.device)), name)
     return out
 

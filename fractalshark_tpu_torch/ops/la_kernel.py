@@ -239,7 +239,6 @@ def lav2_plain(T, orbit: torch.Tensor, dc: HDRComplex, state: tuple,
 
 
 _LANES: dict = {}
-_SCRATCH: dict = {}
 
 
 def lanes_on(T, dev, dtype) -> int:
@@ -252,15 +251,6 @@ def lanes_on(T, dev, dtype) -> int:
             kernels.check(-n, "fs_lav2_lanes")
         _LANES[key] = n
     return _LANES[key]
-
-
-def _counter(dev) -> torch.Tensor:
-    """One int32 of device scratch for a launch's work queue (the C entry
-    zeroes it on the stream before the launch)."""
-    key = str(dev)
-    if key not in _SCRATCH:
-        _SCRATCH[key] = torch.zeros(1, dtype=torch.int32, device=dev)
-    return _SCRATCH[key]
 
 
 def lav2_kernel(T, orbit: torch.Tensor, dc: HDRComplex, state: tuple | None,
@@ -306,9 +296,10 @@ def lav2_kernel(T, orbit: torch.Tensor, dc: HDRComplex, state: tuple | None,
         *(t.data_ptr() for t in dc), T.nodes.data_ptr(),
         T.side.data_ptr(), orbit.data_ptr(), T.stages.data_ptr(),
         at.data_ptr(), *(t.data_ptr() for t in state),
-        None if work is None else work.data_ptr(), _counter(dev).data_ptr(),
-        n_work, T.nodes.shape[0], T.stage_count, int(max_ref),
-        int(max_iter), int(chunk_steps), int(T.at_step),
+        None if work is None else work.data_ptr(),
+        kernels.queue_counter(dev).data_ptr(), n_work, T.nodes.shape[0],
+        T.stage_count, int(max_ref), int(max_iter), int(chunk_steps),
+        int(T.at_step),
         int(la_only) | (int(init) << 1) | (PHASES.index(phase) << 2),
         kernels.stream(dev)), "fs_lav2")
     return state

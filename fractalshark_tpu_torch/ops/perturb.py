@@ -210,12 +210,14 @@ def on_subset(step, state: tuple, dc: HDRComplex, work) -> tuple:
 
 def perturb_kernel(orbit: torch.Tensor, dc: HDRComplex, state: tuple | None,
                    max_iter: int, max_ref: int, hdr_mode: bool,
-                   chunk_steps: int, key: str, work=None) -> tuple:
+                   chunk_steps: int, key: str, work=None,
+                   handoff: bool = False) -> tuple:
     """Launch K6 once on a CUDA device, counted under `key` (the entry
     point's instance name), over the pixels `work` (int32 indices; None:
     every pixel).  With `state` None the launch starts every pixel from
-    the zero state itself (and `work` must be None).  The state tensors
-    are updated in place and returned."""
+    the zero state itself (and `work` must be None); with `handoff` it
+    first applies an LA phase's handoff to `state` (``handoff_plain``).
+    The state tensors are updated in place and returned."""
     dev = dc.re.device
     fdt = dc.re.dtype
     P = dc.re.numel()
@@ -249,7 +251,8 @@ def perturb_kernel(orbit: torch.Tensor, dc: HDRComplex, state: tuple | None,
         *(t.data_ptr() for t in state),
         None if work is None else work.data_ptr(), n_work, int(max_ref),
         int(max_iter), int(chunk_steps),
-        int(init) | (int(hdr_mode) << 1), kernels.stream(dev)), "fs_perturb")
+        int(init) | (int(hdr_mode) << 1) | (int(handoff) << 2),
+        kernels.stream(dev)), "fs_perturb")
     return state
 
 
@@ -257,14 +260,55 @@ def _state_dtypes(fdt):
     return (fdt, fdt, torch.int32, torch.int64, torch.int64, torch.bool)
 
 
+def handoff_state(init: dict, device) -> tuple:
+    """K6's HDR-f32 state from an LA phase's handoff (``init``: 'dzr',
+    'dzi', 'dze', 'it' (completed iterations), 'jwait' (orbit position)
+    and 'done'), flat and as handed over (a copy: K6 updates its state
+    in place): `j` holds jwait until the handoff is applied
+    (``handoff_plain``, or K6's first launch)."""
+    def f(k, dt):
+        return init[k].reshape(-1).to(device=device, dtype=dt).clone()
+
+    return (f("dzr", torch.float32), f("dzi", torch.float32),
+            f("dze", torch.int32), f("jwait", torch.int64),
+            f("it", torch.int64), f("done", torch.bool))
+
+
+def handoff_plain(orbit: torch.Tensor, state: tuple, max_iter: int,
+                  max_ref: int) -> tuple:
+    """Plain twin of K6's handoff, as the reference's
+    ``_rc_init_from_handoff`` (``perturb_stream.py:671-716``) prepares
+    its tail: a pixel at the budget is done; a live pixel handed over at
+    ``jwait >= max_ref`` rebases there (dz ← Z[max_ref] + dz, position
+    0) without spending an iteration, the other live positions are
+    clamped to [0, max_ref - 1].  Z[max_ref] is the second half of the
+    packed orbit's row max_ref - 1."""
+    dzr, dzi, dze, jw, it, done = state
+    done = done | (it >= max_iter)
+    wrap = (jw >= max_ref) & ~done
+    zmr = orbit[max(max_ref - 1, 0), 2:4]
+    zf = hdr.reduce_complex(hdr.complex_add(
+        HDRComplex(zmr[0].expand_as(dzr), zmr[1].expand_as(dzr),
+                   torch.zeros_like(dze)), HDRComplex(dzr, dzi, dze)))
+    j = torch.where(done, jw, jw.clamp(0, max(max_ref - 1, 0)))
+    return (torch.where(wrap, zf.re, dzr), torch.where(wrap, zf.im, dzi),
+            torch.where(wrap, zf.e, dze), torch.where(wrap, 0, j), it, done)
+
+
 def perturb_run(orbit: torch.Tensor, dc: HDRComplex, max_iter: int,
                 max_ref: int, hdr_mode: bool, key: str,
-                chunk_steps: int | None = None,
-                abort_monitor=None) -> torch.Tensor:
+                chunk_steps: int | None = None, abort_monitor=None,
+                state: tuple | None = None,
+                handoff: bool = False) -> torch.Tensor:
     """Run every pixel to its escape or the budget (or to an abort) in
     bounded launches, each over the pixels the last one left live: K6 for
-    CUDA tensors, the plain twin for CPU tensors.  Returns the int64
-    iteration grid in dc's shape."""
+    CUDA tensors, the plain twin for CPU tensors.  From the zero state,
+    or resumed from `state` (flat; updated in place on the card); with
+    `handoff`, `state` is an LA phase's (``handoff_state``), which K6's
+    first launch applies (``handoff_plain`` on the CPU).  The first
+    launch runs every pixel (one that is done is stored as it is), so a
+    run that ends in one launch never builds a work list.  Returns the
+    int64 iteration grid in dc's shape."""
     dev = dc.re.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
@@ -272,13 +316,17 @@ def perturb_run(orbit: torch.Tensor, dc: HDRComplex, max_iter: int,
     flat = HDRComplex(*(t.reshape(-1).contiguous() for t in dc))
     if chunk_steps is None:
         chunk_steps = DEFAULT_CHUNK_STEPS if cuda else 0
-    state = None if cuda else init_state_plain(flat, max_iter, hdr_mode)
     work, sizes = None, []
+    if state is not None and handoff and not cuda:
+        state = handoff_plain(orbit, state, max_iter, max_ref)
+    elif state is None and not cuda:
+        state = init_state_plain(flat, max_iter, hdr_mode)
     while True:
         sizes.append(flat.re.numel() if work is None else work.numel())
         if cuda:
             state = perturb_kernel(orbit, flat, state, max_iter, max_ref,
-                                   hdr_mode, chunk_steps, key, work)
+                                   hdr_mode, chunk_steps, key, work,
+                                   handoff=handoff and len(sizes) == 1)
         else:
             state = on_subset(
                 lambda st, d: perturb_plain(orbit, d, st, max_iter, max_ref,

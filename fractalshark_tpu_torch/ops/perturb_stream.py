@@ -12,7 +12,10 @@ relaunches (``launch_windows`` windows of 1,024 steps per pixel per
 launch) and an abort check between launches.
 
 The rest is the RC part (``_rc_kernel``, B3) through kernel K3
-(``csrc/rc_tail.cu``).
+(``csrc/rc_tail.cu``), over a real compressed orbit.  (The reference
+also runs B3 over identity anchors as the two-phase tail of an
+uncompressed orbit; there the port runs K6 resumed from the handoff,
+``engine/renderers.py``.)
 
 The reference sweeps one serial reconstruction cursor over the orbit
 in lockstep for a whole pixel tile (the TPU has no vector gather).  On
@@ -30,9 +33,12 @@ pin bit-identical to the sweep:
    |z|² > 2^8, rebase on |z|² < |dz|² or at the orbit's end, which
    restarts the pixel at position 0 and anchor 0.
 
-Positions and the remaining budget are int64.  Launches are bounded
-(``chunk_steps`` tail steps per pixel) and resumable; the state is
-updated in place.
+Positions and anchor pointers take the anchor table's index type
+(int32 where max_ref < 2^31 - 1, else int64); the remaining budget is
+int64.  Launches are bounded (``chunk_steps`` tail steps per pixel) and
+resumable, each after the first over the pixels the last one left live
+(``perturb.live_pixels``; the plain twin runs the same subsets); the
+state is updated in place.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from fractalshark_tpu_torch.ops import dblflt as dfm
 from fractalshark_tpu_torch.ops import hdrfloat as hdr
 from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
 from fractalshark_tpu_torch.ops.perturb import (_dc_grids_hdr, delta_params,
+                                               live_pixels, on_subset,
                                                perturb_render_hdr)
 from fractalshark_tpu_torch.ops.tables import Anchors, anchor_table
 
@@ -55,6 +62,10 @@ DEFAULT_CHUNK_STEPS = 1 << 16
 WIN = 1024
 
 _STATE = ("dzr", "dzi", "dze", "rem", "pos", "aptr", "z", "done")
+
+# written by rc_tail_run after every render: launches ("dispatches") and
+# the pixels each launch ran ("work")
+last_run_stats: dict = {}
 
 
 def _orbit_value_at(compressed, idx: int) -> tuple[float, float]:
@@ -98,7 +109,8 @@ def rc_init_plain(A: Anchors, state: tuple, max_iter: int,
     pos = torch.where(wrap, 0, jw.clamp(0, max(max_ref - 1, 0)))
     rem = (max_iter - it).clamp(min=0)
     done = done | (rem == 0)
-    aptr = torch.searchsorted(A.index, pos, right=True) - 1
+    aptr = torch.searchsorted(A.index, pos, right=True,
+                              out_int32=A.index.dtype == torch.int32) - 1
     z = A.val[aptr].clone()
     catch = pos - A.index[aptr]
     while bool((catch > 0).any()):
@@ -152,29 +164,43 @@ def rc_tail_plain(A: Anchors, dc: HDRComplex, state: tuple,
 
 
 def rc_tail_kernel(A: Anchors, dc: HDRComplex, state: tuple, max_iter: int,
-                   z_mr: tuple, chunk_steps: int, init: bool) -> tuple:
-    """Launch K3 once on a CUDA device (state updated in place)."""
+                   z_mr: tuple, chunk_steps: int, init: bool,
+                   work=None) -> tuple:
+    """Launch K3 once on a CUDA device over the pixels `work` (int32
+    indices; None: every pixel); the state is updated in place."""
     dev = dc.re.device
     P = dc.re.numel()
-    _check_state(state, P, dev)
+    _check_state(state, P, dev, A.index.dtype)
     for t in (*dc, A.index, A.val):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("K3 inputs must be contiguous on one device")
+    n_work = P
+    if work is not None:
+        if work.dtype != torch.int32 or work.device != dev \
+                or not work.is_contiguous():
+            raise ValueError("K3 work must be contiguous int32 on the device")
+        n_work = work.numel()
+    wide = A.index.dtype == torch.int64
     lib = kernels.lib()
     kernels.launches["rc_tail"] += 1
     kernels.check(lib.fs_rc_tail(
         *(t.data_ptr() for t in dc), A.index.data_ptr(),
         A.val.data_ptr(), *(t.data_ptr() for t in state),
-        P, A.index.shape[0], A.max_ref, *A.c, float(z_mr[0]),
-        float(z_mr[1]), int(max_iter), int(chunk_steps), int(init),
+        None if work is None else work.data_ptr(),
+        kernels.queue_counter(dev).data_ptr(), n_work, A.index.shape[0],
+        A.max_ref, *A.c, float(z_mr[0]), float(z_mr[1]), int(max_iter),
+        int(chunk_steps), int(init) | (int(wide) << 1),
         kernels.stream(dev)), "fs_rc_tail")
     return state
 
 
-def _check_state(state, P, dev):
-    want = (torch.float32, torch.float32, torch.int32, torch.int64,
-            torch.int64, torch.int64, torch.float32, torch.bool)
-    for t, dt, name in zip(state, want, _STATE):
+def _state_dtypes(itype):
+    return (torch.float32, torch.float32, torch.int32, torch.int64, itype,
+            itype, torch.float32, torch.bool)
+
+
+def _check_state(state, P, dev, itype):
+    for t, dt, name in zip(state, _state_dtypes(itype), _STATE):
         n = 4 * P if name == "z" else P
         if t.dtype != dt or t.numel() != n or t.device != dev \
                 or not t.is_contiguous():
@@ -187,18 +213,21 @@ def wrap_value(compressed, max_ref: int) -> tuple[float, float]:
                  for v in _orbit_value_at(compressed, max_ref))
 
 
-def handoff_state(init_state: dict, device) -> tuple:
+def handoff_state(A: Anchors, init_state: dict, device) -> tuple:
     """Flat K3 state from a handoff dict: `rem` holds the completed
-    iterations and `pos` the position jwait until the init launch."""
+    iterations and `pos` the position jwait (in [0, max_ref], which
+    changes no handoff) until the init launch."""
     P = init_state["dzr"].numel()
+    itype = A.index.dtype
 
     def f(k, dt):
         return init_state[k].reshape(-1).to(device=device, dtype=dt).clone()
 
+    jw = init_state["jwait"].reshape(-1).to(device=device, dtype=torch.int64)
     return (f("dzr", torch.float32), f("dzi", torch.float32),
             f("dze", torch.int32), f("it", torch.int64),
-            f("jwait", torch.int64),
-            torch.zeros(P, dtype=torch.int64, device=device),
+            jw.clamp(0, A.max_ref).to(itype).contiguous(),
+            torch.zeros(P, dtype=itype, device=device),
             torch.zeros((P, 4), dtype=torch.float32, device=device),
             f("done", torch.bool))
 
@@ -207,29 +236,35 @@ def rc_tail_run(A: Anchors, dc: HDRComplex, init_state: dict, max_iter: int,
                 z_mr: tuple, chunk_steps: int | None = None,
                 abort_monitor=None) -> torch.Tensor:
     """Handoff init plus the tail to the end (or an abort) in bounded
-    launches; K3 for CUDA tensors, the plain twin for CPU tensors.
-    Returns the remaining budget per pixel (flat int64)."""
+    launches, each after the first over the pixels the last one left
+    live: K3 for CUDA tensors, the plain twin for CPU tensors.  Returns
+    the remaining budget per pixel (flat int64)."""
     dev = dc.re.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     cuda = dev.type == "cuda"
     flat = HDRComplex(*(t.reshape(-1).contiguous() for t in dc))
-    state = handoff_state(init_state, dev)
+    state = handoff_state(A, init_state, dev)
     if chunk_steps is None:
         chunk_steps = DEFAULT_CHUNK_STEPS if cuda else 0
     if not cuda:
         state = rc_init_plain(A, state, max_iter, z_mr)
-    first = True
-    while True:
-        if cuda:  # the first launch also runs the handoff init
+    work, sizes = None, []
+    while True:  # the first launch also runs the handoff init
+        sizes.append(flat.re.numel() if work is None else work.numel())
+        if cuda:
             state = rc_tail_kernel(A, flat, state, max_iter, z_mr,
-                                   chunk_steps, init=first)
+                                   chunk_steps, init=work is None, work=work)
         else:
-            state = rc_tail_plain(A, flat, state, chunk_steps)
-        first = False
+            state = on_subset(
+                lambda st, d: rc_tail_plain(A, d, st, chunk_steps), state,
+                flat, work)
         if bool(state[-1].all()) or (abort_monitor is not None
                                      and abort_monitor.aborted()):
             break
+        work = live_pixels(state[-1])
+    last_run_stats["dispatches"] = len(sizes)
+    last_run_stats["work"] = sizes
     return state[3]
 
 

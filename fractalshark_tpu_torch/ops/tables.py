@@ -26,9 +26,10 @@ convention (``ibits``): bit-cast for f32, exactly converted for f64.
   inv_zcoeff), or empty without an AT head skip.
 * Orbit: ``[M, 4]`` rows (Z[j], Z[j+1]) from ``_pack_orbit``
   (``:84-94``).
-* Anchors: int64 positions plus (hi, lo) f32 pairs of x and y, from
-  ``perturb_stream._prep_anchors`` (``ops/perturb_stream.py:747-770``)
-  with int64 positions in place of (window, local) pairs.
+* Anchors: positions (int32 where the orbit allows, else int64) plus
+  (hi, lo) f32 pairs of x and y, from ``perturb_stream._prep_anchors``
+  (``ops/perturb_stream.py:747-770``) with plain positions in place of
+  (window, local) pairs.
 """
 
 from __future__ import annotations
@@ -179,7 +180,8 @@ def orbit_on(results, device, dtype=torch.float32) -> torch.Tensor:
 
 @dataclass
 class Anchors:
-    index: torch.Tensor      # int64 [M] orbit positions, ascending
+    index: torch.Tensor      # [M] orbit positions, ascending: int32 where
+    #                          max_ref < 2^31 - 1, else int64
     val: torch.Tensor        # f32 [M, 4] (x_hi, x_lo, y_hi, y_lo)
     max_ref: int
     c: tuple                 # (cx_hi, cx_lo, cy_hi, cy_lo) as floats
@@ -190,9 +192,11 @@ def _hi_lo(v: np.ndarray):
     return hi, (v - hi.astype(np.float64)).astype(np.float32)
 
 
-def anchor_table(compressed, device) -> Anchors:
+def anchor_table(compressed, device, wide: bool | None = None) -> Anchors:
     """CompressedOrbit → anchor tensors on `device`.  Position 0 must be
-    an anchor: a rebase restarts reconstruction there."""
+    an anchor: a rebase restarts reconstruction there.  The positions are
+    int32 unless `wide` (default: where max_ref < 2^31 - 1 does not
+    hold), and K3's positions and anchor pointers take their type."""
     M = len(compressed.anchors_x)
     if M == 0 or int(compressed.anchor_index[0]) != 0:
         raise ValueError("anchor table must start at orbit position 0")
@@ -202,8 +206,12 @@ def anchor_table(compressed, device) -> Anchors:
     cxh, cxl = _hi_lo(np.asarray([compressed.cx_low], np.float64))
     cyh, cyl = _hi_lo(np.asarray([compressed.cy_low], np.float64))
     c = tuple(float(flush_np(v)[0]) for v in (cxh, cxl, cyh, cyl))
+    max_ref = int(compressed.total_count) - 1
+    if wide is None:
+        wide = max_ref >= np.iinfo(np.int32).max
+    itype = np.int64 if wide else np.int32
     return Anchors(
         index=torch.from_numpy(np.asarray(compressed.anchor_index,
-                                          np.int64).copy()).to(device),
+                                          itype).copy()).to(device),
         val=torch.from_numpy(np.ascontiguousarray(val)).to(device),
-        max_ref=int(compressed.total_count) - 1, c=c)
+        max_ref=max_ref, c=c)

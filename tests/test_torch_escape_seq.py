@@ -98,11 +98,28 @@ def test_needs_the_card_by_default():
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("n", [40, 300])
+def test_kernel_matches_plain_on_card(n):
+    """Both passes of K1-seq (a budget past the first pass's 64
+    iterations) and the first alone (40), f32 and f64."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     frames = _frames(4)
     for dt in (torch.float32, torch.float64):
-        k = escape.escape_sequence_kernel(frames, 256, 192, 300, dt, "cuda")
-        pl = escape.escape_sequence_plain(frames, 256, 192, 300, dt, "cuda")
+        k = escape.escape_sequence_kernel(frames, 256, 192, n, dt, "cuda")
+        pl = escape.escape_sequence_plain(frames, 256, 192, n, dt, "cuda")
         assert torch.equal(k, pl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [BIG, (1 << 31) - 1])
+def test_kernel_budget_edges_on_card(n):
+    """Budgets of 2^24 + 1 (f32: 2^24) and 2^31 - 1 on the rounding
+    frames (a frame in the main cardioid, one far outside)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for dt in (torch.float32, torch.float64):
+        k = escape.escape_sequence_kernel(ROUNDING, 8, 8, n, dt, "cuda")
+        pl = escape.escape_sequence_plain(ROUNDING, 8, 8, n, dt, "cuda")
+        assert torch.equal(k, pl)
+        assert (k[0] == escape.seq_budget(n, dt)).all()

@@ -1,33 +1,44 @@
 #!/usr/bin/env python3
-"""Time the port's per-pixel loops, K6 (``csrc/perturb.cu``) and K2
-(``csrc/lav2.cu``), at the main path's full budgets on one NVIDIA card.
+"""Time the port's per-pixel loops, K6 (``csrc/perturb.cu``), K2
+(``csrc/lav2.cu``), the two-phase tail (K6 resumed from K2's handoff),
+K3 (``csrc/rc_tail.cu``) and K1-seq (``csrc/escape.cu``), at the main
+path's full budgets on one NVIDIA card.
 
     python3 tools/time_pixel_loops.py [--tree DIR] [--reps N] [--cli]
-                                      [--profile] [--only NAME ...]
+                                      [--profile] [--no-floor]
+                                      [--only NAME ...]
 
 For each frame it builds the orbit, the LA table and the dc grid through
-the port's engine, then runs the frame's K6 or K2 instance to the end
-(every chunked launch, ``perturb.perturb_run`` / ``la_kernel.lav2_run``)
-under CUDA events, ``--reps`` times after one warm-up run, and prints one
-JSON line per frame: the times (ms), the launches of one run, the
-iter_sum and the CRC-32 of the grid as ``<u4``.  It also prints the
-registers and spills ``ptxas -v`` reports for both kernels, and the
+the port's engine (a tail frame also runs K2's la_only phase 1, untimed),
+then runs the frame's kernel to the end (every chunked launch,
+``perturb.perturb_run`` / ``la_kernel.lav2_run`` /
+``perturb_stream.rc_tail_run``, or the sequence's one launch) under CUDA
+events, ``--reps`` times after one warm-up run, and prints one JSON line
+per frame: the times (ms), the launches of one run, the pixels each
+launch ran, the iter_sum and the CRC-32 of the grid as ``<u4``.  The
+2048² tail's iter_sum is pinned (``PINS``).  It also prints the
+registers and spills ``ptxas -v`` reports for K6 and K2, and the
 serial floor: the per-step time of K6 on one pixel with a one-row orbit
 (``max_ref`` = 1, every step rebases onto row 0) that never escapes
 (c = -0.5), in each of K6's four forms, and the same pixel walking an
 orbit of 2^20 zero rows (a new row every step, no rebase).
-``--profile`` adds the pixels still live after each launch and the
-deepest pixel's body steps (K2, from launches of 64 steps).  ``--cli``
-renders the two frames the smoke pins (View #6 PO 256², View #5 1024²)
-through the CLI and prints their iter_sum and crc32.
+K3's serial floor is its time per step on one such pixel over a zero
+orbit of 2^20 positions, with an anchor at every position and with
+anchor 0 alone (every step reconstructs).  ``--profile`` adds the pixels
+still live after each launch and the deepest pixel's body steps (K2,
+from launches of 64 steps) or tail steps with its serial floor (the
+tail at K6's HDR-f32 floor, K3 at its floor with an anchor every step);
+``--no-floor`` skips the serial floors.  ``--cli`` renders the two frames
+the smoke pins (View #6 PO 256², View #5 1024²) through the CLI and
+prints their iter_sum and crc32.
 
 ``--tree DIR`` imports ``fractalshark_tpu_torch`` from DIR (another
 checkout, e.g. a ``git archive`` of the parent commit), so two versions
 can be timed in turns in one run on one card.  Needs a CUDA device.
 
 ``chip_smoke.py`` times the same frames through ``setup``,
-``time_frame`` and ``serial_floor`` below, so the two report one
-measurement.
+``time_frame``, ``serial_floor`` and ``rc_floor`` below, so the two
+report one measurement.
 """
 
 from __future__ import annotations
@@ -72,7 +83,27 @@ FRAMES = {
     # LA stages)
     "view5_f64_1024_la": (5, 1024, "k2", "lav2_lao_f64", "f64", True),
     "view3_lao_64": (3, 64, "k2", "lav2_lao_f64", "f64", True),
+    # the two-phase tail over the uncompressed orbit (K6 resumed; in a
+    # tree from before it, K3 over identity anchors) from K2's la_only
+    # handoff, phase 1 untimed
+    "view6_tail_256": (6, 256, "tail", "two_phase_tail", "f32", True),
+    "view6_tail_2048": (6, 2048, "tail", "two_phase_tail", "f32", True),
+    # K3 over a compressed orbit (error_exp, from K2's handoff or from the
+    # zero state): the RC LAv2 tail and the RC PO render
+    "view6_rc_64": (6, 64, "k3", "rc_tail", "f32", (8, True)),
+    "view6_rc_256": (6, 256, "k3", "rc_tail", "f32", (20, True)),
+    # more pixels than the card has lanes: K3's work-queue form
+    "view6_rc_1024": (6, 1024, "k3", "rc_tail", "f32", (20, True)),
+    "view6_rc_po_16": (6, 16, "k3", "rc_tail", "f32", (20, False)),
+    "view6_rc_po_256": (6, 256, "k3", "rc_tail", "f32", (20, False)),
+    # K1-seq: the View 0 zoom sequence (8 frames, 1.3x each, 512
+    # iterations, f32)
+    "seq_4096": (0, 4096, "seq", "escape_seq", "f32", (8, 1.3, 512)),
 }
+
+# iter_sum of frames pinned to a reference: the 2048² poster's two-phase
+# grid (the JAX package's TPU run, BENCH_r05.json deep_poster_iter_sum)
+PINS = {"view6_tail_2048": 3_347_387_150_394}
 
 CLI_FRAMES = {
     "View #6 GpuHDRx32PerturbedLAv2PO 256²": [
@@ -132,9 +163,11 @@ def frame_inputs(frame, size, device):
 def setup(name, device):
     """A frame of FRAMES on `device`: its inputs (orbit, dc grid, for K2
     the LA tables T), its budget n and max_ref mr, and ``run(budget=None,
-    chunk_steps=None)``, which runs its K6 or K2 instance through the run
-    loop (on the card: K6 or K2; on the CPU: the plain twin) and returns
-    the int64 grid (K6) or the state (K2)."""
+    chunk_steps=None)``, which runs its kernel through its run loop (on
+    the card: the kernel; on the CPU: the plain twin) and returns the
+    int64 grid (K6, the tail, K3), the state (K2) or the int32 frames
+    (K1-seq).  The tail and K3 frames also have ``plain(budget)``, their
+    twin in one lockstep run (the grid, flat)."""
     import torch
 
     from fractalshark_tpu_torch.engine.la_reference import get_or_build_la
@@ -142,6 +175,8 @@ def setup(name, device):
     from fractalshark_tpu_torch.ops.tables import orbit_on
 
     frame, size, kern, key, mant, mode = FRAMES[name]
+    if kern == "seq":
+        return _setup_seq(name, device)
     fdt = torch.float32 if mant == "f32" else torch.float64
     f, res = frame_inputs(frame, size, device)
     n, mr = f.num_iterations, res.max_ref_iteration()
@@ -149,6 +184,8 @@ def setup(name, device):
                                 size)
     fr = types.SimpleNamespace(name=name, kern=kern, key=key, size=size,
                                dtype=fdt, mode=mode, n=n, mr=mr, T=None)
+    if kern in ("tail", "k3"):
+        return _setup_tail(fr, f, res, dpar, device)
     if kern == "k6":
         fr.orbit = orbit_on(res, device, fdt)
         grids = perturb._dc_grids_hdr if mode else perturb._dc_grids_float
@@ -169,9 +206,112 @@ def setup(name, device):
     return fr
 
 
+def _setup_tail(fr, f, res, dpar, device):
+    """The two-phase tail (K6 resumed from K2's handoff) or K3 (over a
+    compressed orbit, from K2's handoff or the zero state)."""
+    import torch
+
+    from fractalshark_tpu_torch.engine.la_reference import get_or_build_la
+    from fractalshark_tpu_torch.engine.perturbation_results import (
+        CompressedOrbit)
+    from fractalshark_tpu_torch.ops import hdrfloat as hdr
+    from fractalshark_tpu_torch.ops import la_kernel, perturb
+    from fractalshark_tpu_torch.ops import perturb_stream as ps
+    from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
+    from fractalshark_tpu_torch.ops.tables import orbit_on
+
+    size, n, mr = fr.size, fr.n, fr.mr
+    la = get_or_build_la(f, res)
+    fr.dc = perturb._dc_grids_hdr(*dpar, size, size, device)
+    flat = HDRComplex(*(t.reshape(-1) for t in fr.dc))
+    handoffs = {}
+
+    def handoff(budget):
+        """K2's la_only handoff at `budget` (phase 1, run once a budget)."""
+        if budget not in handoffs:
+            s = la_kernel.la_perturb_render(res, la, f.ptz, size, size,
+                                            budget, la_only=True,
+                                            return_state=True, device=device)
+            handoffs[budget] = {"dzr": s[3], "dzi": s[4], "dze": s[5],
+                                "it": s[6], "jwait": s[2],
+                                "done": s[6] >= budget}
+        return handoffs[budget]
+
+    def zero(_budget):
+        """The zero state (perturb_render_stream_rc without a handoff)."""
+        dz = hdr.complex_zero((size, size), device=device)
+        z = torch.zeros((size, size), dtype=torch.int64, device=device)
+        return {"dzr": dz.re, "dzi": dz.im, "dze": dz.e, "it": z,
+                "jwait": z, "done": z.bool()}
+
+    if fr.kern == "tail" and hasattr(perturb, "handoff_plain"):
+        fr.orbit = orbit_on(res, device)
+
+        def run(budget=None, chunk_steps=None):
+            b = budget or n
+            return perturb.perturb_run(
+                fr.orbit, fr.dc, b, mr, True, fr.key, chunk_steps,
+                state=perturb.handoff_state(handoff(b), device),
+                handoff=True)
+
+        def plain(budget):
+            st = perturb.handoff_plain(fr.orbit, perturb.handoff_state(
+                handoff(budget), device), budget, mr)
+            return perturb.perturb_plain(fr.orbit, flat, st, budget, mr,
+                                         True)[4]
+    else:
+        # K3: a compressed orbit, or identity anchors for the tail in a
+        # tree from before K6 took it
+        err, from_handoff = fr.mode if fr.kern == "k3" else (None, True)
+        if err is None:
+            comp, fr.key = CompressedOrbit.identity(res), "rc_tail"
+        else:
+            comp = CompressedOrbit.from_uncompressed(res, error_exp=err)
+        fr.comp = comp
+        fr.A = ps.anchors_on(comp, device)
+        z_mr = ps.wrap_value(comp, fr.A.max_ref)
+        init = handoff if from_handoff else zero
+
+        def run(budget=None, chunk_steps=None):
+            b = budget or n
+            return b - ps.rc_tail_run(fr.A, fr.dc, init(b), b, z_mr,
+                                      chunk_steps).reshape(size, size)
+
+        def plain(budget):
+            st = ps.rc_init_plain(fr.A, ps.handoff_state(
+                fr.A, init(budget), device), budget, z_mr)
+            return budget - ps.rc_tail_plain(fr.A, flat, st)[3]
+    fr.run, fr.plain = run, plain
+    # the completed iterations on entry to the tail, at the full budget
+    fr.start = handoff(n)["it"] if fr.kern == "tail" or fr.mode[1] else \
+        torch.zeros((size, size), dtype=torch.int64, device=device)
+    return fr
+
+
+def _setup_seq(name, device):
+    """K1-seq on the zoom sequence of FRAMES[name]."""
+    import torch
+
+    from fractalshark_tpu_torch.core.views import get_view_preset
+    from fractalshark_tpu_torch.ops import escape
+
+    view, size, kern, key, _, (count, factor, n) = FRAMES[name]
+    ptz = get_view_preset(view).ptz.square_aspect_ratio(size, size)
+    frames = escape.zoom_sequence(escape.PlainParams.from_view(
+        ptz, size, size), size, size, count, factor)
+    fr = types.SimpleNamespace(name=name, kern=kern, key=key, size=size,
+                               n=n, frames=frames)
+
+    def run(budget=None, chunk_steps=None):
+        return escape.escape_sequence_kernel(frames, size, size, budget or n,
+                                             torch.float32, device)
+    fr.run = run
+    return fr
+
+
 def grid_of(fr, out):
     """The iteration grid of a run's result."""
-    return out if fr.kern == "k6" else out[6]
+    return out[6] if fr.kern == "k2" else out
 
 
 def time_frame(fr, reps):
@@ -182,12 +322,18 @@ def time_frame(fr, reps):
 
     from fractalshark_tpu_torch import kernels
     from fractalshark_tpu_torch.ops import la_kernel, perturb
+    from fractalshark_tpu_torch.ops import perturb_stream as ps
 
     kernels.reset_counts()
     out = fr.run()
     torch.cuda.synchronize()
     launches = {k: v for k, v in kernels.launches.items() if v}
-    stats = (perturb if fr.kern == "k6" else la_kernel).last_run_stats
+    # (a tree from before K3's live-pixel launches records none)
+    stats = {"k6": perturb.last_run_stats, "k2": la_kernel.last_run_stats,
+             "k3": getattr(ps, "last_run_stats", {}),
+             "tail": getattr(ps, "last_run_stats", {})
+             if getattr(fr, "key", None) == "rc_tail"
+             else perturb.last_run_stats}.get(fr.kern, {})
     # the pixels each launch ran (a tree from before the live-pixel
     # launches records none)
     work = list(stats.get("work", []))
@@ -202,6 +348,9 @@ def time_frame(fr, reps):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     grid = grid_of(fr, out)
+    if fr.name in PINS and int(grid.sum()) != PINS[fr.name]:
+        raise AssertionError(f"{fr.name}: iter_sum {int(grid.sum())} != "
+                             f"{PINS[fr.name]}")
     return out, {"frame": fr.name, "budget": fr.n, "ms": times,
                  "ms_median": statistics.median(times),
                  "launches": launches, "work": work,
@@ -289,6 +438,54 @@ def serial_floor(device, reps):
     return out
 
 
+def rc_floor(device, reps):
+    """K3's time per step (ns) on one never-escaping pixel over a zero
+    orbit of STREAM_ROWS positions from the zero state: with an anchor at
+    every position ("hit": every step reads the next anchor) and with
+    anchor 0 alone ("df32": every step reconstructs Z[pos+1])."""
+    import numpy as np
+    import torch
+
+    from fractalshark_tpu_torch.engine.perturbation_results import (
+        CompressedOrbit)
+    from fractalshark_tpu_torch.ops import hdrfloat as hdr
+    from fractalshark_tpu_torch.ops import perturb_stream as ps
+    from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
+    from fractalshark_tpu_torch.ops.tables import anchor_table
+
+    total = STREAM_ROWS + 1
+    dc = HDRComplex(torch.tensor([1e-3], device=device),
+                    torch.zeros(1, device=device),
+                    torch.zeros(1, dtype=torch.int32, device=device))
+    out = {}
+    for name, m in (("hit", total), ("df32", 1)):
+        comp = CompressedOrbit(
+            anchors_x=np.zeros(m), anchors_y=np.zeros(m),
+            anchor_index=np.arange(m, dtype=np.int64), total_count=total,
+            cx_low=0.0, cy_low=0.0, error_exp=0)
+        A = anchor_table(comp, device)
+
+        def init():
+            dz = hdr.complex_zero((1,), device=device)
+            z = torch.zeros(1, dtype=torch.int64, device=device)
+            return {"dzr": dz.re, "dzi": dz.im, "dze": dz.e, "it": z,
+                    "jwait": z, "done": z.bool()}
+
+        fr = types.SimpleNamespace(
+            name=f"K3 floor {name}", kern="k3", n=FLOOR_STEPS,
+            run=lambda: FLOOR_STEPS - ps.rc_tail_run(
+                A, dc, init(), FLOOR_STEPS, (0.0, 0.0)))
+        _, rec = time_frame(fr, reps)
+        if rec["max_iter"] != FLOOR_STEPS:
+            raise AssertionError(f"K3 floor pixel escaped at "
+                                 f"{rec['max_iter']}")
+        out[name] = rec["ms_median"] * 1e6 / FLOOR_STEPS
+        log(f"  K3 serial floor ({name}): {out[name]:.3f} ns a step "
+            f"(median of {reps}: {[round(t, 3) for t in rec['ms']]} ms "
+            f"for {FLOOR_STEPS} steps)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=ROOT)
@@ -296,6 +493,8 @@ def main() -> int:
     ap.add_argument("--cli", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--only", nargs="*")
+    ap.add_argument("--no-floor", action="store_true",
+                    help="skip the serial floors")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -315,11 +514,24 @@ def main() -> int:
     kernels.lib()
     for line in ptxas_lines(buf.getvalue()):
         log(f"  ptxas {line}")
-    floor = serial_floor(device, args.reps)
+    floor = {}
+    if not args.no_floor:
+        floor = serial_floor(device, args.reps)
+        floor.update({f"k3_{k}": v for k, v in rc_floor(device,
+                                                         args.reps).items()})
     for name in args.only or FRAMES:
         fr = setup(name, device)
-        _, rec = time_frame(fr, args.reps)
-        if args.profile:
+        out, rec = time_frame(fr, args.reps)
+        if args.profile and fr.kern in ("tail", "k3"):
+            # the live pixels of each launch (default chunks) and the
+            # deepest pixel's tail steps (its count, and the escaping
+            # step), at K3's or K6's one-pixel step
+            steps = int((grid_of(fr, out) - fr.start).max()) + 1
+            ns = floor.get("hdr_f32" if fr.key == "two_phase_tail"
+                           else "k3_hit", float("nan"))
+            rec.update(live=rec["work"], deepest_steps=steps,
+                       serial_floor_ms=steps * ns / 1e6)
+        elif args.profile and fr.kern in ("k2", "k6"):
             chunk = 64 if fr.kern == "k2" else 65536
             live = (lav2_profile if fr.kern == "k2" else perturb_profile)(
                 fr, chunk)
