@@ -62,13 +62,20 @@ each, 512 iterations) at 1024² against its plain version and each frame
 against K1 f32, the f64 instance, then ``escape_sequence`` at 4096²
 (launch count from 0), each of its frames against K1 f32, and its
 median time with its bound at that size, (10) K7: the streaming LA
-phase against its plain version on the 1e8 frame at 64², its handoff on
-View #6 at 256² against K2's ``la_only`` state, and View #6 256² through
-the CLI with ``FRACTALSHARK_LA_PHASE=stream`` (launch counts from 0)
-against the two-phase frame's iter_sum and CRC (K7 then K6's tail),
-(11) K8: every phase of
-the four-step at n = 8,192, 65,536 and 131,072 with 4, 6, 8 and 14 rows,
-forward and inverse, against its plain version, then the generic
+phase, one launch that carries each pixel through the AT skip and every
+stage, against its plain version in every state array on the 1e8 frame
+at 64² (in launches of 0, 1, 7 and 1,000 steps over the live pixels)
+and on View #6 at 256², its handoff there against K2's ``la_only``
+state, its time at 256² (CUDA events and a profiler trace) with its
+bound, and View #6 256² through the CLI with
+``FRACTALSHARK_LA_PHASE=stream`` (launch counts from 0) against the
+two-phase frame's iter_sum and CRC (K7 then K6's tail) in one K7
+launch, (11) K8: every phase of the four-step at n = 8,192, 65,536 and
+131,072 with 4, 6, 8 and 14 rows, forward and inverse, against its
+plain version, and a transform's two launches (the twiddle matrix and
+transpose in the first's epilogue, the scale in the inverse's second)
+against their twins, then, from a profiler trace, no CUDA kernel between
+the two, the transforms' times with their bounds, then the generic
 multiplies (``multiply_3way`` with the launch count from 0,
 ``multiply_nr``) at 2,048 and 16,384 limbs against Python ints and the
 debug checksum tool against its host mirror, (12) K9-K11 and the
@@ -201,8 +208,13 @@ SEQ_SMALL, SEQ_BIG = 1024, 4096
 NTT_SIZES = (8192, 65536, 131072)
 NTT_ROWS = (4, 6, 8, 14)
 MUL_LIMBS = (2048, 16384)
-# K7's frames: View #6 at this size, with the pinned two-phase frame
+# K7's frames: View #6 at this size, with the pinned two-phase frame; the
+# 1e8 frame at 64² in launches of these chunks
 STREAM_SIZE, STREAM_PIN = 256, VIEW6_256
+STREAM_CHUNKS = (0, 1, 7, 1000)
+# K8: the transforms timed (rows, n): a multiply's forward and inverse at
+# 16,384 limbs, multiply_nr's inverse at 32,768
+TIMED_TRANSFORMS = ((4, 65536), (6, 65536), (14, 131072))
 # phase 12: K9 at these transform sizes (the 3-way, NR, iteration and
 # signed NR-iteration plans, both forms), K10 at these (orbit and NR, with
 # and without shadows, both forms), K11 at these limb counts
@@ -650,6 +662,22 @@ def perturb_ops(iters, budget: int, hdr_mode: bool) -> float:
     compares), a float step 17."""
     steps = float(iters.sum()) + float((iters < budget).sum())
     return (60.0 if hdr_mode else 17.0) * steps
+
+
+def tool_records(script: str, *args) -> list:
+    """The JSON records a timing tool of this checkout prints, run in a
+    child process.  Its profiler traces are taken there: in this
+    process, after the earlier phases, torch.profiler recorded no CUDA
+    kernel at all (H100, torch 2.11), while a fresh process records every
+    one."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", script), *args],
+        capture_output=True, text=True, timeout=600, cwd=root)
+    if proc.returncode:
+        raise AssertionError(f"{script} failed: {proc.stderr[-2000:]}")
+    return [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
 
 
 def pixel_loops():
@@ -1536,10 +1564,21 @@ def phase_escape_seq(device, stats, card):
     return {"escape_seq": launches}
 
 
+def stream_ops(steps: int) -> float:
+    """K7: about 100 f32 operations an LA step (the complex HDR products
+    newdz, dz_ev and z, their adds and reductions, three Chebyshev norms
+    and the compares), over the steps this frame's pixels take (the
+    twin's count)."""
+    return 100.0 * steps
+
+
 def phase_la_stream(device, stats):
-    """K7 against its plain version and K2's la_only state, then View #6
-    through the CLI with FRACTALSHARK_LA_PHASE=stream (launch counts from
-    0)."""
+    """K7 against its plain version in every state array (the 1e8 frame
+    at 64² in chunks of 0, 1, 7 and 1,000 steps over the live pixels;
+    View #6 at 256² unbounded), its handoff against K2's la_only state,
+    its time at View #6 256² with its bound there, then View #6 through
+    the CLI with FRACTALSHARK_LA_PHASE=stream (launch counts from 0): the
+    pinned frame in one K7 launch."""
     import torch
 
     from fractalshark_tpu_torch import kernels
@@ -1548,21 +1587,24 @@ def phase_la_stream(device, stats):
     from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
     from fractalshark_tpu_torch.ops.perturb import _dc_grids_hdr, delta_params
 
-    log("[10] K7 (B12): the streaming LA phase")
+    log("[10] K7 (B12): the streaming LA phase, one launch a frame")
     st = stats["la_stream"]
     _, _, _, T, _, dc, _ = deep_inputs(SMALL_DEEP, 64, device)
     n = SMALL_DEEP[3]
     flat = HDRComplex(*(t.reshape(-1).contiguous() for t in dc))
-    chunk = LS.DEFAULT_CHUNK_STEPS
-    ks, ms = timed(lambda: LS.run_stages(T, flat, n, chunk), device, 3)
-    ps, pms = timed(lambda: LS.run_stages(T, flat, n, chunk, plain=True),
-                    device, warm=False)
-    for name, a, b in zip(LS._STATE, ks, ps):
-        compare(f"K7 1e8 frame 64² {name}", a, b, st)
-    log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
-    st.update(ms=ms, plain_ms=pms, **bound(
-        nbytes(T.nodes, T.side, T.stages, *dc, *ks),
-        lav2_ops(T, dc.re.numel()), F32_OPS_PER_S))
+    for chunk in STREAM_CHUNKS:
+        ks = LS.run_stages(T, flat, n, chunk)
+        runs = LS.last_run_stats["work"]
+        ps = LS.run_stages(T, flat, n, chunk, plain=True)
+        if LS.last_run_stats["work"] != runs:
+            raise AssertionError(f"K7 chunk {chunk}: launches {runs}, the "
+                                 f"twin's {LS.last_run_stats['work']}")
+        for name, a, b in zip(LS.STATE, ks, ps):
+            compare(f"K7 1e8 frame 64² chunk {chunk} ({len(runs)} launches) "
+                    f"{name}", a, b, st)
+    log(f"  K7 1e8 frame 64²: {LS.last_run_stats['steps']} LA steps")
+    bound(nbytes(T.nodes, T.side, T.stages, T.at, *flat, *ks),
+          stream_ops(LS.last_run_stats["steps"]), F32_OPS_PER_S)
 
     S = STREAM_SIZE
     f, res, la = frame_inputs(6, S, device)
@@ -1580,9 +1622,23 @@ def phase_la_stream(device, stats):
     dc6 = _dc_grids_hdr(*delta_params(f.ptz, res.center_x, res.center_y, S,
                                       S), S, S, device)
     f6 = HDRComplex(*(t.reshape(-1).contiguous() for t in dc6))
-    _, ms6 = timed(lambda: LS.run_stages(T6, f6, n6, chunk), device, 3)
-    log(f"  K7 View #6 {S}² (every stage, {T6.stage_count} stages): "
-        f"{ms6:.3f} ms")
+    chunk = LS.DEFAULT_CHUNK_STEPS
+    ks, ms = timed(lambda: LS.run_stages(T6, f6, n6, chunk), device, 5)
+    ps, pms = timed(lambda: LS.run_stages(T6, f6, n6, chunk, plain=True),
+                    device, warm=False)
+    steps = LS.last_run_stats["steps"]
+    for name, a, b in zip(LS.STATE, ks, ps):
+        compare(f"K7 View #6 {S}² {name}", a, b, st)
+    tr = tool_records("time_pixel_loops.py", "--only", "view6_stream_256",
+                      "--trace", "--no-floor")[0]
+    log(f"  K7 View #6 {S}² (AT skip and {T6.stage_count} stages, {steps} "
+        f"LA steps): {ms:.4f} ms a run (CUDA events; the tool's "
+        f"{tr['ms_median']:.4f}), device {tr['trace']['device_ms']:.4f} ms "
+        f"in {tr['trace']['kernel_names']}, {tr['trace']['syncs']} host "
+        f"sync(s), {tr['launches']} launches; plain {pms:.1f} ms")
+    st.update(ms=ms, plain_ms=pms, **bound(
+        nbytes(T6.nodes, T6.side, T6.stages, T6.at, *f6, *ks),
+        stream_ops(steps), F32_OPS_PER_S))
 
     os.environ["FRACTALSHARK_LA_PHASE"] = "stream"
     try:
@@ -1596,9 +1652,10 @@ def phase_la_stream(device, stats):
     log(f"  View #6 {S}² FRACTALSHARK_LA_PHASE=stream: la_phase "
         f"{s['la_phase']}, iter_sum {got[0]}, crc32 {got[1]} (two-phase "
         f"{STREAM_PIN}), wall {wall:.3f} s, timings "
-        f"{json.dumps(s['timings'])}, launches {launches}")
+        f"{json.dumps(s['timings'])}, K7 launches {launches['la_stream']} "
+        f"(expected 1), launches {launches}")
     if s["la_phase"] != "stream" or got != STREAM_PIN or \
-            launches["la_stream"] <= 0 or launches["two_phase_tail"] <= 0 \
+            launches["la_stream"] != 1 or launches["two_phase_tail"] <= 0 \
             or launches["rc_tail"] or \
             launches["lav2_phase1"] != 0:
         raise AssertionError("the stream-phase View #6 frame differs")
@@ -1607,14 +1664,29 @@ def phase_la_stream(device, stats):
 
 def ntt_phase_ops(rows: int, m: int, lanes: int) -> float:
     """K8: m/2·log2(m) butterflies per column at 8 integer operations (a
-    Montgomery product of 6, an add and a subtract)."""
+    twiddle product of 5, an add and a subtract)."""
     return rows * lanes * (m // 2) * (m.bit_length() - 1) * 8.0
 
 
+def fourstep_ops(rows: int, n: int) -> float:
+    """A four-step transform in K8's two launches: both phases (n/2·
+    log2(n) butterflies a row) and the epilogue's Montgomery product with
+    the twiddle matrix (6 operations a point)."""
+    n1 = 1 << ((n.bit_length() - 1) // 2)
+    n2 = n // n1
+    return ntt_phase_ops(rows, n1, n2) + ntt_phase_ops(rows, n2, n1) + \
+        6.0 * rows * n
+
+
 def phase_ntt(device, stats):
-    """K8 against its plain version at every four-step phase shape, then
-    the generic multiplies against Python ints (multiply_3way's launch
-    count from 0) and the checksum tool against its host mirror."""
+    """K8 against its plain version at every four-step phase shape, and
+    its two launches a four-step transform (the twiddle matrix and
+    transpose in the first's epilogue, the inverse's scale in the
+    second's) against their twins at every size and row count, with no
+    CUDA kernel between the two (profiler trace); the transform timed
+    with its bound; then the generic multiplies against Python ints
+    (multiply_3way's launch count from 0) and the checksum tool against
+    its host mirror."""
     import numpy as np
     import torch
 
@@ -1623,7 +1695,8 @@ def phase_ntt(device, stats):
     from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
     from fractalshark_tpu_torch.ops.bignum import ntt as N
 
-    log("[11] K8 (B9a/B9b): four-step NTT phases; the generic multiplies")
+    log("[11] K8 (B9a/B9b): four-step NTT phases, a transform in two "
+        "launches; the generic multiplies")
     st = stats["ntt_phase"]
     rng = np.random.default_rng(11)
 
@@ -1642,23 +1715,62 @@ def phase_ntt(device, stats):
                     a = N.phase_kernel(y, m, inv)
                     b = N.phase_transform_plain(y, m, inv)
                     bad += int((a != b).sum())
-        log(f"  K8 n = {n} ({n1} × {n2}), rows {NTT_ROWS}, both phases, "
-            f"forward and inverse: {bad} elements differ")
+            x = residues((rows, n))
+            for inv in (False, True):
+                head = N.fourstep_head(x, n, inv)
+                want = N.fourstep_head_plain(x, n, inv)
+                bad += int((head != want).sum())
+                bad += int((N.fourstep_tail(want, n, inv)
+                            != N.fourstep_tail_plain(want, n, inv)).sum())
+        log(f"  K8 n = {n} ({n1} × {n2}), rows {NTT_ROWS}: both phases "
+            f"alone and the two fused launches, forward and inverse: {bad} "
+            f"elements differ")
         if bad:
             raise AssertionError(f"K8 disagrees with its plain version at "
                                  f"n = {n}")
     st["max_abs_err"] = 0.0
+    # device time, kernels and host syncs from a profiler trace of each
+    # call (tools/time_ntt.py): a transform is two K8 launches alone
+    traced = {r["call"]: r for r in tool_records(
+        "time_ntt.py", "--only", "fourstep", "phase_kernel") if "call" in r}
     times = {}
-    for rows, m, lanes in ((4, 256, 256), (6, 256, 256), (14, 256, 512),
-                           (14, 512, 256)):
+    for rows, m, lanes in ((4, 256, 256), (14, 256, 512)):
         y = residues((rows, m, lanes))
         _, ms = timed(lambda: N.phase_kernel(y, m, False), device, 20)
-        _, pms = timed(lambda: N.phase_transform_plain(y, m, False), device)
-        times[f"{rows}x{m}x{lanes}"] = (round(ms, 4), round(pms, 3))
-        if (rows, m, lanes) == (4, 256, 256):   # 16,384 limbs, forward
-            st.update(ms=ms, plain_ms=pms, **bound(
-                2 * nbytes(y), ntt_phase_ops(rows, m, lanes), I32_OPS_PER_S))
-    log(f"  K8 ms (kernel, plain) by [rows x m x lanes]: {times}")
+        tr = traced[f"phase_kernel [{rows},{m},{lanes}]"]
+        times[f"phase {rows}x{m}x{lanes}"] = (
+            round(ms, 4), round(tr["device_ms"], 4), round(bound(
+                2 * nbytes(y), ntt_phase_ops(rows, m, lanes),
+                I32_OPS_PER_S)["bound_ms"], 5))
+    for label, tr in traced.items():
+        if not label.startswith("fourstep"):
+            continue
+        log(f"  {label}: {tr['kernels']} CUDA kernels "
+            f"({tr['kernel_names']}), {tr['kernels_between_k8']} between "
+            f"the two K8 launches, {tr['syncs']} host syncs, "
+            f"{tr['ms']:.4f} ms a call, device {tr['device_ms']:.4f} ms")
+        if tr["kernel_names"] != {"phase_kernel": 2} or \
+                tr["kernels_between_k8"] != 0:
+            raise AssertionError(f"{label} ran {tr['kernel_names']}, not "
+                                 f"two K8 launches alone")
+    for rows, n in TIMED_TRANSFORMS:
+        x = residues((rows, n))
+        for inv in (False, True):
+            fn = (lambda: N.fourstep_inverse_scaled(x, n)) if inv else \
+                (lambda: N.fourstep_forward(x, n))
+            _, ms = timed(fn, device, 20)
+            mat = N._on(("k8_mat", n, inv), device,
+                        lambda: N._k8_matrix(n, inv))
+            b = bound(4 * nbytes(x) + nbytes(mat), fourstep_ops(rows, n),
+                      I32_OPS_PER_S)
+            key = f"{'inverse' if inv else 'forward'} {rows}x{n}"
+            times[key] = (round(ms, 4), round(b["bound_ms"], 5))
+            if (rows, n, inv) == (4, 65536, False):   # 16,384 limbs
+                plain = lambda: N.fourstep_tail_plain(   # noqa: E731
+                    N.fourstep_head_plain(x, n, False), n, False)
+                _, pms = timed(plain, device)
+                st.update(ms=ms, plain_ms=pms, **b)
+    log(f"  K8 ms (CUDA events a call[, device], bound) by call: {times}")
 
     def operands(spec, k):
         """k random magnitudes below 4 (in the fixed-point range)."""

@@ -1,13 +1,21 @@
-// K8: one phase of the generic four-step NTT.  For y uint32 [R, m, L] it
-// runs a length-m radix-2 NTT along axis 1 for every (row r, lane l), row
-// r modulo p1 if r is even and p2 if r is odd (the primes of ntt.py):
+// K8: one phase of the generic four-step NTT, with the glue between the
+// phases in its epilogue.  For y uint32 [R, m, L] it runs a length-m
+// radix-2 NTT along axis 1 for every (row r, lane l), row r modulo p1 if r
+// is even and p2 if r is odd (the primes of ntt.py):
 //   forward: DIF, natural order in, bit-reversed out;
 //   inverse: DIT, bit-reversed in, natural out, unscaled.
 // Stage s of the forward pass pairs i0 = blk*2h + j with i0 + h,
 // h = m >> (s+1), twiddle w_m^(j << s) after the difference; stage s of
 // the inverse pass has h = 2^s and twiddle w_m^-(j << (lg-1-s)) before the
 // butterfly (ntt.py:598-632 _axis0_dif/_axis0_dit).  Outputs are canonical
-// residues in [0, p).
+// residues in [0, p).  Epilogues (ops/bignum/ntt.py fourstep_head/_tail):
+//   kEpiNone:    out [R, m, L], the phase;
+//   kEpiTwiddle: out [R, L, m] = the phase transposed, times the matrix
+//                mat [2 primes, L, m] (Montgomery form): the four-step's
+//                twiddle matrix between its phases;
+//   kEpiScale:   out [R, m, L] = the phase times n^-1 (·R), the inverse's
+//                scale (Montgomery form, one word a prime).
+// So a four-step transform is two launches with nothing between them.
 //
 // Replaces: fractalshark_tpu/ops/bignum/ntt_pallas.py:1661 _phase_kernel
 // (B9b; call :1717, API sublane_transform :1698) and
@@ -16,18 +24,36 @@
 // the TPU, bit for bit (the MXU form as balanced int8 matrix products, a
 // layout for Mosaic's matrix unit that is not copied); the generic
 // multiplies reach them through fourstep_forward/fourstep_inverse_scaled
-// (ntt.py:658-718) at nfft >= 8,192, and the flat route below it is the
-// same transform with m = n, L = 1.
+// (ntt.py:658-718) at nfft >= 8,192, whose twiddle matrix, transpose and
+// scale XLA runs between the phases there, and the flat route below it is
+// the same transform with m = n, L = 1.
 //
-// Design: one block per (row, tile of TL lanes); the tile (m*TL words,
-// at most 32 KB) and the row prime's m/2 twiddles (Montgomery form, R =
-// 2^32, at most 8 KB) stay in shared memory through all log2(m) stages,
-// so the data is read once and written once.  A butterfly's twiddle
-// product is a Montgomery product with the twiddle w*R mod p, which gives
-// the canonical residue of x*w exactly, as the reference's Shoup product.
-// Bound on the H100: bytes for the phase alone (8 bytes a point against
-// about 4*log2(m) integer operations a point); the stages' __syncthreads
-// and the blocks per row (L / TL) set the time at these sizes.
+// Bound on the H100: a phase reads and writes 8 bytes a point (plus 4 for
+// the twiddle matrix) against about 4*log2(m) integer operations a point
+// (a Montgomery product of six, an add and a subtract for every other
+// point a stage): at m = 256-512 the two are within a factor of two, so
+// neither memory nor the ALUs may idle.  Design:
+//  * one block per (row, tile of TL lanes); the tile's columns (TL*m <=
+//    4,096 words) and the row prime's per-stage twiddles stay in shared
+//    memory, so the data is read once and written once;
+//  * TL is cut (down to 4 lanes, 16 bytes a row) until the grid has two
+//    blocks an SM, so a transform of 4 rows fills the card;
+//  * each thread takes 8 points of a column and runs three radix-2 stages
+//    in registers (a radix-8 round) between two trips through shared
+//    memory: ceil(log2(m)/3) rounds and as many __syncthreads, against
+//    log2(m) before; the twiddles of stage b sit at [2^b - 1, 2^(b+1) - 1)
+//    so that neighbouring lanes read neighbouring words;
+//  * a column is padded and its word i stored at i ^ ((i >> 5) & 31), so
+//    a warp's 32 points of one column fall in 32 banks in every round and
+//    in the transposed epilogue, and the coalesced load of TL-word rows
+//    does too;
+//  * the epilogue reads the matrix in the output's own order ([L, m]), so
+//    the transposed store and the matrix read are both coalesced.
+// A butterfly's twiddle product is the reference's Shoup product (the
+// twiddle w beside floor(w * 2^32 / p): five integer operations, against
+// seven for a Montgomery product); the epilogue's matrix and scale are
+// Montgomery products with w*R mod p, one word a point.  Each gives the
+// canonical residue of x*w exactly.
 
 #include <cuda_runtime.h>
 
@@ -39,8 +65,15 @@ constexpr uint32_t kP1 = 2013265921u;   // ntt.P1
 constexpr uint32_t kP2 = 1811939329u;   // ntt.P2
 constexpr uint32_t kPp1 = 2013265919u;  // -p1^-1 mod 2^32 (ntt.mont_const)
 constexpr uint32_t kPp2 = 1811939327u;  // -p2^-1 mod 2^32
-constexpr int kThreads = 256;
-constexpr int kTileWords = 8192;        // m * TL words of data a block
+constexpr int kMaxThreads = 512;
+constexpr int kTileWords = 4096;        // m * TL words of data a block
+constexpr int kBlocksWanted = 2 * 132;  // two blocks an SM of the H100
+constexpr int kMinLgTl = 2;             // rows of at least 16 bytes
+constexpr size_t kDefaultSmem = 48 * 1024;  // more needs an opt-in
+
+constexpr int kEpiNone = 0;
+constexpr int kEpiTwiddle = 1;
+constexpr int kEpiScale = 2;
 
 // a*b*R^-1 mod p for a, b < p < 2^31, canonical
 __device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b,
@@ -50,6 +83,14 @@ __device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b,
   const uint32_t u =
       static_cast<uint32_t>((t + static_cast<uint64_t>(m) * p) >> 32);
   return u >= p ? u - p : u;
+}
+
+// x*w mod p for x < 2^32, w < p < 2^31, canonical (Shoup): wp =
+// floor(w * 2^32 / p), so x*w - floor(x*wp / 2^32)*p lies in [0, 2p)
+__device__ __forceinline__ uint32_t shoup_mul(uint32_t x, uint32_t w,
+                                              uint32_t wp, uint32_t p) {
+  const uint32_t r = x * w - __umulhi(x, wp) * p;
+  return r >= p ? r - p : r;
 }
 
 __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
@@ -63,88 +104,216 @@ __device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b,
   return a >= b ? a - b : a + p - b;
 }
 
-// tw: uint32 [2 primes][m/2], w_m^k * R mod p (forward) or w_m^-k * R mod p
-// (inverse)
-template <bool kInverse>
-__global__ void __launch_bounds__(kThreads)
+// where word i of a column lives: its bank is spread by the 32-word block
+__device__ __forceinline__ int swz(int i) { return i ^ ((i >> 5) & 31); }
+
+// the words between columns, so that the load's rows of TL words from
+// 32 / TL columns fall in 32 banks (none for one column a block)
+__host__ __device__ __forceinline__ int pad_words(int lg_tl) {
+  return lg_tl == 0 ? 0 : (lg_tl < 5 ? 32 >> lg_tl : 1);
+}
+
+// One round of K radix-2 stages over the index bits [blo, blo + K) of the
+// column c: each thread runs kE >> K groups of 2^K points in registers.
+// A group is (hi, lo), its points i = hi << (blo + K) | mid << blo | lo.
+template <bool kInverse, int kE, int K>
+__device__ __forceinline__ void round_k(uint32_t *c, const uint2 *tws,
+                                        int blo, int u, int gpc, uint32_t p) {
+  constexpr int kPts = 1 << K;
+#pragma unroll
+  for (int q = 0; q < (kE >> K); ++q) {
+    const int g = u + q * gpc;
+    const int lo = g & ((1 << blo) - 1);
+    const int ibase = ((g >> blo) << (blo + K)) | lo;
+    uint32_t v[kPts];
+#pragma unroll
+    for (int mid = 0; mid < kPts; ++mid) v[mid] = c[swz(ibase | (mid << blo))];
+#pragma unroll
+    for (int tt = 0; tt < K; ++tt) {
+      // forward: the highest bit first; inverse: the lowest first
+      const int t = kInverse ? tt : K - 1 - tt;
+      const int b = blo + t;
+      const int h = 1 << b;
+#pragma unroll
+      for (int mid = 0; mid < kPts; ++mid) {
+        if (mid & (1 << t)) continue;
+        const int j = (ibase | (mid << blo)) & (h - 1);
+        const uint2 w = tws[h - 1 + j];
+        const uint32_t u0 = v[mid];
+        if (kInverse) {
+          const uint32_t u1 = shoup_mul(v[mid | (1 << t)], w.x, w.y, p);
+          v[mid] = add_mod(u0, u1, p);
+          v[mid | (1 << t)] = sub_mod(u0, u1, p);
+        } else {
+          // u0 - u1 + p < 2p: the product takes it unreduced
+          const uint32_t u1 = v[mid | (1 << t)];
+          v[mid] = add_mod(u0, u1, p);
+          v[mid | (1 << t)] = shoup_mul(u0 + p - u1, w.x, w.y, p);
+        }
+      }
+    }
+#pragma unroll
+    for (int mid = 0; mid < kPts; ++mid) c[swz(ibase | (mid << blo))] = v[mid];
+  }
+}
+
+template <bool kInverse, int kE>
+__device__ __forceinline__ void run_round(uint32_t *c, const uint2 *tws,
+                                          int blo, int k, int u, int gpc,
+                                          uint32_t p) {
+  if (k == 3 && kE >= 8)
+    round_k<kInverse, kE, (kE >= 8 ? 3 : 1)>(c, tws, blo, u, gpc, p);
+  else if (k == 2 && kE >= 4)
+    round_k<kInverse, kE, (kE >= 4 ? 2 : 1)>(c, tws, blo, u, gpc, p);
+  else
+    round_k<kInverse, kE, 1>(c, tws, blo, u, gpc, p);
+}
+
+// tw: uint32 [2 primes][m][2], the twiddles of the stage of half-span 2^b
+// at [2^b - 1, 2^(b+1) - 1), each (w, floor(w * 2^32 / p)) for the Shoup
+// product (ntt.py _k8_table); mat: uint32
+// [2 primes][L][m] (kEpiTwiddle); sc1, sc2: the scale of each prime
+// (kEpiScale), Montgomery form.  kE points a thread: 8, or m if m < 8.
+template <bool kInverse, int kE>
+__global__ void __launch_bounds__(kMaxThreads)
     phase_kernel(const uint32_t *__restrict__ y, uint32_t *__restrict__ out,
-                 const uint32_t *__restrict__ tw, int lg, int lanes,
-                 int lg_tl) {
+                 const uint32_t *__restrict__ tw,
+                 const uint32_t *__restrict__ mat, uint32_t sc1, uint32_t sc2,
+                 int lg, int lanes, int lg_tl, int epi) {
   extern __shared__ uint32_t sm[];
   const int m = 1 << lg;
-  const int half = m >> 1;
   const int tl = 1 << lg_tl;
-  uint32_t *tws = sm;
-  uint32_t *a = sm + half;
+  const int pitch = m + pad_words(lg_tl);
+  uint2 *tws = reinterpret_cast<uint2 *>(sm);
+  uint32_t *a = sm + 2 * m;
   const int r = blockIdx.y;
   const int pr = r & 1;
   const uint32_t p = pr ? kP2 : kP1;
   const uint32_t pp = pr ? kPp2 : kPp1;
   const int l0 = blockIdx.x * tl;
   const int64_t base = static_cast<int64_t>(r) * m * lanes + l0;
+  const int nt = blockDim.x;
 
-  for (int i = threadIdx.x; i < half; i += blockDim.x)
-    tws[i] = tw[pr * half + i];
-  for (int e = threadIdx.x; e < (m << lg_tl); e += blockDim.x) {
+  const uint2 *twp = reinterpret_cast<const uint2 *>(tw) + pr * m;
+  for (int i = threadIdx.x; i < m; i += nt) tws[i] = twp[i];
+  for (int e = threadIdx.x; e < (m << lg_tl); e += nt) {
     const int l = e & (tl - 1);
     const int i = e >> lg_tl;
-    a[e] = l0 + l < lanes ? y[base + static_cast<int64_t>(i) * lanes + l] : 0u;
+    a[l * pitch + swz(i)] =
+        l0 + l < lanes ? y[base + static_cast<int64_t>(i) * lanes + l] : 0u;
   }
   __syncthreads();
 
-  for (int s = 0; s < lg; ++s) {
-    const int sh = kInverse ? s : lg - 1 - s;   // log2 of the half-span
-    const int tsh = kInverse ? lg - 1 - s : s;  // twiddle index shift
-    const int h = 1 << sh;
-    for (int b = threadIdx.x; b < (half << lg_tl); b += blockDim.x) {
-      const int l = b & (tl - 1);
-      const int k = b >> lg_tl;
-      const int j = k & (h - 1);
-      uint32_t *x0 = a + ((((k - j) << 1) + j) << lg_tl) + l;
-      uint32_t *x1 = x0 + (h << lg_tl);
-      const uint32_t w = tws[j << tsh];
-      const uint32_t u0 = *x0;
-      if (kInverse) {
-        const uint32_t u1 = mont_mul(*x1, w, p, pp);
-        *x0 = add_mod(u0, u1, p);
-        *x1 = sub_mod(u0, u1, p);
-      } else {
-        const uint32_t u1 = *x1;
-        *x0 = add_mod(u0, u1, p);
-        *x1 = mont_mul(sub_mod(u0, u1, p), w, p, pp);
-      }
+  // thread -> (column, slot): the m / kE threads of a column are adjacent
+  constexpr int kLgE = kE >= 8 ? 3 : (kE >= 4 ? 2 : 1);
+  const int gpc = m / kE;
+  const int col = threadIdx.x / gpc;
+  const int u = threadIdx.x - col * gpc;
+  uint32_t *c = a + col * pitch;
+  // rounds of kLgE bits; the one of lg % kLgE bits takes the top bits, so
+  // it comes first forward and last inverse
+  const int rem = lg % kLgE;
+  const int full = lg / kLgE;
+  for (int q = 0; q < full + (rem ? 1 : 0); ++q) {
+    int blo, k;
+    if (kInverse) {
+      blo = q * kLgE;
+      k = q < full ? kLgE : rem;
+    } else if (rem && q == 0) {
+      blo = lg - rem;
+      k = rem;
+    } else {
+      const int qq = q - (rem ? 1 : 0);
+      blo = (full - 1 - qq) * kLgE;
+      k = kLgE;
     }
+    run_round<kInverse, kE>(c, tws, blo, k, u, gpc, p);
     __syncthreads();
   }
 
-  for (int e = threadIdx.x; e < (m << lg_tl); e += blockDim.x) {
-    const int l = e & (tl - 1);
-    const int i = e >> lg_tl;
-    if (l0 + l < lanes) out[base + static_cast<int64_t>(i) * lanes + l] = a[e];
+  if (epi == kEpiTwiddle) {
+    // out [R, L, m], word i of lane l0 + l, times mat[pr][l0 + l][i]
+    const int64_t obase = (static_cast<int64_t>(r) * lanes + l0) * m;
+    const int64_t mbase = (static_cast<int64_t>(pr) * lanes + l0) * m;
+    for (int e = threadIdx.x; e < (m << lg_tl); e += nt) {
+      const int i = e & (m - 1);
+      const int l = e >> lg;
+      if (l0 + l < lanes)
+        out[obase + e] = mont_mul(a[l * pitch + swz(i)], mat[mbase + e], p, pp);
+    }
+  } else {
+    const uint32_t sc = pr ? sc2 : sc1;
+    for (int e = threadIdx.x; e < (m << lg_tl); e += nt) {
+      const int l = e & (tl - 1);
+      const int i = e >> lg_tl;
+      if (l0 + l < lanes) {
+        const uint32_t v = a[l * pitch + swz(i)];
+        out[base + static_cast<int64_t>(i) * lanes + l] =
+            epi == kEpiScale ? mont_mul(v, sc, p, pp) : v;
+      }
+    }
   }
+}
+
+template <bool kInverse>
+int launch(const uint32_t *y, uint32_t *out, const uint32_t *tw,
+           const uint32_t *mat, uint32_t sc1, uint32_t sc2, int rows, int lg,
+           int lanes, int epi, cudaStream_t st) {
+  const int m = 1 << lg;
+  // TL: a power of two, m*TL <= kTileWords, at most kMaxThreads threads and
+  // no wider than L needs; then halved (not below 4 lanes) until the grid has kBlocksWanted blocks
+  const int e = m < 8 ? m : 8;  // points a thread
+  int lg_tl = 0;
+  while ((2 << lg_tl) * m <= kTileWords && (2 << lg_tl) * m / e <= kMaxThreads
+         && (1 << lg_tl) < lanes)
+    ++lg_tl;
+  const auto blocks = [&](int t) {
+    return static_cast<int64_t>(rows) * ((lanes + (1 << t) - 1) >> t);
+  };
+  while (lg_tl > kMinLgTl && blocks(lg_tl) < kBlocksWanted) --lg_tl;
+  const dim3 grid((lanes + (1 << lg_tl) - 1) >> lg_tl, rows);
+  const int pitch = m + pad_words(lg_tl);
+  const size_t smem = (2 * static_cast<size_t>(m) + (pitch << lg_tl)) * 4;
+  const int threads = (m << lg_tl) / e;
+  const auto kernel = e == 8   ? phase_kernel<kInverse, 8>
+                      : e == 4 ? phase_kernel<kInverse, 4>
+                               : phase_kernel<kInverse, 2>;
+  if (smem > kDefaultSmem) {  // m = 4,096: 48 KB of data and twiddles
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, threads, smem, st>>>(y, out, tw, mat, sc1, sc2, lg, lanes,
+                                      lg_tl, epi);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// y [rows, m, lanes] -> out ([rows, lanes, m] with epi = kEpiTwiddle, else
+// [rows, m, lanes]); tw uint32 [2][m][2]; mat uint32 [2][lanes][m] (read only
+// with kEpiTwiddle); sc1, sc2 the scale words (read only with kEpiScale).
+// m is a power of two in [2, 4,096]; 1 <= rows < 65,536.
 extern "C" int fs_ntt_phase(const void *y, void *out, const void *tw,
-                            int32_t rows, int32_t m, int32_t lanes,
-                            int32_t inverse, void *stream) {
+                            const void *mat, int32_t rows, int32_t m,
+                            int32_t lanes, int32_t inverse, int32_t epi,
+                            int64_t sc1, int64_t sc2, void *stream) {
   int lg = 0;
   while ((1 << lg) < m) ++lg;
-  // TL: a power of two, at most kTileWords / m and no wider than L needs
-  int lg_tl = 0;
-  while ((2 << lg_tl) * m <= kTileWords && (1 << lg_tl) < lanes) ++lg_tl;
-  const dim3 grid((lanes + (1 << lg_tl) - 1) >> lg_tl, rows);
-  const size_t smem = (static_cast<size_t>(m / 2) + (m << lg_tl)) * 4;
+  if (m < 2 || m > kTileWords || (1 << lg) != m || rows < 1 ||
+      rows >= (1 << 16) || lanes < 1 || epi < kEpiNone || epi > kEpiScale ||
+      (epi == kEpiTwiddle && mat == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto *yy = static_cast<const uint32_t *>(y);
   auto *oo = static_cast<uint32_t *>(out);
   const auto *tt = static_cast<const uint32_t *>(tw);
+  const auto *mm = static_cast<const uint32_t *>(mat);
+  const auto s1 = static_cast<uint32_t>(sc1);
+  const auto s2 = static_cast<uint32_t>(sc2);
   auto st = static_cast<cudaStream_t>(stream);
-  if (inverse)
-    phase_kernel<true><<<grid, kThreads, smem, st>>>(yy, oo, tt, lg, lanes,
-                                                     lg_tl);
-  else
-    phase_kernel<false><<<grid, kThreads, smem, st>>>(yy, oo, tt, lg, lanes,
-                                                      lg_tl);
-  return static_cast<int>(cudaGetLastError());
+  return inverse ? launch<true>(yy, oo, tt, mm, s1, s2, rows, lg, lanes, epi,
+                                st)
+                 : launch<false>(yy, oo, tt, mm, s1, s2, rows, lg, lanes, epi,
+                                 st);
 }

@@ -3,7 +3,8 @@
 // orbit cursor (K6), which has the row a step needs in registers when the
 // step starts, the HDR perturbation step (K6 and K3), and the anchor cursor
 // (K3), which has the next anchor's position and value in registers before
-// a step needs them.
+// a step needs them.  K7 (csrc/la_stream.cu) loads its node rows with the
+// anchor loads.
 //
 // Orbit rows: the packed [M, 4] table of ops/tables.py pack_orbit_np,
 // row r = (Z[r], Z[r+1]).  A step at position j reads row j; the next step

@@ -64,8 +64,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launch over compressed anchors; K4-NR (ntt_nr) and K5-NR (nr_tail)
 # once per NR step, whether launched alone or by the NR chunk loop
 # (fs_nr_chunk);
-# K1-seq (escape_seq) once per frame sequence, K7 (la_stream) per init
-# or stage launch, K8 (ntt_phase) per phase transform; K9 once per
+# K1-seq (escape_seq) once per frame sequence, K7 (la_stream) per launch
+# (the AT skip and every stage; a relaunch over the pixels still in a
+# stage), K8 (ntt_phase) per phase transform (a four-step's two launches
+# count two); K9 once per
 # multiply per form (ntt_products_whole: one cooperative launch;
 # ntt_products_split: three launches), K10 once per tail per form
 # (fused_tail_grid, fused_tail_batched) and K11 (iterate_full) once per
@@ -132,12 +134,12 @@ _SIGNATURES = {
     # escape_seq: out params | frames width height | list counter stream
     "fs_escape_seq_f32": [_P, _P, _I32, _I32, _I32, _P, _P, _P],
     "fs_escape_seq_f64": [_P, _P, _I32, _I32, _I32, _P, _P, _P],
-    # la_stream: dc(3) nodes side stages at | state(8) | n_pixels n_nodes
-    # stage max_iter chunk_steps at_step mode | stream
-    "fs_la_stream": [_P] * 15 + [_I32, _I32, _I32, _I64, _I64, _I64, _I32,
-                                 _P],
-    # ntt_phase: y out tw | rows m lanes inverse | stream
-    "fs_ntt_phase": [_P] * 3 + [_I32, _I32, _I32, _I32, _P],
+    # la_stream: dc(3) nodes side stages at | state(8) | work | n_work
+    # n_nodes stage_count | max_iter chunk_steps at_step | first | stream
+    "fs_la_stream": [_P] * 16 + [_I32] * 3 + [_I64] * 3 + [_I32, _P],
+    # ntt_phase: y out tw mat | rows m lanes inverse epilogue | scale words
+    # | stream
+    "fs_ntt_phase": [_P] * 4 + [_I32] * 5 + [_I64, _I64, _P],
     # ntt_products: v0..v3 | V din | signs plan out work tables | log2n
     # whole | stream
     "fs_ntt_products": [_P] * 4 + [_I32, _I32] + [_P] * 5

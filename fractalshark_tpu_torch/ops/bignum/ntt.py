@@ -117,12 +117,20 @@ def _row_idx(rows: int, device) -> torch.Tensor:
     return torch.arange(rows, device=device) % 2
 
 
+_rows_cache: dict = {}
+
+
 def _per_row(values, a: torch.Tensor) -> torch.Tensor:
     """int64 per-prime values, one per row of a (row r takes values[r %
-    2]), shaped to broadcast over a."""
-    t = torch.tensor(values, dtype=torch.int64, device=a.device)
-    return t[_row_idx(a.shape[0], a.device)].view(
-        (-1,) + (1,) * (a.dim() - 1))
+    2]), shaped to broadcast over a.  Made on a's device once per
+    (values, rows, device) and cached: a host-to-device copy on every call
+    would stall the stream."""
+    key = (tuple(int(v) for v in values), a.shape[0], str(a.device))
+    t = _rows_cache.get(key)
+    if t is None:
+        t = torch.tensor(key[0], dtype=torch.int64, device=a.device)
+        t = _rows_cache[key] = t[_row_idx(a.shape[0], a.device)]
+    return t.view((-1,) + (1,) * (a.dim() - 1))
 
 
 _PS = [p for p, _ in PRIMES]
@@ -241,26 +249,75 @@ def phase_transform_plain(y: torch.Tensor, m: int,
 
 
 def _k8_table(m: int, inverse: bool) -> np.ndarray:
-    """K8's twiddles: phase_twiddles in Montgomery form (w·R mod p; w < 2^31,
-    so w·R < 2^63), uint32 read as int32."""
-    tw = phase_twiddles(m, inverse) * _R % np.array([[p] for p in _PS])
-    return tw.astype(np.uint32).view(np.int32)
+    """K8's twiddles, uint32 [2 primes, m, 2] read as int32: the stage of
+    half-span h = 2^b at [h − 1, 2h − 1), entry h − 1 + j =
+    phase_twiddles[j << (log2(m) − 1 − b)] (the stage's twiddle of pair
+    j) as (w, floor(w·2^32 / p)), the pair of a Shoup product; the last
+    entry is unused."""
+    tw = phase_twiddles(m, inverse)
+    lg = m.bit_length() - 1
+    w = np.zeros((2, m), np.int64)
+    for b in range(lg):
+        h = 1 << b
+        w[:, h - 1:2 * h - 1] = tw[:, np.arange(h) << (lg - 1 - b)]
+    wp = (w << 32) // np.array([[p] for p in _PS])
+    return np.stack([w, wp], axis=-1).astype(np.uint32).view(np.int32)
 
 
-def phase_kernel(y: torch.Tensor, m: int, inverse: bool) -> torch.Tensor:
-    """Launch K8 once on a CUDA device."""
+def _k8_matrix(n: int, inverse: bool) -> np.ndarray:
+    """The four-step's twiddle matrix in the order K8's epilogue reads it,
+    [2 primes, L, m] of its first launch's phase (forward: t1
+    transposed, [n2, n1]; inverse: t1i, [n1, n2]), Montgomery form,
+    uint32 read as int32."""
+    t1, t1i = fourstep_twiddles(n)
+    mat = t1i if inverse else t1.transpose(0, 2, 1)
+    mat = mat * _R % np.array([[[p]] for p in _PS])
+    return np.ascontiguousarray(mat.astype(np.uint32).view(np.int32))
+
+
+def _mont_words(values) -> tuple[int, int]:
+    """Per-prime values in Montgomery form (v·R mod p)."""
+    return tuple(int(v) * _R % p for v, p in zip(values, _PS))
+
+
+def phase_kernel(y: torch.Tensor, m: int, inverse: bool,
+                 mat: torch.Tensor | None = None,
+                 scale: tuple[int, int] | None = None) -> torch.Tensor:
+    """Launch K8 once on a CUDA device over int32 [R, m, L]: the phase
+    alone ([R, m, L]); with `mat` (int32 [2, L, m], ``_k8_matrix``) the
+    phase transposed to [R, L, m] and times the matrix; with `scale` (a
+    Montgomery word per prime) the phase times the scale ([R, m, L])."""
     rows, _, lanes = y.shape
     if not 0 < rows < (1 << 16):
         raise ValueError(f"K8 takes 1 to 65,535 rows, not {rows}")
+    if mat is not None and (scale is not None or mat.dtype != torch.int32
+                            or tuple(mat.shape) != (2, lanes, m)
+                            or mat.device != y.device
+                            or not mat.is_contiguous()):
+        raise ValueError(f"K8's matrix must be int32 [2, {lanes}, {m}] on "
+                         f"{y.device}, without a scale")
     y = y.contiguous()
-    out = torch.empty_like(y)
+    out = torch.empty((rows, lanes, m) if mat is not None else y.shape,
+                      dtype=y.dtype, device=y.device)
     tw = _on(("k8", m, inverse), y.device, lambda: _k8_table(m, inverse))
+    epi = 1 if mat is not None else (2 if scale is not None else 0)
+    sc = scale if scale is not None else (0, 0)
     rc = kernels.lib().fs_ntt_phase(
-        y.data_ptr(), out.data_ptr(), tw.data_ptr(), rows, m, lanes,
-        int(inverse), kernels.stream(y.device))
+        y.data_ptr(), out.data_ptr(), tw.data_ptr(),
+        None if mat is None else mat.data_ptr(), rows, m, lanes,
+        int(inverse), epi, sc[0], sc[1], kernels.stream(y.device))
     kernels.check(rc, "ntt_phase")
     kernels.launches["ntt_phase"] += 1
     return out
+
+
+def _check_phase(y: torch.Tensor, m: int) -> None:
+    _check_pow2(m, 2, MAX_PHASE, "phase length")
+    if y.dim() != 3 or y.shape[1] != m or y.dtype != torch.int32:
+        raise ValueError(f"K8 takes int32 [R, {m}, L], not "
+                         f"{y.dtype}{tuple(y.shape)}")
+    if y.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {y.device}")
 
 
 def phase_transform(y: torch.Tensor, m: int, inverse: bool) -> torch.Tensor:
@@ -268,14 +325,9 @@ def phase_transform(y: torch.Tensor, m: int, inverse: bool) -> torch.Tensor:
     p1/p2 by r % 2): forward DIF, natural → bit-reversed; inverse DIT,
     bit-reversed → natural, unscaled.  K8 for CUDA tensors, the plain twin
     for CPU tensors; equal to B9a and B9b bit for bit."""
-    _check_pow2(m, 2, MAX_PHASE, "phase length")
-    if y.dim() != 3 or y.shape[1] != m or y.dtype != torch.int32:
-        raise ValueError(f"phase_transform takes int32 [R, {m}, L], not "
-                         f"{y.dtype}{tuple(y.shape)}")
+    _check_phase(y, m)
     if y.device.type == "cuda":
         return phase_kernel(y, m, inverse)
-    if y.device.type != "cpu":
-        raise ValueError(f"unsupported device {y.device}")
     return phase_transform_plain(y, m, inverse)
 
 
@@ -283,33 +335,89 @@ def _scale(y: torch.Tensor, n: int, extra_scale_r: bool) -> torch.Tensor:
     return mul_rows(y, _per_row(scale_consts(n, extra_scale_r).tolist(), y))
 
 
+def _fourstep_shape(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """x as [R, m, n / m] (n a four-step size, x int32 [R, n] or a view)."""
+    _check_pow2(n, 4, MAX_PHASE * MAX_PHASE, "transform size")
+    if x.dtype != torch.int32 or x.numel() != x.shape[0] * n:
+        raise ValueError(f"the four-step takes int32 [R, {n}], not "
+                         f"{x.dtype}{tuple(x.shape)}")
+    y = x.reshape(x.shape[0], m, n // m)
+    _check_phase(y, m)
+    return y
+
+
+def fourstep_head_plain(x: torch.Tensor, n: int,
+                        inverse: bool) -> torch.Tensor:
+    """Plain twin of a four-step's first K8 launch.  Forward: the phase
+    of n1 over [R, n1, n2], times the twiddle matrix t1, transposed to
+    [R, n2, n1]; inverse: the phase of n2 over [R, n2, n1], transposed to
+    [R, n1, n2], times t1i (``ntt.py:678-718``)."""
+    rows = x.shape[0]
+    n1, n2 = split_n(n)
+    m = n2 if inverse else n1
+    b = phase_transform_plain(_fourstep_shape(x, n, m), m, inverse)
+    t = _on(("t1i" if inverse else "t1", n), x.device,
+            lambda: fourstep_twiddles(n)[int(inverse)])
+    t = t[_row_idx(rows, x.device)]
+    if inverse:
+        return mul_rows(b.transpose(1, 2).contiguous(), t)
+    return mul_rows(b, t).transpose(1, 2).contiguous()
+
+
+def fourstep_tail_plain(b: torch.Tensor, n: int, inverse: bool,
+                        extra_scale_r: bool = True) -> torch.Tensor:
+    """Plain twin of a four-step's second K8 launch over the first's
+    output: forward, the phase of n2 over [R, n2, n1]; inverse, the phase
+    of n1 over [R, n1, n2], scaled by n^-1 (·R with `extra_scale_r`)."""
+    n1, n2 = split_n(n)
+    m = n1 if inverse else n2
+    a = phase_transform_plain(_fourstep_shape(b, n, m), m, inverse)
+    return _scale(a, n, extra_scale_r) if inverse else a
+
+
+def fourstep_head(x: torch.Tensor, n: int, inverse: bool) -> torch.Tensor:
+    """A four-step's first launch (``fourstep_head_plain``): K8 with the
+    twiddle-matrix epilogue for CUDA tensors, the plain twin for CPU
+    tensors."""
+    n1, n2 = split_n(n)
+    m = n2 if inverse else n1
+    y = _fourstep_shape(x, n, m)
+    if y.device.type == "cpu":
+        return fourstep_head_plain(x, n, inverse)
+    mat = _on(("k8_mat", n, inverse), y.device,
+              lambda: _k8_matrix(n, inverse))
+    return phase_kernel(y, m, inverse, mat=mat)
+
+
+def fourstep_tail(b: torch.Tensor, n: int, inverse: bool,
+                  extra_scale_r: bool = True) -> torch.Tensor:
+    """A four-step's second launch (``fourstep_tail_plain``): K8 (with the
+    scale epilogue for the inverse) for CUDA tensors, the plain twin for
+    CPU tensors."""
+    n1, n2 = split_n(n)
+    m = n1 if inverse else n2
+    y = _fourstep_shape(b, n, m)
+    if y.device.type == "cpu":
+        return fourstep_tail_plain(b, n, inverse, extra_scale_r)
+    scale = _mont_words(scale_consts(n, extra_scale_r)) if inverse else None
+    return phase_kernel(y, m, inverse, scale=scale)
+
+
 def fourstep_forward(x: torch.Tensor, n: int) -> torch.Tensor:
     """Four-step forward of int32 [R, n]: phase of n1 over [R, n1, n2],
     the twiddle matrix, transpose, phase of n2 over [R, n2, n1]; the
-    reference's scrambled spectra (``ntt.py:678-692``)."""
-    _check_pow2(n, 4, MAX_PHASE * MAX_PHASE, "transform size")
-    rows = x.shape[0]
-    n1, n2 = split_n(n)
-    t1 = _on(("t1", n), x.device, lambda: fourstep_twiddles(n)[0])
-    b = phase_transform(x.reshape(rows, n1, n2), n1, False)
-    b = mul_rows(b, t1[_row_idx(rows, x.device)])
-    e = phase_transform(b.transpose(1, 2).contiguous(), n2, False)
-    return e.reshape(rows, n)
+    reference's scrambled spectra (``ntt.py:678-692``).  Two launches on
+    the card (``fourstep_head``, ``fourstep_tail``)."""
+    e = fourstep_tail(fourstep_head(x, n, False), n, False)
+    return e.reshape(x.shape[0], n)
 
 
 def fourstep_inverse_scaled(x: torch.Tensor, n: int,
                             extra_scale_r: bool = True) -> torch.Tensor:
     """Inverse of fourstep_forward, scaled by n^-1 (·R optionally)
-    (``ntt.py:695-718``)."""
-    _check_pow2(n, 4, MAX_PHASE * MAX_PHASE, "transform size")
-    rows = x.shape[0]
-    n1, n2 = split_n(n)
-    t1i = _on(("t1i", n), x.device, lambda: fourstep_twiddles(n)[1])
-    bt = phase_transform(x.reshape(rows, n2, n1), n2, True)
-    b = mul_rows(bt.transpose(1, 2).contiguous(),
-                 t1i[_row_idx(rows, x.device)])
-    a = phase_transform(b, n1, True)
-    return _scale(a.reshape(rows, n), n, extra_scale_r)
+    (``ntt.py:695-718``).  Two launches on the card."""
+    a = fourstep_tail(fourstep_head(x, n, True), n, True, extra_scale_r)
+    return a.reshape(x.shape[0], n)
 
 
 def shoup_forward(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -322,8 +430,13 @@ def shoup_forward(x: torch.Tensor, n: int) -> torch.Tensor:
 def shoup_inverse_scaled(x: torch.Tensor, n: int,
                          extra_scale_r: bool = True) -> torch.Tensor:
     """The flat inverse DIT, scaled by n^-1 (·R optionally)
-    (``ntt.py:389-419``)."""
-    y = phase_transform(x.reshape(x.shape[0], n, 1), n, True)
+    (``ntt.py:389-419``): K8 with the scale epilogue on the card."""
+    y = x.reshape(x.shape[0], n, 1)
+    _check_phase(y, n)
+    if y.device.type == "cuda":
+        return phase_kernel(y, n, True, scale=_mont_words(
+            scale_consts(n, extra_scale_r))).reshape(x.shape[0], n)
+    y = phase_transform_plain(y, n, True)
     return _scale(y.reshape(x.shape[0], n), n, extra_scale_r)
 
 

@@ -3,23 +3,28 @@
 
 Phase 1 of the two-phase LAv2 render, stage by stage from coarse to
 fine, as the pixel-identical alternative to K2's one-machine phase 1
-(``FRACTALSHARK_LA_PHASE=stream``, ``engine/renderers.py``).  The host
-side is the reference's (``la_stream.py:386-499``): the AT head skip,
-stages from coarse to fine, a pixel taking part in stage s iff it is not
+(``FRACTALSHARK_LA_PHASE=stream``, ``engine/renderers.py``).  The
+reference (``la_stream.py:386-499``) runs the AT head skip, then every
+stage from coarse to fine: a pixel takes part in stage s iff it is not
 done and |dc| is below the stage's first LAThresholdC, its entry offset
-the ``ref_iter`` handed down (clipped to [0, macro − 1]), relaunches
-until no pixel still steps in the stage, and the abort monitor polled
-between launches.  The result is the tail handoff
+is the ``ref_iter`` handed down (clipped to [0, macro − 1]), the stage
+is relaunched until no pixel still steps in it, and the abort monitor is
+polled between launches.  The result is the tail handoff
 ``{dzr, dzi, dze, it, jwait, done}`` that
 ``perturb_stream.perturb_render_stream_rc(init_state=...)`` takes.
 
-The reference sweeps each stage's nodes in lockstep and lets pixels
-stall until the sweep reaches their offset; K7 steps each pixel's own
-offset (see ``csrc/la_stream.cu``), and the plain twin steps every pixel
-in lockstep over flat tensors.  Both give the reference's state bit for
-bit.  The machine state per pixel: dz (HDR-f32), the remaining budget
-and ``ref_iter`` (int64), the node offset ``j``, ``act`` (still stepping
-in this stage) and ``done``.
+Whether a pixel enters a stage, where, and how it steps depend only on
+its own state, so K7 carries each pixel through the AT skip and every
+stage in one lane (see ``csrc/la_stream.cu``), and ``run_stages``
+launches it once over every pixel, then, while some pixel reached the
+launch's bound of steps, over the pixels still in a stage
+(``perturb.live_pixels``).  ``stream_plain`` is the plain twin of one
+such launch; ``lockstep_plain`` is the reference's schedule, stage after
+stage in lockstep, kept as the yardstick of the new one.  All give the
+reference's handoff bit for bit.  The state per pixel: dz (HDR-f32), the
+remaining budget and ``ref_iter`` (int64), the node offset ``j``, the
+stage ``s`` it steps in (−1: it has left the stages, or is done) and
+``done``.
 """
 
 from __future__ import annotations
@@ -32,88 +37,177 @@ from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
 from fractalshark_tpu_torch.ops import hdrfloat as hdr
 from fractalshark_tpu_torch.ops import la_kernel
 from fractalshark_tpu_torch.ops.hdrfloat import HDR, HDRComplex
-from fractalshark_tpu_torch.ops.perturb import _dc_grids_hdr, delta_params
+from fractalshark_tpu_torch.ops.perturb import (_dc_grids_hdr, delta_params,
+                                               live_pixels, on_subset)
 from fractalshark_tpu_torch.ops.tables import ibits
 
 # nodes per streamed window in the reference; here the unit of
 # `launch_windows` (steps per pixel per launch = launch_windows · win)
 WIN = 512
+# steps a pixel per launch, counted across stages
 DEFAULT_CHUNK_STEPS = 1 << 16
 
-_STATE = ("dzr", "dzi", "dze", "rem", "ref_iter", "j", "act", "done")
+STATE = ("dzr", "dzi", "dze", "rem", "ref_iter", "j", "s", "done")
 _DTYPES = (torch.float32, torch.float32, torch.int32, torch.int64,
-           torch.int64, torch.int32, torch.bool, torch.bool)
-_MODES = {"init": 0, "enter": 1, "step": 2}
+           torch.int64, torch.int32, torch.int32, torch.bool)
+# the handoff's arrays in a state (and in lockstep_plain's)
+HANDOFF = ("dzr", "dzi", "dze", "rem", "ref_iter", "done")
+
+# written by run_stages: launches ("dispatches"), the pixels each launch
+# ran ("work") and, for the twin, the LA steps of all pixels ("steps")
+last_run_stats: dict = {}
+
+
+def _cheb_r(z: HDRComplex) -> HDR:
+    return hdr.reduce(hdr.chebychev_norm(z))
+
+
+def _step(T, dc: HDRComplex, dz: HDRComplex, node: torch.Tensor,
+          rem: torch.Tensor, j: torch.Tensor, macro) -> tuple:
+    """One LA step of every pixel at its node (la_stream.py:99-181):
+    (usable, the node's NextStageLAIndex, its step length, the rebase
+    flag, dz after the step)."""
+    nodes_i = ibits(T.nodes)
+    g, gi, sg = T.nodes[node], nodes_i[node], T.side[node]
+    ref_n = HDRComplex(g[:, 0], g[:, 1], gi[:, 2])
+    t = hdr.complex_add(hdr.complex_mul_pow2(ref_n, 1), dz)
+    newdz = hdr.reduce_complex(hdr.complex_mul(t, dz))
+    usable = (sg[:, 0] <= rem) & hdr.lt_unreduced(
+        hdr.chebychev_norm(newdz), HDR(g[:, 9], gi[:, 10]))
+    dz_ev = hdr.reduce_complex(hdr.complex_add(
+        hdr.complex_mul(newdz, HDRComplex(g[:, 3], g[:, 4], gi[:, 5])),
+        hdr.complex_mul(dc, HDRComplex(g[:, 6], g[:, 7], gi[:, 8]))))
+    z_full = hdr.reduce_complex(hdr.complex_add(
+        HDRComplex(g[:, 13], g[:, 14], gi[:, 15]), dz_ev))
+    reb = hdr.lt_unreduced(hdr.chebychev_norm(z_full),
+                           hdr.chebychev_norm(dz_ev)) | (j + 1 >= macro)
+    return usable, sg[:, 1], sg[:, 0], reb, la_kernel._select(reb, z_full,
+                                                              dz_ev)
 
 
 def init_plain(T, dc: HDRComplex, max_iter: int) -> tuple:
-    """Plain twin of K7's init launch: the AT head skip (K2's,
-    ``la_kernel.init_state_plain``), the remaining budget and done."""
+    """The state before any LA step: the AT head skip (K2's,
+    ``la_kernel.init_state_plain``), the remaining budget, stage S − 1
+    (−1 where the skip used the budget) and done."""
     _, _, ref, dzr, dzi, dze, it, done = la_kernel.init_state_plain(
         T, dc, max_iter)
-    j = torch.zeros_like(dze)
-    return (dzr, dzi, dze, (max_iter - it).clamp(min=0), ref, j,
-            torch.zeros_like(done), done)
+    s = torch.where(done, -1, T.stage_count - 1).to(torch.int32)
+    return (dzr, dzi, dze, (max_iter - it).clamp(min=0), ref,
+            torch.zeros_like(dze), s, done)
 
 
-def stage_plain(T, dc: HDRComplex, state: tuple, stage: int, enter: bool,
-                chunk_steps: int = 0) -> tuple:
-    """Plain twin of K7's stage launch: every pixel of the stage in
-    lockstep for at most `chunk_steps` steps (0 = until none steps)."""
-    dzr, dzi, dze, rem, ref, j, act, done = state
-    st_i = ibits(T.stages[stage])
-    head, macro = int(st_i[0]), int(st_i[1])
-    if enter:
-        thrc0 = HDR(T.stages[stage, 2].expand_as(dzr),
-                    st_i[3].expand_as(dze))
-        act = ~done & (macro > 0) & hdr.lt_reduced(la_kernel._cheb_r(dc),
-                                                   thrc0)
-        j = ref.clamp(0, max(macro - 1, 0)).to(torch.int32)
-    nodes_i = ibits(T.nodes)
+def stream_plain(T, dc: HDRComplex, state: tuple | None, max_iter: int,
+                 chunk_steps: int = 0, steps_taken: list | None = None
+                 ) -> tuple:
+    """Plain twin of one K7 launch over the pixels of `dc` (state None:
+    the first launch, from the AT skip): each pixel enters stage after
+    stage and steps, at most `chunk_steps` steps (0 = no bound) counted
+    across stages; a pixel stopped by the bound is left with its next
+    stage entered.  Every pixel still in a stage takes one step per pass
+    of the loop, so the passes count every pixel's steps; each pass's
+    count of stepping pixels is appended to `steps_taken` if given."""
+    first = state is None
+    if first:
+        state = init_plain(T, dc, max_iter)
+    dzr, dzi, dze, rem, ref, j, s, done = state
+    st_i = ibits(T.stages).to(torch.int64)
+    heads, macros = st_i[:, 0], st_i[:, 1]
+    thrc0 = HDR(T.stages[:, 2], st_i[:, 3].to(torch.int32))
+    dc_cheb = _cheb_r(dc)
+    act = torch.zeros_like(done) if first else s >= 0
     N = T.nodes.shape[0]
     steps = 0
-    while bool(act.any()) and (chunk_steps == 0 or steps < chunk_steps):
+    while True:
+        while True:     # the pixels between stages enter their next one
+            pend = (s >= 0) & ~act
+            if not bool(pend.any()):
+                break
+            si = s.clamp(min=0).long()
+            macro = macros[si]
+            ok = pend & (macro > 0) & hdr.lt_reduced(
+                dc_cheb, HDR(thrc0.m[si], thrc0.e[si]))
+            act = act | ok
+            j = torch.where(ok, torch.minimum(ref.clamp(min=0), macro - 1),
+                            j).to(torch.int32)
+            s = torch.where(pend & ~ok, s - 1, s)
+        live = s >= 0
+        if not bool(live.any()) or (chunk_steps and steps == chunk_steps):
+            break
         steps += 1
-        node = (head + j.to(torch.int64)).clamp(max=N - 1)
-        g, gi, sg = T.nodes[node], nodes_i[node], T.side[node]
-        dz = HDRComplex(dzr, dzi, dze)
-        ref_n = HDRComplex(g[:, 0], g[:, 1], gi[:, 2])
-        t = hdr.complex_add(hdr.complex_mul_pow2(ref_n, 1), dz)
-        newdz = hdr.reduce_complex(hdr.complex_mul(t, dz))
-        usable = (sg[:, 0] <= rem) & hdr.lt_unreduced(
-            hdr.chebychev_norm(newdz), HDR(g[:, 9], gi[:, 10]))
-        drop = act & ~usable
-        stepx = act & usable
-        ref = torch.where(drop, sg[:, 1], ref)
-        dz_ev = hdr.reduce_complex(hdr.complex_add(
-            hdr.complex_mul(newdz, HDRComplex(g[:, 3], g[:, 4], gi[:, 5])),
-            hdr.complex_mul(dc, HDRComplex(g[:, 6], g[:, 7], gi[:, 8]))))
-        z_full = hdr.reduce_complex(hdr.complex_add(
-            HDRComplex(g[:, 13], g[:, 14], gi[:, 15]), dz_ev))
-        reb = hdr.lt_unreduced(hdr.chebychev_norm(z_full),
-                               hdr.chebychev_norm(dz_ev)) | (j + 1 >= macro)
-        new = la_kernel._select(reb, z_full, dz_ev)
+        if steps_taken is not None:
+            steps_taken.append(live.sum())
+        si = s.clamp(min=0).long()
+        node = (heads[si] + j.to(torch.int64)).clamp(max=N - 1)
+        usable, nxt, length, reb, new = _step(
+            T, dc, HDRComplex(dzr, dzi, dze), node, rem, j, macros[si])
+        drop = live & ~usable
+        stepx = live & usable
+        ref = torch.where(drop, nxt, ref)
         dzr = torch.where(stepx, new.re, dzr)
         dzi = torch.where(stepx, new.im, dzi)
         dze = torch.where(stepx, new.e, dze)
-        rem = torch.where(stepx, rem - sg[:, 0], rem)
+        rem = torch.where(stepx, rem - length, rem)
         exhausted = stepx & (rem == 0)
         done = done | exhausted
         j = torch.where(stepx & ~exhausted, torch.where(reb, 0, j + 1), j)
         act = stepx & ~exhausted
-    return (dzr, dzi, dze, rem, ref, j, act, done)
+        s = torch.where(drop, s - 1, torch.where(exhausted, -1, s))
+    return (dzr, dzi, dze, rem, ref, j, s, done)
 
 
-def stage_kernel(T, dc: HDRComplex, state: tuple | None, stage: int,
-                 mode: str, max_iter: int, chunk_steps: int) -> tuple:
-    """Launch K7 once on a CUDA device (mode init, enter or step); with
-    `state` None the state is allocated (init).  The state is updated in
-    place and returned."""
+def lockstep_plain(T, dc: HDRComplex, max_iter: int,
+                   chunk_steps: int = 0) -> tuple:
+    """The reference's schedule: after the AT skip, stage after stage
+    from coarse to fine, every pixel of the stage in lockstep, relaunched
+    (in chunks of `chunk_steps` steps, 0 = none) until none steps in it.
+    Returns (dzr, dzi, dze, rem, ref_iter, done)."""
+    dzr, dzi, dze, rem, ref, j, _, done = init_plain(T, dc, max_iter)
+    st_i = ibits(T.stages)
+    dc_cheb = _cheb_r(dc)
+    N = T.nodes.shape[0]
+    for stage in reversed(range(T.stage_count)):
+        head, macro = int(st_i[stage, 0]), int(st_i[stage, 1])
+        thrc0 = HDR(T.stages[stage, 2].expand_as(dzr),
+                    st_i[stage, 3].expand_as(dze))
+        act = ~done & (macro > 0) & hdr.lt_reduced(dc_cheb, thrc0)
+        j = ref.clamp(0, max(macro - 1, 0)).to(torch.int32)
+        while bool(act.any()):
+            steps = 0
+            while bool(act.any()) and (chunk_steps == 0
+                                       or steps < chunk_steps):
+                steps += 1
+                node = (head + j.to(torch.int64)).clamp(max=N - 1)
+                usable, nxt, length, reb, new = _step(
+                    T, dc, HDRComplex(dzr, dzi, dze), node, rem, j, macro)
+                drop = act & ~usable
+                stepx = act & usable
+                ref = torch.where(drop, nxt, ref)
+                dzr = torch.where(stepx, new.re, dzr)
+                dzi = torch.where(stepx, new.im, dzi)
+                dze = torch.where(stepx, new.e, dze)
+                rem = torch.where(stepx, rem - length, rem)
+                exhausted = stepx & (rem == 0)
+                done = done | exhausted
+                j = torch.where(stepx & ~exhausted,
+                                torch.where(reb, 0, j + 1), j)
+                act = stepx & ~exhausted
+    return (dzr, dzi, dze, rem, ref, done)
+
+
+def stream_kernel(T, dc: HDRComplex, state: tuple | None, max_iter: int,
+                  chunk_steps: int, work=None) -> tuple:
+    """Launch K7 once on a CUDA device over the pixels `work` (int32
+    indices, ascending; None: every pixel).  With `state` None the launch
+    is the first (the AT skip; `work` must be None) and allocates the
+    state; the state is updated in place and returned."""
     dev = dc.re.device
     P = dc.re.numel()
-    if state is None:
+    first = state is None
+    if first:
+        if work is not None:
+            raise ValueError("K7's first launch runs every pixel")
         state = tuple(torch.empty(P, dtype=dt, device=dev) for dt in _DTYPES)
-    for t, dt, name in zip(state, _DTYPES, _STATE):
+    for t, dt, name in zip(state, _DTYPES, STATE):
         if t.dtype != dt or t.numel() != P or t.device != dev \
                 or not t.is_contiguous():
             raise ValueError(f"K7 state {name}: {t.dtype} {tuple(t.shape)}")
@@ -123,43 +217,53 @@ def stage_kernel(T, dc: HDRComplex, state: tuple | None, stage: int,
             raise ValueError("K7 inputs must be contiguous on one device")
     if T.nodes.dtype != torch.float32 or dc.re.dtype != torch.float32:
         raise ValueError("K7 takes f32 mantissas")
+    n_work = P
+    if work is not None:
+        if work.dtype != torch.int32 or work.device != dev \
+                or not work.is_contiguous():
+            raise ValueError("K7 work must be contiguous int32 on the device")
+        n_work = work.numel()
     at = T.at if T.at.numel() else T.nodes  # never read when at_step == 0
     lib = kernels.lib()
     kernels.launches["la_stream"] += 1
     kernels.check(lib.fs_la_stream(
         *(t.data_ptr() for t in dc), T.nodes.data_ptr(), T.side.data_ptr(),
         T.stages.data_ptr(), at.data_ptr(), *(t.data_ptr() for t in state),
-        P, T.nodes.shape[0], stage, int(max_iter), int(chunk_steps),
-        int(T.at_step), _MODES[mode], kernels.stream(dev)), "fs_la_stream")
+        None if work is None else work.data_ptr(), n_work, T.nodes.shape[0],
+        T.stage_count, int(max_iter), int(chunk_steps), int(T.at_step),
+        int(first), kernels.stream(dev)), "fs_la_stream")
     return state
 
 
 def run_stages(T, dc: HDRComplex, max_iter: int, chunk_steps: int,
                abort_monitor=None, plain: bool | None = None) -> tuple:
-    """The init launch, then every stage from coarse to fine, relaunched
-    until no pixel steps in it (or an abort), over flat pixel tensors:
-    K7, or the plain twin where `plain` (default: for CPU tensors).
-    Returns the state."""
+    """The AT skip and every stage over flat pixel tensors: one launch
+    over every pixel, then, while some pixel is still in a stage (it
+    reached the launch's bound of `chunk_steps` steps), one over those
+    pixels, the abort monitor polled between launches.  K7, or the plain
+    twin where `plain` (default: for CPU tensors).  Returns the state."""
     if plain is None:
         plain = dc.re.device.type == "cpu"
-
-    def run(state, stage, mode):
+    state, work, sizes, taken = None, None, [], []
+    while True:
+        sizes.append(dc.re.numel() if work is None else work.numel())
         if not plain:
-            return stage_kernel(T, dc, state, stage, mode, max_iter,
-                                chunk_steps)
-        if mode == "init":
-            return init_plain(T, dc, max_iter)
-        return stage_plain(T, dc, state, stage, mode == "enter", chunk_steps)
-
-    state = run(None, 0, "init")
-    for s in reversed(range(T.stage_count)):
-        mode = "enter"
-        while True:
-            state = run(state, s, mode)
-            mode = "step"
-            if not bool(state[6].any()) or (abort_monitor is not None
-                                            and abort_monitor.aborted()):
-                break
+            state = stream_kernel(T, dc, state, max_iter, chunk_steps, work)
+        elif state is None:
+            state = stream_plain(T, dc, None, max_iter, chunk_steps, taken)
+        else:
+            state = on_subset(
+                lambda st, d: stream_plain(T, d, st, max_iter, chunk_steps,
+                                           taken), state, dc, work)
+        live = state[6] >= 0
+        if not bool(live.any()) or (abort_monitor is not None
+                                    and abort_monitor.aborted()):
+            break
+        work = live_pixels(~live)
+    last_run_stats["dispatches"] = len(sizes)
+    last_run_stats["work"] = sizes
+    # the LA steps of every pixel (counted by the twin only)
+    last_run_stats["steps"] = int(sum(taken)) if plain else None
     return state
 
 
@@ -167,8 +271,9 @@ def la_phase_stream(results, la, ptz: PointZoomBBConverter, width: int,
                     height: int, max_iter: int,
                     launch_windows: int | None = None, abort_monitor=None,
                     win: int | None = None, device="cuda"):
-    """AT skip and every LA stage, stage by stage: K7 on a CUDA device,
-    the plain twin on the CPU.  Returns the tail handoff {dzr, dzi, dze,
+    """The AT skip and every LA stage, each pixel carried through all of
+    them by one lane: K7 on a CUDA device, the plain twin on the CPU
+    (``run_stages``).  Returns the tail handoff {dzr, dzi, dze,
     it, jwait, done} ([height, width] tensors on `device`), or None when
     the table has no stages or a node offset reaches 2^31 − 1, as the
     reference (``la_stream.py:397-405``).  Each launch runs at most

@@ -3,7 +3,10 @@ K8's plain twin) and the generic multiplies and debug checksums built on
 it, against the JAX package, bit for bit: the phase transform against
 ``_axis0_dif``/``_axis0_dit``, the MXU form ``mxu_transform_pallas`` and
 the sublane form ``sublane_transform`` (both Pallas, interpret mode);
-the four-step and flat transforms; ``multiply_3way``, ``multiply_iter``,
+the four-step and flat transforms, and the twins of the four-step's two
+K8 launches (the twiddle matrix, transpose and scale in their
+epilogues) against the four-step with that glue between its phases and
+against JAX at every row count of the multiplies; ``multiply_3way``, ``multiply_iter``,
 ``multiply_nr`` and ``multiply_nr_iter`` against JAX and against Python
 ints; the ``checksum_multiply_3way`` record key for key.
 
@@ -30,6 +33,10 @@ from fractalshark_tpu_torch.ops.bignum import ntt as N
 PHASE_M, PHASE_R, PHASE_L = (8, 64, 256), (2, 4, 6, 14), (1, 128)
 PHASES = list(itertools.product(PHASE_M, PHASE_R, PHASE_L, (False, True)))
 FOURSTEP = [(8192, 4), (65536, 6)]
+# the four-step as K8's two launches a transform: every row count the
+# generic multiplies use (4/6: multiply_3way's forward/inverse, 8/14:
+# multiply_nr's)
+FUSED = [(n, r) for n in (8192, 65536) for r in (4, 6, 8, 14)]
 FLAT_N = 4096
 LIMBS = (256, 2048, 4096)
 WIDE_LIMBS = 256         # full-width random digits: pins the stream wraps
@@ -72,6 +79,8 @@ def _inputs():
     for limbs in CHECKSUM_LIMBS:
         out[f"ck_{limbs}"] = np.stack(
             _in_range_digits(FP.FixedSpec.for_limbs(limbs), rng, 2))
+    for n, r in FUSED:
+        out[f"fused_{n}_{r}"] = _residues(rng, (r, n))
     return out
 
 
@@ -109,6 +118,12 @@ def _jax_reference(inputs):
         for r in (False, True):
             out[f"fs_inv_{n}_{r}"] = np.asarray(jax.jit(functools.partial(
                 jn.fourstep_inverse_scaled, n=n, extra_scale_r=r))(x))
+    for n, r in FUSED:
+        x = jnp.asarray(inputs[f"fused_{n}_{r}"])
+        out[f"fused_fwd_{n}_{r}"] = np.asarray(jax.jit(
+            functools.partial(jn.fourstep_forward, n=n))(x))
+        out[f"fused_inv_{n}_{r}"] = np.asarray(jax.jit(functools.partial(
+            jn.fourstep_inverse_scaled, n=n, extra_scale_r=True))(x))
     x = jnp.asarray(inputs["flat"])
     out["flat_fwd"] = np.asarray(jax.jit(
         functools.partial(jn.shoup_forward, n=FLAT_N))(x))
@@ -182,6 +197,96 @@ def test_fourstep_matches_jax(jax_ref, n):
             N.fourstep_inverse_scaled(x, n, extra_scale_r=r).numpy()
             .astype(np.uint32), jax_ref[f"fs_inv_{n}_{r}"])
     assert torch.equal(N.fourstep_inverse_scaled(fwd, n, False), x)
+
+
+def _fourstep_reference(x, n, inverse):
+    """The four-step as the port ran it before K8 took its glue: the
+    phases' twin with the twiddle matrix, the transpose and the scale as
+    tensor operations between them (``ntt.py:678-718``)."""
+    rows = x.shape[0]
+    n1, n2 = N.split_n(n)
+    t1, t1i = (torch.from_numpy(t)[N._row_idx(rows, "cpu")]
+               for t in N.fourstep_twiddles(n))
+    if not inverse:
+        b = N.phase_transform_plain(x.reshape(rows, n1, n2), n1, False)
+        b = N.mul_rows(b, t1)
+        e = N.phase_transform_plain(b.transpose(1, 2).contiguous(), n2,
+                                    False)
+        return e.reshape(rows, n)
+    bt = N.phase_transform_plain(x.reshape(rows, n2, n1), n2, True)
+    b = N.mul_rows(bt.transpose(1, 2).contiguous(), t1i)
+    a = N.phase_transform_plain(b, n1, True)
+    return N._scale(a.reshape(rows, n), n, True)
+
+
+@pytest.mark.parametrize("case", FUSED, ids=lambda c: f"n{c[0]}_r{c[1]}")
+def test_fused_launches_match_fourstep_and_jax(jax_ref, case):
+    """The twins of K8's two launches a transform (the twiddle matrix and
+    transpose in the first's epilogue, the scale in the inverse's second)
+    equal the four-step with its glue between the phases and the JAX
+    package's transforms, bit for bit; the first launch's output is the
+    second's input, with no operation between them."""
+    n, r = case
+    x = _t(INPUTS[f"fused_{n}_{r}"])
+    n1, n2 = N.split_n(n)
+    for inverse, key in ((False, "fwd"), (True, "inv")):
+        head = N.fourstep_head_plain(x, n, inverse)
+        assert head.shape == ((r, n1, n2) if inverse else (r, n2, n1))
+        got = N.fourstep_tail_plain(head, n, inverse).reshape(r, n)
+        assert torch.equal(got, _fourstep_reference(x, n, inverse))
+        np.testing.assert_array_equal(got.numpy().astype(np.uint32),
+                                      jax_ref[f"fused_{key}_{n}_{r}"])
+        public = (N.fourstep_inverse_scaled(x, n) if inverse
+                  else N.fourstep_forward(x, n))
+        assert torch.equal(public, got)
+
+
+def test_fused_entries_refuse_bad_inputs():
+    """The fused launches' wrappers check their operands before any
+    launch: the matrix's shape and type, a matrix with a scale, the
+    transform's type and size, the row count."""
+    y = torch.zeros(4, 64, 128, dtype=torch.int32)
+    for mat in (torch.zeros(2, 64, 128, dtype=torch.int32),
+                torch.zeros(2, 128, 64, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="matrix"):
+            N.phase_kernel(y, 64, False, mat=mat)
+    with pytest.raises(ValueError, match="matrix"):
+        N.phase_kernel(y, 64, False, scale=(1, 1),
+                       mat=torch.zeros(2, 128, 64, dtype=torch.int32))
+    with pytest.raises(ValueError, match="rows"):
+        N.phase_kernel(torch.zeros(0, 64, 128, dtype=torch.int32), 64,
+                       False)
+    for bad in (torch.zeros(4, 8192, dtype=torch.int64),
+                torch.zeros(4, 4096, dtype=torch.int32)):
+        for call in (N.fourstep_head, N.fourstep_tail):
+            with pytest.raises(ValueError):
+                call(bad, 8192, False)
+    with pytest.raises(ValueError):
+        N.fourstep_forward(torch.zeros(4, 8191, dtype=torch.int32), 8191)
+
+
+def test_per_row_constants_made_once():
+    """A per-row constant is made on the device once per (values, rows,
+    device) and reused: no host-to-device copy per call; the products
+    stay exact."""
+    rng = np.random.default_rng(8)
+    a = _t(_residues(rng, (6, 64)))
+    b = _t(_residues(rng, (6, 64)))
+    first = N._per_row(N._PS, a)
+    assert N._per_row(N._PS, a).data_ptr() == first.data_ptr()
+    assert N._per_row(N._PS, a[:4]).data_ptr() != first.data_ptr()
+    assert first.flatten().tolist() == [N._PS[r % 2] for r in range(6)]
+    p = torch.tensor([N._PS[r % 2] for r in range(6)])[:, None]
+    ai, bi = a.to(torch.int64), b.to(torch.int64)
+    rinv = torch.tensor([pow(1 << 32, -1, N._PS[r % 2]) for r in range(6)])
+    for _ in range(2):
+        assert torch.equal(N.mul_rows(a, b), (ai * bi % p).to(torch.int32))
+        assert torch.equal(N.mont_mul_rows(a, b), (ai * bi % p * rinv[:, None]
+                                                   % p).to(torch.int32))
+        assert torch.equal(N.mod_add_rows(a, b), ((ai + bi) % p).to(
+            torch.int32))
+        assert torch.equal(N.mod_sub_rows(a, b), ((ai - bi) % p).to(
+            torch.int32))
 
 
 def test_flat_transform_matches_jax(jax_ref):
@@ -329,3 +434,29 @@ def test_kernel_matches_plain_on_card():
     us, _, _ = _oracle(limbs, d)
     got = FP.multiply_nr(*d, spec, device="cuda")
     assert [FP.digits_to_int(v.cpu().numpy()) for v in got] == us
+
+
+@pytest.mark.cuda
+def test_fused_launches_match_twins_on_card():
+    """K8's two launches a four-step transform, each against its twin at
+    every size and row count the generic multiplies use, and the flat
+    inverse with its scale epilogue."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fractalshark_tpu_torch import kernels
+    rng = np.random.default_rng(6)
+    for n in (8192, 65536, 131072):
+        for r in (4, 6, 8, 14):
+            x = _t(_residues(rng, (r, n))).cuda()
+            for inverse in (False, True):
+                kernels.reset_counts()
+                head = N.fourstep_head(x, n, inverse)
+                want = N.fourstep_head_plain(x, n, inverse)
+                assert torch.equal(head, want), (n, r, inverse)
+                assert torch.equal(N.fourstep_tail(want, n, inverse),
+                                   N.fourstep_tail_plain(want, n, inverse))
+                assert kernels.launches["ntt_phase"] == 2
+    for n in (64, 4096):
+        x = _t(_residues(rng, (4, n)))
+        assert torch.equal(N.shoup_inverse_scaled(x.cuda(), n).cpu(),
+                           N.shoup_inverse_scaled(x, n))

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time the port's per-pixel loops, K6 (``csrc/perturb.cu``), K2
 (``csrc/lav2.cu``), the two-phase tail (K6 resumed from K2's handoff),
-K3 (``csrc/rc_tail.cu``) and K1-seq (``csrc/escape.cu``), at the main
-path's full budgets on one NVIDIA card.
+K3 (``csrc/rc_tail.cu``), K1-seq (``csrc/escape.cu``) and the streaming
+LA phase K7 (``csrc/la_stream.cu``), at the main path's full budgets on
+one NVIDIA card.
 
     python3 tools/time_pixel_loops.py [--tree DIR] [--reps N] [--cli]
-                                      [--profile] [--no-floor]
+                                      [--profile] [--trace] [--no-floor]
                                       [--only NAME ...]
 
 For each frame it builds the orbit, the LA table and the dc grid through
@@ -27,10 +28,15 @@ orbit of 2^20 positions, with an anchor at every position and with
 anchor 0 alone (every step reconstructs).  ``--profile`` adds the pixels
 still live after each launch and the deepest pixel's body steps (K2,
 from launches of 64 steps) or tail steps with its serial floor (the
-tail at K6's HDR-f32 floor, K3 at its floor with an anchor every step);
-``--no-floor`` skips the serial floors.  ``--cli`` renders the two frames
-the smoke pins (View #6 PO 256², View #5 1024²) through the CLI and
-prints their iter_sum and crc32.
+tail at K6's HDR-f32 floor, K3 at its floor with an anchor every step),
+or K7's LA steps and its bound (``stream_profile``);
+``--no-floor`` skips the serial floors.  ``--trace`` adds, for each
+frame, one run under ``torch.profiler`` (``trace_call``): the sum of its
+CUDA kernels' intervals, their count, and the host syncs of the run
+(``torch.cuda.set_sync_debug_mode``'s warnings).  ``--cli`` renders the
+frames the smoke pins (View #6 PO 256², View #5 1024², View #6 256² with
+``FRACTALSHARK_LA_PHASE=stream``) through the CLI, twice each in this
+process, and prints their iter_sum, crc32 and timings.
 
 ``--tree DIR`` imports ``fractalshark_tpu_torch`` from DIR (another
 checkout, e.g. a ``git archive`` of the parent commit), so two versions
@@ -99,18 +105,28 @@ FRAMES = {
     # K1-seq: the View 0 zoom sequence (8 frames, 1.3x each, 512
     # iterations, f32)
     "seq_4096": (0, 4096, "seq", "escape_seq", "f32", (8, 1.3, 512)),
+    # K7: the streaming LA phase (AT skip and every stage, la_stream.
+    # run_stages); 1024² has more pixels than the card has lanes
+    "1e8_stream_64": (SMALL_DEEP, 64, "k7", "la_stream", "f32", None),
+    "view6_stream_256": (6, 256, "k7", "la_stream", "f32", None),
+    "view6_stream_1024": (6, 1024, "k7", "la_stream", "f32", None),
 }
 
 # iter_sum of frames pinned to a reference: the 2048² poster's two-phase
 # grid (the JAX package's TPU run, BENCH_r05.json deep_poster_iter_sum)
 PINS = {"view6_tail_2048": 3_347_387_150_394}
 
+# label: (argv, environment variables set around the render)
 CLI_FRAMES = {
-    "View #6 GpuHDRx32PerturbedLAv2PO 256²": [
+    "View #6 GpuHDRx32PerturbedLAv2PO 256²": ([
         "--view", "6", "--render-algorithm", "GpuHDRx32PerturbedLAv2PO",
-        "--width", "256", "--height", "256"],
-    "View #5 AUTO 1024²": ["--view", "5", "--width", "1024", "--height",
-                           "1024"],
+        "--width", "256", "--height", "256"], {}),
+    "View #5 AUTO 1024²": (["--view", "5", "--width", "1024", "--height",
+                            "1024"], {}),
+    # phase 1 as K7 (the smoke pins its frame to the two-phase one)
+    "View #6 256² FRACTALSHARK_LA_PHASE=stream": ([
+        "--view", "6", "--width", "256", "--height", "256"],
+        {"FRACTALSHARK_LA_PHASE": "stream"}),
 }
 
 FLOOR_STEPS = 1 << 20
@@ -186,6 +202,8 @@ def setup(name, device):
                                dtype=fdt, mode=mode, n=n, mr=mr, T=None)
     if kern in ("tail", "k3"):
         return _setup_tail(fr, f, res, dpar, device)
+    if kern == "k7":
+        return _setup_stream(fr, f, res, dpar, device)
     if kern == "k6":
         fr.orbit = orbit_on(res, device, fdt)
         grids = perturb._dc_grids_hdr if mode else perturb._dc_grids_float
@@ -288,6 +306,26 @@ def _setup_tail(fr, f, res, dpar, device):
     return fr
 
 
+def _setup_stream(fr, f, res, dpar, device):
+    """K7: the AT skip and every LA stage over the frame's pixels
+    (``la_stream.run_stages``, the chunk the main path uses); its result
+    is the state, whose fourth array is the remaining budget."""
+    from fractalshark_tpu_torch.engine.la_reference import get_or_build_la
+    from fractalshark_tpu_torch.ops import la_kernel, perturb
+    from fractalshark_tpu_torch.ops import la_stream as LS
+    from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
+
+    fr.T = la_kernel.la_tables_on(get_or_build_la(f, res), device)
+    fr.dc = perturb._dc_grids_hdr(*dpar, fr.size, fr.size, device)
+    flat = HDRComplex(*(t.reshape(-1).contiguous() for t in fr.dc))
+
+    def run(budget=None, chunk_steps=None):
+        return LS.run_stages(fr.T, flat, budget or fr.n,
+                             chunk_steps or LS.DEFAULT_CHUNK_STEPS)
+    fr.run = run
+    return fr
+
+
 def _setup_seq(name, device):
     """K1-seq on the zoom sequence of FRAMES[name]."""
     import torch
@@ -310,8 +348,61 @@ def _setup_seq(name, device):
 
 
 def grid_of(fr, out):
-    """The iteration grid of a run's result."""
+    """The iteration grid of a run's result (K7: the iterations done when
+    the pixel leaves the LA stages)."""
+    if fr.kern == "k7":
+        return fr.n - out[3]
     return out[6] if fr.kern == "k2" else out
+
+
+def trace_call(fn):
+    """One call of `fn` (warm) under torch.profiler and under the sync
+    debug mode: {"device_ms": the sum of its CUDA kernels' intervals,
+    "kernels": their count, "kernel_names": the count by name, "syncs":
+    the host syncs torch reports, "order": the kernels' names in launch
+    order}.  Kernels launched through ctypes are traced as well (CUPTI
+    sees every launch of the process)."""
+    import collections
+    import tempfile
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    # the run's own synchronize() above is not torch's: it is not counted
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    kern = sorted((e for e in events if e.get("cat") == "kernel"),
+                  key=lambda e: e["ts"])
+
+    def short(name):
+        """A kernel's name without its namespace and arguments."""
+        name = name.replace("(anonymous namespace)::", "")
+        return name.split("(")[0].split("<")[0].replace("void ", "")[-40:]
+
+    names = collections.Counter(short(e["name"]) for e in kern)
+    return {"device_ms": sum(e["dur"] for e in kern) / 1e3,
+            "kernels": len(kern), "syncs": syncs,
+            "kernel_names": dict(names),
+            "order": [short(e["name"]) for e in kern]}
 
 
 def time_frame(fr, reps):
@@ -329,7 +420,9 @@ def time_frame(fr, reps):
     torch.cuda.synchronize()
     launches = {k: v for k, v in kernels.launches.items() if v}
     # (a tree from before K3's live-pixel launches records none)
+    from fractalshark_tpu_torch.ops import la_stream as LS
     stats = {"k6": perturb.last_run_stats, "k2": la_kernel.last_run_stats,
+             "k7": getattr(LS, "last_run_stats", {}),
              "k3": getattr(ps, "last_run_stats", {}),
              "tail": getattr(ps, "last_run_stats", {})
              if getattr(fr, "key", None) == "rc_tail"
@@ -396,6 +489,29 @@ def lav2_profile(fr, chunk):
         live.append((int((~done).sum()), int((~done & (state[0] >= 0)).sum())))
         if live[-1][0] == 0:
             return live
+
+
+def stream_profile(fr, state) -> dict:
+    """K7's work on a frame: the LA steps of all its pixels (the twin's
+    count, from one run of the twin) and the bound they and the bytes K7
+    must move (the tables, dc, the state written) give, by
+    ``chip_smoke.py``'s rates."""
+    import importlib.util
+
+    from fractalshark_tpu_torch.ops import la_stream as LS
+    from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
+
+    flat = HDRComplex(*(t.reshape(-1).contiguous() for t in fr.dc))
+    LS.run_stages(fr.T, flat, fr.n, 0, plain=True)
+    steps = LS.last_run_stats["steps"]
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    tabs = (fr.T.nodes, fr.T.side, fr.T.stages, fr.T.at)
+    return {"la_steps": steps, **smoke.bound(
+        smoke.nbytes(*tabs, *flat, *state), smoke.stream_ops(steps),
+        smoke.F32_OPS_PER_S)}
 
 
 def serial_floor(device, reps):
@@ -492,6 +608,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--cli", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--trace", action="store_true",
+                    help="each frame's device time, kernels and syncs")
     ap.add_argument("--only", nargs="*")
     ap.add_argument("--no-floor", action="store_true",
                     help="skip the serial floors")
@@ -522,6 +640,10 @@ def main() -> int:
     for name in args.only or FRAMES:
         fr = setup(name, device)
         out, rec = time_frame(fr, args.reps)
+        if args.trace:
+            tr = trace_call(fr.run)
+            tr.pop("order")
+            rec["trace"] = tr
         if args.profile and fr.kern in ("tail", "k3"):
             # the live pixels of each launch (default chunks) and the
             # deepest pixel's tail steps (its count, and the escaping
@@ -531,6 +653,8 @@ def main() -> int:
                            else "k3_hit", float("nan"))
             rec.update(live=rec["work"], deepest_steps=steps,
                        serial_floor_ms=steps * ns / 1e6)
+        elif args.profile and fr.kern == "k7":
+            rec.update(stream_profile(fr, out))
         elif args.profile and fr.kern in ("k2", "k6"):
             chunk = 64 if fr.kern == "k2" else 65536
             live = (lav2_profile if fr.kern == "k2" else perturb_profile)(
@@ -540,14 +664,23 @@ def main() -> int:
         log(json.dumps(rec))
     if args.cli:
         from fractalshark_tpu_torch import cli
-        for label, argv in CLI_FRAMES.items():
-            out = io.StringIO()
-            with contextlib.redirect_stdout(out):
-                rc = cli.main(argv + ["--stats", "--device", "cuda"])
-            s = json.loads(out.getvalue().strip().splitlines()[-1])
-            log(json.dumps({"cli": label, "rc": rc, "iter_sum": s["iter_sum"],
-                            "crc32": s["crc32"],
-                            "timings": s.get("timings")}))
+        for label, (argv, env) in CLI_FRAMES.items():
+            # twice in this process: the second render has every kernel
+            # and table loaded
+            for run in range(2):
+                os.environ.update(env)
+                out = io.StringIO()
+                try:
+                    with contextlib.redirect_stdout(out):
+                        rc = cli.main(argv + ["--stats", "--device", "cuda"])
+                finally:
+                    for k in env:
+                        del os.environ[k]
+                s = json.loads(out.getvalue().strip().splitlines()[-1])
+                log(json.dumps({"cli": label, "run": run, "rc": rc,
+                                "iter_sum": s["iter_sum"],
+                                "crc32": s["crc32"],
+                                "timings": s.get("timings")}))
     log(json.dumps({"card": card, "serial_floor_ns": floor}))
     return 0
 
