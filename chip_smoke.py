@@ -8,7 +8,9 @@ reference.
     python3 chip_smoke.py
 
 Phases: (1) card, (2) build, (3) K1 and K2 vs plain on the card at the
-main path's shapes, bit-identical (K2 in chunks over the live pixels),
+main path's shapes, bit-identical (K1 f32 and f64 at View 0 1024², one C
+entry call a frame whose trace, taken in a child process, is its two
+passes and no host sync; K2 in chunks over the live pixels),
 then the tails through tools/time_pixel_loops.py, each vs its twin at a
 cut budget in chunks over the live pixels and timed at its full budget:
 the two-phase tail (K6 resumed from K2's handoff) on View #6 256², K3
@@ -79,7 +81,9 @@ the two, the transforms' times with their bounds, then the generic
 multiplies (``multiply_3way`` with the launch count from 0,
 ``multiply_nr``) at 2,048 and 16,384 limbs against Python ints and the
 debug checksum tool against its host mirror, (12) K9-K11 and the
-flag-off routes, (13) K12: every form that takes each size against the
+flag-off routes (K10 under both flags at every size with K = 2 and 4,
+and with zsign against its tiled twin; each call's trace, taken in a
+child process, two launches and no host sync), (13) K12: every form that takes each size against the
 plain chunk and, bit for bit, against the per-step loop of K4 then K5
 (and K4-NR then K5-NR), timed in turns with it, then 2,048 steps of the
 orbit and of NR in 256-step chunks, the row carried between them, in
@@ -315,9 +319,9 @@ KERNEL_META = {
     "ntt_products_split": ("fractalshark_tpu_torch/csrc/ntt_products.cu",
                            "fractalshark_tpu/ops/bignum/ntt_pallas.py:593"),
     # K10 gridded (B8c's form on residue rows) and batched (B-f4)
-    "fused_tail_grid": ("fractalshark_tpu_torch/csrc/orbit_tail.cu",
+    "fused_tail_grid": ("fractalshark_tpu_torch/csrc/fused_tail.cu",
                         "fractalshark_tpu/ops/bignum/ntt_pallas.py:1134"),
-    "fused_tail_batched": ("fractalshark_tpu_torch/csrc/orbit_tail.cu",
+    "fused_tail_batched": ("fractalshark_tpu_torch/csrc/fused_tail.cu",
                            "fractalshark_tpu/ops/bignum/ntt_pallas.py:1265"),
     "iterate_full": ("fractalshark_tpu_torch/csrc/iterate_full.cu",
                      "fractalshark_tpu/ops/bignum/ntt_mxu.py:920"),
@@ -514,6 +518,7 @@ def phase_kernels(device, size_escape=1024, size_deep=256,
     """K1-K3 against their plain versions on the card."""
     import torch
 
+    from fractalshark_tpu_torch import kernels
     from fractalshark_tpu_torch.core.views import get_view_preset
     from fractalshark_tpu_torch.ops import escape, la_kernel
     from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
@@ -521,19 +526,37 @@ def phase_kernels(device, size_escape=1024, size_deep=256,
     stats = {k: {} for k in KERNEL_META}
     log("[3] K1-K3 vs plain versions on the card")
 
-    # K1 at View 0, the main path's 1024² (f32 = Gpu1x32, f64 = Gpu1x64)
+    # K1 at View 0, the main path's 1024² (f32 = Gpu1x32, f64 = Gpu1x64):
+    # one C entry call a frame (the launch count), its two passes and no
+    # host sync (a profiler trace in a child process)
     ptz = get_view_preset(0).ptz.square_aspect_ratio(size_escape, size_escape)
     p = escape.PlainParams.from_view(ptz, size_escape, size_escape)
+    traced = {r["frame"]: r for r in tool_records(
+        "time_pixel_loops.py", "--only", "view0_1024_f32", "view0_1024_f64",
+        "--trace", "--no-floor") if "frame" in r}
     for dt in ("f32", "f64"):
         tdt = torch.float32 if dt == "f32" else torch.float64
-        k, ms = timed(lambda: escape.escape_kernel(
-            p, size_escape, size_escape, 256, tdt, device), device, reps=5)
+        kernels.reset_counts()
+        k = escape.escape(p, size_escape, size_escape, 256, dt, device)
+        calls = kernels.launches["escape"]
+        _, ms = timed(lambda: escape.escape(
+            p, size_escape, size_escape, 256, dt, device), device, reps=5)
         pl, pms = timed(lambda: escape.escape_plain(
             p, size_escape, size_escape, 256, tdt, device), device,
             warm=False)
         compare(f"K1 escape {dt} View 0 {size_escape}² x256", k, pl,
                 stats["escape"])
-        log(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        tr = traced[f"view0_{size_escape}_{dt}"]
+        log(f"    kernel {ms:.4f} ms a call, plain {pms:.3f} ms; {calls} "
+            f"K1 call; the tool's run: {tr['ms_median']:.4f} ms, device "
+            f"{tr['trace']['device_ms']:.4f} ms in "
+            f"{tr['trace']['kernel_ms']}, {tr['trace']['syncs']} host syncs")
+        if calls != 1 or tr["launches"] != {"escape": 1} or \
+                tr["trace"]["syncs"] or tr["iter_sum"] != int(pl.sum()) or \
+                set(tr["trace"]["kernel_names"]) != {"escape_pass1",
+                                                     "escape_pass2"}:
+            raise AssertionError(f"K1 {dt}: not one call of two passes "
+                                 f"without a sync: {calls}, {tr}")
         # the f32 frame is the tile (interior shortcut), f64 escape_jax's
         # loop (none)
         inside = escape.interior_mask(p, size_escape, size_escape, tdt,
@@ -1931,6 +1954,39 @@ def phase_fused(device, stats):
                             nbytes(inv, cadd, rnd, *got),
                             tail_fused_ops(K, n, n), I32_OPS_PER_S))
     log(f"  K10 ms (kernel, plain): {times}")
+    # zsign (component 1's gswap read on the card) and the tiled twin
+    for n in TAIL_NFFT:
+        inv = torch.from_numpy(np.stack([np.stack([
+            rng.integers(0, p, n, dtype=np.uint64) for p in P])
+            for _ in range(2)]).astype(np.int32))
+        cadd = torch.from_numpy(rng.integers(0, 1 << 16, (2, n)).astype(
+            np.int32))
+        rnd = torch.zeros(n, dtype=torch.int32)
+        fd = (n // 2 - 2, n // 2)
+        cfg = NP.tail_cfg((1, -1, 1, 0), False)
+        want = NP.tail_tiled_plain(inv, cadd, rnd, cfg, fd, zsign=(1, -1))
+        zsign = torch.tensor([1, -1], dtype=torch.int32, device=device)
+        for batched in (False, True):
+            got = NP.launch_tail(inv.to(device), cadd.to(device),
+                                 rnd.to(device), cfg, fd, batched, zsign)
+            key = "fused_tail_batched" if batched else "fused_tail_grid"
+            for a, b in zip(got, want):
+                compare(f"K10 {key[11:]} n={n} zsign vs the tiled twin", a,
+                        b, stats[key])
+    # each call's CUDA kernels and host syncs from a profiler trace in a
+    # child process (tools/time_ntt.py): two launches, no sync, counted
+    # under the flag's route
+    for r in tool_records("time_ntt.py", "--only", "tail"):
+        if "call" not in r:
+            continue
+        form = r["call"].split()[1]
+        log(f"  K10 {r['call']}: {r['kernel_names']}, {r['syncs']} host "
+            f"syncs, device {r['device_ms']:.4f} ms, {r['ms']:.4f} ms a "
+            f"call")
+        if r["kernel_names"] != {"tail_tiles": 1, "tail_finish": 1} or \
+                r["syncs"] or r["launches"] != {f"fused_tail_{form}": 1}:
+            raise AssertionError(f"K10 {r['call']}: not two launches "
+                                 f"without a sync: {r}")
     cx, cy, rad = view30_center()
     for limbs in FULL_LIMBS:
         spec = FP.FixedSpec.for_limbs(limbs)

@@ -1,6 +1,8 @@
-// K10's device function, shared by its launch forms (orbit_tail.cu) and
-// by K11 (iterate_full.cu): the CRT + carry tail of one component on one
-// block, the reference's fused_tail (ntt_pallas.py:1326) from residue rows.
+// The CRT + carry tail from residue rows, the reference's fused_tail
+// (ntt_pallas.py:1326): its inputs (FusedTail, make_tail) and digit sums
+// (tail_coef, part), shared by K10 (fused_tail.cu, over the whole card)
+// and K11 (iterate_full.cu), whose tail is tail_component below, one
+// component on one block.
 //
 // Component c's digit sums over L positions are
 //   a_j = sum_{q<4} part_q(s_{j-q}) + (csign > 0 ? c_j : -c_j) + rnd_j,

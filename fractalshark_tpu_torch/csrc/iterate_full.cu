@@ -1,8 +1,8 @@
 // K11: one whole orbit step z <- z^2 + c in one launch.  From x, y (D
 // digits) it computes the residue rows of x^2 - y^2 and x*y (K9's phases
 // for that plan), then, after a grid-wide barrier, the tail of both
-// components (K10's: CRT, +c, the round digit, exact carries, signed
-// finish) with their shadow rows: digits uint32 [2][n], signs [2] and the
+// components (K10's function: CRT, +c, the round digit, exact carries,
+// signed finish) with their shadow rows: digits uint32 [2][n], signs [2] and the
 // shadow rows [2][5] of the value slice [F, F+D).
 //
 // Replaces: fractalshark_tpu/ops/bignum/ntt_mxu.py:920 _iterfull_kernel
@@ -15,8 +15,10 @@
 // 2^(16L), neither of which an in-range step reaches.
 //
 // Design: one cooperative launch (cudaLaunchCooperativeKernel) of K9's
-// three phases and K10's tail from shared headers (ntt_products.cuh,
-// fused_tail.cuh), four phases and three grid barriers
+// three phases and the one-block tail (fused_tail.cuh tail_component;
+// K10 runs the same function over the whole card, fused_tail.cu) from
+// shared headers (ntt_products.cuh, fused_tail.cuh), four phases and
+// three grid barriers
 // (cooperative_groups grid sync); the tail runs one block per component,
 // the rest of the grid idle.  The grid is what can be co-resident; a
 // refused launch returns its error.  The TPU's int8 phase matrices exist
@@ -128,8 +130,8 @@ extern "C" int fs_ntt_products(const void *v0, const void *v1, const void *v2,
 extern "C" int fs_fused_tail(const void *inv, const void *cadd,
                              const void *rnd, const void *cfg,
                              const void *zsign, void *dig, void *sgn,
-                             void *shw, int K, int log2n, int L, int F,
-                             int D, int batched, void *stream);
+                             void *shw, void *state, int K, int log2n, int L,
+                             int F, int D, void *stream);
 
 // the chunk routes (orbit._ROUTES): K9 whole or split, then K10; K11
 constexpr int kRouteWhole = 1;
@@ -150,13 +152,14 @@ static void copy_back(void *const *state, const uint32_t *dig, int K, int D,
 // rows int32 [steps + 1][12] as fs_orbit_chunk's (step k reads its signs
 // from row k, writes row k + 1); cadd uint32 [2][2D], rnd uint32 [2D]
 // (fixedpoint.addend_planes); dig uint32 [2][2D], inv uint32 [2][2][n] and
-// work uint32 [8n] scratch.  K11 needs 2D = n.
+// work uint32 [8n] scratch; tail_state: K10's (fs_fused_tail).  K11
+// needs 2D = n.
 extern "C" int fs_orbit_chunk_fused(void *x, void *y, void *rows,
                                     const void *cadd, const void *rnd,
                                     int scx, int scy, void *dig, void *inv,
                                     void *work, const void *tables, int D,
                                     int log2n, int steps, int route,
-                                    int batched, void *stream) {
+                                    void *tail_state, void *stream) {
   const int L = 2 * D;
   const int F = D - 2;
   if (D < 16 || L > (1 << log2n) || route < kRouteWhole ||
@@ -184,7 +187,7 @@ extern "C" int fs_orbit_chunk_fused(void *x, void *y, void *rows,
                            stream);
       if (!rc)
         rc = fs_fused_tail(inv, cadd, rnd, cfg, rin + 10, dig, rout + 10,
-                           rout, 2, log2n, L, F, D, batched, stream);
+                           rout, tail_state, 2, log2n, L, F, D, stream);
     }
     if (rc) return rc;
   }
@@ -196,13 +199,14 @@ extern "C" int fs_orbit_chunk_fused(void *x, void *y, void *rows,
 // `steps` NR steps in place on x, y, dx, dy (uint32 [D]) and their signs
 // (int32 [4] on the card) on a flagged route: K9 (the signed NR plan)
 // then K10 (four components) per step; cadd uint32 [4][2D], rnd uint32
-// [2D]; dig uint32 [4][2D], inv uint32 [4][2][n], work uint32 [16n].
+// [2D]; dig uint32 [4][2D], inv uint32 [4][2][n], work uint32 [16n];
+// tail_state: K10's.
 extern "C" int fs_nr_chunk_fused(void *x, void *y, void *dx, void *dy,
                                  void *signs, const void *cadd,
                                  const void *rnd, int scx, int scy,
                                  void *dig, void *inv, void *work,
                                  const void *tables, int D, int log2n,
-                                 int steps, int route, int batched,
+                                 int steps, int route, void *tail_state,
                                  void *stream) {
   const int L = 2 * D;
   if (D < 16 || L > (1 << log2n) ||
@@ -223,7 +227,7 @@ extern "C" int fs_nr_chunk_fused(void *x, void *y, void *dx, void *dy,
                              stream);
     if (!rc)
       rc = fs_fused_tail(inv, cadd, rnd, cfg, nullptr, dig, signs, nullptr,
-                         4, log2n, L, 0, 0, batched, stream);
+                         tail_state, 4, log2n, L, 0, 0, stream);
     if (rc) return rc;
   }
   if (steps) copy_back(state, dg, 4, D, st);

@@ -68,18 +68,17 @@
 // bound is the bytes (0.5 us); launch latency dominates the wide form.
 // K5-NR moves twice that.
 //
-// K10 (fused_tail.cuh, launched here) is the same carry machinery on
-// residue rows: the reference's fused_tail, gridded or batched (B-f4,
-// ntt_pallas.py:1265).  The carry maps are in tail_common.cuh; the digit
-// sums, the wide form's layout and its last two phases in orbit_tail.cuh,
-// which K12 (orbit_chunk.cu) shares.
+// K10 (fused_tail.cu) is the same carry machinery on residue rows: the
+// reference's fused_tail, gridded or batched (B-f4, ntt_pallas.py:1265).
+// The carry maps are in tail_common.cuh; the digit sums, the wide form's
+// layout and its last two phases in orbit_tail.cuh, which K12
+// (orbit_chunk.cu) shares.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
-#include "fused_tail.cuh"
 #include "orbit_tail.cuh"
 #include "tail_common.cuh"
 
@@ -365,39 +364,7 @@ int tail(const Tail &tl, void *scratch, int D, int log2n, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// K10: fused_tail.cuh's tail of K components, gridded (one block per
-// component) or batched (all K in one block)
-__global__ void __launch_bounds__(kTailThreads)
-fused_tail_kernel(FusedTail t, int batched) {
-  __shared__ TailShared sh;
-  if (batched) {
-    for (int c = 0; c < t.K; ++c) tail_component(t, c, sh);
-  } else {
-    tail_component(t, blockIdx.x, sh);
-  }
-}
-
 }  // namespace
-
-// K10.  inv: uint32 [K][2][n] residue rows; cadd: uint32 [K][L]; rnd:
-// uint32 [L]; cfg: int32 host [4K] (double, gswap, csign, 0); zsign: int32
-// [2] on the card or null (component 1's gswap = zsign[0]*zsign[1]); dig:
-// uint32 [K][L] out; sgn: int32 [K] out; shw: int32 [K][5] out or null
-// (the slice [F, F+D)).  n = 2^log2n <= 2^17, L <= n a multiple of 4.
-extern "C" int fs_fused_tail(const void *inv, const void *cadd,
-                             const void *rnd, const void *cfg,
-                             const void *zsign, void *dig, void *sgn,
-                             void *shw, int K, int log2n, int L, int F,
-                             int D, int batched, void *stream) {
-  FusedTail t;
-  const int rc = make_tail(&t, inv, cadd, rnd,
-                           static_cast<const int32_t *>(cfg), zsign, dig,
-                           sgn, shw, K, log2n, L, F, D);
-  if (rc) return rc;
-  fused_tail_kernel<<<batched ? 1 : K, kTailThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(t, batched);
-  return static_cast<int>(cudaGetLastError());
-}
 
 extern "C" int fs_ntt_orbit(const void *x, const void *y, void *coef,
                             void *work, const void *tables, int D, int log2n,

@@ -158,7 +158,7 @@ class Fractal:
     def _calc_direct(self, alg: RenderAlgorithm) -> torch.Tensor:
         if alg.dtype not in ("f32", "f64"):
             raise NotImplementedError(
-                f"{alg.name}: the {alg.dtype} direct escape is ROADMAP A11 "
+                f"{alg.name}: the {alg.dtype} direct escape is ROADMAP A1 "
                 f"(2x32/4x32/HDR direct escapes), not ported yet")
         w, h = self._render_dims()
         params = escape.PlainParams.from_view(

@@ -59,11 +59,11 @@ from fractalshark_tpu_torch.ops.tables import orbit_on
 
 # ROADMAP items that own the routes this port does not have yet
 _NOT_PORTED = {
-    Family.PERTURB_BLA: "ROADMAP A11: the BLA perturbation family "
+    Family.PERTURB_BLA: "ROADMAP A1: the BLA perturbation family "
                         "(ops/bla_kernel.py)",
-    Family.PERTURB_SCALED: "ROADMAP A11: the Scaled perturbation family "
+    Family.PERTURB_SCALED: "ROADMAP A1: the Scaled perturbation family "
                            "(ops/scaled.py)",
-    "hdr_df": "ROADMAP A11: the double-float perturbation render without "
+    "hdr_df": "ROADMAP A1: the double-float perturbation render without "
               "an LA table (ops/hdr_df.py), which the 2x32 and hdr2x32 "
               "names take in PO mode or when no LA table is valid",
 }

@@ -52,7 +52,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-ftz=true", "-prec-div=true",
               "-prec-sqrt=true", "-Xcompiler", "-fPIC"]
 
-# launch counters, one per kernel instance: K2 per mantissa type and
+# launch counters, one per kernel instance: K1 (escape) once per frame
+# (one C call, both passes); K2 per mantissa type and
 # mode (full = the reference's one-kernel la_pallas render, phase1 = its
 # la_only machine, lao_f64 = the f64 LAO render); K4 (ntt_orbit, three
 # CUDA kernels) and K5 (orbit_tail) once per orbit step, whether launched
@@ -69,8 +70,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # stage), K8 (ntt_phase) per phase transform (a four-step's two launches
 # count two); K9 once per
 # multiply per form (ntt_products_whole: one cooperative launch;
-# ntt_products_split: three launches), K10 once per tail per form
-# (fused_tail_grid, fused_tail_batched) and K11 (iterate_full) once per
+# ntt_products_split: three launches), K10 once per tail under each
+# setting of BATCHED_TAIL (fused_tail_grid, fused_tail_batched: one C
+# call, two launches) and K11 (iterate_full) once per
 # step, also inside the flagged chunk loops; K12 once per chunk per form
 # and instance (orbit_chunk_block, orbit_chunk_grid, nr_chunk_block,
 # nr_chunk_grid)
@@ -95,10 +97,14 @@ _F64 = ctypes.c_double
 
 # argtypes of every C entry point (pointers and the stream as c_void_p)
 _SIGNATURES = {
-    "fs_escape_f32": [_P, _I32, _I32, _F32, _F32, _F32, _F32, _I64, _P],
-    "fs_escape_f32_loop": [_P, _I32, _I32, _F32, _F32, _F32, _F32, _I64,
-                           _P],
-    "fs_escape_f64": [_P, _I32, _I32, _F64, _F64, _F64, _F64, _I64, _P],
+    # escape: out | width height | min_x max_y dx dy | max_iter cap |
+    # list counters parity | stream
+    "fs_escape_f32": [_P, _I32, _I32] + [_F32] * 4 + [_I64, _I32, _P, _P,
+                                                      _I32, _P],
+    "fs_escape_f32_loop": [_P, _I32, _I32] + [_F32] * 4
+    + [_I64, _I32, _P, _P, _I32, _P],
+    "fs_escape_f64": [_P, _I32, _I32] + [_F64] * 4 + [_I64, _I32, _P, _P,
+                                                      _I32, _P],
     # lav2: dc(3) nodes side orbit stages at | state(8) | work counter |
     # n_work n_nodes stage_count | max_ref max_iter chunk at_step | flags |
     # stream
@@ -131,9 +137,10 @@ _SIGNATURES = {
     # D log2n steps | stream
     "fs_nr_chunk": [_P] * 7 + [_I32, _I32] + [_P] * 3
     + [_I32, _I32, _I32, _P],
-    # escape_seq: out params | frames width height | list counter stream
-    "fs_escape_seq_f32": [_P, _P, _I32, _I32, _I32, _P, _P, _P],
-    "fs_escape_seq_f64": [_P, _P, _I32, _I32, _I32, _P, _P, _P],
+    # escape_seq: out params | frames width height | list counters parity
+    # | stream
+    "fs_escape_seq_f32": [_P, _P, _I32, _I32, _I32, _P, _P, _I32, _P],
+    "fs_escape_seq_f64": [_P, _P, _I32, _I32, _I32, _P, _P, _I32, _P],
     # la_stream: dc(3) nodes side stages at | state(8) | work | n_work
     # n_nodes stage_count | max_iter chunk_steps at_step | first | stream
     "fs_la_stream": [_P] * 16 + [_I32] * 3 + [_I64] * 3 + [_I32, _P],
@@ -144,20 +151,21 @@ _SIGNATURES = {
     # whole | stream
     "fs_ntt_products": [_P] * 4 + [_I32, _I32] + [_P] * 5
     + [_I32, _I32, _P],
-    # fused_tail: inv cadd rnd cfg zsign dig sgn shw | K log2n L F D
-    # batched | stream
-    "fs_fused_tail": [_P] * 8 + [_I32] * 6 + [_P],
+    # fused_tail: inv cadd rnd cfg zsign dig sgn shw state | K log2n L F D
+    # | stream
+    "fs_fused_tail": [_P] * 9 + [_I32] * 5 + [_P],
+    "fs_fused_tail_state_bytes": [],
     # iterate_full: x y | din | cadd rnd cfg zsign dig sgn shw scratch
     # tables | log2n F D | stream
     "fs_iterate_full": [_P, _P, _I32] + [_P] * 9 + [_I32] * 3 + [_P],
     # orbit_chunk_fused: x y rows cadd rnd | scx scy | dig inv work tables
-    # | D log2n steps route batched | stream
+    # | D log2n steps route | tail state | stream
     "fs_orbit_chunk_fused": [_P] * 5 + [_I32, _I32] + [_P] * 4
-    + [_I32] * 5 + [_P],
+    + [_I32] * 4 + [_P, _P],
     # nr_chunk_fused: x y dx dy signs cadd rnd | scx scy | dig inv work
-    # tables | D log2n steps route batched | stream
+    # tables | D log2n steps route | tail state | stream
     "fs_nr_chunk_fused": [_P] * 7 + [_I32, _I32] + [_P] * 4
-    + [_I32] * 5 + [_P],
+    + [_I32] * 4 + [_P, _P],
     # orbit_chunk_k12: x y rows cx cy | scx scy | work coef scratch tables
     # | D log2n steps grid | stream
     "fs_orbit_chunk_k12": [_P] * 5 + [_I32, _I32] + [_P] * 4
@@ -277,13 +285,64 @@ _COUNTERS: dict = {}
 
 def queue_counter(device):
     """Eight bytes of device scratch for a launch's work counter (K2 and
-    K3 count their queue's pixels in its first four, K1-seq its pass-2
-    list); the C entry zeroes it on the stream before the launch."""
+    K3 count their queue's pixels in its first four); the C entry zeroes
+    it on the stream before the launch."""
     import torch
     key = str(device)
     if key not in _COUNTERS:
         _COUNTERS[key] = torch.zeros(1, dtype=torch.int64, device=device)
     return _COUNTERS[key]
+
+
+class PassList:
+    """K1's and K1-seq's pass-2 list on one device, cached and grown when
+    a call needs more: ``items`` (int32, one a listed pixel) and two
+    uint32 counters, which the calls take in turn (``take``): the one a
+    call counts in is zero on entry, and its pass 1 zeroes the other."""
+
+    def __init__(self, device):
+        import torch
+        self.items = torch.empty(0, dtype=torch.int32, device=device)
+        self.counters = torch.zeros(2, dtype=torch.int32, device=device)
+        self.parity = 0
+
+    def take(self, pixels: int):
+        """(items, counters, parity) for a call of `pixels` pixels."""
+        import torch
+        if self.items.numel() < pixels:
+            self.items = torch.empty(pixels, dtype=torch.int32,
+                                     device=self.counters.device)
+        self.parity ^= 1
+        return self.items, self.counters, self.parity
+
+    def reset(self) -> None:
+        """Both counters to zero (after a refused call)."""
+        self.counters.zero_()
+
+
+_PASS_LISTS: dict = {}
+
+
+def pass_list(device) -> PassList:
+    key = str(device)
+    if key not in _PASS_LISTS:
+        _PASS_LISTS[key] = PassList(device)
+    return _PASS_LISTS[key]
+
+
+_TAIL_STATES: dict = {}
+
+
+def tail_state(device):
+    """K10's device scratch on `device` (``fs_fused_tail_state_bytes``),
+    zero between calls: its two launches leave it as they found it."""
+    import torch
+    key = str(device)
+    if key not in _TAIL_STATES:
+        words = -(-lib().fs_fused_tail_state_bytes() // 4)
+        _TAIL_STATES[key] = torch.zeros(words, dtype=torch.int32,
+                                        device=device)
+    return _TAIL_STATES[key]
 
 
 def stream(device) -> int:

@@ -1,7 +1,7 @@
 """The whole bignum multiply and its CRT + carry tail as kernels: the port
 of ``fractalshark_tpu/ops/bignum/ntt_pallas.py``'s flag-off routes,
-through kernels K9 (``csrc/ntt_products.cu``) and K10 (the residue-row
-instances of ``csrc/orbit_tail.cu``).
+through kernels K9 (``csrc/ntt_products.cu``) and K10
+(``csrc/fused_tail.cu``).
 
 * ``products`` (K9) computes ``_ntt_products``' function: from V values
   (int32 [V, n], each below both primes) the inverse transforms of K
@@ -25,10 +25,14 @@ instances of ``csrc/orbit_tail.cu``).
   plane added, the carries resolved exactly, then sign-magnitude:
   magnitude (P − N) mod 2^(16L), sign −1 iff P < N and the magnitude is
   non-zero; with ``shadow_fd`` = (F, D) also the top-digit window of the
-  value slice [F, F+D) (``ntt_pallas.py:1178-1222``).  Two launch forms:
-  gridded, one block per component (B8c's form on residue rows, the
-  route when ``BATCHED_TAIL`` is off), and batched, all K in one block
-  (B-f4 ``_tail_batched_kernel``).
+  value slice [F, F+D) (``ntt_pallas.py:1178-1222``).  The reference has
+  two forms, gridded (B8c's on residue rows, the route when
+  ``BATCHED_TAIL`` is off) and batched (B-f4 ``_tail_batched_kernel``);
+  the port runs both flags through one kernel pair over the whole card
+  (tiles of 1,024 digits, every component in one launch, the carries
+  across tiles by decoupled look-back, then a finishing launch), whose
+  launches are counted under the flag's route.  ``tail_tiled_plain`` is
+  its schedule in torch.
 
 The plain twins compute both functions in torch int64 on the tensors'
 device; a wrapper takes its twin only for CPU tensors and launches its
@@ -216,6 +220,104 @@ def fused_tail_plain(inv: torch.Tensor, cadd: torch.Tensor, rnd: torch.Tensor,
     return out
 
 
+_IDENTITY = (-1, 0, 1)
+
+
+def _compose(g: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """Carry maps [..., 3] (the value out for a carry of −1, 0, 1 in):
+    g after f."""
+    return torch.gather(g, -1, f + 1)
+
+
+def _apply(f: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    return torch.gather(f, -1, (c + 1).unsqueeze(-1)).squeeze(-1)
+
+
+def tail_tiled_plain(inv: torch.Tensor, cadd: torch.Tensor, rnd: torch.Tensor,
+                     cfg, shadow_fd=None, zsign=None, threads: int = 256,
+                     rng: np.random.Generator | None = None):
+    """K10's schedule in torch: ``fused_tail_plain``'s function through the
+    kernel's steps, with tiles of `threads` segments of 4 digits (the
+    kernel's: 256).  Per segment the local ripple of its sums, the carry
+    of the segment below absorbed (across a tile's edge too, as the
+    kernel recomputes it) and its carry map; per tile the scan of its
+    maps and its aggregate; the carry into each tile by decoupled
+    look-back, where each earlier tile is seen with its carry-out
+    published or, chosen by `rng`, only its aggregate; each segment's
+    carry-in applied; the sign from the top carry; the negation from the
+    lowest nonzero digit; the shadow row from the highest of the slice.
+    ``zsign`` (two ints) replaces component 1's gswap, as on the card."""
+    K, L = cadd.shape
+    if L % 4:
+        raise ValueError("the tiled tail takes L a multiple of 4")
+    cfg = list(cfg)
+    if zsign is not None:
+        cfg[5] = int(zsign[0]) * int(zsign[1])
+    c = torch.as_tensor(cfg, dtype=torch.int64, device=inv.device).view(K, 4)
+    acc = part_sums(signed_coefs(inv, cfg), L)
+    ca = cadd.to(torch.int64)
+    acc += torch.where(c[:, 2:3] > 0, ca, -ca) + rnd.to(torch.int64)
+    G = L // 4
+    a = acc.view(K, G, 4)
+    dig = torch.empty_like(a)
+    cr = torch.zeros(K, G, dtype=torch.int64, device=a.device)
+    for q in range(4):                       # each segment's own ripple
+        v = a[:, :, q] + cr
+        dig[:, :, q], cr = v & FP.DIGIT_MASK, v >> 16
+    ci = torch.cat([torch.zeros_like(cr[:, :1]), cr[:, :-1]], 1)
+    for q in range(4):                       # the carry of the one below
+        v = dig[:, :, q] + ci
+        dig[:, :, q], ci = v & FP.DIGIT_MASK, v >> 16
+    ffff = (dig == FP.DIGIT_MASK).all(-1)
+    zero = (dig == 0).all(-1)
+    maps = torch.stack([ci - zero.long(), ci, ci + ffff.long()], -1)
+    # the tiles' inclusive scans (identity maps past the number)
+    tiles = -(-G // threads)
+    ident = torch.tensor(_IDENTITY, device=a.device)
+    pad = ident.expand(K, tiles * threads - G, 3)
+    m = torch.cat([maps, pad], 1).view(K, tiles, threads, 3)
+    incl = m.clone()
+    for t in range(1, threads):
+        incl[:, :, t] = _compose(m[:, :, t], incl[:, :, t - 1])
+    agg = incl[:, :, -1]
+    # decoupled look-back, tile by tile in ticket order
+    rin = torch.zeros(K, tiles, dtype=torch.int64, device=a.device)
+    out = torch.zeros(K, tiles, dtype=torch.int64, device=a.device)
+    for b in range(tiles):
+        for k in range(K):
+            acc_map = ident
+            p = b - 1
+            while p >= 0:
+                seen = p == 0 or rng is None or rng.random() < 0.5
+                if seen:                      # p's carry-out is published
+                    rin[k, b] = _apply(acc_map, out[k, p])
+                    break
+                acc_map = _compose(acc_map, agg[k, p])
+                p -= 1
+        out[:, b] = _apply(agg[:, b], rin[:, b])
+    excl = torch.cat([ident.expand(K, tiles, 1, 3), incl[:, :, :-1]], 2)
+    cin = _apply(excl, rin.unsqueeze(2).expand(K, tiles, threads))
+    cin = cin.reshape(K, -1)[:, :G]
+    top = cr[:, -1] + _apply(incl.reshape(K, -1, 3)[:, G - 1],
+                             rin[:, (G - 1) // threads])
+    for q in range(4):                        # the carry-ins, applied
+        v = dig[:, :, q] + cin
+        dig[:, :, q], cin = v & FP.DIGIT_MASK, v >> 16
+    dig = dig.reshape(K, L)
+    pos = torch.arange(L, device=a.device)
+    lo = torch.where(dig != 0, pos, L).min(dim=1).values
+    neg = top < 0
+    negated = torch.where(pos < lo.unsqueeze(1), 0,
+                          torch.where(pos == lo.unsqueeze(1), 0x10000 - dig,
+                                      FP.DIGIT_MASK - dig))
+    mag = torch.where(neg.unsqueeze(1), negated, dig)
+    sign = torch.where(neg & (lo < L), -1, 1).to(torch.int32)
+    res = (mag.to(torch.int32), sign)
+    if shadow_fd is not None:
+        res += (shadow5(mag, *shadow_fd),)
+    return res
+
+
 # --------------------------------------------------------------- wrappers
 
 
@@ -322,7 +424,9 @@ def _check_tail(inv, cadd, rnd, cfg, shadow_fd) -> None:
 
 
 def launch_tail(inv, cadd, rnd, cfg, shadow_fd, batched: bool, zsign=None):
-    """Launch K10 once on CUDA tensors (gridded or batched); ``zsign``
+    """Launch K10 once on CUDA tensors (one C call, its two launches over
+    the whole card), counted under the flag's route (``batched``: B-f4's,
+    else B8c's on residue rows; both run the same kernels); ``zsign``
     (int32 [2] on the card, optional) replaces component 1's gswap by
     zsign[0]·zsign[1]."""
     dev = inv.device
@@ -337,17 +441,17 @@ def launch_tail(inv, cadd, rnd, cfg, shadow_fd, batched: bool, zsign=None):
     rc = kernels.lib().fs_fused_tail(
         inv.data_ptr(), cadd.data_ptr(), rnd.data_ptr(), words.ctypes.data,
         0 if zsign is None else zsign.data_ptr(), dig.data_ptr(),
-        sgn.data_ptr(), 0 if shw is None else shw.data_ptr(), K,
-        inv.shape[-1].bit_length() - 1, L, F, D, int(batched),
-        kernels.stream(dev))
+        sgn.data_ptr(), 0 if shw is None else shw.data_ptr(),
+        kernels.tail_state(dev).data_ptr(), K,
+        inv.shape[-1].bit_length() - 1, L, F, D, kernels.stream(dev))
     kernels.check(rc, f"fused_tail_{form}")
     kernels.launches[f"fused_tail_{form}"] += 1
     return (dig, sgn) if shw is None else (dig, sgn, shw)
 
 
 def tail(inv, cadd, rnd, cfg, shadow_fd=None, zsign=None):
-    """K10 on CUDA tensors (batched under ``BATCHED_TAIL``, else gridded),
-    its plain twin on CPU tensors."""
+    """K10 on CUDA tensors (counted as batched under ``BATCHED_TAIL``,
+    else as gridded), its plain twin on CPU tensors."""
     _check_tail(inv, cadd, rnd, cfg, shadow_fd)
     if inv.device.type == "cpu":
         if zsign is not None:

@@ -276,7 +276,6 @@ def orbit_chunk(state: OrbitState, scx: int, cx: torch.Tensor, scy: int,
     By default a chunk is one launch of K12 in ``chunk_form``'s form; under
     the flagged routes (``fixedpoint.step_route``) K9 then K10, or K11,
     per step."""
-    from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
     dev = state.x.device
     rows = torch.empty(steps + 1, FP.ROW, dtype=torch.int32, device=dev)
     rows[0] = state.row
@@ -310,8 +309,8 @@ def orbit_chunk(state: OrbitState, scx: int, cx: torch.Tensor, scy: int,
             cadd.data_ptr(), rnd.data_ptr(), int(scx), int(scy),
             dig.data_ptr(), inv.data_ptr(), work.data_ptr(),
             scratch.tables.data_ptr(), spec.digits,
-            spec.nfft.bit_length() - 1, steps, code, int(NP.BATCHED_TAIL),
-            kernels.stream(dev))
+            spec.nfft.bit_length() - 1, steps, code,
+            kernels.tail_state(dev).data_ptr(), kernels.stream(dev))
         kernels.check(rc, "orbit_chunk_fused")
         for name in counters:
             kernels.launches[name] += steps
@@ -376,7 +375,6 @@ def orbit_nr_chunk(state: NRState, scx: int, cx: torch.Tensor, scy: int,
     ``fixedpoint.nr_route``: by default one launch of K12's NR instance
     in ``chunk_form``'s form (the call returns before the work is done);
     under the flagged routes K9 then K10 per step, in one C call."""
-    from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
     dev = state.x.device
     route = FP.nr_route(spec)
     if route == "k4":
@@ -411,8 +409,8 @@ def orbit_nr_chunk(state: NRState, scx: int, cx: torch.Tensor, scy: int,
         state.dy.data_ptr(), state.signs.data_ptr(), cadd.data_ptr(),
         rnd.data_ptr(), int(scx), int(scy), dig.data_ptr(), inv.data_ptr(),
         work.data_ptr(), scratch.tables.data_ptr(), spec.digits,
-        spec.nfft.bit_length() - 1, steps, code, int(NP.BATCHED_TAIL),
-        kernels.stream(dev))
+        spec.nfft.bit_length() - 1, steps, code,
+        kernels.tail_state(dev).data_ptr(), kernels.stream(dev))
     kernels.check(rc, "nr_chunk_fused")
     for name in counters:
         kernels.launches[name] += steps
@@ -598,10 +596,10 @@ class CudaOrbitSession:
         is the TOTAL cap across all runs.  Exclusive with store_path.
 
         reuse_frac_bits (the reuse digits of ``orbit_chunk``) is not
-        ported yet (ROADMAP A8) and raises."""
+        ported yet (ROADMAP A4) and raises."""
         if reuse_frac_bits is not None:
             raise NotImplementedError(
-                "ROADMAP A8: reuse digits on the device orbit are not "
+                "ROADMAP A4: reuse digits on the device orbit are not "
                 "ported yet")
         spec = self.spec
         dev = torch.device(self.device)
@@ -803,9 +801,9 @@ def compute_reference_orbit_device(center_x: HighPrecision,
     """Device-orbit entry point (the analogue of
     RefOrbitCalc::AddPerturbationReferencePointGPU,
     RefOrbitCalc.cpp:2167-2260).  ``mesh`` (the limb-sharded multi-chip
-    orbit) is not ported yet (ROADMAP A12) and raises."""
+    orbit) is not ported yet (ROADMAP A6) and raises."""
     if mesh is not None:
-        raise NotImplementedError("ROADMAP A12: the mesh-sharded device "
+        raise NotImplementedError("ROADMAP A6: the mesh-sharded device "
                                   "orbit is not ported yet")
     if limbs32 is None:
         prec = max(center_x.prec, center_y.prec)

@@ -26,6 +26,12 @@ Pixel coordinates: cx = min_x + x*dx, cy = max_y - y*dy in the working
 type.  Single-frame grids are int64 tensors inside the port; a sequence
 is int32 on the device and numpy uint32 [K, H, W] at its public entry
 point, as the reference's.
+
+Both kernels run a frame in two passes from one C call: pass 1 runs every
+pixel for at most a cap of iterations and lists those still running,
+pass 2 runs each listed pixel from its coordinate to the end
+(``escape_two_pass_plain`` is that schedule in torch).  The list and its
+counters are cached device scratch (``kernels.pass_list``).
 """
 
 from __future__ import annotations
@@ -75,6 +81,18 @@ def _coords(params: PlainParams, width: int, height: int, dtype, device,
             cy[:, None].expand(height, width).contiguous())
 
 
+def _pixel_coords(params: PlainParams, at: torch.Tensor, width: int, dtype,
+                  fl):
+    """The coordinates of the pixels at flat indices `at` (row-major over
+    a frame `width` wide), from the frame's numbers alone."""
+    def s(v):
+        return torch.tensor(v, dtype=dtype, device=at.device)
+
+    xs, ys = (at % width).to(dtype), (at // width).to(dtype)
+    return (fl(s(params.min_x) + fl(xs * s(params.dx))),
+            fl(s(params.max_y) - fl(ys * s(params.dy))))
+
+
 def _interior(cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
     """The tile's shortcut (``escape.py:166-178``): c in the main
     cardioid or the period-2 bulb, every result flushed."""
@@ -99,27 +117,22 @@ def tile_semantics(max_iter: int, dtype) -> bool:
     return dtype == torch.float32 and max_iter < (1 << 31)
 
 
-def escape_plain(params: PlainParams, width: int, height: int,
-                 max_iter: int, dtype=torch.float64, device="cpu",
-                 tile: bool | None = None) -> torch.Tensor:
-    """Plain PyTorch twin of K1 (lockstep over the whole grid).  `tile`
-    picks the reference's tile semantics (default: ``tile_semantics``),
-    which run the budget in the frame type."""
-    if tile is None:
-        tile = tile_semantics(max_iter, dtype)
-    if tile:
-        max_iter = seq_budget(max_iter, dtype)
-    fl = ftz if tile or dtype == torch.float32 else (lambda t: t)
-    cx, cy = _coords(params, width, height, dtype, device, fl)
-    it = torch.zeros((height, width), dtype=torch.int64, device=device)
-    active = torch.ones((height, width), dtype=torch.bool, device=device)
-    if tile:
-        interior = _interior(cx, cy)
-        it = torch.where(interior, max_iter, it)
-        active &= ~interior
+def _flush(tile: bool, dtype):
+    """The flush a frame's results pass through: the tile flushes, and
+    f32 always (XLA:CPU); escape_jax's f64 loop does not."""
+    return ftz if tile or dtype == torch.float32 else (lambda t: t)
+
+
+def _lockstep(cx: torch.Tensor, cy: torch.Tensor, limit: int, tile: bool,
+              fl) -> torch.Tensor:
+    """The counts (int64) of the loop from z = c for at most `limit`
+    iterations, every pixel of cx, cy in lockstep: the tile counts while
+    |z|² <= 4, escape_jax's loop breaks once |z|² > 4."""
+    it = torch.zeros(cx.shape, dtype=torch.int64, device=cx.device)
+    active = torch.ones(cx.shape, dtype=torch.bool, device=cx.device)
     zx, zy = cx.clone(), cy.clone()
     k = 0
-    while k < max_iter:
+    while k < limit:
         zx2 = fl(zx * zx)
         zy2 = fl(zy * zy)
         mag = fl(zx2 + zy2)
@@ -136,23 +149,105 @@ def escape_plain(params: PlainParams, width: int, height: int,
     return it
 
 
+def escape_plain(params: PlainParams, width: int, height: int,
+                 max_iter: int, dtype=torch.float64, device="cpu",
+                 tile: bool | None = None) -> torch.Tensor:
+    """Plain PyTorch twin of K1 (lockstep over the whole grid).  `tile`
+    picks the reference's tile semantics (default: ``tile_semantics``),
+    which run the budget in the frame type."""
+    if tile is None:
+        tile = tile_semantics(max_iter, dtype)
+    if tile:
+        max_iter = seq_budget(max_iter, dtype)
+    fl = _flush(tile, dtype)
+    cx, cy = _coords(params, width, height, dtype, device, fl)
+    if not tile:
+        return _lockstep(cx, cy, max_iter, False, fl)
+    interior = _interior(cx, cy)
+    it = torch.full((height, width), max_iter, dtype=torch.int64,
+                    device=device)
+    it[~interior] = _lockstep(cx[~interior], cy[~interior], max_iter, True,
+                              fl)
+    return it
+
+
+def escape_two_pass_plain(params: PlainParams, width: int, height: int,
+                          max_iter: int, dtype=torch.float64, device="cpu",
+                          cap: int | None = None,
+                          shuffle: np.random.Generator | None = None
+                          ) -> torch.Tensor:
+    """Plain twin of K1's schedule: pass 1 runs every pixel the shortcut
+    leaves for at most `cap` iterations (default: the kernel's,
+    ``pass1_cap``) and keeps each that ends there; the others form a list
+    (in pass 1's order, or shuffled by `shuffle`) and pass 2 runs each
+    listed pixel from its own coordinate to the budget.  Equals
+    ``escape_plain`` for every cap and every order of the list."""
+    tile = tile_semantics(max_iter, dtype)
+    if tile:
+        max_iter = seq_budget(max_iter, dtype)
+    if cap is None:
+        cap = pass1_cap(tile)
+    fl = _flush(tile, dtype)
+    cx, cy = (t.reshape(-1) for t in
+              _coords(params, width, height, dtype, device, fl))
+    out = torch.full((width * height,), -1, dtype=torch.int64, device=device)
+    rest = torch.arange(width * height, device=device)
+    if tile:
+        inside = _interior(cx, cy)
+        out[inside] = max_iter
+        rest = rest[~inside]
+    limit = min(cap, max_iter)
+    it = _lockstep(cx[rest], cy[rest], limit, tile, fl)
+    done = (it < limit) | (it == max_iter)
+    out[rest[done]] = it[done]
+    later = rest[~done]
+    if shuffle is not None:
+        later = later[torch.from_numpy(shuffle.permutation(later.numel()))
+                      .to(device)]
+    lx, ly = _pixel_coords(params, later, width, dtype, fl)
+    out[later] = _lockstep(lx, ly, max_iter, tile, fl)
+    return out.reshape(height, width)
+
+
+# the iterations K1's pass 1 runs in the tile and in escape_jax's loop,
+# each the fastest of those measured on View 0 1024² x 256 (H100, PERF.md
+# §6: f32 16-96, f64 8-32; one pass of the f64 loop was slower); K1-seq's
+# is the C side's kSeqCap
+PASS1_CAP = 32
+LOOP_PASS1_CAP = 16
+
+
+def pass1_cap(tile: bool) -> int:
+    """The iterations K1's pass 1 runs for a frame (from the budget up,
+    one pass)."""
+    return PASS1_CAP if tile else LOOP_PASS1_CAP
+
+
 def escape_kernel(params: PlainParams, width: int, height: int,
                   max_iter: int, dtype, device) -> torch.Tensor:
-    """Launch K1 on a CUDA device: the f32 tile below a budget of 2^31,
-    else ``escape_jax``'s loop in the frame type."""
-    out = torch.empty((height, width), dtype=torch.int64, device=device)
+    """Launch K1 on a CUDA device (one C call, both passes): the f32 tile
+    below a budget of 2^31, else ``escape_jax``'s loop in the frame
+    type."""
+    tile = tile_semantics(max_iter, dtype)
     if dtype == torch.float64:
         name = "fs_escape_f64"
-    elif tile_semantics(max_iter, dtype):
+    elif tile:
         name, max_iter = "fs_escape_f32", seq_budget(max_iter, dtype)
     else:
         name = "fs_escape_f32_loop"
+    out = torch.empty((height, width), dtype=torch.int64, device=device)
+    lst = kernels.pass_list(out.device)
+    items, counters, parity = lst.take(out.numel())
     lib = kernels.lib()
     kernels.launches["escape"] += 1
-    kernels.check(getattr(lib, name)(
+    rc = getattr(lib, name)(
         out.data_ptr(), width, height, params.min_x, params.max_y,
-        params.dx, params.dy, int(max_iter), kernels.stream(out.device)),
-        name)
+        params.dx, params.dy, int(max_iter),
+        pass1_cap(tile), items.data_ptr(),
+        counters.data_ptr(), parity, kernels.stream(out.device))
+    if rc:
+        lst.reset()
+    kernels.check(rc, name)
     return out
 
 
@@ -225,14 +320,17 @@ def escape_sequence_kernel(params_seq, width: int, height: int,
                       device=device)
     name = "fs_escape_seq_f32" if dtype == torch.float32 \
         else "fs_escape_seq_f64"
+    lst = kernels.pass_list(out.device)
+    items, counters, parity = lst.take(out.numel())
     lib = kernels.lib()
     kernels.launches["escape_seq"] += 1
-    # the pass-2 list: one uint32 a pixel at most
-    later = torch.empty(out.numel(), dtype=torch.int32, device=device)
-    kernels.check(getattr(lib, name)(
+    rc = getattr(lib, name)(
         out.data_ptr(), tab.data_ptr(), frames, width, height,
-        later.data_ptr(), kernels.queue_counter(out.device).data_ptr(),
-        kernels.stream(out.device)), name)
+        items.data_ptr(), counters.data_ptr(), parity,
+        kernels.stream(out.device))
+    if rc:
+        lst.reset()
+    kernels.check(rc, name)
     return out
 
 

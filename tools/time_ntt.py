@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Time the port's generic NTT (kernel K8, ``csrc/ntt_phase.cu``) on one
 NVIDIA card: the four-step transforms as the generic multiplies call
-them, one phase alone, and the multiplies.
+them, one phase alone, and the multiplies; and the flag-off bignum
+tails: K10 (``ntt_pallas.launch_tail``) and K11 (``ntt_mxu.
+mxu_iterate_full``).
 
     python3 tools/time_ntt.py [--tree DIR] [--reps N] [--only TEXT ...]
+                              [--trace-reps N] [--margin-ms MS]
 
 For each call it prints one JSON line: the median, min and max of
 ``--reps`` single calls under CUDA events (``ms``, after a warm-up call
@@ -15,8 +18,18 @@ torch reports.  Calls: ``fourstep_forward`` and
 ``phase_kernel`` (one phase, no epilogue) at [4,256,256] and
 [14,256,512]; ``multiply_3way`` and ``multiply_nr`` at 2,048, 16,384
 and 32,768 limbs (digits on the card, as the smoke passes them);
-``--only`` keeps the calls whose label contains one of the texts.  The
-inputs are random residues and digits from a fixed seed.
+``tail`` (K10, gridded and batched) at nfft 2,048, 16,384 and 65,536
+with K = 2 and the shadow rows and with K = 4 (the NR configuration),
+random residue rows and addend planes as ``tests/test_torch_tail_fused.
+py`` makes them; ``iterate_full`` (K11) at 2,048 and 16,384 limbs from
+random values in (-2, 2).  Each record also has the launches of one
+call by counter (``launches``).  ``--only`` keeps the calls whose label
+contains one of the texts.  The inputs are random residues and digits
+from a fixed seed.  ``--trace-reps N`` traces each call N times more and
+adds how many traces held each number of CUDA kernels
+(``traces_by_kernels``), to show that a trace holds every launch;
+``--margin-ms`` is the time the traced call sits inside each end of the
+profiler's window (default 2).
 
 ``--tree DIR`` imports ``fractalshark_tpu_torch`` from DIR (another
 checkout, e.g. a ``git archive`` of the parent commit), so two versions
@@ -26,6 +39,7 @@ can be timed in turns in one run on one card.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import collections
 import importlib.util
 import json
 import os
@@ -37,6 +51,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRANSFORMS = [(65536, 4), (65536, 6), (131072, 4), (131072, 6)]
 PHASES = [(4, 256, 256), (14, 256, 512)]
 MUL_LIMBS = (2048, 16384, 32768)
+TAIL_NFFT = (2048, 16384, 65536)
+FULL_LIMBS = (2048, 16384)
 
 
 def log(msg: str) -> None:
@@ -110,6 +126,55 @@ def calls(device):
         out.append((f"multiply_nr {limbs} limbs",
                     lambda d=d, spec=spec: FP.multiply_nr(
                         *d, spec, device=device)))
+    out += tail_calls(device, rng)
+    return out
+
+
+def tail_calls(device, rng):
+    """(label, function) of K10 under both flags and of K11."""
+    import numpy as np
+    import torch
+
+    from fractalshark_tpu_torch.core.highprecision import HighPrecision
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+    from fractalshark_tpu_torch.ops.bignum import ntt as N
+    from fractalshark_tpu_torch.ops.bignum import ntt_mxu as NM
+    from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a).astype(np.int32)).to(device)
+
+    out = []
+    for n in TAIL_NFFT:
+        D = n // 2
+        rnd = np.zeros(n, np.uint32)
+        rnd[D - 3] = 1 << 15
+        for K in (2, 4):
+            inv = t(np.stack([np.stack([
+                rng.integers(0, p, n, dtype=np.uint64) for p in
+                (N.P1, N.P2)]) for _ in range(K)]))
+            cadd = t(rng.integers(0, 1 << 16, (K, n), dtype=np.uint32))
+            cfg = NP.tail_cfg((1, -1, -1, 0), K == 4)
+            fd = (D - 2, D) if K == 2 else None
+            for batched in (False, True):
+                form = "batched" if batched else "grid"
+                out.append((
+                    f"tail {form} n={n} K={K}" + (" shadows" if fd else ""),
+                    lambda a=(inv, cadd, t(rnd), cfg, fd, batched):
+                    NP.launch_tail(*a)))
+    for limbs in FULL_LIMBS:
+        spec = FP.FixedSpec.for_limbs(limbs)
+        F, D = spec.frac_digits, spec.digits
+        st = [FP.hp_to_digits(HighPrecision(rng.uniform(-2, 2),
+                                            prec=spec.frac_bits + 30), spec)
+              for _ in range(4)]
+        x, y, cx, cy = (t(d) for _, d in st)
+        cadd, rnd = FP.addend_planes(cx, cy, spec)
+        cfg = NP.tail_cfg((st[2][0], st[3][0], st[0][0] * st[1][0], 0),
+                          False)
+        out.append((f"iterate_full {limbs} limbs",
+                    lambda a=(x, y, cadd, rnd, cfg, spec.nfft, (F, D)):
+                    NM.mxu_iterate_full(*a)))
     return out
 
 
@@ -118,6 +183,8 @@ def main() -> int:
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--only", nargs="*")
+    ap.add_argument("--trace-reps", type=int, default=0)
+    ap.add_argument("--margin-ms", type=float, default=2.0)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -140,14 +207,21 @@ def main() -> int:
         fn()
         torch.cuda.synchronize()
         k8 = kernels.launches["ntt_phase"]
-        rec = {"call": label, "k8_launches": k8, **time_call(fn, args.reps)}
-        tr = trace_call(fn)
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        rec = {"call": label, "k8_launches": k8, "launches": launches,
+               **time_call(fn, args.reps)}
+        margin = args.margin_ms / 1e3
+        tr = trace_call(fn, margin)
         order = tr.pop("order")
         # CUDA kernels between a transform's first and last K8 launch
         k8_at = [i for i, name in enumerate(order) if "phase" in name]
         if k8_at:
             tr["kernels_between_k8"] = k8_at[-1] - k8_at[0] + 1 - len(k8_at)
         rec.update(tr)
+        if args.trace_reps:
+            rec["traces_by_kernels"] = dict(collections.Counter(
+                trace_call(fn, margin)["kernels"]
+                for _ in range(args.trace_reps)))
         log(json.dumps(rec))
     log(json.dumps({"card": card}))
     return 0

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time the port's per-pixel loops, K6 (``csrc/perturb.cu``), K2
 (``csrc/lav2.cu``), the two-phase tail (K6 resumed from K2's handoff),
-K3 (``csrc/rc_tail.cu``), K1-seq (``csrc/escape.cu``) and the streaming
-LA phase K7 (``csrc/la_stream.cu``), at the main path's full budgets on
-one NVIDIA card.
+K3 (``csrc/rc_tail.cu``), K1 and K1-seq (``csrc/escape.cu``) and the
+streaming LA phase K7 (``csrc/la_stream.cu``), at the main path's full
+budgets on one NVIDIA card.
 
     python3 tools/time_pixel_loops.py [--tree DIR] [--reps N] [--cli]
                                       [--profile] [--trace] [--no-floor]
@@ -13,7 +13,8 @@ For each frame it builds the orbit, the LA table and the dc grid through
 the port's engine (a tail frame also runs K2's la_only phase 1, untimed),
 then runs the frame's kernel to the end (every chunked launch,
 ``perturb.perturb_run`` / ``la_kernel.lav2_run`` /
-``perturb_stream.rc_tail_run``, or the sequence's one launch) under CUDA
+``perturb_stream.rc_tail_run``, the sequence's one launch, or K1's
+frame through ``escape.escape``) under CUDA
 events, ``--reps`` times after one warm-up run, and prints one JSON line
 per frame: the times (ms), the launches of one run, the pixels each
 launch ran, the iter_sum and the CRC-32 of the grid as ``<u4``.  The
@@ -105,6 +106,12 @@ FRAMES = {
     # K1-seq: the View 0 zoom sequence (8 frames, 1.3x each, 512
     # iterations, f32)
     "seq_4096": (0, 4096, "seq", "escape_seq", "f32", (8, 1.3, 512)),
+    # K1, one frame through escape.escape as the CLI renders View 0: the
+    # f32 tile (Gpu1x32), escape_jax's f64 loop (Gpu1x64), and the tile
+    # at 4096² x 512, where the device time outweighs the call (budget)
+    "view0_1024_f32": (0, 1024, "k1", "escape", "f32", 256),
+    "view0_1024_f64": (0, 1024, "k1", "escape", "f64", 256),
+    "view0_4096_f32": (0, 4096, "k1", "escape", "f32", 512),
     # K7: the streaming LA phase (AT skip and every stage, la_stream.
     # run_stages); 1024² has more pixels than the card has lanes
     "1e8_stream_64": (SMALL_DEEP, 64, "k7", "la_stream", "f32", None),
@@ -193,6 +200,8 @@ def setup(name, device):
     frame, size, kern, key, mant, mode = FRAMES[name]
     if kern == "seq":
         return _setup_seq(name, device)
+    if kern == "k1":
+        return _setup_k1(name, device)
     fdt = torch.float32 if mant == "f32" else torch.float64
     f, res = frame_inputs(frame, size, device)
     n, mr = f.num_iterations, res.max_ref_iteration()
@@ -347,6 +356,24 @@ def _setup_seq(name, device):
     return fr
 
 
+def _setup_k1(name, device):
+    """K1 on one View 0 frame of FRAMES[name], through ``escape.escape``
+    (the int64 grid)."""
+    from fractalshark_tpu_torch.core.views import get_view_preset
+    from fractalshark_tpu_torch.ops import escape
+
+    view, size, kern, key, mant, n = FRAMES[name]
+    ptz = get_view_preset(view).ptz.square_aspect_ratio(size, size)
+    p = escape.PlainParams.from_view(ptz, size, size)
+    fr = types.SimpleNamespace(name=name, kern=kern, key=key, size=size,
+                               n=n, params=p)
+
+    def run(budget=None, chunk_steps=None):
+        return escape.escape(p, size, size, budget or n, mant, device)
+    fr.run = run
+    return fr
+
+
 def grid_of(fr, out):
     """The iteration grid of a run's result (K7: the iterations done when
     the pixel leaves the LA stages)."""
@@ -355,15 +382,19 @@ def grid_of(fr, out):
     return out[6] if fr.kern == "k2" else out
 
 
-def trace_call(fn):
+def trace_call(fn, margin: float = 0.002):
     """One call of `fn` (warm) under torch.profiler and under the sync
     debug mode: {"device_ms": the sum of its CUDA kernels' intervals,
-    "kernels": their count, "kernel_names": the count by name, "syncs":
-    the host syncs torch reports, "order": the kernels' names in launch
-    order}.  Kernels launched through ctypes are traced as well (CUPTI
-    sees every launch of the process)."""
+    "kernels": their count, "kernel_names": the count by name,
+    "kernel_ms": the intervals' sum by name, "syncs": the host syncs
+    torch reports, "order": the kernels' names in launch order}.  Kernels
+    launched through ctypes are traced as well (CUPTI sees every launch of
+    the process).  The call sits `margin` seconds inside each end of the
+    profiler's window: with none, a trace on an H100 now and then lost a
+    launch of a two-launch call (``tools/time_ntt.py --trace-reps``)."""
     import collections
     import tempfile
+    import time
     import warnings
 
     import torch
@@ -383,8 +414,10 @@ def trace_call(fn):
     # the run's own synchronize() above is not torch's: it is not counted
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin)
         fn()
         torch.cuda.synchronize()
+        time.sleep(margin)
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
@@ -399,9 +432,12 @@ def trace_call(fn):
         return name.split("(")[0].split("<")[0].replace("void ", "")[-40:]
 
     names = collections.Counter(short(e["name"]) for e in kern)
+    per_name = collections.Counter()
+    for e in kern:
+        per_name[short(e["name"])] += e["dur"] / 1e3
     return {"device_ms": sum(e["dur"] for e in kern) / 1e3,
             "kernels": len(kern), "syncs": syncs,
-            "kernel_names": dict(names),
+            "kernel_names": dict(names), "kernel_ms": dict(per_name),
             "order": [short(e["name"]) for e in kern]}
 
 
