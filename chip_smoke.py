@@ -1987,6 +1987,37 @@ def phase_fused(device, stats):
                 r["syncs"] or r["launches"] != {f"fused_tail_{form}": 1}:
             raise AssertionError(f"K10 {r['call']}: not two launches "
                                  f"without a sync: {r}")
+    # K9's and K11's CUDA kernels and host syncs of one call, from a trace
+    # in a child process (tools/time_ntt.py): the whole form one
+    # cooperative kernel, the split form its three launches, K11 one; no
+    # sync, one count under the call's counter
+    want = {"whole": {"whole_kernel": 1},
+            "split": {"fwd_kernel": 1, "row_kernel": 1, "inv_kernel": 1},
+            "iterate_full": {"iterate_full_kernel": 1}}
+    device_ms = {}
+    for r in tool_records("time_ntt.py", "--only", "products",
+                          "iterate_full"):
+        if "call" not in r:
+            continue
+        kind = r["call"].split()[1] if r["call"].startswith("products") \
+            else "iterate_full"
+        counter = "iterate_full" if kind == "iterate_full" \
+            else f"ntt_products_{kind}"
+        device_ms[r["call"]] = (round(r["device_ms"], 4), round(r["ms"], 4))
+        if r["kernel_names"] != want[kind] or r["syncs"] or \
+                r["launches"] != {counter: 1}:
+            raise AssertionError(f"{r['call']}: not {want[kind]} without a "
+                                 f"sync: {r}")
+    log(f"  K9/K11 traced: {len(device_ms)} calls, each its kernels and no "
+        f"host sync; (device ms, ms a call): {json.dumps(device_ms)}")
+    # the C entry's block size and the twins' (ntt_pallas.block_threads)
+    lib = kernels.lib()
+    bad = [(n, V) for n in (1 << k for k in range(2, 18)) for V in (1, 2, 4)
+           if lib.fs_ntt_products_threads(V, n.bit_length() - 1)
+           != NP.block_threads(n, V)]
+    if bad:
+        raise AssertionError(f"K9's block size differs from the twins' at "
+                             f"(n, V) = {bad}")
     cx, cy, rad = view30_center()
     for limbs in FULL_LIMBS:
         spec = FP.FixedSpec.for_limbs(limbs)

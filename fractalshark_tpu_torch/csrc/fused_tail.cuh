@@ -1,8 +1,9 @@
 // The CRT + carry tail from residue rows, the reference's fused_tail
-// (ntt_pallas.py:1326): its inputs (FusedTail, make_tail) and digit sums
-// (tail_coef, part), shared by K10 (fused_tail.cu, over the whole card)
-// and K11 (iterate_full.cu), whose tail is tail_component below, one
-// component on one block.
+// (ntt_pallas.py:1326): its inputs (FusedTail, make_tail), digit sums
+// (tail_coef, part) and the two loop bodies over tiles of digits
+// (tail_tile, finish_tile), shared by K10 (fused_tail.cu: two launches
+// over the whole card) and K11 (iterate_full.cu: two grid phases of its
+// one cooperative launch).
 //
 // Component c's digit sums over L positions are
 //   a_j = sum_{q<4} part_q(s_{j-q}) + (csign > 0 ? c_j : -c_j) + rnd_j,
@@ -11,15 +12,11 @@
 // reference's stream swap), and part_q(s) the q-th 16-bit part of |s| with
 // s's sign: the reference's positive and negative digit streams
 // (_tail_stream_cfg, :1098), summed as one signed stream.  |a_j| < 2^19,
-// so K5's carry machinery (orbit_tail.cu) resolves them exactly:
-//   1. each thread ripples its segment of S >= 4 digits (a multiple of 4),
-//      computing each coefficient's CRT once as it walks;
-//   2. it absorbs the carry of the segment below (|carry| < 2^4) and forms
-//      its carry map {-1, 0, 1} -> {-1, 0, 1};
-//   3. a scan of the maps over the block gives every carry-in and the
-//      carry out of the top;
-//   4. the carry-ins are applied; a negative total (P < N) is negated in
-//      two's complement modulo 2^(16L).
+// so K5's carry machinery (orbit_tail.cu) resolves them exactly: each
+// thread ripples a segment of 4 digits, the segments' carry maps
+// {-1, 0, 1} -> {-1, 0, 1} are scanned over a tile and composed across
+// tiles (tail_tile), the carry-ins are applied, and a negative total
+// (P < N) is negated in two's complement modulo 2^(16L) (finish_tile).
 // The sign is -1 iff P < N and the magnitude is not zero, as the
 // reference's biased finish gives it (_signed_finish, :1034); digits of
 // the coefficients at L or beyond are dropped, as its flat shifts drop
@@ -38,7 +35,6 @@
 
 namespace {
 
-constexpr int kTailThreads = 1024;
 constexpr int kMaxTail = 4;                 // components
 constexpr uint32_t kCrtConst = 1207959574u;  // p1^-1 * R mod p2
 
@@ -52,12 +48,6 @@ struct FusedTail {
   int32_t *shw;            // null, or [K][5] shadow rows out
   int cfg[4 * kMaxTail];   // per component: double, gswap, csign, 0
   int K, n, L, F, D;
-};
-
-struct TailShared {
-  int64_t carry[kTailThreads];
-  uint32_t maps[2][kTailThreads];
-  int red[33];
 };
 
 // coefficient k of a component, signed and scaled (0 outside [0, n))
@@ -76,143 +66,319 @@ __device__ __forceinline__ int64_t part(int64_t s, int q) {
   return s < 0 ? -v : v;
 }
 
-// component c of t on the calling block (all its threads)
-__device__ void tail_component(const FusedTail &t, int c, TailShared &sh) {
-  const int L = t.L;
-  const int T = blockDim.x;
-  int S = (L + T - 1) / T;
-  S = S < 4 ? 4 : (S + 3) & ~3;
-  const int ntr = (L + S - 1) / S;         // threads holding digits
-  const int tid = threadIdx.x;
-  const int base = tid * S;
-  const bool active = tid < ntr;
-  const int len = active ? min(S, L - base) : 0;
-  const bool dbl = t.cfg[4 * c] > 0;
+constexpr int kSeg = 4;                 // digits a thread
+constexpr int kHalo = 8;                // coefficients below a tile
+constexpr int kMinTileThreads = 32;     // K11's smallest tile: 128 digits
+constexpr int kMaxTiles = (1 << 17) / (kSeg * kMinTileThreads);
+
+// a published word: flag in bits 30-31, then a map or a carry-out + 1
+constexpr uint32_t kAggregate = 1u << 30;
+constexpr uint32_t kPrefix = 2u << 30;
+
+// device scratch, all zero between calls
+struct TailState {
+  uint32_t word[kMaxTail][kMaxTiles];   // each tile's published word
+  uint32_t ticket[kMaxTail];            // K10's tile order
+  uint32_t done[kMaxTail];              // tiles through the finish
+  int32_t lo[kMaxTail];    // INT_MAX - lowest nonzero digit; 0: none
+  int32_t hi[kMaxTail];    // 1 + highest nonzero digit of the slice - F
+  int32_t neg[kMaxTail];   // the total is negative (set by the tiles)
+};
+
+// a tile's shared memory: kT threads of kSeg digits
+template <int kT>
+struct TileShared {
+  int64_t coef[kHalo + kSeg * kT];
+  int32_t carry[kT + 1];
+  uint32_t warp_map[kT / 32];
+  int red[33];
+  int rin;
+  uint32_t agg;
+};
+
+// component c's settings: doubled, swapped (negated), +cadd or -cadd
+struct Comp {
+  bool dbl, swap, cpos;
+};
+
+__device__ __forceinline__ Comp comp_of(const FusedTail &t, int c) {
   int gsw = t.cfg[4 * c + 1];
   if (c == 1 && t.zsign) gsw = t.zsign[0] * t.zsign[1];
-  const bool swap = gsw < 0;
-  const bool cpos = t.cfg[4 * c + 2] > 0;
-  const uint32_t *rows = t.inv + static_cast<size_t>(c) * 2 * t.n;
-  const uint32_t *ca = t.cadd + static_cast<size_t>(c) * L;
-  uint32_t *dig = t.dig + static_cast<size_t>(c) * L;
-
-  // 1. ripple the segment's own sums
-  int64_t cr = 0;
-  if (active) {
-    int64_t w1 = tail_coef(rows, t.n, base - 1, dbl, swap);
-    int64_t w2 = tail_coef(rows, t.n, base - 2, dbl, swap);
-    int64_t w3 = tail_coef(rows, t.n, base - 3, dbl, swap);
-    for (int q = 0; q < len; ++q) {
-      const int j = base + q;
-      const int64_t w0 = tail_coef(rows, t.n, j, dbl, swap);
-      const int64_t cv = ca[j];
-      const int64_t a = part(w0, 0) + part(w1, 1) + part(w2, 2) +
-                        part(w3, 3) + (cpos ? cv : -cv) +
-                        static_cast<int64_t>(t.rnd[j]) + cr;
-      dig[j] = static_cast<uint32_t>(a & 0xFFFF);
-      cr = a >> 16;
-      w3 = w2;
-      w2 = w1;
-      w1 = w0;
-    }
-  }
-  sh.carry[tid] = cr;
-  __syncthreads();
-
-  // 2. absorb the carry of the segment below; the segment's carry map
-  uint32_t f = enc(-1, 0, 1);
-  if (active) {
-    int64_t ci = tid ? sh.carry[tid - 1] : 0;
-    bool all_ffff = true;
-    bool all_zero = true;
-    for (int q = 0; q < len; ++q) {
-      const int j = base + q;
-      uint32_t d = dig[j];
-      if (ci) {
-        const int64_t a = static_cast<int64_t>(d) + ci;
-        d = static_cast<uint32_t>(a & 0xFFFF);
-        ci = a >> 16;
-        dig[j] = d;
-      }
-      all_ffff &= d == 0xFFFFu;
-      all_zero &= d == 0u;
-    }
-    const int e = static_cast<int>(ci);
-    f = enc(e - (all_zero ? 1 : 0), e, e + (all_ffff ? 1 : 0));
-  }
-
-  // 3. inclusive scan of the maps: maps[t] = f_t o ... o f_0
-  sh.maps[0][tid] = f;
-  __syncthreads();
-  int src = 0;
-  for (int off = 1; off < T; off <<= 1) {
-    uint32_t cur = sh.maps[src][tid];
-    if (tid >= off) cur = compose(cur, sh.maps[src][tid - off]);
-    sh.maps[src ^ 1][tid] = cur;
-    __syncthreads();
-    src ^= 1;
-  }
-  const int cin = tid ? apply(sh.maps[src][tid - 1], 0) : 0;
-  const int64_t top = sh.carry[ntr - 1] + apply(sh.maps[src][ntr - 1], 0);
-
-  // 4. apply the carry-in: +1 over a run of 0xFFFF, -1 over a run of 0
-  if (active && cin) {
-    for (int q = 0; q < len; ++q) {
-      const int j = base + q;
-      const uint32_t d = dig[j];
-      if (cin > 0) {
-        dig[j] = (d + 1u) & 0xFFFFu;
-        if (d != 0xFFFFu) break;
-      } else {
-        dig[j] = (d - 1u) & 0xFFFFu;
-        if (d != 0u) break;
-      }
-    }
-  }
-  __syncthreads();
-  const bool neg = top < 0;
-  if (neg) {
-    int lo = INT_MAX;
-    for (int q = 0; q < len; ++q) {
-      if (dig[base + q]) {
-        lo = base + q;
-        break;
-      }
-    }
-    lo = block_min(lo, sh.red);
-    for (int q = 0; q < len; ++q) {
-      const int j = base + q;
-      const uint32_t d = dig[j];
-      dig[j] = j < lo ? 0u : (j == lo ? 0x10000u - d : 0xFFFFu - d);
-    }
-    __syncthreads();
-  }
-
-  // 5. the sign; the shadow row of the value slice
-  int nz = 0;
-  int hi = -1;
-  for (int q = 0; q < len; ++q) {
-    const int j = base + q;
-    if (dig[j]) {
-      nz = 1;
-      if (j >= t.F && j < t.F + t.D) hi = j - t.F;
-    }
-  }
-  nz = block_max(nz, sh.red);
-  if (tid == 0) t.sgn[c] = neg && nz ? -1 : 1;
-  if (t.shw) {
-    hi = block_max(hi, sh.red);
-    if (tid == 0) {
-      int b = hi - 3;
-      b = b < 0 ? 0 : (b > t.D - 4 ? t.D - 4 : b);
-      for (int k = 0; k < 4; ++k)
-        t.shw[5 * c + k] = static_cast<int32_t>(dig[t.F + b + k]);
-      t.shw[5 * c + 4] = b;
-    }
-  }
-  __syncthreads();   // the next component reuses the shared memory
+  return {t.cfg[4 * c] > 0, gsw < 0, t.cfg[4 * c + 2] > 0};
 }
 
+// the local ripple of the 4 digit sums at j, j+1, j+2, j+3 (co: the
+// coefficients with co[0] at j; the three below at co[-1..-3]; cv, rv:
+// the addend and round words at j): the digits and the carry-out
+__device__ __forceinline__ int32_t ripple(const int64_t *co, const Comp &k,
+                                          const uint4 &cv, const uint4 &rv,
+                                          uint32_t d[kSeg]) {
+  const uint32_t ca[4] = {cv.x, cv.y, cv.z, cv.w};
+  const uint32_t rn[4] = {rv.x, rv.y, rv.z, rv.w};
+  int64_t cr = 0;
+#pragma unroll
+  for (int q = 0; q < kSeg; ++q) {
+    const int64_t cs = k.cpos ? static_cast<int64_t>(ca[q])
+                              : -static_cast<int64_t>(ca[q]);
+    const int64_t a = part(co[q], 0) + part(co[q - 1], 1) +
+                      part(co[q - 2], 2) + part(co[q - 3], 3) + cs +
+                      static_cast<int64_t>(rn[q]) + cr;
+    d[q] = static_cast<uint32_t>(a & 0xFFFF);
+    cr = a >> 16;
+  }
+  return static_cast<int32_t>(cr);
+}
+
+__device__ __forceinline__ uint4 load4(const uint32_t *p) {
+  return *reinterpret_cast<const uint4 *>(p);
+}
+
+__device__ __forceinline__ uint32_t load_word(const uint32_t *p) {
+  return *reinterpret_cast<const volatile uint32_t *>(p);
+}
+
+// The tile body: digits [b*kSeg*kT, (b+1)*kSeg*kT) of component c on the
+// calling block of kT threads.  The block
+//   1. computes the CRT of every coefficient its tile's digits read once,
+//      into shared memory, with kHalo below the tile (3 for its first
+//      digits' 16-bit parts, 4 for the segment below), the residue rows
+//      read coalesced;
+//   2. gives each thread a segment of 4 digits: their sums from shared
+//      memory and one 16-byte load each of the addend and round planes,
+//      rippled into digits and a carry-out (|carry| < 2^4); thread 0 also
+//      ripples the segment below the tile, whose carry-out it absorbs;
+//   3. absorbs the carry of the segment below, forms the segment's carry
+//      map (tail_common.cuh: which of {-1, 0, 1} comes out for each that
+//      comes in; a segment of 4 digits passes on at most one), and scans
+//      the maps over the block with warp shuffles;
+//   4. finds the carry into the tile by decoupled look-back: it publishes
+//      its aggregate map, composes its predecessors' aggregates back to
+//      the first one that has published its carry-out, 32 tiles a step
+//      (a lane a tile, the maps composed over the warp), then publishes
+//      its own carry-out.  A tile waits only on lower tiles of its
+//      component, which must be running or done: K10 numbers the tiles by
+//      a ticket in the order they start, K11's blocks take their tiles in
+//      increasing order and are all co-resident;
+//   5. applies each segment's carry-in, stores its digits once (16 bytes a
+//      thread), and meets the other tiles' lowest nonzero digit in an
+//      atomic; the top tile writes whether the total is negative.
+template <int kT>
+__device__ void tail_tile(const FusedTail &t, TailState *st, int c, int b,
+                          TileShared<kT> &sh) {
+  constexpr int kTile = kSeg * kT;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int w = tid >> 5;
+  const Comp k = comp_of(t, c);
+  const int L = t.L;
+  const uint32_t *rows = t.inv + static_cast<size_t>(c) * 2 * t.n;
+  const uint32_t *ca = t.cadd + static_cast<size_t>(c) * L;
+  const int j0 = b * kTile;
+
+  // the segment's addend and round words (thread 0's also of the segment
+  // below the tile), loaded with the coefficients
+  const int base = j0 + kSeg * tid;
+  const bool active = base < L;
+  const bool under = tid == 0 && b;
+  const uint4 zero4 = make_uint4(0, 0, 0, 0);
+  const uint4 cv = active ? load4(ca + base) : zero4;
+  const uint4 rv = active ? load4(t.rnd + base) : zero4;
+  const uint4 cvb = under ? load4(ca + j0 - kSeg) : zero4;
+  const uint4 rvb = under ? load4(t.rnd + j0 - kSeg) : zero4;
+
+  // 1. the CRT of coefficients j0 - kHalo .. j0 + kTile - 1 (those at L or
+  // beyond reach no digit): every thread's loads issued before any is used
+  {
+    constexpr int kPer = (kHalo + kTile + kT - 1) / kT;
+    int64_t co[kPer];
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int i = tid + q * kT;
+      const int j = j0 - kHalo + i;
+      co[q] = i < kHalo + kTile && j < L
+                  ? tail_coef(rows, t.n, j, k.dbl, k.swap) : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < kPer; ++q)
+      if (tid + q * kT < kHalo + kTile) sh.coef[tid + q * kT] = co[q];
+  }
+  __syncthreads();
+
+  // 2. the segment's own sums; thread 0 also the segment below the tile
+  uint32_t d[kSeg] = {0, 0, 0, 0};
+  int32_t cr = 0;
+  if (active) cr = ripple(sh.coef + kHalo + kSeg * tid, k, cv, rv, d);
+  sh.carry[tid + 1] = cr;
+  if (tid == 0) {
+    uint32_t dl[kSeg];
+    sh.carry[0] = b ? ripple(sh.coef + kHalo - kSeg, k, cvb, rvb, dl) : 0;
+  }
+  __syncthreads();
+
+  // 3. absorb the carry of the segment below; the segment's map; the
+  // block's scan of maps (incl: f_tid o ... o f_0)
+  uint32_t f = enc(-1, 0, 1);
+  if (active) {
+    int32_t ci = sh.carry[tid];
+    bool all_ffff = true;
+    bool all_zero = true;
+#pragma unroll
+    for (int q = 0; q < kSeg; ++q) {
+      if (ci) {
+        const int32_t a = static_cast<int32_t>(d[q]) + ci;
+        d[q] = static_cast<uint32_t>(a & 0xFFFF);
+        ci = a >> 16;
+      }
+      all_ffff &= d[q] == 0xFFFFu;
+      all_zero &= d[q] == 0u;
+    }
+    f = enc(ci - (all_zero ? 1 : 0), ci, ci + (all_ffff ? 1 : 0));
+  }
+  uint32_t incl = f;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t lower = __shfl_up_sync(~0u, incl, o);
+    if (lane >= o) incl = compose(incl, lower);
+  }
+  if (lane == 31) sh.warp_map[w] = incl;
+  __syncthreads();
+  uint32_t below = enc(-1, 0, 1);   // the warps below this one
+  for (int i = 0; i < w; ++i) below = compose(sh.warp_map[i], below);
+  incl = compose(incl, below);
+  uint32_t excl = __shfl_up_sync(~0u, incl, 1);
+  if (lane == 0) excl = below;
+  if (tid == kT - 1) sh.agg = incl;
+  __syncthreads();
+
+  // 4. the carry into the tile, by decoupled look-back, a warp at a time:
+  // lane i reads tile p - i's published word; the maps of the tiles above
+  // the nearest carry-out found are composed over the warp
+  if (w == 0) {
+    uint32_t *word = st->word[c];
+    const uint32_t agg = sh.agg;
+    int rin = 0;
+    if (b) {
+      if (lane == 0) atomicExch(&word[b], kAggregate | agg);
+      uint32_t acc = enc(-1, 0, 1);   // the tiles between p and b
+      for (int p = b - 1;; p -= 32) {
+        const int q = p - lane;
+        uint32_t v = 0;
+        if (q >= 0)
+          do {
+            v = load_word(&word[q]);
+          } while (!(v & (kAggregate | kPrefix)));
+        const unsigned pre = __ballot_sync(~0u, (v & kPrefix) != 0);
+        const int stop = pre ? __ffs(pre) - 1 : 32;   // nearest carry-out
+        // m_0 o m_1 o ... o m_(stop-1), lane 0 the tile nearest b
+        uint32_t m = lane < stop ? (v & 63u) : enc(-1, 0, 1);
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const uint32_t lower = __shfl_down_sync(~0u, m, o);
+          if (lane + o < 32) m = compose(m, lower);
+        }
+        acc = compose(acc, __shfl_sync(~0u, m, 0));
+        if (pre) {
+          const uint32_t pv = __shfl_sync(~0u, v, stop);
+          rin = apply(acc, static_cast<int>(pv & 3u) - 1);
+          break;
+        }
+      }
+    }
+    if (lane == 0) {
+      atomicExch(&word[b],
+                 kPrefix | static_cast<uint32_t>(apply(agg, rin) + 1));
+      sh.rin = rin;
+    }
+  }
+  __syncthreads();
+  const int rin = sh.rin;
+
+  // 5. apply the carry-in: +1 over a run of 0xFFFF, -1 over a run of 0;
+  // store; the lowest nonzero digit; the sign of the total (top tile)
+  int lo = INT_MAX;
+  if (active) {
+    int run = apply(excl, rin);
+#pragma unroll
+    for (int q = 0; q < kSeg; ++q) {
+      if (run > 0) {
+        d[q] = (d[q] + 1u) & 0xFFFFu;
+        if (d[q] != 0u) run = 0;
+      } else if (run < 0) {
+        d[q] = (d[q] - 1u) & 0xFFFFu;
+        if (d[q] != 0xFFFFu) run = 0;
+      }
+      if (d[q] && lo == INT_MAX) lo = base + q;
+    }
+    *reinterpret_cast<uint4 *>(t.dig + static_cast<size_t>(c) * L + base) =
+        make_uint4(d[0], d[1], d[2], d[3]);
+    if (base + kSeg == L)
+      st->neg[c] = sh.carry[tid + 1] + apply(incl, rin) < 0;
+  }
+  lo = block_min(lo, sh.red);
+  if (tid == 0 && lo != INT_MAX) atomicMax(&st->lo[c], INT_MAX - lo);
+}
+
+// The finishing body, after every tile of the component is through
+// tail_tile: the sign (negative and not zero modulo 2^(16L)), the
+// two's-complement negation from the lowest nonzero digit where the total
+// is negative, the highest nonzero digit of the value slice [F, F+D) in
+// an atomic, and, in the last of the component's `tiles` tiles to get
+// here, its shadow row and the state cleared for the next call.
+template <int kT>
+__device__ void finish_tile(const FusedTail &t, TailState *st, int c, int b,
+                            int tiles, int *red) {
+  constexpr int kTile = kSeg * kT;
+  const int tid = threadIdx.x;
+  const int L = t.L;
+  const int j0 = b * kTile;
+  const int base = j0 + kSeg * tid;
+  uint32_t *dig = t.dig + static_cast<size_t>(c) * L;
+  // the digits loaded with the component's words, whether needed or not
+  const uint4 v = base < L ? load4(dig + base) : make_uint4(0, 0, 0, 0);
+  const bool neg = st->neg[c];
+  const int lo_enc = st->lo[c];
+  const int lo = lo_enc ? INT_MAX - lo_enc : INT_MAX;
+  if (b == 0 && tid == 0) t.sgn[c] = neg && lo_enc ? -1 : 1;
+  const bool slice = t.shw && j0 < t.F + t.D && j0 + kTile > t.F;
+  int hi = -1;
+  if (base < L && (neg || slice)) {
+    uint32_t d[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < kSeg; ++q) {
+      const int j = base + q;
+      if (neg) d[q] = j < lo ? 0u : (j == lo ? 0x10000u - d[q]
+                                             : 0xFFFFu - d[q]);
+      if (d[q] && j >= t.F && j < t.F + t.D) hi = j - t.F;
+    }
+    if (neg)
+      *reinterpret_cast<uint4 *>(dig + base) = make_uint4(d[0], d[1], d[2],
+                                                          d[3]);
+  }
+  if (t.shw) {
+    hi = block_max(hi, red);
+    if (tid == 0 && hi >= 0) atomicMax(&st->hi[c], hi + 1);
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    st->word[c][b] = 0;
+    if (atomicAdd(&st->done[c], 1u) == static_cast<uint32_t>(tiles - 1)) {
+      // the last tile of the component: every digit is final
+      __threadfence();
+      if (t.shw) {
+        int s = atomicAdd(&st->hi[c], 0) - 4;   // highest - 3
+        s = s < 0 ? 0 : (s > t.D - 4 ? t.D - 4 : s);
+        for (int q = 0; q < 4; ++q)
+          t.shw[5 * c + q] = static_cast<int32_t>(__ldcg(dig + t.F + s + q));
+        t.shw[5 * c + 4] = s;
+      }
+      st->ticket[c] = 0;
+      st->done[c] = 0;
+      st->lo[c] = 0;
+      st->hi[c] = 0;
+    }
+  }
+}
 // A FusedTail from host arguments; cudaErrorInvalidValue when they do
 // not fit (1 to 4 components, L <= n a multiple of 4, the slice inside L).
 int make_tail(FusedTail *t, const void *inv, const void *cadd,

@@ -2,8 +2,8 @@
 // digits) it computes the residue rows of x^2 - y^2 and x*y (K9's phases
 // for that plan), then, after a grid-wide barrier, the tail of both
 // components (K10's function: CRT, +c, the round digit, exact carries,
-// signed finish) with their shadow rows: digits uint32 [2][n], signs [2] and the
-// shadow rows [2][5] of the value slice [F, F+D).
+// signed finish) with their shadow rows: digits uint32 [2][n], signs [2]
+// and the shadow rows [2][5] of the value slice [F, F+D).
 //
 // Replaces: fractalshark_tpu/ops/bignum/ntt_mxu.py:920 _iterfull_kernel
 // (B-f5; pallas_call :1006 in mxu_iterate_full :965; n >= 8,192 a power of
@@ -14,24 +14,33 @@
 // parts at L and beyond and the sign of a magnitude that is zero modulo
 // 2^(16L), neither of which an in-range step reaches.
 //
-// Design: one cooperative launch (cudaLaunchCooperativeKernel) of K9's
-// three phases and the one-block tail (fused_tail.cuh tail_component;
-// K10 runs the same function over the whole card, fused_tail.cu) from
-// shared headers (ntt_products.cuh, fused_tail.cuh), four phases and
-// three grid barriers
-// (cooperative_groups grid sync); the tail runs one block per component,
-// the rest of the grid idle.  The grid is what can be co-resident; a
-// refused launch returns its error.  The TPU's int8 phase matrices exist
-// for Mosaic's matrix unit and are not copied.
+// Design: one cooperative launch (cudaLaunchCooperativeKernel) of five
+// grid phases with four grid barriers (cooperative_groups grid sync):
+// K9's three phases (ntt_products.cuh: radix-8 register rounds, blocks
+// spread over the card), then K10's two tail bodies (fused_tail.cuh
+// tail_tile, finish_tile) over K10's tiles of 1,024 digits of both
+// components, the same functions K10 launches twice.  The block has K10's
+// 256 threads (more than K9 alone takes at these sizes: its column phases
+// then have fewer, wider tiles, at 8 points a thread all the same).  Inside the launch
+// every block is co-resident and takes its tiles in increasing order, so
+// the carry into a tile comes by the same decoupled look-back as K10's,
+// with no ticket: a tile waits only on lower tiles of its component,
+// which are running or done.  (A scan of the tiles' aggregates between
+// two more grid barriers would work too; the look-back keeps one tile
+// body for both kernels and costs no barrier.)  The grid is what can be
+// co-resident (queried once and cached); a refused launch returns its
+// error.  The TPU's int8 phase matrices exist for Mosaic's matrix unit
+// and are not copied.
 //
-// Bound on the H100: at 16,384 limbs (n = 65,536) a step reads 128 KB of
-// digits and 512 KB of addend planes and writes 512 KB of digits, and
-// runs 8 transforms of 2^15 x 16 butterflies (about 36 M integer
-// operations, 2 us at the int32 rate).  One launch per step is the lever
-// for the launch-bound step (K4 + K5 is four launches, or eight at and
-// above n = 16,384); the single-block tail of each component is this
-// kernel's slow part.  Making it fast is later work.
-//
+// Bound on the H100: at 16,384 limbs (n = 65,536) a step reads 256 KB of
+// digits and 768 KB of addend and round planes and writes 512 KB of
+// digits, and runs 8 transforms of 2^15 x 16 butterflies, the twiddle
+// matrices, the products, the CRT and the digit sums (about 43 M integer
+// operations, 2.6 us at the int32 rate: chip_smoke.py products_ops and
+// tail_fused_ops).  As in K9 the work is a few thousand threads' worth,
+// so a step's time is the launch, the four barriers and each phase's
+// load and store.
+
 // The chunk loops of the flagged routes are here too: fs_orbit_chunk_fused
 // (K9 then K10, or K11, per step, the shadow rows and signs written into
 // the session's rows as K5 writes them) and fs_nr_chunk_fused (K9 then K10
@@ -69,38 +78,65 @@ const int kNrIter[4][7] = {{2, 1, 0, 0, -1, 1, 1},
                            {2, 1, 0, 2, -1, 1, 3},
                            {2, 1, 0, 3, 1, 1, 2}};
 
-__global__ void __launch_bounds__(kFusedThreads)
-iterate_full_kernel(Products P, FusedTail t) {
+// the block size: K10's tiles of 1,024 digits, and at K11's sizes (n >=
+// 8,192) as many as products_threads wants or more
+constexpr int kFullThreads = 256;
+
+__global__ void __launch_bounds__(kFullThreads)
+iterate_full_kernel(Products P, FusedTail t, TailState *st) {
   extern __shared__ uint32_t sm[];
-  __shared__ TailShared sh;
-  products_whole(P, sm);
-  cooperative_groups::this_grid().sync();
-  for (int c = blockIdx.x; c < t.K; c += gridDim.x) tail_component(t, c, sh);
+  __shared__ TileShared<kFullThreads> sh;
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  products_whole<8, 8>(P, sm);
+  grid.sync();
+  constexpr int kTile = kSeg * kFullThreads;
+  const int tiles = (t.L + kTile - 1) / kTile;
+  // item = tile * K + component: each block's tiles in increasing order
+  for (int it = blockIdx.x; it < tiles * t.K; it += gridDim.x) {
+    tail_tile<kFullThreads>(t, st, it % t.K, it / t.K, sh);
+    __syncthreads();
+  }
+  grid.sync();
+  for (int it = blockIdx.x; it < tiles * t.K; it += gridDim.x) {
+    finish_tile<kFullThreads>(t, st, it % t.K, it / t.K, tiles, sh.red);
+    __syncthreads();
+  }
 }
 
 int iterate_full(const void *x, const void *y, int din, const void *cadd,
                  const void *rnd, const int32_t *cfg, const void *zsign,
                  void *dig, void *sgn, void *shw, uint32_t *work,
-                 uint32_t *inv, const void *tables, int log2n, int F, int D,
-                 cudaStream_t st) {
+                 uint32_t *inv, const void *tables, void *state, int log2n,
+                 int F, int D, cudaStream_t st) {
+  // K10's tiles need kFullThreads threads a block, n >= 8 * 256
+  if (log2n < 11) return static_cast<int>(cudaErrorInvalidValue);
   const void *vals[2] = {x, y};
   const PlanWords plan = plan_words(2, kIter);
   Products P;
   int rc = make_products(&P, vals, 2, din, nullptr, plan.w, inv, work,
-                         static_cast<const uint32_t *>(tables), log2n);
+                         static_cast<const uint32_t *>(tables), log2n,
+                         kFullThreads);
   if (rc) return rc;
   FusedTail t;
   rc = make_tail(&t, inv, cadd, rnd, cfg, zsign, dig, sgn, shw, 2, log2n,
                  1 << log2n, F, D);
   if (rc) return rc;
-  const int n1 = 1 << P.m1;
-  const int n2 = 1 << (P.m - P.m1);
-  int items = 2 * (n2 >> P.lgc_f);
-  if (n1 > items) items = n1;
-  if ((n2 >> P.lgc_i) > items) items = n2 >> P.lgc_i;
-  void *args[] = {&P, &t};
+  // the planes and digits are read and written 16 bytes a thread
+  if ((reinterpret_cast<uintptr_t>(cadd) | reinterpret_cast<uintptr_t>(rnd) |
+       reinterpret_cast<uintptr_t>(dig)) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (P.threads != kFullThreads)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int tiles = ((1 << log2n) + kSeg * kFullThreads - 1) /
+                    (kSeg * kFullThreads);
+  int items = fwd_items(P);
+  if (row_items(P) > items) items = row_items(P);
+  if (inv_items(P) > items) items = inv_items(P);
+  if (2 * tiles > items) items = 2 * tiles;
+  auto s = static_cast<TailState *>(state);
+  void *args[] = {&P, &t, &s};
   return coop_launch(reinterpret_cast<const void *>(iterate_full_kernel),
-                     items, max_smem(P), args, st);
+                     kFullThreads, items, max_smem(P), args, st);
 }
 
 }  // namespace
@@ -109,17 +145,19 @@ int iterate_full(const void *x, const void *y, int din, const void *cadd,
 // [n]; cfg: int32 host [8]; zsign: int32 [2] on the card or null
 // (component 1's gswap = zsign[0]*zsign[1]); dig: uint32 [2][n] out; sgn:
 // int32 [2] out; shw: int32 [2][5] out or null (slice [F, F+D)); scratch:
-// uint32 [12n].  n = 2^log2n <= 2^17.
+// uint32 [12n]; tables: ntt.k9_tables(n) on the card; state: K10's
+// (fs_fused_tail_state_bytes), zero on entry and on return.  n = 2^log2n,
+// 2,048 <= n <= 2^17; cadd, rnd and dig 16-byte aligned.
 extern "C" int fs_iterate_full(const void *x, const void *y, int din,
                                const void *cadd, const void *rnd,
                                const void *cfg, const void *zsign, void *dig,
                                void *sgn, void *shw, void *scratch,
-                               const void *tables, int log2n, int F, int D,
-                               void *stream) {
+                               const void *tables, void *state, int log2n,
+                               int F, int D, void *stream) {
   auto s = static_cast<uint32_t *>(scratch);
   return iterate_full(x, y, din, cadd, rnd, static_cast<const int32_t *>(cfg),
                       zsign, dig, sgn, shw, s, s + (8u << log2n), tables,
-                      log2n, F, D, static_cast<cudaStream_t>(stream));
+                      state, log2n, F, D, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fs_ntt_products(const void *v0, const void *v1, const void *v2,
@@ -152,8 +190,8 @@ static void copy_back(void *const *state, const uint32_t *dig, int K, int D,
 // rows int32 [steps + 1][12] as fs_orbit_chunk's (step k reads its signs
 // from row k, writes row k + 1); cadd uint32 [2][2D], rnd uint32 [2D]
 // (fixedpoint.addend_planes); dig uint32 [2][2D], inv uint32 [2][2][n] and
-// work uint32 [8n] scratch; tail_state: K10's (fs_fused_tail).  K11
-// needs 2D = n.
+// work uint32 [8n] scratch; tables: ntt.k9_tables(n); tail_state: K10's
+// (fs_fused_tail), which K11 shares.  K11 needs 2D = n.
 extern "C" int fs_orbit_chunk_fused(void *x, void *y, void *rows,
                                     const void *cadd, const void *rnd,
                                     int scx, int scy, void *dig, void *inv,
@@ -179,8 +217,8 @@ extern "C" int fs_orbit_chunk_fused(void *x, void *y, void *rows,
     if (route == kRouteFull) {
       rc = iterate_full(xi, yi, D, cadd, rnd, cfg, rin + 10, dig, rout + 10,
                         rout, static_cast<uint32_t *>(work),
-                        static_cast<uint32_t *>(inv), tables, log2n, F, D,
-                        st);
+                        static_cast<uint32_t *>(inv), tables, tail_state,
+                        log2n, F, D, st);
     } else {
       rc = fs_ntt_products(xi, yi, nullptr, nullptr, 2, D, nullptr, plan.w,
                            inv, work, tables, log2n, route == kRouteWhole,
@@ -200,7 +238,7 @@ extern "C" int fs_orbit_chunk_fused(void *x, void *y, void *rows,
 // (int32 [4] on the card) on a flagged route: K9 (the signed NR plan)
 // then K10 (four components) per step; cadd uint32 [4][2D], rnd uint32
 // [2D]; dig uint32 [4][2D], inv uint32 [4][2][n], work uint32 [16n];
-// tail_state: K10's.
+// tables: ntt.k9_tables(n); tail_state: K10's.
 extern "C" int fs_nr_chunk_fused(void *x, void *y, void *dx, void *dy,
                                  void *signs, const void *cadd,
                                  const void *rnd, int scx, int scy,

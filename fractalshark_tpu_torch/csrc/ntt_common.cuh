@@ -1,8 +1,10 @@
-// Shared pieces of the NTT kernels K4 (ntt_orbit.cu), K9 and K11
-// (ntt_products.cu, iterate_full.cu): the two primes of
-// fractalshark_tpu_torch/ops/bignum/ntt.py, Montgomery products (R = 2^32)
-// and modular adds, the twiddle loads from the n-point root tables
-// (ntt.kernel_tables) and the in-place radix-2 transforms in shared memory.
+// Shared pieces of the NTT kernels: the two primes of
+// fractalshark_tpu_torch/ops/bignum/ntt.py, Montgomery products (R = 2^32),
+// modular adds and the CRT, for K4/K12 (ntt_orbit.cu, orbit_chunk.cu), K8
+// (ntt_phase.cu), K9 and K11 (ntt_products.cuh, iterate_full.cu) and the
+// tails; K4's and K12's twiddle loads from the n-point root tables
+// (ntt.kernel_tables) and in-place radix-2 transforms in shared memory (K8,
+// K9 and K11 run the radix-8 rounds of ntt_rounds.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -42,7 +42,8 @@
 //    in registers (a radix-8 round) between two trips through shared
 //    memory: ceil(log2(m)/3) rounds and as many __syncthreads, against
 //    log2(m) before; the twiddles of stage b sit at [2^b - 1, 2^(b+1) - 1)
-//    so that neighbouring lanes read neighbouring words;
+//    so that neighbouring lanes read neighbouring words (the rounds are
+//    ntt_rounds.cuh's, which K9 and K11 run too);
 //  * a column is padded and its word i stored at i ^ ((i >> 5) & 31), so
 //    a warp's 32 points of one column fall in 32 banks in every round and
 //    in the transposed epilogue, and the coalesced load of TL-word rows
@@ -59,12 +60,10 @@
 
 #include <cstdint>
 
+#include "ntt_rounds.cuh"
+
 namespace {
 
-constexpr uint32_t kP1 = 2013265921u;   // ntt.P1
-constexpr uint32_t kP2 = 1811939329u;   // ntt.P2
-constexpr uint32_t kPp1 = 2013265919u;  // -p1^-1 mod 2^32 (ntt.mont_const)
-constexpr uint32_t kPp2 = 1811939327u;  // -p2^-1 mod 2^32
 constexpr int kMaxThreads = 512;
 constexpr int kTileWords = 4096;        // m * TL words of data a block
 constexpr int kBlocksWanted = 2 * 132;  // two blocks an SM of the H100
@@ -74,100 +73,6 @@ constexpr size_t kDefaultSmem = 48 * 1024;  // more needs an opt-in
 constexpr int kEpiNone = 0;
 constexpr int kEpiTwiddle = 1;
 constexpr int kEpiScale = 2;
-
-// a*b*R^-1 mod p for a, b < p < 2^31, canonical
-__device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b,
-                                             uint32_t p, uint32_t pp) {
-  const uint64_t t = static_cast<uint64_t>(a) * b;
-  const uint32_t m = static_cast<uint32_t>(t) * pp;
-  const uint32_t u =
-      static_cast<uint32_t>((t + static_cast<uint64_t>(m) * p) >> 32);
-  return u >= p ? u - p : u;
-}
-
-// x*w mod p for x < 2^32, w < p < 2^31, canonical (Shoup): wp =
-// floor(w * 2^32 / p), so x*w - floor(x*wp / 2^32)*p lies in [0, 2p)
-__device__ __forceinline__ uint32_t shoup_mul(uint32_t x, uint32_t w,
-                                              uint32_t wp, uint32_t p) {
-  const uint32_t r = x * w - __umulhi(x, wp) * p;
-  return r >= p ? r - p : r;
-}
-
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
-                                            uint32_t p) {
-  const uint32_t s = a + b;
-  return s >= p ? s - p : s;
-}
-
-__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b,
-                                            uint32_t p) {
-  return a >= b ? a - b : a + p - b;
-}
-
-// where word i of a column lives: its bank is spread by the 32-word block
-__device__ __forceinline__ int swz(int i) { return i ^ ((i >> 5) & 31); }
-
-// the words between columns, so that the load's rows of TL words from
-// 32 / TL columns fall in 32 banks (none for one column a block)
-__host__ __device__ __forceinline__ int pad_words(int lg_tl) {
-  return lg_tl == 0 ? 0 : (lg_tl < 5 ? 32 >> lg_tl : 1);
-}
-
-// One round of K radix-2 stages over the index bits [blo, blo + K) of the
-// column c: each thread runs kE >> K groups of 2^K points in registers.
-// A group is (hi, lo), its points i = hi << (blo + K) | mid << blo | lo.
-template <bool kInverse, int kE, int K>
-__device__ __forceinline__ void round_k(uint32_t *c, const uint2 *tws,
-                                        int blo, int u, int gpc, uint32_t p) {
-  constexpr int kPts = 1 << K;
-#pragma unroll
-  for (int q = 0; q < (kE >> K); ++q) {
-    const int g = u + q * gpc;
-    const int lo = g & ((1 << blo) - 1);
-    const int ibase = ((g >> blo) << (blo + K)) | lo;
-    uint32_t v[kPts];
-#pragma unroll
-    for (int mid = 0; mid < kPts; ++mid) v[mid] = c[swz(ibase | (mid << blo))];
-#pragma unroll
-    for (int tt = 0; tt < K; ++tt) {
-      // forward: the highest bit first; inverse: the lowest first
-      const int t = kInverse ? tt : K - 1 - tt;
-      const int b = blo + t;
-      const int h = 1 << b;
-#pragma unroll
-      for (int mid = 0; mid < kPts; ++mid) {
-        if (mid & (1 << t)) continue;
-        const int j = (ibase | (mid << blo)) & (h - 1);
-        const uint2 w = tws[h - 1 + j];
-        const uint32_t u0 = v[mid];
-        if (kInverse) {
-          const uint32_t u1 = shoup_mul(v[mid | (1 << t)], w.x, w.y, p);
-          v[mid] = add_mod(u0, u1, p);
-          v[mid | (1 << t)] = sub_mod(u0, u1, p);
-        } else {
-          // u0 - u1 + p < 2p: the product takes it unreduced
-          const uint32_t u1 = v[mid | (1 << t)];
-          v[mid] = add_mod(u0, u1, p);
-          v[mid | (1 << t)] = shoup_mul(u0 + p - u1, w.x, w.y, p);
-        }
-      }
-    }
-#pragma unroll
-    for (int mid = 0; mid < kPts; ++mid) c[swz(ibase | (mid << blo))] = v[mid];
-  }
-}
-
-template <bool kInverse, int kE>
-__device__ __forceinline__ void run_round(uint32_t *c, const uint2 *tws,
-                                          int blo, int k, int u, int gpc,
-                                          uint32_t p) {
-  if (k == 3 && kE >= 8)
-    round_k<kInverse, kE, (kE >= 8 ? 3 : 1)>(c, tws, blo, u, gpc, p);
-  else if (k == 2 && kE >= 4)
-    round_k<kInverse, kE, (kE >= 4 ? 2 : 1)>(c, tws, blo, u, gpc, p);
-  else
-    round_k<kInverse, kE, 1>(c, tws, blo, u, gpc, p);
-}
 
 // tw: uint32 [2 primes][m][2], the twiddles of the stage of half-span 2^b
 // at [2^b - 1, 2^(b+1) - 1), each (w, floor(w * 2^32 / p)) for the Shoup
@@ -205,28 +110,13 @@ __global__ void __launch_bounds__(kMaxThreads)
   __syncthreads();
 
   // thread -> (column, slot): the m / kE threads of a column are adjacent
-  constexpr int kLgE = kE >= 8 ? 3 : (kE >= 4 ? 2 : 1);
   const int gpc = m / kE;
   const int col = threadIdx.x / gpc;
   const int u = threadIdx.x - col * gpc;
   uint32_t *c = a + col * pitch;
-  // rounds of kLgE bits; the one of lg % kLgE bits takes the top bits, so
-  // it comes first forward and last inverse
-  const int rem = lg % kLgE;
-  const int full = lg / kLgE;
-  for (int q = 0; q < full + (rem ? 1 : 0); ++q) {
+  for (int q = 0; q < rounds_of<kE>(lg); ++q) {
     int blo, k;
-    if (kInverse) {
-      blo = q * kLgE;
-      k = q < full ? kLgE : rem;
-    } else if (rem && q == 0) {
-      blo = lg - rem;
-      k = rem;
-    } else {
-      const int qq = q - (rem ? 1 : 0);
-      blo = (full - 1 - qq) * kLgE;
-      k = kLgE;
-    }
+    round_bits<kInverse, kE>(lg, q, &blo, &k);
     run_round<kInverse, kE>(c, tws, blo, k, u, gpc, p);
     __syncthreads();
   }

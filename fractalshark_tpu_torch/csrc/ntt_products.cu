@@ -25,17 +25,36 @@
 //          over its phase's items.  V*2*n words exceed one block's shared
 //          memory at these sizes (the NR plan at n = 16,384: 512 KB), so
 //          one launch needs the grid barrier; the grid is what can be
-//          co-resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and
-//          a refused launch returns its error, never a fallback.  Serves
-//          B-f1 and B-f3.
+//          co-resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+//          queried once and cached) and a refused launch returns its
+//          error, never a fallback.  Serves B-f1 and B-f3.
 //   split  three launches, one block per item.  Serves B-f2.
 //
-// Bound on the H100: at n = 131,072 with the 3-way plan a multiply reads
-// 1 MB of values and writes 3 MB of rows, and runs 5 transforms of
-// 2 x 2^16 x 17 butterflies (about 90 M integer operations, 5 us at the
-// int32 rate); the intermediate rows (2(V + K) n words) stay in L2.  The
-// work is a few microseconds; launch and barrier latency and the column
-// phases' occupancy set the time.  Making it fast is later work.
+// Bound on the H100: at n = 16,384 with the iteration plan a multiply
+// reads 128 KB of values and writes 256 KB of rows; its 4 transforms a
+// prime of n/2 * 14 butterflies, the twiddle matrices, the pointwise
+// products and the scale are about 8.5 M integer operations, 0.5 us at
+// the int32 rate (chip_smoke.py products_ops); at n = 131,072 with the
+// signed NR-iteration plan 9.8 us.  That work is a few thousand threads'
+// worth (8 points a thread), so latency sets the time: a launch, one load
+// and one store a phase, a barrier a round, two grid barriers.  Design:
+//  * radix-8 register rounds with Shoup twiddles (ntt_rounds.cuh, K8's):
+//    3 rounds for a length-128 transform against 7 radix-2 passes, each
+//    prime its own instance, the columns bank-swizzled;
+//  * T threads a block, halved from 512 until the forward phase has two
+//    blocks an SM, then raised until a row block loads its rows in one
+//    batch (products_threads), so each phase spreads over the card: at
+//    n = 16,384 a block is two warps and a column tile 4 columns; the
+//    row phase has one block a (row, prime);
+//  * every phase loads its twiddles and data in one batch of up to 8
+//    loads a thread in flight (stage_in), one memory latency a phase;
+//  * the four-step twiddles are read coalesced from [2 primes][n1][n2]
+//    matrices in the row item's order (ntt.k9_tables, cached per size
+//    and device), not gathered with a stride of k1 words;
+//  * the host side sets and queries each kernel's launch attributes once
+//    (launch_info), so a step of the chunk loops does no occupancy query.
+// The whole form takes a grid barrier where the split form takes a
+// launch; which is faster at each size is in PERF.md.
 
 #include <cuda_runtime.h>
 
@@ -45,57 +64,65 @@
 
 namespace {
 
-__global__ void __launch_bounds__(kFusedThreads)
+template <int kE1>
+__global__ void __launch_bounds__(kProductsMaxThreads)
 fwd_kernel(Products P) {
   extern __shared__ uint32_t sm[];
-  fwd_item(P, blockIdx.x, sm);
+  fwd_item<kE1>(P, blockIdx.x, sm);
 }
 
-__global__ void __launch_bounds__(kFusedThreads)
+template <int kE2>
+__global__ void __launch_bounds__(kProductsMaxThreads)
 row_kernel(Products P) {
   extern __shared__ uint32_t sm[];
-  row_item(P, blockIdx.x, sm);
+  row_item<kE2>(P, blockIdx.x, sm);
 }
 
-__global__ void __launch_bounds__(kFusedThreads)
+template <int kE1>
+__global__ void __launch_bounds__(kProductsMaxThreads)
 inv_kernel(Products P) {
   extern __shared__ uint32_t sm[];
-  inv_item(P, blockIdx.x, sm);
+  inv_item<kE1>(P, blockIdx.x, sm);
 }
 
-__global__ void __launch_bounds__(kFusedThreads)
+template <int kE1, int kE2>
+__global__ void __launch_bounds__(kProductsMaxThreads)
 whole_kernel(Products P) {
   extern __shared__ uint32_t sm[];
-  products_whole(P, sm);
+  products_whole<kE1, kE2>(P, sm);
 }
 
+template <int kE1, int kE2>
 int launch_split(const Products &P, cudaStream_t st) {
-  const int n1 = 1 << P.m1;
-  const int n2 = 1 << (P.m - P.m1);
-  const void *fns[3] = {reinterpret_cast<const void *>(fwd_kernel),
-                        reinterpret_cast<const void *>(row_kernel),
-                        reinterpret_cast<const void *>(inv_kernel)};
-  const size_t smem[3] = {fwd_smem(P), row_smem(P), inv_smem(P)};
-  int rc;
+  const void *fns[3] = {reinterpret_cast<const void *>(fwd_kernel<kE1>),
+                        reinterpret_cast<const void *>(row_kernel<kE2>),
+                        reinterpret_cast<const void *>(inv_kernel<kE1>)};
+  const size_t smem[3] = {col_smem(P), row_smem(P), col_smem(P)};
+  int rc, per_sm, sms;
   for (int i = 0; i < 3; ++i)
-    if ((rc = launch_smem(fns[i], smem[i]))) return rc;
-  fwd_kernel<<<P.V * (n2 >> P.lgc_f), kFusedThreads, smem[0], st>>>(P);
+    if ((rc = launch_info(fns[i], P.threads, smem[i], &per_sm, &sms)))
+      return rc;
+  fwd_kernel<kE1><<<fwd_items(P), P.threads, smem[0], st>>>(P);
   if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-  row_kernel<<<n1, kFusedThreads, smem[1], st>>>(P);
+  row_kernel<kE2><<<row_items(P), P.threads, smem[1], st>>>(P);
   if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-  inv_kernel<<<n2 >> P.lgc_i, kFusedThreads, smem[2], st>>>(P);
+  inv_kernel<kE1><<<inv_items(P), P.threads, smem[2], st>>>(P);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kE1, int kE2>
 int launch_whole(Products P, cudaStream_t st) {
-  const int n1 = 1 << P.m1;
-  const int n2 = 1 << (P.m - P.m1);
-  int items = P.V * (n2 >> P.lgc_f);
-  if (n1 > items) items = n1;
-  if ((n2 >> P.lgc_i) > items) items = n2 >> P.lgc_i;
+  int items = fwd_items(P);
+  if (row_items(P) > items) items = row_items(P);
+  if (inv_items(P) > items) items = inv_items(P);
   void *args[] = {&P};
-  return coop_launch(reinterpret_cast<const void *>(whole_kernel), items,
-                     max_smem(P), args, st);
+  return coop_launch(reinterpret_cast<const void *>(whole_kernel<kE1, kE2>),
+                     P.threads, items, max_smem(P), args, st);
+}
+
+template <int kE1, int kE2>
+int launch_form(const Products &P, bool whole, cudaStream_t st) {
+  return whole ? launch_whole<kE1, kE2>(P, st) : launch_split<kE1, kE2>(P, st);
 }
 
 }  // namespace
@@ -103,7 +130,7 @@ int launch_whole(Products P, cudaStream_t st) {
 // vN: up to 4 value vectors (uint32, din entries each, zero beyond; the
 // unused ones null); signs: int32 [V] on the card or null; plan: int32
 // host words (ntt_pallas.plan_words); out: uint32 [K][2][n]; work: uint32
-// [2(V + K) n]; tables: ntt.kernel_tables(n).  whole: 1 for the
+// [2(V + K) n]; tables: ntt.k9_tables(n) on the card.  whole: 1 for the
 // cooperative form, 0 for the split form.  n = 2^log2n, 4 <= n <= 2^17.
 extern "C" int fs_ntt_products(const void *v0, const void *v1, const void *v2,
                                const void *v3, int V, int din,
@@ -119,5 +146,20 @@ extern "C" int fs_ntt_products(const void *v0, const void *v1, const void *v2,
       log2n);
   if (rc) return rc;
   const auto st = static_cast<cudaStream_t>(stream);
-  return whole ? launch_whole(P, st) : launch_split(P, st);
+  // the points a thread of the column and row transforms (8 from n = 64)
+  switch (log2n) {
+    case 2: return launch_form<2, 2>(P, whole, st);
+    case 3: return launch_form<2, 4>(P, whole, st);
+    case 4: return launch_form<4, 4>(P, whole, st);
+    case 5: return launch_form<4, 8>(P, whole, st);
+    default: return launch_form<8, 8>(P, whole, st);
+  }
+}
+
+// K9's block size T for V values at n = 2^log2n (make_products'), or
+// cudaErrorInvalidValue's code negated outside K9's limits
+extern "C" int fs_ntt_products_threads(int V, int log2n) {
+  if (log2n < 2 || log2n > 17 || V < 1 || V > kMaxValues)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return products_threads(V, log2n);
 }

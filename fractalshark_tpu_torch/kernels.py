@@ -25,9 +25,11 @@ Build flags, and why:
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but 0.  The cooperative launches of K9's
 whole form and K11 (``coop_launch`` in ``csrc/ntt_products.cuh``) size
-their grid by what can be co-resident and return the launch's refusal
-(e.g. ``cudaErrorCooperativeLaunchTooLarge``), which ``check`` raises:
-no cooperative launch falls back to another form.  K12
+their grid by what can be co-resident (queried once per kernel, block
+size, shared memory and device, and cached in the library) and return
+the launch's refusal (e.g. ``cudaErrorCooperativeLaunchTooLarge``),
+which ``check`` raises: no cooperative launch falls back to another
+form.  K12
 (``csrc/orbit_chunk.cu``) likewise returns a refused opt-in to its block
 form's shared memory or a refused cooperative launch of its grid form.
 ``launches`` counts each kernel's launches: a wrapper adds one where it
@@ -155,9 +157,11 @@ _SIGNATURES = {
     # | stream
     "fs_fused_tail": [_P] * 9 + [_I32] * 5 + [_P],
     "fs_fused_tail_state_bytes": [],
+    # ntt_products_threads: V log2n (K9's block size)
+    "fs_ntt_products_threads": [_I32, _I32],
     # iterate_full: x y | din | cadd rnd cfg zsign dig sgn shw scratch
-    # tables | log2n F D | stream
-    "fs_iterate_full": [_P, _P, _I32] + [_P] * 9 + [_I32] * 3 + [_P],
+    # tables state | log2n F D | stream
+    "fs_iterate_full": [_P, _P, _I32] + [_P] * 10 + [_I32] * 3 + [_P],
     # orbit_chunk_fused: x y rows cadd rnd | scx scy | dig inv work tables
     # | D log2n steps route | tail state | stream
     "fs_orbit_chunk_fused": [_P] * 5 + [_I32, _I32] + [_P] * 4
@@ -334,8 +338,9 @@ _TAIL_STATES: dict = {}
 
 
 def tail_state(device):
-    """K10's device scratch on `device` (``fs_fused_tail_state_bytes``),
-    zero between calls: its two launches leave it as they found it."""
+    """K10's and K11's device scratch on `device`
+    (``fs_fused_tail_state_bytes``), zero between calls: their launches
+    leave it as they found it."""
     import torch
     key = str(device)
     if key not in _TAIL_STATES:
@@ -343,6 +348,23 @@ def tail_state(device):
         _TAIL_STATES[key] = torch.zeros(words, dtype=torch.int32,
                                         device=device)
     return _TAIL_STATES[key]
+
+
+_SCRATCH: dict = {}
+
+
+def scratch(device, words: int):
+    """At least `words` int32 words of device scratch on `device`, cached
+    and grown when a call needs more: K9's work and K11's, which only the
+    launch that takes them reads and writes, in stream order (a later
+    launch on the stream may take the same words)."""
+    import torch
+    key = str(device)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.empty(words, dtype=torch.int32, device=device)
+        _SCRATCH[key] = buf
+    return buf[:words]
 
 
 def stream(device) -> int:

@@ -379,6 +379,18 @@ def device_tables(n: int, device) -> torch.Tensor:
     return _tables[key]
 
 
+_k9: dict = {}
+
+
+def k9_tables(n: int, device) -> torch.Tensor:
+    """K9's and K11's tables (``ntt.k9_tables``) on ``device``, cached:
+    made once per (n, device), not on every call."""
+    key = (n, str(device))
+    if key not in _k9:
+        _k9[key] = torch.from_numpy(N.k9_tables(n)).to(device)
+    return _k9[key]
+
+
 def _check_state(spec: FixedSpec, *digits: torch.Tensor) -> None:
     if spec.nfft < 2 * spec.digits or spec.nfft & (spec.nfft - 1):
         raise ValueError(f"{spec}: nfft must be a power of two ≥ 2D")

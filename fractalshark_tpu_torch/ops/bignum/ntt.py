@@ -82,7 +82,7 @@ def root_tables(n: int) -> tuple[np.ndarray, np.ndarray]:
 
 @functools.lru_cache(maxsize=8)
 def kernel_tables(n: int) -> np.ndarray:
-    """K4's, K9's and K11's table operand, uint32 [4n + 4]: forward roots mod p1, mod p2,
+    """K4's table operand, uint32 [4n + 4]: forward roots mod p1, mod p2,
     inverse roots mod p1, mod p2 (each n entries, Montgomery form), then
     ``n^-1·R² mod p1``, ``n^-1·R² mod p2`` (the inverse transform's scale,
     which also cancels the R^-1 of the pointwise Montgomery products)
@@ -273,6 +273,28 @@ def _k8_matrix(n: int, inverse: bool) -> np.ndarray:
     mat = t1i if inverse else t1.transpose(0, 2, 1)
     mat = mat * _R % np.array([[[p]] for p in _PS])
     return np.ascontiguousarray(mat.astype(np.uint32).view(np.int32))
+
+
+@functools.lru_cache(maxsize=8)
+def k9_tables(n: int) -> np.ndarray:
+    """K9's and K11's table operand, uint32 read as int32 [4 + 8·(n1 + n2)
+    + 4n] (n = n1·n2, ``split_n``): ``n^-1·R² mod p1``, ``mod p2`` (the
+    inverse's scale, which also cancels the R^-1 of the pointwise
+    Montgomery products) and two pad words; K8's Shoup tables
+    (``_k8_table``) of the column transforms (length n1), forward then
+    inverse, and of the row transforms (length n2); then the four-step
+    twiddle matrices ``fourstep_twiddles`` t1 and t1i, [2 primes, n1,
+    n2] each in the order the row phase reads them, Montgomery form."""
+    n1, n2 = split_n(n)
+    scale = [pow(n, -1, p) * _R * _R % p for p in _PS] + [0, 0]
+    parts = [np.asarray(scale, np.uint32)]
+    for m in (n1, n2):
+        for inverse in (False, True):
+            parts.append(_k8_table(m, inverse).view(np.uint32).ravel())
+    ps = np.array([[[p]] for p in _PS], np.int64)
+    for t in fourstep_twiddles(n):
+        parts.append((t * _R % ps).astype(np.uint32).ravel())
+    return np.concatenate(parts).view(np.int32)
 
 
 def _mont_words(values) -> tuple[int, int]:

@@ -1,7 +1,7 @@
 """The one-launch orbit step: the port of ``mxu_iterate_full``
 (``fractalshark_tpu/ops/bignum/ntt_mxu.py:965-1038``, the Pallas
 ``_iterfull_kernel`` :920, B-f5) through kernel K11
-(``csrc/ntt_products.cu`` ``fs_iterate_full``), and the reference's
+(``csrc/iterate_full.cu`` ``fs_iterate_full``), and the reference's
 routing flags of this module.
 
 On the TPU ``MXU_ITER`` sends the orbit and NR steps from nfft 8,192 to
@@ -12,10 +12,12 @@ size, so ``MXU_ITER`` keeps the step on K4 wherever the reference's
 reached at those sizes only with it off, as in the reference.
 
 ``MXU_ITER_FULL`` (off, as in the reference) runs the whole step
-z ← z² + c in one launch: K11 is K9's whole form for the plan
-(x² − y², x·y) followed, after a grid-wide barrier, by K10's tail of
-both components with their shadow rows.  Its plain twin is K9's and
-K10's twins in turn.
+z ← z² + c in one launch: K11 is K9's three phases for the plan
+(x² − y², x·y) followed, after a grid-wide barrier, by K10's tail bodies
+over tiles of both components with their shadow rows, then the
+finishing body after another.  Its plain twin is K9's and K10's twins in
+turn; ``iterate_full_tiled_plain`` is its schedule (K9's rounds, then
+K10's tiles).
 """
 
 from __future__ import annotations
@@ -54,25 +56,44 @@ def mxu_iterate_full_plain(x, y, cadd, rnd, cfg, n: int, shadow_fd=None):
     return NP.fused_tail_plain(inv, cadd, rnd, cfg, shadow_fd)
 
 
+def iterate_full_tiled_plain(x, y, cadd, rnd, cfg, n: int, shadow_fd=None,
+                             zsign=None, rng: np.random.Generator | None
+                             = None):
+    """K11's schedule in torch: K9's rounds twin
+    (``ntt_pallas.products_rounds_plain``), then K10's tiled tail twin at
+    K10's tiles (K11's blocks have K10's 256 threads), the look-back's
+    view of earlier tiles chosen by `rng` as in ``tail_tiled_plain``."""
+    xp = torch.zeros(2, n, dtype=torch.int32, device=x.device)
+    xp[0, :x.shape[0]] = x
+    xp[1, :y.shape[0]] = y
+    inv = NP.products_rounds_plain(xp, None, n, NP.PLAN_ITER)
+    return NP.tail_tiled_plain(inv, cadd, rnd, cfg, shadow_fd, zsign,
+                               rng=rng)
+
+
 def launch_iterate_full(x, y, din: int, cadd, rnd, cfg, shadow_fd,
                         zsign=None):
     """Launch K11 once on CUDA tensors; ``x``/``y`` point at ``din``
-    digits (zero beyond), ``zsign`` as in ``ntt_pallas.launch_tail``."""
+    digits (zero beyond), ``zsign`` as in ``ntt_pallas.launch_tail``.  Its
+    12n words of work are the device's cached scratch
+    (``kernels.scratch``), its tail state K10's (``kernels.tail_state``):
+    a call allocates only its outputs."""
     dev = x.device
     n = rnd.shape[0]
     dig = torch.empty(2, n, dtype=torch.int32, device=dev)
     sgn = torch.empty(2, dtype=torch.int32, device=dev)
     shw = None if shadow_fd is None else torch.empty(2, 5, dtype=torch.int32,
                                                      device=dev)
-    scratch = torch.empty(12 * n, dtype=torch.int32, device=dev)
+    scratch = kernels.scratch(dev, 12 * n)
     F, D = shadow_fd if shadow_fd is not None else (0, 0)
     words = np.asarray(cfg, np.int32)
     rc = kernels.lib().fs_iterate_full(
         x.data_ptr(), y.data_ptr(), din, cadd.data_ptr(), rnd.data_ptr(),
         words.ctypes.data, 0 if zsign is None else zsign.data_ptr(),
         dig.data_ptr(), sgn.data_ptr(), 0 if shw is None else shw.data_ptr(),
-        scratch.data_ptr(), FP.device_tables(n, dev).data_ptr(),
-        n.bit_length() - 1, F, D, kernels.stream(dev))
+        scratch.data_ptr(), FP.k9_tables(n, dev).data_ptr(),
+        kernels.tail_state(dev).data_ptr(), n.bit_length() - 1, F, D,
+        kernels.stream(dev))
     kernels.check(rc, "iterate_full")
     kernels.launches["iterate_full"] += 1
     return (dig, sgn) if shw is None else (dig, sgn, shw)

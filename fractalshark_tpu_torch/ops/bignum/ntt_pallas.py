@@ -153,6 +153,117 @@ def products_plain(x: torch.Tensor, signs, n: int,
     return inv.transpose(0, 1).to(torch.int32).contiguous()
 
 
+_MASK32 = (1 << 32) - 1
+
+
+def _shoup(x: torch.Tensor, w: torch.Tensor, wp: torch.Tensor,
+           p: int) -> torch.Tensor:
+    """x·w mod p as the kernels' Shoup product (int64, x < 2^32, w < p):
+    r = x·w − ⌊x·wp / 2^32⌋·p, which lies in [0, 2p), then r − p where
+    r ≥ p; the quotient from wp's 16-bit halves, as ``__umulhi`` gives
+    it, without an int64 overflow."""
+    q = (x * (wp >> 16) + ((x * (wp & 0xFFFF)) >> 16)) >> 16
+    r = (x * w - q * p) & _MASK32
+    return torch.where(r >= p, r - p, r)
+
+
+def _mont(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
+    """a·b·R^-1 mod p (a Montgomery product's canonical value)."""
+    return a * b % p * pow(1 << 32, -1, p) % p
+
+
+def _rounds(a: torch.Tensor, table: torch.Tensor, p: int,
+            inverse: bool) -> torch.Tensor:
+    """A length-m transform along a's last axis (int64, canonical) with
+    K8's per-stage Shoup table (int64 [m, 2]: the stage of half-span h at
+    [h − 1, 2h − 1)): forward DIF, the top bit's stage first; inverse DIT,
+    the bottom bit's first.  A radix-8 register round is three of these
+    stages in the same order, so the words are the kernels'."""
+    m = a.shape[-1]
+    lg = m.bit_length() - 1
+    lead = a.shape[:-1]
+    for b in (range(lg) if inverse else reversed(range(lg))):
+        h = 1 << b
+        y = a.reshape(*lead, m // (2 * h), 2, h)
+        x0, x1 = y[..., 0, :], y[..., 1, :]
+        w, wp = table[h - 1:2 * h - 1, 0], table[h - 1:2 * h - 1, 1]
+        if inverse:
+            u = _shoup(x1, w, wp, p)
+            s, d = (x0 + u) % p, (x0 - u) % p
+        else:
+            s, d = (x0 + x1) % p, _shoup(x0 + p - x1, w, wp, p)
+        a = torch.stack([s, d], dim=-2).reshape(*lead, m)
+    return a
+
+
+def k9_parts(n: int, device) -> dict:
+    """``ntt.k9_tables(n)`` cut into its parts, int64 on ``device``."""
+    n1, n2 = N.split_n(n)
+    t = torch.from_numpy(N.k9_tables(n).view(np.uint32).astype(np.int64))
+    out, off = {"scale": t[:2]}, 4
+    for name, m in (("col_f", n1), ("col_i", n1), ("row_f", n2),
+                    ("row_i", n2)):
+        out[name] = t[off:off + 4 * m].view(2, m, 2)
+        off += 4 * m
+    for name in ("mat_f", "mat_i"):
+        out[name] = t[off:off + 2 * n].view(2, n1, n2)
+        off += 2 * n
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def products_rounds_plain(x: torch.Tensor, signs, n: int,
+                          pair_plan) -> torch.Tensor:
+    """K9's schedule in torch: ``products_plain``'s function through the
+    kernel's steps and tables (``ntt.k9_tables``).  Per prime: each
+    value's columns (length n1) by forward Shoup rounds; each row times
+    the forward twiddle matrix (Montgomery), its forward rounds (length
+    n2), the sign fold, the Montgomery combinations, its inverse rounds,
+    times the inverse matrix; the columns' inverse rounds; the scale
+    n^-1·R² (Montgomery).  int32 [K, 2, n] from x int32 [V, n]."""
+    n1, n2 = N.split_n(n)
+    T = k9_parts(n, x.device)
+    V = x.shape[0]
+    rows = []
+    for pr, p in enumerate((N.P1, N.P2)):
+        a = x.to(torch.int64) % p
+        a = _rounds(a.view(V, n1, n2).transpose(1, 2), T["col_f"][pr], p,
+                    False).transpose(1, 2)
+        f = _rounds(_mont(a, T["mat_f"][pr], p), T["row_f"][pr], p, False)
+        if signs is not None:
+            neg = (torch.as_tensor(signs, device=x.device) < 0).view(V, 1, 1)
+            f = torch.where(neg & (f != 0), p - f, f)
+        combos = []
+        for terms in pair_plan:
+            acc = torch.zeros_like(f[0])
+            for sgn, ia, ib in terms:
+                acc = (acc + sgn * _mont(f[ia], f[ib], p)) % p
+            combos.append(acc)
+        g = _rounds(torch.stack(combos), T["row_i"][pr], p, True)
+        g = _mont(g, T["mat_i"][pr], p)
+        g = _rounds(g.transpose(1, 2), T["col_i"][pr], p, True)
+        rows.append(_mont(g.transpose(1, 2), T["scale"][pr], p)
+                    .reshape(len(pair_plan), n))
+    return torch.stack(rows, dim=1).to(torch.int32)
+
+
+def block_threads(n: int, n_values: int) -> int:
+    """K9's block size T at size n for ``n_values`` values: halved from
+    512 (not below 32) until the forward phase has two blocks an SM of the
+    H100, then raised (to 256 at most) until a row block loads its rows
+    and the inverse matrix's row in one batch of 8 words a thread, at
+    most n/8
+    (``csrc/ntt_products.cuh`` ``products_threads``; the ``cuda`` tests
+    hold the two equal).  K11 takes 256, K10's block."""
+    m1 = (n.bit_length() - 1) // 2
+    e1 = 8 if m1 >= 3 else 1 << m1
+    t = 512
+    while t > 32 and (2 * n_values * n) // (t * e1) < 264:
+        t //= 2
+    while t < 256 and 8 * t < (n_values + 1) * (n >> m1):
+        t *= 2
+    return min(t, n // e1)
+
+
 def tail_cfg(sgs, nr: bool) -> list:
     """The per-component config (double, gswap, csign, 0) of
     ``fused_tail`` (``ntt_pallas.py:1338-1349``) from sgs = (scx, scy,
@@ -336,21 +447,34 @@ def _check_n(n: int) -> None:
                          f"{SPLIT_MAX_NFFT}, not {n}")
 
 
+_PLAN_WORDS: dict = {}
+
+
+def _plan_words_cached(pair_plan) -> np.ndarray:
+    """``plan_words`` made once per plan: the C entry reads them on the
+    host at every call."""
+    if pair_plan not in _PLAN_WORDS:
+        _PLAN_WORDS[pair_plan] = plan_words(pair_plan)
+    return _PLAN_WORDS[pair_plan]
+
+
 def launch_products(vals, din: int, signs, n: int, pair_plan,
                     form: str) -> torch.Tensor:
     """Launch K9 once on CUDA tensors: ``vals`` up to 4 int32 vectors
     whose first ``din`` entries are the values (zero beyond);
-    returns int32 [K, 2, n]."""
+    returns int32 [K, 2, n].  The work (2(V + K)·n words) is the device's
+    cached scratch (``kernels.scratch``), the tables are made once per
+    size (``fixedpoint.k9_tables``): a call allocates only its output."""
     dev = vals[0].device
     K, V = len(pair_plan), len(vals)
     out = torch.empty(K, 2, n, dtype=torch.int32, device=dev)
-    work = torch.empty(2 * (V + K) * n, dtype=torch.int32, device=dev)
+    work = kernels.scratch(dev, 2 * (V + K) * n)
     ptrs = [v.data_ptr() for v in vals] + [0] * (MAX_VALUES - V)
-    words = plan_words(pair_plan)
+    words = _plan_words_cached(pair_plan)
     rc = kernels.lib().fs_ntt_products(
         *ptrs, V, din, 0 if signs is None else signs.data_ptr(),
         words.ctypes.data, out.data_ptr(), work.data_ptr(),
-        FP.device_tables(n, dev).data_ptr(), n.bit_length() - 1,
+        FP.k9_tables(n, dev).data_ptr(), n.bit_length() - 1,
         int(form == "whole"), kernels.stream(dev))
     kernels.check(rc, f"ntt_products_{form}")
     kernels.launches[f"ntt_products_{form}"] += 1

@@ -308,7 +308,7 @@ def orbit_chunk(state: OrbitState, scx: int, cx: torch.Tensor, scy: int,
             state.x.data_ptr(), state.y.data_ptr(), rows.data_ptr(),
             cadd.data_ptr(), rnd.data_ptr(), int(scx), int(scy),
             dig.data_ptr(), inv.data_ptr(), work.data_ptr(),
-            scratch.tables.data_ptr(), spec.digits,
+            FP.k9_tables(spec.nfft, dev).data_ptr(), spec.digits,
             spec.nfft.bit_length() - 1, steps, code,
             kernels.tail_state(dev).data_ptr(), kernels.stream(dev))
         kernels.check(rc, "orbit_chunk_fused")
@@ -408,8 +408,8 @@ def orbit_nr_chunk(state: NRState, scx: int, cx: torch.Tensor, scy: int,
         state.x.data_ptr(), state.y.data_ptr(), state.dx.data_ptr(),
         state.dy.data_ptr(), state.signs.data_ptr(), cadd.data_ptr(),
         rnd.data_ptr(), int(scx), int(scy), dig.data_ptr(), inv.data_ptr(),
-        work.data_ptr(), scratch.tables.data_ptr(), spec.digits,
-        spec.nfft.bit_length() - 1, steps, code,
+        work.data_ptr(), FP.k9_tables(spec.nfft, dev).data_ptr(),
+        spec.digits, spec.nfft.bit_length() - 1, steps, code,
         kernels.tail_state(dev).data_ptr(), kernels.stream(dev))
     kernels.check(rc, "nr_chunk_fused")
     for name in counters:

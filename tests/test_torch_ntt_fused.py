@@ -3,11 +3,16 @@ ntt_pallas.py`` ``products``), against the JAX package's flag-off Pallas
 kernels in interpret mode, bit for bit: ``_ntt_products`` (B-f1) at nfft
 2,048 and 8,192 for the 3-way, NR, iteration and signed NR-iteration
 plans, ``_ntt_products_split`` (B-f2) and ``_ntt_products_whole`` (B-f3)
-at 32,768; then the reference's routing of the generic multiplies
-``multiply_iter`` and ``multiply_nr_iter`` under ``PALLAS_NTT`` and
-``PALLAS_NTT_SPLIT`` (flags off by default; a flag on sends the products
-to K9's twin, with the default route's results).  The JAX side runs once
-per module in a subprocess (``test_torch_jaxref.run_jax_reference``).
+at 32,768; K9's schedule (``products_rounds_plain``: K8's Shoup rounds,
+the four-step matrices of ``ntt.k9_tables``) against the same JAX rows
+and against ``products_plain`` at every size from 4; then the reference's
+routing of the generic multiplies ``multiply_iter`` and
+``multiply_nr_iter`` under ``PALLAS_NTT`` and ``PALLAS_NTT_SPLIT`` (flags
+off by default; a flag on sends the products to K9's twin, with the
+default route's results).  The JAX side runs once per module in a
+subprocess (``test_torch_jaxref.run_jax_reference``).  On the card: both
+forms against both twins at the smoke's sizes, the C entry's block size
+against ``block_threads``, and a second call in the cached scratch.
 """
 
 import numpy as np
@@ -15,8 +20,10 @@ import pytest
 import torch
 
 import test_torch_jaxref as ref
+from fractalshark_tpu_torch import kernels
 from fractalshark_tpu_torch.core.highprecision import HighPrecision
 from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+from fractalshark_tpu_torch.ops.bignum import ntt as N
 from fractalshark_tpu_torch.ops.bignum import ntt_mxu as NM
 from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
 
@@ -102,6 +109,96 @@ def test_products_equal_b_f1(jax_ref, n, name):
 def test_products_equal_b_f2_and_b_f3(jax_ref, form, name):
     np.testing.assert_array_equal(_twin(SPLIT_N, name).astype(np.int64),
                                   jax_ref[f"{form}_{name}"].astype(np.int64))
+
+
+def _rounds(n, name):
+    """The plan's rows through K9's schedule twin, [K, 2, n]."""
+    V, plan, signed = PLANS[name]
+    x = torch.from_numpy(INPUTS[f"x{n}"][:V].astype(np.int32))
+    sg = torch.from_numpy(SIGNS[:V]) if signed else None
+    return NP.products_rounds_plain(x, sg, n, plan).numpy()
+
+
+@pytest.mark.parametrize("n,name", B_F1, ids=[f"{n}-{p}" for n, p in B_F1])
+def test_rounds_twin_equals_b_f1(jax_ref, n, name):
+    np.testing.assert_array_equal(_rounds(n, name).astype(np.int64),
+                                  jax_ref[f"bf1_{n}_{name}"].astype(np.int64))
+
+
+@pytest.mark.parametrize("form,name", B_F23,
+                         ids=[f"{f}-{p}" for f, p in B_F23])
+def test_rounds_twin_equals_b_f2_and_b_f3(jax_ref, form, name):
+    np.testing.assert_array_equal(_rounds(SPLIT_N, name).astype(np.int64),
+                                  jax_ref[f"{form}_{name}"].astype(np.int64))
+
+
+SMALL_N = [1 << k for k in range(2, 11)]
+
+
+@pytest.mark.parametrize("n", SMALL_N)
+def test_rounds_twin_equals_the_plain_twin(n):
+    """Every size K9 takes below the reference's, down to n = 4 (the
+    kernel's 2- and 4-point rounds), every plan, values up to p1."""
+    rng = np.random.default_rng(n)
+    for name, (V, plan, signed) in PLANS.items():
+        x = np.zeros((V, n), np.int64)
+        x[:, :n // 2] = rng.integers(0, 1 << 16, (V, n // 2))
+        x[-1] = rng.integers(0, P[0], n)
+        x = torch.from_numpy(x.astype(np.int32))
+        sg = torch.from_numpy(SIGNS[:V]) if signed else None
+        assert torch.equal(NP.products_rounds_plain(x, sg, n, plan),
+                           NP.products_plain(x, sg, n, plan)), name
+
+
+def test_k9_tables_hold_the_scale_stage_tables_and_matrices():
+    n = 2048
+    n1, n2 = N.split_n(n)
+    parts = NP.k9_parts(n, "cpu")
+    assert [int(v) for v in parts["scale"]] == \
+        [int(v) for v in N.kernel_tables(n)[4 * n:4 * n + 2]]
+    for name, m, inverse in (("col_f", n1, False), ("col_i", n1, True),
+                             ("row_f", n2, False), ("row_i", n2, True)):
+        want = N._k8_table(m, inverse).view(np.uint32).astype(np.int64)
+        np.testing.assert_array_equal(parts[name].numpy(), want)
+    t1, t1i = N.fourstep_twiddles(n)
+    for name, t in (("mat_f", t1), ("mat_i", t1i)):
+        for i, p in enumerate(P):
+            np.testing.assert_array_equal(parts[name][i].numpy(),
+                                          t[i] * (1 << 32) % p)
+    assert N.k9_tables(n).size == 4 + 8 * (n1 + n2) + 4 * n
+
+
+def test_block_threads_fill_the_card():
+    """K9's block size: two blocks an SM in the forward phase where the
+    work allows, a warp at least; a row block's rows and inverse matrix
+    row at 8 words a thread where 256 threads allow; n/8 at most."""
+    assert NP.block_threads(2048, 2) == 32
+    assert NP.block_threads(16384, 2) == 64      # rows: 3 x 128 words
+    assert NP.block_threads(65536, 2) == 128
+    assert NP.block_threads(131072, 4) == 256
+    assert NP.block_threads(64, 2) == 8
+    for k in range(2, 18):
+        n = 1 << k
+        n2 = n >> (k // 2)
+        e1 = min(8, 1 << (k // 2))
+        for V in (1, 2, 4):
+            t = NP.block_threads(n, V)
+            assert t & (t - 1) == 0 and t <= min(512, n // e1)
+            assert t >= min(32, n // e1)
+            assert 8 * t >= (V + 1) * n2 or t in (256, n // e1)
+
+
+def test_scratch_is_cached_and_grown():
+    """The per-device scratch K9's and K11's wrappers take: a second call
+    of the same size or smaller reuses the words, a larger one grows
+    them."""
+    dev = torch.device("cpu")
+    a = kernels.scratch(dev, 1000)
+    assert kernels.scratch(dev, 1000).data_ptr() == a.data_ptr()
+    assert kernels.scratch(dev, 10).data_ptr() == a.data_ptr()
+    b = kernels.scratch(dev, 5000)
+    assert b.numel() == 5000
+    assert kernels.scratch(dev, 4000).data_ptr() == b.data_ptr()
 
 
 def test_rows_are_the_exact_convolutions():
@@ -217,10 +314,29 @@ def test_mxu_iter_takes_multiply_iter_first(monkeypatch):
     assert spy.calls == 1
 
 
+# the smoke's sizes and values (chip_smoke.py phase 12)
+CARD_N = (2048, 16384, 32768, 131072)
+
+
 @pytest.mark.cuda
 def test_k9_forms_match_the_twin_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(12)
+    for n in CARD_N:
+        x = torch.zeros(4, n, dtype=torch.int32)
+        x[:, :n // 2] = torch.from_numpy(rng.integers(
+            0, 1 << 16, (4, n // 2)).astype(np.int32))
+        for name, (V, plan, signed) in PLANS.items():
+            sg = torch.from_numpy(SIGNS[:V]) if signed else None
+            want = NP.products_plain(x[:V], sg, n, plan)
+            assert torch.equal(NP.products_rounds_plain(x[:V], sg, n, plan),
+                               want), (n, name)
+            for form in ("whole", "split"):
+                got = NP.launch_products(
+                    list(x[:V].cuda()), n,
+                    None if sg is None else sg.cuda(), n, plan, form)
+                assert torch.equal(got.cpu(), want), (n, name, form)
     for n in (2048, SPLIT_N):
         for name, (V, plan, signed) in PLANS.items():
             x = torch.from_numpy(INPUTS[f"x{n}"][:V].astype(np.int32))
@@ -231,3 +347,46 @@ def test_k9_forms_match_the_twin_on_card():
                     list(x.cuda()), n, None if sg is None else sg.cuda(), n,
                     plan, form)
                 assert torch.equal(got.cpu(), want), (n, name, form)
+
+
+@pytest.mark.cuda
+def test_k9_small_sizes_and_block_size_on_card():
+    """K9's 2- and 4-point rounds (n = 4-32) and its block size: the C
+    entry's equals the twins' (block_threads) at every size it takes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lib = kernels.lib()
+    for k in range(2, 18):
+        for V in (1, 2, 4):
+            assert lib.fs_ntt_products_threads(V, k) == \
+                NP.block_threads(1 << k, V), (k, V)
+    rng = np.random.default_rng(7)
+    for n in SMALL_N:
+        V, plan, _ = PLANS["nr"]
+        x = torch.from_numpy(rng.integers(0, P[1], (V, n)).astype(np.int32))
+        want = NP.products_plain(x, None, n, plan)
+        for form in ("whole", "split"):
+            got = NP.launch_products(list(x.cuda()), n, None, n, plan, form)
+            assert torch.equal(got.cpu(), want), (n, form)
+
+
+@pytest.mark.cuda
+def test_second_call_takes_no_new_scratch_on_card():
+    """A second call of launch_products allocates only its output: its
+    work is the cached scratch, its tables and plan words made once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = 16384
+    V, plan, _ = PLANS["nr"]
+    x = torch.from_numpy(INPUTS["x8192"][:V].astype(np.int32)).cuda()
+    NP.launch_products(list(x), 8192, None, n, plan, "whole")
+    torch.cuda.synchronize()
+    work = kernels.scratch(x.device, 2 * (V + len(plan)) * n).data_ptr()
+    before = torch.cuda.memory_allocated()
+    out = NP.launch_products(list(x), 8192, None, n, plan, "split")
+    torch.cuda.synchronize()
+    # the output's block (the caching allocator rounds it to 512 bytes)
+    assert torch.cuda.memory_allocated() - before == \
+        -(-out.numel() * out.element_size() // 512) * 512
+    assert kernels.scratch(x.device, 2 * (V + len(plan)) * n).data_ptr() == \
+        work

@@ -5,7 +5,11 @@ interpret mode, bit for bit: ``fused_tail`` (the gridded B8c form) and
 ``_fused_tail_batched`` (B-f4), orbit and NR configurations, with and
 without shadow rows; ``mxu_iterate_full`` (B-f5) at nfft 8,192 with
 shadows, and against the port's default ``iterate_z`` (K4 then K5) and
-the exact Python-int step.  Then the routes: each flag sends
+the exact Python-int step; K11's schedule (``iterate_full_tiled_plain``:
+K9's rounds, K10's tiles of 4T digits at K11's block size) against
+B-f5 and the plain twin, also on steps made to carry across every tile,
+to go negative, to vanish and to put the shadow's top digit at the
+slice's edges (those also against B-f5).  Then the routes: each flag sends
 ``iterate_z`` and ``iterate_z_nr`` to its kernels' twins with the
 default route's results, and a flagged device-orbit session and NR chunk
 equal the default ones.  Flags are set with ``monkeypatch``.
@@ -112,6 +116,15 @@ def _jax_reference(inputs):
                               interpret=True, in_digits=FULL_D)
     for i, a in enumerate(r):
         out[f"full_{i}"] = np.asarray(a)
+    zero = jnp.zeros(FULL_D, jnp.uint32)
+    for name, (cadd, rnd, cfg) in K11_EDGES.items():
+        r = jmxu.mxu_iterate_full(zero, zero, jnp.asarray(cadd),
+                                  jnp.asarray(rnd),
+                                  jnp.asarray(cfg, jnp.int32), n=FULL_N,
+                                  shadow_fd=(FULL_D - 2, FULL_D),
+                                  interpret=True, in_digits=FULL_D)
+        for i, a in enumerate(r):
+            out[f"edge_{name}_{i}"] = np.asarray(a)
     return out
 
 
@@ -200,6 +213,74 @@ def test_k11_twin_equals_b_f5_k4_k5_and_the_oracle(jax_ref):
     for c in range(2):
         assert (int(sgn[c]), FP.digits_to_int(dig[c, F:F + D].numpy())) == \
             want[c]
+
+
+@pytest.mark.parametrize("seed", (0, 1, 2))
+def test_k11_tiled_twin_equals_b_f5(jax_ref, seed):
+    x, y, cadd, rnd, cfg, fd = _full_args(INPUTS)
+    got = NM.iterate_full_tiled_plain(_t(x), _t(y), _t(cadd), _t(rnd), cfg,
+                                      FULL_N, fd,
+                                      rng=np.random.default_rng(seed))
+    for i, a in enumerate(got):
+        np.testing.assert_array_equal(a.numpy().astype(np.int64),
+                                      jax_ref[f"full_{i}"].astype(np.int64))
+
+
+def _k11_edges():
+    """name: (cadd [2, n], rnd [n], cfg) of a K11 step from x = y = 0 at
+    FULL_N, whose digits are then the addend and round planes' sums."""
+    n, D = FULL_N, FULL_D
+    F = D - 2
+    out = {}
+    cadd = np.zeros((2, n), np.uint32)
+    rnd = np.zeros(n, np.uint32)
+    cadd[0] = 0xFFFF                      # + 1: a carry through every tile
+    rnd[0] = 1
+    out["carry_across_every_tile"] = (cadd, rnd, [0, 1, 1, 0, 1, 1, 1, 0])
+    cadd = np.zeros((2, n), np.uint32)
+    cadd[0, 3 * n // 4] = 1               # - that: a negative total
+    cadd[1, 5] = 1
+    out["negative_total"] = (cadd, np.zeros(n, np.uint32),
+                             [0, 1, -1, 0, 1, 1, -1, 0])
+    out["zero"] = (np.zeros((2, n), np.uint32), np.zeros(n, np.uint32),
+                   [0, 1, 1, 0, 1, -1, -1, 0])
+    cadd = np.zeros((2, n), np.uint32)
+    cadd[0, F] = 7                        # the slice's lowest digit
+    cadd[1, F + D - 1] = 9                # and its highest
+    cadd[1, F - 1] = 0xFFFF               # below the slice: not in it
+    out["shadow_at_the_slice_edges"] = (cadd, np.zeros(n, np.uint32),
+                                        [0, 1, 1, 0, 1, 1, 1, 0])
+    return out
+
+
+K11_EDGES = _k11_edges()
+
+
+@pytest.mark.parametrize("name", list(K11_EDGES))
+def test_k11_tiled_twin_on_edge_steps(jax_ref, name):
+    cadd, rnd, cfg = K11_EDGES[name]
+    zero = torch.zeros(FULL_D, dtype=torch.int32)
+    fd = (FULL_D - 2, FULL_D)
+    want = NM.mxu_iterate_full_plain(zero, zero, _t(cadd), _t(rnd), cfg,
+                                     FULL_N, fd)
+    for i, a in enumerate(want):
+        np.testing.assert_array_equal(
+            a.numpy().astype(np.int64),
+            jax_ref[f"edge_{name}_{i}"].astype(np.int64))
+    for seed in range(3):
+        got = NM.iterate_full_tiled_plain(zero, zero, _t(cadd), _t(rnd), cfg,
+                                          FULL_N, fd,
+                                          rng=np.random.default_rng(seed))
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    dig, sgn, shw = want
+    if name in ("carry_across_every_tile", "zero"):
+        assert int(sgn[0]) == 1 and int(dig[0].abs().sum()) == 0
+    if name == "negative_total":
+        assert sgn.tolist() == [-1, -1]
+    if name == "shadow_at_the_slice_edges":
+        assert shw[0].tolist() == [7, 0, 0, 0, 0]
+        assert shw[1].tolist() == [0, 0, 0, 9, FULL_D - 4]
 
 
 # (flags, limbs) of the orbit step's routes: K9 + K10 at nfft 2,048
@@ -345,3 +426,52 @@ def test_k10_and_k11_match_their_twins_on_card():
                               _t(rnd).cuda(), cfg, FULL_N, shadow_fd=fd)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+    # the smoke's limb counts from random values in (-2, 2), zsign read on
+    # the card; the edge steps
+    rng = np.random.default_rng(11)
+    for limbs in (2048, 16384):
+        spec = FP.FixedSpec.for_limbs(limbs)
+        n, F, D = spec.nfft, spec.frac_digits, spec.digits
+        st = [_in_range(spec, rng) for _ in range(4)]
+        x, y, cx, cy = (_t(d) for _, d in st)
+        cadd, rnd = FP.addend_planes(cx, cy, spec)
+        cfg = NP.tail_cfg((st[2][0], st[3][0], 1, 0), False)
+        zs = (int(st[0][0]), int(st[1][0]))
+        want = NM.mxu_iterate_full(x, y, cadd, rnd, cfg, n, (F, D),
+                                   zsign=zs)
+        assert all(torch.equal(a, b) for a, b in zip(
+            NM.iterate_full_tiled_plain(x, y, cadd, rnd, cfg, n, (F, D),
+                                        zs), want))
+        got = NM.mxu_iterate_full(
+            x.cuda(), y.cuda(), cadd.cuda(), rnd.cuda(), cfg, n, (F, D),
+            zsign=torch.tensor(zs, dtype=torch.int32, device="cuda"))
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), limbs
+    zero = torch.zeros(FULL_D, dtype=torch.int32)
+    for name, (cadd, rnd, cfg) in K11_EDGES.items():
+        fd = (FULL_D - 2, FULL_D)
+        want = NM.mxu_iterate_full_plain(zero, zero, _t(cadd), _t(rnd), cfg,
+                                         FULL_N, fd)
+        got = NM.mxu_iterate_full(zero.cuda(), zero.cuda(), _t(cadd).cuda(),
+                                  _t(rnd).cuda(), cfg, FULL_N, fd)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.cuda
+def test_k11_second_call_takes_no_new_scratch_on_card():
+    """A second K11 call allocates only its outputs: its work is the
+    cached scratch, its tail state K10's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, y, cadd, rnd, cfg, fd = _full_args(INPUTS)
+    x, y, cadd, rnd = (_t(a).cuda() for a in (x, y, cadd, rnd))
+    NM.mxu_iterate_full(x, y, cadd, rnd, cfg, FULL_N, shadow_fd=fd)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    got = NM.mxu_iterate_full(x, y, cadd, rnd, cfg, FULL_N, shadow_fd=fd)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    # the outputs' blocks (the caching allocator rounds each to 512 bytes)
+    assert grown == sum(-(-a.numel() * a.element_size() // 512) * 512
+                        for a in got)

@@ -7,7 +7,9 @@ with and without ``zsign`` and the shadow rows; on values made to carry
 and borrow across tile edges (runs of 0xFFFF as View #30's imaginary
 part has 1,661 of them, runs of 0), a negative total, zero magnitudes
 (sign +1) and a carry out of the top; then against Python ints
-(Hypothesis).  On the card, K10 against the tiled twin."""
+(Hypothesis).  The tiles run from 1 segment to K10's and K11's 256,
+one and two warps' among them.  On the card, K10 against the tiled
+twin."""
 
 import numpy as np
 import pytest
@@ -22,7 +24,8 @@ from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
 P1P2 = N.P1 * N.P2
 N_RANDOM = 1024
 N_EDGE = 2048
-THREADS = (1, 2, 4, 256)   # segments a tile (the kernel's: 256)
+# segments a tile: K10's and K11's 256, and smaller (one and two warps)
+THREADS = (1, 2, 4, 32, 64, 256)
 
 
 def _rows(values) -> np.ndarray:

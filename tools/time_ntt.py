@@ -2,8 +2,8 @@
 """Time the port's generic NTT (kernel K8, ``csrc/ntt_phase.cu``) on one
 NVIDIA card: the four-step transforms as the generic multiplies call
 them, one phase alone, and the multiplies; and the flag-off bignum
-tails: K10 (``ntt_pallas.launch_tail``) and K11 (``ntt_mxu.
-mxu_iterate_full``).
+kernels: K9 (``ntt_pallas.launch_products``), K10 (``ntt_pallas.
+launch_tail``) and K11 (``ntt_mxu.mxu_iterate_full``).
 
     python3 tools/time_ntt.py [--tree DIR] [--reps N] [--only TEXT ...]
                               [--trace-reps N] [--margin-ms MS]
@@ -18,16 +18,22 @@ torch reports.  Calls: ``fourstep_forward`` and
 ``phase_kernel`` (one phase, no epilogue) at [4,256,256] and
 [14,256,512]; ``multiply_3way`` and ``multiply_nr`` at 2,048, 16,384
 and 32,768 limbs (digits on the card, as the smoke passes them);
-``tail`` (K10, gridded and batched) at nfft 2,048, 16,384 and 65,536
-with K = 2 and the shadow rows and with K = 4 (the NR configuration),
-random residue rows and addend planes as ``tests/test_torch_tail_fused.
-py`` makes them; ``iterate_full`` (K11) at 2,048 and 16,384 limbs from
-random values in (-2, 2).  Each record also has the launches of one
-call by counter (``launches``).  ``--only`` keeps the calls whose label
-contains one of the texts.  The inputs are random residues and digits
+``products`` (K9, whole and split) at nfft 2,048, 16,384, 32,768 and
+131,072 with the iteration plan and the signed NR-iteration plan, on the
+values ``chip_smoke.py`` phase 12 makes (16-bit digits in the low half,
+from seed 12); ``tail`` (K10, gridded and batched) at nfft 2,048,
+16,384 and 65,536 with K = 2 and the shadow rows and with K = 4 (the NR
+configuration), random residue rows and addend planes as
+``tests/test_torch_tail_fused.py`` makes them; ``iterate_full`` (K11)
+at 2,048 and 16,384 limbs from random values in (-2, 2), and the same
+step as K9's whole form then K10 (``k9 whole + k10``), the two launches
+K11 replaces.  Each record also has the launches of one call by counter
+(``launches``).  ``--only`` keeps the calls whose label contains one of
+the texts.  The inputs are random residues and digits
 from a fixed seed.  ``--trace-reps N`` traces each call N times more and
 adds how many traces held each number of CUDA kernels
-(``traces_by_kernels``), to show that a trace holds every launch;
+(``traces_by_kernels``, each a single trace, where the record above keeps
+the fullest of three), to show how often a trace loses a launch;
 ``--margin-ms`` is the time the traced call sits inside each end of the
 profiler's window (default 2).
 
@@ -53,6 +59,7 @@ PHASES = [(4, 256, 256), (14, 256, 512)]
 MUL_LIMBS = (2048, 16384, 32768)
 TAIL_NFFT = (2048, 16384, 65536)
 FULL_LIMBS = (2048, 16384)
+PRODUCT_NFFT = (2048, 16384, 32768, 131072)
 
 
 def log(msg: str) -> None:
@@ -126,7 +133,33 @@ def calls(device):
         out.append((f"multiply_nr {limbs} limbs",
                     lambda d=d, spec=spec: FP.multiply_nr(
                         *d, spec, device=device)))
+    out += product_calls(device)
     out += tail_calls(device, rng)
+    return out
+
+
+def product_calls(device):
+    """(label, function) of K9 in both forms: the iteration plan and the
+    signed NR-iteration plan, on chip_smoke.py phase 12's values."""
+    import numpy as np
+    import torch
+
+    from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
+
+    rng = np.random.default_rng(12)
+    signs = torch.tensor([1, -1, -1, 1], dtype=torch.int32, device=device)
+    plans = {"iter": (2, NP.PLAN_ITER, None),
+             "nriter": (4, NP.PLAN_NR_ITER, signs)}
+    out = []
+    for n in PRODUCT_NFFT:
+        x = torch.zeros(4, n, dtype=torch.int32, device=device)
+        x[:, :n // 2] = torch.from_numpy(rng.integers(
+            0, 1 << 16, (4, n // 2)).astype(np.int32)).to(device)
+        for name, (V, plan, sg) in plans.items():
+            for form in ("whole", "split"):
+                out.append((f"products {form} n={n} {name}",
+                            lambda a=(list(x[:V]), n, sg, n, plan, form):
+                            NP.launch_products(*a)))
     return out
 
 
@@ -175,6 +208,13 @@ def tail_calls(device, rng):
         out.append((f"iterate_full {limbs} limbs",
                     lambda a=(x, y, cadd, rnd, cfg, spec.nfft, (F, D)):
                     NM.mxu_iterate_full(*a)))
+
+        def k9_k10(x=x, y=y, cadd=cadd, rnd=rnd, cfg=cfg, n=spec.nfft,
+                   fd=(F, D)):
+            inv = NP.launch_products([x, y], fd[1], None, n, NP.PLAN_ITER,
+                                     "whole")
+            return NP.launch_tail(inv, cadd, rnd, cfg, fd, False)
+        out.append((f"k9 whole + k10 {limbs} limbs", k9_k10))
     return out
 
 
@@ -220,7 +260,7 @@ def main() -> int:
         rec.update(tr)
         if args.trace_reps:
             rec["traces_by_kernels"] = dict(collections.Counter(
-                trace_call(fn, margin)["kernels"]
+                trace_call(fn, margin, tries=1)["kernels"]
                 for _ in range(args.trace_reps)))
         log(json.dumps(rec))
     log(json.dumps({"card": card}))
