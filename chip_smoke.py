@@ -89,7 +89,19 @@ plain chunk and, bit for bit, against the per-step loop of K4 then K5
 orbit and of NR in 256-step chunks, the row carried between them, in
 both.  The kernels line takes K12's launches from the View #6 and View
 #30 device-orbit frames and the feature evaluator's two runs, K4/K5's
-from the 32,768-limb session; K4-NR/K5-NR are on no path (0).
+from the 32,768-limb session; K4-NR/K5-NR are on no path (0), (14) the
+render families: K13 (``csrc/escape_hdr.cu``, f32 and f64 mantissas) and
+K14 (``csrc/escape_df.cu``, 2x32 and 2x64) on the integration sweep's
+shallow frame at 1024² × 256, K15 (``csrc/bla.cu``, f32 and f64) and
+K6's glitch instance (counts and flags) on the 1e8 frame at 1024² ×
+1,500, each against its twin (K15 and the glitch instance in launches
+over the live pixels) and timed (tools/time_pixel_loops.py), K13 at View
+#6's and View #8's centres (2^453, 2^2220) at 256², K15 on View #6 at
+256² (held at a cut budget, timed at the preset's), the Scaled repair
+pass (K6 HDR-f64) on a poisoned orbit, then the nine frames of
+``FAMILY_PINS`` through the CLI at 256² (counts from 0, the plain twins
+made to raise), pinned to the JAX package's values; their launches are
+the kernels line's.
 Exits non-zero if any
 phase fails, and at once when no CUDA device is present.  The next-to-last lines are the card's
 ``nvidia-smi`` name and power limit and a JSON object of the kernels;
@@ -267,6 +279,32 @@ VIEW30_512_ITER_SUM = 351_206_692_131
 VIEW6_GPU_MAIN = "View #6 --perturbation-alg GPU 256²"
 VIEW30_MAIN = "View #30 --perturbation-alg GPU 512²"
 
+# phase 14: the render families the port took last, through the CLI at
+# 256², each with its kernel's launch counter and (iter_sum, CRC-32 of
+# the grid as <u4), JAX package on the CPU with FMA off, same algorithm
+# name: the integration sweep's shallow frame (budget 256; K13, K14) and
+# the 1e8 frame (budget 1,500; K6-glitch, K15)
+FAMILY_SHALLOW = ["--center-x", "-0.6", "--center-y", "0.45", "--zoom",
+                  "64", "--iterations", "256"]
+FAMILY_DEEP = ["--center-x", "-0.743643887037158704752191506114774",
+               "--center-y", "0.131825904205311970493132056385139",
+               "--zoom", "1e8", "--iterations", "1500"]
+FAMILY_PINS = {
+    "CpuHDR32": (FAMILY_SHALLOW, "escape_hdr32", (9_071_295, 3_836_288_825)),
+    "CpuHDR64": (FAMILY_SHALLOW, "escape_hdr64", (9_075_337, 3_220_277_600)),
+    "GpuHDRx32": (FAMILY_SHALLOW, "escape_hdr32",
+                  (9_071_295, 3_836_288_825)),
+    "Gpu2x32": (FAMILY_SHALLOW, "escape_2x32", (9_075_247, 2_706_351_084)),
+    "Gpu2x64": (FAMILY_SHALLOW, "escape_2x64", (9_075_311, 3_935_581_982)),
+    "Gpu1x32PerturbedScaled": (FAMILY_DEEP, "perturb_scaled",
+                               (74_862_945, 2_633_024_294)),
+    "Cpu64PerturbedBLA": (FAMILY_DEEP, "bla_f64", (74_821_549, 279_905_926)),
+    "GpuHDRx32PerturbedBLA": (FAMILY_DEEP, "bla_f32",
+                              (74_819_159, 962_749_141)),
+    "GpuHDRx64PerturbedBLA": (FAMILY_DEEP, "bla_f64",
+                              (74_821_549, 279_905_926)),
+}
+
 KERNEL_META = {
     "escape": ("fractalshark_tpu_torch/csrc/escape.cu",
                "fractalshark_tpu/ops/escape.py:211"),
@@ -336,7 +374,46 @@ KERNEL_META = {
                        "fractalshark_tpu/ops/bignum/ntt_mxu.py:557"),
     "nr_chunk_grid": ("fractalshark_tpu_torch/csrc/orbit_chunk.cu",
                       "fractalshark_tpu/ops/bignum/ntt_mxu.py:812"),
+    # the render families (phase 14): XLA loops in the reference, each
+    # given a kernel here (K13, K14, K15, K6's glitch instance)
+    "escape_hdr32": ("fractalshark_tpu_torch/csrc/escape_hdr.cu",
+                     "fractalshark_tpu/ops/hdr_escape.py:93"),
+    "escape_hdr64": ("fractalshark_tpu_torch/csrc/escape_hdr.cu",
+                     "fractalshark_tpu/ops/hdr_escape.py:93"),
+    "escape_2x32": ("fractalshark_tpu_torch/csrc/escape_df.cu",
+                    "fractalshark_tpu/ops/dblflt.py:143"),
+    "escape_2x64": ("fractalshark_tpu_torch/csrc/escape_df.cu",
+                    "fractalshark_tpu/ops/dblflt.py:143"),
+    "bla_f32": ("fractalshark_tpu_torch/csrc/bla.cu",
+                "fractalshark_tpu/ops/bla_kernel.py:29"),
+    "bla_f64": ("fractalshark_tpu_torch/csrc/bla.cu",
+                "fractalshark_tpu/ops/bla_kernel.py:29"),
+    "perturb_scaled": ("fractalshark_tpu_torch/csrc/perturb.cu",
+                       "fractalshark_tpu/ops/scaled.py:47"),
 }
+
+# phase 14's kernel frames (tools/time_pixel_loops.py FRAMES) and the
+# kernels-line entry each gives: held to its twin at its full budget
+# (K15 and the glitch instance in launches of FAMILY_CHUNK steps over the
+# live pixels), then timed; K13 at View #6's and View #8's centres at
+# 256² (each past its mantissa type's exponent range) at these budgets;
+# K15 on View #6 at 256² held at VIEW6_BLA_TWIN_BUDGET, timed at the
+# preset's; the Scaled repair pass on the poisoned orbit of
+# tests/test_scaled.py:52-73 (entry 5 made f32-subnormal), at this size
+# and budget
+FAMILY_FRAMES = [
+    ("shallow_hdr32_1024", "escape_hdr32"),
+    ("shallow_hdr64_1024", "escape_hdr64"),
+    ("shallow_2x32_1024", "escape_2x32"),
+    ("shallow_2x64_1024", "escape_2x64"),
+    ("1e8_bla_f32_1024", "bla_f32"),
+    ("1e8_bla_f64_1024", "bla_f64"),
+    ("1e8_scaled_1024", "perturb_scaled"),
+]
+FAMILY_CHUNK = 257
+DEEP_HDR = {6: ("f32", 2000), 8: ("f64", 2000)}
+VIEW6_BLA_TWIN_BUDGET = 2000
+POISON = ("-0.6", "0.4", "4", 200, 256)
 
 HBM_BYTES_PER_S = 3.35e12
 # instructions a second outside the tensor cores, H100 SXM (132 SMs at
@@ -2361,6 +2438,201 @@ def phase_chunk(device, stats):
     log("  K12 us/step by size (loop, K12 forms): " + json.dumps(per_step))
 
 
+def hdr_escape_ops(grid, budget: int) -> float:
+    """K13: about 80 operations an iteration (two squares and a product,
+    four aligned adds, each an exponent compare, a clamped power of two, a
+    scaling product and a sum, three reductions off the bits, the
+    compare), of each pixel's iterations and the escaping step's ~30; a
+    lower bound that counts the integer operations at the float rate."""
+    return 80.0 * float(grid.sum()) + 30.0 * float((grid < budget).sum())
+
+
+def df_escape_ops(grid, budget: int) -> float:
+    """K14: about 150 operations an iteration (two squares and a product by
+    Dekker's two-prod, 17 operations each, five double-float adds of 20),
+    and the escaping step's ~66 (the squares and the magnitude's add)."""
+    return 150.0 * float(grid.sum()) + 66.0 * float((grid < budget).sum())
+
+
+def bla_ops(tally) -> float:
+    """K15: 60 operations a step (a BLA step's two complex products, add
+    and reductions; a single step is K6's HDR step), counted from the
+    run's own BLA and single steps (K15's tally); the level probes left
+    out: a lower bound."""
+    return 60.0 * float(tally.sum())
+
+
+@contextlib.contextmanager
+def forbid_twins():
+    """A context in which a call of any render family's plain twin
+    raises: a CUDA tensor never reaches one."""
+    from fractalshark_tpu_torch.ops import (bla_kernel, dblflt, hdr_escape,
+                                            perturb)
+    targets = [(hdr_escape, "escape_hdr_plain"), (dblflt, "escape_df_plain"),
+               (bla_kernel, "bla_plain"), (perturb, "perturb_plain")]
+    saved = [getattr(m, n) for m, n in targets]
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain twin ran on the CLI path")
+    try:
+        for m, n in targets:
+            setattr(m, n, refuse)
+        yield
+    finally:
+        for (m, n), f in zip(targets, saved):
+            setattr(m, n, f)
+
+
+def phase_families(device, stats):
+    """The render families the port took last: K13 and K14 (every
+    instance) on the shallow frame at 1024², K15 (f32, f64) and K6's glitch
+    instance on the 1e8 frame at 1024² x 1,500, each against its twin and
+    timed; K13 at View #6's and View #8's centres; K15 on View #6 at 256²
+    (timed at the preset budget); the Scaled repair pass on a poisoned
+    orbit; then the nine 256² frames through the CLI (counts from 0, the
+    twins forbidden), pinned to the JAX package's values."""
+    import numpy as np
+    import torch
+
+    from fractalshark_tpu_torch import kernels
+    from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
+    from fractalshark_tpu_torch.core.views import get_view_preset
+    from fractalshark_tpu_torch.engine.reforbit import RefOrbitCalc
+    from fractalshark_tpu_torch.ops import hdr_escape, perturb, scaled
+
+    log("[14] the render families: K13, K14, K15 and K6-glitch vs their "
+        "twins, timed (tools/time_pixel_loops.py), then the CLI frames")
+    tpl = pixel_loops()
+    for name, entry in FAMILY_FRAMES:
+        fr = tpl.setup(name, device)
+        st = stats[entry]
+        rate = F64_OPS_PER_S if fr.dtype == torch.float64 else F32_OPS_PER_S
+        if fr.kern in ("k13", "k14"):
+            k = fr.run()
+            pl, pms = timed(fr.plain, device, warm=False)
+            compare(f"{entry} {name}", k, pl, st)
+            out, rec = tpl.time_frame(fr, 3)
+            ops = (hdr_escape_ops if fr.kern == "k13" else df_escape_ops)(
+                out, fr.n)
+            b = bound(nbytes(out), ops, rate)
+        elif fr.kern == "k15":
+            k = fr.run(None, FAMILY_CHUNK)
+            pl, pms = timed(fr.plain, device, warm=False)
+            compare(f"{entry} {name} (launches of {FAMILY_CHUNK} steps over "
+                    f"the live pixels)", k, pl, st)
+            out, rec = tpl.time_frame(fr, 3)
+            tally = torch.zeros((out.numel(), 2), dtype=torch.int64,
+                                device=device)
+            fr.run(None, None, tally)
+            t = tally.sum(dim=0).tolist()
+            log(f"    steps: {t[0]} BLA, {t[1]} single, for "
+                f"{int(out.sum())} iterations")
+            rows = fr.orbit[:int(out.max()) + 2]
+            b = bound(nbytes(rows, fr.T.probe, fr.T.steps, *fr.dc, out),
+                      bla_ops(tally), rate)
+        else:
+            k = fr.run(None, FAMILY_CHUNK)
+            pl, pms = timed(fr.plain, device, warm=False)
+            for i, what in ((4, "iterations"), (6, "glitch flags")):
+                compare(f"{entry} {name} (launches of {FAMILY_CHUNK} steps "
+                        f"over the live pixels) {what}", k[i], pl[i], st)
+            state, rec = tpl.time_frame(fr, 3)
+            out = state[4].reshape(fr.size, fr.size)
+            rows = fr.orbit[:int(out.max()) + 1]
+            b = bound(nbytes(rows, fr.bad[:rows.shape[0]], *fr.dc[:2], out,
+                             state[6]),
+                      perturb_ops(out, fr.n, False), rate)
+        log(f"  {entry} {name} budget {fr.n}: {rec['ms_median']:.3f} ms (of "
+            f"{[round(t, 3) for t in rec['ms']]}), launches "
+            f"{rec['launches']}, (iter_sum, crc32) "
+            f"{(rec['iter_sum'], rec['crc32'])}; plain {pms:.3f} ms")
+        if rec["launches"].get(entry, 0) < 1:
+            raise AssertionError(f"{name}: {entry} never launched")
+        st.update(ms=rec["ms_median"], plain_ms=pms, **b)
+
+    # K13 past each mantissa type's exponent range
+    for v, (mant, n) in DEEP_HDR.items():
+        ptz = get_view_preset(v).ptz.square_aspect_ratio(256, 256)
+        npdt = np.float32 if mant == "f32" else np.float64
+        p = hdr_escape.view_to_hdr_params(ptz, 256, 256, dtype=npdt)
+        tdt = torch.float32 if mant == "f32" else torch.float64
+        k = hdr_escape.escape_hdr_kernel(p, 256, 256, n, tdt, device)
+        compare(f"escape_hdr{mant[1:]} View #{v} centre 256² x{n} (dx "
+                f"2^{p['dx'][1]})", k,
+                hdr_escape.escape_hdr_plain(p, 256, 256, n, tdt, device),
+                stats["escape_hdr" + mant[1:]])
+
+    # K15 on View #6: held at a cut budget, timed at the preset's
+    fr = tpl.setup("view6_bla_256", device)
+    nc = VIEW6_BLA_TWIN_BUDGET
+    compare(f"bla_f32 view6_bla_256 budget {nc} (launches of "
+            f"{FAMILY_CHUNK} steps over the live pixels)",
+            fr.run(nc, FAMILY_CHUNK), fr.plain(nc), stats["bla_f32"])
+    out, rec = tpl.time_frame(fr, 1)
+    tally = torch.zeros((out.numel(), 2), dtype=torch.int64, device=device)
+    fr.run(None, None, tally)
+    t = tally.sum(dim=0).tolist()
+    log(f"  bla_f32 view6_bla_256 budget {fr.n}: {rec['ms_median']:.3f} ms "
+        f"(of {[round(x, 3) for x in rec['ms']]}), "
+        f"{sum(rec['launches'].values())} launches over "
+        f"{rec['work'][:4]} pixels, (iter_sum, crc32) "
+        f"{(rec['iter_sum'], rec['crc32'])}; steps {t[0]} BLA, {t[1]} "
+        f"single, deepest pixel {int(tally.sum(dim=1).max())} steps")
+    bound(nbytes(fr.orbit, fr.T.probe, fr.T.steps, *fr.dc, out),
+          bla_ops(tally), F32_OPS_PER_S)
+
+    # the Scaled repair pass: a poisoned orbit glitches pixels
+    x, y, zoom, n, size = POISON
+    ptz = PointZoomBBConverter(pt_x=x, pt_y=y, zoom_factor=zoom).\
+        square_aspect_ratio(size, size)
+    res = RefOrbitCalc().get_and_create_useful_results(ptz, n)
+    res = type(res)(
+        center_x=res.center_x, center_y=res.center_y,
+        orbit_x=res.orbit_x.copy(), orbit_y=res.orbit_y.copy(),
+        max_radius=res.max_radius, period=res.period,
+        escaped_at=res.escaped_at, max_iterations=res.max_iterations,
+        precision_bits=res.precision_bits)
+    res.orbit_x[5] = res.orbit_y[5] = 1e-40
+    kernels.reset_counts()
+    got, gstats = scaled.perturb_render_scaled(res, ptz, size, size, n,
+                                               device=device)
+    want, wstats = scaled.perturb_render_scaled(res, ptz, size, size, n,
+                                                device="cpu")
+    log(f"  poisoned orbit {size}² x{n}: {gstats} (plain on the CPU "
+        f"{wstats}), launches "
+        f"{ {k: v for k, v in kernels.launches.items() if v} }")
+    compare("Scaled render, poisoned orbit (f32 pass + HDR-f64 repair)",
+            got, want, stats["perturb_scaled"])
+    if gstats != wstats or gstats["glitched_pixels"] <= 0 or \
+            kernels.launches["perturb_hdr64"] < 1:
+        raise AssertionError("the Scaled repair pass did not run as its "
+                             "twin")
+    k = scaled.scaled_pass(res, ptz, size, size, n, device=device)
+    pl = scaled.scaled_pass(res, ptz, size, size, n, device="cpu")
+    for i, what in ((0, "iterations"), (1, "glitch flags")):
+        compare(f"perturb_scaled poisoned orbit {size}² x{n} {what}", k[i],
+                pl[i], stats["perturb_scaled"])
+
+    # the CLI frames, counts from 0, the twins forbidden
+    launches = {entry: 0 for _, entry in FAMILY_FRAMES}
+    with forbid_twins():
+        for alg, (argv, key, pin) in FAMILY_PINS.items():
+            kernels.reset_counts()
+            s, wall = cli_run(argv + ["--render-algorithm", alg, "--width",
+                                      "256", "--height", "256", "--stats",
+                                      "--device", "cuda"])
+            grew = {k: v for k, v in kernels.launches.items() if v}
+            got = (s["iter_sum"], s["crc32"])
+            log(f"  {alg} 256²: via {s['kernel']}, (iter_sum, crc32) {got} "
+                f"(JAX CPU, FMA off: {pin}), wall {wall:.3f} s, launches "
+                f"{grew}, timings {json.dumps(s['timings'])}")
+            if got != pin or grew.get(key, 0) < 1:
+                raise AssertionError(f"{alg} 256²: {got} != {pin} or no "
+                                     f"{key} launch")
+            launches[key] += grew[key]
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2402,6 +2674,7 @@ def main() -> int:
     launches.update(run("11", phase_ntt, device, stats))
     launches.update(run("12", phase_fused, device, stats))
     run("13", phase_chunk, device, stats)
+    launches.update(run("14", phase_families, device, stats))
     # K12's and K4/K5's launches, each from its own path's run: View #6's
     # and View #30's device-orbit frames, the feature evaluator at View
     # #6's sizes and at View #30's, and the orbit past K12's D < 2^16.

@@ -34,23 +34,14 @@
 // With one lane a pixel a warp holding one long pixel runs the budget while
 // its other lanes idle (on View 0 1024² x 256 the lanes' iterations are
 // 2.96x the pixels' own).  So both run in two passes, launched by one C
-// entry call with no sync between them:
-//   pass 1, one lane a pixel (a warp is 32 pixels of a row), runs at most
-//     `cap` iterations and writes every pixel that ends there (the
-//     shortcut's, the escaped, those at a budget <= cap); a warp appends
-//     its other pixels to a list with one atomicAdd;
-//   pass 2, a grid of the card's resident blocks, strides over the list,
-//     so its warps hold only long pixels, and runs each from its
-//     coordinate to the end in rounds of kRound iterations with no branch
-//     (Rule::run_long): with few warps on the card a pixel's chain of
-//     dependent operations paces pass 2, and a test and branch after
-//     every iteration lengthened it.
-// Each pixel's count depends on its own coordinate alone, so neither the
-// list's order nor the restart changes a count.  With cap >= the budget
-// pass 1 finishes every pixel and pass 2 is not launched (the one-pass
-// form).  The list's counter is one of two (`parity`, alternated by the
-// caller): pass 1 zeroes the other, which the next call counts in, so no
-// memset or host sync is needed between calls.
+// entry call with no sync between them (the schedule of
+// escape_passes.cuh, which K13 and K14 share): pass 1, one lane a pixel,
+// runs at most `cap` iterations and lists the pixels still running; pass
+// 2, the card's resident blocks, strides over the list and runs each from
+// its coordinate to the end in rounds of kRound iterations with no branch
+// (Rule::run_long): with few warps on the card a pixel's chain of
+// dependent operations paces pass 2, and a test and branch after every
+// iteration lengthened it.
 // Output: int64 [H, W] for a frame (the engine's grid), int32 [K, H, W]
 // for a sequence (its public form is uint32).
 
@@ -59,17 +50,24 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "escape_passes.cuh"
 #include "hdr.cuh"
 
 namespace {
 
 constexpr int32_t kSeqCap = 64;   // pass 1's iterations in a sequence
-constexpr int kPass2Block = 256;  // threads of a pass-2 block
 constexpr int kRound = 8;         // iterations a round of pass 2
+
+template <typename T, typename C>
+struct Pixel {
+  T cx, cy;
+  C budget;
+};
 
 // the arithmetic of one semantics
 template <typename T, bool kTile>
 struct Rule {
+  static constexpr bool kShortcut = kTile;
   static __device__ __forceinline__ T fl(T v) {
     return kTile ? fs::ftz(v) : v;
   }
@@ -145,12 +143,20 @@ struct Rule {
     while (it < limit && step(zx, zy, cx, cy)) ++it;
     return it;
   }
-};
-
-template <typename T, typename C>
-struct Pixel {
-  T cx, cy;
-  C budget;
+  // the schedule's interface (escape_passes.cuh)
+  template <typename C>
+  static __device__ __forceinline__ bool interior(const Pixel<T, C> &c) {
+    return interior(c.cx, c.cy);
+  }
+  template <typename C, typename L>
+  static __device__ __forceinline__ L run(const Pixel<T, C> &c, L limit) {
+    return run(c.cx, c.cy, limit);
+  }
+  template <typename C>
+  static __device__ __forceinline__ C run_long(const Pixel<T, C> &c,
+                                               C limit) {
+    return run_long(c.cx, c.cy, limit);
+  }
 };
 
 // one frame, passed by value: an int64 budget, counted in int64 by the
@@ -185,130 +191,14 @@ struct FrameTable {
   }
 };
 
-// pass 1: pixel (x, y) of frame blockIdx.z, one lane each (blockDim.x is
-// 32: a warp is one block row); the pixels still running after `cap`
-// iterations go to the list `later`, counted in counters[parity]
-template <typename T, bool kTile, class Frames, typename Out>
-__global__ void escape_pass1(Out *__restrict__ out, Frames f, int width,
-                             int height, int32_t cap,
-                             uint32_t *__restrict__ later, uint32_t *counters,
-                             int parity) {
-  using C = typename Frames::Count;
-  using R = Rule<T, kTile>;
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  const int k = blockIdx.z;
-  if ((blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x | threadIdx.y) ==
-      0)
-    counters[parity ^ 1] = 0;   // the next call's list counter
-  const uint32_t at = (static_cast<uint32_t>(k) * height + y) * width + x;
-  bool keep = false;
-  if (x < width && y < height) {
-    const Pixel<T, C> c = f.at(k, x, y);
-    if (kTile && R::interior(c.cx, c.cy)) {
-      out[at] = static_cast<Out>(c.budget);
-    } else {
-      // pass 1 counts in int32: at most cap iterations
-      const bool whole = c.budget <= cap;
-      const int32_t limit = whole ? static_cast<int32_t>(c.budget) : cap;
-      const int32_t it = R::run(c.cx, c.cy, limit);
-      if (it < limit || whole)
-        out[at] = static_cast<Out>(it);
-      else
-        keep = true;
-    }
-  }
-  // one atomicAdd a warp
-  const unsigned m = __ballot_sync(~0u, keep);
-  if (m) {
-    const int lead = __ffs(m) - 1;
-    uint32_t base = 0;
-    if (static_cast<int>(threadIdx.x) == lead)
-      base = atomicAdd(counters + parity, static_cast<uint32_t>(__popc(m)));
-    base = __shfl_sync(~0u, base, lead);
-    if (keep) later[base + __popc(m & ((1u << threadIdx.x) - 1u))] = at;
-  }
-}
-
-// pass 2: the listed pixels, a lane each in turn, from z = c to the end
-template <typename T, bool kTile, class Frames, typename Out>
-__global__ void __launch_bounds__(kPass2Block)
-    escape_pass2(Out *__restrict__ out, Frames f, int width, int height,
-                 const uint32_t *__restrict__ later,
-                 const uint32_t *__restrict__ n_later) {
-  using C = typename Frames::Count;
-  const uint32_t n = *n_later;
-  const uint32_t plane = static_cast<uint32_t>(width) * height;
-  for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const uint32_t at = later[i];
-    const uint32_t k = at / plane;
-    const uint32_t r = at - k * plane;
-    const uint32_t y = r / width;
-    const Pixel<T, C> c = f.at(static_cast<int>(k),
-                               static_cast<int>(r - y * width),
-                               static_cast<int>(y));
-    out[at] =
-        static_cast<Out>(Rule<T, kTile>::run_long(c.cx, c.cy, c.budget));
-  }
-}
-
-// the resident blocks of pass 2 on the current device (cached per device)
-template <typename T, bool kTile, class Frames, typename Out>
-int pass2_grid(int *grid) {
-  static int cached[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 64 && cached[dev]) {
-    *grid = cached[dev];
-    return 0;
-  }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, escape_pass2<T, kTile, Frames, Out>, kPass2Block, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *grid = per_sm * sms;
-  if (dev < 64) cached[dev] = *grid;
-  return 0;
-}
-
-// both passes on the stream; pass 2 only if a pixel can outlast `cap`
-template <typename T, bool kTile, class Frames, typename Out>
-int launch(Out *out, const Frames &f, int frames, int width, int height,
-           int64_t max_budget, int32_t cap, void *later, void *counters,
-           int parity, void *stream) {
-  if (width < 1 || height < 1 || frames < 1 || cap < 0 ||
-      static_cast<uint64_t>(frames) * width * height >= (uint64_t{1} << 32))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int grid2 = 0;
-  const int rc = pass2_grid<T, kTile, Frames, Out>(&grid2);
-  if (rc) return rc;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto ctr = static_cast<uint32_t *>(counters);
-  const dim3 block(32, 8);
-  const dim3 grid((width + block.x - 1) / block.x,
-                  (height + block.y - 1) / block.y, frames);
-  escape_pass1<T, kTile, Frames, Out><<<grid, block, 0, st>>>(
-      out, f, width, height, cap, static_cast<uint32_t *>(later), ctr,
-      parity);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || cap >= max_budget) return static_cast<int>(err);
-  escape_pass2<T, kTile, Frames, Out><<<grid2, kPass2Block, 0, st>>>(
-      out, f, width, height, static_cast<const uint32_t *>(later),
-      ctr + parity);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T, bool kTile>
 int launch_frame(void *out, int width, int height, T min_x, T max_y, T dx,
                  T dy, int64_t max_iter, int32_t cap, void *later,
                  void *counters, int parity, void *stream) {
   const OneFrame<T, kTile> f = {min_x, max_y, dx, dy, max_iter};
-  return launch<T, kTile>(static_cast<int64_t *>(out), f, 1, width, height,
-                          max_iter, cap, later, counters, parity, stream);
+  return launch_passes<Rule<T, kTile>>(static_cast<int64_t *>(out), f, 1,
+                                       width, height, max_iter, cap, later,
+                                       counters, parity, stream);
 }
 
 template <typename T>
@@ -317,9 +207,10 @@ int launch_seq(void *out, const void *params, int frames, int width,
                void *stream) {
   const FrameTable<T> f = {static_cast<const T *>(params)};
   // the budgets are on the card: pass 2 always runs
-  return launch<T, true>(static_cast<int32_t *>(out), f, frames, width,
-                         height, INT64_MAX, kSeqCap, later, counters, parity,
-                         stream);
+  return launch_passes<Rule<T, true>>(static_cast<int32_t *>(out), f,
+                                      frames, width, height, INT64_MAX,
+                                      kSeqCap, later, counters, parity,
+                                      stream);
 }
 
 }  // namespace

@@ -129,6 +129,39 @@ __device__ __forceinline__ HdrT<T> reduce(HdrT<T> x) {
   return {mm, x.m == T(0) ? kMinBigExponent : wadd(x.e, fe)};
 }
 
+// the real operations of the HDR escape (K13, hdrfloat.py add/sub/mul/
+// square/mul_pow2): unreduced; an add scales the smaller-exponent operand
+// by 2^-min(gap, 126), so gaps past EXPONENT_DIFF_IGNORED underflow it
+template <typename T>
+__device__ __forceinline__ HdrT<T> hdr_add(HdrT<T> a, HdrT<T> b) {
+  const bool a_big = a.e >= b.e;
+  const int32_t diff = imin(wsub(a_big ? a.e : b.e, a_big ? b.e : a.e),
+                            kExpDiffClamp);
+  const T s = pow2i<T>(wsub(0, diff));
+  return a_big ? HdrT<T>{ftz(a.m + ftz(b.m * s)), a.e}
+               : HdrT<T>{ftz(b.m + ftz(a.m * s)), b.e};
+}
+
+template <typename T>
+__device__ __forceinline__ HdrT<T> hdr_sub(HdrT<T> a, HdrT<T> b) {
+  return hdr_add(a, HdrT<T>{-b.m, b.e});
+}
+
+template <typename T>
+__device__ __forceinline__ HdrT<T> hdr_mul(HdrT<T> a, HdrT<T> b) {
+  return {ftz(a.m * b.m), wadd(a.e, b.e)};
+}
+
+template <typename T>
+__device__ __forceinline__ HdrT<T> hdr_square(HdrT<T> a) {
+  return {ftz(a.m * a.m), wadd(a.e, a.e)};
+}
+
+template <typename T>
+__device__ __forceinline__ HdrT<T> hdr_mul_pow2(HdrT<T> a, int32_t k) {
+  return {a.m, wadd(a.e, k)};
+}
+
 // reduce_complex: z scaled by 2^-fe, fe the frexp exponent of
 // big = fmax_nan(|re|, |im|) (0 when big is 0), the scale pow2i(-fe).  The
 // forms below read fe and the scale off the bits of the larger magnitude

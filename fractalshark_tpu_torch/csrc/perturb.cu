@@ -6,7 +6,12 @@
 // _kernel (B11, Pallas: HDR-f32 lockstep sweeps that stream the orbit from
 // HBM, 64-bit budgets), and the XLA loops they are held to,
 // fractalshark_tpu/ops/perturb.py:177 _perturb_hdr_impl (HDR, f32 or f64
-// mantissas) and :112 _perturb_float_impl (native f32 or f64).
+// mantissas) and :112 _perturb_float_impl (native f32 or f64); its glitch
+// instance (kGlitch, fs_perturb_scaled) replaces
+// fractalshark_tpu/ops/scaled.py:47 _perturb_f32_glitch_impl, the Scaled
+// family's f32 pass: the native f32 step, plus a per-pixel flag, the OR of
+// bad[j] over the orbit positions j of the steps the pixel ran (its
+// escaping step too), which the run loop stores with the state.
 //
 // Per pixel, from dz = 0 at orbit position j = 0 (perturb.py:6-11):
 //   dz <- dz(2Z[j] + dz) + dc;  z = Z[j+1] + dz
@@ -68,13 +73,14 @@ struct PerturbParams {
   int handoff;
 };
 
-template <typename T, bool kHdr>
+template <typename T, bool kHdr, bool kGlitch>
 __global__ void __launch_bounds__(kBlock)
     perturb_kernel(const T *__restrict__ dcr, const T *__restrict__ dci,
                    const int32_t *__restrict__ dce,
                    const T *__restrict__ orbit, T *st_dzr, T *st_dzi,
                    int32_t *st_dze, int64_t *st_j, int64_t *st_it,
                    uint8_t *st_done, const int32_t *__restrict__ work,
+                   const uint8_t *__restrict__ bad, uint8_t *st_glitch,
                    PerturbParams P) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= P.n_work) return;
@@ -85,7 +91,7 @@ __global__ void __launch_bounds__(kBlock)
 
   HdrC<T> dz;
   int64_t j, it;
-  bool done;
+  bool done, glitch = false;
   if (P.init) {
     dz = {T(0), T(0), kHdr ? fs::kMinBigExponent : 0};
     j = 0;
@@ -96,6 +102,7 @@ __global__ void __launch_bounds__(kBlock)
     j = st_j[p];
     it = st_it[p];
     done = st_done[p] != 0;
+    if (kGlitch) glitch = st_glitch[p] != 0;
   }
   if (P.handoff) {
     // an LA phase's handoff (j = jwait): a pixel at the budget is done; a
@@ -114,9 +121,18 @@ __global__ void __launch_bounds__(kBlock)
   }
 
   fs::Row<T> og = oc.at(j);  // the row of the step about to run
+  // the glitch instance: bad[] of the row in use, the next one's loaded
+  // with that row, bad[0] (the rebase target's) held for the launch
+  const bool b0 = kGlitch && bad[0];
+  bool bj = kGlitch && bad[oc.clamp(j)];
   for (int64_t k = 0; !done && (P.chunk_steps == 0 || k < P.chunk_steps);
        ++k) {
     const fs::Row<T> nx = oc.ahead(j);
+    bool bn = false;
+    if (kGlitch) {
+      glitch |= bj;
+      bn = bad[oc.clamp(j + 1)];
+    }
     HdrC<T> ndz, zf;
     bool esc, lower;
     if (kHdr) {
@@ -142,6 +158,7 @@ __global__ void __launch_bounds__(kBlock)
     // is picked on every step
     const bool reb = lower || (j + 1) >= P.max_ref;
     og = oc.pick(reb, nx);
+    if (kGlitch) bj = reb ? b0 : bn;
     if (esc) {
       done = true;
     } else {
@@ -158,25 +175,27 @@ __global__ void __launch_bounds__(kBlock)
   st_j[p] = j;
   st_it[p] = it;
   st_done[p] = done ? 1 : 0;
+  if (kGlitch) st_glitch[p] = glitch ? 1 : 0;
 }
 
-template <typename T, bool kHdr>
+template <typename T, bool kHdr, bool kGlitch>
 int launch(const void *dcr, const void *dci, const void *dce,
            const void *orbit, void *st_dzr, void *st_dzi, void *st_dze,
            void *st_j, void *st_it, void *st_done, const void *work,
-           int32_t n_work, int64_t max_ref, int64_t max_iter,
-           int64_t chunk_steps, int32_t init, int32_t handoff,
-           cudaStream_t stream) {
+           const void *bad, void *st_glitch, int32_t n_work, int64_t max_ref,
+           int64_t max_iter, int64_t chunk_steps, int32_t init,
+           int32_t handoff, cudaStream_t stream) {
   const PerturbParams P = {n_work,      max_ref, max_iter,
                            chunk_steps, init,    handoff};
   const int grid = static_cast<int>((n_work + int64_t{kBlock} - 1) / kBlock);
-  perturb_kernel<T, kHdr><<<grid, kBlock, 0, stream>>>(
+  perturb_kernel<T, kHdr, kGlitch><<<grid, kBlock, 0, stream>>>(
       static_cast<const T *>(dcr), static_cast<const T *>(dci),
       static_cast<const int32_t *>(dce), static_cast<const T *>(orbit),
       static_cast<T *>(st_dzr), static_cast<T *>(st_dzi),
       static_cast<int32_t *>(st_dze), static_cast<int64_t *>(st_j),
       static_cast<int64_t *>(st_it), static_cast<uint8_t *>(st_done),
-      static_cast<const int32_t *>(work), P);
+      static_cast<const int32_t *>(work), static_cast<const uint8_t *>(bad),
+      static_cast<uint8_t *>(st_glitch), P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -187,13 +206,14 @@ int dispatch(const void *dcr, const void *dci, const void *dce,
              int32_t n_work, int64_t max_ref, int64_t max_iter,
              int64_t chunk_steps, int32_t flags, void *stream) {
   if (n_work <= 0) return 0;
-  const auto go = (flags & 2) ? launch<T, true> : launch<T, false>;
+  const auto go = (flags & 2) ? launch<T, true, false> : launch<T, false, false>;
   // a handoff resumes a state: never with the zero state
   if ((flags & 1) && (flags & 4))
     return static_cast<int>(cudaErrorInvalidValue);
   return go(dcr, dci, dce, orbit, st_dzr, st_dzi, st_dze, st_j, st_it,
-            st_done, work, n_work, max_ref, max_iter, chunk_steps, flags & 1,
-            (flags >> 2) & 1, static_cast<cudaStream_t>(stream));
+            st_done, work, nullptr, nullptr, n_work, max_ref, max_iter,
+            chunk_steps, flags & 1, (flags >> 2) & 1,
+            static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -217,4 +237,24 @@ extern "C" int fs_perturb_f32(FS_PERTURB_ARGS) {
 
 extern "C" int fs_perturb_f64(FS_PERTURB_ARGS) {
   return dispatch<double>(FS_PERTURB_PASS);
+}
+
+// K6-glitch, the Scaled family's f32 pass: native f32 from the zero state
+// (flags bit 0) or resumed, plus per pixel the OR of bad[j] over the
+// orbit positions j of the steps it ran (bad: uint8, one an orbit
+// position; glitch: uint8 [pixels], state like the others).
+extern "C" int fs_perturb_scaled(const void *dcr, const void *dci,
+                                 const void *orbit, void *st_dzr,
+                                 void *st_dzi, void *st_dze, void *st_j,
+                                 void *st_it, void *st_done, const void *work,
+                                 const void *bad, void *st_glitch,
+                                 int32_t n_work, int64_t max_ref,
+                                 int64_t max_iter, int64_t chunk_steps,
+                                 int32_t flags, void *stream) {
+  if (n_work <= 0) return 0;
+  if (flags & ~1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float, false, true>(
+      dcr, dci, nullptr, orbit, st_dzr, st_dzi, st_dze, st_j, st_it, st_done,
+      work, bad, st_glitch, n_work, max_ref, max_iter, chunk_steps, flags & 1,
+      0, static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,10 @@
 """The render engine: view state, algorithm resolution and render
-orchestration.  The port of ``fractalshark_tpu/engine/fractal.py``
-limited to the slice: the direct f32/f64 escapes and the LAv2 families
-of f32, f64, hdr32 and hdr64 mantissas in every LA mode (and 2x32 and
-hdr2x32 with a valid LA table), and the feature finder's entry points.
-Every tensor lives on the fractal's explicit ``device``.
+orchestration.  The port of ``fractalshark_tpu/engine/fractal.py``: the
+direct escapes (f32/f64, HDR, double-float, and CpuHigh's host
+arbitrary precision), the LAv2 families of f32, f64, hdr32 and hdr64
+mantissas in every LA mode (and 2x32 and hdr2x32 with a valid LA table),
+the BLA and Scaled perturbation families, and the feature finder's entry
+points.  Every tensor lives on the fractal's explicit ``device``.
 """
 
 from __future__ import annotations
@@ -19,19 +20,24 @@ from fractalshark_tpu_torch.core.algorithms import (
 from fractalshark_tpu_torch.core.highprecision import HighPrecision
 from fractalshark_tpu_torch.core.palette import FractalPalette
 from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
+from fractalshark_tpu_torch.core.precision import precision_from_view
 from fractalshark_tpu_torch.core.views import get_view_preset
 from fractalshark_tpu_torch.io.png import write_png
 from fractalshark_tpu_torch.kernels import resolve_device
-from fractalshark_tpu_torch.ops import escape
+from fractalshark_tpu_torch.ops import dblflt, escape, hdr_escape
 from fractalshark_tpu_torch.ops.coloring import (
     color_from_iters, iteration_stats, rgba16_to_numpy, rgba16_to_rgba8)
 
 
 # the routes whose reference returns uint32 at any budget: the XLA
-# perturbation-only loops (``ops/perturb.py:154,222``) and B10
-# (``ops/perturb_pallas.py:105``)
+# perturbation-only loops (``ops/perturb.py:154,222``), B10
+# (``ops/perturb_pallas.py:105``), the HDR and double-float escapes
+# (``ops/hdr_escape.py:89``, ``ops/dblflt.py:193``), BLA
+# (``ops/bla_kernel.py:122``) and Scaled (``ops/scaled.py:88``), all of
+# which count in int32
 _ALWAYS_U32 = ("perturb-f32", "perturb-f64", "perturb-hdr64",
-               "perturb-pallas")
+               "perturb-pallas", "escape-hdr32", "escape-hdr64",
+               "escape-2x32", "escape-2x64", "bla-f32", "bla-f64", "scaled")
 
 
 def public_dtype(route: str | None, max_iter: int):
@@ -40,10 +46,12 @@ def public_dtype(route: str | None, max_iter: int):
     reference's routes returns it: the direct escapes uint32 below 2^32
     (``escape.py:69-70``); the LA renders and the streaming tails uint32
     below 2^31 (``la_kernel.py:515``, ``perturb_stream.py:100-109``);
-    the XLA perturbation-only loops and B10 uint32 always; uint64
-    above those budgets."""
+    the routes of _ALWAYS_U32 uint32 always; CpuHigh uint64 always
+    (``engine/fractal.py:210``); uint64 above those budgets."""
     if route in _ALWAYS_U32:
         return np.uint32
+    if route == "cpu-high":
+        return np.uint64
     cut = 1 << (32 if route == "escape" else 31)
     return np.uint64 if max_iter >= cut else np.uint32
 
@@ -156,16 +164,60 @@ class Fractal:
         return iters
 
     def _calc_direct(self, alg: RenderAlgorithm) -> torch.Tensor:
-        if alg.dtype not in ("f32", "f64"):
+        """The direct escapes (``engine/fractal.py:175-203``); the HDR and
+        double-float ones take the render's dimensions and split the
+        view at antialiasing 1, as the reference calls them."""
+        w, h = self._render_dims()
+        n = self.num_iterations
+        if alg.dtype in ("4x32", "4x64"):
             raise NotImplementedError(
                 f"{alg.name}: the {alg.dtype} direct escape is ROADMAP A1 "
-                f"(2x32/4x32/HDR direct escapes), not ported yet")
-        w, h = self._render_dims()
+                f"(ops/quadd.py escape_qd, ops/quadflt.py), not ported yet")
+        route = "escape" if alg.dtype in ("f32", "f64") else \
+            "cpu-high" if alg.dtype == "hp" else f"escape-{alg.dtype}"
+        self.benchmark.extra["kernel"] = route
+        if alg.dtype == "hp":
+            return self._calc_cpu_high()
+        if alg.dtype in ("2x32", "2x64"):
+            return dblflt.escape_df(self.ptz, w, h, n, variant=alg.dtype,
+                                    device=self.device)
+        if alg.dtype in ("hdr32", "hdr64"):
+            return hdr_escape.escape_hdr(
+                self.ptz, w, h, n, device=self.device,
+                sub_dtype=np.float32 if alg.dtype == "hdr32" else np.float64)
         params = escape.PlainParams.from_view(
             self.ptz, self.width, self.height, self.antialiasing)
-        self.benchmark.extra["kernel"] = "escape"
-        return escape.escape(params, w, h, self.num_iterations,
-                             dtype=alg.dtype, device=self.device)
+        return escape.escape(params, w, h, n, dtype=alg.dtype,
+                             device=self.device)
+
+    def _calc_cpu_high(self) -> torch.Tensor:
+        """CpuHigh: the iteration in arbitrary precision per pixel on the
+        host (Python ints through ``HighPrecision``), the algorithm's own
+        semantics (``engine/fractal.py:205-230``; tiny frames only); the
+        grid goes to the fractal's device."""
+        w, h = self._render_dims()
+        prec = precision_from_view(self.ptz)
+        out = np.zeros((h, w), np.int64)
+        four = HighPrecision(4, prec=prec)
+        dx = self.ptz.delta_x(self.width, self.antialiasing)
+        dy = self.ptz.delta_y(self.height, self.antialiasing)
+        n = self.num_iterations
+        for y in range(h):
+            cy = self.ptz.max_y - dy * HighPrecision(y)
+            for x in range(w):
+                cx = self.ptz.min_x + dx * HighPrecision(x)
+                zx, zy = cx, cy
+                i = 0
+                while i < n:
+                    zx2 = zx * zx
+                    zy2 = zy * zy
+                    if zx2 + zy2 > four:
+                        break
+                    zy = zx * zy * 2 + cy
+                    zx = zx2 - zy2 + cx
+                    i += 1
+                out[y, x] = i
+        return torch.from_numpy(out).to(self.device)
 
     def _iters(self, iters):
         if iters is not None:

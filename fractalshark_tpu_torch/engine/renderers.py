@@ -1,6 +1,12 @@
-"""Perturbed-render orchestration for the LAv2 families: the port of
+"""Perturbed-render orchestration: the port of
 ``fractalshark_tpu/engine/renderers.py`` (``calc_perturbed``,
 ``la_rc_render``, ``two_phase_render``, ``_handoff_init``).
+
+The Scaled names (every dtype) take ``ops/scaled.py`` (K6's glitch
+instance, then K6 HDR-f64 where a pixel glitched), the BLA names
+``engine/bla.py``'s table and ``ops/bla_kernel.py`` (K15; f32 mantissas
+for the hdr32 names, f64 for the others), as the reference routes them
+(``renderers.py:98-115``).  The rest is the LAv2 families'.
 
 Routing follows the reference's accelerator route
 (``renderers.py:30-179``).  With a valid LA table (FULL and LAO modes):
@@ -47,22 +53,21 @@ import torch
 
 from fractalshark_tpu_torch.core.algorithms import (
     Family, LAMode, RenderAlgorithm)
+from fractalshark_tpu_torch.engine.bla import get_or_build_bla
 from fractalshark_tpu_torch.engine.la_reference import get_or_build_la
 from fractalshark_tpu_torch.engine.perturbation_results import CompressedOrbit
 from fractalshark_tpu_torch.engine.reforbit import RefOrbitCalc
 from fractalshark_tpu_torch.ops import la_kernel, perturb
+from fractalshark_tpu_torch.ops.bla_kernel import bla_perturb_render
 from fractalshark_tpu_torch.ops.la_stream import la_phase_stream
 from fractalshark_tpu_torch.ops.perturb_pallas import perturb_render_pallas
 from fractalshark_tpu_torch.ops.perturb_stream import (
     anchors_on, perturb_render_stream, perturb_render_stream_rc)
+from fractalshark_tpu_torch.ops.scaled import perturb_render_scaled
 from fractalshark_tpu_torch.ops.tables import orbit_on
 
 # ROADMAP items that own the routes this port does not have yet
 _NOT_PORTED = {
-    Family.PERTURB_BLA: "ROADMAP A1: the BLA perturbation family "
-                        "(ops/bla_kernel.py)",
-    Family.PERTURB_SCALED: "ROADMAP A1: the Scaled perturbation family "
-                           "(ops/scaled.py)",
     "hdr_df": "ROADMAP A1: the double-float perturbation render without "
               "an LA table (ops/hdr_df.py), which the 2x32 and hdr2x32 "
               "names take in PO mode or when no LA table is valid",
@@ -83,10 +88,9 @@ def get_orbit_calc(fractal) -> RefOrbitCalc:
 
 def calc_perturbed(fractal, alg: RenderAlgorithm) -> torch.Tensor:
     """Iteration grid (int64, on the fractal's device) of a perturbed
-    algorithm of the LAv2 families."""
-    if alg.family in _NOT_PORTED:
-        raise NotImplementedError(f"{alg.name}: {_NOT_PORTED[alg.family]}")
-    if alg.family is not Family.PERTURB_LAV2:
+    algorithm."""
+    if alg.family not in (Family.PERTURB_LAV2, Family.PERTURB_BLA,
+                          Family.PERTURB_SCALED):
         raise NotImplementedError(f"{alg.name}: family {alg.family}")
     calc = get_orbit_calc(fractal)
     w, h = fractal._render_dims()
@@ -97,6 +101,10 @@ def calc_perturbed(fractal, alg: RenderAlgorithm) -> torch.Tensor:
                                                  fractal.num_iterations)
     bm.ref_orbit_s = time.perf_counter() - t0
     bm.extra.update(calc.last_details)
+    if alg.family is Family.PERTURB_SCALED:
+        return _scaled(fractal, results, w, h)
+    if alg.family is Family.PERTURB_BLA:
+        return _bla(fractal, alg, results, w, h)
 
     la = None
     if alg.la_mode in (LAMode.FULL, LAMode.LAO):
@@ -172,6 +180,36 @@ def _perturb_only(fractal, alg: RenderAlgorithm, results, w: int,
     return _timed(fractal, "perturb-stream", "perturb_s",
                   lambda: perturb_render_stream(results, fractal.ptz, w, h,
                                                 n, **kw))
+
+
+def _scaled(fractal, results, w: int, h: int) -> torch.Tensor:
+    """The Scaled names, whatever their dtype (``renderers.py:98-104``):
+    the glitch counts go into the benchmark's extra."""
+    out, stats = _timed(fractal, "scaled", "perturb_s",
+                        lambda: perturb_render_scaled(
+                            results, fractal.ptz, w, h,
+                            fractal.num_iterations,
+                            abort_monitor=fractal.abort_monitor,
+                            device=fractal.device))
+    fractal.benchmark.extra.update(stats)
+    return out
+
+
+def _bla(fractal, alg: RenderAlgorithm, results, w: int,
+         h: int) -> torch.Tensor:
+    """The BLA names (``renderers.py:106-115``): the table built (once
+    an orbit) and timed, then K15 with f32 mantissas for f32/hdr32, f64
+    for the others."""
+    t0 = time.perf_counter()
+    bla = get_or_build_bla(results)
+    fractal.benchmark.extra["bla_build_s"] = time.perf_counter() - t0
+    sub = np.float32 if alg.dtype in ("f32", "hdr32") else np.float64
+    return _timed(fractal, "bla-f32" if sub == np.float32 else "bla-f64",
+                  "perturb_s", lambda: bla_perturb_render(
+                      results, bla, fractal.ptz, w, h,
+                      fractal.num_iterations, sub_dtype=sub,
+                      abort_monitor=fractal.abort_monitor,
+                      device=fractal.device))
 
 
 def _timed(fractal, kernel: str, timer: str, render):

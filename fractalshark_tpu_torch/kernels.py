@@ -77,7 +77,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # call, two launches) and K11 (iterate_full) once per
 # step, also inside the flagged chunk loops; K12 once per chunk per form
 # and instance (orbit_chunk_block, orbit_chunk_grid, nr_chunk_block,
-# nr_chunk_grid)
+# nr_chunk_grid); K13 (escape_hdr32/hdr64) and K14 (escape_2x32/2x64) once
+# per frame per instance (one C call, both passes), K15 (bla_f32/f64) per
+# launch, K6's glitch instance (perturb_scaled: the Scaled family's f32
+# pass) per launch
 KERNELS = ("escape", "lav2_full", "lav2_phase1", "rc_tail", "ntt_orbit",
            "orbit_tail", "lav2_full_f64", "lav2_lao_f64", "perturb_pallas",
            "perturb_stream", "perturb_hdr32", "perturb_hdr64", "perturb_f32",
@@ -85,7 +88,9 @@ KERNELS = ("escape", "lav2_full", "lav2_phase1", "rc_tail", "ntt_orbit",
            "escape_seq", "la_stream", "ntt_phase", "ntt_products_whole",
            "ntt_products_split", "fused_tail_grid", "fused_tail_batched",
            "iterate_full", "orbit_chunk_block", "orbit_chunk_grid",
-           "nr_chunk_block", "nr_chunk_grid")
+           "nr_chunk_block", "nr_chunk_grid", "escape_hdr32", "escape_hdr64",
+           "escape_2x32", "escape_2x64", "bla_f32", "bla_f64",
+           "perturb_scaled")
 launches = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -180,6 +185,25 @@ _SIGNATURES = {
     + [_I32] * 4 + [_P],
     # k12_block_bytes: log2n D V
     "fs_k12_block_bytes": [_I32] * 3,
+    # escape_hdr: out | width height | (mantissa, exponent) of min_x max_y
+    # dx dy | max_iter cap | list counters parity | stream
+    "fs_escape_hdr_f32": [_P, _I32, _I32] + [_F32, _I32] * 4
+    + [_I32, _I32, _P, _P, _I32, _P],
+    "fs_escape_hdr_f64": [_P, _I32, _I32] + [_F64, _I32] * 4
+    + [_I32, _I32, _P, _P, _I32, _P],
+    # escape_df: out | width height | (hi, lo) of min_x max_y dx dy |
+    # max_iter cap | list counters parity | stream
+    "fs_escape_df_f32": [_P, _I32, _I32] + [_F32] * 8
+    + [_I32, _I32, _P, _P, _I32, _P],
+    "fs_escape_df_f64": [_P, _I32, _I32] + [_F64] * 8
+    + [_I32, _I32, _P, _P, _I32, _P],
+    # bla: dc(3) orbit probe steps levels | state(6) | work tally | n_work
+    # max_ref max_iter | chunk | num_levels lm2 init | stream
+    "fs_bla_f32": [_P] * 15 + [_I32] * 3 + [_I64] + [_I32] * 3 + [_P],
+    "fs_bla_f64": [_P] * 15 + [_I32] * 3 + [_I64] + [_I32] * 3 + [_P],
+    # perturb_scaled: dcr dci orbit | state(6) | work bad glitch | n_work
+    # max_ref max_iter chunk flags | stream
+    "fs_perturb_scaled": [_P] * 12 + [_I32, _I64, _I64, _I64, _I32, _P],
 }
 
 

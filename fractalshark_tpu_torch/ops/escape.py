@@ -223,6 +223,26 @@ def pass1_cap(tile: bool) -> int:
     return PASS1_CAP if tile else LOOP_PASS1_CAP
 
 
+def launch_two_pass(name: str, key: str, width: int, height: int, device,
+                    args, cap: int) -> torch.Tensor:
+    """One C call of a two-pass escape kernel (K1, K13, K14), counted under
+    `key`: ``name(out, width, height, *args, cap, list, counters, parity,
+    stream)`` into a new int64 grid [height, width] on `device`, with the
+    device's pass-2 list (``kernels.pass_list``)."""
+    out = torch.empty((height, width), dtype=torch.int64, device=device)
+    lst = kernels.pass_list(out.device)
+    items, counters, parity = lst.take(out.numel())
+    lib = kernels.lib()
+    kernels.launches[key] += 1
+    rc = getattr(lib, name)(
+        out.data_ptr(), width, height, *args, cap, items.data_ptr(),
+        counters.data_ptr(), parity, kernels.stream(out.device))
+    if rc:
+        lst.reset()
+    kernels.check(rc, name)
+    return out
+
+
 def escape_kernel(params: PlainParams, width: int, height: int,
                   max_iter: int, dtype, device) -> torch.Tensor:
     """Launch K1 on a CUDA device (one C call, both passes): the f32 tile
@@ -235,20 +255,10 @@ def escape_kernel(params: PlainParams, width: int, height: int,
         name, max_iter = "fs_escape_f32", seq_budget(max_iter, dtype)
     else:
         name = "fs_escape_f32_loop"
-    out = torch.empty((height, width), dtype=torch.int64, device=device)
-    lst = kernels.pass_list(out.device)
-    items, counters, parity = lst.take(out.numel())
-    lib = kernels.lib()
-    kernels.launches["escape"] += 1
-    rc = getattr(lib, name)(
-        out.data_ptr(), width, height, params.min_x, params.max_y,
-        params.dx, params.dy, int(max_iter),
-        pass1_cap(tile), items.data_ptr(),
-        counters.data_ptr(), parity, kernels.stream(out.device))
-    if rc:
-        lst.reset()
-    kernels.check(rc, name)
-    return out
+    return launch_two_pass(
+        name, "escape", width, height, device,
+        (params.min_x, params.max_y, params.dx, params.dy, int(max_iter)),
+        pass1_cap(tile))
 
 
 def escape(params: PlainParams, width: int, height: int, max_iter: int,

@@ -135,6 +135,14 @@ def mul(a: HDR, b: HDR) -> HDR:
     return HDR(ftz(a.m * b.m), a.e + b.e)
 
 
+def square(a: HDR) -> HDR:
+    return HDR(ftz(a.m * a.m), a.e + a.e)
+
+
+def mul_pow2(a: HDR, k: int) -> HDR:
+    return HDR(a.m, a.e + k)
+
+
 # ----------------------------------------------------------- comparisons
 
 

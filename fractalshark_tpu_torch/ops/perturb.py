@@ -23,6 +23,10 @@ Numeric forms, each a K6 instance with its plain twin here:
   their entry points are in the modules of those names.
 * plain float, f32 or f64 (``_perturb_float_impl``): the ``Gpu1x32`` and
   ``Gpu1x64`` LAv2 names without a valid LA table.
+* plain f32 with a glitch flag a pixel, the OR of ``bad[j]`` over the
+  orbit positions it stepped from (``scaled.py``'s
+  ``_perturb_f32_glitch_impl``): the Scaled family's f32 pass
+  (``run_state`` with ``bad``; ``ops/scaled.py``).
 
 The reference steps every pixel in lockstep and counts the iterations
 in int32; K6 gives each lane its own pixel and int64 counters, so
@@ -166,17 +170,24 @@ def _step_float(og, dz: HDRComplex, dc: HDRComplex):
 
 def perturb_plain(orbit: torch.Tensor, dc: HDRComplex, state: tuple,
                   max_iter: int, max_ref: int, hdr_mode: bool,
-                  chunk_steps: int = 0) -> tuple:
+                  chunk_steps: int = 0, bad: torch.Tensor | None = None
+                  ) -> tuple:
     """Plain PyTorch twin of K6 over flat pixel tensors: at most
     `chunk_steps` lockstep steps (0 = until every pixel is done).
-    Returns the state."""
-    dzr, dzi, dze, j, it, done = state
+    Returns the state.  With `bad` (bool, one an orbit position: the
+    glitch instance) the state has a seventh tensor, the glitch flags,
+    each ORed with bad[j] on every step its pixel runs."""
+    dzr, dzi, dze, j, it, done = state[:6]
+    glitch = state[6] if bad is not None else None
     step = _step_hdr if hdr_mode else _step_float
     steps = 0
     while not bool(done.all()) and (chunk_steps == 0 or steps < chunk_steps):
         steps += 1
         live = ~done
-        og = orbit[j.clamp(0, max(max_ref - 1, 0))]
+        jc = j.clamp(0, max(max_ref - 1, 0))
+        og = orbit[jc]
+        if bad is not None:
+            glitch = glitch | (live & bad[jc])
         ndz, zf, esc, lower = step(og, HDRComplex(dzr, dzi, dze), dc)
         reb = lower | ((j + 1) >= max_ref)
         upd = live & ~esc
@@ -186,7 +197,8 @@ def perturb_plain(orbit: torch.Tensor, dc: HDRComplex, state: tuple,
         j = torch.where(upd, torch.where(reb, 0, j + 1), j)
         it = it + upd.to(torch.int64)
         done = done | (live & esc) | (it >= max_iter)
-    return (dzr, dzi, dze, j, it, done)
+    out = (dzr, dzi, dze, j, it, done)
+    return out if bad is None else out + (glitch,)
 
 
 def live_pixels(done: torch.Tensor) -> torch.Tensor:
@@ -211,23 +223,35 @@ def on_subset(step, state: tuple, dc: HDRComplex, work) -> tuple:
 def perturb_kernel(orbit: torch.Tensor, dc: HDRComplex, state: tuple | None,
                    max_iter: int, max_ref: int, hdr_mode: bool,
                    chunk_steps: int, key: str, work=None,
-                   handoff: bool = False) -> tuple:
+                   handoff: bool = False,
+                   bad: torch.Tensor | None = None) -> tuple:
     """Launch K6 once on a CUDA device, counted under `key` (the entry
     point's instance name), over the pixels `work` (int32 indices; None:
     every pixel).  With `state` None the launch starts every pixel from
     the zero state itself (and `work` must be None); with `handoff` it
     first applies an LA phase's handoff to `state` (``handoff_plain``).
+    With `bad` (bool, one an orbit position) it is the glitch instance
+    (native f32 only): the state's seventh tensor holds the glitch flags.
     The state tensors are updated in place and returned."""
     dev = dc.re.device
     fdt = dc.re.dtype
     P = dc.re.numel()
+    glitch = bad is not None
+    if glitch and (hdr_mode or handoff or fdt != torch.float32
+                   or bad.dtype != torch.bool or bad.device != dev
+                   or bad.numel() < max_ref or not bad.is_contiguous()):
+        raise ValueError("K6's glitch instance takes native f32 from the "
+                         "zero state and a bool flag an orbit position")
+    dtypes = _state_dtypes(fdt) + ((torch.bool,) if glitch else ())
     init = state is None
     if init:
         if work is not None:
             raise ValueError("K6's first launch runs every pixel")
-        state = tuple(torch.empty(P, dtype=dt, device=dev)
-                      for dt in _state_dtypes(fdt))
-    for t, dt, name in zip(state, _state_dtypes(fdt), _STATE):
+        state = tuple(torch.empty(P, dtype=dt, device=dev) for dt in dtypes)
+    if len(state) != len(dtypes):
+        raise ValueError(f"K6 state: {len(state)} tensors, not "
+                         f"{len(dtypes)}")
+    for t, dt, name in zip(state, dtypes, _STATE + ("glitch",)):
         if t.dtype != dt or t.numel() != P or t.device != dev \
                 or not t.is_contiguous():
             raise ValueError(f"K6 state {name}: {t.dtype} {tuple(t.shape)}")
@@ -245,11 +269,19 @@ def perturb_kernel(orbit: torch.Tensor, dc: HDRComplex, state: tuple | None,
         n_work = work.numel()
     lib = kernels.lib()
     kernels.launches[key] += 1
+    ptr_work = None if work is None else work.data_ptr()
+    if glitch:
+        kernels.check(lib.fs_perturb_scaled(
+            dc.re.data_ptr(), dc.im.data_ptr(), orbit.data_ptr(),
+            *(t.data_ptr() for t in state[:6]), ptr_work, bad.data_ptr(),
+            state[6].data_ptr(), n_work, int(max_ref), int(max_iter),
+            int(chunk_steps), int(init), kernels.stream(dev)),
+            "fs_perturb_scaled")
+        return state
     fn = lib.fs_perturb_f64 if fdt == torch.float64 else lib.fs_perturb_f32
     kernels.check(fn(
         *(t.data_ptr() for t in dc), orbit.data_ptr(),
-        *(t.data_ptr() for t in state),
-        None if work is None else work.data_ptr(), n_work, int(max_ref),
+        *(t.data_ptr() for t in state), ptr_work, n_work, int(max_ref),
         int(max_iter), int(chunk_steps),
         int(init) | (int(hdr_mode) << 1) | (int(handoff) << 2),
         kernels.stream(dev)), "fs_perturb")
@@ -309,6 +341,18 @@ def perturb_run(orbit: torch.Tensor, dc: HDRComplex, max_iter: int,
     launch runs every pixel (one that is done is stored as it is), so a
     run that ends in one launch never builds a work list.  Returns the
     int64 iteration grid in dc's shape."""
+    state = run_state(orbit, dc, max_iter, max_ref, hdr_mode, key,
+                      chunk_steps, abort_monitor, state, handoff)
+    return state[4].reshape(dc.re.shape)
+
+
+def run_state(orbit: torch.Tensor, dc: HDRComplex, max_iter: int,
+              max_ref: int, hdr_mode: bool, key: str,
+              chunk_steps: int | None = None, abort_monitor=None,
+              state: tuple | None = None, handoff: bool = False,
+              bad: torch.Tensor | None = None) -> tuple:
+    """``perturb_run``'s loop, returning the final flat state; with `bad`
+    the glitch instance's (its seventh tensor the glitch flags)."""
     dev = dc.re.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
@@ -321,24 +365,27 @@ def perturb_run(orbit: torch.Tensor, dc: HDRComplex, max_iter: int,
         state = handoff_plain(orbit, state, max_iter, max_ref)
     elif state is None and not cuda:
         state = init_state_plain(flat, max_iter, hdr_mode)
+        if bad is not None:
+            state += (torch.zeros_like(state[5]),)
     while True:
         sizes.append(flat.re.numel() if work is None else work.numel())
         if cuda:
             state = perturb_kernel(orbit, flat, state, max_iter, max_ref,
                                    hdr_mode, chunk_steps, key, work,
-                                   handoff=handoff and len(sizes) == 1)
+                                   handoff=handoff and len(sizes) == 1,
+                                   bad=bad)
         else:
             state = on_subset(
                 lambda st, d: perturb_plain(orbit, d, st, max_iter, max_ref,
-                                            hdr_mode, chunk_steps),
+                                            hdr_mode, chunk_steps, bad),
                 state, flat, work)
-        if bool(state[-1].all()) or (abort_monitor is not None
-                                     and abort_monitor.aborted()):
+        if bool(state[5].all()) or (abort_monitor is not None
+                                    and abort_monitor.aborted()):
             break
-        work = live_pixels(state[-1])
+        work = live_pixels(state[5])
     last_run_stats["dispatches"] = len(sizes)
     last_run_stats["work"] = sizes
-    return state[4].reshape(dc.re.shape)
+    return state
 
 
 def _render(results, ptz, width, height, max_iter, dtype, hdr_mode, key,

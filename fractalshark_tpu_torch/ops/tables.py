@@ -54,6 +54,17 @@ def torch_dtype(sub_dtype) -> torch.dtype:
     return getattr(torch, name)
 
 
+def int32_budget(max_iter: int) -> int:
+    """The budget of a route the reference counts in int32 (the HDR and
+    double-float escapes, BLA, Scaled): its ``jnp.int32(max_iter)``
+    refuses 2^31 and more with OverflowError, and so does the port."""
+    max_iter = int(max_iter)
+    if not -(1 << 31) <= max_iter < (1 << 31):
+        raise OverflowError(f"Python integer {max_iter} out of bounds for "
+                            f"int32: this route counts in int32")
+    return max_iter
+
+
 def ibits_np(a, dtype) -> np.ndarray:
     """Integers stored in a float table: bit-cast into f32, exactly
     converted into f64 (``la_kernel._pack_nodes``' ``ibits``)."""

@@ -207,9 +207,7 @@ def test_f64_band_frame_equals_jax(jax_ref, name):
 
 @pytest.mark.parametrize("alg", ["Gpu2x32PerturbedLAv2PO",
                                  "GpuHDRx2x32PerturbedLAv2PO",
-                                 "GpuHDRx32PerturbedBLA",
-                                 "GpuHDRx32PerturbedScaled",
-                                 "Gpu2x32", "GpuHDRx32"])
+                                 "Gpu4x32", "Gpu4x64"])
 def test_unported_algorithms_raise(alg):
     f = Fractal(width=8, height=8, view=6, algorithm=alg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Time the port's per-pixel loops, K6 (``csrc/perturb.cu``), K2
 (``csrc/lav2.cu``), the two-phase tail (K6 resumed from K2's handoff),
-K3 (``csrc/rc_tail.cu``), K1 and K1-seq (``csrc/escape.cu``) and the
-streaming LA phase K7 (``csrc/la_stream.cu``), at the main path's full
-budgets on one NVIDIA card.
+K3 (``csrc/rc_tail.cu``), K1 and K1-seq (``csrc/escape.cu``), the
+streaming LA phase K7 (``csrc/la_stream.cu``), the HDR and double-float
+escapes K13 and K14 (``csrc/escape_hdr.cu``, ``csrc/escape_df.cu``), the
+BLA render K15 (``csrc/bla.cu``) and K6's glitch instance (the Scaled
+family's f32 pass), at the main path's full budgets on one NVIDIA card.
 
     python3 tools/time_pixel_loops.py [--tree DIR] [--reps N] [--cli]
                                       [--profile] [--trace] [--no-floor]
@@ -69,6 +71,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL_DEEP = ("-0.743643887037158704752191506114774",
               "0.131825904205311970493132056385139", "1e8", 2000)
 
+# the render families' frames: the integration sweep's shallow frame at
+# its budget, and the 1e8 frame at the sweep's (tests/test_integration.py)
+SHALLOW = ("-0.6", "0.45", "64", 256)
+DEEP_1500 = SMALL_DEEP[:3] + (1500,)
+
 # name: (frame, size, kernel, launch-counter key, mantissa, hdr_mode /
 # la_only)
 FRAMES = {
@@ -118,6 +125,19 @@ FRAMES = {
     "1e8_stream_64": (SMALL_DEEP, 64, "k7", "la_stream", "f32", None),
     "view6_stream_256": (6, 256, "k7", "la_stream", "f32", None),
     "view6_stream_1024": (6, 1024, "k7", "la_stream", "f32", None),
+    # K13 and K14 (escape.escape's neighbours: the HDR and double-float
+    # direct escapes), K15 (the BLA render, at the sweep's budget and at
+    # View #6's preset budget) and K6's glitch instance (the Scaled
+    # family's f32 pass)
+    "shallow_hdr32_1024": (SHALLOW, 1024, "k13", "escape_hdr32", "f32", None),
+    "shallow_hdr64_1024": (SHALLOW, 1024, "k13", "escape_hdr64", "f64", None),
+    "shallow_2x32_1024": (SHALLOW, 1024, "k14", "escape_2x32", "f32", None),
+    "shallow_2x64_1024": (SHALLOW, 1024, "k14", "escape_2x64", "f64", None),
+    "1e8_bla_f32_1024": (DEEP_1500, 1024, "k15", "bla_f32", "f32", None),
+    "1e8_bla_f64_1024": (DEEP_1500, 1024, "k15", "bla_f64", "f64", None),
+    "view6_bla_256": (6, 256, "k15", "bla_f32", "f32", None),
+    "1e8_scaled_1024": (DEEP_1500, 1024, "glitch", "perturb_scaled", "f32",
+                        None),
 }
 
 # iter_sum of frames pinned to a reference: the 2048² poster's two-phase
@@ -203,6 +223,8 @@ def setup(name, device):
         return _setup_seq(name, device)
     if kern == "k1":
         return _setup_k1(name, device)
+    if kern in ("k13", "k14"):
+        return _setup_direct(name, device)
     fdt = torch.float32 if mant == "f32" else torch.float64
     f, res = frame_inputs(frame, size, device)
     n, mr = f.num_iterations, res.max_ref_iteration()
@@ -214,6 +236,8 @@ def setup(name, device):
         return _setup_tail(fr, f, res, dpar, device)
     if kern == "k7":
         return _setup_stream(fr, f, res, dpar, device)
+    if kern in ("k15", "glitch"):
+        return _setup_family(fr, res, dpar, device)
     if kern == "k6":
         fr.orbit = orbit_on(res, device, fdt)
         grids = perturb._dc_grids_hdr if mode else perturb._dc_grids_float
@@ -375,11 +399,96 @@ def _setup_k1(name, device):
     return fr
 
 
+def _setup_direct(name, device):
+    """K13 or K14 on a frame of FRAMES[name], from its view's splits:
+    ``run`` launches the kernel (the int64 grid), ``plain(budget)`` runs
+    its twin (on the same device)."""
+    import numpy as np
+    import torch
+
+    from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
+    from fractalshark_tpu_torch.ops import dblflt, hdr_escape
+
+    (x, y, zoom, n), size, kern, key, mant, _ = FRAMES[name]
+    ptz = PointZoomBBConverter(pt_x=x, pt_y=y, zoom_factor=zoom,
+                               prec=512).square_aspect_ratio(size, size)
+    fdt = torch.float32 if mant == "f32" else torch.float64
+    fr = types.SimpleNamespace(name=name, kern=kern, key=key, size=size,
+                               n=n, dtype=fdt, ptz=ptz)
+    if kern == "k13":
+        p = hdr_escape.view_to_hdr_params(
+            ptz, size, size, dtype=np.float32 if mant == "f32"
+            else np.float64)
+        kernel, fr.plain_fn, arg = (hdr_escape.escape_hdr_kernel,
+                                    hdr_escape.escape_hdr_plain, p)
+    else:
+        arg = dblflt.df_params(ptz, size, size, key[-4:])
+        kernel, fr.plain_fn = dblflt.escape_df_kernel, dblflt.escape_df_plain
+
+    def run(budget=None, chunk_steps=None):
+        return kernel(arg, size, size, budget or n, fdt, device)
+
+    def plain(budget=None):
+        return fr.plain_fn(arg, size, size, budget or n, fdt, device)
+    fr.run, fr.plain = run, plain
+    return fr
+
+
+def _setup_family(fr, res, dpar, device):
+    """K15 (the BLA table's rows, the HDR dc grid) or K6's glitch instance
+    (the f32 dc grid, the bad flags): ``run(budget, chunk_steps)`` through
+    the run loop (K15: the int64 grid; the glitch instance: the flat
+    state, counts in [4] and flags in [6]), ``plain(budget)`` the twin in
+    one lockstep run (the same)."""
+    import numpy as np
+    import torch
+
+    from fractalshark_tpu_torch.engine.bla import get_or_build_bla
+    from fractalshark_tpu_torch.ops import bla_kernel, perturb, scaled
+    from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
+    from fractalshark_tpu_torch.ops.tables import orbit_on
+
+    size, n, mr = fr.size, fr.n, fr.mr
+    fr.orbit = orbit_on(res, device, fr.dtype)
+    if fr.kern == "k15":
+        fr.dc = perturb._dc_grids_hdr(*dpar, size, size, device, fr.dtype)
+        fr.T = bla_kernel.bla_tables(get_or_build_bla(res), device, fr.dtype)
+    else:
+        fr.dc = perturb._dc_grids_float(*dpar, size, size, device,
+                                        torch.float32)
+        fr.bad = torch.from_numpy(scaled.bad_flags(
+            *res.device_orbit(np.float64))).to(device)
+    flat = HDRComplex(*(t.reshape(-1) for t in fr.dc))
+
+    def run(budget=None, chunk_steps=None, tally=None):
+        if fr.kern == "k15":
+            return bla_kernel.bla_run(fr.orbit, fr.dc, fr.T, budget or n, mr,
+                                      chunk_steps, tally=tally)
+        return perturb.run_state(fr.orbit, fr.dc, budget or n, mr, False,
+                                 fr.key, chunk_steps, bad=fr.bad)
+
+    def plain(budget=None):
+        if fr.kern == "k15":
+            st = bla_kernel.bla_plain(fr.orbit, flat, fr.T,
+                                      bla_kernel.init_state_plain(flat),
+                                      budget or n, mr)
+            return st[4].to(torch.int64).reshape(size, size)
+        zero = perturb.init_state_plain(flat, budget or n, False)
+        return perturb.perturb_plain(fr.orbit, flat,
+                                     zero + (torch.zeros_like(zero[5]),),
+                                     budget or n, mr, False, bad=fr.bad)
+    fr.run, fr.plain = run, plain
+    return fr
+
+
 def grid_of(fr, out):
     """The iteration grid of a run's result (K7: the iterations done when
-    the pixel leaves the LA stages)."""
+    the pixel leaves the LA stages; K6's glitch instance: its state's
+    counts)."""
     if fr.kern == "k7":
         return fr.n - out[3]
+    if fr.kern == "glitch":
+        return out[4].reshape(fr.size, fr.size)
     return out[6] if fr.kern == "k2" else out
 
 
@@ -460,6 +569,12 @@ def time_frame(fr, reps):
     from fractalshark_tpu_torch import kernels
     from fractalshark_tpu_torch.ops import la_kernel, perturb
     from fractalshark_tpu_torch.ops import perturb_stream as ps
+    # (a tree from before K15 has no bla_kernel)
+    try:
+        from fractalshark_tpu_torch.ops import bla_kernel
+        bla_stats = bla_kernel.last_run_stats
+    except ImportError:
+        bla_stats = {}
 
     kernels.reset_counts()
     out = fr.run()
@@ -468,6 +583,7 @@ def time_frame(fr, reps):
     # (a tree from before K3's live-pixel launches records none)
     from fractalshark_tpu_torch.ops import la_stream as LS
     stats = {"k6": perturb.last_run_stats, "k2": la_kernel.last_run_stats,
+             "k15": bla_stats, "glitch": perturb.last_run_stats,
              "k7": getattr(LS, "last_run_stats", {}),
              "k3": getattr(ps, "last_run_stats", {}),
              "tail": getattr(ps, "last_run_stats", {})
