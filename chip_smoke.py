@@ -101,6 +101,17 @@ over the live pixels) and timed (tools/time_pixel_loops.py), K13 at View
 pass (K6 HDR-f64) on a poisoned orbit, then the nine frames of
 ``FAMILY_PINS`` through the CLI at 256² (counts from 0, the plain twins
 made to raise), pinned to the JAX package's values; their launches are
+the kernels line's, (15) the last render families: K16
+(``csrc/perturb_hdr_df.cu``, HDR double-float perturbation) against its
+twin in launches over the live pixels on the 1e8 frame at 64² × 1,500,
+then timed on View #9 at 1024² × 40,000 (its step count, the deepest
+pixel's steps and the bound from them); K17 and K18
+(``csrc/escape_quad.cu``: QD and QF escapes, 4x32 and 4x64) against
+their twins at 256² on the 1e17 frame (budget cut) and on a 1e18 frame
+by -2 whose low f32 components are subnormal, then timed at 1024² × 600
+on the 1e17 frame; then ``escape_qf`` (K18's public entry) and the
+``LATE_PINS`` frames through the CLI at 256² (counts from 0, the twins
+made to raise), pinned to the JAX package's values; their launches are
 the kernels line's.
 Exits non-zero if any
 phase fails, and at once when no CUDA device is present.  The next-to-last lines are the card's
@@ -390,6 +401,17 @@ KERNEL_META = {
                 "fractalshark_tpu/ops/bla_kernel.py:29"),
     "perturb_scaled": ("fractalshark_tpu_torch/csrc/perturb.cu",
                        "fractalshark_tpu/ops/scaled.py:47"),
+    # the last render families (phase 15): K16, K17 (QD) and K18 (QF)
+    "perturb_hdr_df": ("fractalshark_tpu_torch/csrc/perturb_hdr_df.cu",
+                       "fractalshark_tpu/ops/hdr_df.py:170"),
+    "escape_4x32": ("fractalshark_tpu_torch/csrc/escape_quad.cu",
+                    "fractalshark_tpu/ops/quadd.py:152"),
+    "escape_4x64": ("fractalshark_tpu_torch/csrc/escape_quad.cu",
+                    "fractalshark_tpu/ops/quadd.py:152"),
+    "escape_qf32": ("fractalshark_tpu_torch/csrc/escape_quad.cu",
+                    "fractalshark_tpu/ops/quadflt.py:140"),
+    "escape_qf64": ("fractalshark_tpu_torch/csrc/escape_quad.cu",
+                    "fractalshark_tpu/ops/quadflt.py:140"),
 }
 
 # phase 14's kernel frames (tools/time_pixel_loops.py FRAMES) and the
@@ -412,6 +434,52 @@ FAMILY_FRAMES = [
 ]
 FAMILY_CHUNK = 257
 DEEP_HDR = {6: ("f32", 2000), 8: ("f64", 2000)}
+
+# phase 15: the quad-float escapes' frames, the 1e17 frame of
+# tests/test_quadflt.py (every pixel runs the budget) and a 1e18 frame on
+# the antenna by -2 (counts 4-40; the 4x32 splits of dx and dy have
+# subnormal low components, which decide counts)
+QUAD_1E17 = ["--center-x", "-0.743643887037151", "--center-y",
+             "0.131825904205330", "--zoom", "1e17", "--iterations", "600"]
+QUAD_ANTENNA = ["--center-x", "-1.9999999999999999995", "--center-y",
+                "0.0000000000000000003", "--zoom", "1e18", "--iterations",
+                "200"]
+# label: (argv, algorithm, launch-counter key, (iter_sum, CRC-32 of the
+# grid as <u4)) at 256², JAX package on the CPU with FMA off
+LATE_PINS = {
+    "Gpu4x32 shallow": (FAMILY_SHALLOW, "Gpu4x32", "escape_4x32",
+                        (9_075_311, 3_935_581_982)),
+    "Gpu4x64 shallow": (FAMILY_SHALLOW, "Gpu4x64", "escape_4x64",
+                        (9_075_311, 3_935_581_982)),
+    "Gpu4x32 1e17": (QUAD_1E17, "Gpu4x32", "escape_4x32",
+                     (39_321_600, 3_590_186_626)),
+    "Gpu4x64 1e17": (QUAD_1E17, "Gpu4x64", "escape_4x64",
+                     (39_321_600, 3_590_186_626)),
+    "Gpu4x32 antenna": (QUAD_ANTENNA, "Gpu4x32", "escape_4x32",
+                        (1_768_497, 3_998_572_575)),
+    "Gpu2x32PerturbedLAv2PO 1e8": (FAMILY_DEEP, "Gpu2x32PerturbedLAv2PO",
+                                   "perturb_hdr_df",
+                                   (74_863_500, 1_390_317_758)),
+    "GpuHDRx2x32PerturbedLAv2PO 1e8": (
+        FAMILY_DEEP, "GpuHDRx2x32PerturbedLAv2PO", "perturb_hdr_df",
+        (74_863_500, 1_390_317_758)),
+    # no valid LA table on View #2: the LAv2 name takes K16
+    "Gpu2x32PerturbedLAv2 View #2": (["--view", "2"], "Gpu2x32PerturbedLAv2",
+                                     "perturb_hdr_df",
+                                     (3_835_560, 1_365_795_567)),
+}
+# K16 against its twin on this frame (tools/time_pixel_loops.py), timed on
+# the other; K17 and K18 against their twins at 256² on the 1e17 frame at
+# this budget (every pixel runs it: the twin's depth is the cut) and on
+# the antenna frame at its own, then timed at 1024²
+HDR_DF_TWIN_FRAME = "1e8_hdr_df_64"
+HDR_DF_FRAME = "view9_hdr_df_1024"
+QUAD_FRAMES = [("1e17_qd32_1024", "escape_4x32"),
+               ("1e17_qd64_1024", "escape_4x64"),
+               ("1e17_qf32_1024", "escape_qf32"),
+               ("1e17_qf64_1024", "escape_qf64")]
+QUAD_TWIN_SIZE = 256
+QUAD_TWIN_BUDGET = 40
 VIEW6_BLA_TWIN_BUDGET = 2000
 POISON = ("-0.6", "0.4", "4", 200, 256)
 
@@ -2462,14 +2530,48 @@ def bla_ops(tally) -> float:
     return 60.0 * float(tally.sum())
 
 
+def quad_escape_ops(grid, budget: int, qf: bool) -> float:
+    """The distinct * and + of an iteration (a split or product the
+    iteration repeats counted once: the compiler computes it once).  K17
+    (QD): 890 (two squares of 169, a product of 171 with the squares'
+    splits, four QD sums of 94, the doubling, the compare; a product is
+    Dekker two-prods of 9 plus a split of 4 an operand component, two-
+    and three-sums of 6 and 18 and a five-term renorm of 31), and the
+    escaping step's 433 (the squares, the magnitude's sum, the compare);
+    K18 (QF): 2,149 (squares of 412, a product of 440, four sums of 220,
+    each of double-float sums of 20 and products of 16 plus splits) and
+    1,045."""
+    per, last = (2149.0, 1045.0) if qf else (890.0, 433.0)
+    return per * float(grid.sum()) + last * float((grid < budget).sum())
+
+
+def hdr_df_steps(grid, budget: int) -> tuple[float, int]:
+    """K16's steps (each pixel's iterations and an escaped pixel's
+    escaping step) and the deepest pixel's."""
+    steps = grid + (grid < budget).to(grid.dtype)
+    return float(steps.sum()), int(steps.max())
+
+
+HDR_DF_STEP_OPS = 272.0   # distinct f32 * and + of a K16 step: (2Z + dz)
+#                           dz (a complex double-float product of 120,
+#                           two HDC2 sums of 44: each two double-float
+#                           sums and four scalings), the orbit sum (44),
+#                           two reduces (7 each) and the two |z|^2 of
+#                           the hi parts (3 each); the exponent logic
+#                           not counted: a lower bound
+
+
 @contextlib.contextmanager
 def forbid_twins():
     """A context in which a call of any render family's plain twin
     raises: a CUDA tensor never reaches one."""
-    from fractalshark_tpu_torch.ops import (bla_kernel, dblflt, hdr_escape,
-                                            perturb)
+    from fractalshark_tpu_torch.ops import (bla_kernel, dblflt, hdr_df,
+                                            hdr_escape, perturb, quadd,
+                                            quadflt)
     targets = [(hdr_escape, "escape_hdr_plain"), (dblflt, "escape_df_plain"),
-               (bla_kernel, "bla_plain"), (perturb, "perturb_plain")]
+               (bla_kernel, "bla_plain"), (perturb, "perturb_plain"),
+               (hdr_df, "perturb_hdr_df_plain"), (quadd, "escape_qd_plain"),
+               (quadflt, "escape_qf_plain")]
     saved = [getattr(m, n) for m, n in targets]
 
     def refuse(*_a, **_k):
@@ -2633,6 +2735,119 @@ def phase_families(device, stats):
     return launches
 
 
+def phase_late(device, stats):
+    """The last render families: K16 against its twin on the 1e8 frame at
+    64² (launches of FAMILY_CHUNK steps over the live pixels), then timed
+    on View #9 at 1024² × 40,000; K17 and K18 (both component types)
+    against their twins at 256² on the 1e17 frame (QUAD_TWIN_BUDGET) and
+    on the antenna frame, then timed at 1024² × 600 on the 1e17 frame;
+    then escape_qf through its public entry and the LATE_PINS frames
+    through the CLI (counts from 0, the twins forbidden), pinned to the
+    JAX package's values."""
+    import torch
+
+    from fractalshark_tpu_torch import kernels
+    from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
+    from fractalshark_tpu_torch.ops import quadd, quadflt
+
+    log("[15] the last render families: K16, K17 and K18 vs their twins, "
+        "timed (tools/time_pixel_loops.py), then the CLI frames")
+    tpl = pixel_loops()
+    st = stats["perturb_hdr_df"]
+    fr = tpl.setup(HDR_DF_TWIN_FRAME, device)
+    k = fr.run(None, FAMILY_CHUNK)
+    pl, pms = timed(fr.plain, device, warm=False)
+    compare(f"perturb_hdr_df {fr.name} budget {fr.n} (launches of "
+            f"{FAMILY_CHUNK} steps over the live pixels)", k, pl, st)
+    fr = tpl.setup(HDR_DF_FRAME, device)
+    out, rec = tpl.time_frame(fr, 3)
+    steps, deepest = hdr_df_steps(out, fr.n)
+    b = bound(nbytes(fr.orbit, *fr.dc, out), HDR_DF_STEP_OPS * steps,
+              F32_OPS_PER_S)
+    log(f"  perturb_hdr_df {fr.name} budget {fr.n}: {rec['ms_median']:.3f} "
+        f"ms (of {[round(t, 3) for t in rec['ms']]}), launches "
+        f"{rec['launches']} over {rec['work'][:4]} pixels, (iter_sum, "
+        f"crc32) {(rec['iter_sum'], rec['crc32'])}; {steps:.0f} steps, "
+        f"the deepest pixel {deepest}; plain {pms:.3f} ms at "
+        f"{HDR_DF_TWIN_FRAME}")
+    if rec["launches"].get("perturb_hdr_df", 0) < 1:
+        raise AssertionError("K16 never launched")
+    st.update(ms=rec["ms_median"], plain_ms=pms, **b)
+
+    for name, entry in QUAD_FRAMES:
+        st = stats[entry]
+        qf = entry.startswith("escape_qf")
+        mod, kind = (quadflt, "qf") if qf else (quadd, "qd")
+        variant = "4x" + entry[-2:]
+        dt = torch.float64 if variant == "4x64" else torch.float32
+        rate = F64_OPS_PER_S if variant == "4x64" else F32_OPS_PER_S
+        plain_ms = []
+        for argv, n in ((QUAD_1E17, QUAD_TWIN_BUDGET),
+                        (QUAD_ANTENNA, int(QUAD_ANTENNA[-1]))):
+            x, y, zoom = argv[1], argv[3], argv[5]
+            s = QUAD_TWIN_SIZE
+            ptz = PointZoomBBConverter(pt_x=x, pt_y=y, zoom_factor=zoom,
+                                       prec=256).square_aspect_ratio(s, s)
+            scal = getattr(mod, kind + "_params")(ptz, s, s, variant)
+            k = getattr(mod, f"escape_{kind}_kernel")(scal, s, s, n, dt,
+                                                      device)
+            pl, pms = timed(lambda: getattr(mod, f"escape_{kind}_plain")(
+                scal, s, s, n, dt, device), device, warm=False)
+            compare(f"{entry} zoom {zoom} {s}² x{n}", k, pl, st)
+            plain_ms.append(pms)
+        pms = plain_ms[0]
+        fr = tpl.setup(name, device)
+        out, rec = tpl.time_frame(fr, 3)
+        b = bound(nbytes(out), quad_escape_ops(out, fr.n, qf), rate)
+        log(f"  {entry} {name} budget {fr.n}: {rec['ms_median']:.3f} ms "
+            f"(of {[round(t, 3) for t in rec['ms']]}), launches "
+            f"{rec['launches']}, (iter_sum, crc32) "
+            f"{(rec['iter_sum'], rec['crc32'])}; plain {pms:.3f} ms at "
+            f"{QUAD_TWIN_SIZE}² x{QUAD_TWIN_BUDGET}")
+        if rec["launches"].get(entry, 0) < 1:
+            raise AssertionError(f"{name}: {entry} never launched")
+        st.update(ms=rec["ms_median"], plain_ms=pms, **b)
+
+    launches = {"perturb_hdr_df": 0, "escape_4x32": 0, "escape_4x64": 0,
+                "escape_qf32": 0, "escape_qf64": 0}
+    with forbid_twins():
+        # K18's path: escape_qf, the public function no algorithm name
+        # routes to, on the 1e17 frame at 256²
+        x, y, zoom, n = (QUAD_1E17[1], QUAD_1E17[3], QUAD_1E17[5],
+                         int(QUAD_1E17[-1]))
+        ptz = PointZoomBBConverter(pt_x=x, pt_y=y, zoom_factor=zoom,
+                                   prec=256).square_aspect_ratio(256, 256)
+        for variant in ("4x32", "4x64"):
+            kernels.reset_counts()
+            got = quadflt.escape_qf(ptz, 256, 256, n, variant=variant,
+                                    device=device)
+            key = "escape_qf" + variant[2:]
+            torch.cuda.synchronize(device)
+            grid = got.cpu().numpy()
+            log(f"  escape_qf {variant} 1e17 256² x{n}: (iter_sum, crc32) "
+                f"{crc_pin(got)}, launches {kernels.launches[key]}")
+            if kernels.launches[key] != 1 or int(grid.min()) != n:
+                raise AssertionError(f"escape_qf {variant}: not one {key} "
+                                     f"launch, or a pixel escaped before "
+                                     f"{n}")
+            launches[key] += 1
+        for label, (argv, alg, key, pin) in LATE_PINS.items():
+            kernels.reset_counts()
+            s, wall = cli_run(argv + ["--render-algorithm", alg, "--width",
+                                      "256", "--height", "256", "--stats",
+                                      "--device", "cuda"])
+            grew = {k: v for k, v in kernels.launches.items() if v}
+            got = (s["iter_sum"], s["crc32"])
+            log(f"  {label} 256²: via {s['kernel']}, (iter_sum, crc32) {got} "
+                f"(JAX CPU, FMA off: {pin}), wall {wall:.3f} s, launches "
+                f"{grew}, timings {json.dumps(s['timings'])}")
+            if got != pin or grew.get(key, 0) < 1:
+                raise AssertionError(f"{label} 256²: {got} != {pin} or no "
+                                     f"{key} launch")
+            launches[key] += grew[key]
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2675,6 +2890,7 @@ def main() -> int:
     launches.update(run("12", phase_fused, device, stats))
     run("13", phase_chunk, device, stats)
     launches.update(run("14", phase_families, device, stats))
+    launches.update(run("15", phase_late, device, stats))
     # K12's and K4/K5's launches, each from its own path's run: View #6's
     # and View #30's device-orbit frames, the feature evaluator at View
     # #6's sizes and at View #30's, and the orbit past K12's D < 2^16.

@@ -1,10 +1,12 @@
-"""The render engine: view state, algorithm resolution and render
-orchestration.  The port of ``fractalshark_tpu/engine/fractal.py``: the
-direct escapes (f32/f64, HDR, double-float, and CpuHigh's host
-arbitrary precision), the LAv2 families of f32, f64, hdr32 and hdr64
-mantissas in every LA mode (and 2x32 and hdr2x32 with a valid LA table),
-the BLA and Scaled perturbation families, and the feature finder's entry
-points.  Every tensor lives on the fractal's explicit ``device``.
+"""The render engine: view state, navigation, algorithm resolution,
+render orchestration and orbit persistence.  The port of
+``fractalshark_tpu/engine/fractal.py``: the direct escapes (f32/f64,
+HDR, double-float, quad-double and CpuHigh's host arbitrary precision),
+the LAv2 families in every LA mode (2x32 and hdr2x32 without a valid LA
+table through the HDR double-float render), the BLA and Scaled
+perturbation families, the feature finder's entry points, the orbit
+save/load/diff and the text and console outputs.  Every tensor lives on
+the fractal's explicit ``device``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from fractalshark_tpu_torch.core.precision import precision_from_view
 from fractalshark_tpu_torch.core.views import get_view_preset
 from fractalshark_tpu_torch.io.png import write_png
 from fractalshark_tpu_torch.kernels import resolve_device
-from fractalshark_tpu_torch.ops import dblflt, escape, hdr_escape
+from fractalshark_tpu_torch.ops import dblflt, escape, hdr_escape, quadd
 from fractalshark_tpu_torch.ops.coloring import (
     color_from_iters, iteration_stats, rgba16_to_numpy, rgba16_to_rgba8)
 
@@ -32,12 +34,14 @@ from fractalshark_tpu_torch.ops.coloring import (
 # the routes whose reference returns uint32 at any budget: the XLA
 # perturbation-only loops (``ops/perturb.py:154,222``), B10
 # (``ops/perturb_pallas.py:105``), the HDR and double-float escapes
-# (``ops/hdr_escape.py:89``, ``ops/dblflt.py:193``), BLA
-# (``ops/bla_kernel.py:122``) and Scaled (``ops/scaled.py:88``), all of
-# which count in int32
+# (``ops/hdr_escape.py:89``, ``ops/dblflt.py:193``), the quad-double
+# escape (``ops/quadd.py:202``), BLA (``ops/bla_kernel.py:122``), Scaled
+# (``ops/scaled.py:88``) and the HDR double-float render
+# (``ops/hdr_df.py:226``), all of which count in int32
 _ALWAYS_U32 = ("perturb-f32", "perturb-f64", "perturb-hdr64",
                "perturb-pallas", "escape-hdr32", "escape-hdr64",
-               "escape-2x32", "escape-2x64", "bla-f32", "bla-f64", "scaled")
+               "escape-2x32", "escape-2x64", "escape-4x32", "escape-4x64",
+               "bla-f32", "bla-f64", "scaled", "hdr-df")
 
 
 def public_dtype(route: str | None, max_iter: int):
@@ -78,6 +82,8 @@ class Fractal:
         self.height = height
         self.antialiasing = antialiasing
         self.compression_error_exp = compression_error_exp
+        # an AbortMonitor (utils/aux.py) or None: the chunked run loops
+        # poll it between launches
         self.abort_monitor = None
         self.la_parameters = None
         self.palette = FractalPalette()
@@ -106,8 +112,33 @@ class Fractal:
             self.antialiasing = preset.antialiasing
         self._iters_cache = None
 
-    def set_view(self, ptz: PointZoomBBConverter) -> None:
-        self.ptz = ptz.square_aspect_ratio(self.width, self.height)
+    def set_view(self, ptz: PointZoomBBConverter,
+                 square_aspect: bool = True) -> None:
+        self.ptz = (ptz.square_aspect_ratio(self.width, self.height)
+                    if square_aspect else ptz)
+        self._iters_cache = None
+
+    def zoom(self, scale: float) -> None:
+        self.ptz = self.ptz.zoomed_at_center(scale)
+        self._iters_cache = None
+
+    def zoom_at(self, screen_x: float, screen_y: float, scale: float) -> None:
+        cx = self.ptz.x_screen_to_calc(screen_x, self.width)
+        cy = self.ptz.y_screen_to_calc(screen_y, self.height)
+        self.ptz = self.ptz.zoomed_toward_point(cx, cy, scale)
+        self._iters_cache = None
+
+    def pan(self, dx_frac: float, dy_frac: float) -> None:
+        """Pan by a fraction of the current extent."""
+        ex = self.ptz.max_x - self.ptz.min_x
+        ey = self.ptz.max_y - self.ptz.min_y
+        self.ptz = self.ptz.panned(ex * HighPrecision(dx_frac),
+                                   ey * HighPrecision(dy_frac))
+        self._iters_cache = None
+
+    def resize(self, width: int, height: int) -> None:
+        self.width, self.height = width, height
+        self.ptz = self.ptz.square_aspect_ratio(width, height)
         self._iters_cache = None
 
     # --------------------------------------------------------- feature find
@@ -142,6 +173,9 @@ class Fractal:
                               has_accelerator=(self.device.type == "cuda"))
         return alg
 
+    def required_precision(self, requires_reuse: bool = False) -> int:
+        return precision_from_view(self.ptz, requires_reuse)
+
     def _render_dims(self) -> tuple[int, int]:
         return (self.width * self.antialiasing,
                 self.height * self.antialiasing)
@@ -164,15 +198,11 @@ class Fractal:
         return iters
 
     def _calc_direct(self, alg: RenderAlgorithm) -> torch.Tensor:
-        """The direct escapes (``engine/fractal.py:175-203``); the HDR and
-        double-float ones take the render's dimensions and split the
-        view at antialiasing 1, as the reference calls them."""
+        """The direct escapes (``engine/fractal.py:175-203``); the HDR,
+        double-float and quad-double ones take the render's dimensions and
+        split the view at antialiasing 1, as the reference calls them."""
         w, h = self._render_dims()
         n = self.num_iterations
-        if alg.dtype in ("4x32", "4x64"):
-            raise NotImplementedError(
-                f"{alg.name}: the {alg.dtype} direct escape is ROADMAP A1 "
-                f"(ops/quadd.py escape_qd, ops/quadflt.py), not ported yet")
         route = "escape" if alg.dtype in ("f32", "f64") else \
             "cpu-high" if alg.dtype == "hp" else f"escape-{alg.dtype}"
         self.benchmark.extra["kernel"] = route
@@ -181,6 +211,9 @@ class Fractal:
         if alg.dtype in ("2x32", "2x64"):
             return dblflt.escape_df(self.ptz, w, h, n, variant=alg.dtype,
                                     device=self.device)
+        if alg.dtype in ("4x32", "4x64"):
+            return quadd.escape_qd(self.ptz, w, h, n, variant=alg.dtype,
+                                   device=self.device)
         if alg.dtype in ("hdr32", "hdr64"):
             return hdr_escape.escape_hdr(
                 self.ptz, w, h, n, device=self.device,
@@ -196,7 +229,7 @@ class Fractal:
         semantics (``engine/fractal.py:205-230``; tiny frames only); the
         grid goes to the fractal's device."""
         w, h = self._render_dims()
-        prec = precision_from_view(self.ptz)
+        prec = self.required_precision()
         out = np.zeros((h, w), np.int64)
         four = HighPrecision(4, prec=prec)
         dx = self.ptz.delta_x(self.width, self.antialiasing)
@@ -262,3 +295,97 @@ class Fractal:
         else:
             write_png(path, rgba16_to_numpy(rgba))
         self.benchmark.extra["png_s"] = time.perf_counter() - t0
+
+    # -------------------------------------------------------- orbit persist
+
+    def save_ref_orbit(self, path: str, compression: str = "simple") -> None:
+        """Persist the last-used reference orbit (Fractal::SaveRefOrbit,
+        Fractal.h:231-240).  `compression`: "none" | "simple" | "max" (own
+        format) | "imagina" (.im binary); the error exponent is
+        ``compression_error_exp`` (CLI --compression-error-exp-low)."""
+        from fractalshark_tpu_torch.engine.renderers import get_orbit_calc
+        calc = get_orbit_calc(self)
+        if not calc.cache:
+            raise RuntimeError("no reference orbit computed yet")
+        results = calc.cache[-1]
+        if compression == "imagina":
+            from fractalshark_tpu_torch.io.imagina import save_orbit_im
+            save_orbit_im(path, results, comp=results.compress(
+                self.compression_error_exp))
+        else:
+            results.save(path, compression=compression,
+                         error_exp=self.compression_error_exp)
+
+    def load_ref_orbit(self, path: str, imagina: bool | None = None):
+        """Load an orbit into the orbit cache.  An .im file also sets the
+        view and budget it was saved with, and, where the algorithm is
+        AUTO, the algorithm its depth recommends (RecommendedSettings,
+        RefOrbitCalc.cpp:3483); an explicit algorithm stays."""
+        from fractalshark_tpu_torch.engine.renderers import get_orbit_calc
+        if imagina is None:
+            imagina = path.endswith(".im")
+        if imagina:
+            from fractalshark_tpu_torch.io.imagina import (
+                OrbitParameterPack, load_orbit_im)
+            f = load_orbit_im(path)
+            results = f.results
+            if results is None:
+                raise ValueError("location-only .im file: no orbit data")
+            pack = OrbitParameterPack(f)
+            self.set_view(pack.view())
+            self.num_iterations = min(f.iteration_limit, 1 << 62)
+            if get_algorithm(self.algorithm_name).family is Family.AUTO:
+                self.algorithm_name = pack.recommended_algorithm(
+                    has_accelerator=(self.device.type == "cuda")).name
+        else:
+            from fractalshark_tpu_torch.engine.perturbation_results import \
+                PerturbationResults
+            results = PerturbationResults.load(path)
+        calc = get_orbit_calc(self)
+        with calc.lock:
+            calc.cache.append(results)
+        return results
+
+    @staticmethod
+    def diff_ref_orbits(a, b, count: int | None = None) -> dict:
+        """Numeric comparison of two orbits (Fractal::DiffRefOrbits,
+        Fractal.h:232-235)."""
+        n = count or min(a.count_orbit_entries(), b.count_orbit_entries())
+        dx = np.abs(a.orbit_x[:n] - b.orbit_x[:n])
+        dy = np.abs(a.orbit_y[:n] - b.orbit_y[:n])
+        differ = (dx > 0) | (dy > 0)
+        return {
+            "compared": n,
+            "max_abs_dx": float(dx.max()) if n else 0.0,
+            "max_abs_dy": float(dy.max()) if n else 0.0,
+            "first_diff": int(np.argmax(differ)) if differ.any() else -1,
+            "period_match": a.period == b.period,
+        }
+
+    # ------------------------------------------------------ text outputs
+
+    def save_iters_as_text(self, path: str) -> None:
+        """The iteration grid as text (Fractal::SaveItersAsText)."""
+        np.savetxt(path, self.iters_numpy(), fmt="%d")
+
+    def render_to_console(self, max_width: int = 100,
+                          ansi: bool = True) -> str:
+        """An ASCII or ANSI console render of a fresh grid (the reference's
+        RenderToConsole.cpp)."""
+        iters = self.iters_numpy(self.calc_fractal())
+        step = max(1, iters.shape[1] // max_width)
+        small = iters[::step * 2, ::step]  # characters are ~2x tall
+        n = self.num_iterations
+        glyphs = " .:-=+*#%@"
+        lines = []
+        for row in small:
+            if ansi:
+                lines.append("".join(
+                    "\x1b[40m \x1b[0m" if v >= n
+                    else f"\x1b[4{int(v) % 6 + 1}m \x1b[0m" for v in row))
+            else:
+                lines.append("".join(
+                    glyphs[min(int(v) * (len(glyphs) - 1) // max(1, n),
+                               len(glyphs) - 1)] if v < n else " "
+                    for v in row))
+        return "\n".join(lines)

@@ -22,6 +22,7 @@ flattened to (mantissa, exp) numpy arrays for device upload
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 
@@ -597,20 +598,26 @@ def get_or_build_la(fractal, results) -> LAReferenceHost | None:
     ``fractal.la_parameters`` (None = defaults) selects the build
     params; ``device_stage_window`` additionally windows the cached
     full table for the device (windowed table cached separately so
-    repeated frames don't re-remap)."""
+    repeated frames don't re-remap).  Each table is cached under the
+    parameters that built it (all but the window, which applies after
+    the build), so a render with other parameters builds its own; the
+    reference keys its cache on nothing (``la_reference.py:601-603``)."""
     params = getattr(fractal, "la_parameters", None) or LAParameters()
-    la = results.extra.get("la_reference")
+    build = dataclasses.astuple(
+        dataclasses.replace(params, device_stage_window=0))
+    key = ("la_reference", build)
+    la = results.extra.get(key)
     if la is None:
         la = LAReferenceHost.generate_auto(
             results.orbit_x, results.orbit_y,
             HD.from_hp(results.max_radius), params=params,
             orbit_e=results.orbit_e)
-        results.extra["la_reference"] = la
+        results.extra[key] = la
     if not la.is_valid:
         return None
     k = int(params.device_stage_window or 0)
     if k > 0 and la.stage_count > k and hasattr(la, "stage_window"):
-        key = ("la_reference_win", k)
+        key = ("la_reference_win", build, k)
         win = results.extra.get(key)
         if win is None:
             win = la.stage_window(k)

@@ -29,9 +29,10 @@ Routing follows the reference's accelerator route
   take f32 only).
 
 PO mode, or no valid LA table: the perturbation-only renders of
-``ops/perturb.py`` (K6): f32/f64 → native float; hdr32 with RC → K3 from
-the zero state; hdr32 → B10's route within its caps, else B11's; hdr64
-→ HDR with f64 mantissas.
+``ops/perturb.py`` (K6): f32/f64 → native float; 2x32 and hdr2x32 (RC
+names too) → ``ops/hdr_df.py`` (K16, HDR double-float); hdr32 with RC →
+K3 from the zero state; hdr32 → B10's route within its caps, else B11's;
+hdr64 → HDR with f64 mantissas.
 
 ``FRACTALSHARK_LA_PHASE=stream`` makes phase 1 of the two-phase routes
 the streaming LA phase (K7, ``ops/la_stream.py``) on a CUDA device, as
@@ -59,19 +60,13 @@ from fractalshark_tpu_torch.engine.perturbation_results import CompressedOrbit
 from fractalshark_tpu_torch.engine.reforbit import RefOrbitCalc
 from fractalshark_tpu_torch.ops import la_kernel, perturb
 from fractalshark_tpu_torch.ops.bla_kernel import bla_perturb_render
+from fractalshark_tpu_torch.ops.hdr_df import perturb_render_hdr_df
 from fractalshark_tpu_torch.ops.la_stream import la_phase_stream
 from fractalshark_tpu_torch.ops.perturb_pallas import perturb_render_pallas
 from fractalshark_tpu_torch.ops.perturb_stream import (
     anchors_on, perturb_render_stream, perturb_render_stream_rc)
 from fractalshark_tpu_torch.ops.scaled import perturb_render_scaled
 from fractalshark_tpu_torch.ops.tables import orbit_on
-
-# ROADMAP items that own the routes this port does not have yet
-_NOT_PORTED = {
-    "hdr_df": "ROADMAP A1: the double-float perturbation render without "
-              "an LA table (ops/hdr_df.py), which the 2x32 and hdr2x32 "
-              "names take in PO mode or when no LA table is valid",
-}
 
 # dtypes whose LA machine runs with f32 mantissas (renderers.py:61-62)
 _SUB_F32 = ("f32", "hdr32", "2x32", "hdr2x32")
@@ -156,13 +151,16 @@ def _perturb_only(fractal, alg: RenderAlgorithm, results, w: int,
         return _timed(fractal, f"perturb-{alg.dtype}", "perturb_s",
                       lambda: perturb.perturb_render_float(
                           results, fractal.ptz, w, h, n, dtype=dt, **kw))
+    if alg.dtype in ("2x32", "hdr2x32"):
+        # double-float mantissas with an HDR exponent (K16), RC names too
+        return _timed(fractal, "hdr-df", "perturb_s",
+                      lambda: perturb_render_hdr_df(
+                          results, fractal.ptz, w, h, n, **kw))
     if alg.dtype == "hdr64":
         return _timed(fractal, "perturb-hdr64", "perturb_s",
                       lambda: perturb.perturb_render_hdr(
                           results, fractal.ptz, w, h, n,
                           sub_dtype=np.float64, **kw))
-    if alg.dtype != "hdr32":
-        raise NotImplementedError(f"{alg.name}: {_NOT_PORTED['hdr_df']}")
     if alg.runtime_decompression:
         # render straight from the compressed orbit: K3 from the zero
         # state rebuilds the reference values on the card

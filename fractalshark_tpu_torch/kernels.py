@@ -80,7 +80,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # nr_chunk_grid); K13 (escape_hdr32/hdr64) and K14 (escape_2x32/2x64) once
 # per frame per instance (one C call, both passes), K15 (bla_f32/f64) per
 # launch, K6's glitch instance (perturb_scaled: the Scaled family's f32
-# pass) per launch
+# pass) per launch; K16 (perturb_hdr_df) per launch, K17 (escape_4x32/
+# 4x64: the QD escape) and K18 (escape_qf32/qf64: the QF escape) once per
+# frame per instance (one C call, both passes)
 KERNELS = ("escape", "lav2_full", "lav2_phase1", "rc_tail", "ntt_orbit",
            "orbit_tail", "lav2_full_f64", "lav2_lao_f64", "perturb_pallas",
            "perturb_stream", "perturb_hdr32", "perturb_hdr64", "perturb_f32",
@@ -90,7 +92,8 @@ KERNELS = ("escape", "lav2_full", "lav2_phase1", "rc_tail", "ntt_orbit",
            "iterate_full", "orbit_chunk_block", "orbit_chunk_grid",
            "nr_chunk_block", "nr_chunk_grid", "escape_hdr32", "escape_hdr64",
            "escape_2x32", "escape_2x64", "bla_f32", "bla_f64",
-           "perturb_scaled")
+           "perturb_scaled", "perturb_hdr_df", "escape_4x32", "escape_4x64",
+           "escape_qf32", "escape_qf64")
 launches = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -204,6 +207,19 @@ _SIGNATURES = {
     # perturb_scaled: dcr dci orbit | state(6) | work bad glitch | n_work
     # max_ref max_iter chunk flags | stream
     "fs_perturb_scaled": [_P] * 12 + [_I32, _I64, _I64, _I64, _I32, _P],
+    # perturb_hdr_df: dc(5) orbit | state(8) | work | n_work max_ref
+    # max_iter chunk init | stream
+    "fs_perturb_hdr_df": [_P] * 15 + [_I32, _I64, _I64, _I64, _I32, _P],
+    # escape_qd / escape_qf: out | width height | min_x max_y dx dy, four
+    # components each | max_iter cap | list counters parity | stream
+    "fs_escape_qd_f32": [_P, _I32, _I32] + [_F32] * 16
+    + [_I32, _I32, _P, _P, _I32, _P],
+    "fs_escape_qd_f64": [_P, _I32, _I32] + [_F64] * 16
+    + [_I32, _I32, _P, _P, _I32, _P],
+    "fs_escape_qf_f32": [_P, _I32, _I32] + [_F32] * 16
+    + [_I32, _I32, _P, _P, _I32, _P],
+    "fs_escape_qf_f64": [_P, _I32, _I32] + [_F64] * 16
+    + [_I32, _I32, _P, _P, _I32, _P],
 }
 
 

@@ -211,9 +211,11 @@ def escape_df(params_or_ptz, width: int, height: int, max_iter: int,
     pairs, ~106-bit); `params_or_ptz` the high-precision view (exact
     splits) or an ``escape.PlainParams``."""
     if variant in ("4x32", "4x64"):
+        # the reference's escape_df raises too (dblflt.py:203-205): these
+        # variants take ops/quadd.py escape_qd
         raise NotImplementedError(
-            f"quad-float variant {variant}: ROADMAP A1 (ops/quadd.py "
-            f"escape_qd), not ported yet")
+            f"quad-float variant {variant}: use ops/quadd.py escape_qd "
+            f"(the Gpu4x32/Gpu4x64 route)")
     dtype = _VARIANTS[variant][0]
     device = kernels.resolve_device(device)
     scal = df_params(params_or_ptz, width, height, variant)

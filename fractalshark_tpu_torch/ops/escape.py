@@ -225,10 +225,10 @@ def pass1_cap(tile: bool) -> int:
 
 def launch_two_pass(name: str, key: str, width: int, height: int, device,
                     args, cap: int) -> torch.Tensor:
-    """One C call of a two-pass escape kernel (K1, K13, K14), counted under
-    `key`: ``name(out, width, height, *args, cap, list, counters, parity,
-    stream)`` into a new int64 grid [height, width] on `device`, with the
-    device's pass-2 list (``kernels.pass_list``)."""
+    """One C call of a two-pass escape kernel (K1, K13, K14, K17, K18),
+    counted under `key`: ``name(out, width, height, *args, cap, list,
+    counters, parity, stream)`` into a new int64 grid [height, width] on
+    `device`, with the device's pass-2 list (``kernels.pass_list``)."""
     out = torch.empty((height, width), dtype=torch.int64, device=device)
     lst = kernels.pass_list(out.device)
     items, counters, parity = lst.take(out.numel())

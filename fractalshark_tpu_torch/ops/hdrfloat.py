@@ -32,8 +32,12 @@ EXPONENT_DIFF_IGNORED = 120
 _F32_BIAS = 127
 _F64_BIAS = 1023
 _SIGN_FRAC_MASK = int(np.uint32(0x807FFFFF).view(np.int32))
-_TINY = {torch.float32: float(np.finfo(np.float32).tiny),
-         torch.float64: float(np.finfo(np.float64).tiny)}
+# the smallest normal number of each type, as a 0-dim tensor (an op with a
+# tensor operand is cheaper than with a Python float on small tensors)
+_TINY = {torch.float32: torch.tensor(float(np.finfo(np.float32).tiny),
+                                     dtype=torch.float32),
+         torch.float64: torch.tensor(float(np.finfo(np.float64).tiny),
+                                     dtype=torch.float64)}
 
 
 class HDR(NamedTuple):
@@ -51,8 +55,11 @@ class HDRComplex(NamedTuple):
 
 
 def ftz(x: torch.Tensor) -> torch.Tensor:
-    """Flush subnormals to a zero of the same sign (FTZ)."""
-    return torch.where(x.abs() < _TINY[x.dtype], x * 0.0, x)
+    """Flush subnormals to a zero of the same sign (FTZ).  A subnormal
+    (and a zero) is multiplied by 0.0, which keeps its sign; every other
+    value, inf and NaN included, by 1.0 (a NaN's |x| >= tiny is false, and
+    NaN * 0.0 is NaN): the bits of ``where(|x| < tiny, x * 0.0, x)``."""
+    return x * (x.abs() >= _TINY[x.dtype])
 
 
 def flush_np(a: np.ndarray) -> np.ndarray:

@@ -207,13 +207,17 @@ def live_pixels(done: torch.Tensor) -> torch.Tensor:
     return torch.nonzero(~done).flatten().to(torch.int32)
 
 
-def on_subset(step, state: tuple, dc: HDRComplex, work) -> tuple:
+def on_subset(step, state: tuple, dc: tuple, work) -> tuple:
     """`step(state, dc)` over the pixels `work` (None: all of them), the
-    others left as they are: how the plain twins run a launch's work."""
+    others left as they are: how the plain twins run a launch's work.
+    `dc` is a tuple of flat tensors (an ``HDRComplex`` stays one)."""
     if work is None:
         return step(state, dc)
     w = work.long()
-    sub = step(tuple(t[w] for t in state), HDRComplex(*(t[w] for t in dc)))
+    sub_dc = tuple(t[w] for t in dc)
+    if isinstance(dc, HDRComplex):
+        sub_dc = HDRComplex(*sub_dc)
+    sub = step(tuple(t[w] for t in state), sub_dc)
     out = tuple(t.clone() for t in state)
     for o, v in zip(out, sub):
         o[w] = v

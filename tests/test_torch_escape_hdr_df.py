@@ -167,7 +167,9 @@ def test_budgets_of_2_31_raise_as_the_reference(jax_ref):
 
 @pytest.mark.parametrize("variant", ["4x32", "4x64"])
 def test_quad_variants_raise(variant):
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+    """As the reference's escape_df, the quad variants are refused; they
+    take ops/quadd.py escape_qd."""
+    with pytest.raises(NotImplementedError, match="escape_qd"):
         dblflt.escape_df(_shallow(size=4), 4, 4, 8, variant=variant,
                          device="cpu")
 

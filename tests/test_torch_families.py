@@ -1,9 +1,10 @@
 """The direct escapes (HDR, double-float, CpuHigh) and the Scaled names
 end to end on the CPU (``device="cpu"``, the kernels' plain twins):
 ``Fractal`` and the CLI against the JAX package's ``Fractal`` at 8², grid
-and public dtype, on the integration sweep's frames; the names that still
-raise; and the smoke's 256² pins of these families against the JAX CLI.
-The BLA names are in ``test_torch_families_bla.py``.
+and public dtype, on the integration sweep's frames, and the smoke's 256²
+pins of these families against the JAX CLI.  The BLA names are in
+``test_torch_families_bla.py``, the quad-float names in
+``test_torch_quad.py``.
 """
 
 import contextlib
@@ -137,14 +138,6 @@ def test_cli_frame_equals_jax(jax_ref, name):
     assert s["crc32"] == zlib.crc32(want.astype("<u4").tobytes())
     assert s["kernel"] == route and s["algorithm"] == name
     assert "perturb_s" in s["timings"] or route != "scaled"
-
-
-@pytest.mark.parametrize("name", ["Gpu4x32", "Gpu4x64"])
-def test_quad_float_names_raise(name):
-    f = Fractal(width=SIZE, height=SIZE, view=_ptz(SHALLOW), algorithm=name,
-                num_iterations=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        f.calc_fractal()
 
 
 def test_smoke_pins_equal_jax(jax_ref):

@@ -205,15 +205,6 @@ def test_f64_band_frame_equals_jax(jax_ref, name):
         assert s["algorithm"] == "Cpu64PerturbedBLAV2HDR"
 
 
-@pytest.mark.parametrize("alg", ["Gpu2x32PerturbedLAv2PO",
-                                 "GpuHDRx2x32PerturbedLAv2PO",
-                                 "Gpu4x32", "Gpu4x64"])
-def test_unported_algorithms_raise(alg):
-    f = Fractal(width=8, height=8, view=6, algorithm=alg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        f.calc_fractal()
-
-
 def _lav2_names():
     from fractalshark_tpu_torch.core.algorithms import Family, all_algorithms
     return sorted(a.name for a in all_algorithms()
@@ -228,15 +219,15 @@ _ROUTES = {
     ("f64", "full"): "lav2-f64", ("f64", "lao"): "lav2-lao-f64",
     ("f32", "po"): "perturb-f32", ("f64", "po"): "perturb-f64",
     ("hdr32", "po"): "perturb-pallas", ("hdr64", "po"): "perturb-hdr64",
+    ("2x32", "po"): "hdr-df", ("hdr2x32", "po"): "hdr-df",
 }
 
 
 @pytest.mark.parametrize("name", _lav2_names())
 def test_every_lav2_algorithm_renders(name):
-    """Every LAv2 name of f32, f64, hdr32 or hdr64 mantissas renders in
-    each LA mode (RC too), and so do the 2x32 and hdr2x32 names while
-    their LA table is valid; only their PO mode (the hdr_df route) still
-    raises."""
+    """Every LAv2 name renders in each LA mode (RC too); the PO names of
+    2x32 and hdr2x32 mantissas take the HDR double-float render (K16),
+    their other modes the f32 LA machine."""
     from fractalshark_tpu_torch.core.algorithms import get_algorithm
     from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
     alg = get_algorithm(name)
@@ -244,10 +235,6 @@ def test_every_lav2_algorithm_renders(name):
                                zoom_factor=SMALL_DEEP[5], prec=512)
     f = Fractal(width=8, height=8, view=ptz, algorithm=name,
                 num_iterations=ROUTE_BUDGET, device="cpu")
-    if alg.dtype in ("2x32", "hdr2x32") and alg.la_mode.value == "po":
-        with pytest.raises(NotImplementedError, match="ROADMAP A1\\b"):
-            f.calc_fractal()
-        return
     iters = f.calc_fractal()
     assert iters.shape == (8, 8) and iters.dtype == torch.int64
     assert 0 <= int(iters.min()) and int(iters.max()) <= ROUTE_BUDGET
@@ -256,7 +243,9 @@ def test_every_lav2_algorithm_renders(name):
            "hdr64": "f64"}.get(alg.dtype, alg.dtype)
     mode = alg.la_mode.value
     kernel = f.benchmark.extra["kernel"]
-    if alg.runtime_decompression and mode != "lao" and sub == "f32":
+    if mode == "po" and alg.dtype in ("2x32", "hdr2x32"):
+        assert kernel == "hdr-df"
+    elif alg.runtime_decompression and mode != "lao" and sub == "f32":
         want = "perturb-rc-stream" if mode == "po" else "lav2-rc"
         if alg.dtype == "f32" and mode == "po":
             want = "perturb-f32"

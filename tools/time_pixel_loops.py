@@ -4,8 +4,11 @@
 K3 (``csrc/rc_tail.cu``), K1 and K1-seq (``csrc/escape.cu``), the
 streaming LA phase K7 (``csrc/la_stream.cu``), the HDR and double-float
 escapes K13 and K14 (``csrc/escape_hdr.cu``, ``csrc/escape_df.cu``), the
-BLA render K15 (``csrc/bla.cu``) and K6's glitch instance (the Scaled
-family's f32 pass), at the main path's full budgets on one NVIDIA card.
+BLA render K15 (``csrc/bla.cu``), K6's glitch instance (the Scaled
+family's f32 pass), the HDR double-float perturbation render K16
+(``csrc/perturb_hdr_df.cu``) and the quad-float escapes K17 and K18
+(``csrc/escape_quad.cu``), at the main path's full budgets on one NVIDIA
+card.
 
     python3 tools/time_pixel_loops.py [--tree DIR] [--reps N] [--cli]
                                       [--profile] [--trace] [--no-floor]
@@ -21,7 +24,8 @@ events, ``--reps`` times after one warm-up run, and prints one JSON line
 per frame: the times (ms), the launches of one run, the pixels each
 launch ran, the iter_sum and the CRC-32 of the grid as ``<u4``.  The
 2048² tail's iter_sum is pinned (``PINS``).  It also prints the
-registers and spills ``ptxas -v`` reports for K6 and K2, and the
+registers and spills ``ptxas -v`` reports for K6, K2, K16, K17 and K18,
+and the
 serial floor: the per-step time of K6 on one pixel with a one-row orbit
 (``max_ref`` = 1, every step rebases onto row 0) that never escapes
 (c = -0.5), in each of K6's four forms, and the same pixel walking an
@@ -76,8 +80,12 @@ SMALL_DEEP = ("-0.743643887037158704752191506114774",
 SHALLOW = ("-0.6", "0.45", "64", 256)
 DEEP_1500 = SMALL_DEEP[:3] + (1500,)
 
+# the quad-float escapes' frame: the 1e17 frame of tests/test_quadflt.py
+# (every pixel runs the budget)
+QUAD_1E17 = ("-0.743643887037151", "0.131825904205330", "1e17", 600)
+
 # name: (frame, size, kernel, launch-counter key, mantissa, hdr_mode /
-# la_only)
+# la_only / budget)
 FRAMES = {
     "view6_po_16": (6, 16, "k6", "perturb_stream", "f32", True),
     "view6_po_256": (6, 256, "k6", "perturb_stream", "f32", True),
@@ -138,6 +146,16 @@ FRAMES = {
     "view6_bla_256": (6, 256, "k15", "bla_f32", "f32", None),
     "1e8_scaled_1024": (DEEP_1500, 1024, "glitch", "perturb_scaled", "f32",
                         None),
+    # K16 (the 2x32 / hdr2x32 names without an LA table): the 1e8 frame,
+    # and View #9 at the budget of the depth band HDRx2x32 exists for
+    # (tests/test_hdr_df.py:79-101)
+    "1e8_hdr_df_64": (DEEP_1500, 64, "k16", "perturb_hdr_df", "f32", None),
+    "view9_hdr_df_1024": (9, 1024, "k16", "perturb_hdr_df", "f32", 40000),
+    # K17 (QD, Gpu4x32/Gpu4x64) and K18 (QF, escape_qf) on the 1e17 frame
+    "1e17_qd32_1024": (QUAD_1E17, 1024, "k17", "escape_4x32", "f32", None),
+    "1e17_qd64_1024": (QUAD_1E17, 1024, "k17", "escape_4x64", "f64", None),
+    "1e17_qf32_1024": (QUAD_1E17, 1024, "k18", "escape_qf32", "f32", None),
+    "1e17_qf64_1024": (QUAD_1E17, 1024, "k18", "escape_qf64", "f64", None),
 }
 
 # iter_sum of frames pinned to a reference: the 2048² poster's two-phase
@@ -173,20 +191,23 @@ def crc(grid) -> int:
 
 
 def ptxas_lines(text: str) -> list[str]:
-    """The ptxas -v lines of the K6 and K2 entry functions."""
+    """The ptxas -v lines of the K6, K2, K16, K17 and K18 entry
+    functions."""
     out, keep = [], 0
     for line in text.splitlines():
         if "Compiling entry function" in line:
-            keep = 4 if ("perturb" in line or "lav2" in line) else 0
+            keep = 4 if ("perturb" in line or "lav2" in line
+                         or "QuadRule" in line) else 0
         if keep:
             out.append(line.strip())
             keep -= 1
     return out
 
 
-def frame_inputs(frame, size, device):
+def frame_inputs(frame, size, device, budget=None):
     """The Fractal and the reference orbit of a frame (a preset index or
-    a (x, y, zoom, budget) tuple) at size², via the engine."""
+    a (x, y, zoom, budget) tuple) at size², via the engine; `budget`
+    replaces a preset's."""
     from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
     from fractalshark_tpu_torch.engine.fractal import Fractal
     from fractalshark_tpu_torch.engine.renderers import get_orbit_calc
@@ -199,6 +220,8 @@ def frame_inputs(frame, size, device):
                     view=PointZoomBBConverter(pt_x=x, pt_y=y,
                                               zoom_factor=zoom, prec=512),
                     device=device)
+    if budget is not None:
+        f.num_iterations = budget
     res = get_orbit_calc(f).get_and_create_useful_results(f.ptz,
                                                           f.num_iterations)
     return f, res
@@ -223,10 +246,11 @@ def setup(name, device):
         return _setup_seq(name, device)
     if kern == "k1":
         return _setup_k1(name, device)
-    if kern in ("k13", "k14"):
+    if kern in ("k13", "k14", "k17", "k18"):
         return _setup_direct(name, device)
     fdt = torch.float32 if mant == "f32" else torch.float64
-    f, res = frame_inputs(frame, size, device)
+    f, res = frame_inputs(frame, size, device,
+                          mode if kern == "k16" else None)
     n, mr = f.num_iterations, res.max_ref_iteration()
     dpar = perturb.delta_params(f.ptz, res.center_x, res.center_y, size,
                                 size)
@@ -238,6 +262,8 @@ def setup(name, device):
         return _setup_stream(fr, f, res, dpar, device)
     if kern in ("k15", "glitch"):
         return _setup_family(fr, res, dpar, device)
+    if kern == "k16":
+        return _setup_hdr_df(fr, res, dpar, device)
     if kern == "k6":
         fr.orbit = orbit_on(res, device, fdt)
         grids = perturb._dc_grids_hdr if mode else perturb._dc_grids_float
@@ -400,9 +426,9 @@ def _setup_k1(name, device):
 
 
 def _setup_direct(name, device):
-    """K13 or K14 on a frame of FRAMES[name], from its view's splits:
-    ``run`` launches the kernel (the int64 grid), ``plain(budget)`` runs
-    its twin (on the same device)."""
+    """K13, K14, K17 or K18 on a frame of FRAMES[name], from its view's
+    splits: ``run`` launches the kernel (the int64 grid), ``plain(budget)``
+    runs its twin (on the same device)."""
     import numpy as np
     import torch
 
@@ -421,9 +447,17 @@ def _setup_direct(name, device):
             else np.float64)
         kernel, fr.plain_fn, arg = (hdr_escape.escape_hdr_kernel,
                                     hdr_escape.escape_hdr_plain, p)
-    else:
+    elif kern == "k14":
         arg = dblflt.df_params(ptz, size, size, key[-4:])
         kernel, fr.plain_fn = dblflt.escape_df_kernel, dblflt.escape_df_plain
+    else:
+        # (a tree from before K17/K18 has no quadd/quadflt)
+        from fractalshark_tpu_torch.ops import quadd, quadflt
+        mod, kind = (quadd, "qd") if kern == "k17" else (quadflt, "qf")
+        arg = getattr(mod, kind + "_params")(ptz, size, size,
+                                            "4x" + mant[1:])
+        kernel = getattr(mod, f"escape_{kind}_kernel")
+        fr.plain_fn = getattr(mod, f"escape_{kind}_plain")
 
     def run(budget=None, chunk_steps=None):
         return kernel(arg, size, size, budget or n, fdt, device)
@@ -477,6 +511,31 @@ def _setup_family(fr, res, dpar, device):
         return perturb.perturb_plain(fr.orbit, flat,
                                      zero + (torch.zeros_like(zero[5]),),
                                      budget or n, mr, False, bad=fr.bad)
+    fr.run, fr.plain = run, plain
+    return fr
+
+
+def _setup_hdr_df(fr, res, dpar, device):
+    """K16 on its orbit table and HDC2 dc grid: ``run(budget,
+    chunk_steps)`` through its run loop over the live pixels, ``plain
+    (budget)`` the twin in one lockstep run; both the int64 grid."""
+    from fractalshark_tpu_torch.ops import hdr_df
+
+    size, n, mr = fr.size, fr.n, fr.mr
+    fr.orbit = hdr_df.pack_orbit_df(res, device)
+    fr.dc = hdr_df.dc_tensors(hdr_df._dc_grids_hdrdf(*dpar, size, size,
+                                                     device))
+
+    def run(budget=None, chunk_steps=None):
+        return hdr_df.run_state(fr.orbit, fr.dc, budget or n, mr,
+                                chunk_steps)[6].reshape(size, size)
+
+    def plain(budget=None):
+        st = hdr_df.perturb_hdr_df_plain(
+            fr.orbit, fr.dc, hdr_df.init_state_plain(size * size, budget or n,
+                                                     device),
+            budget or n, mr)
+        return st[6].reshape(size, size)
     fr.run, fr.plain = run, plain
     return fr
 
@@ -584,6 +643,7 @@ def time_frame(fr, reps):
     from fractalshark_tpu_torch.ops import la_stream as LS
     stats = {"k6": perturb.last_run_stats, "k2": la_kernel.last_run_stats,
              "k15": bla_stats, "glitch": perturb.last_run_stats,
+             "k16": perturb.last_run_stats,
              "k7": getattr(LS, "last_run_stats", {}),
              "k3": getattr(ps, "last_run_stats", {}),
              "tail": getattr(ps, "last_run_stats", {})
