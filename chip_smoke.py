@@ -112,7 +112,26 @@ by -2 whose low f32 components are subnormal, then timed at 1024² × 600
 on the 1e17 frame; then ``escape_qf`` (K18's public entry) and the
 ``LATE_PINS`` frames through the CLI at 256² (counts from 0, the twins
 made to raise), pinned to the JAX package's values; their launches are
-the kernels line's.
+the kernels line's, (16) the gather tail and the app surface: K19
+(``csrc/rc_tail.cu``'s f64 cursor, the gather tail's exact mode) against
+its twin bit for bit on View #6 RC 256² from K2's handoff and RC PO 16²
+from the zero state (cut budgets, launches over the live pixels), each
+timed at its full budget beside K3 on the same start with the pixels
+that flip between the two, then View #6 ``...RCLAv2`` 256² through the
+CLI with ``FRACTALSHARK_RC_TAIL=gather`` (K19 launches, K3 does not; its
+launches are the kernels line's); the device orbit's reuse digits: the
+1e60 authority of ``tests/test_reuse.py:195`` on the card (K12's block
+form), its reuse copy equal to the CPU twins' and the 1e62 view it
+serves within 1e-13 of a direct device orbit, phase 5's 16,384-limb
+chunk (K12's grid form) again with reuse rows, each equal to the exact
+state's truncation, and K12's time a step with and without them; then,
+each with the launch counts from 0, a two-worker render pool on View 0
+at 1024² (passes 4 and 1) against a one-shot render, three Max autozoom
+steps at 256² against the CPU twins' path, a render server in a thread
+serving View #6 256² twice over a unix socket (rc 0, the second from
+the orbit cache, the PNGs equal to a direct render) and the tray's
+poster mode on View 0 at 1024² in 128-row bands (K1 f64, equal to the
+whole frame), resumed with half its tiles deleted.
 Exits non-zero if any
 phase fails, and at once when no CUDA device is present.  The next-to-last lines are the card's
 ``nvidia-smi`` name and power limit and a JSON object of the kernels;
@@ -412,6 +431,10 @@ KERNEL_META = {
                     "fractalshark_tpu/ops/quadflt.py:140"),
     "escape_qf64": ("fractalshark_tpu_torch/csrc/escape_quad.cu",
                     "fractalshark_tpu/ops/quadflt.py:140"),
+    # phase 16: the gather tail's f64 mode (_init_state :77 and
+    # _tail_impl :119, XLA in the reference), K3's loop with an f64 cursor
+    "rc_tail_f64": ("fractalshark_tpu_torch/csrc/rc_tail.cu",
+                    "fractalshark_tpu/ops/rc_tail.py:119"),
 }
 
 # phase 14's kernel frames (tools/time_pixel_loops.py FRAMES) and the
@@ -1047,14 +1070,16 @@ def phase_orbit_kernels(device, stats, reps=20, steps=3):
 
 
 @functools.lru_cache(maxsize=16)
-def exact_steps(spec, cx: int, cy: int, steps: int, start=None):
+def exact_trace(spec, cx: int, cy: int, steps: int, start=None,
+                keep_z: bool = False):
     """The exact recurrence of the device digits, with Python ints: from
     ``start`` = (x, y, dx, dy) (default z = c and dz/dc = 1), ``steps``
     times x' = rhu(x² − y² + cx·2^16F),
     y' = rhu(2xy + cy·2^16F), dx' = rhu(2(x·dx − y·dy) + 2^32F),
     dy' = rhu(2(x·dy + y·dx)), rhu(v) = sign(v + h)·((|v + h| >> 16F) mod
     2^16D); cx, cy signed fixed-point ints.  Returns (x, y, dx, dy) and
-    the number of steps where a magnitude of dz/dc wrapped."""
+    the number of steps where a magnitude of dz/dc wrapped, and with
+    ``keep_z`` the states (x, y) before each step."""
     shift = 16 * spec.frac_digits
     half = 1 << (shift - 1)
     mod = 1 << (16 * spec.digits)
@@ -1067,7 +1092,10 @@ def exact_steps(spec, cx: int, cy: int, steps: int, start=None):
         return (m % mod if t >= 0 else -(m % mod)), m >= mod
 
     x, y, dx, dy = start or (cx, cy, 1 << shift, 0)
+    zs = []
     for _ in range(steps):
+        if keep_z:
+            zs.append((x, y))
         k1 = dx * (x + y)          # x·dx − y·dy = k1 − k3, x·dy + y·dx
         k2 = x * (dy - dx)         # = k1 + k2, three products
         k3 = y * (dx + dy)
@@ -1075,7 +1103,12 @@ def exact_steps(spec, cx: int, cy: int, steps: int, start=None):
         (x, _), (y, _) = (rhu((x + y) * (x - y) + (cx << shift)),
                           rhu(2 * x * y + (cy << shift)))
         wraps += w1 or w2
-    return (x, y, dx, dy), wraps
+    return (x, y, dx, dy), wraps, tuple(zs) if keep_z else None
+
+
+def exact_steps(spec, cx: int, cy: int, steps: int, start=None):
+    """``exact_trace``'s final state and wraps."""
+    return exact_trace(spec, cx, cy, steps, start)[:2]
 
 
 def state_ints(signs_digits) -> list:
@@ -1115,8 +1148,11 @@ def check_chunks(cx, cy, limbs: int, steps: int, name: str, device,
     got = state_ints(nr.numpy())
     dev_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    want, wraps = exact_steps(spec, scx * FP.digits_to_int(cxd),
-                              scy * FP.digits_to_int(cyd), steps)
+    # the states before each step kept: phase 16 checks the reuse rows of
+    # the 16,384-limb chunk against them
+    want, wraps, _ = exact_trace(spec, scx * FP.digits_to_int(cxd),
+                                 scy * FP.digits_to_int(cyd), steps, None,
+                                 True)
     ok = z == list(want[:2]) and got == list(want)
     nr_us[limbs] = ms / steps * 1e3
     log(f"  {name}, {limbs} limbs, {steps} steps: z and z, dz/dc (the "
@@ -2563,15 +2599,18 @@ HDR_DF_STEP_OPS = 272.0   # distinct f32 * and + of a K16 step: (2Z + dz)
 
 @contextlib.contextmanager
 def forbid_twins():
-    """A context in which a call of any render family's plain twin
-    raises: a CUDA tensor never reaches one."""
-    from fractalshark_tpu_torch.ops import (bla_kernel, dblflt, hdr_df,
-                                            hdr_escape, perturb, quadd,
-                                            quadflt)
+    """A context in which a call of any render family's plain twin, the
+    RC tails' (K3, K19) or K1's raises: a CUDA tensor never reaches
+    one."""
+    from fractalshark_tpu_torch.ops import (bla_kernel, dblflt, escape,
+                                            hdr_df, hdr_escape, perturb,
+                                            quadd, quadflt)
+    from fractalshark_tpu_torch.ops import perturb_stream as ps
     targets = [(hdr_escape, "escape_hdr_plain"), (dblflt, "escape_df_plain"),
                (bla_kernel, "bla_plain"), (perturb, "perturb_plain"),
                (hdr_df, "perturb_hdr_df_plain"), (quadd, "escape_qd_plain"),
-               (quadflt, "escape_qf_plain")]
+               (quadflt, "escape_qf_plain"), (ps, "rc_tail_plain"),
+               (ps, "rc_init_plain"), (escape, "escape_plain")]
     saved = [getattr(m, n) for m, n in targets]
 
     def refuse(*_a, **_k):
@@ -2848,6 +2887,356 @@ def phase_late(device, stats):
     return launches
 
 
+# phase 16: K19's frames (tools/time_pixel_loops.py FRAMES), K3's twins
+# of them, and the CLI frame of the gather route
+K19_FRAMES = (("view6_rc_256_k19", "view6_rc_256"),
+              ("view6_rc_po_16_k19", "view6_rc_po_16"))
+GATHER_CLI = ["--view", "6", "--render-algorithm", "GpuHDRx32PerturbedRCLAv2",
+              "--width", "256", "--height", "256", "--stats", "--device",
+              "cuda"]
+# the f64 recurrence of a K19 step between anchors: 7 f64 operations
+# (3 products, 2 adds, the doubling), each worth two f32 ones at the
+# card's rates
+K19_RECUR_F32_OPS = 7 * F32_OPS_PER_S / F64_OPS_PER_S
+REUSE_FRAC_BITS = 1000       # the View #30 session's reuse copy
+AUTH = dict(cx="-0.743643887037158704752191506114774",
+            cy="0.131825904205311970493132056385139", prec=768, n=600)
+APP_SIZE, APP_BANDS = 1024, 128
+
+
+def k19_ops(grid, start, budget: int, ratio: float) -> float:
+    """K19: the HDR step of each tail iteration (perturb_tail_ops), plus
+    the f64 recurrence at each step that does not land on an anchor,
+    1 - 1/ratio of them for an orbit compressed `ratio` to 1 (a lower
+    bound: the catch-up is not counted), in f32 operations."""
+    import torch
+    live = start < budget
+    steps = float(torch.where(live, grid - start, 0).sum())
+    return perturb_tail_ops(grid, start, budget) + \
+        K19_RECUR_F32_OPS * steps * (1.0 - 1.0 / ratio)
+
+
+def phase_app_gather(device, stats, tpl):
+    """(a) K19 against its twin bit for bit at the cut budget in chunks
+    over the live pixels, timed at the full budget beside K3 on the same
+    start (the flips between the two counted), then the gather route
+    through the CLI: K19 launches and K3 does not."""
+    import torch
+
+    from fractalshark_tpu_torch import kernels
+
+    st = stats["rc_tail_f64"]
+    for name, k3_name in K19_FRAMES:
+        fr = tpl.setup(name, device)
+        budget = TWIN_BUDGET if fr.mode[1] else PO_TWIN_BUDGET
+        nc = min(fr.n, budget)
+        kc = fr.run(nc, TWIN_CHUNK)
+        pl, pms = timed(lambda: fr.plain(nc), device, warm=False)
+        compare(f"rc_tail_f64 {name} budget {nc} (chunks of {TWIN_CHUNK} "
+                f"over the live pixels)", kc.reshape(-1), pl.reshape(-1), st)
+        out, rec = tpl.time_frame(fr, 1 if fr.size < 64 else 3)
+        k3 = tpl.setup(k3_name, device)
+        out3, rec3 = tpl.time_frame(k3, 1 if fr.size < 64 else 3)
+        flips = int((out != out3).sum())
+        ratio = fr.comp.compression_ratio()
+        b = bound(nbytes(fr.A.rows, *fr.dc, fr.start, out),
+                  k19_ops(out, fr.start, fr.n, ratio), F32_OPS_PER_S)
+        log(f"  rc_tail_f64 {name} budget {fr.n}: {rec['ms_median']:.3f} ms "
+            f"(of {[round(t, 3) for t in rec['ms']]}), launches "
+            f"{rec['launches']} over {rec['work'][:4]} pixels, (iter_sum, "
+            f"crc32) {(rec['iter_sum'], rec['crc32'])}; K3 (df32) "
+            f"{rec3['ms_median']:.3f} ms, (iter_sum, crc32) "
+            f"{(rec3['iter_sum'], rec3['crc32'])}; {flips} of "
+            f"{out.numel()} pixels differ from K3 (last-ulp flips, "
+            f"rc_tail.py:41-44); plain {pms:.3f} ms at budget {nc}; "
+            f"ratio {ratio:.1f}, {rec['ms_median'] / b['bound_ms']:.1f}x "
+            f"its bound")
+        if rec["launches"].get("rc_tail_f64", 0) < 1 or \
+                rec["launches"].get("rc_tail", 0):
+            raise AssertionError(f"{name}: not K19 alone")
+        if name == K19_FRAMES[0][0]:
+            st.update(ms=rec["ms_median"], plain_ms=pms, **b)
+    kernels.reset_counts()
+    os.environ["FRACTALSHARK_RC_TAIL"] = "gather"
+    try:
+        with forbid_twins():
+            s, wall = cli_run(GATHER_CLI)
+    finally:
+        del os.environ["FRACTALSHARK_RC_TAIL"]
+    grew = {k: v for k, v in kernels.launches.items() if v}
+    log(f"  CLI View #6 GpuHDRx32PerturbedRCLAv2 256² with "
+        f"FRACTALSHARK_RC_TAIL=gather: (iter_sum, crc32) "
+        f"{(s['iter_sum'], s['crc32'])}, wall {wall:.3f} s, launches {grew}")
+    if grew.get("rc_tail_f64", 0) < 1 or grew.get("rc_tail", 0):
+        raise AssertionError("the gather route did not take K19 alone")
+    return {"rc_tail_f64": grew["rc_tail_f64"]}
+
+
+def phase_app_reuse(device):
+    """(b) The device orbit with reuse: the 1e60 authority of
+    tests/test_reuse.py:195 on the card (K12's block form), its reuse copy
+    equal to the CPU twins' session int for int, and the 1e62 view it
+    serves against a direct device orbit; then View #30 at 16,384 limbs,
+    ORACLE_STEPS steps in one chunk (K12's grid form) with reuse rows,
+    each row equal to the exact Python-int state's truncation."""
+    import numpy as np
+    import torch
+
+    from fractalshark_tpu_torch import kernels
+    from fractalshark_tpu_torch.core.highprecision import HighPrecision
+    from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
+    from fractalshark_tpu_torch.engine.reforbit import RefOrbitCalc
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+    from fractalshark_tpu_torch.ops.bignum import orbit as O
+
+    prec = AUTH["prec"]
+    v1 = PointZoomBBConverter(pt_x=AUTH["cx"], pt_y=AUTH["cy"],
+                              zoom_factor="1e60", prec=prec)
+    v2 = PointZoomBBConverter(
+        pt_x=HighPrecision(AUTH["cx"], prec=prec) + HighPrecision(
+            "1e-55", prec=prec), pt_y=AUTH["cy"], zoom_factor="1e62",
+        prec=prec)
+    ros = {}
+    for dev in ("cuda", "cpu"):
+        calc = RefOrbitCalc(orbit_backend="device", reuse_mode="on")
+        calc.device = dev
+        kernels.reset_counts()
+        r1 = calc.get_and_create_useful_results(v1, AUTH["n"])
+        ros[dev] = r1.extra["reuse_orbit"]
+        if dev == "cuda":
+            block = kernels.launches["orbit_chunk_block"]
+            r2 = calc.get_and_create_useful_results(v2, AUTH["n"])
+            reused = calc.last_details.get("reused")
+    direct = RefOrbitCalc(orbit_backend="device", reuse_mode="off")
+    direct.device = "cuda"
+    r3 = direct.get_and_create_useful_results(v2, AUTH["n"])
+    same = ros["cuda"].zx == ros["cpu"].zx and ros["cuda"].zy == ros["cpu"].zy
+    n = min(r2.count_orbit_entries(), r3.count_orbit_entries())
+    err = max(float(np.abs(r2.orbit_x[:n] - r3.orbit_x[:n]).max()),
+              float(np.abs(r2.orbit_y[:n] - r3.orbit_y[:n]).max()))
+    log(f"  reuse authority 1e60 ({r1.count_orbit_entries()} entries, "
+        f"{ros['cuda'].frac_bits} fraction bits, K12 block launches "
+        f"{block}): reuse copy {'equal' if same else 'DIFFERENT'} to the CPU "
+        f"twins'; the 1e62 view reused {reused}, {n} entries within "
+        f"{err:.3g} of the direct device orbit")
+    if not (same and reused and n > 100 and err <= 1e-13 and block):
+        raise AssertionError("the device orbit's reuse path failed")
+
+    spec = FP.FixedSpec.for_limbs(16384)
+    cx, cy, _ = view30_center()
+    scx, cxd = FP.hp_to_digits(cx, spec)
+    scy, cyd = FP.hp_to_digits(cy, spec)
+    R = min(-(-REUSE_FRAC_BITS // 16) + FP.INT_DIGITS, spec.digits)
+    state = O.OrbitState(scx, cxd, scy, cyd, device)
+    kernels.reset_counts()
+    _, reuse = O.orbit_chunk(state, scx, torch.from_numpy(
+        cxd.astype("int32")).to(device), scy, torch.from_numpy(
+        cyd.astype("int32")).to(device), spec, ORACLE_STEPS,
+        reuse_digits=R)
+    grid = kernels.launches["orbit_chunk_grid"]
+    reuse = reuse.cpu().numpy()
+    shift = 16 * (spec.digits - R)
+    bad = 0
+    # (phase 5's exact trace of this chunk, cached)
+    for k, (x, y) in enumerate(exact_trace(
+            spec, scx * FP.digits_to_int(cxd), scy * FP.digits_to_int(cyd),
+            ORACLE_STEPS, None, True)[2]):
+        for v, part, sg in ((x, reuse[k, :R], reuse[k, 2 * R]),
+                            (y, reuse[k, R:2 * R], reuse[k, 2 * R + 1])):
+            m = FP.digits_to_int(part.astype(np.uint32))
+            bad += int(sg) * m != (abs(v) >> shift) * (1 if v >= 0 else -1)
+    log(f"  View #30 16,384 limbs, {ORACLE_STEPS} steps, R = {R}: {bad} "
+        f"reuse rows differ from the exact truncation; K12 grid launches "
+        f"{grid}")
+    if bad or grid != 1:
+        raise AssertionError("View #30's reuse rows differ")
+    # K12's chunk with and without the reuse rows (CUDA events, the state
+    # carried on), in turns
+    for limbs in (64, 16384):
+        spec = FP.FixedSpec.for_limbs(limbs)
+        scx, cxd = FP.hp_to_digits(cx, spec)
+        scy, cyd = FP.hp_to_digits(cy, spec)
+        cxt = torch.from_numpy(cxd.astype("int32")).to(device)
+        cyt = torch.from_numpy(cyd.astype("int32")).to(device)
+        state = O.OrbitState(scx, cxd, scy, cyd, device)
+        scratch = O._Scratch(spec, device)
+        R = min(-(-REUSE_FRAC_BITS // 16) + FP.INT_DIGITS, spec.digits)
+        ms = {0: [], R: []}
+        for r in (0, R, R, 0):
+            ms[r].append(timed(lambda: O.orbit_chunk(
+                state, scx, cxt, scy, cyt, spec, ORACLE_STEPS, scratch, r),
+                device)[1] / ORACLE_STEPS * 1e3)
+        log(f"  K12 {O.chunk_form(spec)} form, {limbs} limbs: "
+            f"{[round(v, 3) for v in ms[R]]} us a step with {R} reuse "
+            f"digits, {[round(v, 3) for v in ms[0]]} without")
+
+
+def phase_app_surface(device, outdir):
+    """(c) The app surface on the card: a two-worker pool, three Max
+    autozoom steps, the render server and the tray's poster mode, each
+    with the launch counts from 0 just before it."""
+    import threading
+
+    import numpy as np
+
+    from fractalshark_tpu_torch import cli, kernels, server, tray
+    from fractalshark_tpu_torch.engine.autozoom import (AutoZoomer,
+                                                        AutoZoomHeuristic)
+    from fractalshark_tpu_torch.engine.fractal import Fractal
+    from fractalshark_tpu_torch.engine.render_pool import RenderThreadPool
+    from fractalshark_tpu_torch.io.saved_location import load_locations
+    from fractalshark_tpu_torch.ops import escape
+    from fractalshark_tpu_torch.ops.coloring import rgba16_to_numpy
+    from fractalshark_tpu_torch.parallel.tile_farm import TileFarm
+
+    # the pool: two workers, two non-supersedable View 0 jobs
+    f = Fractal(width=APP_SIZE, height=APP_SIZE, view=0, device=device)
+    one = rgba16_to_numpy(Fractal(width=APP_SIZE, height=APP_SIZE, view=0,
+                                  device=device).render())
+    kernels.reset_counts()
+    pool = RenderThreadPool(f, num_workers=2, progressive_scales=(4, 1))
+    try:
+        gens = [pool.enqueue_render(supersedable=False) for _ in range(2)]
+        for g in gens:
+            if not pool.wait(g, timeout=120):
+                raise AssertionError("pool job timed out")
+        finals = []
+        while True:
+            fr = pool.next_frame(timeout=2)
+            if fr is None:
+                break
+            if fr.final:
+                finals.append(fr)
+    finally:
+        pool.shutdown()
+    ok = len(finals) == 2 and all(np.array_equal(x.rgba, one)
+                                  for x in finals)
+    log(f"  pool (2 workers, passes (4, 1)) View 0 {APP_SIZE}²: {len(finals)} "
+        f"final frames {'equal' if ok else 'NOT equal'} to a one-shot "
+        f"render; launches {dict((k, v) for k, v in kernels.launches.items() if v)}")
+    if not ok or kernels.launches["escape"] < 4:
+        raise AssertionError("the pool's frames differ or K1 did not run")
+
+    # autozoom: three Max steps, the targets against the CPU twins' path
+    paths = {}
+    for dev in (device, "cpu"):
+        g = Fractal(width=256, height=256, view=0, algorithm="Gpu1x32",
+                    device=dev)
+        z = AutoZoomer(g, AutoZoomHeuristic.MAX)
+        kernels.reset_counts()
+        paths[str(dev)] = [(z.step()["target"], g.ptz.pt_x.to_string(30),
+                            g.ptz.pt_y.to_string(30)) for _ in range(3)]
+        if dev == device:
+            zoom_launches = kernels.launches["escape"]
+    ok = paths[str(device)] == paths["cpu"]
+    log(f"  autozoom Max x3 View 0 256²: targets "
+        f"{[p[0] for p in paths[str(device)]]} "
+        f"{'equal' if ok else 'NOT equal'} to the CPU twins'; K1 launches "
+        f"{zoom_launches}")
+    if not ok or zoom_launches < 3:
+        raise AssertionError("autozoom's path differs on the card")
+
+    # the render server, in a thread, over a unix socket
+    sock = os.path.join(outdir, "fs.sock")
+    rs = server.RenderServer(sock)
+    ready = threading.Event()
+    t = threading.Thread(target=rs.serve_forever, daemon=True,
+                         kwargs={"ready_cb": lambda _s: ready.set()})
+    t.start()
+    if not ready.wait(30):
+        raise AssertionError("the server did not start")
+    argv = ["--view", "6", "--width", "256", "--height", "256", "--stats",
+            "--device", "cuda"]
+    replies, lens = [], []
+    try:
+        kernels.reset_counts()
+        for k in range(2):
+            replies.append(server.request(
+                {"argv": argv + ["--output-png",
+                                 os.path.join(outdir, f"srv{k}.png")]},
+                sock, timeout=300))
+            lens.append(server.request({"op": "stats"}, sock,
+                                       timeout=30)["orbit_cache_len"])
+        srv_launches = {k: v for k, v in kernels.launches.items() if v}
+    finally:
+        server.request({"op": "shutdown"}, sock, timeout=30)
+        t.join(timeout=30)
+    # a direct render in this process, on the server's orbit cache (the
+    # orbit's host time once)
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli.main(argv + ["--output-png", os.path.join(outdir,
+                                                         "direct.png")],
+                    orbit_calc=rs.orbit_calc) != 0:
+            raise AssertionError("the direct CLI render failed")
+    pngs = [open(os.path.join(outdir, n), "rb").read()
+            for n in ("srv0.png", "srv1.png", "direct.png")]
+    hit = [json.loads(r["stdout"].strip().splitlines()[-1]).get(
+        "orbit_len") for r in replies]
+    ok = all(r["rc"] == 0 for r in replies) and lens[0] == lens[1] >= 1 \
+        and pngs[0] == pngs[1] == pngs[2] and not t.is_alive()
+    log(f"  server: View #6 256² twice, rc {[r['rc'] for r in replies]}, "
+        f"walls {[r['wall_s'] for r in replies]} s, orbit cache "
+        f"{lens}, orbit_len {hit}, PNGs {'equal' if ok else 'NOT equal'} to "
+        f"a direct CLI render; launches {srv_launches}")
+    if not ok:
+        raise AssertionError("the server's renders failed or differ: "
+                             f"{[r['stderr'][-500:] for r in replies]}")
+
+    # the tray's poster mode: View 0 in bands, K1 f64, then resumed
+    v = Fractal(width=APP_SIZE, height=APP_SIZE, view=0, device=device)
+    loc = os.path.join(outdir, "poster.txt")
+    with open(loc, "w") as fh:
+        fh.write(f"{APP_SIZE} {APP_SIZE} {v.ptz.min_x.to_string(40)} "
+                 f"{v.ptz.min_y.to_string(40)} {v.ptz.max_x.to_string(40)} "
+                 f"{v.ptz.max_y.to_string(40)} {v.num_iterations} 1 "
+                 f"view0\n")
+    out = os.path.join(outdir, "tray")
+    tiles = APP_SIZE // APP_BANDS
+    # the view as the tray reads it back from the file
+    tray_f = Fractal(width=APP_SIZE, height=APP_SIZE,
+                     view=load_locations(loc)[0].to_view(), device=device)
+    runs = []
+    for k in range(2):
+        kernels.reset_counts()
+        with forbid_twins():
+            if tray.main([loc, "--out-dir", out, "--tile-rows",
+                          str(APP_BANDS), "--device", "cuda"]) != 0:
+                raise AssertionError("tray exited non-zero")
+        png = [n for n in os.listdir(out) if n.endswith(".png")]
+        ck = os.path.join(out, "tiles_000")
+        farm = TileFarm(tray_f.ptz, APP_SIZE, APP_SIZE, APP_BANDS, ck)
+        runs.append((open(os.path.join(out, png[0]), "rb").read(),
+                     farm.gather_local(), kernels.launches["escape"]))
+        if k == 0:
+            for tl in farm.tiles[::2]:
+                os.remove(farm._tile_path(tl))
+    p = escape.PlainParams.from_view(tray_f.ptz, APP_SIZE, APP_SIZE)
+    whole = escape.escape(p, APP_SIZE, APP_SIZE, v.num_iterations, "f64",
+                          device).cpu().numpy()
+    ok = runs[0][0] == runs[1][0] and np.array_equal(runs[0][1], runs[1][1]) \
+        and np.array_equal(runs[0][1].astype(np.int64), whole) \
+        and (runs[0][2], runs[1][2]) == (tiles, tiles - tiles // 2)
+    log(f"  tray poster View 0 {APP_SIZE}² in {APP_BANDS}-row bands: "
+        f"{'equal' if ok else 'NOT equal'} to K1 f64's whole frame, resumed "
+        f"with half the tiles deleted to the same PNG; K1 launches "
+        f"{runs[0][2]}, then {runs[1][2]}")
+    if not ok:
+        raise AssertionError("the tray's poster differs")
+
+
+def phase_app(device, stats):
+    """(16) The gather tail (K19), the device orbit's reuse digits, and the
+    app surface: pool, autozoom, server and tray on the card."""
+    log("[16] K19 (the gather tail's f64 cursor) vs its twin and K3, the "
+        "gather CLI route, the device orbit's reuse digits, then the "
+        "pool, autozoom, server and tray on the card")
+    launches = phase_app_gather(device, stats, pixel_loops())
+    phase_app_reuse(device)
+    with tempfile.TemporaryDirectory() as outdir:
+        phase_app_surface(device, outdir)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2891,6 +3280,7 @@ def main() -> int:
     run("13", phase_chunk, device, stats)
     launches.update(run("14", phase_families, device, stats))
     launches.update(run("15", phase_late, device, stats))
+    launches.update(run("16", phase_app, device, stats))
     # K12's and K4/K5's launches, each from its own path's run: View #6's
     # and View #30's device-orbit frames, the feature evaluator at View
     # #6's sizes and at View #30's, and the orbit past K12's D < 2^16.

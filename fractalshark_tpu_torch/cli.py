@@ -3,10 +3,10 @@ of ``fractalshark_tpu/cli.py`` with their behaviour (view sources:
 preset, locations file, center and zoom; algorithm, budget,
 antialiasing, palette, LA preset and stage window, orbit backend,
 commit cap; PNG, console, stats and saved-location outputs; the
-interactive console; the feature finder), plus ``--device`` (default
-``cuda``; ``cpu`` runs the kernels' plain PyTorch twins).  The render
-server's flags (``--serve``, ``--client``, ``--socket``, ``--warm``,
-``--shutdown-server``) are not ported yet (ROADMAP A5).
+interactive console; the feature finder; the render server's
+``--serve``, ``--client``, ``--socket``, ``--warm`` and
+``--shutdown-server``), plus ``--device`` (default ``cuda``; ``cpu`` runs
+the kernels' plain PyTorch twins).
 
     python -m fractalshark_tpu_torch.cli --view 6 --width 256 \\
         --height 256 --output-png out.png --stats
@@ -18,6 +18,12 @@ server's flags (``--serve``, ``--client``, ``--socket``, ``--warm``,
     # a saved location, as ASCII art
     python -m fractalshark_tpu_torch.cli --locations-file locs.txt \\
         --location-index 0 --console-output ascii
+    # a warm render server, a render through it, and its end
+    python -m fractalshark_tpu_torch.cli --serve --socket /tmp/fs.sock &
+    python -m fractalshark_tpu_torch.cli --client --socket /tmp/fs.sock \\
+        --view 6 --width 256 --height 256 --stats
+    python -m fractalshark_tpu_torch.cli --shutdown-server \\
+        --socket /tmp/fs.sock
 """
 
 from __future__ import annotations
@@ -91,6 +97,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Phase-A evaluator policy for --feature-scan "
                         "(FeatureFinderMode Direct/PT/LA)")
     p.add_argument("--feature-max-period", type=int, default=None)
+    p.add_argument("--serve", action="store_true",
+                   help="run as a persistent render service on a unix "
+                        "socket: one process keeps the device, the loaded "
+                        "kernels and the reference-orbit cache warm across "
+                        "renders (reference analogue: the GUI's warm "
+                        "renderer pool, RenderThreadPool.h:144-165)")
+    p.add_argument("--client", action="store_true",
+                   help="forward this render to a running --serve "
+                        "process instead of rendering in-process")
+    p.add_argument("--socket", default=None,
+                   help="unix socket path for --serve/--client "
+                        "(default $FRACTALSHARK_SOCK, else "
+                        "fractalshark_tpu_torch.sock in $TMPDIR or /tmp)")
+    p.add_argument("--warm", default=None, metavar="V1,V2",
+                   help="with --serve: render these view presets once "
+                        "at startup (256², on --device) so later requests "
+                        "find their orbits cached")
+    p.add_argument("--shutdown-server", action="store_true",
+                   help="ask the --serve process to exit")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (kernels) or cpu (plain "
                         "PyTorch versions)")
@@ -228,8 +253,61 @@ def grid_crc32(iters) -> int:
     return zlib.crc32(iters.astype(iters.dtype.newbyteorder("<")).tobytes())
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+def _strip_transport_flags(argv: list[str]) -> list[str]:
+    """Remove --client/--socket/--serve tokens so the forwarded argv is a
+    plain render request."""
+    out, skip = [], False
+    for tok in argv:
+        if skip:
+            skip = False
+            continue
+        if tok in ("--client", "--serve", "--shutdown-server"):
+            continue
+        if tok == "--socket":
+            skip = True
+            continue
+        if tok.startswith("--socket="):
+            continue
+        out.append(tok)
+    return out
+
+
+def serve_main(args, raw_argv: list[str]) -> int:
+    """--serve / --client / --shutdown-server (``fractalshark_tpu/cli.py``
+    ``:165-189``)."""
+    from fractalshark_tpu_torch import server as srv
+    sock = args.socket or srv.DEFAULT_SOCKET
+    if args.shutdown_server:
+        resp = srv.request({"op": "shutdown"}, sock, timeout=30.0)
+        print(json.dumps(resp))
+        return 0 if resp.get("ok") else 1
+    if args.client:
+        return srv.run_client(_strip_transport_flags(raw_argv), sock)
+    s = srv.RenderServer(sock)
+
+    def _ready(rs):
+        import os
+        print(json.dumps({"serving": rs.socket_path, "pid": os.getpid()}),
+              flush=True)
+        for tok in (args.warm or "").split(","):
+            if not tok.strip():
+                continue
+            r = rs.handle({"argv": ["--view", tok.strip(), "--width", "256",
+                                    "--height", "256", "--stats",
+                                    "--device", args.device]})
+            print(json.dumps({"warmed": tok.strip(),
+                              "wall_s": r.get("wall_s")}), flush=True)
+    return s.serve_forever(ready_cb=_ready)
+
+
+def main(argv=None, orbit_calc=None) -> int:
+    """The CLI.  ``orbit_calc``: a RefOrbitCalc to render with (the render
+    server passes its own, so that every request shares one orbit
+    cache)."""
+    raw_argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(raw_argv)
+    if args.serve or args.client or args.shutdown_server:
+        return serve_main(args, raw_argv)
 
     from fractalshark_tpu_torch.core.algorithms import get_algorithm
     from fractalshark_tpu_torch.engine.fractal import Fractal
@@ -252,6 +330,10 @@ def main(argv=None) -> int:
         return 2
     if args.la_preset is not None or args.la_stage_window is not None:
         f.la_parameters = la_parameters(args.la_preset, args.la_stage_window)
+    if orbit_calc is not None:
+        # server mode: all requests share one RefOrbitCalc, so a repeat
+        # view is an orbit-cache hit, not a recompute
+        f._orbit_cache = orbit_calc
     rc = set_view_from_args(f, args)
     if rc:
         return rc

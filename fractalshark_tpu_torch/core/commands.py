@@ -202,9 +202,13 @@ class PortableCommandHandlers:
             f.zoom_at(kw["x"], kw["y"], 1.0)
         elif c in (FC.AUTOZOOM_DEFAULT, FC.AUTOZOOM_MAX,
                    FC.AUTOZOOM_FILAMENT):
-            # the reference's engine/autozoom.py has no port yet
-            raise NotImplementedError(
-                "autozoom: ROADMAP A5 (engine/autozoom.py), not ported yet")
+            from fractalshark_tpu_torch.engine.autozoom import (
+                AutoZoomer, AutoZoomHeuristic)
+            h = {FC.AUTOZOOM_DEFAULT: AutoZoomHeuristic.DEFAULT,
+                 FC.AUTOZOOM_MAX: AutoZoomHeuristic.MAX,
+                 FC.AUTOZOOM_FILAMENT: AutoZoomHeuristic.FILAMENT_TIP}[c]
+            self._push_history()
+            AutoZoomer(f, h).run(kw.get("steps", 1))
         elif c == FC.FEATUREFINDER_DIRECT:
             self.last_feature = f.try_find_periodic_point(
                 max_period=kw.get("max_period"))

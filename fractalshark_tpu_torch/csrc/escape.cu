@@ -161,16 +161,19 @@ struct Rule {
 
 // one frame, passed by value: an int64 budget, counted in int64 by the
 // loop and in int32 by the tile (whose frames pass the f32 value of
-// theirs, below 2^31)
+// theirs, below 2^31); y0, the frame's first row in a taller image: cy =
+// max_y - (y0 + y)*dy, escape_jax's row offset (escape.py:120-128), so
+// that a band equals those rows of the whole image bit for bit
 template <typename T, bool kTile>
 struct OneFrame {
   using Count = std::conditional_t<kTile, int32_t, int64_t>;
   T min_x, max_y, dx, dy;
+  int32_t y0;
   int64_t budget;
   __device__ __forceinline__ Pixel<T, Count> at(int, int x, int y) const {
     using R = Rule<T, kTile>;
     return {R::fl(min_x + R::fl(static_cast<T>(x) * dx)),
-            R::fl(max_y - R::fl(static_cast<T>(y) * dy)),
+            R::fl(max_y - R::fl(static_cast<T>(y0 + y) * dy)),
             static_cast<Count>(budget)};
   }
 };
@@ -193,9 +196,11 @@ struct FrameTable {
 
 template <typename T, bool kTile>
 int launch_frame(void *out, int width, int height, T min_x, T max_y, T dx,
-                 T dy, int64_t max_iter, int32_t cap, void *later,
-                 void *counters, int parity, void *stream) {
-  const OneFrame<T, kTile> f = {min_x, max_y, dx, dy, max_iter};
+                 T dy, int32_t y0, int64_t max_iter, int32_t cap,
+                 void *later, void *counters, int parity, void *stream) {
+  if (y0 < 0 || int64_t{y0} + height > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const OneFrame<T, kTile> f = {min_x, max_y, dx, dy, y0, max_iter};
   return launch_passes<Rule<T, kTile>>(static_cast<int64_t *>(out), f, 1,
                                        width, height, max_iter, cap, later,
                                        counters, parity, stream);
@@ -224,32 +229,33 @@ const char *fs_error_string(int err) {
 // K1.  out: int64 [height, width]; later: device scratch of one uint32 a
 // pixel (the pass-2 list); counters: uint32 [2] on the card, the one at
 // `parity` zero on entry (pass 1 zeroes the other); cap: pass 1's
-// iterations (>= max_iter: one pass).  Fewer than 2^32 pixels.
+// iterations (>= max_iter: one pass).  Fewer than 2^32 pixels.  y0: the
+// frame's first row (0 <= y0, y0 + height < 2^31).
 // f32 tile: max_iter is the f32 value of the budget, below 2^31.
 int fs_escape_f32(void *out, int32_t width, int32_t height, float min_x,
-                  float max_y, float dx, float dy, int64_t max_iter,
-                  int32_t cap, void *later, void *counters, int32_t parity,
-                  void *stream) {
+                  float max_y, float dx, float dy, int32_t y0,
+                  int64_t max_iter, int32_t cap, void *later, void *counters,
+                  int32_t parity, void *stream) {
   return launch_frame<float, true>(out, width, height, min_x, max_y, dx, dy,
-                                   max_iter, cap, later, counters, parity,
-                                   stream);
+                                   y0, max_iter, cap, later, counters,
+                                   parity, stream);
 }
 
 int fs_escape_f32_loop(void *out, int32_t width, int32_t height, float min_x,
-                       float max_y, float dx, float dy, int64_t max_iter,
-                       int32_t cap, void *later, void *counters,
-                       int32_t parity, void *stream) {
+                       float max_y, float dx, float dy, int32_t y0,
+                       int64_t max_iter, int32_t cap, void *later,
+                       void *counters, int32_t parity, void *stream) {
   return launch_frame<float, false>(out, width, height, min_x, max_y, dx, dy,
-                                    max_iter, cap, later, counters, parity,
-                                    stream);
+                                    y0, max_iter, cap, later, counters,
+                                    parity, stream);
 }
 
 int fs_escape_f64(void *out, int32_t width, int32_t height, double min_x,
-                  double max_y, double dx, double dy, int64_t max_iter,
-                  int32_t cap, void *later, void *counters, int32_t parity,
-                  void *stream) {
+                  double max_y, double dx, double dy, int32_t y0,
+                  int64_t max_iter, int32_t cap, void *later, void *counters,
+                  int32_t parity, void *stream) {
   return launch_frame<double, false>(out, width, height, min_x, max_y, dx,
-                                     dy, max_iter, cap, later, counters,
+                                     dy, y0, max_iter, cap, later, counters,
                                      parity, stream);
 }
 

@@ -186,18 +186,23 @@ static void copy_back(void *const *state, const uint32_t *dig, int K, int D,
                     st);
 }
 
+extern "C" int fs_reuse_row(const void *x, const void *y, const void *row,
+                            void *out, int D, int R, void *stream);
+
 // `steps` orbit steps in place on x, y (uint32 [D]) on a flagged route:
 // rows int32 [steps + 1][12] as fs_orbit_chunk's (step k reads its signs
 // from row k, writes row k + 1); cadd uint32 [2][2D], rnd uint32 [2D]
 // (fixedpoint.addend_planes); dig uint32 [2][2D], inv uint32 [2][2][n] and
 // work uint32 [8n] scratch; tables: ntt.k9_tables(n); tail_state: K10's
-// (fs_fused_tail), which K11 shares.  K11 needs 2D = n.
+// (fs_fused_tail), which K11 shares.  K11 needs 2D = n.  reuse: null, or
+// int32 [steps + 1][2R + 2] as fs_orbit_chunk's.
 extern "C" int fs_orbit_chunk_fused(void *x, void *y, void *rows,
                                     const void *cadd, const void *rnd,
                                     int scx, int scy, void *dig, void *inv,
                                     void *work, const void *tables, int D,
                                     int log2n, int steps, int route,
-                                    void *tail_state, void *stream) {
+                                    void *tail_state, void *reuse, int R,
+                                    void *stream) {
   const int L = 2 * D;
   const int F = D - 2;
   if (D < 16 || L > (1 << log2n) || route < kRouteWhole ||
@@ -227,6 +232,10 @@ extern "C" int fs_orbit_chunk_fused(void *x, void *y, void *rows,
         rc = fs_fused_tail(inv, cadd, rnd, cfg, rin + 10, dig, rout + 10,
                            rout, tail_state, 2, log2n, L, F, D, stream);
     }
+    if (!rc && reuse)
+      rc = fs_reuse_row(dg + F, dg + L + F, rout,
+                        static_cast<int32_t *>(reuse) + (2 * R + 2) * (k + 1),
+                        D, R, stream);
     if (rc) return rc;
   }
   void *state[2] = {x, y};

@@ -6,7 +6,10 @@
 // output is an exact integer, so K12 equals the per-step loop bit for bit.
 //   orbit (V = 2 values, K = 2 components): x, y in place and rows[1..steps]
 //     of the [steps + 1][12] shadow rows (row 0, the state's, on entry),
-//     the outputs of fs_orbit_chunk;
+//     and with R > 0 rows[1..steps] of the [steps + 1][2R + 2] reuse rows
+//     (the top R digits of x and of y and both signs of each new z, the
+//     reference's reuse digits, fractalshark_tpu/ops/bignum/orbit.py:
+//     220-222), the outputs of fs_orbit_chunk;
 //   NR (V = 4, K = 4): x, y, dx, dy in place and their four signs on the
 //     card, the outputs of fs_nr_chunk.
 //
@@ -98,13 +101,30 @@ constexpr int kGridBlocksPerSm = 2;    // more blocks only slow the barriers
 struct Chunk {
   uint32_t *st[4];        // the state's digits, in place: uint32 [D] each
   int32_t *rows;          // V = 2: [steps + 1][12]; V = 4: the signs [4]
+  int32_t *reuse;         // V = 2, R > 0: [steps + 1][2R + 2], else null
   const uint32_t *cx, *cy;
   const uint32_t *tw;     // ntt.kernel_tables(n)
   uint32_t *work;         // grid form: uint32 [2Vn]
   int64_t *coef;          // grid form: int64 [Vn]
   uint32_t *scratch;      // grid form: the wide tail's, uint32 [7n]
-  int scx, scy, D, m, steps;
+  int scx, scy, D, m, steps, R;
 };
+
+// the reuse row of the state after step k - 1 (row k): the top R digits of
+// x and of y, then the signs; thread t of `threads`, digits from `st`
+__device__ __forceinline__ void reuse_item(const Chunk &c, int k,
+                                           const uint32_t *x,
+                                           const uint32_t *y, int sx, int sy,
+                                           int t, int threads) {
+  int32_t *ru = c.reuse + (2 * c.R + 2) * k;
+  for (int i = t; i < 2 * c.R; i += threads)
+    ru[i] = static_cast<int32_t>(i < c.R ? x[c.D - c.R + i]
+                                         : y[c.D - 2 * c.R + i]);
+  if (t == 0) {
+    ru[2 * c.R] = sx;
+    ru[2 * c.R + 1] = sy;
+  }
+}
 
 // the block form's threads: one butterfly a thread per stage, 64 to 1,024
 int block_threads(int m, int V) {
@@ -339,6 +359,9 @@ chunk_block(Chunk c) {
       row[5 * t + 4] = b;
       row[10 + t] = neg[t] ? -1 : 1;
     }
+    if (V == 2 && c.reuse)
+      reuse_item(c, k + 1, stv, stv + D, neg[0] ? -1 : 1, neg[1] ? -1 : 1, t,
+                 T);
     __syncthreads();
   }
 
@@ -452,9 +475,13 @@ chunk_grid(Chunk c) {
   Tail tl = {c.coef, nullptr, V == 4 ? c.rows : nullptr, c.cx, c.cy,
              c.scx, c.scy, {c.st[0], c.st[1], c.st[2], c.st[3]}};
   for (int k = 0; k < c.steps; ++k) {
-    // W6 of the previous step, beside the forward column pass
+    // W6 of the previous step, beside the forward column pass, and its
+    // reuse row (the state is final until this step's W5)
     if (k && blockIdx.x == 0 && threadIdx.x < K)
       wide_row_item<K>(tl, c.scratch, c.D, c.m, threadIdx.x);
+    if (V == 2 && k && c.reuse && blockIdx.x == 0)
+      reuse_item(c, k, c.st[0], c.st[1], flag[0] ? -1 : 1, flag[1] ? -1 : 1,
+                 threadIdx.x, blockDim.x);
     if (V == 2) {
       tl.row_in = c.rows + 12 * k;
       tl.row_out = c.rows + 12 * (k + 1);
@@ -499,6 +526,9 @@ chunk_grid(Chunk c) {
   }
   if (c.steps && blockIdx.x == 0 && threadIdx.x < K)
     wide_row_item<K>(tl, c.scratch, c.D, c.m, threadIdx.x);
+  if (V == 2 && c.steps && c.reuse && blockIdx.x == 0)
+    reuse_item(c, c.steps, c.st[0], c.st[1], flag[0] ? -1 : 1,
+               flag[1] ? -1 : 1, threadIdx.x, blockDim.x);
 }
 
 // the block form: one CTA, the opt-in to its shared memory first
@@ -554,7 +584,8 @@ template <int V>
 int chunk(Chunk c, int grid, cudaStream_t st) {
   if (c.D < 16 || c.D >= (1 << 16) || c.m > kChunkMaxLog2 ||
       2 * c.D > (1 << c.m) || c.steps < 0 ||
-      (grid && (c.m < kGridMinLog2 || !c.work || !c.coef || !c.scratch)))
+      (grid && (c.m < kGridMinLog2 || !c.work || !c.coef || !c.scratch)) ||
+      (c.reuse && (c.R < 1 || c.R > c.D)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!c.steps) return 0;
   return grid ? launch_grid<V>(c, st) : launch_block<V>(c, st);
@@ -574,23 +605,26 @@ extern "C" int fs_k12_block_bytes(int log2n, int D, int V) {
 // shadow row after step k (fs_orbit_chunk's outputs).  grid = 0: the block
 // form (work, coef and scratch unused); grid = 1: the grid form, with work
 // uint32 [4n], coef int64 [2n] and scratch uint32 [4n].  n = 2^log2n >= 2D,
-// 16 <= D < 2^16, n <= 2^17 (the grid form: n >= 2^10).
+// 16 <= D < 2^16, n <= 2^17 (the grid form: n >= 2^10).  reuse: null, or
+// int32 [steps + 1][2R + 2] (1 <= R <= D), row 0 the state's on entry, row
+// k + 1 written after step k.
 extern "C" int fs_orbit_chunk_k12(void *x, void *y, void *rows,
                                   const void *cx, const void *cy, int scx,
                                   int scy, void *work, void *coef,
                                   void *scratch, const void *tables, int D,
                                   int log2n, int steps, int grid,
-                                  void *stream) {
+                                  void *reuse, int R, void *stream) {
   Chunk c = {{static_cast<uint32_t *>(x), static_cast<uint32_t *>(y),
               nullptr, nullptr},
              static_cast<int32_t *>(rows),
+             static_cast<int32_t *>(reuse),
              static_cast<const uint32_t *>(cx),
              static_cast<const uint32_t *>(cy),
              static_cast<const uint32_t *>(tables),
              static_cast<uint32_t *>(work),
              static_cast<int64_t *>(coef),
              static_cast<uint32_t *>(scratch),
-             scx, scy, D, log2n, steps};
+             scx, scy, D, log2n, steps, R};
   return chunk<2>(c, grid, static_cast<cudaStream_t>(stream));
 }
 
@@ -607,12 +641,13 @@ extern "C" int fs_nr_chunk_k12(void *x, void *y, void *dx, void *dy,
   Chunk c = {{static_cast<uint32_t *>(x), static_cast<uint32_t *>(y),
               static_cast<uint32_t *>(dx), static_cast<uint32_t *>(dy)},
              static_cast<int32_t *>(signs),
+             nullptr,
              static_cast<const uint32_t *>(cx),
              static_cast<const uint32_t *>(cy),
              static_cast<const uint32_t *>(tables),
              static_cast<uint32_t *>(work),
              static_cast<int64_t *>(coef),
              static_cast<uint32_t *>(scratch),
-             scx, scy, D, log2n, steps};
+             scx, scy, D, log2n, steps, 0};
   return chunk<4>(c, grid, static_cast<cudaStream_t>(stream));
 }

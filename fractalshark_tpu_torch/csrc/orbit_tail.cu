@@ -420,21 +420,56 @@ extern "C" int fs_ntt_nr(const void *x, const void *y, const void *dx,
                          void *work, const void *tables, int D, int log2n,
                          void *stream);
 
+namespace {
+
+// one reuse row: the top R digits of x, then of y, then the signs sx, sy
+// (row[10], row[11] of the same state's shadow row)
+__global__ void reuse_row(const uint32_t *x, const uint32_t *y,
+                          const int32_t *row, int32_t *out, int D, int R) {
+  for (int i = threadIdx.x; i < 2 * R + 2; i += blockDim.x)
+    out[i] = i < R       ? static_cast<int32_t>(x[D - R + i])
+             : i < 2 * R ? static_cast<int32_t>(y[D - 2 * R + i])
+                         : row[10 + i - 2 * R];
+}
+
+}  // namespace
+
+// The reuse row of a state (x, y uint32 [D], its shadow row int32 [12])
+// into out (int32 [2R + 2]), the reference's x[D - R:], y[D - R:], sx, sy
+// (fractalshark_tpu/ops/bignum/orbit.py:220-222): the epilogue of the
+// chunk loops that step one launch at a time (here and iterate_full.cu).
+// 1 <= R <= D.
+extern "C" int fs_reuse_row(const void *x, const void *y, const void *row,
+                            void *out, int D, int R, void *stream) {
+  if (R < 1 || R > D) return static_cast<int>(cudaErrorInvalidValue);
+  reuse_row<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t *>(x), static_cast<const uint32_t *>(y),
+      static_cast<const int32_t *>(row), static_cast<int32_t *>(out), D, R);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // `steps` orbit steps in place on x, y (uint32 [D]): K4 then K5 per step.
 // rows: int32 [steps + 1][12], row 0 holding the state's row on entry;
 // step k reads its signs from row k and writes row k + 1.  coef (int64
 // [2n]) and work (uint32 [4n]) are scratch; K5's scratch reuses work,
-// which K4 has finished with by then (same stream).
+// which K4 has finished with by then (same stream).  reuse: null, or int32
+// [steps + 1][2R + 2] whose row k + 1 the loop writes after step k (row 0,
+// the state's, on entry).
 extern "C" int fs_orbit_chunk(void *x, void *y, void *rows, const void *cx,
                               const void *cy, int scx, int scy, void *coef,
                               void *work, const void *tables, int D,
-                              int log2n, int steps, void *stream) {
+                              int log2n, int steps, void *reuse, int R,
+                              void *stream) {
   auto r = static_cast<int32_t *>(rows);
+  auto ru = static_cast<int32_t *>(reuse);
   for (int k = 0; k < steps; ++k) {
     int rc = fs_ntt_orbit(x, y, coef, work, tables, D, log2n, stream);
     if (rc) return rc;
     rc = fs_orbit_tail(coef, r + 12 * k, r + 12 * (k + 1), cx, cy, scx, scy,
                        x, y, work, D, log2n, stream);
+    if (!rc && ru)
+      rc = fs_reuse_row(x, y, r + 12 * (k + 1), ru + (2 * R + 2) * (k + 1),
+                        D, R, stream);
     if (rc) return rc;
   }
   return 0;

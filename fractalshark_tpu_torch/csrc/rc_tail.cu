@@ -45,6 +45,22 @@
 //    lanes take further pixels from a work queue (kQueue, K2's form).
 // The order in which pixels run changes nothing: each pixel's steps depend
 // on its own state alone.
+//
+// K19, the same loop with an f64 cursor: the gather tail of
+// fractalshark_tpu/ops/rc_tail.py in its exact mode (mode="f64", :77
+// _init_state and :119 _tail_impl, XLA), which two_phase_render takes for
+// orbits of 64M positions and more (engine/renderers.py:261-267) and
+// FRACTALSHARK_RC_TAIL=gather.  The card has native f64, so the
+// reconstruction is the reference's own: z <- z^2 + c_low in f64 (rx =
+// zx*zx - zy*zy + cx, ry = 2*zx*zy + cy, every result through ftz()), the
+// step against f32(zx), f32(zy) (flushed), and Z[pos+1] the next anchor's
+// value when one sits there.  Anchors are one [M, 3] f64 row each (x, y,
+// position as an exact f64), the reference's _pack_anchors; positions and
+// anchor pointers are int64.  The reference spends a loop pass per
+// catch-up step without counting an iteration; here the init launch
+// catches up, as K3's does, which changes no count.  One kernel template
+// runs both: Recon is the cursor's arithmetic and tables (DfRecon: K3,
+// F64Recon: K19).
 
 #include <cuda_runtime.h>
 
@@ -67,25 +83,81 @@ constexpr int kRound = 32;
 struct RcParams {
   int n_work;
   int64_t max_ref;
-  DF cx, cy;
   float zx_mr, zy_mr;
   int64_t max_iter;
   int64_t chunk_steps;
   int init;
 };
 
-template <typename I, bool kQueue>
+// K3's reconstruction: df32 values (x hi, x lo, y hi, y lo), positions I
+template <typename I>
+struct DfRecon {
+  using Pos = I;
+  using Z = float4;
+  using Cursor = fs::AnchorCursor<I>;
+  const I *aidx;
+  const float *aval;
+  I m;
+  DF cx, cy;
+
+  __device__ __forceinline__ Cursor cursor() const {
+    return Cursor(aidx, aval, m);
+  }
+  __device__ __forceinline__ I position(I a) const { return aidx[a]; }
+  __device__ __forceinline__ Z value(I a) const {
+    return fs::load_anchor(aval + 4 * a);
+  }
+  __device__ __forceinline__ Z step(Z z) const {
+    DF zx = {z.x, z.y}, zy = {z.z, z.w};
+    fs::df_orbit_step(zx, zy, cx, cy);
+    return make_float4(zx.hi, zx.lo, zy.hi, zy.lo);
+  }
+  // the values the HDR step reads: the hi parts
+  static __device__ __forceinline__ float re(Z z) { return z.x; }
+  static __device__ __forceinline__ float im(Z z) { return z.z; }
+};
+
+// K19's reconstruction: f64 values, int64 positions, [M, 3] f64 rows
+struct F64Recon {
+  using Pos = int64_t;
+  using Z = double2;
+  using Cursor = fs::AnchorCursor64;
+  const double *rows;
+  int64_t m;
+  double cx, cy;
+
+  __device__ __forceinline__ Cursor cursor() const { return Cursor(rows, m); }
+  __device__ __forceinline__ int64_t position(int64_t a) const {
+    return fs::row_position(rows + 3 * a);
+  }
+  __device__ __forceinline__ Z value(int64_t a) const {
+    return fs::load_anchor64(rows + 3 * a);
+  }
+  __device__ __forceinline__ Z step(Z z) const {
+    using fs::fadd;
+    using fs::fmul;
+    using fs::fsub;
+    return make_double2(fadd(fsub(fmul(z.x, z.x), fmul(z.y, z.y)), cx),
+                        fadd(fmul(fmul(2.0, z.x), z.y), cy));
+  }
+  static __device__ __forceinline__ float re(Z z) { return fs::f32_of(z.x); }
+  static __device__ __forceinline__ float im(Z z) { return fs::f32_of(z.y); }
+};
+
+template <typename R, bool kQueue>
 __global__ void __launch_bounds__(kBlock)
     rc_tail_kernel(const float *__restrict__ dcr,
                    const float *__restrict__ dci,
-                   const int32_t *__restrict__ dce,
-                   const I *__restrict__ aidx,
-                   const float *__restrict__ aval, I n_anchor, float *st_dzr,
-                   float *st_dzi, int32_t *st_dze, int64_t *st_rem, I *st_pos,
-                   I *st_aptr, float4 *st_z, uint8_t *st_done,
+                   const int32_t *__restrict__ dce, R rc, float *st_dzr,
+                   float *st_dzi, int32_t *st_dze, int64_t *st_rem,
+                   typename R::Pos *st_pos, typename R::Pos *st_aptr,
+                   typename R::Z *st_z, uint8_t *st_done,
                    const int32_t *__restrict__ work, int32_t *counter,
                    RcParams P) {
-  const fs::AnchorCursor<I> cur(aidx, aval, n_anchor);
+  using I = typename R::Pos;
+  using Z = typename R::Z;
+  const typename R::Cursor cur = rc.cursor();
+  const I n_anchor = rc.m;
   const I max_ref = static_cast<I>(P.max_ref);
   // steps a pixel may run in this launch (chunk_steps 0: no bound)
   const int64_t chunk = P.chunk_steps > 0 ? P.chunk_steps : INT64_MAX;
@@ -97,7 +169,7 @@ __global__ void __launch_bounds__(kBlock)
   int64_t rem = 0, k = 0;
   I pos = 0, a = 0;  // orbit position, last anchor at or before it
   I n1 = 0, n2 = 0;  // positions of anchors a+1 and a+2
-  float4 z{}, nv{};  // Z[pos] and anchor a+1's value (df32 pairs)
+  Z z{}, nv{};       // Z[pos] and anchor a+1's value
   bool done = true;
 
   for (;;) {
@@ -128,18 +200,15 @@ __global__ void __launch_bounds__(kBlock)
         rem = P.max_iter - it > 0 ? P.max_iter - it : 0;
         if (rem == 0) done = true;
         if (!done) {
-          // last anchor <= pos (anchor 0 is position 0)
+          // last anchor <= pos (anchor 0 is position 0), then catch up
           I lo = 0, up = n_anchor;
           while (lo < up) {
             const I mid = lo + (up - lo) / 2;
-            if (aidx[mid] <= pos) lo = mid + 1; else up = mid;
+            if (rc.position(mid) <= pos) lo = mid + 1; else up = mid;
           }
           a = lo - 1;
-          z = fs::load_anchor(aval + 4 * a);
-          DF zx = {z.x, z.y}, zy = {z.z, z.w};
-          for (I c = pos - aidx[a]; c > 0; --c)
-            fs::df_orbit_step(zx, zy, P.cx, P.cy);
-          z = make_float4(zx.hi, zx.lo, zy.hi, zy.lo);
+          z = rc.value(a);
+          for (I c = pos - rc.position(a); c > 0; --c) z = rc.step(z);
         }
       }
       if (!done) {
@@ -158,17 +227,16 @@ __global__ void __launch_bounds__(kBlock)
       // else the recurrence
       const bool hit = n1 == pos + 1;
       I n3 = n2;
-      float4 nv2 = nv, zn = nv;
+      Z nv2 = nv, zn = nv;
       if (hit) {
         n3 = cur.position(a + 3);
         nv2 = cur.value(a + 2);
       } else {
-        DF zx = {z.x, z.y}, zy = {z.z, z.w};
-        fs::df_orbit_step(zx, zy, P.cx, P.cy);
-        zn = make_float4(zx.hi, zx.lo, zy.hi, zy.lo);
+        zn = rc.step(z);
       }
       const fs::HdrStep<float> o =
-          fs::hdr_step<true>(z.x, z.z, zn.x, zn.z, dz, dc);
+          fs::hdr_step<true>(R::re(z), R::im(z), R::re(zn), R::im(zn), dz,
+                             dc);
       if (o.esc) {
         done = true;
         break;
@@ -223,15 +291,15 @@ int64_t resident_blocks(K kernel, cudaError_t *err) {
   return *err == cudaSuccess ? int64_t{per_sm} * sms : 0;
 }
 
-template <typename I>
-int launch(const void *dcr, const void *dci, const void *dce,
-           const void *aidx, const void *aval, void *st_dzr, void *st_dzi,
-           void *st_dze, void *st_rem, void *st_pos, void *st_aptr,
-           void *st_z, void *st_done, const void *work, void *counter,
-           int32_t n_work, int64_t n_anchor, const RcParams &P,
-           cudaStream_t stream) {
+template <typename R>
+int launch(const void *dcr, const void *dci, const void *dce, const R &rc,
+           void *st_dzr, void *st_dzi, void *st_dze, void *st_rem,
+           void *st_pos, void *st_aptr, void *st_z, void *st_done,
+           const void *work, void *counter, int32_t n_work,
+           const RcParams &P, cudaStream_t stream) {
+  using I = typename R::Pos;
   cudaError_t err;
-  const int64_t resident = resident_blocks(rc_tail_kernel<I, true>, &err);
+  const int64_t resident = resident_blocks(rc_tail_kernel<R, true>, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (resident < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   // the queue only when some lane must take a second pixel
@@ -239,27 +307,25 @@ int launch(const void *dcr, const void *dci, const void *dce,
   const bool queue = want > resident;
   err = cudaMemsetAsync(counter, 0, sizeof(int32_t), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto kernel =
-      queue ? rc_tail_kernel<I, true> : rc_tail_kernel<I, false>;
+  const auto kernel = queue ? rc_tail_kernel<R, true> : rc_tail_kernel<R, false>;
   kernel<<<static_cast<int>(queue ? resident : want), kBlock, 0, stream>>>(
       static_cast<const float *>(dcr), static_cast<const float *>(dci),
-      static_cast<const int32_t *>(dce), static_cast<const I *>(aidx),
-      static_cast<const float *>(aval), static_cast<I>(n_anchor),
-      static_cast<float *>(st_dzr), static_cast<float *>(st_dzi),
-      static_cast<int32_t *>(st_dze), static_cast<int64_t *>(st_rem),
-      static_cast<I *>(st_pos), static_cast<I *>(st_aptr),
-      static_cast<float4 *>(st_z), static_cast<uint8_t *>(st_done),
-      static_cast<const int32_t *>(work), static_cast<int32_t *>(counter),
-      P);
+      static_cast<const int32_t *>(dce), rc, static_cast<float *>(st_dzr),
+      static_cast<float *>(st_dzi), static_cast<int32_t *>(st_dze),
+      static_cast<int64_t *>(st_rem), static_cast<I *>(st_pos),
+      static_cast<I *>(st_aptr), static_cast<typename R::Z *>(st_z),
+      static_cast<uint8_t *>(st_done), static_cast<const int32_t *>(work),
+      static_cast<int32_t *>(counter), P);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// work: the launch's pixel indices (int32 [n_work]), or null for pixels
-// 0..n_work-1; counter: one int32 of device scratch for the work queue.
-// aidx, st_pos and st_aptr are int32 (flags bit 1 clear; max_ref < 2^31 -
-// 1) or int64 (bit 1 set).  flags bit 0: the init launch (the handoff).
+// K3.  work: the launch's pixel indices (int32 [n_work]), or null for
+// pixels 0..n_work-1; counter: one int32 of device scratch for the work
+// queue.  aidx, st_pos and st_aptr are int32 (flags bit 1 clear; max_ref <
+// 2^31 - 1) or int64 (bit 1 set).  flags bit 0: the init launch (the
+// handoff).
 extern "C" int fs_rc_tail(const void *dcr, const void *dci, const void *dce,
                           const void *aidx, const void *aval, void *st_dzr,
                           void *st_dzi, void *st_dze, void *st_rem,
@@ -273,11 +339,42 @@ extern "C" int fs_rc_tail(const void *dcr, const void *dci, const void *dce,
   const bool wide = (flags & 2) != 0;
   if (n_anchor < 1 || (!wide && max_ref >= INT32_MAX))
     return static_cast<int>(cudaErrorInvalidValue);
-  const RcParams P = {n_work,   max_ref,     DF{cxh, cxl}, DF{cyh, cyl},
-                      zx_mr,    zy_mr,       max_iter,     chunk_steps,
+  const RcParams P = {n_work, max_ref, zx_mr, zy_mr, max_iter, chunk_steps,
                       flags & 1};
-  const auto go = wide ? launch<int64_t> : launch<int32_t>;
-  return go(dcr, dci, dce, aidx, aval, st_dzr, st_dzi, st_dze, st_rem,
-            st_pos, st_aptr, st_z, st_done, work, counter, n_work, n_anchor,
-            P, static_cast<cudaStream_t>(stream));
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    const DfRecon<int64_t> rc = {static_cast<const int64_t *>(aidx),
+                                 static_cast<const float *>(aval), n_anchor,
+                                 DF{cxh, cxl}, DF{cyh, cyl}};
+    return launch(dcr, dci, dce, rc, st_dzr, st_dzi, st_dze, st_rem, st_pos,
+                  st_aptr, st_z, st_done, work, counter, n_work, P, st);
+  }
+  const DfRecon<int32_t> rc = {static_cast<const int32_t *>(aidx),
+                               static_cast<const float *>(aval),
+                               static_cast<int32_t>(n_anchor), DF{cxh, cxl},
+                               DF{cyh, cyl}};
+  return launch(dcr, dci, dce, rc, st_dzr, st_dzi, st_dze, st_rem, st_pos,
+                st_aptr, st_z, st_done, work, counter, n_work, P, st);
+}
+
+// K19.  rows: the anchors, f64 [n_anchor, 3] (x, y, position); st_pos and
+// st_aptr int64, st_z f64 [P, 2]; work, counter and flags bit 0 as K3's.
+extern "C" int fs_rc_tail_f64(const void *dcr, const void *dci,
+                              const void *dce, const void *rows,
+                              void *st_dzr, void *st_dzi, void *st_dze,
+                              void *st_rem, void *st_pos, void *st_aptr,
+                              void *st_z, void *st_done, const void *work,
+                              void *counter, int32_t n_work,
+                              int64_t n_anchor, int64_t max_ref, double cx,
+                              double cy, float zx_mr, float zy_mr,
+                              int64_t max_iter, int64_t chunk_steps,
+                              int32_t flags, void *stream) {
+  if (n_work <= 0) return 0;
+  if (n_anchor < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const RcParams P = {n_work, max_ref, zx_mr, zy_mr, max_iter, chunk_steps,
+                      flags & 1};
+  const F64Recon rc = {static_cast<const double *>(rows), n_anchor, cx, cy};
+  return launch(dcr, dci, dce, rc, st_dzr, st_dzi, st_dze, st_rem, st_pos,
+                st_aptr, st_z, st_done, work, counter, n_work, P,
+                static_cast<cudaStream_t>(stream));
 }

@@ -34,6 +34,17 @@ names too) → ``ops/hdr_df.py`` (K16, HDR double-float); hdr32 with RC →
 K3 from the zero state; hdr32 → B10's route within its caps, else B11's;
 hdr64 → HDR with f64 mantissas.
 
+Phase 2 of the two-phase routes (``two_phase_render``'s ``tail``, the
+reference's ``renderers.py:323-335``): "sweep" is K3 over a real
+compressed orbit, "gather" the gather tail ``ops/rc_tail.py`` in its f64
+mode (K19), "auto" the gather from ``_GATHER_TAIL_MIN_ORBIT`` positions
+on; ``FRACTALSHARK_RC_TAIL`` overrides the argument, and any other value
+of either raises ``ValueError`` (the reference takes a typo as "sweep").
+Over an uncompressed orbit the tail is K6 resumed on every route: the
+reference's sweep and gather over identity anchors give the same grid
+(``tests/test_rc_tail.py:92``), and so does K6 resumed
+(``tests/test_torch_rc_tail.py``).
+
 ``FRACTALSHARK_LA_PHASE=stream`` makes phase 1 of the two-phase routes
 the streaming LA phase (K7, ``ops/la_stream.py``) on a CUDA device, as
 the reference does on its TPU (``renderers.py:215-240``); on the CPU the
@@ -65,6 +76,7 @@ from fractalshark_tpu_torch.ops.la_stream import la_phase_stream
 from fractalshark_tpu_torch.ops.perturb_pallas import perturb_render_pallas
 from fractalshark_tpu_torch.ops.perturb_stream import (
     anchors_on, perturb_render_stream, perturb_render_stream_rc)
+from fractalshark_tpu_torch.ops.rc_tail import rc_tail_gather
 from fractalshark_tpu_torch.ops.scaled import perturb_render_scaled
 from fractalshark_tpu_torch.ops.tables import orbit_on
 
@@ -275,6 +287,29 @@ def la_rc_render(fractal, results, la, w: int, h: int,
                             timings=fractal.benchmark.extra, stream=stream)
 
 
+# a sweep pass costs the orbit's length and the gather tail each pixel's
+# own work; from this length the reference takes the gather
+# (renderers.py:255-261): View #30's 669,773 stays on the sweep, View
+# #27's 28.3e9 goes to the gather
+_GATHER_TAIL_MIN_ORBIT = 64_000_000
+RC_TAIL_ENV = "FRACTALSHARK_RC_TAIL"
+RC_TAILS = ("auto", "sweep", "gather")
+
+
+def tail_route(tail: str, total_count: int, compressed: bool) -> str:
+    """Phase 2's route: "sweep" (K3), "gather" (K19) or, over an
+    uncompressed orbit, "identity" (K6 resumed).  ``FRACTALSHARK_RC_TAIL``
+    overrides `tail`; each must be auto, sweep or gather."""
+    tail = os.environ.get(RC_TAIL_ENV, tail)
+    if tail not in RC_TAILS:
+        raise ValueError(f"{RC_TAIL_ENV} / tail={tail!r}: one of {RC_TAILS}")
+    if not compressed:
+        return "identity"
+    if tail == "auto":
+        return "gather" if total_count >= _GATHER_TAIL_MIN_ORBIT else "sweep"
+    return tail
+
+
 def _handoff_init(ref_iter, it, n: int) -> tuple:
     """Phase-1 state → tail init: (it, jwait, done)."""
     return it, ref_iter, it >= n
@@ -283,14 +318,18 @@ def _handoff_init(ref_iter, it, n: int) -> tuple:
 def two_phase_render(results, la, ptz, w: int, h: int, n: int, *, comp=None,
                      abort_monitor=None, device="cuda",
                      timings: dict | None = None, stream: bool = False,
-                     chunk_steps: int | None = None) -> torch.Tensor:
+                     chunk_steps: int | None = None,
+                     tail: str = "auto") -> torch.Tensor:
     """Phase 1: the LA machine to each pixel's tail entry (K2,
     ``la_only``; with `stream` the streaming LA phase, K7, unless it
     returns None); phase 2: the tail from each pixel's orbit position,
     over the uncompressed orbit (`comp` None: K6 resumed) or the
-    compressed orbit `comp` (K3).  Returns the int64 iteration grid
-    [h, w].  `chunk_steps` bounds the tail's launches (default: its
-    kernel's)."""
+    compressed orbit `comp` by ``tail_route``: K3 ("sweep") or the
+    gather tail's f64 mode, K19 ("gather").  Returns the int64 iteration
+    grid [h, w]; ``timings["tail"]`` names the route.  `chunk_steps`
+    bounds the tail's launches (default: its kernel's)."""
+    route = tail_route(tail, results.count_orbit_entries() if comp is None
+                       else int(comp.total_count), comp is not None)
     t0 = time.perf_counter()
     init = la_phase_stream(results, la, ptz, w, h, n,
                            abort_monitor=abort_monitor,
@@ -310,6 +349,11 @@ def two_phase_render(results, la, ptz, w: int, h: int, n: int, *, comp=None,
     if comp is None:
         out = _identity_tail(results, ptz, w, h, n, init, chunk_steps,
                              abort_monitor, device)
+    elif route == "gather":
+        out = rc_tail_gather(
+            comp, results.center_x, results.center_y, ptz, w, h, n, init,
+            chunk_steps=chunk_steps, abort_monitor=abort_monitor,
+            device=device)
     else:
         out = perturb_render_stream_rc(
             comp, results.center_x, results.center_y, ptz, w, h, n,
@@ -319,6 +363,7 @@ def two_phase_render(results, la, ptz, w: int, h: int, n: int, *, comp=None,
     if timings is not None:
         timings["phase1_s"] = t1 - t0
         timings["phase2_s"] = time.perf_counter() - t1
+        timings["tail"] = route
     return out
 
 

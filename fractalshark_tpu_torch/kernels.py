@@ -64,7 +64,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # B11; perturb_hdr32/hdr64: perturb_render_hdr; perturb_f32/f64:
 # perturb_render_float; two_phase_tail: the two-phase LAv2 tail over the
 # uncompressed orbit, B3's identity-anchor form); K3 (rc_tail) once per
-# launch over compressed anchors; K4-NR (ntt_nr) and K5-NR (nr_tail)
+# launch over compressed anchors, K19 (rc_tail_f64: the gather tail's f64
+# cursor) likewise; K4-NR (ntt_nr) and K5-NR (nr_tail)
 # once per NR step, whether launched alone or by the NR chunk loop
 # (fs_nr_chunk);
 # K1-seq (escape_seq) once per frame sequence, K7 (la_stream) per launch
@@ -93,7 +94,7 @@ KERNELS = ("escape", "lav2_full", "lav2_phase1", "rc_tail", "ntt_orbit",
            "nr_chunk_block", "nr_chunk_grid", "escape_hdr32", "escape_hdr64",
            "escape_2x32", "escape_2x64", "bla_f32", "bla_f64",
            "perturb_scaled", "perturb_hdr_df", "escape_4x32", "escape_4x64",
-           "escape_qf32", "escape_qf64")
+           "escape_qf32", "escape_qf64", "rc_tail_f64")
 launches = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -107,14 +108,14 @@ _F64 = ctypes.c_double
 
 # argtypes of every C entry point (pointers and the stream as c_void_p)
 _SIGNATURES = {
-    # escape: out | width height | min_x max_y dx dy | max_iter cap |
+    # escape: out | width height | min_x max_y dx dy | y0 max_iter cap |
     # list counters parity | stream
-    "fs_escape_f32": [_P, _I32, _I32] + [_F32] * 4 + [_I64, _I32, _P, _P,
-                                                      _I32, _P],
+    "fs_escape_f32": [_P, _I32, _I32] + [_F32] * 4
+    + [_I32, _I64, _I32, _P, _P, _I32, _P],
     "fs_escape_f32_loop": [_P, _I32, _I32] + [_F32] * 4
-    + [_I64, _I32, _P, _P, _I32, _P],
-    "fs_escape_f64": [_P, _I32, _I32] + [_F64] * 4 + [_I64, _I32, _P, _P,
-                                                      _I32, _P],
+    + [_I32, _I64, _I32, _P, _P, _I32, _P],
+    "fs_escape_f64": [_P, _I32, _I32] + [_F64] * 4
+    + [_I32, _I64, _I32, _P, _P, _I32, _P],
     # lav2: dc(3) nodes side orbit stages at | state(8) | work counter |
     # n_work n_nodes stage_count | max_ref max_iter chunk at_step | flags |
     # stream
@@ -129,15 +130,21 @@ _SIGNATURES = {
     # scalars | stream
     "fs_rc_tail": [_P] * 15 + [_I32, _I64, _I64, _F32, _F32, _F32, _F32,
                                _F32, _F32, _I64, _I64, _I32, _P],
+    # rc_tail_f64: dc(3) anchor rows | state(8) | work counter | n_work
+    # n_anchor max_ref cx cy zx_mr zy_mr max_iter chunk flags | stream
+    "fs_rc_tail_f64": [_P] * 14 + [_I32, _I64, _I64, _F64, _F64, _F32,
+                                   _F32, _I64, _I64, _I32, _P],
     # ntt_orbit: x y coef work tables | D log2n | stream
     "fs_ntt_orbit": [_P] * 5 + [_I32, _I32, _P],
     # orbit_tail: coef row_in row_out cx cy | scx scy | nx ny scratch |
     # D log2n | stream
     "fs_orbit_tail": [_P] * 5 + [_I32, _I32] + [_P] * 3 + [_I32, _I32, _P],
     # orbit_chunk: x y rows cx cy | scx scy | coef work tables |
-    # D log2n steps | stream
+    # D log2n steps | reuse R | stream
     "fs_orbit_chunk": [_P] * 5 + [_I32, _I32] + [_P] * 3
-    + [_I32, _I32, _I32, _P],
+    + [_I32, _I32, _I32, _P, _I32, _P],
+    # reuse_row: x y row out | D R | stream
+    "fs_reuse_row": [_P] * 4 + [_I32, _I32, _P],
     # ntt_nr: x y dx dy signs coef work tables | D log2n | stream
     "fs_ntt_nr": [_P] * 8 + [_I32, _I32, _P],
     # nr_tail: coef signs cx cy | scx scy | nx ny ndx ndy scratch |
@@ -171,17 +178,17 @@ _SIGNATURES = {
     # tables state | log2n F D | stream
     "fs_iterate_full": [_P, _P, _I32] + [_P] * 10 + [_I32] * 3 + [_P],
     # orbit_chunk_fused: x y rows cadd rnd | scx scy | dig inv work tables
-    # | D log2n steps route | tail state | stream
+    # | D log2n steps route | tail state | reuse R | stream
     "fs_orbit_chunk_fused": [_P] * 5 + [_I32, _I32] + [_P] * 4
-    + [_I32] * 4 + [_P, _P],
+    + [_I32] * 4 + [_P, _P, _I32, _P],
     # nr_chunk_fused: x y dx dy signs cadd rnd | scx scy | dig inv work
     # tables | D log2n steps route | tail state | stream
     "fs_nr_chunk_fused": [_P] * 7 + [_I32, _I32] + [_P] * 4
     + [_I32] * 4 + [_P, _P],
     # orbit_chunk_k12: x y rows cx cy | scx scy | work coef scratch tables
-    # | D log2n steps grid | stream
+    # | D log2n steps grid | reuse R | stream
     "fs_orbit_chunk_k12": [_P] * 5 + [_I32, _I32] + [_P] * 4
-    + [_I32] * 4 + [_P],
+    + [_I32] * 4 + [_P, _I32, _P],
     # nr_chunk_k12: x y dx dy signs cx cy | scx scy | work coef scratch
     # tables | D log2n steps grid | stream
     "fs_nr_chunk_k12": [_P] * 7 + [_I32, _I32] + [_P] * 4

@@ -6,7 +6,10 @@
   the digit state in one launch of K12 (``csrc/orbit_chunk.cu``: K4's
   and K5's function for every step of the chunk) and emits, per step,
   the [12] int32 shadow row of the PRE-update z
-  (``fixedpoint.shadow_row_np``);
+  (``fixedpoint.shadow_row_np``) and, with ``reuse_digits`` R > 0, its
+  reuse row: the top R digits of x and of y and both signs, [2R + 2]
+  int32 (``orbit.py:220-222``), from which the session builds the
+  intermediate-precision reuse copy (``engine/reuse.py``);
 * host: ``host_bookkeeping`` turns a chunk's rows into f64 shadows, runs
   the periodicity (dzdc) and escape checks with exact IEEE f64
   (``PeriodicityChecker.h:46-95``), and ``CudaOrbitSession`` stops the
@@ -209,18 +212,34 @@ def _grid_ptrs(scratch: _Scratch, form: str) -> list:
     return [None] * 3
 
 
+def reuse_row(x: torch.Tensor, y: torch.Tensor, row: torch.Tensor,
+              R: int) -> torch.Tensor:
+    """A state's reuse row, int32 [2R + 2]: the top R digits of x, of y,
+    then the signs sx, sy (row[10], row[11] of its shadow row)."""
+    D = x.shape[0]
+    return torch.cat([x[D - R:], y[D - R:], row[10:12]]).to(torch.int32)
+
+
 def orbit_chunk_plain(x: torch.Tensor, y: torch.Tensor, row: torch.Tensor,
                       scx: int, cx: torch.Tensor, scy: int,
-                      cy: torch.Tensor, spec: FP.FixedSpec, steps: int):
+                      cy: torch.Tensor, spec: FP.FixedSpec, steps: int,
+                      reuse_digits: int = 0):
     """K12's function for the orbit on the tensors' device: ``steps``
     times K4's twin then K5's twin from digits x, y (int32 [D]) and the
     state's row (int32 [12]).  Returns (x', y', rows int32 [steps + 1,
-    12]) with rows[0] = ``row`` and rows[k + 1] the row after step k."""
+    12]) with rows[0] = ``row`` and rows[k + 1] the row after step k, and
+    with ``reuse_digits`` R > 0 the reuse rows int32 [steps + 1, 2R + 2]
+    of the same states (``reuse_row``) as a fourth."""
     rows = [row]
+    reuse = [reuse_row(x, y, row, reuse_digits)] if reuse_digits else []
     for _ in range(steps):
         x, y, r = FP.orbit_tail_plain(FP.orbit_products_plain(
             x, y, spec.nfft), rows[-1], scx, cx, scy, cy, spec)
         rows.append(r)
+        if reuse_digits:
+            reuse.append(reuse_row(x, y, r, reuse_digits))
+    if reuse_digits:
+        return x, y, torch.stack(rows), torch.stack(reuse)
     return x, y, torch.stack(rows)
 
 
@@ -237,14 +256,23 @@ def nr_chunk_plain(signs: torch.Tensor, x, y, dx, dy, scx: int,
     return signs, x, y, dx, dy
 
 
+def _reuse_args(reuse: torch.Tensor | None) -> tuple:
+    """(pointer, R) of a [steps + 1, 2R + 2] reuse buffer, or (null, 0)."""
+    if reuse is None:
+        return None, 0
+    return reuse.data_ptr(), (reuse.shape[1] - 2) // 2
+
+
 def launch_orbit_chunk(state: "OrbitState", rows: torch.Tensor, scx: int,
                        cx: torch.Tensor, scy: int, cy: torch.Tensor,
                        spec: FP.FixedSpec, steps: int, scratch: _Scratch,
-                       form: str) -> None:
+                       form: str, reuse: torch.Tensor | None = None) -> None:
     """One C call for a chunk on CUDA tensors, in ``form``: "block" or
-    "grid" (K12, one launch) or "steps" (K4 then K5 per step).
-    ``orbit_chunk`` passes ``chunk_form``'s; ``chip_smoke.py`` times the
-    others at the same sizes."""
+    "grid" (K12, one launch) or "steps" (K4 then K5 per step, each step's
+    reuse row after K5).  ``reuse``: None, or int32 [steps + 1, 2R + 2]
+    with row 0 the state's; the call writes rows 1..steps.
+    ``orbit_chunk`` passes ``chunk_form``'s form; ``chip_smoke.py`` times
+    the others at the same sizes."""
     check_chunk(spec, form, 2)
     lg = spec.nfft.bit_length() - 1
     if form == "steps":
@@ -253,7 +281,8 @@ def launch_orbit_chunk(state: "OrbitState", rows: torch.Tensor, scx: int,
             state.x.data_ptr(), state.y.data_ptr(), rows.data_ptr(),
             cx.data_ptr(), cy.data_ptr(), int(scx), int(scy),
             coef.data_ptr(), work.data_ptr(), scratch.tables.data_ptr(),
-            spec.digits, lg, steps, kernels.stream(state.x.device))
+            spec.digits, lg, steps, *_reuse_args(reuse),
+            kernels.stream(state.x.device))
         kernels.check(rc, "orbit_chunk")
         kernels.launches["ntt_orbit"] += steps
         kernels.launches["orbit_tail"] += steps
@@ -262,30 +291,43 @@ def launch_orbit_chunk(state: "OrbitState", rows: torch.Tensor, scx: int,
         state.x.data_ptr(), state.y.data_ptr(), rows.data_ptr(),
         cx.data_ptr(), cy.data_ptr(), int(scx), int(scy),
         *_grid_ptrs(scratch, form), scratch.tables.data_ptr(), spec.digits,
-        lg, steps, int(form == "grid"), kernels.stream(state.x.device))
+        lg, steps, int(form == "grid"), *_reuse_args(reuse),
+        kernels.stream(state.x.device))
     kernels.check(rc, f"orbit_chunk_{form}")
     kernels.launches[f"orbit_chunk_{form}"] += 1
 
 
 def orbit_chunk(state: OrbitState, scx: int, cx: torch.Tensor, scy: int,
                 cy: torch.Tensor, spec: FP.FixedSpec, steps: int,
-                scratch: _Scratch | None = None) -> torch.Tensor:
+                scratch: _Scratch | None = None, reuse_digits: int = 0):
     """Advance ``state`` by ``steps`` iterations in place; return the
     rows [steps, 12] int32 of the pre-update z of each step (on the
-    state's device; on CUDA the call returns before the work is done).
-    By default a chunk is one launch of K12 in ``chunk_form``'s form; under
-    the flagged routes (``fixedpoint.step_route``) K9 then K10, or K11,
-    per step."""
+    state's device; on CUDA the call returns before the work is done),
+    and with ``reuse_digits`` R > 0 also their reuse rows [steps, 2R + 2]
+    (``reuse_row``): (rows, reuse).  By default a chunk is one launch of
+    K12 in ``chunk_form``'s form; under the flagged routes
+    (``fixedpoint.step_route``) K9 then K10, or K11, per step."""
     dev = state.x.device
+    R = int(reuse_digits)
+    if not 0 <= R <= spec.digits:
+        raise ValueError(f"reuse_digits {R} not in [0, {spec.digits}]")
     rows = torch.empty(steps + 1, FP.ROW, dtype=torch.int32, device=dev)
     rows[0] = state.row
+    reuse = None
+    if R:
+        reuse = torch.empty(steps + 1, 2 * R + 2, dtype=torch.int32,
+                            device=dev)
+        reuse[0] = reuse_row(state.x, state.y, state.row, R)
     route = FP.step_route(spec)
     if dev.type == "cpu":
         if route == "k4":
-            x, y, rows = orbit_chunk_plain(state.x, state.y, state.row, scx,
-                                           cx, scy, cy, spec, steps)
-            state.x.copy_(x)
-            state.y.copy_(y)
+            out = orbit_chunk_plain(state.x, state.y, state.row, scx, cx,
+                                    scy, cy, spec, steps, R)
+            rows = out[2]
+            if R:
+                reuse = out[3]
+            state.x.copy_(out[0])
+            state.y.copy_(out[1])
         else:
             planes = FP.addend_planes(cx, cy, spec)
             for k in range(steps):
@@ -294,13 +336,15 @@ def orbit_chunk(state: OrbitState, scx: int, cx: torch.Tensor, scy: int,
                     planes)
                 state.x.copy_(nx)
                 state.y.copy_(ny)
+                if R:
+                    reuse[k + 1] = reuse_row(nx, ny, rows[k + 1], R)
         state.row = rows[steps]
-        return rows[:steps]
+        return (rows[:steps], reuse[:steps]) if R else rows[:steps]
     if scratch is None:
         scratch = _Scratch(spec, dev)
     if route == "k4":
         launch_orbit_chunk(state, rows, scx, cx, scy, cy, spec, steps,
-                           scratch, chunk_form(spec))
+                           scratch, chunk_form(spec), reuse)
     else:
         code, counters = _fused_route(spec, route)
         cadd, rnd, dig, inv, work = scratch.fused_buffers(spec, cx, cy)
@@ -310,12 +354,13 @@ def orbit_chunk(state: OrbitState, scx: int, cx: torch.Tensor, scy: int,
             dig.data_ptr(), inv.data_ptr(), work.data_ptr(),
             FP.k9_tables(spec.nfft, dev).data_ptr(), spec.digits,
             spec.nfft.bit_length() - 1, steps, code,
-            kernels.tail_state(dev).data_ptr(), kernels.stream(dev))
+            kernels.tail_state(dev).data_ptr(), *_reuse_args(reuse),
+            kernels.stream(dev))
         kernels.check(rc, "orbit_chunk_fused")
         for name in counters:
             kernels.launches[name] += steps
     state.row = rows[steps]
-    return rows[:steps]
+    return (rows[:steps], reuse[:steps]) if R else rows[:steps]
 
 
 class NRState:
@@ -595,12 +640,11 @@ class CudaOrbitSession:
         run() with the same path resumes bit-exactly; ``max_iterations``
         is the TOTAL cap across all runs.  Exclusive with store_path.
 
-        reuse_frac_bits (the reuse digits of ``orbit_chunk``) is not
-        ported yet (ROADMAP A4) and raises."""
-        if reuse_frac_bits is not None:
-            raise NotImplementedError(
-                "ROADMAP A4: reuse digits on the device orbit are not "
-                "ported yet")
+        reuse_frac_bits: also record the intermediate-precision reuse copy
+        of every z (``engine/reuse.py`` ``ReuseOrbit``, attached as
+        ``extra["reuse_orbit"]``): each chunk emits the top
+        ceil(bits / 16) + INT_DIGITS digits of x and y and both signs
+        (``orbit.py:652-654``, ``:710-717``, ``:821-826``)."""
         spec = self.spec
         dev = torch.device(self.device)
         if dev.type == "cuda" and not torch.cuda.is_available():
@@ -658,6 +702,14 @@ class CudaOrbitSession:
             gx.append(0.0)  # zero seed entry (PerturbationResults.cpp:866)
             gy.append(0.0)
             ge.append(0)
+        reuse_digits = 0
+        rzx: list = []
+        rzy: list = []
+        if reuse_frac_bits is not None:
+            fr16 = -(-int(reuse_frac_bits) // 16)
+            reuse_digits = min(fr16 + FP.INT_DIGITS, spec.digits)
+            rzx.append(0)     # zero seed
+            rzy.append(0)
         period = 0
         escaped_at = 0
         t0 = time.perf_counter()
@@ -669,6 +721,9 @@ class CudaOrbitSession:
             sets period/escape/done."""
             nonlocal count, period, escaped_at, done, dz
             tr = time.perf_counter()
+            if reuse_digits:
+                out, reuse = out
+                reuse = reuse.cpu().numpy()
             rows = out.cpu().numpy().T
             timers["readback_s"] += time.perf_counter() - tr
             tr = time.perf_counter()
@@ -690,6 +745,14 @@ class CudaOrbitSession:
             gx.extend(np.where(dip, sh_mx[:take], lzx[:take]))
             gy.extend(np.where(dip, sh_my[:take], lzy[:take]))
             ge.extend(np.where(dip, e_sh[:take], 0).astype(np.int32))
+            if reuse_digits:
+                R = reuse_digits
+                digs = reuse[:take, :2 * R].astype(np.uint16)
+                for k in range(take):
+                    rzx.append(int(reuse[k, 2 * R]) * int.from_bytes(
+                        digs[k, :R].tobytes(), "little"))
+                    rzy.append(int(reuse[k, 2 * R + 1]) * int.from_bytes(
+                        digs[k, R:].tobytes(), "little"))
             count += take
             if periodicity and pidx < steps and pidx <= eidx:
                 period = count
@@ -740,7 +803,7 @@ class CudaOrbitSession:
                 steps = min(self.chunk_steps, max_iterations - it)
                 td = time.perf_counter()
                 out = orbit_chunk(state, scx, cxt, scy, cyt, spec, steps,
-                                  scratch)
+                                  scratch, reuse_digits)
                 timers["dispatch_s"] += time.perf_counter() - td
                 it += steps
                 pending.append((out, steps))
@@ -781,6 +844,12 @@ class CudaOrbitSession:
         timers["wall_s"] = round(time.perf_counter() - t0, 3)
         res.extra["session_timers"] = {
             k: round(v, 3) for k, v in timers.items()}
+        if reuse_digits:
+            from fractalshark_tpu_torch.engine.reuse import ReuseOrbit
+            res.extra["reuse_orbit"] = ReuseOrbit(
+                zx=rzx, zy=rzy,
+                frac_bits=16 * (reuse_digits - FP.INT_DIGITS),
+                center_x=self.center_x, center_y=self.center_y)
         return res
 
 

@@ -22,9 +22,12 @@ A tile reads its budget from a table in the frame type, as the
 reference's ``scalar_ref[4].astype(int32)`` does (``escape.py:216``):
 an f32 budget of 2^24 + 1 runs as 2^24 (``seq_budget``).
 
-Pixel coordinates: cx = min_x + x*dx, cy = max_y - y*dy in the working
-type.  Single-frame grids are int64 tensors inside the port; a sequence
-is int32 on the device and numpy uint32 [K, H, W] at its public entry
+Pixel coordinates: cx = min_x + x*dx, cy = max_y - (y0 + y)*dy in the
+working type; y0 (default 0) is a band's first row in a taller image,
+``escape_jax``'s row offset (``escape.py:120-128``), so that a band equals
+those rows of the whole frame bit for bit (the tile farm's bands).
+Single-frame grids are int64 tensors inside the port; a sequence is
+int32 on the device and numpy uint32 [K, H, W] at its public entry
 point, as the reference's.
 
 Both kernels run a frame in two passes from one C call: pass 1 runs every
@@ -69,12 +72,12 @@ class PlainParams:
 
 
 def _coords(params: PlainParams, width: int, height: int, dtype, device,
-            fl=lambda t: t):
+            fl=lambda t: t, y0: int = 0):
     def s(v):
         return torch.tensor(v, dtype=dtype, device=device)
 
     xs = torch.arange(width, dtype=dtype, device=device)
-    ys = torch.arange(height, dtype=dtype, device=device)
+    ys = torch.arange(height, dtype=dtype, device=device) + y0
     cx = fl(s(params.min_x) + fl(xs * s(params.dx)))
     cy = fl(s(params.max_y) - fl(ys * s(params.dy)))
     return (cx[None, :].expand(height, width).contiguous(),
@@ -82,13 +85,14 @@ def _coords(params: PlainParams, width: int, height: int, dtype, device,
 
 
 def _pixel_coords(params: PlainParams, at: torch.Tensor, width: int, dtype,
-                  fl):
+                  fl, y0: int = 0):
     """The coordinates of the pixels at flat indices `at` (row-major over
-    a frame `width` wide), from the frame's numbers alone."""
+    a frame `width` wide, its first row y0), from the frame's numbers
+    alone."""
     def s(v):
         return torch.tensor(v, dtype=dtype, device=at.device)
 
-    xs, ys = (at % width).to(dtype), (at // width).to(dtype)
+    xs, ys = (at % width).to(dtype), (at // width + y0).to(dtype)
     return (fl(s(params.min_x) + fl(xs * s(params.dx))),
             fl(s(params.max_y) - fl(ys * s(params.dy))))
 
@@ -151,16 +155,16 @@ def _lockstep(cx: torch.Tensor, cy: torch.Tensor, limit: int, tile: bool,
 
 def escape_plain(params: PlainParams, width: int, height: int,
                  max_iter: int, dtype=torch.float64, device="cpu",
-                 tile: bool | None = None) -> torch.Tensor:
-    """Plain PyTorch twin of K1 (lockstep over the whole grid).  `tile`
-    picks the reference's tile semantics (default: ``tile_semantics``),
-    which run the budget in the frame type."""
+                 tile: bool | None = None, y0: int = 0) -> torch.Tensor:
+    """Plain PyTorch twin of K1 (lockstep over the whole grid, its first
+    row y0).  `tile` picks the reference's tile semantics (default:
+    ``tile_semantics``), which run the budget in the frame type."""
     if tile is None:
         tile = tile_semantics(max_iter, dtype)
     if tile:
         max_iter = seq_budget(max_iter, dtype)
     fl = _flush(tile, dtype)
-    cx, cy = _coords(params, width, height, dtype, device, fl)
+    cx, cy = _coords(params, width, height, dtype, device, fl, y0)
     if not tile:
         return _lockstep(cx, cy, max_iter, False, fl)
     interior = _interior(cx, cy)
@@ -174,8 +178,8 @@ def escape_plain(params: PlainParams, width: int, height: int,
 def escape_two_pass_plain(params: PlainParams, width: int, height: int,
                           max_iter: int, dtype=torch.float64, device="cpu",
                           cap: int | None = None,
-                          shuffle: np.random.Generator | None = None
-                          ) -> torch.Tensor:
+                          shuffle: np.random.Generator | None = None,
+                          y0: int = 0) -> torch.Tensor:
     """Plain twin of K1's schedule: pass 1 runs every pixel the shortcut
     leaves for at most `cap` iterations (default: the kernel's,
     ``pass1_cap``) and keeps each that ends there; the others form a list
@@ -189,7 +193,7 @@ def escape_two_pass_plain(params: PlainParams, width: int, height: int,
         cap = pass1_cap(tile)
     fl = _flush(tile, dtype)
     cx, cy = (t.reshape(-1) for t in
-              _coords(params, width, height, dtype, device, fl))
+              _coords(params, width, height, dtype, device, fl, y0))
     out = torch.full((width * height,), -1, dtype=torch.int64, device=device)
     rest = torch.arange(width * height, device=device)
     if tile:
@@ -204,7 +208,7 @@ def escape_two_pass_plain(params: PlainParams, width: int, height: int,
     if shuffle is not None:
         later = later[torch.from_numpy(shuffle.permutation(later.numel()))
                       .to(device)]
-    lx, ly = _pixel_coords(params, later, width, dtype, fl)
+    lx, ly = _pixel_coords(params, later, width, dtype, fl, y0)
     out[later] = _lockstep(lx, ly, max_iter, tile, fl)
     return out.reshape(height, width)
 
@@ -244,11 +248,13 @@ def launch_two_pass(name: str, key: str, width: int, height: int, device,
 
 
 def escape_kernel(params: PlainParams, width: int, height: int,
-                  max_iter: int, dtype, device) -> torch.Tensor:
+                  max_iter: int, dtype, device, y0: int = 0,
+                  tile: bool | None = None) -> torch.Tensor:
     """Launch K1 on a CUDA device (one C call, both passes): the f32 tile
-    below a budget of 2^31, else ``escape_jax``'s loop in the frame
-    type."""
-    tile = tile_semantics(max_iter, dtype)
+    below a budget of 2^31 (or as `tile` says), else ``escape_jax``'s loop
+    in the frame type; the frame's first row is y0."""
+    if tile is None:
+        tile = tile_semantics(max_iter, dtype)
     if dtype == torch.float64:
         name = "fs_escape_f64"
     elif tile:
@@ -257,23 +263,32 @@ def escape_kernel(params: PlainParams, width: int, height: int,
         name = "fs_escape_f32_loop"
     return launch_two_pass(
         name, "escape", width, height, device,
-        (params.min_x, params.max_y, params.dx, params.dy, int(max_iter)),
-        pass1_cap(tile))
+        (params.min_x, params.max_y, params.dx, params.dy, int(y0),
+         int(max_iter)), pass1_cap(tile))
 
 
 def escape(params: PlainParams, width: int, height: int, max_iter: int,
-           dtype: str | torch.dtype = "f64", device="cuda") -> torch.Tensor:
-    """Escape-time grid [height, width] (int64) on `device`: K1 on a
-    CUDA device, the plain twin on the CPU."""
+           dtype: str | torch.dtype = "f64", device="cuda", y0: int = 0,
+           tile: bool | None = None) -> torch.Tensor:
+    """Escape-time grid [height, width] (int64) on `device`, its first row
+    y0 of a taller image: K1 on a CUDA device, the plain twin on the CPU.
+    `tile`: the f32 tile's semantics (default: ``tile_semantics``) or, with
+    False, ``escape_jax``'s loop, as the tile farm's f32 bands run."""
     dtype = _DTYPES.get(dtype, dtype)
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"escape supports f32/f64, not {dtype}")
+    if y0 < 0:
+        raise ValueError(f"escape: y0 = {y0} < 0")
+    if tile and dtype == torch.float64:
+        raise ValueError("escape: a single f64 frame has no tile semantics")
     device = torch.device(device)
     if device.type == "cuda":
-        return escape_kernel(params, width, height, max_iter, dtype, device)
+        return escape_kernel(params, width, height, max_iter, dtype, device,
+                             y0, tile)
     if device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
-    return escape_plain(params, width, height, max_iter, dtype, device)
+    return escape_plain(params, width, height, max_iter, dtype, device, tile,
+                        y0)
 
 
 # ------------------------------------------------------------- sequences

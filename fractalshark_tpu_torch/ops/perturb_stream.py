@@ -38,7 +38,9 @@ Positions and anchor pointers take the anchor table's index type
 int64.  Launches are bounded (``chunk_steps`` tail steps per pixel) and
 resumable, each after the first over the pixels the last one left live
 (``perturb.live_pixels``; the plain twin runs the same subsets); the
-state is updated in place.
+state is updated in place.  The same loop with an f64 cursor is K19, the
+gather tail's exact mode (``ops/rc_tail.py``): its anchor table is
+``tables.Anchors64``, and every function below takes either table.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
 from fractalshark_tpu_torch.ops.perturb import (_dc_grids_hdr, delta_params,
                                                live_pixels, on_subset,
                                                perturb_render_hdr)
-from fractalshark_tpu_torch.ops.tables import Anchors, anchor_table
+from fractalshark_tpu_torch.ops.tables import anchor_table, anchor_table_f64
 
 DEFAULT_CHUNK_STEPS = 1 << 16
 # orbit entries per streamed window in the reference; here the unit of
@@ -92,10 +94,33 @@ def _df_step(z: torch.Tensor, c: tuple) -> torch.Tensor:
     return torch.stack([rx.hi, rx.lo, ry.hi, ry.lo], dim=1)
 
 
-def rc_init_plain(A: Anchors, state: tuple, max_iter: int,
-                  z_mr: tuple) -> tuple:
-    """Plain twin of K3's init launch.  On entry `rem` holds the
-    completed iterations and `pos` the handoff position jwait."""
+def _f64_step(z: torch.Tensor, c: tuple) -> torch.Tensor:
+    """One f64 recurrence step z ← z² + c on [P, 2] (x, y), every result
+    flushed (``rc_tail.py:136-137``: zx*zx - zy*zy + cx, 2*zx*zy + cy)."""
+    ftz = hdr.ftz
+    zx, zy = z[:, 0], z[:, 1]
+    rx = ftz(ftz(ftz(zx * zx) - ftz(zy * zy)) + c[0])
+    ry = ftz(ftz(ftz(2.0 * zx) * zy) + c[1])
+    return torch.stack([rx, ry], dim=1)
+
+
+def _recur(A, z: torch.Tensor) -> torch.Tensor:
+    """The table's reconstruction step: f64 (K19) or df32 (K3)."""
+    return _f64_step(z, A.c) if A.f64 else _df_step(z, A.c)
+
+
+def _parts(A, z: torch.Tensor) -> tuple:
+    """The f32 (x, y) of cursor values that the HDR step reads: the f64
+    values rounded and flushed (K19), or the df32 hi parts (K3)."""
+    if A.f64:
+        return hdr.ftz(z[:, 0].float()), hdr.ftz(z[:, 1].float())
+    return z[:, 0], z[:, 2]
+
+
+def rc_init_plain(A, state: tuple, max_iter: int, z_mr: tuple) -> tuple:
+    """Plain twin of K3's (or, with an ``Anchors64`` table, K19's) init
+    launch.  On entry `rem` holds the completed iterations and `pos` the
+    handoff position jwait."""
     dzr, dzi, dze, it, jw, _, _, done = state
     max_ref = A.max_ref
     wrap = (jw >= max_ref) & ~done
@@ -115,16 +140,16 @@ def rc_init_plain(A: Anchors, state: tuple, max_iter: int,
     catch = pos - A.index[aptr]
     while bool((catch > 0).any()):
         step = catch > 0
-        z = torch.where(step[:, None], _df_step(z, A.c), z)
+        z = torch.where(step[:, None], _recur(A, z), z)
         catch = catch - step.to(torch.int64)
     return (dzr, dzi, dze, rem, pos, aptr, z, done)
 
 
-def rc_tail_plain(A: Anchors, dc: HDRComplex, state: tuple,
+def rc_tail_plain(A, dc: HDRComplex, state: tuple,
                   chunk_steps: int = 0) -> tuple:
-    """Plain PyTorch twin of K3's tail launch over flat pixel tensors:
-    at most `chunk_steps` lockstep steps (0 = until every pixel is
-    done).  Returns the state."""
+    """Plain PyTorch twin of K3's (or K19's) tail launch over flat pixel
+    tensors: at most `chunk_steps` lockstep steps (0 = until every pixel
+    is done).  Returns the state."""
     dzr, dzi, dze, rem, pos, aptr, z, done = state
     M = A.index.shape[0]
     max_ref = A.max_ref
@@ -137,13 +162,13 @@ def rc_tail_plain(A: Anchors, dc: HDRComplex, state: tuple,
         hit = ((aptr + 1) < M) & (A.index[nxt] == pos + 1)
         zn = A.val[nxt]
         if not bool((hit | done).all()):
-            zn = torch.where(hit[:, None], zn, _df_step(z, A.c))
+            zn = torch.where(hit[:, None], zn, _recur(A, z))
         dz = HDRComplex(dzr, dzi, dze)
-        zj = HDRComplex(z[:, 0], z[:, 2], zero_e)
+        zj = HDRComplex(*_parts(A, z), zero_e)
         t = hdr.complex_add(hdr.complex_mul_pow2(zj, 1), dz)
         ndz = hdr.reduce_complex(hdr.complex_add(hdr.complex_mul(t, dz), dc))
         zf = hdr.reduce_complex(hdr.complex_add(
-            HDRComplex(zn[:, 0], zn[:, 2], zero_e), ndz))
+            HDRComplex(*_parts(A, zn), zero_e), ndz))
         nsq = hdr.norm_squared(zf)
         dsq = hdr.norm_squared(ndz)
         esc = hdr.gt_pow2_unreduced(nsq, 8)
@@ -163,15 +188,17 @@ def rc_tail_plain(A: Anchors, dc: HDRComplex, state: tuple,
     return (dzr, dzi, dze, rem, pos, aptr, z, done)
 
 
-def rc_tail_kernel(A: Anchors, dc: HDRComplex, state: tuple, max_iter: int,
+def rc_tail_kernel(A, dc: HDRComplex, state: tuple, max_iter: int,
                    z_mr: tuple, chunk_steps: int, init: bool,
                    work=None) -> tuple:
-    """Launch K3 once on a CUDA device over the pixels `work` (int32
-    indices; None: every pixel); the state is updated in place."""
+    """Launch K3 (or, with an ``Anchors64`` table, K19) once on a CUDA
+    device over the pixels `work` (int32 indices; None: every pixel); the
+    state is updated in place."""
     dev = dc.re.device
     P = dc.re.numel()
-    _check_state(state, P, dev, A.index.dtype)
-    for t in (*dc, A.index, A.val):
+    _check_state(state, P, dev, A)
+    tables = (A.rows,) if A.f64 else (A.index, A.val)
+    for t in (*dc, *tables):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("K3 inputs must be contiguous on one device")
     n_work = P
@@ -180,31 +207,44 @@ def rc_tail_kernel(A: Anchors, dc: HDRComplex, state: tuple, max_iter: int,
                 or not work.is_contiguous():
             raise ValueError("K3 work must be contiguous int32 on the device")
         n_work = work.numel()
-    wide = A.index.dtype == torch.int64
     lib = kernels.lib()
+    counter = kernels.queue_counter(dev).data_ptr()
+    if A.f64:
+        kernels.launches["rc_tail_f64"] += 1
+        kernels.check(lib.fs_rc_tail_f64(
+            *(t.data_ptr() for t in dc), A.rows.data_ptr(),
+            *(t.data_ptr() for t in state),
+            None if work is None else work.data_ptr(), counter, n_work,
+            A.rows.shape[0], A.max_ref, *A.c, float(z_mr[0]),
+            float(z_mr[1]), int(max_iter), int(chunk_steps), int(init),
+            kernels.stream(dev)), "fs_rc_tail_f64")
+        return state
+    wide = A.index.dtype == torch.int64
     kernels.launches["rc_tail"] += 1
     kernels.check(lib.fs_rc_tail(
         *(t.data_ptr() for t in dc), A.index.data_ptr(),
         A.val.data_ptr(), *(t.data_ptr() for t in state),
-        None if work is None else work.data_ptr(),
-        kernels.queue_counter(dev).data_ptr(), n_work, A.index.shape[0],
+        None if work is None else work.data_ptr(), counter, n_work,
+        A.index.shape[0],
         A.max_ref, *A.c, float(z_mr[0]), float(z_mr[1]), int(max_iter),
         int(chunk_steps), int(init) | (int(wide) << 1),
         kernels.stream(dev)), "fs_rc_tail")
     return state
 
 
-def _state_dtypes(itype):
+def _state_dtypes(A):
+    itype = A.index.dtype
     return (torch.float32, torch.float32, torch.int32, torch.int64, itype,
-            itype, torch.float32, torch.bool)
+            itype, A.val.dtype, torch.bool)
 
 
-def _check_state(state, P, dev, itype):
-    for t, dt, name in zip(state, _state_dtypes(itype), _STATE):
-        n = 4 * P if name == "z" else P
+def _check_state(state, P, dev, A):
+    for t, dt, name in zip(state, _state_dtypes(A), _STATE):
+        n = A.val.shape[1] * P if name == "z" else P
         if t.dtype != dt or t.numel() != n or t.device != dev \
                 or not t.is_contiguous():
-            raise ValueError(f"K3 state {name}: {t.dtype} {tuple(t.shape)}")
+            raise ValueError(f"rc tail state {name}: {t.dtype} "
+                             f"{tuple(t.shape)}")
 
 
 def wrap_value(compressed, max_ref: int) -> tuple[float, float]:
@@ -213,8 +253,8 @@ def wrap_value(compressed, max_ref: int) -> tuple[float, float]:
                  for v in _orbit_value_at(compressed, max_ref))
 
 
-def handoff_state(A: Anchors, init_state: dict, device) -> tuple:
-    """Flat K3 state from a handoff dict: `rem` holds the completed
+def handoff_state(A, init_state: dict, device) -> tuple:
+    """Flat K3 (or K19) state from a handoff dict: `rem` holds the completed
     iterations and `pos` the position jwait (in [0, max_ref], which
     changes no handoff) until the init launch."""
     P = init_state["dzr"].numel()
@@ -228,16 +268,18 @@ def handoff_state(A: Anchors, init_state: dict, device) -> tuple:
             f("dze", torch.int32), f("it", torch.int64),
             jw.clamp(0, A.max_ref).to(itype).contiguous(),
             torch.zeros(P, dtype=itype, device=device),
-            torch.zeros((P, 4), dtype=torch.float32, device=device),
+            torch.zeros((P, A.val.shape[1]), dtype=A.val.dtype,
+                        device=device),
             f("done", torch.bool))
 
 
-def rc_tail_run(A: Anchors, dc: HDRComplex, init_state: dict, max_iter: int,
+def rc_tail_run(A, dc: HDRComplex, init_state: dict, max_iter: int,
                 z_mr: tuple, chunk_steps: int | None = None,
                 abort_monitor=None) -> torch.Tensor:
     """Handoff init plus the tail to the end (or an abort) in bounded
     launches, each after the first over the pixels the last one left
-    live: K3 for CUDA tensors, the plain twin for CPU tensors.  Returns
+    live: K3 (K19 for an ``Anchors64`` table) for CUDA tensors, the plain
+    twin for CPU tensors.  Returns
     the remaining budget per pixel (flat int64)."""
     dev = dc.re.device
     if dev.type not in ("cuda", "cpu"):
@@ -268,15 +310,17 @@ def rc_tail_run(A: Anchors, dc: HDRComplex, init_state: dict, max_iter: int,
     return state[3]
 
 
-def anchors_on(compressed, device) -> Anchors:
-    """Anchor tables on `device`, cached on the CompressedOrbit."""
+def anchors_on(compressed, device, f64: bool = False):
+    """Anchor tables on `device`, cached on the CompressedOrbit: K3's
+    (``Anchors``), or with `f64` K19's (``Anchors64``)."""
     cache = getattr(compressed, "_torch_anchors", None)
     if cache is None:
         cache = {}
         compressed._torch_anchors = cache
-    key = str(device)
+    key = (str(device), f64)
     if key not in cache:
-        cache[key] = anchor_table(compressed, device)
+        cache[key] = (anchor_table_f64 if f64 else anchor_table)(compressed,
+                                                                 device)
     return cache[key]
 
 
@@ -284,14 +328,17 @@ def perturb_render_stream_rc(compressed, center_x, center_y,
                              ptz: PointZoomBBConverter, width: int,
                              height: int, max_iter: int, init_state=None,
                              chunk_steps: int | None = None,
-                             abort_monitor=None, device="cuda"):
+                             abort_monitor=None, device="cuda",
+                             f64: bool = False):
     """Perturbation render from a CompressedOrbit; the orbit is rebuilt
-    on the device from its anchors.  ``init_state``: optional handoff
-    from the LA phase, a dict of [height, width] tensors 'dzr', 'dzi',
-    'dze', 'it' (completed iterations), 'jwait' (orbit position) and
-    'done'.  Returns the int64 iteration grid [height, width]."""
+    on the device from its anchors, in df32 (K3) or, with `f64`, in f64
+    (K19, the gather tail's exact mode, ``ops/rc_tail.py``).
+    ``init_state``: optional handoff from the LA phase, a dict of
+    [height, width] tensors 'dzr', 'dzi', 'dze', 'it' (completed
+    iterations), 'jwait' (orbit position) and 'done'.  Returns the int64
+    iteration grid [height, width]."""
     device = torch.device(device)
-    A = anchors_on(compressed, device)
+    A = anchors_on(compressed, device, f64)
     dx, dy, cxo, cyo = delta_params(ptz, center_x, center_y, width, height)
     dc = _dc_grids_hdr(dx, dy, cxo, cyo, width, height, device)
     if init_state is None:

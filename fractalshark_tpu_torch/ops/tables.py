@@ -29,7 +29,9 @@ convention (``ibits``): bit-cast for f32, exactly converted for f64.
 * Anchors: positions (int32 where the orbit allows, else int64) plus
   (hi, lo) f32 pairs of x and y, from ``perturb_stream._prep_anchors``
   (``ops/perturb_stream.py:747-770``) with plain positions in place of
-  (window, local) pairs.
+  (window, local) pairs; for K19 (the gather tail's f64 mode) ``[M, 3]``
+  f64 rows (x, y, position), ``rc_tail._pack_anchors``
+  (``ops/rc_tail.py:63-71``).
 """
 
 from __future__ import annotations
@@ -196,6 +198,23 @@ class Anchors:
     val: torch.Tensor        # f32 [M, 4] (x_hi, x_lo, y_hi, y_lo)
     max_ref: int
     c: tuple                 # (cx_hi, cx_lo, cy_hi, cy_lo) as floats
+    f64 = False              # K3's df32 table (K19's: Anchors64)
+
+
+@dataclass
+class Anchors64:
+    """K19's anchor table: the reference's gather-tail table in f64
+    (``rc_tail.py:63-71``)."""
+    rows: torch.Tensor       # f64 [M, 3] (x, y, position as an exact f64)
+    index: torch.Tensor      # int64 [M] the same positions
+    max_ref: int
+    c: tuple                 # (cx, cy) as f64
+    f64 = True
+
+    @property
+    def val(self) -> torch.Tensor:
+        """The anchors' values, f64 [M, 2] (x, y): a view of `rows`."""
+        return self.rows[:, :2]
 
 
 def _hi_lo(v: np.ndarray):
@@ -226,3 +245,24 @@ def anchor_table(compressed, device, wide: bool | None = None) -> Anchors:
                                           itype).copy()).to(device),
         val=torch.from_numpy(np.ascontiguousarray(val)).to(device),
         max_ref=max_ref, c=c)
+
+
+def anchor_table_f64(compressed, device) -> Anchors64:
+    """CompressedOrbit → K19's f64 anchor rows on `device` (values and c
+    flushed of subnormals, as the reference's f64 runs with DAZ).  Position
+    0 must be an anchor; positions are int64 and exact in f64 below 2^53."""
+    M = len(compressed.anchors_x)
+    if M == 0 or int(compressed.anchor_index[0]) != 0:
+        raise ValueError("anchor table must start at orbit position 0")
+    index = np.asarray(compressed.anchor_index, np.int64)
+    if int(index[-1]) >= 1 << 53:
+        raise ValueError("anchor positions past 2^53 are not exact in f64")
+    rows = np.stack([flush_np(np.asarray(compressed.anchors_x, np.float64)),
+                     flush_np(np.asarray(compressed.anchors_y, np.float64)),
+                     index.astype(np.float64)], axis=1)
+    c = tuple(float(flush_np(np.asarray([v], np.float64))[0])
+              for v in (compressed.cx_low, compressed.cy_low))
+    return Anchors64(
+        rows=torch.from_numpy(np.ascontiguousarray(rows)).to(device),
+        index=torch.from_numpy(index.copy()).to(device),
+        max_ref=int(compressed.total_count) - 1, c=c)

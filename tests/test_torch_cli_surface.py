@@ -571,10 +571,16 @@ def test_palette_aa_save_and_messages(tmp_path):
 
 
 def test_autozoom_command_waits_for_its_port():
+    """The autozoom command raised "ROADMAP A5" until engine/autozoom.py
+    was ported; it now runs the zoomer: one DEFAULT step zooms in 2×, and
+    BACK returns to the view before it."""
     from fractalshark_tpu_torch.core.commands import FractalCommand as FC
-    _, h = _handlers()
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        h.dispatch(FC.AUTOZOOM_DEFAULT)
+    f, h = _handlers()
+    z0 = f.ptz.zoom_factor.exponent2()
+    h.dispatch(FC.AUTOZOOM_DEFAULT)
+    assert f.ptz.zoom_factor.exponent2() == z0 + 1
+    h.dispatch(FC.BACK)
+    assert f.ptz.zoom_factor.exponent2() == z0
 
 
 def test_menu_tree():

@@ -344,7 +344,7 @@ def _k12_refuses(spec, values, grid, dev) -> bool:
         rc = kernels.lib().fs_orbit_chunk_k12(
             st[0].data_ptr(), st[1].data_ptr(), rows.data_ptr(),
             z.data_ptr(), z.data_ptr(), 1, 1, *bufs, tables, spec.digits,
-            lg, 1, int(grid), stream)
+            lg, 1, int(grid), None, 0, stream)
     else:
         signs = torch.ones(4, dtype=torch.int32, device=dev)
         rc = kernels.lib().fs_nr_chunk_k12(

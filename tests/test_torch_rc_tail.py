@@ -3,8 +3,12 @@ against the JAX package's RC streaming tail
 ``perturb_render_stream_rc`` (Pallas, interpret mode), bit for bit:
 the two-phase handoff over identity anchors and over compressed anchors
 (``error_exp=8``), and handoffs at ``jwait == max_ref`` (the wrap
-rebase).
+rebase).  Then the gather tail (``ops/rc_tail.py``): K19's twin (f64)
+and its df32 mode (K3) against the JAX package's ``rc_tail_gather`` and
+``two_phase_render(tail=...)``, the cases of ``tests/test_rc_tail.py``.
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -16,6 +20,7 @@ from fractalshark_tpu_torch.engine.perturbation_results import (
 from fractalshark_tpu_torch.engine.renderers import two_phase_render
 from fractalshark_tpu_torch.ops import la_kernel, perturb
 from fractalshark_tpu_torch.ops import perturb_stream as ps
+from fractalshark_tpu_torch.ops import rc_tail
 from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
 from fractalshark_tpu_torch.ops.tables import anchor_table, orbit_on
 
@@ -300,3 +305,316 @@ def test_queue_form_matches_plain_on_card():
     want = ps.rc_tail_plain(A, flat, ps.rc_init_plain(
         A, ps.handoff_state(A, init, dev), N, z_mr))
     assert torch.equal(got, want[3])
+
+
+# ---------------------------------------------------------------------------
+# The gather tail (ops/rc_tail.py): K19's twin (f64) and K3 as its df32
+# mode, on the reference's own fixture (tests/test_rc_tail.py: a 1e13
+# orbit cut to 2,048 positions, a budget that wraps it, the native RC LA
+# table), against the JAX package's rc_tail_gather and two_phase_render.
+
+# (the orbit escapes at 999 entries: the budget wraps it three times, the
+# small budget just past once)
+G_SIZE, G_BUDGET, G_LEN, G_SMALL = 16, 3000, 2048, 1100
+# the orbit with a last gap past 2^31 (the ADVICE fault of the df32
+# mode's i32 gapW): positions 0..G_LEN-1 and G_FAR..G_FAR+G_TOP-1
+G_FAR, G_TOP, G_FAR_BUDGET = (1 << 31) + 7, 64, 100
+
+
+def _mini(pkg="fractalshark_tpu_torch"):
+    """(ptz, truncated results, decompressed results, comp, la, the
+    package's CompressedOrbit) of ``tests/test_rc_tail.py``'s fixture."""
+    import importlib
+    h = ref.host_layer(pkg)
+    PR = importlib.import_module(f"{pkg}.engine.perturbation_results")
+    NL = importlib.import_module(f"{pkg}.engine.native_la")
+    LP = importlib.import_module(f"{pkg}.engine.la_reference").LAParameters
+    ptz = h.PointZoomBBConverter(
+        pt_x="-0.743643887037158704752191506114774",
+        pt_y="0.131825904205311970493132056385139",
+        zoom_factor="1e13", prec=512).square_aspect_ratio(G_SIZE, G_SIZE)
+    res = h.RefOrbitCalc().get_and_create_useful_results(ptz, 50_000)
+
+    def results(x, y):
+        return PR.PerturbationResults(
+            center_x=res.center_x, center_y=res.center_y, orbit_x=x,
+            orbit_y=y, max_radius=res.max_radius, period=0, escaped_at=0,
+            max_iterations=G_LEN, precision_bits=res.precision_bits)
+
+    res_t = results(res.orbit_x[:G_LEN], res.orbit_y[:G_LEN])
+    comp = PR.CompressedOrbit.from_uncompressed(res_t, error_exp=20)
+    la = NL.generate_native_rc(comp, h.HD.from_hp(res_t.max_radius),
+                               params=LP(period_divisor=8, low_bound=1))
+    assert la is not None and la.is_valid
+    return ptz, res_t, results(*comp.decompress()), comp, la, \
+        PR.CompressedOrbit
+
+
+def _far_orbit(C, res_t):
+    """Every entry of the truncated orbit an anchor, then G_TOP
+    anchors (its first values again) from G_FAR: the last gap is past
+    2^31, and no pixel of the far handoff below reconstructs a value."""
+    x, y = res_t.orbit_plain()
+    return C(np.concatenate([x, x[:G_TOP]]), np.concatenate([y, y[:G_TOP]]),
+             np.concatenate([np.arange(len(x)), G_FAR + np.arange(G_TOP)]),
+             G_FAR + G_TOP, float(res_t.center_x), float(res_t.center_y), 0)
+
+
+def _far_handoff(init):
+    """A handoff in the far block: jwait G_FAR + (pixel mod 10), nothing
+    done yet, the handed-over dz kept."""
+    k = np.arange(G_SIZE * G_SIZE).reshape(G_SIZE, G_SIZE)
+    return {"dzr": np.asarray(init["dzr"]), "dzi": np.asarray(init["dzi"]),
+            "dze": np.asarray(init["dze"]),
+            "it": np.zeros(k.shape, np.int64),
+            "jwait": (G_FAR + k % 10).astype(np.int64),
+            "done": np.zeros(k.shape, np.int32)}
+
+
+def _gather_reference(_inputs):
+    from fractalshark_tpu.engine import renderers as R
+    from fractalshark_tpu.ops import la_kernel as jla
+    from fractalshark_tpu.ops.rc_tail import rc_tail_gather
+
+    ptz, res_t, res_rc, comp, la, C = _mini("fractalshark_tpu")
+
+    def handoff(budget):
+        s = jla.la_perturb_render(res_rc, la, ptz, G_SIZE, G_SIZE, budget,
+                                  sub_dtype=np.float32, la_only=True,
+                                  return_state=True)
+        it = np.asarray(s[6]).astype(np.int64)
+        return {"dzr": np.asarray(s[3]), "dzi": np.asarray(s[4]),
+                "dze": np.asarray(s[5]), "it": it,
+                "jwait": np.asarray(s[2]).astype(np.int64),
+                "done": (it >= budget).astype(np.int32)}
+
+    def gather(c, init, budget=G_BUDGET, mode=None):
+        return np.asarray(rc_tail_gather(
+            c, res_t.center_x, res_t.center_y, ptz, G_SIZE, G_SIZE, budget,
+            init_state=dict(init), mode=mode))
+
+    def two_phase(**kw):
+        return np.asarray(R.two_phase_render(res_rc, la, ptz, G_SIZE, G_SIZE,
+                                             G_BUDGET, **kw))
+
+    init = handoff(G_BUDGET)
+    ident = C.identity(res_t)
+    out = {"full": np.asarray(jla.la_perturb_render(
+        res_rc, la, ptz, G_SIZE, G_SIZE, G_BUDGET, sub_dtype=np.float32)),
+        "f64": gather(comp, init), "df32": gather(comp, init, mode="df32"),
+        "ident_f64": gather(ident, init),
+        "ident_df32": gather(ident, init, mode="df32"),
+        "small": gather(comp, handoff(G_SMALL), G_SMALL),
+        "far": gather(_far_orbit(C, res_t), _far_handoff(init),
+                      G_FAR_BUDGET),
+        "two_phase_gather": two_phase(comp=comp, tail="gather"),
+        "two_phase_identity": two_phase(tail="gather")}
+    R._GATHER_TAIL_MIN_ORBIT = int(comp.total_count)
+    out["two_phase_auto"] = two_phase(comp=comp)
+    return out
+
+
+@pytest.fixture(scope="module")
+def gather_ref(tmp_path_factory):
+    return ref.run_jax_reference("test_torch_rc_tail", "_gather_reference",
+                                 tmp_path_factory.mktemp("rc_gather"))
+
+
+@pytest.fixture(scope="module")
+def mini():
+    ptz, res_t, res_rc, comp, la, _ = _mini()
+
+    def handoff(budget):
+        s = la_kernel.la_perturb_render(res_rc, la, ptz, G_SIZE, G_SIZE,
+                                        budget, la_only=True,
+                                        return_state=True, device="cpu")
+        return {"dzr": s[3], "dzi": s[4], "dze": s[5], "it": s[6],
+                "jwait": s[2], "done": s[6] >= budget}
+
+    return types.SimpleNamespace(ptz=ptz, res_t=res_t, res_rc=res_rc,
+                                 comp=comp, la=la, handoff=handoff,
+                                 init=handoff(G_BUDGET))
+
+
+def _gather(mini, comp, init=None, budget=G_BUDGET, **kw):
+    return rc_tail.rc_tail_gather(
+        comp, mini.res_t.center_x, mini.res_t.center_y, mini.ptz, G_SIZE,
+        G_SIZE, budget, dict(mini.init if init is None else init),
+        device="cpu", **kw).numpy()
+
+
+@pytest.fixture(scope="module")
+def gather_f64(mini):
+    return _gather(mini, mini.comp)
+
+
+def test_gather_tail_matches_one_kernel_machine(mini, gather_ref,
+                                                gather_f64):
+    """``tests/test_rc_tail.py:74``: the f64 gather tail (K19's twin)
+    after the LA phase equals the one-kernel LAv2 machine on the
+    decompressed orbit, and the JAX gather, bit for bit; the tail wraps
+    the orbit."""
+    np.testing.assert_array_equal(gather_f64,
+                                  gather_ref["full"].astype(np.int64))
+    np.testing.assert_array_equal(gather_f64,
+                                  gather_ref["f64"].astype(np.int64))
+    assert gather_f64.max() >= 2 * mini.comp.total_count
+
+
+def test_gather_tail_matches_sweep_on_identity_anchors(mini, gather_ref):
+    """``:92``: over identity anchors the f64 gather equals the sweep
+    (K3's twin) and the JAX gather."""
+    ident = CompressedOrbit.identity(mini.res_t)
+    f64 = _gather(mini, ident)
+    sweep = _rc_mini(mini, ident)
+    np.testing.assert_array_equal(f64, sweep)
+    np.testing.assert_array_equal(f64,
+                                  gather_ref["ident_f64"].astype(np.int64))
+
+
+def _rc_mini(mini, comp):
+    return ps.perturb_render_stream_rc(
+        comp, mini.res_t.center_x, mini.res_t.center_y, mini.ptz, G_SIZE,
+        G_SIZE, G_BUDGET, init_state=dict(mini.init), device="cpu").numpy()
+
+
+def test_two_phase_render_gather_tail_plumbing(mini, gather_ref):
+    """``:111``: two_phase_render(tail="gather") takes the gather tail and
+    equals the one-kernel machine and the JAX render."""
+    timings = {}
+    got = two_phase_render(mini.res_rc, mini.la, mini.ptz, G_SIZE, G_SIZE,
+                           G_BUDGET, comp=mini.comp, device="cpu",
+                           timings=timings, tail="gather").numpy()
+    assert timings["tail"] == "gather"
+    np.testing.assert_array_equal(got, gather_ref["full"].astype(np.int64))
+    np.testing.assert_array_equal(
+        got, gather_ref["two_phase_gather"].astype(np.int64))
+
+
+def test_df32_tail_matches_sweep_on_real_compression(mini, gather_ref,
+                                                     gather_f64):
+    """``:126``: the df32 mode is K3, the sweep's reconstruction; it
+    equals the JAX df32 gather.  Against the f64 mode it may flip last-ulp
+    counts (``rc_tail.py:41-44``): the flips are counted, and there are
+    few."""
+    df32 = _gather(mini, mini.comp, mode="df32")
+    np.testing.assert_array_equal(df32, gather_ref["df32"].astype(np.int64))
+    assert int((df32 != gather_f64).sum()) <= G_SIZE * G_SIZE // 8
+
+
+def test_df32_tail_matches_f64_on_identity_anchors(mini, gather_ref):
+    """``:146``: over identity anchors both modes read exact values."""
+    ident = CompressedOrbit.identity(mini.res_t)
+    df32 = _gather(mini, ident, mode="df32")
+    np.testing.assert_array_equal(df32,
+                                  gather_ref["ident_df32"].astype(np.int64))
+    np.testing.assert_array_equal(df32,
+                                  gather_ref["ident_f64"].astype(np.int64))
+
+
+def test_gather_tail_budget_exhaustion(mini, gather_ref):
+    """``:162``: pixels that exhaust the budget report exactly max_iter."""
+    out = _gather(mini, mini.comp, mini.handoff(G_SMALL), G_SMALL)
+    np.testing.assert_array_equal(out, gather_ref["small"].astype(np.int64))
+    assert out.max() == G_SMALL and out.min() > 0
+
+
+def test_auto_tail_takes_the_gather_from_its_length(mini, gather_ref,
+                                                    monkeypatch):
+    """C6: with the length threshold below the orbit's, tail="auto" takes
+    the gather (K19's twin), as the JAX render does with the same patch;
+    the threshold is the reference's."""
+    from fractalshark_tpu_torch.engine import renderers as R
+    assert R._GATHER_TAIL_MIN_ORBIT == 64_000_000
+    assert R.tail_route("auto", 63_999_999, True) == "sweep"
+    assert R.tail_route("auto", 64_000_000, True) == "gather"
+    monkeypatch.setattr(R, "_GATHER_TAIL_MIN_ORBIT",
+                        int(mini.comp.total_count))
+    timings = {}
+    got = R.two_phase_render(mini.res_rc, mini.la, mini.ptz, G_SIZE, G_SIZE,
+                             G_BUDGET, comp=mini.comp, device="cpu",
+                             timings=timings).numpy()
+    assert timings["tail"] == "gather"
+    np.testing.assert_array_equal(
+        got, gather_ref["two_phase_auto"].astype(np.int64))
+
+
+def test_identity_gather_is_k6_resumed(mini, gather_ref):
+    """Over an uncompressed orbit the reference gathers over identity
+    anchors; the port's tail there is K6 resumed, which gives the JAX
+    gather's grid."""
+    timings = {}
+    got = two_phase_render(mini.res_rc, mini.la, mini.ptz, G_SIZE, G_SIZE,
+                           G_BUDGET, device="cpu", timings=timings,
+                           tail="gather").numpy()
+    assert timings["tail"] == "identity"
+    np.testing.assert_array_equal(
+        got, gather_ref["two_phase_identity"].astype(np.int64))
+
+
+def test_far_last_gap_takes_int64_positions(mini, gather_ref):
+    """ADVICE (the df32 mode's unasserted i32 gap, ``rc_tail.py:413``):
+    over an orbit whose last gap is past 2^31, both modes run with int64
+    positions and give the JAX f64 gather's grid, the wrap at max_ref
+    included; the JAX package's df32 mode refuses this orbit."""
+    far = _far_orbit(CompressedOrbit, mini.res_t)
+    assert anchor_table(far, torch.device("cpu")).index.dtype == torch.int64
+    init = {k: torch.as_tensor(v) for k, v in _far_handoff(mini.init).items()}
+    want = gather_ref["far"].astype(np.int64)
+    for mode in ("f64", "df32"):
+        got = _gather(mini, far, init, G_FAR_BUDGET, mode=mode)
+        np.testing.assert_array_equal(got, want)
+    assert want.max() == G_FAR_BUDGET   # some pixels wrapped and went on
+
+
+def test_gather_refusals(mini, monkeypatch):
+    """ADVICE: zero anchors raise (the reference returned None), an
+    unknown mode raises, and FRACTALSHARK_RC_TAIL takes auto, sweep or
+    gather only (the reference took a typo as the sweep)."""
+    from fractalshark_tpu_torch.engine import renderers as R
+    empty = CompressedOrbit(np.zeros(0), np.zeros(0), np.zeros(0, np.int64),
+                            10, 0.0, 0.0, 0)
+    with pytest.raises(ValueError, match="no anchors"):
+        _gather(mini, empty)
+    with pytest.raises(ValueError, match="mode"):
+        _gather(mini, mini.comp, mode="f32")
+    monkeypatch.setenv(R.RC_TAIL_ENV, "gathr")
+    with pytest.raises(ValueError, match="FRACTALSHARK_RC_TAIL"):
+        two_phase_render(mini.res_rc, mini.la, mini.ptz, G_SIZE, G_SIZE,
+                         G_BUDGET, comp=mini.comp, device="cpu")
+    with pytest.raises(ValueError, match="FRACTALSHARK_RC_TAIL"):
+        R.tail_route("sweep", G_LEN, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_steps", [None, 7])
+def test_k19_matches_plain_on_card(mini, chunk_steps):
+    """K19 against its twin in one lockstep run (``rc_tail_gather_plain``),
+    over the real compressed orbit from the LA handoff and over the far
+    orbit from the far handoff, in one launch or in live-pixel launches
+    of 7 steps; no K3 launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fractalshark_tpu_torch import kernels
+    far = _far_orbit(CompressedOrbit, mini.res_t)
+    for comp, init, budget in (
+            (mini.comp, mini.init, G_BUDGET),
+            (far, {k: torch.as_tensor(v) for k, v in
+                   _far_handoff(mini.init).items()}, G_FAR_BUDGET)):
+        z_mr = ps.wrap_value(comp, int(comp.total_count) - 1)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            A = ps.anchors_on(comp, torch.device(dev), f64=True)
+            dc = perturb._dc_grids_hdr(*perturb.delta_params(
+                mini.ptz, mini.res_t.center_x, mini.res_t.center_y, G_SIZE,
+                G_SIZE), G_SIZE, G_SIZE, dev)
+            kernels.reset_counts()
+            if dev == "cuda":
+                got[dev] = ps.rc_tail_run(A, dc, dict(init), budget, z_mr,
+                                          chunk_steps).cpu()
+                assert kernels.launches["rc_tail_f64"] >= 1
+                assert kernels.launches["rc_tail"] == 0
+            else:
+                got[dev] = rc_tail.rc_tail_gather_plain(A, dc, dict(init),
+                                                        budget, z_mr)
+        assert torch.equal(got["cuda"], got["cpu"])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's per-pixel loops, K6 (``csrc/perturb.cu``), K2
 (``csrc/lav2.cu``), the two-phase tail (K6 resumed from K2's handoff),
-K3 (``csrc/rc_tail.cu``), K1 and K1-seq (``csrc/escape.cu``), the
+K3 and K19, its f64-cursor instance (``csrc/rc_tail.cu``), K1 and K1-seq (``csrc/escape.cu``), the
 streaming LA phase K7 (``csrc/la_stream.cu``), the HDR and double-float
 escapes K13 and K14 (``csrc/escape_hdr.cu``, ``csrc/escape_df.cu``), the
 BLA render K15 (``csrc/bla.cu``), K6's glitch instance (the Scaled
@@ -119,6 +119,10 @@ FRAMES = {
     "view6_rc_1024": (6, 1024, "k3", "rc_tail", "f32", (20, True)),
     "view6_rc_po_16": (6, 16, "k3", "rc_tail", "f32", (20, False)),
     "view6_rc_po_256": (6, 256, "k3", "rc_tail", "f32", (20, False)),
+    # K19: the gather tail's f64 cursor (ops/rc_tail.py mode "f64") on the
+    # same orbit and starts as K3's frames
+    "view6_rc_256_k19": (6, 256, "k19", "rc_tail_f64", "f32", (20, True)),
+    "view6_rc_po_16_k19": (6, 16, "k19", "rc_tail_f64", "f32", (20, False)),
     # K1-seq: the View 0 zoom sequence (8 frames, 1.3x each, 512
     # iterations, f32)
     "seq_4096": (0, 4096, "seq", "escape_seq", "f32", (8, 1.3, 512)),
@@ -256,7 +260,7 @@ def setup(name, device):
                                 size)
     fr = types.SimpleNamespace(name=name, kern=kern, key=key, size=size,
                                dtype=fdt, mode=mode, n=n, mr=mr, T=None)
-    if kern in ("tail", "k3"):
+    if kern in ("tail", "k3", "k19"):
         return _setup_tail(fr, f, res, dpar, device)
     if kern == "k7":
         return _setup_stream(fr, f, res, dpar, device)
@@ -338,15 +342,16 @@ def _setup_tail(fr, f, res, dpar, device):
             return perturb.perturb_plain(fr.orbit, flat, st, budget, mr,
                                          True)[4]
     else:
-        # K3: a compressed orbit, or identity anchors for the tail in a
-        # tree from before K6 took it
-        err, from_handoff = fr.mode if fr.kern == "k3" else (None, True)
+        # K3 (K19 with an f64 table): a compressed orbit, or identity
+        # anchors for the tail in a tree from before K6 took it
+        err, from_handoff = fr.mode if fr.kern in ("k3", "k19") \
+            else (None, True)
         if err is None:
             comp, fr.key = CompressedOrbit.identity(res), "rc_tail"
         else:
             comp = CompressedOrbit.from_uncompressed(res, error_exp=err)
         fr.comp = comp
-        fr.A = ps.anchors_on(comp, device)
+        fr.A = ps.anchors_on(comp, device, f64=fr.kern == "k19")
         z_mr = ps.wrap_value(comp, fr.A.max_ref)
         init = handoff if from_handoff else zero
 
@@ -646,6 +651,7 @@ def time_frame(fr, reps):
              "k16": perturb.last_run_stats,
              "k7": getattr(LS, "last_run_stats", {}),
              "k3": getattr(ps, "last_run_stats", {}),
+             "k19": getattr(ps, "last_run_stats", {}),
              "tail": getattr(ps, "last_run_stats", {})
              if getattr(fr, "key", None) == "rc_tail"
              else perturb.last_run_stats}.get(fr.kern, {})
