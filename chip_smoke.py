@@ -94,11 +94,14 @@ render families: K13 (``csrc/escape_hdr.cu``, f32 and f64 mantissas) and
 K14 (``csrc/escape_df.cu``, 2x32 and 2x64) on the integration sweep's
 shallow frame at 1024² × 256, K15 (``csrc/bla.cu``, f32 and f64) and
 K6's glitch instance (counts and flags) on the 1e8 frame at 1024² ×
-1,500, each against its twin (K15 and the glitch instance in launches
-over the live pixels) and timed (tools/time_pixel_loops.py), K13 at View
-#6's and View #8's centres (2^453, 2^2220) at 256², K15 on View #6 at
-256² (held at a cut budget, timed at the preset's), the Scaled repair
-pass (K6 HDR-f64) on a poisoned orbit, then the nine frames of
+1,500, each against its twin at the full budget (K15 through its run
+loop and in launches over the live pixels, with its per-pixel tally of
+BLA and single steps; the glitch instance in such launches) and timed
+(tools/time_pixel_loops.py), K13 at View #6's and View #8's centres
+(2^453, 2^2220) at 256², K15 (f32 and f64) on View #6 at 256², held to
+its twin and its tally at the preset's budget, timed, and its deepest
+pixel run alone (its serial floor), the Scaled repair pass (K6 HDR-f64)
+on a poisoned orbit, then the nine frames of
 ``FAMILY_PINS`` through the CLI at 256² (counts from 0, the plain twins
 made to raise), pinned to the JAX package's values; their launches are
 the kernels line's, (15) the last render families: K16
@@ -109,7 +112,9 @@ pixel's steps and the bound from them); K17 and K18
 (``csrc/escape_quad.cu``: QD and QF escapes, 4x32 and 4x64) against
 their twins at 256² on the 1e17 frame (budget cut) and on a 1e18 frame
 by -2 whose low f32 components are subnormal, then timed at 1024² × 600
-on the 1e17 frame; then ``escape_qf`` (K18's public entry) and the
+on the 1e17 frame, and K17 4x64 against its twin on the guard frame
+(``QUAD_GUARD_SCALARS``: iterations on and off its exact fast path);
+then ``escape_qf`` (K18's public entry) and the
 ``LATE_PINS`` frames through the CLI at 256² (counts from 0, the twins
 made to raise), pinned to the JAX package's values; their launches are
 the kernels line's, (16) the gather tail and the app surface: K19
@@ -439,13 +444,13 @@ KERNEL_META = {
 
 # phase 14's kernel frames (tools/time_pixel_loops.py FRAMES) and the
 # kernels-line entry each gives: held to its twin at its full budget
-# (K15 and the glitch instance in launches of FAMILY_CHUNK steps over the
-# live pixels), then timed; K13 at View #6's and View #8's centres at
-# 256² (each past its mantissa type's exponent range) at these budgets;
-# K15 on View #6 at 256² held at VIEW6_BLA_TWIN_BUDGET, timed at the
-# preset's; the Scaled repair pass on the poisoned orbit of
-# tests/test_scaled.py:52-73 (entry 5 made f32-subnormal), at this size
-# and budget
+# (K15 through its run loop and in launches of FAMILY_CHUNK steps over
+# the live pixels, its step tally too; the glitch instance in such
+# launches), then timed; K13 at View #6's and View #8's centres at 256²
+# (each past its mantissa type's exponent range) at these budgets; K15
+# on View #6 (VIEW6_BLA_FRAMES); the Scaled repair pass on the poisoned
+# orbit of tests/test_scaled.py:52-73 (entry 5 made f32-subnormal), at
+# this size and budget
 FAMILY_FRAMES = [
     ("shallow_hdr32_1024", "escape_hdr32"),
     ("shallow_hdr64_1024", "escape_hdr64"),
@@ -456,6 +461,9 @@ FAMILY_FRAMES = [
     ("1e8_scaled_1024", "perturb_scaled"),
 ]
 FAMILY_CHUNK = 257
+# K15 on View #6 at 256², both mantissa types, at the preset's budget
+VIEW6_BLA_FRAMES = [("view6_bla_256", "bla_f32"),
+                    ("view6_bla64_256", "bla_f64")]
 DEEP_HDR = {6: ("f32", 2000), 8: ("f64", 2000)}
 
 # phase 15: the quad-float escapes' frames, the 1e17 frame of
@@ -503,7 +511,16 @@ QUAD_FRAMES = [("1e17_qd32_1024", "escape_4x32"),
                ("1e17_qf64_1024", "escape_qf64")]
 QUAD_TWIN_SIZE = 256
 QUAD_TWIN_BUDGET = 40
-VIEW6_BLA_TWIN_BUDGET = 2000
+# K17 4x64's guard frame (the 16 scalars, size, budget): cx = -2 + (x - 8)
+# 2^-300, cy = -y (2^-300 + 2^-480).  Rows y > 0 carry a component near
+# 2^-480 in cy (below the fast path's range: every iteration takes the
+# reference arithmetic); on row 0, z's components near -2 fall below the
+# range for tens of iterations and then rise into it; c = -2 stays in it
+QUAD_GUARD_SCALARS = [-2.0, -2.0 ** -297, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+                      2.0 ** -300, 0.0, 0.0, 0.0, 2.0 ** -300, 2.0 ** -480,
+                      0.0, 0.0]
+QUAD_GUARD_SIZE = 16
+QUAD_GUARD_BUDGET = 300
 POISON = ("-0.6", "0.4", "4", 200, 256)
 
 HBM_BYTES_PER_S = 3.35e12
@@ -2624,14 +2641,38 @@ def forbid_twins():
             setattr(m, n, f)
 
 
+def k15_twin(fr, st):
+    """K15 on a frame at its full budget through its run loop, the
+    default launches and launches of FAMILY_CHUNK steps over the live
+    pixels, against the twin in one lockstep run: the grids and the
+    per-pixel tally of BLA and single steps.  Returns (the twin's grid,
+    its ms, K15's tally)."""
+    import torch
+
+    tally = torch.zeros((fr.size * fr.size, 2), dtype=torch.int64,
+                        device=fr.orbit.device)
+    k = fr.run(None, None, tally)
+    want_tally = torch.zeros_like(tally)
+    pl, pms = timed(lambda: fr.plain(None, want_tally), fr.orbit.device,
+                    warm=False)
+    compare(f"{fr.key} {fr.name} budget {fr.n} (its run loop)", k, pl, st)
+    compare(f"{fr.key} {fr.name} budget {fr.n} (launches of {FAMILY_CHUNK} "
+            f"steps over the live pixels)", fr.run(None, FAMILY_CHUNK), pl,
+            st)
+    compare(f"{fr.key} {fr.name} steps (BLA, single) a pixel", tally,
+            want_tally, st)
+    return pl, pms, tally
+
+
 def phase_families(device, stats):
     """The render families the port took last: K13 and K14 (every
     instance) on the shallow frame at 1024², K15 (f32, f64) and K6's glitch
     instance on the 1e8 frame at 1024² x 1,500, each against its twin and
-    timed; K13 at View #6's and View #8's centres; K15 on View #6 at 256²
-    (timed at the preset budget); the Scaled repair pass on a poisoned
-    orbit; then the nine 256² frames through the CLI (counts from 0, the
-    twins forbidden), pinned to the JAX package's values."""
+    timed; K13 at View #6's and View #8's centres; K15 (f32, f64) on View
+    #6 at 256² at the preset budget, its deepest pixel alone; the Scaled
+    repair pass on a poisoned orbit; then the nine 256² frames through the
+    CLI (counts from 0, the twins forbidden), pinned to the JAX package's
+    values."""
     import numpy as np
     import torch
 
@@ -2657,20 +2698,14 @@ def phase_families(device, stats):
                 out, fr.n)
             b = bound(nbytes(out), ops, rate)
         elif fr.kern == "k15":
-            k = fr.run(None, FAMILY_CHUNK)
-            pl, pms = timed(fr.plain, device, warm=False)
-            compare(f"{entry} {name} (launches of {FAMILY_CHUNK} steps over "
-                    f"the live pixels)", k, pl, st)
+            pl, pms, tally = k15_twin(fr, st)
             out, rec = tpl.time_frame(fr, 3)
-            tally = torch.zeros((out.numel(), 2), dtype=torch.int64,
-                                device=device)
-            fr.run(None, None, tally)
             t = tally.sum(dim=0).tolist()
             log(f"    steps: {t[0]} BLA, {t[1]} single, for "
                 f"{int(out.sum())} iterations")
             rows = fr.orbit[:int(out.max()) + 2]
-            b = bound(nbytes(rows, fr.T.probe, fr.T.steps, *fr.dc, out),
-                      bla_ops(tally), rate)
+            b = bound(nbytes(rows, fr.T.probe, fr.T.bound, fr.T.steps,
+                             *fr.dc, out), bla_ops(tally), rate)
         else:
             k = fr.run(None, FAMILY_CHUNK)
             pl, pms = timed(fr.plain, device, warm=False)
@@ -2703,24 +2738,23 @@ def phase_families(device, stats):
                 hdr_escape.escape_hdr_plain(p, 256, 256, n, tdt, device),
                 stats["escape_hdr" + mant[1:]])
 
-    # K15 on View #6: held at a cut budget, timed at the preset's
-    fr = tpl.setup("view6_bla_256", device)
-    nc = VIEW6_BLA_TWIN_BUDGET
-    compare(f"bla_f32 view6_bla_256 budget {nc} (launches of "
-            f"{FAMILY_CHUNK} steps over the live pixels)",
-            fr.run(nc, FAMILY_CHUNK), fr.plain(nc), stats["bla_f32"])
-    out, rec = tpl.time_frame(fr, 1)
-    tally = torch.zeros((out.numel(), 2), dtype=torch.int64, device=device)
-    fr.run(None, None, tally)
-    t = tally.sum(dim=0).tolist()
-    log(f"  bla_f32 view6_bla_256 budget {fr.n}: {rec['ms_median']:.3f} ms "
-        f"(of {[round(x, 3) for x in rec['ms']]}), "
-        f"{sum(rec['launches'].values())} launches over "
-        f"{rec['work'][:4]} pixels, (iter_sum, crc32) "
-        f"{(rec['iter_sum'], rec['crc32'])}; steps {t[0]} BLA, {t[1]} "
-        f"single, deepest pixel {int(tally.sum(dim=1).max())} steps")
-    bound(nbytes(fr.orbit, fr.T.probe, fr.T.steps, *fr.dc, out),
-          bla_ops(tally), F32_OPS_PER_S)
+    # K15 on View #6 at 256², both mantissa types: held to the twin at the
+    # preset's budget, then timed, with the deepest pixel run alone
+    for name, entry in VIEW6_BLA_FRAMES:
+        fr = tpl.setup(name, device)
+        _, _, tally = k15_twin(fr, stats[entry])
+        out, rec = tpl.time_frame(fr, 1)
+        t = tally.sum(dim=0).tolist()
+        floor = tpl.bla_floor(fr, 1)
+        log(f"  {entry} {name} budget {fr.n}: {rec['ms_median']:.3f} ms "
+            f"(of {[round(x, 3) for x in rec['ms']]}), "
+            f"{sum(rec['launches'].values())} launches over "
+            f"{rec['work'][:4]} pixels, (iter_sum, crc32) "
+            f"{(rec['iter_sum'], rec['crc32'])}; steps {t[0]} BLA, {t[1]} "
+            f"single; serial floor {json.dumps(floor)}")
+        bound(nbytes(fr.orbit, fr.T.probe, fr.T.bound, fr.T.steps, *fr.dc,
+                     out), bla_ops(tally),
+              F64_OPS_PER_S if fr.dtype == torch.float64 else F32_OPS_PER_S)
 
     # the Scaled repair pass: a poisoned orbit glitches pixels
     x, y, zoom, n, size = POISON
@@ -2780,6 +2814,7 @@ def phase_late(device, stats):
     on View #9 at 1024² × 40,000; K17 and K18 (both component types)
     against their twins at 256² on the 1e17 frame (QUAD_TWIN_BUDGET) and
     on the antenna frame, then timed at 1024² × 600 on the 1e17 frame;
+    K17 4x64 against its twin on the guard frame (QUAD_GUARD_SCALARS);
     then escape_qf through its public entry and the LATE_PINS frames
     through the CLI (counts from 0, the twins forbidden), pinned to the
     JAX package's values."""
@@ -2834,6 +2869,14 @@ def phase_late(device, stats):
                 scal, s, s, n, dt, device), device, warm=False)
             compare(f"{entry} zoom {zoom} {s}² x{n}", k, pl, st)
             plain_ms.append(pms)
+        if entry == "escape_4x64":
+            # the guard frame: iterations on and off the exact fast path
+            g, n = QUAD_GUARD_SIZE, QUAD_GUARD_BUDGET
+            compare(f"{entry} guard frame {g}² x{n}",
+                    quadd.escape_qd_kernel(QUAD_GUARD_SCALARS, g, g, n, dt,
+                                           device),
+                    quadd.escape_qd_plain(QUAD_GUARD_SCALARS, g, g, n, dt,
+                                          device), st)
         pms = plain_ms[0]
         fr = tpl.setup(name, device)
         out, rec = tpl.time_frame(fr, 3)

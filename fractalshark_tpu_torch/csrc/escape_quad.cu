@@ -25,12 +25,45 @@
 // parameters): no c grid is read.  The 4x64 state and coordinate are 16
 // doubles a lane and a product keeps about 20 more live: the register
 // count and spills are in ptxas's report of the build (PERF.md).
+//
+// The 4x64 QD instance (fs_escape_qd_f64) has an exact fast path.  Its
+// reference arithmetic flushes every f64 result through ftz() (a compare
+// and a select after each operation) and forms each two-product by
+// Dekker's splits (two_prod, ~16 flushed operations).  An iteration whose
+// inputs the guard admits runs quad.cuh's Exact arithmetic instead:
+// unflushed __dadd_rn/__dsub_rn/__dmul_rn, the two-product as one product
+// and one FMA (two_prod_fma), and each square with its repeated products
+// computed once (qd_sqr).  It gives the reference arithmetic's bits:
+//   Let every nonzero component of zx, zy, cx and cy have an exponent in
+//   [E, 500], E = -459.  A component is then an integer multiple of
+//   2^(E-52); so are Dekker's split halves (2^27 + 1 is an integer, and a
+//   rounded multiple of 2^k is one again); and every product the iteration
+//   forms is of two such values, a multiple of 2^(2E-104) = 2^-1022.
+//   Sums, differences, roundings and the doubling keep that lattice, and
+//   the sums with c's components (multiples of 2^(E-52)) too.  So every
+//   value the iteration computes, each two-product's error included, is
+//   zero or at least 2^-1022 in magnitude: normal, and ftz() is the
+//   identity on it (on a signed zero as well).  With no underflow, and no
+//   overflow below 2^1023, Dekker's two-product is exact, so it equals the
+//   FMA's (p, e), exactly a*b - fl(a*b).  Both paths then run the same
+//   rounded operations on the same values.
+// The guard takes E = -450, nine binades above the bound, and tests the
+// exponent bits of zx's and zy's components every iteration and cx's and
+// cy's (constant) once a pixel, a few integer operations each.  A biased
+// exponent of 0 is admitted as zero: no component is ever subnormal, since
+// each is the result of a flushed operation or of an Exact one proven
+// normal (the coordinate comes from the reference arithmetic, QuadFrame::at).
+// An iteration the guard refuses runs the reference arithmetic, whose bits
+// are then today's by construction.  The 4x32 instances keep the reference
+// arithmetic: -ftz=true flushes f32 partials at 2^-126, which their low
+// components reach, and K18 (QF) is not changed.
 // Output: int64 [H, W]; budgets below 2^31, counted in int32 as the
 // reference counts.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "escape_passes.cuh"
 #include "quad.cuh"
@@ -41,7 +74,28 @@ template <class V>
 struct QuadPixel {
   V cx, cy;
   int32_t budget;
+  bool fast;  // the guard admits cx and cy (fs_escape_qd_f64 only)
 };
+
+// only K17's 4x64 QD instance has the exact fast path
+template <class V>
+constexpr bool kFast = std::is_same<V, fs::QDT<double>>::value;
+
+// the guard's exponent range, unbiased (the argument above)
+constexpr int kGuardLo = -450;
+constexpr int kGuardHi = 500;
+
+// every component of x zero or of an exponent in [kGuardLo, kGuardHi]:
+// the biased exponent off each high word (0 only for a zero here)
+__device__ __forceinline__ bool admits(const fs::QDT<double> &x) {
+  const auto in = [](double v) {
+    const uint32_t e = (static_cast<uint32_t>(__double2hiint(v)) >> 20) &
+                       0x7FFu;
+    return (e - static_cast<uint32_t>(kGuardLo + 1023) <=
+            static_cast<uint32_t>(kGuardHi - kGuardLo)) | (e == 0);
+  };
+  return in(x.q0) & in(x.q1) & in(x.q2) & in(x.q3);
+}
 
 // V: fs::QDT<T> or fs::QFT<T>
 template <class V, typename T>
@@ -50,9 +104,12 @@ struct QuadFrame {
   V min_x, max_y, dx, dy;
   int32_t budget;
   __device__ __forceinline__ QuadPixel<V> at(int, int x, int y) const {
-    return {fs::q_add(min_x, fs::q_mul(dx, fs::q_from_float(T(x), dx))),
-            fs::q_sub(max_y, fs::q_mul(dy, fs::q_from_float(T(y), dy))),
-            budget};
+    QuadPixel<V> c = {
+        fs::q_add(min_x, fs::q_mul(dx, fs::q_from_float(T(x), dx))),
+        fs::q_sub(max_y, fs::q_mul(dy, fs::q_from_float(T(y), dy))), budget,
+        false};
+    if constexpr (kFast<V>) c.fast = admits(c.cx) && admits(c.cy);
+    return c;
   }
 };
 
@@ -65,6 +122,20 @@ struct QuadRule {
   // one iteration: false (z kept) once lead(|z|^2) > 4
   static __device__ __forceinline__ bool step(V &zx, V &zy,
                                               const QuadPixel<V> &c) {
+    if constexpr (kFast<V>) {
+      if (c.fast && admits(zx) && admits(zy)) {
+        // the exact fast path: the same values as below
+        using A = fs::Exact;
+        const V zx2 = fs::qd_sqr<A>(zx);
+        const V zy2 = fs::qd_sqr<A>(zy);
+        if (fs::qd_add<A>(zx2, zy2).q0 > 4.0) return false;
+        const V nzy = fs::qd_add<A>(
+            fs::qd_mul_pow2<A>(fs::qd_mul<A>(zx, zy), 2.0), c.cy);
+        zx = fs::qd_add<A>(fs::qd_sub<A>(zx2, zy2), c.cx);
+        zy = nzy;
+        return true;
+      }
+    }
     const V zx2 = fs::q_sqr(zx);
     const V zy2 = fs::q_sqr(zy);
     if (fs::q_lead(fs::q_add(zx2, zy2)) > T(4)) return false;

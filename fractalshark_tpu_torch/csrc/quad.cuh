@@ -9,6 +9,12 @@
 // flushes both.  The overloads q_add, q_sub, q_mul, q_sqr, q_mul_pow2,
 // q_lead and q_from_float give both types one interface for the escape
 // (csrc/escape_quad.cu).
+//
+// The QD functions take their arithmetic as a policy A: Flushed, the
+// above (the twin's, and what q_add, q_sub and q_mul run), or Exact, K17
+// 4x64's fast path: the same operations on f64 with no ftz() and the
+// two-product as an FMA (two_prod_fma).  Exact gives Flushed's bits on the
+// inputs escape_quad.cu's guard admits; the argument is there.
 #pragma once
 
 #include "df32.cuh"
@@ -27,86 +33,194 @@ struct QFT {
 
 // ------------------------------------------------------------------ QD
 
+// (p, e) = (fl(a*b), a*b - fl(a*b)) by one product and one FMA: exact
+// where the product's error is representable (no operand or partial
+// result below the normal range or past it), and then the same two
+// values as Dekker's two_prod (Dekker 1971; Ogita, Rump and Oishi 2005,
+// TwoProduct), signed zeros included (both give +0 for an exact product).
+// -fmad=false forbids the compiler to contract a*b+c; this explicit
+// __fma_rn inside a proven error-free transform is not a contraction.
+__device__ __forceinline__ void two_prod_fma(double a, double b, double &p,
+                                             double &e) {
+  p = __dmul_rn(a, b);
+  e = __fma_rn(a, b, -p);
+}
+
+// the QD functions' arithmetic: every operation rounded on its own and
+// flushed as the twin flushes (df32.cuh)
+struct Flushed {
+  template <typename T>
+  static __device__ __forceinline__ T add(T a, T b) { return fadd(a, b); }
+  template <typename T>
+  static __device__ __forceinline__ T sub(T a, T b) { return fsub(a, b); }
+  template <typename T>
+  static __device__ __forceinline__ T mul(T a, T b) { return fmul(a, b); }
+  template <typename T>
+  static __device__ __forceinline__ void prod(T a, T b, T &p, T &e) {
+    two_prod(a, b, p, e);
+  }
+};
+
+// K17 4x64's fast path: f64, unflushed, the FMA two-product
+struct Exact {
+  static __device__ __forceinline__ double add(double a, double b) {
+    return __dadd_rn(a, b);
+  }
+  static __device__ __forceinline__ double sub(double a, double b) {
+    return __dsub_rn(a, b);
+  }
+  static __device__ __forceinline__ double mul(double a, double b) {
+    return __dmul_rn(a, b);
+  }
+  static __device__ __forceinline__ void prod(double a, double b, double &p,
+                                              double &e) {
+    two_prod_fma(a, b, p, e);
+  }
+};
+
+// df32.cuh's two_sum and quick_two_sum in the arithmetic A
+template <class A, typename T>
+__device__ __forceinline__ void qd_two_sum(T a, T b, T &s, T &err) {
+  s = A::add(a, b);
+  const T bb = A::sub(s, a);
+  err = A::add(A::sub(a, A::sub(s, bb)), A::sub(b, bb));
+}
+
+template <class A, typename T>
+__device__ __forceinline__ void qd_quick_two_sum(T a, T b, T &s, T &err) {
+  s = A::add(a, b);
+  err = A::sub(b, A::sub(s, a));
+}
+
 // (s, e1, e2) with a + b + c = s + e1 + e2
-template <typename T>
+template <class A, typename T>
 __device__ __forceinline__ void three_sum(T a, T b, T c, T &s, T &e1,
                                           T &e2) {
   T t1, t2, t3;
-  two_sum(a, b, t1, t2);
-  two_sum(c, t1, s, t3);
-  two_sum(t2, t3, e1, e2);
+  qd_two_sum<A>(a, b, t1, t2);
+  qd_two_sum<A>(c, t1, s, t3);
+  qd_two_sum<A>(t2, t3, e1, e2);
 }
 
 // (s, e) with a + b + c ~ s + e
-template <typename T>
+template <class A, typename T>
 __device__ __forceinline__ void three_sum2(T a, T b, T c, T &s, T &e) {
   T t1, t2, t3;
-  two_sum(a, b, t1, t2);
-  two_sum(c, t1, s, t3);
-  e = fadd(t2, t3);
+  qd_two_sum<A>(a, b, t1, t2);
+  qd_two_sum<A>(c, t1, s, t3);
+  e = A::add(t2, t3);
 }
 
 // quadd.py renorm with the fifth term: one sweep folding c4 in, then the
 // two downward quick-two-sum sweeps
-template <typename T>
+template <class A, typename T>
 __device__ __forceinline__ QDT<T> renorm(T c0, T c1, T c2, T c3, T c4) {
-  quick_two_sum(c3, c4, c3, c4);
-  quick_two_sum(c2, c3, c2, c3);
-  quick_two_sum(c1, c2, c1, c2);
-  quick_two_sum(c0, c1, c0, c1);
-  c3 = fadd(c3, c4);
+  qd_quick_two_sum<A>(c3, c4, c3, c4);
+  qd_quick_two_sum<A>(c2, c3, c2, c3);
+  qd_quick_two_sum<A>(c1, c2, c1, c2);
+  qd_quick_two_sum<A>(c0, c1, c0, c1);
+  c3 = A::add(c3, c4);
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    quick_two_sum(c2, c3, c2, c3);
-    quick_two_sum(c1, c2, c1, c2);
-    quick_two_sum(c0, c1, c0, c1);
+    qd_quick_two_sum<A>(c2, c3, c2, c3);
+    qd_quick_two_sum<A>(c1, c2, c1, c2);
+    qd_quick_two_sum<A>(c0, c1, c0, c1);
   }
   return {c0, c1, c2, c3};
 }
 
+template <class A, typename T>
+__device__ __forceinline__ QDT<T> qd_add(QDT<T> x, QDT<T> y) {
+  T s0, s1, s2, s3, t0, t1, t2, t3;
+  qd_two_sum<A>(x.q0, y.q0, s0, t0);
+  qd_two_sum<A>(x.q1, y.q1, s1, t1);
+  qd_two_sum<A>(x.q2, y.q2, s2, t2);
+  qd_two_sum<A>(x.q3, y.q3, s3, t3);
+  qd_two_sum<A>(s1, t0, s1, t0);
+  three_sum<A>(s2, t0, t1, s2, t0, t1);
+  three_sum2<A>(s3, t0, t2, s3, t0);
+  t0 = A::add(A::add(t0, t1), t3);
+  return renorm<A>(s0, s1, s2, s3, t0);
+}
+
+template <class A, typename T>
+__device__ __forceinline__ QDT<T> qd_sub(QDT<T> x, QDT<T> y) {
+  return qd_add<A>(x, QDT<T>{-y.q0, -y.q1, -y.q2, -y.q3});
+}
+
+// the product from its six two-products (p_k, q_k) and its four order-3
+// terms o_k = x.q_k * y.q_(3-k), summed as quadd.py qd_mul sums them
+template <class A, typename T>
+__device__ __forceinline__ QDT<T> qd_mul_sum(T p0, T p1, T p2, T p3, T p4,
+                                             T p5, T q0, T q1, T q2, T q3,
+                                             T q4, T q5, T o0, T o1, T o2,
+                                             T o3) {
+  three_sum<A>(p1, p2, q0, p1, p2, q0);
+  three_sum<A>(p2, q1, q2, p2, q1, q2);
+  three_sum<A>(p3, p4, p5, p3, p4, p5);
+  T s0, s1, s2, t0, t1;
+  qd_two_sum<A>(p2, p3, s0, t0);
+  qd_two_sum<A>(q1, p4, s1, t1);
+  s2 = A::add(q2, p5);
+  qd_two_sum<A>(s1, t0, s1, t0);
+  s2 = A::add(s2, A::add(t0, t1));
+  // the order-3 terms, summed left to right
+  T s1b = A::add(A::add(A::add(o0, o1), o2), o3);
+  s1b = A::add(A::add(A::add(s1b, q3), q4), q5);
+  return renorm<A>(p0, p1, s0, A::add(s1, s1b), s2);
+}
+
+template <class A, typename T>
+__device__ __forceinline__ QDT<T> qd_mul(QDT<T> x, QDT<T> y) {
+  T p0, p1, p2, p3, p4, p5, q0, q1, q2, q3, q4, q5;
+  A::prod(x.q0, y.q0, p0, q0);
+  A::prod(x.q0, y.q1, p1, q1);
+  A::prod(x.q1, y.q0, p2, q2);
+  A::prod(x.q0, y.q2, p3, q3);
+  A::prod(x.q1, y.q1, p4, q4);
+  A::prod(x.q2, y.q0, p5, q5);
+  return qd_mul_sum<A>(p0, p1, p2, p3, p4, p5, q0, q1, q2, q3, q4, q5,
+                       A::mul(x.q0, y.q3), A::mul(x.q1, y.q2),
+                       A::mul(x.q2, y.q1), A::mul(x.q3, y.q0));
+}
+
+// qd_mul(x, x) with each product that occurs twice computed once: the
+// two-products of x.q0*x.q1 and x.q0*x.q2 and the order-3 terms
+// x.q0*x.q3 and x.q1*x.q2 (a rounded product is commutative), so the same
+// values enter the same sums
+template <class A, typename T>
+__device__ __forceinline__ QDT<T> qd_sqr(QDT<T> x) {
+  T p0, p1, p3, p4, q0, q1, q3, q4;
+  A::prod(x.q0, x.q0, p0, q0);
+  A::prod(x.q0, x.q1, p1, q1);
+  A::prod(x.q0, x.q2, p3, q3);
+  A::prod(x.q1, x.q1, p4, q4);
+  const T o03 = A::mul(x.q0, x.q3);
+  const T o12 = A::mul(x.q1, x.q2);
+  return qd_mul_sum<A>(p0, p1, p1, p3, p4, p3, q0, q1, q1, q3, q4, q3, o03,
+                       o12, o12, o03);
+}
+
+template <class A, typename T>
+__device__ __forceinline__ QDT<T> qd_mul_pow2(QDT<T> x, T s) {
+  return {A::mul(x.q0, s), A::mul(x.q1, s), A::mul(x.q2, s),
+          A::mul(x.q3, s)};
+}
+
+// the QD interface in today's arithmetic (the twin's)
 template <typename T>
 __device__ __forceinline__ QDT<T> q_add(QDT<T> x, QDT<T> y) {
-  T s0, s1, s2, s3, t0, t1, t2, t3;
-  two_sum(x.q0, y.q0, s0, t0);
-  two_sum(x.q1, y.q1, s1, t1);
-  two_sum(x.q2, y.q2, s2, t2);
-  two_sum(x.q3, y.q3, s3, t3);
-  two_sum(s1, t0, s1, t0);
-  three_sum(s2, t0, t1, s2, t0, t1);
-  three_sum2(s3, t0, t2, s3, t0);
-  t0 = fadd(fadd(t0, t1), t3);
-  return renorm(s0, s1, s2, s3, t0);
+  return qd_add<Flushed>(x, y);
 }
 
 template <typename T>
 __device__ __forceinline__ QDT<T> q_sub(QDT<T> x, QDT<T> y) {
-  return q_add(x, QDT<T>{-y.q0, -y.q1, -y.q2, -y.q3});
+  return qd_sub<Flushed>(x, y);
 }
 
 template <typename T>
 __device__ __forceinline__ QDT<T> q_mul(QDT<T> x, QDT<T> y) {
-  T p0, p1, p2, p3, p4, p5, q0, q1, q2, q3, q4, q5;
-  two_prod(x.q0, y.q0, p0, q0);
-  two_prod(x.q0, y.q1, p1, q1);
-  two_prod(x.q1, y.q0, p2, q2);
-  two_prod(x.q0, y.q2, p3, q3);
-  two_prod(x.q1, y.q1, p4, q4);
-  two_prod(x.q2, y.q0, p5, q5);
-  three_sum(p1, p2, q0, p1, p2, q0);
-  three_sum(p2, q1, q2, p2, q1, q2);
-  three_sum(p3, p4, p5, p3, p4, p5);
-  T s0, s1, s2, t0, t1;
-  two_sum(p2, p3, s0, t0);
-  two_sum(q1, p4, s1, t1);
-  s2 = fadd(q2, p5);
-  two_sum(s1, t0, s1, t0);
-  s2 = fadd(s2, fadd(t0, t1));
-  // the order-3 terms as plain products, summed left to right
-  T s1b = fadd(fadd(fadd(fmul(x.q0, y.q3), fmul(x.q1, y.q2)),
-                    fmul(x.q2, y.q1)),
-               fmul(x.q3, y.q0));
-  s1b = fadd(fadd(fadd(s1b, q3), q4), q5);
-  return renorm(p0, p1, s0, fadd(s1, s1b), s2);
+  return qd_mul<Flushed>(x, y);
 }
 
 template <typename T>
@@ -116,7 +230,7 @@ __device__ __forceinline__ QDT<T> q_sqr(QDT<T> x) {
 
 template <typename T>
 __device__ __forceinline__ QDT<T> q_mul_pow2(QDT<T> x, T s) {
-  return {fmul(x.q0, s), fmul(x.q1, s), fmul(x.q2, s), fmul(x.q3, s)};
+  return qd_mul_pow2<Flushed>(x, s);
 }
 
 template <typename T>

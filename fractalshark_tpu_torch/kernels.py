@@ -207,10 +207,11 @@ _SIGNATURES = {
     + [_I32, _I32, _P, _P, _I32, _P],
     "fs_escape_df_f64": [_P, _I32, _I32] + [_F64] * 8
     + [_I32, _I32, _P, _P, _I32, _P],
-    # bla: dc(3) orbit probe steps levels | state(6) | work tally | n_work
-    # max_ref max_iter | chunk | num_levels lm2 init | stream
-    "fs_bla_f32": [_P] * 15 + [_I32] * 3 + [_I64] + [_I32] * 3 + [_P],
-    "fs_bla_f64": [_P] * 15 + [_I32] * 3 + [_I64] + [_I32] * 3 + [_P],
+    # bla: dc(3) orbit probe bound steps levels | state(6) | work counter
+    # tally | n_work max_ref max_iter | chunk | num_levels lm2 n_bound init
+    # | stream
+    "fs_bla_f32": [_P] * 17 + [_I32] * 3 + [_I64] + [_I32] * 4 + [_P],
+    "fs_bla_f64": [_P] * 17 + [_I32] * 3 + [_I64] + [_I32] * 4 + [_P],
     # perturb_scaled: dcr dci orbit | state(6) | work bad glitch | n_work
     # max_ref max_iter chunk flags | stream
     "fs_perturb_scaled": [_P] * 12 + [_I32, _I64, _I64, _I64, _I32, _P],

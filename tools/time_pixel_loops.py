@@ -12,6 +12,7 @@ card.
 
     python3 tools/time_pixel_loops.py [--tree DIR] [--reps N] [--cli]
                                       [--profile] [--trace] [--no-floor]
+                                      [--sass] [--chunk N]
                                       [--only NAME ...]
 
 For each frame it builds the orbit, the LA table and the dc grid through
@@ -24,8 +25,8 @@ events, ``--reps`` times after one warm-up run, and prints one JSON line
 per frame: the times (ms), the launches of one run, the pixels each
 launch ran, the iter_sum and the CRC-32 of the grid as ``<u4``.  The
 2048² tail's iter_sum is pinned (``PINS``).  It also prints the
-registers and spills ``ptxas -v`` reports for K6, K2, K16, K17 and K18,
-and the
+registers and spills ``ptxas -v`` reports for K6, K2, K15, K16, K17 and
+K18, and the
 serial floor: the per-step time of K6 on one pixel with a one-row orbit
 (``max_ref`` = 1, every step rebases onto row 0) that never escapes
 (c = -0.5), in each of K6's four forms, and the same pixel walking an
@@ -36,12 +37,18 @@ anchor 0 alone (every step reconstructs).  ``--profile`` adds the pixels
 still live after each launch and the deepest pixel's body steps (K2,
 from launches of 64 steps) or tail steps with its serial floor (the
 tail at K6's HDR-f32 floor, K3 at its floor with an anchor every step),
-or K7's LA steps and its bound (``stream_profile``);
+or K7's LA steps and its bound (``stream_profile``), or K15's deepest
+pixel run alone (``bla_floor``, its serial floor);
 ``--no-floor`` skips the serial floors.  ``--trace`` adds, for each
 frame, a run under ``torch.profiler`` (``trace_call``: the fullest of
 three traces): the sum of its CUDA kernels' intervals, their count, and
 the host syncs of the run (``torch.cuda.set_sync_debug_mode``'s
-warnings).  ``--cli`` renders the
+warnings).  ``--sass`` adds the static instruction counts of K15's and
+K17's entry functions in the built library (``cuobjdump -sass``), by
+class (``sass_counts``).  ``--chunk N`` runs each frame's run loop in
+launches of at most N steps a pixel, each over the pixels the last left
+live (K6, K15, K16 and the glitch instance), instead of its default
+schedule.  ``--cli`` renders the
 frames the smoke pins (View #6 PO 256², View #5 1024², View #6 256² with
 ``FRACTALSHARK_LA_PHASE=stream``) through the CLI, twice each in this
 process, and prints their iter_sum, crc32 and timings.
@@ -148,6 +155,7 @@ FRAMES = {
     "1e8_bla_f32_1024": (DEEP_1500, 1024, "k15", "bla_f32", "f32", None),
     "1e8_bla_f64_1024": (DEEP_1500, 1024, "k15", "bla_f64", "f64", None),
     "view6_bla_256": (6, 256, "k15", "bla_f32", "f32", None),
+    "view6_bla64_256": (6, 256, "k15", "bla_f64", "f64", None),
     "1e8_scaled_1024": (DEEP_1500, 1024, "glitch", "perturb_scaled", "f32",
                         None),
     # K16 (the 2x32 / hdr2x32 names without an LA table): the 1e8 frame,
@@ -195,16 +203,71 @@ def crc(grid) -> int:
 
 
 def ptxas_lines(text: str) -> list[str]:
-    """The ptxas -v lines of the K6, K2, K16, K17 and K18 entry
+    """The ptxas -v lines of the K6, K2, K15, K16, K17 and K18 entry
     functions."""
     out, keep = [], 0
     for line in text.splitlines():
         if "Compiling entry function" in line:
             keep = 4 if ("perturb" in line or "lav2" in line
-                         or "QuadRule" in line) else 0
+                         or "QuadRule" in line or "bla_kernel" in line) \
+                else 0
         if keep:
             out.append(line.strip())
             keep -= 1
+    return out
+
+
+# instruction classes of sass_counts, by opcode (the part before the
+# first dot)
+SASS_CLASSES = {
+    "f64": ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX"),
+    "f32": ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FCHK"),
+    "select": ("SEL", "FSEL", "PLOP3", "P2R", "R2P"),
+    "memory": ("LDG", "STG", "LD", "ST", "LDS", "STS", "LDC", "ULDC", "ATOMG",
+               "RED", "ATOM"),
+    "control": ("BRA", "BSSY", "BSYNC", "EXIT", "BAR", "WARPSYNC", "CALL",
+                "RET", "NOP", "BREAK", "BMOV", "YIELD", "WARPGROUP"),
+}
+# the entry functions sass_counts reads: label, substrings of the
+# mangled name (K17 4x64's passes, K15's four instances)
+SASS_FUNCTIONS = {
+    "k17_qd64_pass1": ("escape_pass1", "QuadRuleIN2fs3QDTIdEEdEE"),
+    "k17_qd64_pass2": ("escape_pass2", "QuadRuleIN2fs3QDTIdEEdEE"),
+    "k17_qd32_pass2": ("escape_pass2", "QuadRuleIN2fs3QDTIfEEfEE"),
+    "k15_f32": ("bla_kernelIf",),
+    "k15_f64": ("bla_kernelId",),
+}
+
+
+def sass_counts(so) -> dict:
+    """Static instruction counts, by class (SASS_CLASSES; the rest is
+    "int"), of the SASS_FUNCTIONS entries in the library `so`
+    (``cuobjdump -sass``): every instance whose name holds all of a
+    label's substrings, one record each."""
+    import collections
+    import re
+
+    from fractalshark_tpu_torch import kernels
+
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=600).stdout
+    cls = {op: c for c, ops in SASS_CLASSES.items() for op in ops}
+    out, name, count = {}, None, None
+    for line in text.splitlines() + ["Function : <end>"]:
+        if "Function :" in line:
+            if name is not None:
+                for label, parts in SASS_FUNCTIONS.items():
+                    if all(p in name for p in parts):
+                        key = label + ("_queue" if "Lb1E" in name else "")
+                        out[key] = dict(count, total=sum(count.values()))
+            name = line.split("Function :")[1].strip()
+            count = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                     line)
+        if m and name is not None:
+            count[cls.get(m.group(2).split(".")[0], "int")] += 1
     return out
 
 
@@ -506,11 +569,11 @@ def _setup_family(fr, res, dpar, device):
         return perturb.run_state(fr.orbit, fr.dc, budget or n, mr, False,
                                  fr.key, chunk_steps, bad=fr.bad)
 
-    def plain(budget=None):
+    def plain(budget=None, tally=None):
         if fr.kern == "k15":
             st = bla_kernel.bla_plain(fr.orbit, flat, fr.T,
                                       bla_kernel.init_state_plain(flat),
-                                      budget or n, mr)
+                                      budget or n, mr, tally=tally)
             return st[4].to(torch.int64).reshape(size, size)
         zero = perturb.init_state_plain(flat, budget or n, False)
         return perturb.perturb_plain(fr.orbit, flat,
@@ -782,6 +845,32 @@ def serial_floor(device, reps):
     return out
 
 
+def bla_floor(fr, reps) -> dict:
+    """A K15 frame's serial floor: its deepest pixel (the most BLA and
+    single steps, K15's tally of one run) run alone, from the zero state
+    to its end, under CUDA events: the least time any schedule of the
+    frame can take."""
+    import torch
+
+    from fractalshark_tpu_torch.ops import bla_kernel
+    from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
+
+    tally = torch.zeros((fr.size * fr.size, 2), dtype=torch.int64,
+                        device=fr.orbit.device)
+    fr.run(None, None, tally)
+    steps = tally.sum(dim=1)
+    p = int(steps.argmax())
+    one = HDRComplex(*(t.reshape(-1)[p:p + 1].contiguous() for t in fr.dc))
+    alone = types.SimpleNamespace(
+        name=f"{fr.name} pixel {p}", kern="k15", n=fr.n,
+        run=lambda: bla_kernel.bla_run(fr.orbit, one, fr.T, fr.n, fr.mr))
+    _, rec = time_frame(alone, reps)
+    return {"deepest_pixel": p, "deepest_steps": int(steps[p]),
+            "deepest_bla_steps": int(tally[p, 0]),
+            "serial_floor_ms": rec["ms_median"],
+            "ns_a_step": rec["ms_median"] * 1e6 / int(steps[p])}
+
+
 def rc_floor(device, reps):
     """K3's time per step (ns) on one never-escaping pixel over a zero
     orbit of STREAM_ROWS positions from the zero state: with an anchor at
@@ -841,6 +930,10 @@ def main() -> int:
     ap.add_argument("--only", nargs="*")
     ap.add_argument("--no-floor", action="store_true",
                     help="skip the serial floors")
+    ap.add_argument("--sass", action="store_true",
+                    help="K15's and K17's static instruction counts")
+    ap.add_argument("--chunk", type=int, default=None,
+                    help="launches of at most N steps a pixel")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -860,6 +953,8 @@ def main() -> int:
     kernels.lib()
     for line in ptxas_lines(buf.getvalue()):
         log(f"  ptxas {line}")
+    if args.sass:
+        log(json.dumps({"sass": sass_counts(kernels.build())}))
     floor = {}
     if not args.no_floor:
         floor = serial_floor(device, args.reps)
@@ -867,7 +962,13 @@ def main() -> int:
                                                          args.reps).items()})
     for name in args.only or FRAMES:
         fr = setup(name, device)
+        if args.chunk and fr.kern in ("k6", "k15", "k16", "glitch"):
+            run = fr.run
+            fr.run = (lambda budget=None, chunk_steps=None, *more:
+                      run(budget, args.chunk, *more))
         out, rec = time_frame(fr, args.reps)
+        if args.chunk:
+            rec["chunk"] = args.chunk
         if args.trace:
             tr = trace_call(fr.run)
             tr.pop("order")
@@ -881,6 +982,8 @@ def main() -> int:
                            else "k3_hit", float("nan"))
             rec.update(live=rec["work"], deepest_steps=steps,
                        serial_floor_ms=steps * ns / 1e6)
+        elif args.profile and fr.kern == "k15":
+            rec.update(bla_floor(fr, args.reps))
         elif args.profile and fr.kern == "k7":
             rec.update(stream_profile(fr, out))
         elif args.profile and fr.kern in ("k2", "k6"):
