@@ -100,8 +100,11 @@ BLA and single steps; the glitch instance in such launches) and timed
 (tools/time_pixel_loops.py), K13 at View #6's and View #8's centres
 (2^453, 2^2220) at 256², K15 (f32 and f64) on View #6 at 256², held to
 its twin and its tally at the preset's budget, timed, and its deepest
-pixel run alone (its serial floor), the Scaled repair pass (K6 HDR-f64)
-on a poisoned orbit, then the nine frames of
+pixel run alone (its serial floor), K14 2x64 against its twin on the
+guard frame (``DF_GUARD_SCALARS``: iterations on and off its exact fast
+path), the Scaled repair pass (K6 HDR-f64) on a poisoned orbit, and the
+glitch instance there with the bad flag moved to two more positions (in
+one launch and in launches over the live pixels), then the nine frames of
 ``FAMILY_PINS`` through the CLI at 256² (counts from 0, the plain twins
 made to raise), pinned to the JAX package's values; their launches are
 the kernels line's, (15) the last render families: K16
@@ -521,6 +524,16 @@ QUAD_GUARD_SCALARS = [-2.0, -2.0 ** -297, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
                       0.0, 0.0]
 QUAD_GUARD_SIZE = 16
 QUAD_GUARD_BUDGET = 300
+# K14 2x64's guard frame (min_x, max_y, dx, dy as (hi, lo), size,
+# budget): cx = -2 + (x - 8) 2^-300, with a low part of 2^-457 in column 8
+# (below the fast path's range: every iteration there takes the reference
+# arithmetic); cy = -y 2^-440.  On row 0 (cy = 0) every iteration is
+# admitted; on the other rows zy's low parts start below the range and
+# rise into it after about 25 iterations
+DF_GUARD_SCALARS = [-2.0, -2.0 ** -297, 0.0, 0.0, 2.0 ** -300,
+                    2.0 ** -460, 2.0 ** -440, 0.0]
+DF_GUARD_SIZE = 16
+DF_GUARD_BUDGET = 300
 POISON = ("-0.6", "0.4", "4", 200, 256)
 
 HBM_BYTES_PER_S = 3.35e12
@@ -2668,9 +2681,11 @@ def phase_families(device, stats):
     """The render families the port took last: K13 and K14 (every
     instance) on the shallow frame at 1024², K15 (f32, f64) and K6's glitch
     instance on the 1e8 frame at 1024² x 1,500, each against its twin and
-    timed; K13 at View #6's and View #8's centres; K15 (f32, f64) on View
-    #6 at 256² at the preset budget, its deepest pixel alone; the Scaled
-    repair pass on a poisoned orbit; then the nine 256² frames through the
+    timed; K14 2x64 on its guard frame; K13 at View #6's and View #8's
+    centres; K15 (f32, f64) on View #6 at 256² at the preset budget, its
+    deepest pixel alone; the Scaled repair pass on a poisoned orbit, and
+    the glitch instance with the bad flag at two more positions; then the
+    nine 256² frames through the
     CLI (counts from 0, the twins forbidden), pinned to the JAX package's
     values."""
     import numpy as np
@@ -2680,7 +2695,9 @@ def phase_families(device, stats):
     from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
     from fractalshark_tpu_torch.core.views import get_view_preset
     from fractalshark_tpu_torch.engine.reforbit import RefOrbitCalc
-    from fractalshark_tpu_torch.ops import hdr_escape, perturb, scaled
+    from fractalshark_tpu_torch.ops import dblflt, hdr_escape, perturb, scaled
+    from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
+    from fractalshark_tpu_torch.ops.tables import orbit_on
 
     log("[14] the render families: K13, K14, K15 and K6-glitch vs their "
         "twins, timed (tools/time_pixel_loops.py), then the CLI frames")
@@ -2693,6 +2710,14 @@ def phase_families(device, stats):
             k = fr.run()
             pl, pms = timed(fr.plain, device, warm=False)
             compare(f"{entry} {name}", k, pl, st)
+            if entry == "escape_2x64":
+                # the guard frame: iterations on and off the exact fast path
+                g, n = DF_GUARD_SIZE, DF_GUARD_BUDGET
+                compare(f"{entry} guard frame {g}² x{n}",
+                        dblflt.escape_df_kernel(DF_GUARD_SCALARS, g, g, n,
+                                                torch.float64, device),
+                        dblflt.escape_df_plain(DF_GUARD_SCALARS, g, g, n,
+                                               torch.float64, device), st)
             out, rec = tpl.time_frame(fr, 3)
             ops = (hdr_escape_ops if fr.kern == "k13" else df_escape_ops)(
                 out, fr.n)
@@ -2787,6 +2812,30 @@ def phase_families(device, stats):
     for i, what in ((0, "iterations"), (1, "glitch flags")):
         compare(f"perturb_scaled poisoned orbit {size}² x{n} {what}", k[i],
                 pl[i], stats["perturb_scaled"])
+    # the glitch kernel's first-bad index with the flag at two more
+    # positions, in one launch and in launches of FAMILY_CHUNK steps over
+    # the live pixels, against the twin's bad[] in one lockstep run
+    orbit = orbit_on(res, device, torch.float32)
+    dc = perturb._dc_grids_float(*perturb.delta_params(
+        ptz, res.center_x, res.center_y, size, size), size, size, device,
+        torch.float32)
+    flat = HDRComplex(*(t.reshape(-1) for t in dc))
+    mr = res.max_ref_iteration()
+    for pos in (1, mr // 2):
+        bad = torch.zeros(res.device_orbit(np.float64)[0].size,
+                          dtype=torch.bool)
+        bad[pos] = True
+        zero = perturb.init_state_plain(flat, n, False)
+        pl = perturb.perturb_plain(orbit, flat,
+                                   zero + (torch.zeros_like(zero[5]),), n,
+                                   mr, False, bad=bad.to(device))
+        for chunk in (0, FAMILY_CHUNK):
+            k = perturb.run_state(orbit, dc, n, mr, False, "perturb_scaled",
+                                  chunk, bad=bad)
+            for i, what in ((4, "iterations"), (6, "glitch flags")):
+                compare(f"perturb_scaled poisoned orbit {size}² x{n}, bad at "
+                        f"{pos} only, chunk {chunk} {what}", k[i], pl[i],
+                        stats["perturb_scaled"])
 
     # the CLI frames, counts from 0, the twins forbidden
     launches = {entry: 0 for _, entry in FAMILY_FRAMES}

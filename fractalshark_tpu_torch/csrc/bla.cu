@@ -247,19 +247,6 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
-// blocks of `kernel` the card holds at once (0 on a CUDA error, in *err)
-template <typename K>
-int64_t resident_blocks(K kernel, cudaError_t *err) {
-  int dev = 0, sms = 0, per_sm = 0;
-  *err = cudaGetDevice(&dev);
-  if (*err == cudaSuccess)
-    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (*err == cudaSuccess)
-    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                         kBlock, 0);
-  return *err == cudaSuccess ? int64_t{per_sm} * sms : 0;
-}
-
 template <typename T>
 int launch(const void *dcr, const void *dci, const void *dce,
            const void *orbit, const void *probe, const void *bound,
@@ -276,7 +263,8 @@ int launch(const void *dcr, const void *dci, const void *dce,
                        num_levels, lm2, n_bound, init};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  const int64_t resident = resident_blocks(bla_kernel<T, true>, &err);
+  const int64_t resident =
+      fs::resident_blocks(bla_kernel<T, true>, kBlock, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (resident < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   // the queue only when some lane must take a second pixel

@@ -47,12 +47,13 @@
 //   overflow below 2^1023, Dekker's two-product is exact, so it equals the
 //   FMA's (p, e), exactly a*b - fl(a*b).  Both paths then run the same
 //   rounded operations on the same values.
-// The guard takes E = -450, nine binades above the bound, and tests the
-// exponent bits of zx's and zy's components every iteration and cx's and
-// cy's (constant) once a pixel, a few integer operations each.  A biased
-// exponent of 0 is admitted as zero: no component is ever subnormal, since
-// each is the result of a flushed operation or of an Exact one proven
-// normal (the coordinate comes from the reference arithmetic, QuadFrame::at).
+// The guard (df32.cuh: kGuardLo, kGuardHi, admits) takes E = -450, nine
+// binades above the bound, and tests the exponent bits of zx's and zy's
+// components every iteration and cx's and cy's (constant) once a pixel, a
+// few integer operations each.  A biased exponent of 0 is admitted as
+// zero: no component is ever subnormal, since each is the result of a
+// flushed operation or of an Exact one proven normal (the coordinate
+// comes from the reference arithmetic, QuadFrame::at).
 // An iteration the guard refuses runs the reference arithmetic, whose bits
 // are then today's by construction.  The 4x32 instances keep the reference
 // arithmetic: -ftz=true flushes f32 partials at 2^-126, which their low
@@ -81,22 +82,6 @@ struct QuadPixel {
 template <class V>
 constexpr bool kFast = std::is_same<V, fs::QDT<double>>::value;
 
-// the guard's exponent range, unbiased (the argument above)
-constexpr int kGuardLo = -450;
-constexpr int kGuardHi = 500;
-
-// every component of x zero or of an exponent in [kGuardLo, kGuardHi]:
-// the biased exponent off each high word (0 only for a zero here)
-__device__ __forceinline__ bool admits(const fs::QDT<double> &x) {
-  const auto in = [](double v) {
-    const uint32_t e = (static_cast<uint32_t>(__double2hiint(v)) >> 20) &
-                       0x7FFu;
-    return (e - static_cast<uint32_t>(kGuardLo + 1023) <=
-            static_cast<uint32_t>(kGuardHi - kGuardLo)) | (e == 0);
-  };
-  return in(x.q0) & in(x.q1) & in(x.q2) & in(x.q3);
-}
-
 // V: fs::QDT<T> or fs::QFT<T>
 template <class V, typename T>
 struct QuadFrame {
@@ -108,7 +93,7 @@ struct QuadFrame {
         fs::q_add(min_x, fs::q_mul(dx, fs::q_from_float(T(x), dx))),
         fs::q_sub(max_y, fs::q_mul(dy, fs::q_from_float(T(y), dy))), budget,
         false};
-    if constexpr (kFast<V>) c.fast = admits(c.cx) && admits(c.cy);
+    if constexpr (kFast<V>) c.fast = fs::admits(c.cx) && fs::admits(c.cy);
     return c;
   }
 };
@@ -123,7 +108,7 @@ struct QuadRule {
   static __device__ __forceinline__ bool step(V &zx, V &zy,
                                               const QuadPixel<V> &c) {
     if constexpr (kFast<V>) {
-      if (c.fast && admits(zx) && admits(zy)) {
+      if (c.fast && fs::admits(zx) && fs::admits(zy)) {
         // the exact fast path: the same values as below
         using A = fs::Exact;
         const V zx2 = fs::qd_sqr<A>(zx);

@@ -3,8 +3,10 @@
 // the orbit cursor (K6), which has the row a step needs in registers when
 // the step starts, the HDR perturbation step (K6, K3 and K19), and the
 // anchor cursors (K3 in df32, K19 in f64), which have the next anchor's
-// position and value in registers before a step needs them.  K7 (csrc/la_stream.cu) loads its node rows with the
-// anchor loads.
+// position and value in registers before a step needs them.  K7
+// (csrc/la_stream.cu) loads its node rows with the anchor loads.  The
+// work queues of K15 and K6's glitch instance size their grids with
+// resident_blocks (host code).
 //
 // Orbit rows: the packed [M, 4] table of ops/tables.py pack_orbit_np,
 // row r = (Z[r], Z[r+1]).  A step at position j reads row j; the next step
@@ -20,6 +22,8 @@
 // the new half row, and L1 prefetches were each measured and were slower
 // (PERF.md §6).
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -223,6 +227,21 @@ struct AnchorCursor64 {
 __device__ __forceinline__ float f32_of(double v) {
   const uint32_t b = __float_as_uint(__double2float_rn(v));
   return __uint_as_float((b & 0x7F800000u) ? b : (b & 0x80000000u));
+}
+
+// blocks of `kernel` (`block` threads each) the card holds at once, for
+// the work queues of K15 and K6's glitch instance (0 on a CUDA error, in
+// *err)
+template <typename K>
+int64_t resident_blocks(K kernel, int block, cudaError_t *err) {
+  int dev = 0, sms = 0, per_sm = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*err == cudaSuccess)
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         block, 0);
+  return *err == cudaSuccess ? int64_t{per_sm} * sms : 0;
 }
 
 }  // namespace fs

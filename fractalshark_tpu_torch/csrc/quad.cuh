@@ -10,11 +10,12 @@
 // q_lead and q_from_float give both types one interface for the escape
 // (csrc/escape_quad.cu).
 //
-// The QD functions take their arithmetic as a policy A: Flushed, the
-// above (the twin's, and what q_add, q_sub and q_mul run), or Exact, K17
-// 4x64's fast path: the same operations on f64 with no ftz() and the
-// two-product as an FMA (two_prod_fma).  Exact gives Flushed's bits on the
-// inputs escape_quad.cu's guard admits; the argument is there.
+// The QD functions take their arithmetic as a policy A (df32.cuh):
+// Flushed, the above (the twin's, and what q_add, q_sub and q_mul run),
+// or Exact, K17 4x64's fast path: the same operations on f64 with no
+// ftz() and the two-product as an FMA (two_prod_fma).  Exact gives
+// Flushed's bits on the inputs escape_quad.cu's guard admits; the
+// argument is there.
 #pragma once
 
 #include "df32.cuh"
@@ -31,83 +32,29 @@ struct QFT {
   DFT<T> a, b;  // value = a + b
 };
 
+// the Exact paths' guard (df32.cuh) on every component of x
+__device__ __forceinline__ bool admits(const QDT<double> &x) {
+  return guard_in(x.q0) & guard_in(x.q1) & guard_in(x.q2) & guard_in(x.q3);
+}
+
 // ------------------------------------------------------------------ QD
-
-// (p, e) = (fl(a*b), a*b - fl(a*b)) by one product and one FMA: exact
-// where the product's error is representable (no operand or partial
-// result below the normal range or past it), and then the same two
-// values as Dekker's two_prod (Dekker 1971; Ogita, Rump and Oishi 2005,
-// TwoProduct), signed zeros included (both give +0 for an exact product).
-// -fmad=false forbids the compiler to contract a*b+c; this explicit
-// __fma_rn inside a proven error-free transform is not a contraction.
-__device__ __forceinline__ void two_prod_fma(double a, double b, double &p,
-                                             double &e) {
-  p = __dmul_rn(a, b);
-  e = __fma_rn(a, b, -p);
-}
-
-// the QD functions' arithmetic: every operation rounded on its own and
-// flushed as the twin flushes (df32.cuh)
-struct Flushed {
-  template <typename T>
-  static __device__ __forceinline__ T add(T a, T b) { return fadd(a, b); }
-  template <typename T>
-  static __device__ __forceinline__ T sub(T a, T b) { return fsub(a, b); }
-  template <typename T>
-  static __device__ __forceinline__ T mul(T a, T b) { return fmul(a, b); }
-  template <typename T>
-  static __device__ __forceinline__ void prod(T a, T b, T &p, T &e) {
-    two_prod(a, b, p, e);
-  }
-};
-
-// K17 4x64's fast path: f64, unflushed, the FMA two-product
-struct Exact {
-  static __device__ __forceinline__ double add(double a, double b) {
-    return __dadd_rn(a, b);
-  }
-  static __device__ __forceinline__ double sub(double a, double b) {
-    return __dsub_rn(a, b);
-  }
-  static __device__ __forceinline__ double mul(double a, double b) {
-    return __dmul_rn(a, b);
-  }
-  static __device__ __forceinline__ void prod(double a, double b, double &p,
-                                              double &e) {
-    two_prod_fma(a, b, p, e);
-  }
-};
-
-// df32.cuh's two_sum and quick_two_sum in the arithmetic A
-template <class A, typename T>
-__device__ __forceinline__ void qd_two_sum(T a, T b, T &s, T &err) {
-  s = A::add(a, b);
-  const T bb = A::sub(s, a);
-  err = A::add(A::sub(a, A::sub(s, bb)), A::sub(b, bb));
-}
-
-template <class A, typename T>
-__device__ __forceinline__ void qd_quick_two_sum(T a, T b, T &s, T &err) {
-  s = A::add(a, b);
-  err = A::sub(b, A::sub(s, a));
-}
 
 // (s, e1, e2) with a + b + c = s + e1 + e2
 template <class A, typename T>
 __device__ __forceinline__ void three_sum(T a, T b, T c, T &s, T &e1,
                                           T &e2) {
   T t1, t2, t3;
-  qd_two_sum<A>(a, b, t1, t2);
-  qd_two_sum<A>(c, t1, s, t3);
-  qd_two_sum<A>(t2, t3, e1, e2);
+  two_sum<A>(a, b, t1, t2);
+  two_sum<A>(c, t1, s, t3);
+  two_sum<A>(t2, t3, e1, e2);
 }
 
 // (s, e) with a + b + c ~ s + e
 template <class A, typename T>
 __device__ __forceinline__ void three_sum2(T a, T b, T c, T &s, T &e) {
   T t1, t2, t3;
-  qd_two_sum<A>(a, b, t1, t2);
-  qd_two_sum<A>(c, t1, s, t3);
+  two_sum<A>(a, b, t1, t2);
+  two_sum<A>(c, t1, s, t3);
   e = A::add(t2, t3);
 }
 
@@ -115,16 +62,16 @@ __device__ __forceinline__ void three_sum2(T a, T b, T c, T &s, T &e) {
 // two downward quick-two-sum sweeps
 template <class A, typename T>
 __device__ __forceinline__ QDT<T> renorm(T c0, T c1, T c2, T c3, T c4) {
-  qd_quick_two_sum<A>(c3, c4, c3, c4);
-  qd_quick_two_sum<A>(c2, c3, c2, c3);
-  qd_quick_two_sum<A>(c1, c2, c1, c2);
-  qd_quick_two_sum<A>(c0, c1, c0, c1);
+  quick_two_sum<A>(c3, c4, c3, c4);
+  quick_two_sum<A>(c2, c3, c2, c3);
+  quick_two_sum<A>(c1, c2, c1, c2);
+  quick_two_sum<A>(c0, c1, c0, c1);
   c3 = A::add(c3, c4);
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    qd_quick_two_sum<A>(c2, c3, c2, c3);
-    qd_quick_two_sum<A>(c1, c2, c1, c2);
-    qd_quick_two_sum<A>(c0, c1, c0, c1);
+    quick_two_sum<A>(c2, c3, c2, c3);
+    quick_two_sum<A>(c1, c2, c1, c2);
+    quick_two_sum<A>(c0, c1, c0, c1);
   }
   return {c0, c1, c2, c3};
 }
@@ -132,11 +79,11 @@ __device__ __forceinline__ QDT<T> renorm(T c0, T c1, T c2, T c3, T c4) {
 template <class A, typename T>
 __device__ __forceinline__ QDT<T> qd_add(QDT<T> x, QDT<T> y) {
   T s0, s1, s2, s3, t0, t1, t2, t3;
-  qd_two_sum<A>(x.q0, y.q0, s0, t0);
-  qd_two_sum<A>(x.q1, y.q1, s1, t1);
-  qd_two_sum<A>(x.q2, y.q2, s2, t2);
-  qd_two_sum<A>(x.q3, y.q3, s3, t3);
-  qd_two_sum<A>(s1, t0, s1, t0);
+  two_sum<A>(x.q0, y.q0, s0, t0);
+  two_sum<A>(x.q1, y.q1, s1, t1);
+  two_sum<A>(x.q2, y.q2, s2, t2);
+  two_sum<A>(x.q3, y.q3, s3, t3);
+  two_sum<A>(s1, t0, s1, t0);
   three_sum<A>(s2, t0, t1, s2, t0, t1);
   three_sum2<A>(s3, t0, t2, s3, t0);
   t0 = A::add(A::add(t0, t1), t3);
@@ -159,10 +106,10 @@ __device__ __forceinline__ QDT<T> qd_mul_sum(T p0, T p1, T p2, T p3, T p4,
   three_sum<A>(p2, q1, q2, p2, q1, q2);
   three_sum<A>(p3, p4, p5, p3, p4, p5);
   T s0, s1, s2, t0, t1;
-  qd_two_sum<A>(p2, p3, s0, t0);
-  qd_two_sum<A>(q1, p4, s1, t1);
+  two_sum<A>(p2, p3, s0, t0);
+  two_sum<A>(q1, p4, s1, t1);
   s2 = A::add(q2, p5);
-  qd_two_sum<A>(s1, t0, s1, t0);
+  two_sum<A>(s1, t0, s1, t0);
   s2 = A::add(s2, A::add(t0, t1));
   // the order-3 terms, summed left to right
   T s1b = A::add(A::add(A::add(o0, o1), o2), o3);

@@ -212,9 +212,9 @@ _SIGNATURES = {
     # | stream
     "fs_bla_f32": [_P] * 17 + [_I32] * 3 + [_I64] + [_I32] * 4 + [_P],
     "fs_bla_f64": [_P] * 17 + [_I32] * 3 + [_I64] + [_I32] * 4 + [_P],
-    # perturb_scaled: dcr dci orbit | state(6) | work bad glitch | n_work
-    # max_ref max_iter chunk flags | stream
-    "fs_perturb_scaled": [_P] * 12 + [_I32, _I64, _I64, _I64, _I32, _P],
+    # perturb_scaled: dcr dci orbit | state(6) | work counter | n_work
+    # max_ref max_iter first_bad | chunk | init | stream
+    "fs_perturb_scaled": [_P] * 11 + [_I32] * 4 + [_I64, _I32, _P],
     # perturb_hdr_df: dc(5) orbit | state(8) | work | n_work max_ref
     # max_iter chunk init | stream
     "fs_perturb_hdr_df": [_P] * 15 + [_I32, _I64, _I64, _I64, _I32, _P],

@@ -26,7 +26,11 @@ Numeric forms, each a K6 instance with its plain twin here:
 * plain f32 with a glitch flag a pixel, the OR of ``bad[j]`` over the
   orbit positions it stepped from (``scaled.py``'s
   ``_perturb_f32_glitch_impl``): the Scaled family's f32 pass
-  (``run_state`` with ``bad``; ``ops/scaled.py``).
+  (``run_state`` with ``bad``; ``ops/scaled.py``).  The twin ORs
+  ``bad[j]`` itself; the kernel, a kernel of its own in ``perturb.cu``,
+  tests ``j >= first_bad(bad, max_ref)``, the same flag for a state
+  carried from the zero state (a pixel's positions run 0, 1, 2, ...
+  from it and from every rebase).
 
 The reference steps every pixel in lockstep and counts the iterations
 in int32; K6 gives each lane its own pixel and int64 counters, so
@@ -224,34 +228,51 @@ def on_subset(step, state: tuple, dc: tuple, work) -> tuple:
     return out
 
 
+def first_bad(bad: torch.Tensor, max_ref: int) -> int:
+    """The glitch instance's first-bad index: the first orbit position in
+    [0, max(max_ref, 1)) whose flag in `bad` is set, or max(max_ref, 1)
+    if none is (the positions a pixel steps from, which the twin clamps
+    to [0, max(max_ref - 1, 0)]).  Read on the host."""
+    n = max(int(max_ref), 1)
+    hits = np.flatnonzero(bad[:n].cpu().numpy())
+    return int(hits[0]) if hits.size else n
+
+
 def perturb_kernel(orbit: torch.Tensor, dc: HDRComplex, state: tuple | None,
                    max_iter: int, max_ref: int, hdr_mode: bool,
                    chunk_steps: int, key: str, work=None,
                    handoff: bool = False,
-                   bad: torch.Tensor | None = None) -> tuple:
+                   first_bad: int | None = None) -> tuple:
     """Launch K6 once on a CUDA device, counted under `key` (the entry
     point's instance name), over the pixels `work` (int32 indices; None:
     every pixel).  With `state` None the launch starts every pixel from
     the zero state itself (and `work` must be None); with `handoff` it
     first applies an LA phase's handoff to `state` (``handoff_plain``).
-    With `bad` (bool, one an orbit position) it is the glitch instance
-    (native f32 only): the state's seventh tensor holds the glitch flags.
-    The state tensors are updated in place and returned."""
+    With `first_bad` (``first_bad(bad, max_ref)``) it is the glitch
+    instance (native f32 only, a budget below 2^31 and an orbit of fewer
+    than 2^31 - 1 positions): the state's seventh tensor holds the glitch
+    flags.  The state tensors are updated in place and returned."""
     dev = dc.re.device
     fdt = dc.re.dtype
     P = dc.re.numel()
-    glitch = bad is not None
+    glitch = first_bad is not None
     if glitch and (hdr_mode or handoff or fdt != torch.float32
-                   or bad.dtype != torch.bool or bad.device != dev
-                   or bad.numel() < max_ref or not bad.is_contiguous()):
-        raise ValueError("K6's glitch instance takes native f32 from the "
-                         "zero state and a bool flag an orbit position")
+                   or not 0 <= int(first_bad) <= max(int(max_ref), 1)
+                   or not 0 <= int(max_ref) < (1 << 31) - 1
+                   or not -(1 << 31) <= int(max_iter) < 1 << 31):
+        raise ValueError("K6's glitch instance takes native f32, a first-"
+                         "bad index in [0, max(max_ref, 1)], max_ref below "
+                         "2^31 - 1 and a budget below 2^31")
     dtypes = _state_dtypes(fdt) + ((torch.bool,) if glitch else ())
     init = state is None
     if init:
         if work is not None:
             raise ValueError("K6's first launch runs every pixel")
         state = tuple(torch.empty(P, dtype=dt, device=dev) for dt in dtypes)
+        if glitch:
+            # the float state's exponent, which the glitch instance
+            # neither reads nor writes
+            state[2].zero_()
     if len(state) != len(dtypes):
         raise ValueError(f"K6 state: {len(state)} tensors, not "
                          f"{len(dtypes)}")
@@ -277,8 +298,9 @@ def perturb_kernel(orbit: torch.Tensor, dc: HDRComplex, state: tuple | None,
     if glitch:
         kernels.check(lib.fs_perturb_scaled(
             dc.re.data_ptr(), dc.im.data_ptr(), orbit.data_ptr(),
-            *(t.data_ptr() for t in state[:6]), ptr_work, bad.data_ptr(),
-            state[6].data_ptr(), n_work, int(max_ref), int(max_iter),
+            *(state[i].data_ptr() for i in (0, 1, 3, 4, 5, 6)), ptr_work,
+            kernels.queue_counter(dev).data_ptr(), n_work, int(max_ref),
+            int(max_iter), int(first_bad),
             int(chunk_steps), int(init), kernels.stream(dev)),
             "fs_perturb_scaled")
         return state
@@ -356,7 +378,9 @@ def run_state(orbit: torch.Tensor, dc: HDRComplex, max_iter: int,
               state: tuple | None = None, handoff: bool = False,
               bad: torch.Tensor | None = None) -> tuple:
     """``perturb_run``'s loop, returning the final flat state; with `bad`
-    the glitch instance's (its seventh tensor the glitch flags)."""
+    (bool, one an orbit position) the glitch instance's (its seventh
+    tensor the glitch flags): on the card its first-bad index, taken
+    once (``first_bad``), on the CPU ``bad`` itself."""
     dev = dc.re.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
@@ -365,6 +389,7 @@ def run_state(orbit: torch.Tensor, dc: HDRComplex, max_iter: int,
     if chunk_steps is None:
         chunk_steps = DEFAULT_CHUNK_STEPS if cuda else 0
     work, sizes = None, []
+    fb = first_bad(bad, max_ref) if cuda and bad is not None else None
     if state is not None and handoff and not cuda:
         state = handoff_plain(orbit, state, max_iter, max_ref)
     elif state is None and not cuda:
@@ -377,7 +402,7 @@ def run_state(orbit: torch.Tensor, dc: HDRComplex, max_iter: int,
             state = perturb_kernel(orbit, flat, state, max_iter, max_ref,
                                    hdr_mode, chunk_steps, key, work,
                                    handoff=handoff and len(sizes) == 1,
-                                   bad=bad)
+                                   first_bad=fb)
         else:
             state = on_subset(
                 lambda st, d: perturb_plain(orbit, d, st, max_iter, max_ref,

@@ -54,7 +54,7 @@ def scaled_pass(results, ptz: PointZoomBBConverter, width: int,
     state = perturb.run_state(
         orbit_on(results, device, torch.float32), dc, max_iter,
         results.max_ref_iteration(), False, "perturb_scaled", chunk_steps,
-        abort_monitor, bad=torch.from_numpy(bad).to(device))
+        abort_monitor, bad=torch.from_numpy(bad))
     shape = (height, width)
     return state[4].reshape(shape), state[6].reshape(shape), int(bad.sum())
 

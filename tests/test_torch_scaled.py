@@ -192,3 +192,107 @@ def test_glitch_instance_matches_twin_on_card(frames, name):
                                 zero + (torch.zeros_like(zero[5]),), n, mr,
                                 False, bad=bad)
     assert torch.equal(st[4], one[4]) and torch.equal(st[6], one[6])
+
+
+def _bad_variants(bad: torch.Tensor, mr: int) -> dict:
+    """The poisoned orbit's flags (entry 5), and flags set at position 1
+    alone, in the middle alone, at the last position a pixel steps from
+    (max_ref - 1, where it rebases) alone, past it (max_ref) alone, and at
+    random (seeded, 2 % of the entries)."""
+    out = {"poisoned": bad}
+    for name, pos in (("first", 1), ("middle", mr // 2), ("last", mr - 1),
+                      ("past", mr)):
+        b = torch.zeros_like(bad)
+        b[pos] = True
+        out[name] = b
+    rng = np.random.default_rng(17)
+    for s in range(2):
+        out[f"random{s}"] = torch.from_numpy(rng.random(bad.numel()) < 0.02)
+    return out
+
+
+BAD_VARIANTS = ["poisoned", "first", "middle", "last", "past", "random0",
+                "random1"]
+
+
+def test_first_bad_index(frames):
+    orbit, _, bad, mr = _inputs(frames, "poisoned", torch.device("cpu"))
+    v = _bad_variants(bad, mr)
+    assert [perturb.first_bad(v[k], mr) for k in ("poisoned", "first",
+                                                  "middle", "last",
+                                                  "past")] == \
+        [5, 1, mr // 2, mr - 1, mr]
+    assert perturb.first_bad(torch.zeros_like(bad), mr) == mr
+    assert perturb.first_bad(torch.ones_like(bad), 0) == 0
+    assert perturb.first_bad(torch.zeros_like(bad), 0) == 1
+    # the 1e8 frame's only bad entry, the wrap entry, is past max_ref
+    _, _, deep_bad, deep_mr = _inputs(frames, "deep", torch.device("cpu"))
+    assert perturb.first_bad(deep_bad, deep_mr) == deep_mr
+
+
+@pytest.mark.parametrize("chunk", [0, 7])
+@pytest.mark.parametrize("variant", BAD_VARIANTS)
+def test_twin_with_the_prefix_mask_equals_twin_with_bad(frames, variant,
+                                                        chunk):
+    """K6-glitch's first-bad identity: the twin with `bad` replaced by its
+    prefix mask (positions at or past first_bad) gives the counts and
+    flags it gives with `bad`, from the zero state in one run and in
+    launches of `chunk` steps over the live pixels."""
+    orbit, dc, bad, mr = _inputs(frames, "poisoned", torch.device("cpu"))
+    bad = _bad_variants(bad, mr)[variant]
+    prefix = torch.arange(bad.numel()) >= perturb.first_bad(bad, mr)
+    want = perturb.run_state(orbit, dc, POISON_BUDGET, mr, False,
+                             "perturb_scaled", chunk, bad=bad)
+    got = perturb.run_state(orbit, dc, POISON_BUDGET, mr, False,
+                            "perturb_scaled", chunk, bad=prefix)
+    assert torch.equal(got[4], want[4]) and torch.equal(got[6], want[6])
+    if variant != "past":
+        assert bool(want[6].any())
+    else:
+        assert not bool(want[6].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [0, 257])
+@pytest.mark.parametrize("variant", BAD_VARIANTS)
+def test_glitch_kernel_matches_twin_on_bad_variants(frames, variant, chunk):
+    """The glitch kernel (its first-bad index) against the twin (its bad
+    flags) on the poisoned orbit's flag variants, in one launch and in
+    launches of 257 steps over the live pixels: counts, flags, j and the
+    state's dz and done."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K6 has no CPU form)")
+    card = torch.device("cuda", 0)
+    orbit, dc, bad, mr = _inputs(frames, "poisoned", card)
+    bad = _bad_variants(bad.cpu(), mr)[variant]
+    st = perturb.run_state(orbit, dc, POISON_BUDGET, mr, False,
+                           "perturb_scaled", chunk, bad=bad)
+    flat = HDRComplex(*(t.reshape(-1) for t in dc))
+    zero = perturb.init_state_plain(flat, POISON_BUDGET, False)
+    one = perturb.perturb_plain(orbit, flat,
+                                zero + (torch.zeros_like(zero[5]),),
+                                POISON_BUDGET, mr, False, bad=bad.to(card))
+    for i in (0, 1, 3, 4, 5, 6):
+        assert torch.equal(st[i], one[i]), i
+
+
+def test_budget_zero_runs_no_step_and_sets_no_flag(frames):
+    """At a budget of 0 the glitch pass runs no step: counts 0, no flag,
+    even with every entry bad."""
+    orbit, dc, bad, mr = _inputs(frames, "poisoned", torch.device("cpu"))
+    st = perturb.run_state(orbit, dc, 0, mr, False, "perturb_scaled",
+                           bad=torch.ones_like(bad))
+    assert not bool(st[4].any()) and not bool(st[6].any())
+    assert bool(st[5].all())
+
+
+@pytest.mark.cuda
+def test_glitch_kernel_budget_zero(frames):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K6 has no CPU form)")
+    card = torch.device("cuda", 0)
+    orbit, dc, bad, mr = _inputs(frames, "poisoned", card)
+    st = perturb.run_state(orbit, dc, 0, mr, False, "perturb_scaled",
+                           bad=torch.ones_like(bad))
+    assert not bool(st[4].any()) and not bool(st[6].any())
+    assert bool(st[5].all())

@@ -25,8 +25,8 @@ events, ``--reps`` times after one warm-up run, and prints one JSON line
 per frame: the times (ms), the launches of one run, the pixels each
 launch ran, the iter_sum and the CRC-32 of the grid as ``<u4``.  The
 2048² tail's iter_sum is pinned (``PINS``).  It also prints the
-registers and spills ``ptxas -v`` reports for K6, K2, K15, K16, K17 and
-K18, and the
+registers and spills ``ptxas -v`` reports for K6, K2, K14, K15, K16, K17
+and K18, and the
 serial floor: the per-step time of K6 on one pixel with a one-row orbit
 (``max_ref`` = 1, every step rebases onto row 0) that never escapes
 (c = -0.5), in each of K6's four forms, and the same pixel walking an
@@ -43,12 +43,14 @@ pixel run alone (``bla_floor``, its serial floor);
 frame, a run under ``torch.profiler`` (``trace_call``: the fullest of
 three traces): the sum of its CUDA kernels' intervals, their count, and
 the host syncs of the run (``torch.cuda.set_sync_debug_mode``'s
-warnings).  ``--sass`` adds the static instruction counts of K15's and
-K17's entry functions in the built library (``cuobjdump -sass``), by
-class (``sass_counts``).  ``--chunk N`` runs each frame's run loop in
-launches of at most N steps a pixel, each over the pixels the last left
-live (K6, K15, K16 and the glitch instance), instead of its default
-schedule.  ``--cli`` renders the
+warnings).  ``--sass`` adds the static instruction counts of the entry
+functions of K3/K19, K6 (every instance), K14, K15, K17 and K18 in the
+built library (``cuobjdump -sass``), by class, and of the innermost
+loops of K6's float and glitch instances and K14's pass 2 (a step's or
+an iteration's own instructions; ``sass_counts``).  ``--chunk N`` runs
+each frame's run loop in launches of at most N steps a pixel, each over
+the pixels the last left live (K6, K15, K16 and the glitch instance),
+instead of its default schedule.  ``--cli`` renders the
 frames the smoke pins (View #6 PO 256², View #5 1024², View #6 256² with
 ``FRACTALSHARK_LA_PHASE=stream``) through the CLI, twice each in this
 process, and prints their iter_sum, crc32 and timings.
@@ -158,6 +160,9 @@ FRAMES = {
     "view6_bla64_256": (6, 256, "k15", "bla_f64", "f64", None),
     "1e8_scaled_1024": (DEEP_1500, 1024, "glitch", "perturb_scaled", "f32",
                         None),
+    # the same frame through K6's float instance (perturb_render_float's
+    # f32 step, no flag): the step's time without the glitch bookkeeping
+    "1e8_f32_1024": (DEEP_1500, 1024, "k6", "perturb_f32", "f32", False),
     # K16 (the 2x32 / hdr2x32 names without an LA table): the 1e8 frame,
     # and View #9 at the budget of the depth band HDRx2x32 exists for
     # (tests/test_hdr_df.py:79-101)
@@ -203,14 +208,14 @@ def crc(grid) -> int:
 
 
 def ptxas_lines(text: str) -> list[str]:
-    """The ptxas -v lines of the K6, K2, K15, K16, K17 and K18 entry
-    functions."""
+    """The ptxas -v lines of the K6 (the glitch instance too), K2, K14,
+    K15, K16, K17 and K18 entry functions."""
     out, keep = [], 0
     for line in text.splitlines():
         if "Compiling entry function" in line:
-            keep = 4 if ("perturb" in line or "lav2" in line
-                         or "QuadRule" in line or "bla_kernel" in line) \
-                else 0
+            keep = 4 if any(k in line for k in (
+                "perturb", "glitch_kernel", "lav2", "DfRule", "QuadRule",
+                "bla_kernel")) else 0
         if keep:
             out.append(line.strip())
             keep -= 1
@@ -228,22 +233,70 @@ SASS_CLASSES = {
     "control": ("BRA", "BSSY", "BSYNC", "EXIT", "BAR", "WARPSYNC", "CALL",
                 "RET", "NOP", "BREAK", "BMOV", "YIELD", "WARPGROUP"),
 }
-# the entry functions sass_counts reads: label, substrings of the
-# mangled name (K17 4x64's passes, K15's four instances)
+# the entry functions sass_counts reads: label, a regular expression its
+# mangled name matches (one function each; a label ending in "*" takes
+# every match, keyed by the name from the match on).  K6's instances match the parent's names
+# (perturb_kernel<T, kHdr, kGlitch>) and today's (perturb_kernel<T,
+# kHdr>, glitch_kernel<kQueue>).
 SASS_FUNCTIONS = {
-    "k17_qd64_pass1": ("escape_pass1", "QuadRuleIN2fs3QDTIdEEdEE"),
-    "k17_qd64_pass2": ("escape_pass2", "QuadRuleIN2fs3QDTIdEEdEE"),
-    "k17_qd32_pass2": ("escape_pass2", "QuadRuleIN2fs3QDTIfEEfEE"),
-    "k15_f32": ("bla_kernelIf",),
-    "k15_f64": ("bla_kernelId",),
+    "k17_qd64_pass1": r"escape_pass1.*QuadRuleIN2fs3QDTIdEEdEE",
+    "k17_qd64_pass2": r"escape_pass2.*QuadRuleIN2fs3QDTIdEEdEE",
+    "k17_qd32_pass2": r"escape_pass2.*QuadRuleIN2fs3QDTIfEEfEE",
+    "k18_qf64_pass2": r"escape_pass2.*QuadRuleIN2fs3QFTIdEEdEE",
+    "k18_qf32_pass2": r"escape_pass2.*QuadRuleIN2fs3QFTIfEEfEE",
+    "k14_2x64_pass1": r"escape_pass1.*DfRuleIdE",
+    "k14_2x64_pass2": r"escape_pass2.*DfRuleIdE",
+    "k14_2x32_pass2": r"escape_pass2.*DfRuleIfE",
+    "k15_f32": r"bla_kernelIfLb0E",
+    "k15_f32_queue": r"bla_kernelIfLb1E",
+    "k15_f64": r"bla_kernelIdLb0E",
+    "k15_f64_queue": r"bla_kernelIdLb1E",
+    "k6_hdr_f32": r"perturb_kernelIfLb1E(Lb0E)?EEv",
+    "k6_hdr_f64": r"perturb_kernelIdLb1E(Lb0E)?EEv",
+    "k6_float_f32": r"perturb_kernelIfLb0E(Lb0E)?EEv",
+    "k6_float_f64": r"perturb_kernelIdLb0E(Lb0E)?EEv",
+    "k6_glitch": r"perturb_kernelIfLb0ELb1EEEv|glitch_kernelILb0EEEv",
+    "k6_glitch_queue": r"glitch_kernelILb1EEEv",
+    "k3_k19*": r"rc_tail_kernel",
 }
+# the labels whose innermost loops sass_counts counts too (a step's or an
+# iteration's own instructions)
+SASS_LOOPS = ("k6_float_f32", "k6_glitch", "k6_glitch_queue",
+              "k14_2x64_pass2", "k14_2x32_pass2")
+
+
+def _innermost_loops(body, cls) -> list:
+    """The innermost loops of one function's SASS (`body`: (address,
+    opcode, operands) in order): the spans from a backward branch's target
+    to the branch that hold no other such span, each with its counts by
+    class and its first and last address."""
+    import collections
+    import re
+
+    spans = []
+    for addr, op, rest in body:
+        if op != "BRA":
+            continue
+        m = re.search(r"0x([0-9a-f]+)", rest)
+        if m and int(m.group(1), 16) <= addr:
+            spans.append((int(m.group(1), 16), addr))
+    inner = [a for a in spans
+             if not any(b != a and a[0] <= b[0] and b[1] <= a[1]
+                        for b in spans)]
+    out = []
+    for lo, hi in sorted(set(inner)):
+        c = collections.Counter(cls.get(op, "int") for addr, op, _ in body
+                                if lo <= addr <= hi)
+        out.append(dict(c, total=sum(c.values()), first=hex(lo),
+                        last=hex(hi)))
+    return out
 
 
 def sass_counts(so) -> dict:
     """Static instruction counts, by class (SASS_CLASSES; the rest is
     "int"), of the SASS_FUNCTIONS entries in the library `so`
-    (``cuobjdump -sass``): every instance whose name holds all of a
-    label's substrings, one record each."""
+    (``cuobjdump -sass``), one record each; for the SASS_LOOPS labels also
+    their innermost loops' counts (``loops``)."""
     import collections
     import re
 
@@ -253,21 +306,30 @@ def sass_counts(so) -> dict:
     text = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
                           text=True, timeout=600).stdout
     cls = {op: c for c, ops in SASS_CLASSES.items() for op in ops}
-    out, name, count = {}, None, None
+    out, name, body = {}, None, []
     for line in text.splitlines() + ["Function : <end>"]:
         if "Function :" in line:
-            if name is not None:
-                for label, parts in SASS_FUNCTIONS.items():
-                    if all(p in name for p in parts):
-                        key = label + ("_queue" if "Lb1E" in name else "")
-                        out[key] = dict(count, total=sum(count.values()))
+            for label, pattern in SASS_FUNCTIONS.items():
+                m = re.search(pattern, name or "")
+                if m is None:
+                    continue
+                count = collections.Counter(cls.get(op, "int")
+                                            for _, op, _ in body)
+                rec = dict(count, total=sum(count.values()))
+                if label in SASS_LOOPS:
+                    rec["loops"] = _innermost_loops(body, cls)
+                # (keyed from the match on: the anonymous namespace's
+                # part of the name differs from build to build)
+                out[f"{label[:-1]} {name[m.start():]}"
+                    if label.endswith("*") else label] = rec
             name = line.split("Function :")[1].strip()
-            count = collections.Counter()
+            body = []
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_]+)",
-                     line)
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                     r"([A-Z0-9_]+)([^;]*)", line)
         if m and name is not None:
-            count[cls.get(m.group(2).split(".")[0], "int")] += 1
+            body.append((int(m.group(1), 16), m.group(3).split(".")[0],
+                         m.group(4)))
     return out
 
 
@@ -931,7 +993,7 @@ def main() -> int:
     ap.add_argument("--no-floor", action="store_true",
                     help="skip the serial floors")
     ap.add_argument("--sass", action="store_true",
-                    help="K15's and K17's static instruction counts")
+                    help="static instruction counts of the kernels")
     ap.add_argument("--chunk", type=int, default=None,
                     help="launches of at most N steps a pixel")
     args = ap.parse_args()
