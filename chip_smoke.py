@@ -102,7 +102,8 @@ BLA and single steps; the glitch instance in such launches) and timed
 its twin and its tally at the preset's budget, timed, and its deepest
 pixel run alone (its serial floor), K14 2x64 against its twin on the
 guard frame (``DF_GUARD_SCALARS``: iterations on and off its exact fast
-path), the Scaled repair pass (K6 HDR-f64) on a poisoned orbit, and the
+path) and K13 on its guard frames (``HDR_GUARD_SCALARS``: iterations in
+and out of its value form), the Scaled repair pass (K6 HDR-f64) on a poisoned orbit, and the
 glitch instance there with the bad flag moved to two more positions (in
 one launch and in launches over the live pixels), then the nine frames of
 ``FAMILY_PINS`` through the CLI at 256² (counts from 0, the plain twins
@@ -125,9 +126,13 @@ the kernels line's, (16) the gather tail and the app surface: K19
 its twin bit for bit on View #6 RC 256² from K2's handoff and RC PO 16²
 from the zero state (cut budgets, launches over the live pixels), each
 timed at its full budget beside K3 on the same start with the pixels
-that flip between the two, then View #6 ``...RCLAv2`` 256² through the
-CLI with ``FRACTALSHARK_RC_TAIL=gather`` (K19 launches, K3 does not; its
-launches are the kernels line's); the device orbit's reuse digits: the
+that flip between the two, its init launch timed apart and the deepest
+pixel's steps at K19's serial floor, then on its guard orbits
+(``RC_GUARD_ORBITS``: recurrences in and out of its unflushed form),
+then View #6 ``...RCLAv2`` 256² through the CLI with
+``FRACTALSHARK_RC_TAIL=gather`` (K19 launches, K3 does not; its launches
+are the kernels line's), pinned to the JAX package's f64 gather
+(``VIEW6_RC_256_GATHER``); the device orbit's reuse digits: the
 1e60 authority of ``tests/test_reuse.py:195`` on the card (K12's block
 form), its reuse copy equal to the CPU twins' and the 1e62 view it
 serves within 1e-13 of a direct device orbit, phase 5's 16,384-limb
@@ -205,6 +210,12 @@ VIEW5_1024 = (93_151_215_571, 721_975_011)
 # before its redesign; the redesign gives the same bits
 VIEW6_RC_256 = (52_302_961_633, 3_147_924_880)
 VIEW6_RC_PO_16 = (231_681_032, 2_118_348_537)
+# the same frame through the JAX package's gather tail on the CPU with FMA
+# off (tools/view6_rc_pins.py): mode "f64", K19's reference (the gather
+# route's CLI frame is held to it), and "df32", which the JAX package's
+# tests pin to its sweep, K3's reference (= VIEW6_RC_256)
+VIEW6_RC_256_GATHER = {"f64": (52_302_966_139, 1_647_051_423),
+                       "df32": (52_302_961_633, 3_147_924_880)}
 # the budgets at which phases 3/3b hold K2, K2-f64, K3 and K6 against
 # their plain twins (lockstep loops, a few ms a step on the card): a few
 # seconds a twin; each kernel is also timed at its main budget.  K2 and
@@ -534,6 +545,44 @@ DF_GUARD_SCALARS = [-2.0, -2.0 ** -297, 0.0, 0.0, 2.0 ** -300,
                     2.0 ** -460, 2.0 ** -440, 0.0]
 DF_GUARD_SIZE = 16
 DF_GUARD_BUDGET = 300
+# K13's guard frames: (the splits (mantissa, exponent) of min_x, max_y,
+# dx, dy, as ops/hdr_escape.py takes them; width; height), budget.  The
+# value form runs where zx, zy, cx and cy are zero or of an exponent in
+# [-30, 30] (csrc/escape_hdr.cu).  Frame 0, cx = -1 + x/16, cy = (16 -
+# y) 2^-16: in column 16 (cx = +0) rows 15 and 17 (cy = +-2^-16) admit
+# z = c and then fall below the window (zx = -cy^2 = -2^-32) in f32 and
+# f64; in column 0 (cx = -1) the f64 zx falls to -cy^2 every other
+# iteration (f32 rounds 1 - cy^2 to 1: an exact zero, admitted); row 16
+# has cy = +0.  Frame 1, cx = 2^-140 - x/4 (column 0 below the window:
+# every iteration of it takes the reference arithmetic), cy = -0 - y/2
+# (row 0: cy = -0): at c = (2^-140, -1) z reaches (-1, -1) and zx^2 - zy^2
+# cancels to an exact 0 with exponent 0, 140 binades above cx, past the
+# adds' gap clamp of 126
+HDR_GUARD_SCALARS = (
+    ({"min_x": (-1.0, 0), "max_y": (1.0, -12), "dx": (1.0, -4),
+      "dy": (1.0, -16)}, 32, 24),
+    ({"min_x": (1.0, -140), "max_y": (-0.0, 0), "dx": (-1.0, -2),
+      "dy": (1.0, -1)}, 4, 4),
+)
+HDR_GUARD_BUDGET = 300
+# K19's guard orbits, synthetic compressed orbits of RC_GUARD_TOTAL
+# positions ((anchor positions, x, y, cx low, cy low)), rendered from the
+# zero state on a 16² view at 1e4 around -0.75 + 0.1i at this budget.
+# Its recurrence runs unflushed where z's and c's components are zero or
+# of an exponent in [-450, 500] (csrc/rc_tail.cu): "guard_c" has c low
+# about 2^-600 (every recurrence refused), "guard_mix" an admitted c and
+# anchors with components below the range (the recurrence from them
+# refused, the others admitted)
+RC_GUARD_ORBITS = {
+    "guard_c": ([0, 40, 41, 90], [0.0, 0.3, 2.0 ** -460, -0.5],
+                [0.0, 0.2, 0.0, 2.0 ** -700], 2.0 ** -600, -(2.0 ** -601)),
+    "guard_mix": ([0, 7, 30, 31, 77, 150],
+                  [0.0, 2.0 ** -500, -1.25, 2.0 ** -460, 0.5, 2.0 ** -449],
+                  [0.0, 2.0 ** -520, 0.0, 2.0 ** -455, 2.0 ** -600, 0.25],
+                  -1.25, 2.0 ** -440),
+}
+RC_GUARD_TOTAL, RC_GUARD_SIZE, RC_GUARD_BUDGET = 200, 16, 300
+RC_GUARD_VIEW = ("-0.75", "0.1", "1e4")
 POISON = ("-0.6", "0.4", "4", 200, 256)
 
 HBM_BYTES_PER_S = 3.35e12
@@ -843,6 +892,7 @@ def tail_frames(device, stats):
     against its twin at the cut budget, then timed at its full budget."""
     tpl = pixel_loops()
     floor = tpl.rc_floor(device, 1)
+    stats["rc_tail_f64"]["floor_ns"] = floor   # phase 16's K19 floors
     for name, pin, entry in TAIL_FRAMES:
         fr = tpl.setup(name, device)
         budget = TWIN_BUDGET if fr.kern == "tail" or fr.mode[1] \
@@ -2573,12 +2623,11 @@ def phase_chunk(device, stats):
 
 
 def hdr_escape_ops(grid, budget: int) -> float:
-    """K13: about 80 operations an iteration (two squares and a product,
-    four aligned adds, each an exponent compare, a clamped power of two, a
-    scaling product and a sum, three reductions off the bits, the
-    compare), of each pixel's iterations and the escaping step's ~30; a
-    lower bound that counts the integer operations at the float rate."""
-    return 80.0 * float(grid.sum()) + 30.0 * float((grid < budget).sum())
+    """K13: 10 operations an iteration, its value form's (two squares, the
+    magnitude's sum and compare, the doubling, the product, the
+    difference and two sums), and the escaping step's 4; a lower bound:
+    an iteration the window refuses runs the HDR step, about 80."""
+    return 10.0 * float(grid.sum()) + 4.0 * float((grid < budget).sum())
 
 
 def df_escape_ops(grid, budget: int) -> float:
@@ -2681,13 +2730,12 @@ def phase_families(device, stats):
     """The render families the port took last: K13 and K14 (every
     instance) on the shallow frame at 1024², K15 (f32, f64) and K6's glitch
     instance on the 1e8 frame at 1024² x 1,500, each against its twin and
-    timed; K14 2x64 on its guard frame; K13 at View #6's and View #8's
-    centres; K15 (f32, f64) on View #6 at 256² at the preset budget, its
-    deepest pixel alone; the Scaled repair pass on a poisoned orbit, and
-    the glitch instance with the bad flag at two more positions; then the
-    nine 256² frames through the
-    CLI (counts from 0, the twins forbidden), pinned to the JAX package's
-    values."""
+    timed; K14 2x64 and K13 on their guard frames; K13 at View #6's and
+    View #8's centres; K15 (f32, f64) on View #6 at 256² at the preset
+    budget, its deepest pixel alone; the Scaled repair pass on a poisoned
+    orbit, and the glitch instance with the bad flag at two more
+    positions; then the nine 256² frames through the CLI (counts from 0,
+    the twins forbidden), pinned to the JAX package's values."""
     import numpy as np
     import torch
 
@@ -2718,6 +2766,16 @@ def phase_families(device, stats):
                                                 torch.float64, device),
                         dblflt.escape_df_plain(DF_GUARD_SCALARS, g, g, n,
                                                torch.float64, device), st)
+            if fr.kern == "k13":
+                # the guard frames: iterations in and out of the value form
+                for i, (p, w, h) in enumerate(HDR_GUARD_SCALARS):
+                    n = HDR_GUARD_BUDGET
+                    compare(f"{entry} guard frame {i} {w}x{h} x{n}",
+                            hdr_escape.escape_hdr_kernel(p, w, h, n,
+                                                         fr.dtype, device),
+                            hdr_escape.escape_hdr_plain(p, w, h, n,
+                                                        fr.dtype, device),
+                            st)
             out, rec = tpl.time_frame(fr, 3)
             ops = (hdr_escape_ops if fr.kern == "k13" else df_escape_ops)(
                 out, fr.n)
@@ -3008,11 +3066,63 @@ def k19_ops(grid, start, budget: int, ratio: float) -> float:
         K19_RECUR_F32_OPS * steps * (1.0 - 1.0 / ratio)
 
 
+def rc_guard_orbit(kind, C):
+    """The RC_GUARD_ORBITS orbit `kind` as the CompressedOrbit class C."""
+    import numpy as np
+    idx, x, y, cx, cy = RC_GUARD_ORBITS[kind]
+    return C(np.asarray(x), np.asarray(y), np.asarray(idx, np.int64),
+             RC_GUARD_TOTAL, cx, cy, 0)
+
+
+def rc_guard_view(HP, PTZ):
+    """(ptz, centre x, centre y) of the guard orbits' view, from the
+    HighPrecision and PointZoomBBConverter classes given."""
+    x, y, zoom = RC_GUARD_VIEW
+    ptz = PTZ(pt_x=x, pt_y=y, zoom_factor=zoom, prec=256).\
+        square_aspect_ratio(RC_GUARD_SIZE, RC_GUARD_SIZE)
+    return ptz, HP(x, prec=256), HP(y, prec=256)
+
+
+def phase_app_guard(device, st):
+    """K19 against its twin on the guard orbits from the zero state, in
+    one launch and in launches of 7 steps over the live pixels."""
+    import torch
+
+    from fractalshark_tpu_torch.core.highprecision import HighPrecision
+    from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
+    from fractalshark_tpu_torch.engine.perturbation_results import (
+        CompressedOrbit)
+    from fractalshark_tpu_torch.ops import hdrfloat as hdr
+    from fractalshark_tpu_torch.ops import perturb, rc_tail
+    from fractalshark_tpu_torch.ops import perturb_stream as ps
+    from fractalshark_tpu_torch.ops.tables import anchor_table_f64
+
+    ptz, cx, cy = rc_guard_view(HighPrecision, PointZoomBBConverter)
+    g, n = RC_GUARD_SIZE, RC_GUARD_BUDGET
+    dc = perturb._dc_grids_hdr(*perturb.delta_params(ptz, cx, cy, g, g), g,
+                               g, device)
+    dz = hdr.complex_zero((g, g), device=device)
+    z = torch.zeros((g, g), dtype=torch.int64, device=device)
+    init = {"dzr": dz.re, "dzi": dz.im, "dze": dz.e, "it": z, "jwait": z,
+            "done": z.bool()}
+    for kind in RC_GUARD_ORBITS:
+        comp = rc_guard_orbit(kind, CompressedOrbit)
+        A = anchor_table_f64(comp, device)
+        z_mr = ps.wrap_value(comp, A.max_ref)
+        want = rc_tail.rc_tail_gather_plain(A, dc, init, n, z_mr)
+        for chunk in (None, 7):
+            compare(f"rc_tail_f64 guard orbit {kind} {g}² x{n} (chunk "
+                    f"{chunk})", ps.rc_tail_run(A, dc, init, n, z_mr, chunk),
+                    want, st)
+
+
 def phase_app_gather(device, stats, tpl):
     """(a) K19 against its twin bit for bit at the cut budget in chunks
     over the live pixels, timed at the full budget beside K3 on the same
-    start (the flips between the two counted), then the gather route
-    through the CLI: K19 launches and K3 does not."""
+    start (the flips between the two counted) and its init launch timed
+    apart, then on the guard orbits, then the gather route through the
+    CLI: K19 launches and K3 does not, and the frame is the JAX package's
+    f64 gather's."""
     import torch
 
     from fractalshark_tpu_torch import kernels
@@ -3027,10 +3137,14 @@ def phase_app_gather(device, stats, tpl):
         compare(f"rc_tail_f64 {name} budget {nc} (chunks of {TWIN_CHUNK} "
                 f"over the live pixels)", kc.reshape(-1), pl.reshape(-1), st)
         out, rec = tpl.time_frame(fr, 1 if fr.size < 64 else 3)
+        init_ms = tpl.time_init(fr, 3)
         k3 = tpl.setup(k3_name, device)
         out3, rec3 = tpl.time_frame(k3, 1 if fr.size < 64 else 3)
         flips = int((out != out3).sum())
         ratio = fr.comp.compression_ratio()
+        steps = int((out - fr.start).max()) + 1
+        floor = {k: steps * st["floor_ns"][k] / 1e6
+                 for k in ("k19_hit", "k19_f64")}
         b = bound(nbytes(fr.A.rows, *fr.dc, fr.start, out),
                   k19_ops(out, fr.start, fr.n, ratio), F32_OPS_PER_S)
         log(f"  rc_tail_f64 {name} budget {fr.n}: {rec['ms_median']:.3f} ms "
@@ -3042,12 +3156,17 @@ def phase_app_gather(device, stats, tpl):
             f"{out.numel()} pixels differ from K3 (last-ulp flips, "
             f"rc_tail.py:41-44); plain {pms:.3f} ms at budget {nc}; "
             f"ratio {ratio:.1f}, {rec['ms_median'] / b['bound_ms']:.1f}x "
-            f"its bound")
+            f"its bound; the init launch (with one step) {init_ms:.3f} ms, "
+            f"{init_ms / rec['ms_median']:.1%} of the frame; the deepest "
+            f"pixel's {steps} steps at K19's serial floor "
+            f"{floor['k19_hit']:.3f} ms (an anchor every step) / "
+            f"{floor['k19_f64']:.3f} ms (the recurrence every step)")
         if rec["launches"].get("rc_tail_f64", 0) < 1 or \
                 rec["launches"].get("rc_tail", 0):
             raise AssertionError(f"{name}: not K19 alone")
         if name == K19_FRAMES[0][0]:
             st.update(ms=rec["ms_median"], plain_ms=pms, **b)
+    phase_app_guard(device, st)
     kernels.reset_counts()
     os.environ["FRACTALSHARK_RC_TAIL"] = "gather"
     try:
@@ -3061,6 +3180,11 @@ def phase_app_gather(device, stats, tpl):
         f"{(s['iter_sum'], s['crc32'])}, wall {wall:.3f} s, launches {grew}")
     if grew.get("rc_tail_f64", 0) < 1 or grew.get("rc_tail", 0):
         raise AssertionError("the gather route did not take K19 alone")
+    pin = VIEW6_RC_256_GATHER["f64"]
+    if (s["iter_sum"], s["crc32"]) != pin:
+        raise AssertionError(f"the gather route's View #6 RC 256²: "
+                             f"{(s['iter_sum'], s['crc32'])} != {pin}, the "
+                             f"JAX package's f64 gather")
     return {"rc_tail_f64": grew["rc_tail_f64"]}
 
 

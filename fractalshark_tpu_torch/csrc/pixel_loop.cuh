@@ -1,9 +1,9 @@
 // Device code shared by the per-pixel loops K6 (csrc/perturb.cu), K2
 // (csrc/lav2.cu) and K3/K19 (csrc/rc_tail.cu): the orbit row and its load,
 // the orbit cursor (K6), which has the row a step needs in registers when
-// the step starts, the HDR perturbation step (K6, K3 and K19), and the
-// anchor cursors (K3 in df32, K19 in f64), which have the next anchor's
-// position and value in registers before a step needs them.  K7
+// the step starts, the HDR perturbation step (K6, K3 and K19), K3's
+// anchor cursor, which has the next anchor's position and value in
+// registers before a step needs them, and K19's anchor row loads.  K7
 // (csrc/la_stream.cu) loads its node rows with the anchor loads.  The
 // work queues of K15 and K6's glitch instance size their grids with
 // resident_blocks (host code).
@@ -185,41 +185,19 @@ struct AnchorCursor {
   }
 };
 
-// K19's cursor over a compressed orbit kept in f64: row a of `rows` is
-// anchor a's (x, y, position), the position an exact f64 (the reference's
-// _pack_anchors, fractalshark_tpu/ops/rc_tail.py:63-71).  The same
-// schedule as AnchorCursor: the positions of anchors a+1 and a+2 and the
-// value of anchor a+1 in registers, the next ones loaded a step ahead.
-// Rows are 24 bytes, so the loads are scalar.
-__device__ __forceinline__ double load_f64(const double *r) {
-  double v;
-  asm volatile("ld.global.nc.f64 %0, [%1];" : "=d"(v) : "l"(r));
+// K19's anchor rows (ops/tables.py anchor_table_f64): row a, f64 [m, 4],
+// is anchor a's value (x, y), the int64 bits of its position and a zero
+// pad, 32 bytes: the value's one vector load (below) and the position's
+// load_position of the row's third word, asm volatile as load_orbit_row,
+// so that they issue where they are written (csrc/rc_tail.cu
+// rc_gather_kernel).
+__device__ __forceinline__ double2 load_value64(const double *r) {
+  double2 v;
+  asm volatile("ld.global.nc.v2.f64 {%0, %1}, [%2];"
+               : "=d"(v.x), "=d"(v.y)
+               : "l"(r));
   return v;
 }
-__device__ __forceinline__ double2 load_anchor64(const double *r) {
-  return make_double2(load_f64(r), load_f64(r + 1));
-}
-__device__ __forceinline__ int64_t row_position(const double *r) {
-  return static_cast<int64_t>(load_f64(r + 2));
-}
-
-struct AnchorCursor64 {
-  static constexpr int64_t kNone = INT64_MAX;
-  const double *rows;
-  int64_t m;
-  double2 v0;  // anchor 0's value
-
-  __device__ __forceinline__ AnchorCursor64(const double *rows_, int64_t m_)
-      : rows(rows_), m(m_) {
-    v0 = load_anchor64(rows);
-  }
-  __device__ __forceinline__ int64_t position(int64_t a) const {
-    return a < m ? row_position(rows + 3 * a) : kNone;
-  }
-  __device__ __forceinline__ double2 value(int64_t a) const {
-    return load_anchor64(rows + 3 * (a < m ? a : m - 1));
-  }
-};
 
 // an f64 value as the f32 the HDR step reads: rounded to nearest, then a
 // subnormal result flushed to a zero of its sign by its bits (hdrfloat.ftz

@@ -39,7 +39,8 @@ int64.  Launches are bounded (``chunk_steps`` tail steps per pixel) and
 resumable, each after the first over the pixels the last one left live
 (``perturb.live_pixels``; the plain twin runs the same subsets); the
 state is updated in place.  The same loop with an f64 cursor is K19, the
-gather tail's exact mode (``ops/rc_tail.py``): its anchor table is
+gather tail's exact mode (``ops/rc_tail.py``; a kernel of its own, the
+recurrence unflushed where an exponent guard admits it): its anchor table is
 ``tables.Anchors64``, and every function below takes either table.
 """
 

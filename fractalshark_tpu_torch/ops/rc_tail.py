@@ -14,10 +14,12 @@ Two modes, as the reference's:
   default, and the card has native f64): the reconstruction in true f64,
   the values of ``CompressedOrbit.decompress()``, so a two-phase render
   through it equals the one-kernel LA machine on the decompressed orbit.
-  On the card this is kernel K19 (``csrc/rc_tail.cu``, ``fs_rc_tail_f64``:
-  K3's lane-per-pixel loop and anchor cursor with an f64 cursor, int64
-  positions and anchor pointers, anchors as [M, 3] f64 rows); its plain
-  twin is ``rc_tail_gather_plain`` (the reference's ``_init_state`` and
+  On the card this is kernel K19 (``csrc/rc_tail.cu``
+  ``rc_gather_kernel``, ``fs_rc_tail_f64``: one lane a pixel with K3's
+  anchor cursor in f64, the recurrence unflushed where an exponent guard
+  admits it, int64 positions and anchor pointers, anchors as 32-byte f64
+  rows, ``tables.Anchors64``); its plain twin is
+  ``rc_tail_gather_plain`` (the reference's ``_init_state`` and
   ``_tail_impl`` on CPU f64 tensors).
 * ``mode="df32"``: the double-float reconstruction of the sweep kernel,
   which is K3 as it stands (it already keeps one cursor per pixel, the

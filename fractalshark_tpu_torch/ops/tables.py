@@ -204,8 +204,9 @@ class Anchors:
 @dataclass
 class Anchors64:
     """K19's anchor table: the reference's gather-tail table in f64
-    (``rc_tail.py:63-71``)."""
-    rows: torch.Tensor       # f64 [M, 3] (x, y, position as an exact f64)
+    (``rc_tail.py:63-71``), its rows laid out for two vector loads."""
+    rows: torch.Tensor       # f64 [M, 4] (x, y, the position's int64 bits,
+    #                          a zero pad): 32 bytes a row
     index: torch.Tensor      # int64 [M] the same positions
     max_ref: int
     c: tuple                 # (cx, cy) as f64
@@ -249,20 +250,19 @@ def anchor_table(compressed, device, wide: bool | None = None) -> Anchors:
 
 def anchor_table_f64(compressed, device) -> Anchors64:
     """CompressedOrbit → K19's f64 anchor rows on `device` (values and c
-    flushed of subnormals, as the reference's f64 runs with DAZ).  Position
-    0 must be an anchor; positions are int64 and exact in f64 below 2^53."""
+    flushed of subnormals, as the reference's f64 runs with DAZ; the
+    positions' int64 bits in column 2).  Position 0 must be an anchor."""
     M = len(compressed.anchors_x)
     if M == 0 or int(compressed.anchor_index[0]) != 0:
         raise ValueError("anchor table must start at orbit position 0")
     index = np.asarray(compressed.anchor_index, np.int64)
-    if int(index[-1]) >= 1 << 53:
-        raise ValueError("anchor positions past 2^53 are not exact in f64")
-    rows = np.stack([flush_np(np.asarray(compressed.anchors_x, np.float64)),
-                     flush_np(np.asarray(compressed.anchors_y, np.float64)),
-                     index.astype(np.float64)], axis=1)
+    rows = np.zeros((M, 4), np.float64)
+    rows[:, 0] = flush_np(np.asarray(compressed.anchors_x, np.float64))
+    rows[:, 1] = flush_np(np.asarray(compressed.anchors_y, np.float64))
+    rows[:, 2] = index.view(np.float64)
     c = tuple(float(flush_np(np.asarray([v], np.float64))[0])
               for v in (compressed.cx_low, compressed.cy_low))
     return Anchors64(
-        rows=torch.from_numpy(np.ascontiguousarray(rows)).to(device),
+        rows=torch.from_numpy(rows).to(device),
         index=torch.from_numpy(index.copy()).to(device),
         max_ref=int(compressed.total_count) - 1, c=c)

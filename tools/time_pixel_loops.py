@@ -31,9 +31,10 @@ serial floor: the per-step time of K6 on one pixel with a one-row orbit
 (``max_ref`` = 1, every step rebases onto row 0) that never escapes
 (c = -0.5), in each of K6's four forms, and the same pixel walking an
 orbit of 2^20 zero rows (a new row every step, no rebase).
-K3's serial floor is its time per step on one such pixel over a zero
-orbit of 2^20 positions, with an anchor at every position and with
-anchor 0 alone (every step reconstructs).  ``--profile`` adds the pixels
+K3's and K19's serial floors are their time per step on one such pixel
+over a zero orbit of 2^20 positions, with an anchor at every position
+and with anchor 0 alone (every step reconstructs); K3's and K19's frames
+also time their init launch alone (``init_ms``).  ``--profile`` adds the pixels
 still live after each launch and the deepest pixel's body steps (K2,
 from launches of 64 steps) or tail steps with its serial floor (the
 tail at K6's HDR-f32 floor, K3 at its floor with an anchor every step),
@@ -44,10 +45,10 @@ frame, a run under ``torch.profiler`` (``trace_call``: the fullest of
 three traces): the sum of its CUDA kernels' intervals, their count, and
 the host syncs of the run (``torch.cuda.set_sync_debug_mode``'s
 warnings).  ``--sass`` adds the static instruction counts of the entry
-functions of K3/K19, K6 (every instance), K14, K15, K17 and K18 in the
-built library (``cuobjdump -sass``), by class, and of the innermost
-loops of K6's float and glitch instances and K14's pass 2 (a step's or
-an iteration's own instructions; ``sass_counts``).  ``--chunk N`` runs
+functions of K3, K6 (every instance), K13, K14, K15, K17, K18 and K19 in
+the built library (``cuobjdump -sass``), by class, and of the innermost
+loops of K6's float and glitch instances, K13's and K14's pass 2 and K19
+(a step's or an iteration's own instructions; ``sass_counts``).  ``--chunk N`` runs
 each frame's run loop in launches of at most N steps a pixel, each over
 the pixels the last left live (K6, K15, K16 and the glitch instance),
 instead of its default schedule.  ``--cli`` renders the
@@ -152,6 +153,10 @@ FRAMES = {
     # family's f32 pass)
     "shallow_hdr32_1024": (SHALLOW, 1024, "k13", "escape_hdr32", "f32", None),
     "shallow_hdr64_1024": (SHALLOW, 1024, "k13", "escape_hdr64", "f64", None),
+    # K13 at View #6's and View #8's centres (the smoke's DEEP_HDR: each
+    # past its mantissa type's exponent range; the last slot the budget)
+    "view6_hdr32_256": (6, 256, "k13", "escape_hdr32", "f32", 2000),
+    "view8_hdr64_256": (8, 256, "k13", "escape_hdr64", "f64", 2000),
     "shallow_2x32_1024": (SHALLOW, 1024, "k14", "escape_2x32", "f32", None),
     "shallow_2x64_1024": (SHALLOW, 1024, "k14", "escape_2x64", "f64", None),
     "1e8_bla_f32_1024": (DEEP_1500, 1024, "k15", "bla_f32", "f32", None),
@@ -208,14 +213,15 @@ def crc(grid) -> int:
 
 
 def ptxas_lines(text: str) -> list[str]:
-    """The ptxas -v lines of the K6 (the glitch instance too), K2, K14,
-    K15, K16, K17 and K18 entry functions."""
+    """The ptxas -v lines of the K6 (the glitch instance too), K2, K3,
+    K13, K14, K15, K16, K17, K18 and K19 entry functions."""
     out, keep = [], 0
     for line in text.splitlines():
         if "Compiling entry function" in line:
             keep = 4 if any(k in line for k in (
                 "perturb", "glitch_kernel", "lav2", "DfRule", "QuadRule",
-                "bla_kernel")) else 0
+                "bla_kernel", "HdrRule", "rc_tail_kernel",
+                "rc_gather_kernel")) else 0
         if keep:
             out.append(line.strip())
             keep -= 1
@@ -257,12 +263,21 @@ SASS_FUNCTIONS = {
     "k6_float_f64": r"perturb_kernelIdLb0E(Lb0E)?EEv",
     "k6_glitch": r"perturb_kernelIfLb0ELb1EEEv|glitch_kernelILb0EEEv",
     "k6_glitch_queue": r"glitch_kernelILb1EEEv",
-    "k3_k19*": r"rc_tail_kernel",
+    "k13_f32_pass1": r"escape_pass1.*HdrRuleIfE",
+    "k13_f32_pass2": r"escape_pass2.*HdrRuleIfE",
+    "k13_f64_pass1": r"escape_pass1.*HdrRuleIdE",
+    "k13_f64_pass2": r"escape_pass2.*HdrRuleIdE",
+    # K3's instances (rc_tail_kernel<DfRecon<I>, kQueue>; in a tree from
+    # before K19 became a kernel of its own, its F64Recon instances too)
+    "k3*": r"rc_tail_kernel",
+    # K19's instances (rc_gather_kernel<I, kQueue>)
+    "k19*": r"rc_gather_kernel",
 }
 # the labels whose innermost loops sass_counts counts too (a step's or an
 # iteration's own instructions)
 SASS_LOOPS = ("k6_float_f32", "k6_glitch", "k6_glitch_queue",
-              "k14_2x64_pass2", "k14_2x32_pass2")
+              "k14_2x64_pass2", "k14_2x32_pass2", "k13_f32_pass2",
+              "k13_f64_pass2", "k19*")
 
 
 def _innermost_loops(body, cls) -> list:
@@ -480,6 +495,8 @@ def _setup_tail(fr, f, res, dpar, device):
         z_mr = ps.wrap_value(comp, fr.A.max_ref)
         init = handoff if from_handoff else zero
 
+        fr.handoff, fr.z_mr = init, z_mr
+
         def run(budget=None, chunk_steps=None):
             b = budget or n
             return b - ps.rc_tail_run(fr.A, fr.dc, init(b), b, z_mr,
@@ -565,9 +582,15 @@ def _setup_direct(name, device):
     from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
     from fractalshark_tpu_torch.ops import dblflt, hdr_escape
 
-    (x, y, zoom, n), size, kern, key, mant, _ = FRAMES[name]
-    ptz = PointZoomBBConverter(pt_x=x, pt_y=y, zoom_factor=zoom,
-                               prec=512).square_aspect_ratio(size, size)
+    frame, size, kern, key, mant, budget = FRAMES[name]
+    if isinstance(frame, int):
+        from fractalshark_tpu_torch.core.views import get_view_preset
+        ptz, n = get_view_preset(frame).ptz, budget
+    else:
+        x, y, zoom, n = frame
+        ptz = PointZoomBBConverter(pt_x=x, pt_y=y, zoom_factor=zoom,
+                                   prec=512)
+    ptz = ptz.square_aspect_ratio(size, size)
     fdt = torch.float32 if mant == "f32" else torch.float64
     fr = types.SimpleNamespace(name=name, kern=kern, key=key, size=size,
                                n=n, dtype=fdt, ptz=ptz)
@@ -804,6 +827,35 @@ def time_frame(fr, reps):
                  "max_iter": int(grid.max())}
 
 
+def time_init(fr, reps) -> float:
+    """A K3 or K19 frame's init launch (the handoff, each pixel's anchor
+    search and catch-up, and one tail step) at the full budget, ms: the
+    median of `reps` launches under CUDA events, each on a fresh copy of
+    the handed-over state, after one warm-up launch."""
+    import statistics as stats_
+
+    import torch
+
+    from fractalshark_tpu_torch.ops import perturb_stream as ps
+    from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
+
+    flat = HDRComplex(*(t.reshape(-1).contiguous() for t in fr.dc))
+    states = [ps.handoff_state(fr.A, fr.handoff(fr.n), flat.re.device)
+              for _ in range(reps + 1)]
+    times = []
+    for i, st in enumerate(states):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        ps.rc_tail_kernel(fr.A, flat, st, fr.n, fr.z_mr, 1, init=True)
+        b.record()
+        torch.cuda.synchronize()
+        if i:
+            times.append(a.elapsed_time(b))
+    return stats_.median(times)
+
+
 def deepest_body_steps(fr, chunk=16) -> int:
     """An upper bound, within `chunk`, of the body steps of a K2 frame's
     deepest pixel: `chunk` times the launches of the run in chunks of
@@ -934,10 +986,13 @@ def bla_floor(fr, reps) -> dict:
 
 
 def rc_floor(device, reps):
-    """K3's time per step (ns) on one never-escaping pixel over a zero
-    orbit of STREAM_ROWS positions from the zero state: with an anchor at
-    every position ("hit": every step reads the next anchor) and with
-    anchor 0 alone ("df32": every step reconstructs Z[pos+1])."""
+    """K3's and K19's time per step (ns) on one never-escaping pixel over
+    a zero orbit of STREAM_ROWS positions from the zero state: with an
+    anchor at every position ("hit": every step reads the next anchor) and
+    with anchor 0 alone (every step reconstructs: "df32", K3's
+    recurrence; "f64", K19's).  Keys: K3's "hit" and "df32", K19's
+    "k19_hit" and "k19_f64" (a tree without K19's f64 table: K3's
+    alone)."""
     import numpy as np
     import torch
 
@@ -945,20 +1000,25 @@ def rc_floor(device, reps):
         CompressedOrbit)
     from fractalshark_tpu_torch.ops import hdrfloat as hdr
     from fractalshark_tpu_torch.ops import perturb_stream as ps
+    from fractalshark_tpu_torch.ops import tables
     from fractalshark_tpu_torch.ops.hdrfloat import HDRComplex
-    from fractalshark_tpu_torch.ops.tables import anchor_table
 
     total = STREAM_ROWS + 1
     dc = HDRComplex(torch.tensor([1e-3], device=device),
                     torch.zeros(1, device=device),
                     torch.zeros(1, dtype=torch.int32, device=device))
+    forms = [("hit", total, tables.anchor_table),
+             ("df32", 1, tables.anchor_table)]
+    if hasattr(tables, "anchor_table_f64"):
+        forms += [("k19_hit", total, tables.anchor_table_f64),
+                  ("k19_f64", 1, tables.anchor_table_f64)]
     out = {}
-    for name, m in (("hit", total), ("df32", 1)):
+    for name, m, table in forms:
         comp = CompressedOrbit(
             anchors_x=np.zeros(m), anchors_y=np.zeros(m),
             anchor_index=np.arange(m, dtype=np.int64), total_count=total,
             cx_low=0.0, cy_low=0.0, error_exp=0)
-        A = anchor_table(comp, device)
+        A = table(comp, device)
 
         def init():
             dz = hdr.complex_zero((1,), device=device)
@@ -967,17 +1027,18 @@ def rc_floor(device, reps):
                     "jwait": z, "done": z.bool()}
 
         fr = types.SimpleNamespace(
-            name=f"K3 floor {name}", kern="k3", n=FLOOR_STEPS,
+            name=f"rc floor {name}", kern="k3", n=FLOOR_STEPS,
             run=lambda: FLOOR_STEPS - ps.rc_tail_run(
                 A, dc, init(), FLOOR_STEPS, (0.0, 0.0)))
         _, rec = time_frame(fr, reps)
         if rec["max_iter"] != FLOOR_STEPS:
-            raise AssertionError(f"K3 floor pixel escaped at "
+            raise AssertionError(f"rc floor pixel escaped at "
                                  f"{rec['max_iter']}")
         out[name] = rec["ms_median"] * 1e6 / FLOOR_STEPS
-        log(f"  K3 serial floor ({name}): {out[name]:.3f} ns a step "
-            f"(median of {reps}: {[round(t, 3) for t in rec['ms']]} ms "
-            f"for {FLOOR_STEPS} steps)")
+        log(f"  {'K19' if name.startswith('k19') else 'K3'} serial floor "
+            f"({name}): {out[name]:.3f} ns a step (median of {reps}: "
+            f"{[round(t, 3) for t in rec['ms']]} ms for {FLOOR_STEPS} "
+            f"steps)")
     return out
 
 
@@ -1020,8 +1081,8 @@ def main() -> int:
     floor = {}
     if not args.no_floor:
         floor = serial_floor(device, args.reps)
-        floor.update({f"k3_{k}": v for k, v in rc_floor(device,
-                                                         args.reps).items()})
+        floor.update({k if k.startswith("k19") else f"k3_{k}": v
+                      for k, v in rc_floor(device, args.reps).items()})
     for name in args.only or FRAMES:
         fr = setup(name, device)
         if args.chunk and fr.kern in ("k6", "k15", "k16", "glitch"):
@@ -1035,13 +1096,17 @@ def main() -> int:
             tr = trace_call(fr.run)
             tr.pop("order")
             rec["trace"] = tr
-        if args.profile and fr.kern in ("tail", "k3"):
+        if fr.kern in ("k3", "k19"):
+            rec["init_ms"] = time_init(fr, args.reps)
+        if args.profile and fr.kern in ("tail", "k3", "k19"):
             # the live pixels of each launch (default chunks) and the
             # deepest pixel's tail steps (its count, and the escaping
-            # step), at K3's or K6's one-pixel step
+            # step), at K3's, K19's or K6's one-pixel step
             steps = int((grid_of(fr, out) - fr.start).max()) + 1
-            ns = floor.get("hdr_f32" if fr.key == "two_phase_tail"
-                           else "k3_hit", float("nan"))
+            ns = floor.get({"two_phase_tail": "hdr_f32",
+                            "rc_tail_f64": "k19_hit"}.get(fr.key,
+                                                             "k3_hit"),
+                           float("nan"))
             rec.update(live=rec["work"], deepest_steps=steps,
                        serial_floor_ms=steps * ns / 1e6)
         elif args.profile and fr.kern == "k15":
