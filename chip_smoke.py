@@ -116,8 +116,10 @@ pixel's steps and the bound from them); K17 and K18
 (``csrc/escape_quad.cu``: QD and QF escapes, 4x32 and 4x64) against
 their twins at 256² on the 1e17 frame (budget cut) and on a 1e18 frame
 by -2 whose low f32 components are subnormal, then timed at 1024² × 600
-on the 1e17 frame, and K17 4x64 against its twin on the guard frame
-(``QUAD_GUARD_SCALARS``: iterations on and off its exact fast path);
+on the 1e17 frame, and K17 4x64 and K18 4x64 against their twins on
+their guard frames (``QUAD_GUARD_SCALARS``, ``QF_GUARD_SCALARS``:
+iterations on and off their exact fast path), K18 4x64 also on the
+integration sweep's shallow frame at 256² (counts that differ);
 then ``escape_qf`` (K18's public entry) and the
 ``LATE_PINS`` frames through the CLI at 256² (counts from 0, the twins
 made to raise), pinned to the JAX package's values; their launches are
@@ -535,6 +537,23 @@ QUAD_GUARD_SCALARS = [-2.0, -2.0 ** -297, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
                       0.0, 0.0]
 QUAD_GUARD_SIZE = 16
 QUAD_GUARD_BUDGET = 300
+# K18 4x64's guard frame (min_x, max_y, dx, dy as (a.hi, a.lo, b.hi,
+# b.lo), size, budget): cx = -2 + (x - 8) D, D = QF_GUARD_STEP (a full
+# mantissa near 2^-200); cy = -y (2^-340 + 2^-440 (1 + 2^-52)).  In rows
+# 3, 5-7 and 9-15 the product y 2^-440 (1 + 2^-52) rounds and its error,
+# near 2^-492, is a component of cy below the fast path's range (every
+# iteration takes the reference arithmetic); in rows 1, 2, 4 and 8 (y a
+# power of two: the product exact) zy's lower components start below the
+# range and rise into it; in row 0 (cy = 0) every iteration is admitted.
+# Columns 0-7 escape after 73-74 iterations, column 8 (cx = -2) after
+# 146-158 but in row 0, columns 9-15 of rows 1-15 after 236-243, a count
+# that a wrong bit moves
+QF_GUARD_STEP = float.fromhex("0x1.3c0ca428c59fbp-200")
+QF_GUARD_SCALARS = [-2.0, -8 * QF_GUARD_STEP, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+                    QF_GUARD_STEP, 0.0, 0.0, 0.0, 2.0 ** -340, 0.0,
+                    2.0 ** -440 + 2.0 ** -492, 0.0]
+QF_GUARD_SIZE = 16
+QF_GUARD_BUDGET = 300
 # K14 2x64's guard frame (min_x, max_y, dx, dy as (hi, lo), size,
 # budget): cx = -2 + (x - 8) 2^-300, with a low part of 2^-457 in column 8
 # (below the fast path's range: every iteration there takes the reference
@@ -2921,8 +2940,10 @@ def phase_late(device, stats):
     on View #9 at 1024² × 40,000; K17 and K18 (both component types)
     against their twins at 256² on the 1e17 frame (QUAD_TWIN_BUDGET) and
     on the antenna frame, then timed at 1024² × 600 on the 1e17 frame;
-    K17 4x64 against its twin on the guard frame (QUAD_GUARD_SCALARS);
-    then escape_qf through its public entry and the LATE_PINS frames
+    K17 4x64 and K18 4x64 against their twins on their guard frames
+    (QUAD_GUARD_SCALARS, QF_GUARD_SCALARS), K18 4x64 also on the shallow
+    frame at 256²; then escape_qf through its public entry and the
+    LATE_PINS frames
     through the CLI (counts from 0, the twins forbidden), pinned to the
     JAX package's values."""
     import torch
@@ -2976,14 +2997,29 @@ def phase_late(device, stats):
                 scal, s, s, n, dt, device), device, warm=False)
             compare(f"{entry} zoom {zoom} {s}² x{n}", k, pl, st)
             plain_ms.append(pms)
-        if entry == "escape_4x64":
+        if variant == "4x64":
             # the guard frame: iterations on and off the exact fast path
-            g, n = QUAD_GUARD_SIZE, QUAD_GUARD_BUDGET
+            # (the twin on the CPU: at 16² the card's launches cost more
+            # than the work)
+            scal, g, n = ((QF_GUARD_SCALARS, QF_GUARD_SIZE, QF_GUARD_BUDGET)
+                          if qf else (QUAD_GUARD_SCALARS, QUAD_GUARD_SIZE,
+                                      QUAD_GUARD_BUDGET))
             compare(f"{entry} guard frame {g}² x{n}",
-                    quadd.escape_qd_kernel(QUAD_GUARD_SCALARS, g, g, n, dt,
-                                           device),
-                    quadd.escape_qd_plain(QUAD_GUARD_SCALARS, g, g, n, dt,
-                                          device), st)
+                    getattr(mod, f"escape_{kind}_kernel")(scal, g, g, n, dt,
+                                                          device),
+                    getattr(mod, f"escape_{kind}_plain")(scal, g, g, n, dt,
+                                                         "cpu"), st)
+        if entry == "escape_qf64":
+            # a frame whose counts differ (the 1e17 frame's do not)
+            s, argv = QUAD_TWIN_SIZE, FAMILY_SHALLOW
+            n = int(argv[-1])
+            ptz = PointZoomBBConverter(pt_x=argv[1], pt_y=argv[3],
+                                       zoom_factor=argv[5], prec=256
+                                       ).square_aspect_ratio(s, s)
+            scal = quadflt.qf_params(ptz, s, s, variant)
+            compare(f"{entry} shallow frame {s}² x{n}",
+                    quadflt.escape_qf_kernel(scal, s, s, n, dt, device),
+                    quadflt.escape_qf_plain(scal, s, s, n, dt, device), st)
         pms = plain_ms[0]
         fr = tpl.setup(name, device)
         out, rec = tpl.time_frame(fr, 3)

@@ -26,38 +26,58 @@
 // doubles a lane and a product keeps about 20 more live: the register
 // count and spills are in ptxas's report of the build (PERF.md).
 //
-// The 4x64 QD instance (fs_escape_qd_f64) has an exact fast path.  Its
-// reference arithmetic flushes every f64 result through ftz() (a compare
-// and a select after each operation) and forms each two-product by
-// Dekker's splits (two_prod, ~16 flushed operations).  An iteration whose
-// inputs the guard admits runs quad.cuh's Exact arithmetic instead:
-// unflushed __dadd_rn/__dsub_rn/__dmul_rn, the two-product as one product
-// and one FMA (two_prod_fma), and each square with its repeated products
-// computed once (qd_sqr).  It gives the reference arithmetic's bits:
+// The 4x64 instances, QD (fs_escape_qd_f64, K17) and QF
+// (fs_escape_qf_f64, K18), have an exact fast path.  Their reference
+// arithmetic flushes every f64 result through ftz() (a compare and a
+// select after each operation) and forms each two-product by Dekker's
+// splits (two_prod, ~16 flushed operations).  An iteration whose inputs
+// the guard admits runs quad.cuh's Exact arithmetic instead: unflushed
+// __dadd_rn/__dsub_rn/__dmul_rn, the two-product as one product and one
+// FMA (two_prod_fma), and each square with the products it repeats
+// computed once (qd_sqr; QF's df_two_sqr, x.hi*x.lo's two-product).  It
+// gives the reference arithmetic's bits:
 //   Let every nonzero component of zx, zy, cx and cy have an exponent in
 //   [E, 500], E = -459.  A component is then an integer multiple of
 //   2^(E-52); so are Dekker's split halves (2^27 + 1 is an integer, and a
-//   rounded multiple of 2^k is one again); and every product the iteration
-//   forms is of two such values, a multiple of 2^(2E-104) = 2^-1022.
-//   Sums, differences, roundings and the doubling keep that lattice, and
-//   the sums with c's components (multiples of 2^(E-52)) too.  So every
-//   value the iteration computes, each two-product's error included, is
-//   zero or at least 2^-1022 in magnitude: normal, and ftz() is the
-//   identity on it (on a signed zero as well).  With no underflow, and no
-//   overflow below 2^1023, Dekker's two-product is exact, so it equals the
-//   FMA's (p, e), exactly a*b - fl(a*b).  Both paths then run the same
+//   rounded multiple of 2^k is one again).  Every product the iteration
+//   forms is of two such values, a multiple of 2^(2E-104) = 2^-1022, or
+//   such a product doubled: in QD the six two-products and four order-3
+//   terms of each qd_mul; in QF the three two-products and x.lo*y.lo of
+//   each df_two_prod, the two-product and two cross products of each
+//   df_mul (A and B are the state's own pairs), and the doublings of
+//   qf_sqr's cross term and of q_mul_pow2.  Sums, differences, roundings
+//   and doublings keep that lattice, and the sums with c's components
+//   (multiples of 2^(E-52)) too.  So every value the iteration computes,
+//   each two-product's error included, is zero or at least 2^-1022 in
+//   magnitude: normal, and ftz() is the identity on it (on a signed zero
+//   as well).  With no underflow, and no overflow below 2^1023 (products
+//   stay below 2^1002, splits below 2^529), Dekker's two-product is exact,
+//   so it equals the FMA's (p, e), exactly a*b - fl(a*b), signed zeros
+//   included (both give +0 for an exact product).  The FMA's two-product
+//   is symmetric in its operands (fl(a*b) = fl(b*a), and the same exact
+//   error is rounded once), so a square's two equal two-products are one
+//   value; Dekker's error sums ahi*blo and alo*bhi in the operands' order,
+//   so the refused iteration keeps both.  Both paths then run the same
 //   rounded operations on the same values.
-// The guard (df32.cuh: kGuardLo, kGuardHi, admits) takes E = -450, nine
-// binades above the bound, and tests the exponent bits of zx's and zy's
-// components every iteration and cx's and cy's (constant) once a pixel, a
-// few integer operations each.  A biased exponent of 0 is admitted as
-// zero: no component is ever subnormal, since each is the result of a
-// flushed operation or of an Exact one proven normal (the coordinate
-// comes from the reference arithmetic, QuadFrame::at).
+// Where QF differs from QD: qf_renorm is one double-float sum, not two
+// renormalizing sweeps, so B is not held within an ulp of A.  After a
+// cancellation, or where z sits at an exact value plus a small offset (z
+// near 2 at c near -2: B holds the offset's square), B can sit far below
+// A's last bit, or be zero.  A zero is admitted; a component below 2^-450
+// is refused.  So on one frame the share of refused iterations differs
+// from K17's (chip_smoke.py QF_GUARD_SCALARS); the bits do not.
+// The guard (df32.cuh: kGuardLo, kGuardHi, guard_in; quad.cuh: admits)
+// takes E = -450, nine binades above the bound, and tests the exponent
+// bits of zx's and zy's components every iteration and cx's and cy's
+// (constant) once a pixel, a few integer operations each.  A biased
+// exponent of 0 is admitted as zero: no component is ever subnormal,
+// since each is the result of a flushed operation or of an Exact one
+// proven normal (the coordinate comes from the reference arithmetic,
+// QuadFrame::at).
 // An iteration the guard refuses runs the reference arithmetic, whose bits
 // are then today's by construction.  The 4x32 instances keep the reference
 // arithmetic: -ftz=true flushes f32 partials at 2^-126, which their low
-// components reach, and K18 (QF) is not changed.
+// components reach.
 // Output: int64 [H, W]; budgets below 2^31, counted in int32 as the
 // reference counts.
 
@@ -75,12 +95,13 @@ template <class V>
 struct QuadPixel {
   V cx, cy;
   int32_t budget;
-  bool fast;  // the guard admits cx and cy (fs_escape_qd_f64 only)
+  bool fast;  // the guard admits cx and cy (the 4x64 instances only)
 };
 
-// only K17's 4x64 QD instance has the exact fast path
+// the 4x64 instances, QD and QF, have the exact fast path
 template <class V>
-constexpr bool kFast = std::is_same<V, fs::QDT<double>>::value;
+constexpr bool kFast = std::is_same<V, fs::QDT<double>>::value ||
+                       std::is_same<V, fs::QFT<double>>::value;
 
 // V: fs::QDT<T> or fs::QFT<T>
 template <class V, typename T>
@@ -104,30 +125,27 @@ struct QuadRule {
   static __device__ __forceinline__ bool interior(const QuadPixel<V> &) {
     return false;
   }
-  // one iteration: false (z kept) once lead(|z|^2) > 4
+  // one iteration in the arithmetic A: false (z kept) once lead(|z|^2) > 4
+  template <class A>
+  static __device__ __forceinline__ bool iterate(V &zx, V &zy,
+                                                 const QuadPixel<V> &c) {
+    const V zx2 = fs::q_sqr<A>(zx);
+    const V zy2 = fs::q_sqr<A>(zy);
+    if (fs::q_lead(fs::q_add<A>(zx2, zy2)) > T(4)) return false;
+    const V nzy =
+        fs::q_add<A>(fs::q_mul_pow2<A>(fs::q_mul<A>(zx, zy), T(2)), c.cy);
+    zx = fs::q_add<A>(fs::q_sub<A>(zx2, zy2), c.cx);
+    zy = nzy;
+    return true;
+  }
   static __device__ __forceinline__ bool step(V &zx, V &zy,
                                               const QuadPixel<V> &c) {
     if constexpr (kFast<V>) {
-      if (c.fast && fs::admits(zx) && fs::admits(zy)) {
-        // the exact fast path: the same values as below
-        using A = fs::Exact;
-        const V zx2 = fs::qd_sqr<A>(zx);
-        const V zy2 = fs::qd_sqr<A>(zy);
-        if (fs::qd_add<A>(zx2, zy2).q0 > 4.0) return false;
-        const V nzy = fs::qd_add<A>(
-            fs::qd_mul_pow2<A>(fs::qd_mul<A>(zx, zy), 2.0), c.cy);
-        zx = fs::qd_add<A>(fs::qd_sub<A>(zx2, zy2), c.cx);
-        zy = nzy;
-        return true;
-      }
+      // the exact fast path: the same values as the reference arithmetic
+      if (c.fast && fs::admits(zx) && fs::admits(zy))
+        return iterate<fs::Exact>(zx, zy, c);
     }
-    const V zx2 = fs::q_sqr(zx);
-    const V zy2 = fs::q_sqr(zy);
-    if (fs::q_lead(fs::q_add(zx2, zy2)) > T(4)) return false;
-    const V nzy = fs::q_add(fs::q_mul_pow2(fs::q_mul(zx, zy), T(2)), c.cy);
-    zx = fs::q_add(fs::q_sub(zx2, zy2), c.cx);
-    zy = nzy;
-    return true;
+    return iterate<fs::Flushed>(zx, zy, c);
   }
   template <typename L>
   static __device__ __forceinline__ L run(const QuadPixel<V> &c, L limit) {

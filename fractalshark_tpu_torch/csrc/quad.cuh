@@ -10,13 +10,16 @@
 // q_lead and q_from_float give both types one interface for the escape
 // (csrc/escape_quad.cu).
 //
-// The QD functions take their arithmetic as a policy A (df32.cuh):
-// Flushed, the above (the twin's, and what q_add, q_sub and q_mul run),
-// or Exact, K17 4x64's fast path: the same operations on f64 with no
-// ftz() and the two-product as an FMA (two_prod_fma).  Exact gives
-// Flushed's bits on the inputs escape_quad.cu's guard admits; the
+// Every function takes its arithmetic as a policy A (df32.cuh): Flushed,
+// the above (the twin's, and the interface's default), or Exact, the fast
+// path of K17 4x64 and K18 4x64: the same operations on f64 with no ftz()
+// and the two-product as an FMA (two_prod_fma), and each square with a
+// product it repeats formed once (qd_sqr, df_two_sqr; kSymmetric).  Exact
+// gives Flushed's bits on the inputs escape_quad.cu's guard admits; the
 // argument is there.
 #pragma once
+
+#include <type_traits>
 
 #include "df32.cuh"
 
@@ -36,6 +39,16 @@ struct QFT {
 __device__ __forceinline__ bool admits(const QDT<double> &x) {
   return guard_in(x.q0) & guard_in(x.q1) & guard_in(x.q2) & guard_in(x.q3);
 }
+__device__ __forceinline__ bool admits(const QFT<double> &x) {
+  return admits(x.a) & admits(x.b);
+}
+
+// whether the policy's two-product gives (a, b) and (b, a) one value: the
+// FMA's does (a rounded product commutes, and so does its exact error);
+// Dekker's does not (its error sums ahi*blo and alo*bhi in the operands'
+// order), so under Flushed a square keeps both two-products
+template <class A>
+constexpr bool kSymmetric = std::is_same<A, Exact>::value;
 
 // ------------------------------------------------------------------ QD
 
@@ -154,30 +167,127 @@ __device__ __forceinline__ QDT<T> qd_mul_pow2(QDT<T> x, T s) {
           A::mul(x.q3, s)};
 }
 
-// the QD interface in today's arithmetic (the twin's)
-template <typename T>
+// ------------------------------------------------------------------ QF
+
+// DF-level Knuth two-sum (quadflt.py _df_two_sum)
+template <class A, typename T>
+__device__ __forceinline__ void df_two_sum(DFT<T> x, DFT<T> y, DFT<T> &s,
+                                           DFT<T> &e) {
+  s = df_add<A>(x, y);
+  const DFT<T> bb = df_sub<A>(s, x);
+  e = df_add<A>(df_sub<A>(x, df_sub<A>(s, bb)), df_sub<A>(y, bb));
+}
+
+template <class A, typename T>
+__device__ __forceinline__ QFT<T> qf_renorm(DFT<T> a, DFT<T> b) {
+  const DFT<T> s = df_add<A>(a, b);
+  return {s, df_add<A>(df_sub<A>(a, s), b)};
+}
+
+template <class A, typename T>
+__device__ __forceinline__ QFT<T> qf_add(QFT<T> x, QFT<T> y) {
+  DFT<T> s, e;
+  df_two_sum<A>(x.a, y.a, s, e);
+  e = df_add<A>(e, df_add<A>(x.b, y.b));
+  return qf_renorm<A>(s, e);
+}
+
+template <class A, typename T>
+__device__ __forceinline__ QFT<T> qf_sub(QFT<T> x, QFT<T> y) {
+  return qf_add<A>(x, QFT<T>{{-y.a.hi, -y.a.lo}, {-y.b.hi, -y.b.lo}});
+}
+
+// (p, e) from the two-products hh = x.hi*y.hi, hl = x.hi*y.lo,
+// lh = x.lo*y.hi and the product ll = x.lo*y.lo
+template <class A, typename T>
+__device__ __forceinline__ void df_prod_sum(DFT<T> hh, DFT<T> hl,
+                                            DFT<T> lh, T ll, DFT<T> &p,
+                                            DFT<T> &e) {
+  DFT<T> s, e1, e2;
+  df_two_sum<A>(hh, df_add<A>(hl, lh), s, e1);
+  df_two_sum<A>(s, DFT<T>{ll, T(0)}, p, e2);
+  e = df_add<A>(e1, e2);
+}
+
+// (p, e) with p + e ~ x*y (quadflt.py _df_two_prod)
+template <class A, typename T>
+__device__ __forceinline__ void df_two_prod(DFT<T> x, DFT<T> y, DFT<T> &p,
+                                            DFT<T> &e) {
+  DFT<T> hh, hl, lh;
+  A::prod(x.hi, y.hi, hh.hi, hh.lo);
+  A::prod(x.hi, y.lo, hl.hi, hl.lo);
+  A::prod(x.lo, y.hi, lh.hi, lh.lo);
+  df_prod_sum<A>(hh, hl, lh, A::mul(x.lo, y.lo), p, e);
+}
+
+// df_two_prod(x, x), with x.hi*x.lo's two-product formed once where the
+// policy's is symmetric
+template <class A, typename T>
+__device__ __forceinline__ void df_two_sqr(DFT<T> x, DFT<T> &p, DFT<T> &e) {
+  if constexpr (kSymmetric<A>) {
+    DFT<T> hh, hl;
+    A::prod(x.hi, x.hi, hh.hi, hh.lo);
+    A::prod(x.hi, x.lo, hl.hi, hl.lo);
+    df_prod_sum<A>(hh, hl, hl, A::mul(x.lo, x.lo), p, e);
+  } else {
+    df_two_prod<A>(x, x, p, e);
+  }
+}
+
+template <class A, typename T>
+__device__ __forceinline__ QFT<T> qf_mul(QFT<T> x, QFT<T> y) {
+  DFT<T> p, e;
+  df_two_prod<A>(x.a, y.a, p, e);
+  e = df_add<A>(e, df_add<A>(df_mul<A>(x.a, y.b), df_mul<A>(x.b, y.a)));
+  return qf_renorm<A>(p, e);
+}
+
+template <class A, typename T>
+__device__ __forceinline__ QFT<T> qf_sqr(QFT<T> x) {
+  DFT<T> p, e;
+  df_two_sqr<A>(x.a, p, e);
+  e = df_add<A>(e, df_mul_pow2<A>(df_mul<A>(x.a, x.b), T(2)));
+  return qf_renorm<A>(p, e);
+}
+
+template <class A, typename T>
+__device__ __forceinline__ QFT<T> qf_mul_pow2(QFT<T> x, T s) {
+  return {df_mul_pow2<A>(x.a, s), df_mul_pow2<A>(x.b, s)};
+}
+
+// ----------------------------------------------------------- interface
+//
+// One interface for both types under a policy A (Flushed, the twin's
+// arithmetic, unless named): the escape (csrc/escape_quad.cu) runs its
+// iteration on it.  QD's square under Flushed is its product x*x, as the
+// twin's qd_sqr.
+
+template <class A = Flushed, typename T>
 __device__ __forceinline__ QDT<T> q_add(QDT<T> x, QDT<T> y) {
-  return qd_add<Flushed>(x, y);
+  return qd_add<A>(x, y);
 }
 
-template <typename T>
+template <class A = Flushed, typename T>
 __device__ __forceinline__ QDT<T> q_sub(QDT<T> x, QDT<T> y) {
-  return qd_sub<Flushed>(x, y);
+  return qd_sub<A>(x, y);
 }
 
-template <typename T>
+template <class A = Flushed, typename T>
 __device__ __forceinline__ QDT<T> q_mul(QDT<T> x, QDT<T> y) {
-  return qd_mul<Flushed>(x, y);
+  return qd_mul<A>(x, y);
 }
 
-template <typename T>
+template <class A = Flushed, typename T>
 __device__ __forceinline__ QDT<T> q_sqr(QDT<T> x) {
-  return q_mul(x, x);
+  if constexpr (kSymmetric<A>)
+    return qd_sqr<A>(x);
+  else
+    return qd_mul<A>(x, x);
 }
 
-template <typename T>
+template <class A = Flushed, typename T>
 __device__ __forceinline__ QDT<T> q_mul_pow2(QDT<T> x, T s) {
-  return qd_mul_pow2<Flushed>(x, s);
+  return qd_mul_pow2<A>(x, s);
 }
 
 template <typename T>
@@ -185,69 +295,29 @@ __device__ __forceinline__ T q_lead(QDT<T> x) {
   return x.q0;
 }
 
-// ------------------------------------------------------------------ QF
-
-// DF-level Knuth two-sum (quadflt.py _df_two_sum)
-template <typename T>
-__device__ __forceinline__ void df_two_sum(DFT<T> x, DFT<T> y, DFT<T> &s,
-                                           DFT<T> &e) {
-  s = df_add(x, y);
-  const DFT<T> bb = df_sub(s, x);
-  e = df_add(df_sub(x, df_sub(s, bb)), df_sub(y, bb));
-}
-
-template <typename T>
-__device__ __forceinline__ QFT<T> qf_renorm(DFT<T> a, DFT<T> b) {
-  const DFT<T> s = df_add(a, b);
-  return {s, df_add(df_sub(a, s), b)};
-}
-
-template <typename T>
+template <class A = Flushed, typename T>
 __device__ __forceinline__ QFT<T> q_add(QFT<T> x, QFT<T> y) {
-  DFT<T> s, e;
-  df_two_sum(x.a, y.a, s, e);
-  e = df_add(e, df_add(x.b, y.b));
-  return qf_renorm(s, e);
+  return qf_add<A>(x, y);
 }
 
-template <typename T>
+template <class A = Flushed, typename T>
 __device__ __forceinline__ QFT<T> q_sub(QFT<T> x, QFT<T> y) {
-  return q_add(x, QFT<T>{{-y.a.hi, -y.a.lo}, {-y.b.hi, -y.b.lo}});
+  return qf_sub<A>(x, y);
 }
 
-// (p, e) with p + e ~ x*y (quadflt.py _df_two_prod)
-template <typename T>
-__device__ __forceinline__ void df_two_prod(DFT<T> x, DFT<T> y, DFT<T> &p,
-                                            DFT<T> &e) {
-  DFT<T> hh, hl, lh, s, e1, e2;
-  two_prod(x.hi, y.hi, hh.hi, hh.lo);
-  two_prod(x.hi, y.lo, hl.hi, hl.lo);
-  two_prod(x.lo, y.hi, lh.hi, lh.lo);
-  const DFT<T> ll = {fmul(x.lo, y.lo), T(0)};
-  df_two_sum(hh, df_add(hl, lh), s, e1);
-  df_two_sum(s, ll, p, e2);
-  e = df_add(e1, e2);
-}
-
-template <typename T>
+template <class A = Flushed, typename T>
 __device__ __forceinline__ QFT<T> q_mul(QFT<T> x, QFT<T> y) {
-  DFT<T> p, e;
-  df_two_prod(x.a, y.a, p, e);
-  e = df_add(e, df_add(df_mul(x.a, y.b), df_mul(x.b, y.a)));
-  return qf_renorm(p, e);
+  return qf_mul<A>(x, y);
 }
 
-template <typename T>
+template <class A = Flushed, typename T>
 __device__ __forceinline__ QFT<T> q_sqr(QFT<T> x) {
-  DFT<T> p, e;
-  df_two_prod(x.a, x.a, p, e);
-  e = df_add(e, df_mul_pow2(df_mul(x.a, x.b), T(2)));
-  return qf_renorm(p, e);
+  return qf_sqr<A>(x);
 }
 
-template <typename T>
+template <class A = Flushed, typename T>
 __device__ __forceinline__ QFT<T> q_mul_pow2(QFT<T> x, T s) {
-  return {df_mul_pow2(x.a, s), df_mul_pow2(x.b, s)};
+  return qf_mul_pow2<A>(x, s);
 }
 
 template <typename T>

@@ -47,7 +47,8 @@ the host syncs of the run (``torch.cuda.set_sync_debug_mode``'s
 warnings).  ``--sass`` adds the static instruction counts of the entry
 functions of K3, K6 (every instance), K13, K14, K15, K17, K18 and K19 in
 the built library (``cuobjdump -sass``), by class, and of the innermost
-loops of K6's float and glitch instances, K13's and K14's pass 2 and K19
+loops of K6's float and glitch instances, K13's, K14's, K17 4x64's and
+K18 4x64's pass 2 and K19
 (a step's or an iteration's own instructions; ``sass_counts``).  ``--chunk N`` runs
 each frame's run loop in launches of at most N steps a pixel, each over
 the pixels the last left live (K6, K15, K16 and the glitch instance),
@@ -236,6 +237,7 @@ SASS_CLASSES = {
     "select": ("SEL", "FSEL", "PLOP3", "P2R", "R2P"),
     "memory": ("LDG", "STG", "LD", "ST", "LDS", "STS", "LDC", "ULDC", "ATOMG",
                "RED", "ATOM"),
+    "local": ("LDL", "STL"),   # spills and stack frames
     "control": ("BRA", "BSSY", "BSYNC", "EXIT", "BAR", "WARPSYNC", "CALL",
                 "RET", "NOP", "BREAK", "BMOV", "YIELD", "WARPGROUP"),
 }
@@ -248,6 +250,7 @@ SASS_FUNCTIONS = {
     "k17_qd64_pass1": r"escape_pass1.*QuadRuleIN2fs3QDTIdEEdEE",
     "k17_qd64_pass2": r"escape_pass2.*QuadRuleIN2fs3QDTIdEEdEE",
     "k17_qd32_pass2": r"escape_pass2.*QuadRuleIN2fs3QDTIfEEfEE",
+    "k18_qf64_pass1": r"escape_pass1.*QuadRuleIN2fs3QFTIdEEdEE",
     "k18_qf64_pass2": r"escape_pass2.*QuadRuleIN2fs3QFTIdEEdEE",
     "k18_qf32_pass2": r"escape_pass2.*QuadRuleIN2fs3QFTIfEEfEE",
     "k14_2x64_pass1": r"escape_pass1.*DfRuleIdE",
@@ -277,7 +280,7 @@ SASS_FUNCTIONS = {
 # iteration's own instructions)
 SASS_LOOPS = ("k6_float_f32", "k6_glitch", "k6_glitch_queue",
               "k14_2x64_pass2", "k14_2x32_pass2", "k13_f32_pass2",
-              "k13_f64_pass2", "k19*")
+              "k13_f64_pass2", "k17_qd64_pass2", "k18_qf64_pass2", "k19*")
 
 
 def _innermost_loops(body, cls) -> list:
