@@ -94,13 +94,15 @@ render families: K13 (``csrc/escape_hdr.cu``, f32 and f64 mantissas) and
 K14 (``csrc/escape_df.cu``, 2x32 and 2x64) on the integration sweep's
 shallow frame at 1024² × 256, K15 (``csrc/bla.cu``, f32 and f64) and
 K6's glitch instance (counts and flags) on the 1e8 frame at 1024² ×
-1,500, each against its twin at the full budget (K15 through its run
-loop and in launches over the live pixels, with its per-pixel tally of
-BLA and single steps; the glitch instance in such launches) and timed
-(tools/time_pixel_loops.py), K13 at View #6's and View #8's centres
-(2^453, 2^2220) at 256², K15 (f32 and f64) on View #6 at 256², held to
-its twin and its tally at the preset's budget, timed, and its deepest
-pixel run alone (its serial floor), K14 2x64 against its twin on the
+1,500, each against its twin at the full budget (K15 on the frame at
+512², through its run loop and in launches over the live pixels, with
+its per-pixel tally of BLA and single steps; the glitch instance in such
+launches) and timed
+(tools/time_pixel_loops.py; K15's timed frames held to their pins,
+``K15_TIMED_PINS``), K13 at View #6's and View #8's centres
+(2^453, 2^2220) at 256², K15 (f32 and f64) on View #6, held to its twin
+and its tally at the preset's budget at 128², timed at 256² and held to
+its pin, and its deepest pixel run alone (its serial floor), K14 2x64 against its twin on the
 guard frame (``DF_GUARD_SCALARS``: iterations on and off its exact fast
 path) and K13 on its guard frames (``HDR_GUARD_SCALARS``: iterations in
 and out of its value form), the Scaled repair pass (K6 HDR-f64) on a poisoned orbit, and the
@@ -110,8 +112,8 @@ one launch and in launches over the live pixels), then the nine frames of
 made to raise), pinned to the JAX package's values; their launches are
 the kernels line's, (15) the last render families: K16
 (``csrc/perturb_hdr_df.cu``, HDR double-float perturbation) against its
-twin in launches over the live pixels on the 1e8 frame at 64² × 1,500,
-then timed on View #9 at 1024² × 40,000 (its step count, the deepest
+twin in launches over the live pixels on the 1e8 frame at 64² (budget
+cut to 600), then timed on View #9 at 1024² × 40,000 (its step count, the deepest
 pixel's steps and the bound from them); K17 and K18
 (``csrc/escape_quad.cu``: QD and QF escapes, 4x32 and 4x64) against
 their twins at 256² on the 1e17 frame (budget cut) and on a 1e18 frame
@@ -119,7 +121,7 @@ by -2 whose low f32 components are subnormal, then timed at 1024² × 600
 on the 1e17 frame, and K17 4x64 and K18 4x64 against their twins on
 their guard frames (``QUAD_GUARD_SCALARS``, ``QF_GUARD_SCALARS``:
 iterations on and off their exact fast path), K18 4x64 also on the
-integration sweep's shallow frame at 256² (counts that differ);
+integration sweep's shallow frame at 64² (counts that differ);
 then ``escape_qf`` (K18's public entry) and the
 ``LATE_PINS`` frames through the CLI at 256² (counts from 0, the twins
 made to raise), pinned to the JAX package's values; their launches are
@@ -146,7 +148,22 @@ steps at 256² against the CPU twins' path, a render server in a thread
 serving View #6 256² twice over a unix socket (rc 0, the second from
 the orbit cache, the PNGs equal to a direct render) and the tray's
 poster mode on View 0 at 1024² in 128-row bands (K1 f64, equal to the
-whole frame), resumed with half its tiles deleted.
+whole frame), resumed with half its tiles deleted, (17) the sharded
+paths (``parallel/``): K20 (``csrc/sharded_tail.cu``, a rank's block of
+the sharded step's CRT/carry tail) against its plain version block by
+block at 16,384 limbs with M = 2 and 4 blocks, no collective, and timed;
+then this script's worker processes (``--parallel-rank``) as M = 4 ranks
+and, on a subgroup, M = 2, all on this card in a gloo group (collectives
+staged through host memory): the sharded forward, inverse and 3-way
+multiply at nfft 8,192 and 65,536 against the one-device K8 transforms,
+256 sharded steps from View #30's centre at 16,384 limbs against K12's
+session (counts from 0: K8 and K20 only), the View 0 escape at 512² in
+bands (K1) and its all_reduce statistics, View #6 HDR and PO at 64² (K6)
+and RC PO 16² (K3, pinned) against the one-card frames, the sharded
+multiply and step timed, and their collectives timed apart (the device
+synchronised around each, in a second run); with two cards or more the
+same on an NCCL group, one rank a card.  K20's launches are the sharded
+session's.
 Exits non-zero if any
 phase fails, and at once when no CUDA device is present.  The next-to-last lines are the card's
 ``nvidia-smi`` name and power limit and a JSON object of the kernels;
@@ -456,6 +473,10 @@ KERNEL_META = {
     # _tail_impl :119, XLA in the reference), K3's loop with an f64 cursor
     "rc_tail_f64": ("fractalshark_tpu_torch/csrc/rc_tail.cu",
                     "fractalshark_tpu/ops/rc_tail.py:119"),
+    # phase 17: the sharded orbit step's CRT/carry tail (plain jnp in the
+    # reference, _pcarry/_psigned_finish/_pstreams), K20
+    "sharded_tail": ("fractalshark_tpu_torch/csrc/sharded_tail.cu",
+                     "fractalshark_tpu/parallel/orbit_sharded.py:81-167"),
 }
 
 # phase 14's kernel frames (tools/time_pixel_loops.py FRAMES) and the
@@ -480,6 +501,13 @@ FAMILY_CHUNK = 257
 # K15 on View #6 at 256², both mantissa types, at the preset's budget
 VIEW6_BLA_FRAMES = [("view6_bla_256", "bla_f32"),
                     ("view6_bla64_256", "bla_f64")]
+# K15's timed frames, whose twins now run at 512² and 128²: (iter_sum,
+# CRC-32) of the frames K15 and its twin agreed on bit for bit when the
+# twin still ran these sizes; the kernel is held to them
+K15_TIMED_PINS = {"1e8_bla_f32_1024": (1197472414, 2175409724),
+                  "1e8_bla_f64_1024": (1197468156, 4089822739),
+                  "view6_bla_256": (56282797997, 1152900570),
+                  "view6_bla64_256": (51893602644, 3489529998)}
 DEEP_HDR = {6: ("f32", 2000), 8: ("f64", 2000)}
 
 # phase 15: the quad-float escapes' frames, the 1e17 frame of
@@ -520,12 +548,18 @@ LATE_PINS = {
 # this budget (every pixel runs it: the twin's depth is the cut) and on
 # the antenna frame at its own, then timed at 1024²
 HDR_DF_TWIN_FRAME = "1e8_hdr_df_64"
+# K16's twin runs every pixel in lockstep: at the frame's 1,500 it took
+# 26-29 s; 600 keeps launches of FAMILY_CHUNK over the live pixels
+HDR_DF_TWIN_BUDGET = 600
 HDR_DF_FRAME = "view9_hdr_df_1024"
 QUAD_FRAMES = [("1e17_qd32_1024", "escape_4x32"),
                ("1e17_qd64_1024", "escape_4x64"),
                ("1e17_qf32_1024", "escape_qf32"),
                ("1e17_qf64_1024", "escape_qf64")]
 QUAD_TWIN_SIZE = 256
+# K18 4x64 on the shallow frame, against its twin (the twin costs ~40 s at
+# 256²)
+QF_SHALLOW_SIZE = 64
 QUAD_TWIN_BUDGET = 40
 # K17 4x64's guard frame (the 16 scalars, size, budget): cx = -2 + (x - 8)
 # 2^-300, cy = -y (2^-300 + 2^-480).  Rows y > 0 carry a component near
@@ -1168,6 +1202,29 @@ def phase_orbit_kernels(device, stats, reps=20, steps=3):
             stats[key].update(st)       # the last, largest size stays
 
 
+# exact_trace calls started early in a child process (prefetch_exact_trace)
+_PREFETCHED: dict = {}
+
+
+def prefetch_exact_trace():
+    """Start phase 5's 16,384-limb exact trace of View #30's centre (about
+    a minute of Python ints) in a child process, so that it runs while the
+    earlier phases use the card; ``exact_trace`` takes its result.
+    Returns the pool, to be shut down at the end."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+    spec = FP.FixedSpec.for_limbs(max(ORBIT_LIMBS))
+    cx, cy, _ = view30_center()
+    (scx, cxd), (scy, cyd) = (FP.hp_to_digits(v, spec) for v in (cx, cy))
+    args = (spec, scx * FP.digits_to_int(cxd), scy * FP.digits_to_int(cyd),
+            ORACLE_STEPS, None, True)
+    pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+    _PREFETCHED[args] = pool.submit(exact_trace, *args)
+    return pool
+
+
 @functools.lru_cache(maxsize=16)
 def exact_trace(spec, cx: int, cy: int, steps: int, start=None,
                 keep_z: bool = False):
@@ -1179,6 +1236,9 @@ def exact_trace(spec, cx: int, cy: int, steps: int, start=None,
     2^16D); cx, cy signed fixed-point ints.  Returns (x, y, dx, dy) and
     the number of steps where a magnitude of dz/dc wrapped, and with
     ``keep_z`` the states (x, y) before each step."""
+    early = _PREFETCHED.pop((spec, cx, cy, steps, start, keep_z), None)
+    if early is not None:
+        return early.result()
     shift = 16 * spec.frac_digits
     half = 1 << (shift - 1)
     mod = 1 << (16 * spec.digits)
@@ -2745,13 +2805,22 @@ def k15_twin(fr, st):
     return pl, pms, tally
 
 
+def k15_pin(name, rec):
+    """Hold a timed K15 frame to its pin in K15_TIMED_PINS."""
+    got = (rec["iter_sum"], rec["crc32"])
+    if got != K15_TIMED_PINS[name]:
+        raise AssertionError(f"{name}: (iter_sum, crc32) {got} != the pin "
+                             f"{K15_TIMED_PINS[name]}")
+    log(f"    {name} = its pin {K15_TIMED_PINS[name]}")
+
+
 def phase_families(device, stats):
     """The render families the port took last: K13 and K14 (every
     instance) on the shallow frame at 1024², K15 (f32, f64) and K6's glitch
-    instance on the 1e8 frame at 1024² x 1,500, each against its twin and
-    timed; K14 2x64 and K13 on their guard frames; K13 at View #6's and
-    View #8's centres; K15 (f32, f64) on View #6 at 256² at the preset
-    budget, its deepest pixel alone; the Scaled repair pass on a poisoned
+    instance on the 1e8 frame at 1024² x 1,500, each against its twin (K15
+    at 512²) and timed; K14 2x64 and K13 on their guard frames; K13 at View #6's and
+    View #8's centres; K15 (f32, f64) on View #6 at the preset budget
+    (its twin at 128², timed at 256²), its deepest pixel alone; the Scaled repair pass on a poisoned
     orbit, and the glitch instance with the bad flag at two more
     positions; then the nine 256² frames through the CLI (counts from 0,
     the twins forbidden), pinned to the JAX package's values."""
@@ -2800,7 +2869,14 @@ def phase_families(device, stats):
                 out, fr.n)
             b = bound(nbytes(out), ops, rate)
         elif fr.kern == "k15":
-            pl, pms, tally = k15_twin(fr, st)
+            # the twin on the same frame at 512² (at 1024² it took 13-18
+            # s a type); the 1024² frame timed, its bound from K15's own
+            # tally there
+            tw = tpl.setup(name.replace("_1024", "_512"), device)
+            pl, pms, _ = k15_twin(tw, st)
+            tally = torch.zeros((fr.size * fr.size, 2), dtype=torch.int64,
+                                device=device)
+            fr.run(None, None, tally)
             out, rec = tpl.time_frame(fr, 3)
             t = tally.sum(dim=0).tolist()
             log(f"    steps: {t[0]} BLA, {t[1]} single, for "
@@ -2826,6 +2902,8 @@ def phase_families(device, stats):
             f"{(rec['iter_sum'], rec['crc32'])}; plain {pms:.3f} ms")
         if rec["launches"].get(entry, 0) < 1:
             raise AssertionError(f"{name}: {entry} never launched")
+        if fr.kern == "k15":
+            k15_pin(name, rec)
         st.update(ms=rec["ms_median"], plain_ms=pms, **b)
 
     # K13 past each mantissa type's exponent range
@@ -2840,11 +2918,17 @@ def phase_families(device, stats):
                 hdr_escape.escape_hdr_plain(p, 256, 256, n, tdt, device),
                 stats["escape_hdr" + mant[1:]])
 
-    # K15 on View #6 at 256², both mantissa types: held to the twin at the
-    # preset's budget, then timed, with the deepest pixel run alone
+    # K15 on View #6, both mantissa types: held to the twin at the
+    # preset's budget at 128² (the twin runs every pixel in lockstep to the
+    # deepest one's ~6,800 steps), then timed at 256² with the deepest
+    # pixel run alone, the bound from K15's own tally there
     for name, entry in VIEW6_BLA_FRAMES:
         fr = tpl.setup(name, device)
-        _, _, tally = k15_twin(fr, stats[entry])
+        k15_twin(tpl.setup(name.replace("_256", "_128"), device),
+                 stats[entry])
+        tally = torch.zeros((fr.size * fr.size, 2), dtype=torch.int64,
+                            device=device)
+        fr.run(None, None, tally)
         out, rec = tpl.time_frame(fr, 1)
         t = tally.sum(dim=0).tolist()
         floor = tpl.bla_floor(fr, 1)
@@ -2854,6 +2938,7 @@ def phase_families(device, stats):
             f"{rec['work'][:4]} pixels, (iter_sum, crc32) "
             f"{(rec['iter_sum'], rec['crc32'])}; steps {t[0]} BLA, {t[1]} "
             f"single; serial floor {json.dumps(floor)}")
+        k15_pin(name, rec)
         bound(nbytes(fr.orbit, fr.T.probe, fr.T.bound, fr.T.steps, *fr.dc,
                      out), bla_ops(tally),
               F64_OPS_PER_S if fr.dtype == torch.float64 else F32_OPS_PER_S)
@@ -2936,13 +3021,14 @@ def phase_families(device, stats):
 
 def phase_late(device, stats):
     """The last render families: K16 against its twin on the 1e8 frame at
-    64² (launches of FAMILY_CHUNK steps over the live pixels), then timed
+    64² at HDR_DF_TWIN_BUDGET (launches of FAMILY_CHUNK steps over the
+    live pixels), then timed
     on View #9 at 1024² × 40,000; K17 and K18 (both component types)
     against their twins at 256² on the 1e17 frame (QUAD_TWIN_BUDGET) and
     on the antenna frame, then timed at 1024² × 600 on the 1e17 frame;
     K17 4x64 and K18 4x64 against their twins on their guard frames
     (QUAD_GUARD_SCALARS, QF_GUARD_SCALARS), K18 4x64 also on the shallow
-    frame at 256²; then escape_qf through its public entry and the
+    frame at 64²; then escape_qf through its public entry and the
     LATE_PINS frames
     through the CLI (counts from 0, the twins forbidden), pinned to the
     JAX package's values."""
@@ -2957,9 +3043,10 @@ def phase_late(device, stats):
     tpl = pixel_loops()
     st = stats["perturb_hdr_df"]
     fr = tpl.setup(HDR_DF_TWIN_FRAME, device)
-    k = fr.run(None, FAMILY_CHUNK)
-    pl, pms = timed(fr.plain, device, warm=False)
-    compare(f"perturb_hdr_df {fr.name} budget {fr.n} (launches of "
+    n = HDR_DF_TWIN_BUDGET
+    k = fr.run(n, FAMILY_CHUNK)
+    pl, pms = timed(lambda: fr.plain(n), device, warm=False)
+    compare(f"perturb_hdr_df {fr.name} budget {n} (launches of "
             f"{FAMILY_CHUNK} steps over the live pixels)", k, pl, st)
     fr = tpl.setup(HDR_DF_FRAME, device)
     out, rec = tpl.time_frame(fr, 3)
@@ -3011,7 +3098,7 @@ def phase_late(device, stats):
                                                          "cpu"), st)
         if entry == "escape_qf64":
             # a frame whose counts differ (the 1e17 frame's do not)
-            s, argv = QUAD_TWIN_SIZE, FAMILY_SHALLOW
+            s, argv = QF_SHALLOW_SIZE, FAMILY_SHALLOW
             n = int(argv[-1])
             ptz = PointZoomBBConverter(pt_x=argv[1], pt_y=argv[3],
                                        zoom_factor=argv[5], prec=256
@@ -3489,6 +3576,511 @@ def phase_app(device, stats):
     return launches
 
 
+# ------------------------------------------------------- phase 17: parallel
+# The sharded paths (parallel/), each over a torch.distributed mesh of
+# worker processes (this script with --parallel-rank): M = 4 ranks and, on
+# a subgroup of ranks 0 and 1, M = 2, all on cuda:0 with a gloo group on
+# CUDA tensors (NCCL refuses two ranks on one card; gloo stages each
+# collective through host memory, so these times are no NCCL scaling);
+# with two cards or more also an NCCL group, one rank a card.
+PAR_NTT = (8192, 65536)
+PAR_LIMBS = 16384
+PAR_STEPS = 256
+PAR_ESCAPE = (0, 512, 256)          # View 0 at 512², budget 256 (K1, f64)
+PAR_PO, PAR_RC_PO = 64, 16          # View #6 PO (K6) and RC PO (K3) sizes
+PAR_REPS = 5
+PAR_TIMED_STEPS = 64                # the sharded step's timed chunk
+
+
+def par_inputs(device):
+    """The one-device references of the parallel phase, on this card:
+    View #30's 256-step orbit at 16,384 limbs (K12) and K12's time a step,
+    the View 0 escape at 512² and its min, max and sum, View #6 HDR and
+    PO at 64² (K6) and RC PO 16² (K3, pinned to ``VIEW6_RC_PO_16``), and
+    ``multiply_3way``'s time at 16,384 limbs; with View #6's orbit, its
+    compressed orbit and view for the workers."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from fractalshark_tpu_torch.engine.perturbation_results import (
+        CompressedOrbit)
+    from fractalshark_tpu_torch.ops import escape, perturb
+    from fractalshark_tpu_torch.ops import perturb_stream as PS
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+    from fractalshark_tpu_torch.ops.bignum import orbit as O
+
+    cx, cy, rad = view30_center()
+    res = O.compute_reference_orbit_device(
+        cx, cy, PAR_STEPS, rad, limbs32=PAR_LIMBS, periodicity=False,
+        chunk_steps=PAR_STEPS, device=device)
+    spec = FP.FixedSpec.for_limbs(PAR_LIMBS)
+    scx, cxd = FP.hp_to_digits(cx, spec)
+    scy, cyd = FP.hp_to_digits(cy, spec)
+    state = O.OrbitState(scx, cxd, scy, cyd, device)
+    cxt, cyt = state.x.clone(), state.y.clone()
+    O.orbit_chunk(state, scx, cxt, scy, cyt, spec, PAR_STEPS)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    O.orbit_chunk(state, scx, cxt, scy, cyt, spec, PAR_STEPS)
+    torch.cuda.synchronize(device)
+    k12_us = (time.perf_counter() - t0) / PAR_STEPS * 1e6
+    a, b = (np.random.default_rng(s).integers(0, 1 << 16, spec.digits)
+            for s in (0, 1))
+    FP.multiply_3way(a, b, spec, device)
+    times = []
+    for _ in range(PAR_REPS):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        FP.multiply_3way(a, b, spec, device)
+        torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    view, size, n = PAR_ESCAPE
+    from fractalshark_tpu_torch.core.views import get_view_preset
+    p = escape.PlainParams.from_view(
+        get_view_preset(view).ptz.square_aspect_ratio(size, size), size,
+        size)
+    esc = escape.escape(p, size, size, n, "f64", device, tile=False)
+    f, v6, _ = frame_inputs(6, PAR_PO, device)
+    comp = CompressedOrbit.from_uncompressed(v6, error_exp=20)
+    ptz_rc = get_view_preset(6).ptz.square_aspect_ratio(PAR_RC_PO,
+                                                        PAR_RC_PO)
+    out = {"res30": res, "k12_us": k12_us,
+           "mul_ms": float(np.median(times)), "escape": esc.cpu(),
+           "v6": pickle.dumps((v6, comp)), "ptz": f.ptz, "ptz_rc": ptz_rc,
+           "n6": f.num_iterations}
+    out["po"] = PS.perturb_render_stream(v6, f.ptz, PAR_PO, PAR_PO,
+                                         f.num_iterations, device=device).cpu()
+    out["hdr"] = perturb.perturb_render_hdr(v6, f.ptz, PAR_PO, PAR_PO,
+                                            f.num_iterations,
+                                            device=device).cpu()
+    out["escape_stats"] = {"min": int(esc.min()), "max": int(esc.max()),
+                           "sum": int(esc.to(torch.int64).sum())}
+    out["rc"] = PS.perturb_render_stream_rc(
+        comp, v6.center_x, v6.center_y, ptz_rc, PAR_RC_PO, PAR_RC_PO,
+        f.num_iterations, device=device).cpu()
+    got = crc_pin(out["rc"])
+    log(f"  one card: View #6 RC PO {PAR_RC_PO}² (K3) (iter_sum, crc32) "
+        f"{got} (pin {VIEW6_RC_PO_16}); K12 {k12_us:.2f} us a step and "
+        f"multiply_3way {out['mul_ms']:.3f} ms at {PAR_LIMBS} limbs")
+    if got != VIEW6_RC_PO_16:
+        raise AssertionError(f"View #6 RC PO {PAR_RC_PO}²: {got} != "
+                             f"{VIEW6_RC_PO_16}")
+    return out
+
+
+def par_k20(device, stats):
+    """K20 against its plain version block by block on one card, with no
+    collective: View #30's first step at 16,384 limbs (its residue rows
+    from the one-device transforms, K8), cut into M blocks with their
+    halo, launch A's outputs, then the words stacked as the all_gather
+    would, launch B's; the blocks' digits against the whole-vector tail
+    (K10's twin).  Timed at M = 2 (a rank's block of 32,768 digits)."""
+    import torch
+
+    from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+    from fractalshark_tpu_torch.ops.bignum import ntt as N
+    from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
+    from fractalshark_tpu_torch.parallel import orbit_sharded as OS
+
+    st = stats["sharded_tail"]
+    cx, cy, _ = view30_center()
+    spec = FP.FixedSpec.for_limbs(PAR_LIMBS)
+    nf, D = spec.nfft, spec.digits
+    scx, cxd = FP.hp_to_digits(cx, spec)
+    scy, cyd = FP.hp_to_digits(cy, spec)
+    x = torch.from_numpy(cxd.astype("int32")).to(device)
+    y = torch.from_numpy(cyd.astype("int32")).to(device)
+    v = torch.zeros(4, nf, dtype=torch.int32, device=device)
+    v[0:2, :D], v[2:4, :D] = x, y
+    f = N.fourstep_forward(v, nf)
+    fx, fy = f[0:2], f[2:4]
+    e = torch.cat([N.mod_sub_rows(N.mont_mul_rows(fx, fx),
+                                  N.mont_mul_rows(fy, fy)),
+                   N.mont_mul_rows(fx, fy)])
+    inv = N.fourstep_inverse_scaled(e, nf, True).view(2, 2, nf)
+    cadd, rnd = FP.addend_planes(x, y, spec)
+    cfg = NP.tail_cfg((scx, scy, 1, 0), nr=False)
+    zsign = torch.tensor([scx, scy], dtype=torch.int32, device=device)
+    whole = NP.fused_tail_plain(inv, cadd, rnd,
+                                NP.tail_cfg((scx, scy, scx * scy, 0), False))
+    H = OS.HALO
+    pad = torch.nn.functional.pad
+    ip, cp, rp = pad(inv, (H, 0)), pad(cadd, (H, 0)), pad(rnd, (H, 0))
+    for M in (2, 4):
+        lloc = nf // M
+        blocks = [(ip[..., r * lloc:r * lloc + H + lloc].contiguous(),
+                   cp[:, r * lloc:r * lloc + H + lloc].contiguous(),
+                   rp[r * lloc:r * lloc + H + lloc].contiguous())
+                  for r in range(M)]
+        ka = [OS.tail_a(*b, cfg, zsign) for b in blocks]
+        pa = [OS.tail_a_plain(*b, cfg, zsign) for b in blocks]
+        for r in range(M):
+            for i, what in enumerate(("digits", "segment words", "words")):
+                compare(f"sharded_tail A M={M} block {r} {what}", ka[r][i],
+                        pa[r][i], st)
+        words = torch.stack([a[2] for a in ka])
+        kb = [OS.tail_b(a[0], a[1], words, r) for r, a in enumerate(ka)]
+        pb = [OS.tail_b_plain(a[0], a[1], words, r)
+              for r, a in enumerate(pa)]
+        for r in range(M):
+            compare(f"sharded_tail B M={M} block {r} digits", kb[r][0],
+                    pb[r][0], st)
+            compare(f"sharded_tail B M={M} block {r} signs", kb[r][1],
+                    pb[r][1], st)
+        compare(f"sharded_tail M={M} blocks vs the whole tail",
+                torch.cat([b[0] for b in kb], 1), whole[0], st)
+        compare(f"sharded_tail M={M} signs vs the whole tail", kb[0][1],
+                whole[1], st)
+    # timed: rank 0's block at M = 2, launch A then B, the words fixed
+    lloc = nf // 2
+    b0 = (ip[..., :H + lloc].contiguous(), cp[:, :H + lloc].contiguous(),
+          rp[:H + lloc].contiguous())
+    a0 = OS.tail_a(*b0, cfg, zsign)
+    words = torch.stack([a0[2], OS.tail_a(
+        ip[..., lloc:].contiguous(), cp[:, lloc:].contiguous(),
+        rp[lloc:].contiguous(), cfg, zsign)[2]])
+
+    def step():
+        a = OS.tail_a(*b0, cfg, zsign)
+        return OS.tail_b(a[0], a[1], words, 0)
+
+    def plain():
+        a = OS.tail_a_plain(*b0, cfg, zsign)
+        return OS.tail_b_plain(a[0], a[1], words, 0)
+
+    _, ms = timed(step, device, 50)
+    _, pms = timed(plain, device, warm=False)
+    n_bytes = nbytes(*b0) + 2 * nbytes(a0[0], a0[1]) + nbytes(a0[0]) + \
+        nbytes(words) + 8
+    b = bound(n_bytes, 40.0 * 2 * lloc, I32_OPS_PER_S)
+    log(f"  sharded_tail (A + B) on a rank's block of {lloc} digits: "
+        f"{ms:.4f} ms, plain {pms:.3f} ms")
+    st.update(ms=ms, plain_ms=pms, **b)
+
+
+def par_worker(argv) -> int:
+    """One rank of the parallel phase: ``--parallel-rank RANK WORLD
+    BACKEND DIR`` (the inputs and the results in DIR)."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rank, world, backend, workdir = (int(argv[0]), int(argv[1]), argv[2],
+                                     argv[3])
+    device = torch.device("cuda", 0 if backend == "gloo" else rank)
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method="file://" + os.path.join(
+        workdir, f"store_{backend}"), world_size=world, rank=rank)
+    try:
+        from fractalshark_tpu_torch import kernels
+        from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+        from fractalshark_tpu_torch.ops.bignum import ntt as N
+        from fractalshark_tpu_torch.ops.bignum import orbit as O
+        from fractalshark_tpu_torch.parallel import ntt_sharded as NS
+        from fractalshark_tpu_torch.parallel import render as PR
+        from fractalshark_tpu_torch.parallel import stream_render as SR
+
+        # the parent writes the inputs while the ranks start
+        path = os.path.join(workdir, "inputs.pkl")
+        deadline = time.monotonic() + 300
+        while not os.path.exists(path):
+            if time.monotonic() > deadline:
+                raise AssertionError("no inputs from the parent")
+            time.sleep(0.05)
+        with open(path, "rb") as fh:
+            inp = pickle.load(fh)
+        v6, comp = pickle.loads(inp["v6"])
+        sub = dist.new_group([0, 1]) if world > 2 else None
+        meshes = [(world, None)] + ([(2, sub)] if world > 2 else [])
+        out = {}
+        for M, group in meshes:
+            if rank >= M:
+                continue
+            mesh = NS.make_limb_mesh(device, group)
+            tag = f"{backend} M={M}"
+            t_case = time.perf_counter()
+            for n in PAR_NTT:
+                rng = np.random.default_rng(n)
+                x = torch.from_numpy(rng.integers(0, 1 << 16, (4, n)).astype(
+                    np.int32)).to(device)
+                n1, n2 = N.split_n(n)
+                h = n1 // M
+                want = N.fourstep_forward(x, n).view(4, n2, n1)
+                f = NS.fourstep_forward_sharded(x, n, mesh)
+                if not torch.equal(f, want[:, :, rank * h:(rank + 1) * h]):
+                    raise AssertionError(f"{tag} forward {n} differs")
+                back = NS.gather_columns(NS.fourstep_inverse_sharded(
+                    f, n, mesh, extra_scale_r=False), mesh)
+                if not torch.equal(back, x):
+                    raise AssertionError(f"{tag} round trip {n} differs")
+                a, b = (rng.integers(0, 1 << 16, n) for _ in range(2))
+                a[n // 2:] = 0
+                b[n // 2:] = 0
+                ab = torch.from_numpy(np.stack([a, a, b, b]).astype(
+                    np.int32)).to(device)
+                fa = N.fourstep_forward(ab, n)
+                prod = N.mont_mul_rows(fa[[0, 1, 2, 3, 0, 1]],
+                                       fa[[0, 1, 2, 3, 2, 3]])
+                if not torch.equal(NS.multiply_3way_sharded(a, b, mesh),
+                                   N.fourstep_inverse_scaled(prod, n, True)):
+                    raise AssertionError(f"{tag} multiply {n} differs")
+            spec = FP.FixedSpec.for_limbs(PAR_LIMBS)
+            a, b = (np.random.default_rng(s).integers(0, 1 << 16, spec.nfft)
+                    for s in (0, 1))
+            a[spec.digits:] = 0
+            b[spec.digits:] = 0
+
+            def mul_ms(a, b):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                NS.multiply_3way_sharded(a, b, mesh)
+                torch.cuda.synchronize(device)
+                return (time.perf_counter() - t0) * 1e3
+
+            times = [mul_ms(a, b) for _ in range(PAR_REPS + 1)]
+            out[f"{M}_mul_ms"] = float(np.median(times[1:]))
+            # the digits already on the card (no host staging of inputs)
+            ad, bd = (torch.from_numpy(v).to(device) for v in (a, b))
+            times = [mul_ms(ad, bd) for _ in range(PAR_REPS + 1)]
+            out[f"{M}_mul_dev_ms"] = float(np.median(times[1:]))
+            # again with each collective timed alone (the device synced
+            # around it): the multiply's collectives and the rest
+            coll = par_time_collectives(device)
+            synced = [mul_ms(a, b) for _ in range(PAR_REPS)]
+            out[f"{M}_mul_coll_ms"] = coll.pop() * 1e3 / PAR_REPS
+            out[f"{M}_mul_synced_ms"] = float(np.mean(synced))
+            # the sharded session: 256 steps from View #30's centre
+            cx, cy, rad = view30_center()
+            kernels.reset_counts()
+            res = O.compute_reference_orbit_device(
+                cx, cy, PAR_STEPS, rad, limbs32=PAR_LIMBS, periodicity=False,
+                chunk_steps=PAR_STEPS, device=device, mesh=mesh)
+            counts = {k: v for k, v in kernels.launches.items() if v}
+            ref = inp["res30"]
+            if not (np.array_equal(res.orbit_x, ref.orbit_x) and
+                    np.array_equal(res.orbit_y, ref.orbit_y)):
+                raise AssertionError(f"{tag} sharded session differs from "
+                                     f"K12's")
+            if counts != {"ntt_phase": 4 * PAR_STEPS,
+                          "sharded_tail": 2 * PAR_STEPS}:
+                raise AssertionError(f"{tag} session launches {counts}")
+            out[f"{M}_launches"] = counts
+            spec = FP.FixedSpec.for_limbs(PAR_LIMBS)
+            scx, cxd = FP.hp_to_digits(cx, spec)
+            scy, cyd = FP.hp_to_digits(cy, spec)
+            state = O.OrbitState(scx, cxd, scy, cyd, device)
+            cxt, cyt = state.x.clone(), state.y.clone()
+
+            def chunk_us():
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                O.orbit_chunk(state, scx, cxt, scy, cyt, spec,
+                              PAR_TIMED_STEPS, mesh=mesh)
+                torch.cuda.synchronize(device)
+                return (time.perf_counter() - t0) / PAR_TIMED_STEPS * 1e6
+
+            out[f"{M}_step_us"] = chunk_us()
+            # a second chunk with each collective timed alone: its
+            # collectives' share (this chunk's own time is the synced one)
+            coll = par_time_collectives(device)
+            out[f"{M}_step_synced_us"] = chunk_us()
+            out[f"{M}_coll_us"] = coll.pop() / PAR_TIMED_STEPS * 1e6
+            # the renders: View 0 escape in bands (K1) and its statistics,
+            # View #6 HDR (K6 HDR), View #6 PO (K6), View #6 RC PO (K3)
+            from fractalshark_tpu_torch.core.views import get_view_preset
+            from fractalshark_tpu_torch.ops import escape
+            view, size, n = PAR_ESCAPE
+            p = escape.PlainParams.from_view(
+                get_view_preset(view).ptz.square_aspect_ratio(size, size),
+                size, size)
+            part = PR.sharded_escape_render(p, size, size, n, mesh)
+            if not torch.equal(PR.gather_rows(part, size, mesh).cpu(),
+                               inp["escape"]):
+                raise AssertionError(f"{tag} escape bands differ")
+            got = PR.sharded_stats(part, mesh)
+            if got != inp["escape_stats"]:
+                raise AssertionError(f"{tag} sharded_stats {got} != "
+                                     f"{inp['escape_stats']}")
+            hdr = PR.sharded_perturb_render_hdr(v6, inp["ptz"], PAR_PO,
+                                                PAR_PO, inp["n6"], mesh)
+            if not torch.equal(PR.gather_rows(hdr, PAR_PO, mesh).cpu(),
+                               inp["hdr"]):
+                raise AssertionError(f"{tag} View #6 HDR {PAR_PO}² "
+                                     f"differs")
+            po = SR.sharded_perturb_render_stream(
+                v6, inp["ptz"], PAR_PO, PAR_PO, inp["n6"], mesh)
+            if not torch.equal(po.cpu(), inp["po"]):
+                raise AssertionError(f"{tag} View #6 PO {PAR_PO}² differs")
+            rc = SR.sharded_perturb_render_stream_rc(
+                comp, v6.center_x, v6.center_y,
+                inp["ptz_rc"], PAR_RC_PO, PAR_RC_PO, inp["n6"], mesh)
+            if not torch.equal(rc.cpu(), inp["rc"]):
+                raise AssertionError(f"{tag} View #6 RC PO {PAR_RC_PO}² "
+                                     f"differs")
+            out[f"{M}_s"] = time.perf_counter() - t_case
+        with open(os.path.join(workdir, f"out_{backend}_{rank}.json"),
+                  "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def par_time_collectives(device):
+    """Wrap the mesh's collectives with a host clock, the device
+    synchronised just before and just after each (so the clock holds the
+    collective's whole transfer, its staging through host memory
+    included, on either backend, and none of the launches queued before
+    it); ``pop()`` gives the seconds so far and puts the collectives
+    back.  The syncs cost time of their own: a run timed so is not the
+    path's time."""
+    import torch
+
+    from fractalshark_tpu_torch.parallel import mesh as PM
+    names = ("all_gather", "all_to_all", "all_reduce")
+    saved = {n: getattr(PM, n) for n in names}
+    spent = [0.0]
+
+    def wrap(fn):
+        def timed_fn(*a, **k):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize(device)
+            spent[0] += time.perf_counter() - t0
+            return out
+        return timed_fn
+
+    for n in names:
+        setattr(PM, n, wrap(saved[n]))
+
+    class Clock:
+        def pop(self):
+            for n in names:
+                setattr(PM, n, saved[n])
+            return spent[0]
+    return Clock()
+
+
+def par_start(workdir, world: int, backend: str) -> list:
+    """Start ``world`` worker processes (they wait for the inputs), each
+    writing its log under ``workdir``."""
+    procs = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"log_{backend}_{r}.txt"),
+                  "w") as log_file:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                 str(r), str(world), backend, workdir],
+                stdout=log_file, stderr=subprocess.STDOUT))
+    return procs
+
+
+def par_wait(procs, workdir, backend: str, timeout: float) -> list:
+    """Wait for every worker; a failing worker ends the others and fails
+    the phase.  Returns each rank's results."""
+    world = len(procs)
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(workdir, f"log_{backend}_{r}.txt")) as fh:
+                tail = fh.read()[-3000:]
+            raise AssertionError(f"parallel {backend} rank {r}: exit "
+                                 f"{p.returncode}\n{tail}")
+    outs = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"out_{backend}_{r}.json")) as fh:
+            outs.append(json.load(fh))
+    return outs
+
+
+def phase_parallel(device, stats):
+    """(17) The sharded paths: K20 against its plain version block by
+    block on one card; then M = 4 and M = 2 ranks as processes on this
+    card in a gloo group (collectives staged through host memory): the
+    sharded forward, inverse and 3-way multiply at nfft 8,192 and 65,536
+    against the one-device transforms (K8), 256 sharded steps from View
+    #30's centre at 16,384 limbs against K12's session (launching K8 and
+    K20 and nothing else), the View 0 escape in bands (K1) at 512² and
+    its all_reduce statistics, View #6 HDR and PO at 64² (K6) and RC PO
+    at 16² (K3) against the one-card frames; the sharded multiply and
+    step timed, then timed again with the device synchronised around each
+    collective for the collectives' share; with two cards or more the
+    same over NCCL, one rank a card.  Returns K20's launches on the
+    sharded session (rank 0, M = 2)."""
+    import pickle
+
+    log("[17] parallel: K20 vs its plain version block by block; the "
+        "sharded paths on M = 4 and 2 ranks on one card (gloo: collectives "
+        "staged through host memory, not NCCL scaling)")
+    import torch
+
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        procs = par_start(workdir, 4, "gloo")
+        try:
+            par_k20(device, stats)
+            inp = par_inputs(device)
+            tmp = os.path.join(workdir, "inputs.tmp")
+            with open(tmp, "wb") as fh:
+                pickle.dump(inp, fh)
+            os.replace(tmp, os.path.join(workdir, "inputs.pkl"))
+        except BaseException:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise
+        runs = [("gloo", procs)]
+        if torch.cuda.device_count() >= 2:
+            runs.append(("nccl", None))
+        else:
+            log("  one card: NCCL across cards not measured")
+        launches = None
+        for backend, procs in runs:
+            if procs is None:
+                t0 = time.perf_counter()
+                procs = par_start(workdir, min(4, torch.cuda.device_count()),
+                                  backend)
+            world = len(procs)
+            outs = par_wait(procs, workdir, backend, 300)
+            o = outs[0]
+            meshes = sorted(int(k.split("_")[0]) for k in o if
+                            k.endswith("_step_us"))
+            for M in meshes:
+                log(f"  {backend} M={M}: every case equal on every rank; "
+                    f"sharded multiply {o[f'{M}_mul_ms']:.3f} ms (one card "
+                    f"{inp['mul_ms']:.3f}; from digits on the card "
+                    f"{o[f'{M}_mul_dev_ms']:.3f}; with each collective synced "
+                    f"{o[f'{M}_mul_synced_ms']:.3f}, of which collectives "
+                    f"{o[f'{M}_mul_coll_ms']:.3f}), sharded step "
+                    f"{o[f'{M}_step_us']:.1f} us (synced "
+                    f"{o[f'{M}_step_synced_us']:.1f}, of which collectives "
+                    f"{o[f'{M}_coll_us']:.1f}; K12 "
+                    f"{inp['k12_us']:.2f}) at {PAR_LIMBS} limbs; session "
+                    f"launches {o[f'{M}_launches']}; cases "
+                    f"{o[f'{M}_s']:.1f} s")
+            log(f"  {backend}: {world} ranks in "
+                f"{time.perf_counter() - t0:.1f} s")
+            if launches is None:
+                launches = outs[0][f"{min(meshes)}_launches"]["sharded_tail"]
+    return {"sharded_tail": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -3514,6 +4106,7 @@ def main() -> int:
         return out
 
     card = phase_card(torch)
+    exact_pool = prefetch_exact_trace()
     run("2", phase_build)
     stats, backend = run("3", phase_kernels, device)
     log(f"    orbit backend: {backend}")
@@ -3533,6 +4126,8 @@ def main() -> int:
     launches.update(run("14", phase_families, device, stats))
     launches.update(run("15", phase_late, device, stats))
     launches.update(run("16", phase_app, device, stats))
+    launches.update(run("17", phase_parallel, device, stats))
+    exact_pool.shutdown()
     # K12's and K4/K5's launches, each from its own path's run: View #6's
     # and View #30's device-orbit frames, the feature evaluator at View
     # #6's sizes and at View #30's, and the orbit past K12's D < 2^16.
@@ -3576,4 +4171,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(par_worker(sys.argv[2:]))
     sys.exit(main())

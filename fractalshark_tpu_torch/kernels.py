@@ -83,7 +83,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launch, K6's glitch instance (perturb_scaled: the Scaled family's f32
 # pass) per launch; K16 (perturb_hdr_df) per launch, K17 (escape_4x32/
 # 4x64: the QD escape) and K18 (escape_qf32/qf64: the QF escape) once per
-# frame per instance (one C call, both passes)
+# frame per instance (one C call, both passes); K20 (sharded_tail: one
+# rank's block of the sharded orbit step's tail) per launch, its two a step
 KERNELS = ("escape", "lav2_full", "lav2_phase1", "rc_tail", "ntt_orbit",
            "orbit_tail", "lav2_full_f64", "lav2_lao_f64", "perturb_pallas",
            "perturb_stream", "perturb_hdr32", "perturb_hdr64", "perturb_f32",
@@ -94,7 +95,7 @@ KERNELS = ("escape", "lav2_full", "lav2_phase1", "rc_tail", "ntt_orbit",
            "nr_chunk_block", "nr_chunk_grid", "escape_hdr32", "escape_hdr64",
            "escape_2x32", "escape_2x64", "bla_f32", "bla_f64",
            "perturb_scaled", "perturb_hdr_df", "escape_4x32", "escape_4x64",
-           "escape_qf32", "escape_qf64", "rc_tail_f64")
+           "escape_qf32", "escape_qf64", "rc_tail_f64", "sharded_tail")
 launches = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -172,6 +173,10 @@ _SIGNATURES = {
     # | stream
     "fs_fused_tail": [_P] * 9 + [_I32] * 5 + [_P],
     "fs_fused_tail_state_bytes": [],
+    # sharded_tail_a: inv cadd rnd cfg zsign dig fz words | K Lloc | stream
+    "fs_sharded_tail_a": [_P] * 8 + [_I32, _I32, _P],
+    # sharded_tail_b: dig fz words sgn | K Lloc ranks rank | stream
+    "fs_sharded_tail_b": [_P] * 4 + [_I32] * 4 + [_P],
     # ntt_products_threads: V log2n (K9's block size)
     "fs_ntt_products_threads": [_I32, _I32],
     # iterate_full: x y | din | cadd rnd cfg zsign dig sgn shw scratch

@@ -46,10 +46,11 @@ np.savez({out!r}, **m.{func}(inputs))
 
 
 def run_jax_reference(module: str, func: str, workdir, inputs=None,
-                      timeout: int = 900) -> dict:
+                      timeout: int = 900, devices: int | None = None) -> dict:
     """Run ``module.func(inputs) -> dict of arrays`` in a subprocess
     with JAX on the CPU, x64 on and FMA contraction off; return its
-    result as numpy arrays."""
+    result as numpy arrays.  ``devices``: that many virtual CPU devices
+    (for the JAX package's mesh-sharded functions), else one."""
     inp = os.path.join(str(workdir), f"{module}.{func}.in.npz")
     out = os.path.join(str(workdir), f"{module}.{func}.out.npz")
     np.savez(inp, **(inputs or {}))
@@ -57,7 +58,10 @@ def run_jax_reference(module: str, func: str, workdir, inputs=None,
     env.pop("FRACTALSHARK_NO_X64", None)
     # x64 on, as the JAX package's own tests run it; no compile cache
     # written under the home directory
-    env.update(JAX_PLATFORMS="cpu", XLA_FLAGS=NOFMA_XLA_FLAGS,
+    flags = NOFMA_XLA_FLAGS
+    if devices:
+        flags += f" --xla_force_host_platform_device_count={devices}"
+    env.update(JAX_PLATFORMS="cpu", XLA_FLAGS=flags,
                FRACTALSHARK_NO_COMPILE_CACHE="1",
                PYTHONPATH=os.pathsep.join(
                    p for p in (ROOT, env.get("PYTHONPATH")) if p))
@@ -68,6 +72,84 @@ def run_jax_reference(module: str, func: str, workdir, inputs=None,
     assert proc.returncode == 0, proc.stderr[-4000:]
     with np.load(out) as z:
         return {k: z[k] for k in z.files}
+
+
+_RANK_BOOT = """
+import os, sys
+sys.path.insert(0, {tests!r})
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+rank = int(sys.argv[1])
+dist.init_process_group("gloo", init_method="file://" + {store!r},
+                        world_size={world}, rank=rank)
+import {module} as m
+out = m.{func}(rank, {world})
+np.savez(os.path.join({outdir!r}, "rank%d.npz" % rank), **out)
+dist.destroy_process_group()
+"""
+
+
+def run_ranks(module: str, func: str, world: int, workdir,
+              timeout: int = 600) -> list[dict]:
+    """Run ``module.func(rank, world) -> dict of arrays`` in ``world``
+    subprocesses joined in one gloo process group (a ``file://`` store in
+    ``workdir``, so that no port is raced for); return each rank's result,
+    in rank order.  The test process itself starts no process group.  A
+    rank that fails ends the others at once (they would wait in a
+    collective)."""
+    import time
+    workdir = str(workdir)
+    store = os.path.join(workdir, f"{module}.{func}.store")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    code = _RANK_BOOT.format(tests=TESTS_DIR, store=store, world=world,
+                             module=module, func=func, outdir=workdir)
+    logs = [os.path.join(workdir, f"rank{r}.log") for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as log_file:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, str(r)], env=env, cwd=ROOT,
+                stdout=log_file, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(log) as fh:
+                text = fh.read()
+            raise AssertionError(f"rank {r} (rc {p.returncode}): "
+                                 f"{text[-4000:]}")
+    res = []
+    for r in range(world):
+        with np.load(os.path.join(workdir, f"rank{r}.npz")) as z:
+            res.append({k: z[k] for k in z.files})
+    return res
+
+
+def run_ranks_and_jax(module: str, world: int, workdir, devices: int,
+                      rank_func: str = "_rank_cases",
+                      jax_func: str = "_jax_reference"):
+    """(``run_ranks`` of ``rank_func``, ``run_jax_reference`` of
+    ``jax_func`` on ``devices`` virtual devices), the two run side by
+    side."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(1) as ex:
+        jax_out = ex.submit(run_jax_reference, module, jax_func, workdir,
+                            None, 900, devices)
+        ranks = run_ranks(module, rank_func, world, workdir)
+        return ranks, jax_out.result()
 
 
 def host_layer(pkg: str):

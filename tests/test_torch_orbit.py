@@ -340,17 +340,29 @@ def test_view6_prefix_equals_jax(jax_ref):
     _assert_same_orbit(res, jax_ref, "view6_")
 
 
-def test_unported_options_raise():
-    """The mesh-sharded orbit (ROADMAP A6) still raises; the reuse digits
-    (A4's first item) are ported: the session records the reuse copy."""
+def _one_rank_session(rank: int, world: int) -> dict:
+    """The mesh session on a one-rank gloo group (``run_ranks``)."""
+    from fractalshark_tpu_torch.parallel.mesh import make_mesh
+    cx, cy, rad = _hp("0.3", CY, "1e-9")
+    res = O.compute_reference_orbit_device(cx, cy, 10, rad, device="cpu",
+                                           mesh=make_mesh("cpu"))
+    return {"x": res.orbit_x, "y": res.orbit_y}
+
+
+def test_unported_options_raise(tmp_path):
+    """The reuse digits (A4's first item) are ported: the session records
+    the reuse copy.  The mesh-sharded orbit (A6) is ported too: a session
+    over a one-rank mesh, in a subprocess with its own process group,
+    returns the one-device session's orbit bit for bit."""
     cx, cy, rad = _hp("0.3", CY, "1e-9")
     res = O.compute_reference_orbit_device(cx, cy, 10, rad, device="cpu",
                                            reuse_frac_bits=64)
     ro = res.extra["reuse_orbit"]
     assert ro.frac_bits == 64 and ro.count() == res.count_orbit_entries()
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        O.compute_reference_orbit_device(cx, cy, 10, rad, device="cpu",
-                                         mesh=object())
+    got, = ref.run_ranks("test_torch_orbit", "_one_rank_session", 1,
+                         tmp_path)
+    assert ref.bits_equal(got["x"], res.orbit_x)
+    assert ref.bits_equal(got["y"], res.orbit_y)
 
 
 def test_cli_device_orbit_frame_equals_jax(jax_ref):

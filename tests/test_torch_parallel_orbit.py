@@ -1,0 +1,593 @@
+"""The mesh-sharded orbit step of the PyTorch/CUDA port
+(``parallel/orbit_sharded.py``) on the CPU: the cases of the JAX package's
+``tests/test_parallel_orbit.py`` with M = 2 and 4 ranks in one gloo
+process group (subprocesses; M = 2 on a subgroup of ranks 0 and 1), each
+equal to the JAX package's sharded step (4 virtual devices) and to the
+port's one-device step (K4 and K5's twins), bit for bit: both 512-limb
+coordinates over 4 steps, the View #30 operand at 16,384 limbs, the
+6-step chunk at 256 limbs, rows included; K20's twins equal the JAX
+package's algorithm in torch (``sharded_tail_reference``, this file's
+oracle) on every rank; the sharded session
+(``compute_reference_orbit_device(mesh=)``) returns the one-device
+session's orbit and reuse copy.  In one process:
+K20's twins block by block equal the whole-vector tail, on Hypothesis
+cases of carries and borrows across block edges held against Python ints;
+the refusals.
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+from hypothesis import given, settings, strategies as st
+
+import test_torch_jaxref as ref
+from fractalshark_tpu_torch.core.highprecision import HighPrecision
+from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
+from fractalshark_tpu_torch.ops.bignum import ntt as N
+from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
+from fractalshark_tpu_torch.ops.bignum import orbit as O
+from fractalshark_tpu_torch.parallel import mesh as PM
+from fractalshark_tpu_torch.parallel import orbit_sharded as OS
+from fractalshark_tpu_torch.parallel.mesh import Mesh
+
+MESHES = (2, 4)
+COORDS = (("-0.743643887037158704752191506114774",
+           "0.131825904205311970493132056385139"),
+          ("-1.999999999999", "0.0000000000001"))   # View-#30-like 0xFFFF run
+STEPS = 4
+CHUNK_C = ("-0.7436438870371587", "0.1318259042053119")
+CHUNK_STEPS = 6
+# the sharded session: 128 limbs (nfft 512: four ranks of 8 columns)
+SESSION = ("-0.743643887037158704752191506114774",
+           "0.131825904205311970493132056385139", "1e-9", 100, 128, 32)
+
+
+def _coords(cx: str, cy: str, limbs: int):
+    spec = FP.FixedSpec.for_limbs(limbs)
+    prec = spec.frac_bits - 20
+    return (spec,) + FP.hp_to_digits(HighPrecision(cx, prec=prec), spec) \
+        + FP.hp_to_digits(HighPrecision(cy, prec=prec), spec)
+
+
+def _view30(pkg_views):
+    spec = FP.FixedSpec.for_limbs(16384)
+    prec = spec.frac_bits - 20
+    ptz = pkg_views.get_view_preset(30).ptz
+    return (spec,) + FP.hp_to_digits(ptz.pt_x.with_precision(prec), spec) \
+        + FP.hp_to_digits(ptz.pt_y.with_precision(prec), spec)
+
+
+# --------------------------------------------- the JAX algorithm, in torch
+# The JAX package's sharded tail itself (fractalshark_tpu/parallel/
+# orbit_sharded.py: four carry passes, each a Kogge-Stone scan with its
+# own gathers; the line numbers below are that file's) over the port's
+# collectives: the oracle between the JAX package and K20's twins.
+MASK = FP.DIGIT_MASK
+_P1P2 = N.P1 * N.P2
+
+
+def _from_prev(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Rank r gets rank r − 1's ``t``; rank 0 zeros (``:62-68``)."""
+    prev = PM.all_gather(mesh, t)
+    return prev[mesh.rank - 1] if mesh.rank else torch.zeros_like(t)
+
+
+def _pshift(a: torch.Tensor, k: int, mesh: Mesh) -> torch.Tensor:
+    """out[i] = a[i − k] over the global digit order (``:71-78``)."""
+    if k == 0:
+        return a
+    return torch.cat([_from_prev(a[..., -k:].contiguous(), mesh),
+                      a[..., :-k]], -1)
+
+
+def _ks_gp(g: torch.Tensor, p: torch.Tensor):
+    """Inclusive Kogge-Stone prefix of the carry monoid (``:49-59``)."""
+    L, k = g.shape[-1], 1
+    while k < L:
+        gs = torch.nn.functional.pad(g, (k, 0))[..., :L]
+        ps = torch.nn.functional.pad(p, (k, 0), value=1)[..., :L]
+        g, p = g | (p & gs), p & ps
+        k <<= 1
+    return g, p
+
+
+def _pcarry(acc: torch.Tensor, mesh: Mesh, ret_cout: bool = False):
+    """Sharded carry_propagate of digit sums (``:81-108``)."""
+    hi = acc >> 16
+    a = (acc & MASK) + _pshift(hi, 1, mesh)
+    d = a & MASK
+    G, Pp = _ks_gp(a >> 16, (d == MASK).long())
+    allG = PM.all_gather(mesh, G[..., -1].contiguous())
+    allP = PM.all_gather(mesh, Pp[..., -1].contiguous())
+    C = torch.zeros_like(G[..., -1])
+    for j in range(mesh.rank):
+        C = allG[j] | (allP[j] & C)
+    Gtot = G | (Pp & C[..., None])
+    out = (d + torch.cat([C[..., None], Gtot[..., :-1]], -1)) & MASK
+    if not ret_cout:
+        return out
+    couts = PM.all_gather(mesh, (hi[..., -1] | Gtot[..., -1]).contiguous())
+    return out, couts[mesh.size - 1]
+
+
+def _psigned_finish(acc_p, acc_n, mesh: Mesh):
+    """(sign [K], digits [K, Lloc]) of pos − neg (``:111-127``)."""
+    Pd = _pcarry(acc_p, mesh)
+    Nd = _pcarry(acc_n, mesh)
+    one = torch.zeros_like(Pd)
+    if mesh.rank == 0:
+        one[..., 0] = 1
+    u, cout = _pcarry(Pd + (MASK - Nd) + one, mesh, ret_cout=True)
+    v = _pcarry((MASK - u) + one, mesh)
+    pos = cout > 0
+    mag = torch.where(pos[..., None], u, v)
+    nz = PM.all_reduce(mesh, mag.max(-1).values, dist.ReduceOp.MAX) > 0
+    return torch.where(pos | ~nz, 1, -1).to(torch.int32), mag
+
+
+def _pparts_acc(v: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A 64-bit coefficient's four 16-bit parts at digits k..k+3
+    (``:130-136``)."""
+    acc = v & MASK
+    for k in (1, 2, 3):
+        acc = acc + _pshift((v >> (16 * k)) & MASK, k, mesh)
+    return acc
+
+
+def _pstreams(r1, r2, mesh: Mesh, signed: bool, double: bool, gsign=0):
+    """(acc_p, acc_n) of one CRT'd product row pair (``:139-167``)."""
+    rec = FP._crt_rec(r1, r2)
+    if signed:
+        neg = rec > _P1P2 // 2
+        nrec = _P1P2 - rec
+        if double:
+            rec, nrec = rec << 1, nrec << 1
+        return (_pparts_acc(torch.where(neg, 0, rec), mesh),
+                _pparts_acc(torch.where(neg, nrec, 0), mesh))
+    if double:
+        rec = rec << 1
+    parts = _pparts_acc(rec, mesh)
+    z = torch.zeros_like(parts)
+    return (parts, z) if gsign > 0 else (z, parts)
+
+
+def sharded_tail_reference(r: torch.Tensor, cfx: torch.Tensor,
+                           cfy: torch.Tensor, rnd: torch.Tensor, sgs,
+                           mesh: Mesh):
+    """The JAX package's sharded tail (``:251-262``) on the rank's block:
+    r int32 [4, Lloc] residue rows (x² − y² mod p1, p2, x·y mod p1, p2),
+    the block's addend planes cfx, cfy and round plane (int32 [Lloc]),
+    sgs = (scx, scy, sx·sy).  Returns (signs int32 [2], digits int32 [2,
+    Lloc])."""
+    scx, scy, sxy = (int(v) for v in sgs)
+    px, nx = _pstreams(r[0], r[1], mesh, signed=True, double=False)
+    py, ny = _pstreams(r[2], r[3], mesh, signed=False, double=True,
+                       gsign=sxy)
+    cfx, cfy, rnd = (t.to(torch.int64) for t in (cfx, cfy, rnd))
+    z = torch.zeros_like(cfx)
+    px = px + (cfx if scx > 0 else z) + rnd
+    nx = nx + (z if scx > 0 else cfx)
+    py = py + (cfy if scy > 0 else z) + rnd
+    ny = ny + (z if scy > 0 else cfy)
+    sign, mag = _psigned_finish(torch.stack([px, py]), torch.stack([nx, ny]),
+                                mesh)
+    return sign, mag.to(torch.int32)
+
+
+def _jax_reference(_inputs):
+    import jax
+    import jax.numpy as jnp
+
+    from fractalshark_tpu.core import views as jviews
+    from fractalshark_tpu.core.highprecision import HighPrecision as JHP
+    from fractalshark_tpu.ops.bignum import fixedpoint as JFP
+    from fractalshark_tpu.ops.bignum.orbit import orbit_chunk
+    from fractalshark_tpu.parallel import orbit_sharded as JOS
+
+    mesh = JOS.make_limb_mesh(jax.devices()[:4])
+    out = {}
+
+    def spec_of(limbs):
+        return JFP.FixedSpec.for_limbs(limbs)
+
+    def run(spec, scx, cxd, scy, cyd, steps, key):
+        cxj, cyj = jnp.asarray(cxd), jnp.asarray(cyd)
+        s = (jnp.int32(scx), cxj, jnp.int32(scy), cyj)
+        for k in range(steps):
+            s = JOS.iterate_z_sharded(*s, jnp.int32(scx), cxj,
+                                      jnp.int32(scy), cyj, spec=spec,
+                                      mesh=mesh)
+            for i, v in enumerate(s):
+                out[f"{key}_{k}_{i}"] = np.asarray(v)
+
+    for c, (cx, cy) in enumerate(COORDS):
+        spec = spec_of(512)
+        prec = spec.frac_bits - 20
+        scx, cxd = JFP.hp_to_digits(JHP(cx, prec=prec), spec)
+        scy, cyd = JFP.hp_to_digits(JHP(cy, prec=prec), spec)
+        run(spec, scx, cxd, scy, cyd, STEPS, f"c{c}")
+    spec = spec_of(16384)
+    prec = spec.frac_bits - 20
+    ptz = jviews.get_view_preset(30).ptz
+    scx, cxd = JFP.hp_to_digits(ptz.pt_x.with_precision(prec), spec)
+    scy, cyd = JFP.hp_to_digits(ptz.pt_y.with_precision(prec), spec)
+    run(spec, scx, cxd, scy, cyd, 1, "v30")
+    spec = spec_of(256)
+    prec = spec.frac_bits - 20
+    cx, cy = JHP(CHUNK_C[0], prec=prec), JHP(CHUNK_C[1], prec=prec)
+    scx, cxd = JFP.hp_to_digits(cx, spec)
+    scy, cyd = JFP.hp_to_digits(cy, spec)
+    args = (jnp.int32(scx), jnp.asarray(cxd), jnp.int32(scy),
+            jnp.asarray(cyd))
+    st_, _ = orbit_chunk(*args, jnp.float64(1.0), jnp.float64(0.0),
+                         jnp.int32(0), *args, jnp.float64(1.0),
+                         jnp.int32(-40), jnp.float64(float(cx)),
+                         jnp.float64(float(cy)), spec=spec,
+                         steps=CHUNK_STEPS, mesh=mesh)
+    for i, v in enumerate(st_[:4]):
+        out[f"chunk_{i}"] = np.asarray(v)
+    return out
+
+
+def _state(scx, cxd, scy, cyd):
+    cx = torch.from_numpy(cxd.astype(np.int32))
+    cy = torch.from_numpy(cyd.astype(np.int32))
+    return (scx, cx, scy, cy)
+
+
+def _rank_cases(rank: int, world: int) -> dict:
+    import torch.distributed as dist
+
+    from fractalshark_tpu_torch.core import views
+    sub = dist.new_group([0, 1])
+    out = {}
+    for M in MESHES:
+        if rank >= M:
+            continue
+        mesh = OS.make_limb_mesh("cpu", None if M == world else sub)
+        for c, (cx, cy) in enumerate(COORDS):
+            spec, *cs = _coords(cx, cy, 512)
+            s = c0 = _state(*cs)
+            for k in range(STEPS):
+                s = OS.iterate_z_sharded(*s, *c0, spec=spec, mesh=mesh)
+                for i, v in enumerate(s):
+                    out[f"{M}_c{c}_{k}_{i}"] = np.asarray(v)
+        spec, *cs = _view30(views)
+        c0 = _state(*cs)
+        s = OS.iterate_z_sharded(*c0, *c0, spec=spec, mesh=mesh)
+        for i, v in enumerate(s):
+            out[f"{M}_v30_0_{i}"] = np.asarray(v)
+        # K20's twins (the default CPU path) against the JAX algorithm
+        x, y = c0[1], c0[3]
+        inv = OS.products(x, y, spec, mesh)
+        cadd, rnd = OS.local_planes(c0[1], c0[3], spec, mesh)
+        sgs = (c0[0], c0[2], c0[0] * c0[2])
+        cfg = NP.tail_cfg(sgs + (0,), nr=False)
+        dig, sgn = OS.sharded_tail(inv, cadd, rnd, cfg, mesh)
+        rsgn, rdig = sharded_tail_reference(
+            inv.reshape(4, -1)[:, OS.HALO:], cadd[0, OS.HALO:],
+            cadd[1, OS.HALO:], rnd[OS.HALO:], sgs, mesh)
+        out[f"{M}_k20"] = dig.numpy()
+        out[f"{M}_k20_sgn"] = sgn.numpy()
+        out[f"{M}_ref"] = rdig.numpy()
+        out[f"{M}_ref_sgn"] = rsgn.numpy()
+        # the 6-step chunk, rows included
+        spec, *cs = _coords(*CHUNK_C, 256)
+        scx, cx, scy, cy = _state(*cs)
+        state = O.OrbitState(cs[0], cs[1], cs[2], cs[3], "cpu")
+        rows = O.orbit_chunk(state, scx, cx, scy, cy, spec, CHUNK_STEPS,
+                             mesh=mesh)
+        out[f"{M}_chunk_rows"] = rows.numpy()
+        out[f"{M}_chunk_x"] = state.x.numpy()
+        out[f"{M}_chunk_y"] = state.y.numpy()
+        out[f"{M}_chunk_row"] = state.row.numpy()
+        # the session, with the reuse copy
+        cxs, cys, rad, budget, limbs, chunk = SESSION
+        res = O.compute_reference_orbit_device(
+            HighPrecision(cxs, prec=1000), HighPrecision(cys, prec=1000),
+            budget, HighPrecision(rad, prec=64), limbs32=limbs,
+            chunk_steps=chunk, reuse_frac_bits=64, mesh=mesh, device="cpu")
+        out[f"{M}_orbit_x"] = res.orbit_x
+        out[f"{M}_orbit_y"] = res.orbit_y
+        out[f"{M}_orbit_n"] = np.asarray([res.period, res.escaped_at])
+        ro = res.extra["reuse_orbit"]
+        out[f"{M}_reuse"] = np.asarray([str(v) for v in ro.zx + ro.zy])
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return ref.run_ranks_and_jax("test_torch_parallel_orbit", 4,
+                                 tmp_path_factory.mktemp("parallel_orbit"),
+                                 4)
+
+
+def _single_steps(spec, cs, steps):
+    s = c0 = _state(*cs)
+    out = []
+    for _ in range(steps):
+        s = FP.iterate_z(*s, *c0, spec)
+        out.append(s)
+    return out
+
+
+def _assert_state(got: dict, key: str, want, jref, jkey):
+    for i in range(4):
+        g = got[f"{key}_{i}"]
+        np.testing.assert_array_equal(g, np.asarray(want[i]))
+        np.testing.assert_array_equal(g.astype(jref[f"{jkey}_{i}"].dtype),
+                                      jref[f"{jkey}_{i}"])
+
+
+@pytest.mark.parametrize("M", MESHES)
+@pytest.mark.parametrize("c", range(len(COORDS)))
+def test_iterate_z_sharded_bit_identical(runs, M, c):
+    """4 steps at 512 limbs (nfft 2,048): every rank = the one-device
+    step = the JAX package's sharded step, each step."""
+    ranks, jref = runs
+    spec, *cs = _coords(*COORDS[c], 512)
+    single = _single_steps(spec, cs, STEPS)
+    for r in range(M):
+        for k in range(STEPS):
+            _assert_state(ranks[r], f"{M}_c{c}_{k}", single[k], jref,
+                          f"c{c}_{k}")
+
+
+@pytest.mark.parametrize("M", MESHES)
+def test_iterate_z_sharded_view30_operand_size(runs, M):
+    """One update at the 16,384-limb View #30 operand (nfft 65,536)."""
+    from fractalshark_tpu_torch.core import views
+    ranks, jref = runs
+    spec, *cs = _view30(views)
+    single = _single_steps(spec, cs, 1)
+    for r in range(M):
+        _assert_state(ranks[r], f"{M}_v30_0", single[0], jref, "v30_0")
+
+
+@pytest.mark.parametrize("M", MESHES)
+def test_k20_twins_equal_the_jax_algorithm(runs, M):
+    """On the View #30 step's block of every rank, K20's twins (launch A,
+    the words' all_gather, launch B) = the JAX package's four-pass
+    algorithm over the group's collectives: digits and signs."""
+    ranks, _ = runs
+    for r in range(M):
+        np.testing.assert_array_equal(ranks[r][f"{M}_k20"],
+                                      ranks[r][f"{M}_ref"])
+        np.testing.assert_array_equal(ranks[r][f"{M}_k20_sgn"],
+                                      ranks[r][f"{M}_ref_sgn"])
+
+
+@pytest.mark.parametrize("M", MESHES)
+def test_orbit_chunk_sharded_matches_single(runs, M):
+    """The 6-step chunk at 256 limbs over the mesh = the one-device chunk
+    (orbit_chunk_plain), rows included, and its state = the JAX package's
+    sharded chunk's."""
+    ranks, jref = runs
+    spec, *cs = _coords(*CHUNK_C, 256)
+    scx, cx, scy, cy = _state(*cs)
+    x, y = torch.from_numpy(cs[1].astype(np.int32)), \
+        torch.from_numpy(cs[3].astype(np.int32))
+    row = torch.from_numpy(FP.shadow_row_np(cs[0], cs[1], cs[2], cs[3]))
+    wx, wy, wrows = O.orbit_chunk_plain(x, y, row, scx, cx, scy, cy, spec,
+                                        CHUNK_STEPS)
+    for r in range(M):
+        got = ranks[r]
+        np.testing.assert_array_equal(got[f"{M}_chunk_rows"],
+                                      wrows[:CHUNK_STEPS].numpy())
+        np.testing.assert_array_equal(got[f"{M}_chunk_row"],
+                                      wrows[CHUNK_STEPS].numpy())
+        np.testing.assert_array_equal(got[f"{M}_chunk_x"], wx.numpy())
+        np.testing.assert_array_equal(got[f"{M}_chunk_y"], wy.numpy())
+        np.testing.assert_array_equal(got[f"{M}_chunk_x"].astype(np.uint32),
+                                      jref["chunk_1"])
+        np.testing.assert_array_equal(got[f"{M}_chunk_y"].astype(np.uint32),
+                                      jref["chunk_3"])
+        assert got[f"{M}_chunk_row"][10] == jref["chunk_0"]
+        assert got[f"{M}_chunk_row"][11] == jref["chunk_2"]
+
+
+@pytest.mark.parametrize("M", MESHES)
+def test_sharded_session_equals_one_device(runs, M):
+    """``compute_reference_orbit_device(mesh=)``: every rank returns the
+    one-device session's orbit, its period and its reuse copy exactly."""
+    ranks, _ = runs
+    cxs, cys, rad, budget, limbs, chunk = SESSION
+    res = O.compute_reference_orbit_device(
+        HighPrecision(cxs, prec=1000), HighPrecision(cys, prec=1000),
+        budget, HighPrecision(rad, prec=64), limbs32=limbs,
+        chunk_steps=chunk, reuse_frac_bits=64, device="cpu")
+    ro = res.extra["reuse_orbit"]
+    for r in range(M):
+        got = ranks[r]
+        assert ref.bits_equal(got[f"{M}_orbit_x"], res.orbit_x)
+        assert ref.bits_equal(got[f"{M}_orbit_y"], res.orbit_y)
+        assert list(got[f"{M}_orbit_n"]) == [res.period, res.escaped_at]
+        assert list(got[f"{M}_reuse"]) == [str(v) for v in ro.zx + ro.zy]
+
+
+# ------------------------------------------------- K20 in one process
+
+
+def _blocks(inv, cadd, rnd, cfg, M: int):
+    """K20's twins over M blocks of the whole vector, the words stacked
+    by hand (no collective): (digits [K, L], each block's signs)."""
+    K, _, L = inv.shape
+    lloc, H = L // M, OS.HALO
+    pad = torch.nn.functional.pad
+    ip, cp, rp = pad(inv, (H, 0)), pad(cadd, (H, 0)), pad(rnd, (H, 0))
+    outs = [OS.tail_a_plain(ip[..., r * lloc:r * lloc + H + lloc],
+                            cp[:, r * lloc:r * lloc + H + lloc],
+                            rp[r * lloc:r * lloc + H + lloc], cfg)
+            for r in range(M)]
+    words = torch.stack([o[2] for o in outs])
+    fin = [OS.tail_b_plain(o[0], o[1], words, r) for r, o in enumerate(outs)]
+    return torch.cat([f[0] for f in fin], 1), [f[1] for f in fin]
+
+
+def _exact(s, cadd, rnd, cfg, L: int):
+    """Python ints: digits and signs of the tail's function (sparse
+    inputs: only their nonzero entries are visited)."""
+    mags, signs = [], []
+    for k in range(len(s)):
+        dbl, gsw, cs = cfg[4 * k], cfg[4 * k + 1], cfg[4 * k + 2]
+        tot = 0
+        for j in np.nonzero(s[k])[0].tolist():
+            v = int(s[k][j]) * (2 if dbl > 0 else 1) * (-1 if gsw < 0 else 1)
+            for q in range(4):
+                if j + q < L:
+                    part = (abs(v) >> (16 * q)) & 0xFFFF
+                    tot += (-part if v < 0 else part) << (16 * (j + q))
+        for j in np.nonzero(cadd[k])[0].tolist():
+            c = int(cadd[k][j])
+            tot += (c if cs > 0 else -c) << (16 * j)
+        for j in np.nonzero(rnd)[0].tolist():
+            tot += int(rnd[j]) << (16 * j)
+        mag = (-tot if tot < 0 else tot) % (1 << (16 * L))
+        mags.append(np.frombuffer(mag.to_bytes(2 * L, "little"), "<u2"))
+        signs.append(-1 if tot < 0 and mag else 1)
+    return np.asarray(mags, np.int64), np.asarray(signs, np.int64)
+
+
+_P1P2 = N.P1 * N.P2
+
+
+def _residues(s: np.ndarray) -> torch.Tensor:
+    rec = np.where(s < 0, s + _P1P2, s)
+    return torch.from_numpy(np.stack([rec % N.P1, rec % N.P2], 1)
+                            .astype(np.int32))
+
+
+@st.composite
+def _edge_case(draw):
+    """A tail whose carries or borrows run across block edges: digit sums
+    that are 0xFFFF or 0 over a stretch ending at or past an edge, with a
+    coefficient just below the stretch that makes or takes a carry."""
+    M = draw(st.sampled_from((2, 4, 8)))
+    L = M * draw(st.sampled_from((8, 16, 1028 // 4 * 4, 2048)))
+    K = draw(st.integers(1, 3))
+    s = np.zeros((K, L), np.int64)
+    cadd = np.zeros((K, L), np.int64)
+    rnd = np.zeros(L, np.int64)
+    edge = (L // M) * draw(st.integers(1, M - 1))
+    for k in range(K):
+        lo = max(0, edge - draw(st.integers(1, 40)))
+        hi = min(L, edge + draw(st.integers(0, 40)))
+        cadd[k, lo:hi] = draw(st.sampled_from((0, 0xFFFF)))
+        j = max(0, lo - draw(st.integers(1, 4)))
+        s[k, j] = draw(st.integers(-(1 << 40), 1 << 40))
+        for _ in range(draw(st.integers(0, 3))):
+            s[k, draw(st.integers(0, L - 1))] = draw(
+                st.integers(-(1 << 46), 1 << 46))
+    if draw(st.booleans()):
+        rnd[draw(st.integers(0, L - 1))] = 1 << 15
+    cfg = []
+    for _ in range(K):
+        cfg += [draw(st.integers(0, 1)), draw(st.sampled_from((-1, 1))),
+                draw(st.sampled_from((-1, 1))), 0]
+    return M, s, cadd, rnd, cfg
+
+
+@settings(max_examples=60, deadline=None)
+@given(_edge_case())
+def test_k20_blocks_equal_the_whole_tail_and_python_ints(case):
+    """K20's twins with the carry-in given through the words, block by
+    block, = the whole-vector tail (K10's twin) = Python ints, carries and
+    borrows across block edges included."""
+    M, s, cadd, rnd, cfg = case
+    L = s.shape[1]
+    inv = _residues(s)
+    ct = torch.from_numpy(cadd.astype(np.int32))
+    rt = torch.from_numpy(rnd.astype(np.int32))
+    dig, signs = _blocks(inv, ct, rt, cfg, M)
+    wd, ws = NP.fused_tail_plain(inv, ct, rt, cfg)
+    assert torch.equal(dig, wd)
+    assert all(torch.equal(sg, ws) for sg in signs)
+    ed, es = _exact(s, cadd, rnd, cfg, L)
+    np.testing.assert_array_equal(dig.numpy(), ed)
+    np.testing.assert_array_equal(ws.numpy(), es)
+
+
+@pytest.mark.parametrize("M", (2, 4, 8))
+def test_k20_blocks_on_a_step(M):
+    """A step's residue rows at 512 limbs (the 0xFFFF-run centre), cut
+    into M blocks:
+    K20's twins = the whole-vector tail, digits and signs."""
+    spec, scx, cxd, scy, cyd = _coords(*COORDS[1], 512)
+    x, y = (torch.from_numpy(d.astype(np.int32)) for d in (cxd, cyd))
+    inv = NP.products(torch.stack([x, y]), None, spec.nfft, NP.PLAN_ITER)
+    cadd, rnd = FP.addend_planes(x, y, spec)
+    cfg = NP.tail_cfg((scx, scy, scx * scy, 0), nr=False)
+    dig, signs = _blocks(inv, cadd, rnd, cfg, M)
+    wd, ws = NP.fused_tail_plain(inv, cadd, rnd, cfg)
+    assert torch.equal(dig, wd)
+    assert all(torch.equal(sg, ws) for sg in signs)
+
+
+def test_refusals():
+    """Refused before any collective: a spec without the flat layout, a
+    mesh that does not divide the four-step factors, too few columns a
+    rank for the halo; K20's block shapes."""
+    cpu = torch.device("cpu")
+    spec = FP.FixedSpec(digits=100, nfft=256)
+    z = torch.zeros(100, dtype=torch.int32)
+    with pytest.raises(ValueError, match="2·D == nfft"):
+        OS.iterate_z_sharded(1, z, 1, z, 1, z, 1, z, spec=spec,
+                             mesh=Mesh(None, 2, 0, cpu))
+    spec = FP.FixedSpec.for_limbs(512)
+    z = torch.zeros(spec.digits, dtype=torch.int32)
+    with pytest.raises(ValueError, match="divide both"):
+        OS.iterate_z_sharded(1, z, 1, z, 1, z, 1, z, spec=spec,
+                             mesh=Mesh(None, 3, 0, cpu))
+    with pytest.raises(ValueError, match="halo"):
+        OS.iterate_z_sharded(1, z, 1, z, 1, z, 1, z, spec=spec,
+                             mesh=Mesh(None, 16, 0, cpu))
+    with pytest.raises(ValueError, match="K20"):
+        OS.tail_a(torch.zeros(2, 2, 14, dtype=torch.int32),
+                  torch.zeros(2, 14, dtype=torch.int32),
+                  torch.zeros(14, dtype=torch.int32), [0] * 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", (1, 2, 4, 8))
+def test_k20_equals_its_twins_on_card(M):
+    """K20's two launches on the card = their twins, block by block (a
+    step's residue rows at 512 limbs, the 0xFFFF-run centre, and
+    rows with carries and borrows across the edges), with and without
+    zsign read on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec, scx, cxd, scy, cyd = _coords(*COORDS[1], 512)
+    x, y = (torch.from_numpy(d.astype(np.int32)) for d in (cxd, cyd))
+    inv = NP.products(torch.stack([x, y]), None, spec.nfft, NP.PLAN_ITER)
+    cadd, rnd = FP.addend_planes(x, y, spec)
+    rng = np.random.default_rng(M)
+    s = np.zeros((2, spec.nfft), np.int64)
+    s[:, rng.integers(0, spec.nfft, 6)] = rng.integers(-(1 << 44), 1 << 44,
+                                                       6)
+    edge = spec.nfft // max(M, 2)
+    runs = torch.zeros_like(cadd)
+    runs[:, edge - 20:edge + 9] = 0xFFFF
+    L, H = spec.nfft, OS.HALO
+    lloc = L // M
+    pad = torch.nn.functional.pad
+    for inv_, cadd_, zs in ((inv, cadd, None), (_residues(s), runs, (1, -1))):
+        cfg = NP.tail_cfg((scx, scy, scx * scy, 0), nr=False)
+        zsign = None if zs is None else torch.tensor(zs, dtype=torch.int32)
+        ip, cp, rp = pad(inv_, (H, 0)), pad(cadd_, (H, 0)), pad(rnd, (H, 0))
+        blocks = [(ip[..., r * lloc:r * lloc + H + lloc].contiguous(),
+                   cp[:, r * lloc:r * lloc + H + lloc].contiguous(),
+                   rp[r * lloc:r * lloc + H + lloc].contiguous())
+                  for r in range(M)]
+        want = [OS.tail_a_plain(*b, cfg, zsign) for b in blocks]
+        got = [OS.tail_a(*(t.cuda() for t in b), cfg,
+                         None if zsign is None else zsign.cuda())
+               for b in blocks]
+        for g, w in zip(got, want):
+            for gi, wi in zip(g, w):
+                assert torch.equal(gi.cpu(), wi)
+        words = torch.stack([w[2] for w in want])
+        for r in range(M):
+            gd, gs = OS.tail_b(got[r][0], got[r][1], words.cuda(), r)
+            wd, ws = OS.tail_b_plain(want[r][0], want[r][1], words, r)
+            assert torch.equal(gd.cpu(), wd) and torch.equal(gs.cpu(), ws)

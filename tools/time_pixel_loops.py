@@ -162,8 +162,14 @@ FRAMES = {
     "shallow_2x64_1024": (SHALLOW, 1024, "k14", "escape_2x64", "f64", None),
     "1e8_bla_f32_1024": (DEEP_1500, 1024, "k15", "bla_f32", "f32", None),
     "1e8_bla_f64_1024": (DEEP_1500, 1024, "k15", "bla_f64", "f64", None),
+    # the same frame at 512²: the smoke's twin comparison
+    "1e8_bla_f32_512": (DEEP_1500, 512, "k15", "bla_f32", "f32", None),
+    "1e8_bla_f64_512": (DEEP_1500, 512, "k15", "bla_f64", "f64", None),
     "view6_bla_256": (6, 256, "k15", "bla_f32", "f32", None),
     "view6_bla64_256": (6, 256, "k15", "bla_f64", "f64", None),
+    # View #6 at 128²: the smoke's twin comparison
+    "view6_bla_128": (6, 128, "k15", "bla_f32", "f32", None),
+    "view6_bla64_128": (6, 128, "k15", "bla_f64", "f64", None),
     "1e8_scaled_1024": (DEEP_1500, 1024, "glitch", "perturb_scaled", "f32",
                         None),
     # the same frame through K6's float instance (perturb_render_float's
