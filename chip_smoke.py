@@ -332,7 +332,7 @@ FLAG_SESSION_BUDGET = 2048
 # CHUNK_SESSION steps in both; the kernels line takes each entry's times
 # at its main path's size (View #6 and its NR evaluation at 32 limbs,
 # View #30 and its NR evaluation at 16,384)
-CHUNK_ORBIT_LIMBS = (32, 128, 256, 512, 2048, 16384)
+CHUNK_ORBIT_LIMBS = (32, 128, 256, 512, 2048, 16384, WIDE_SESSION_LIMBS)
 CHUNK_NR_LIMBS = (16, 32, 128, 256, 2048, 16384)
 CHUNK_STEPS = 256
 CHUNK_TWIN_STEPS = 3
@@ -551,6 +551,12 @@ HDR_DF_TWIN_FRAME = "1e8_hdr_df_64"
 # K16's twin runs every pixel in lockstep: at the frame's 1,500 it took
 # 26-29 s; 600 keeps launches of FAMILY_CHUNK over the live pixels
 HDR_DF_TWIN_BUDGET = 600
+# K16 on that frame at its own budget of 1,500, in launches of
+# FAMILY_CHUNK steps: (budget, (iter_sum, CRC-32)) of the grid K16 and
+# its twin agreed on bit for bit at that depth (take_late_pins, run once
+# outside the smoke on an NVIDIA H100 80GB HBM3, PERF.md §6); the
+# smoke runs the kernel alone there and holds it to the pin
+HDR_DF_PIN = (1500, (4_670_055, 1_191_621_971))
 HDR_DF_FRAME = "view9_hdr_df_1024"
 QUAD_FRAMES = [("1e17_qd32_1024", "escape_4x32"),
                ("1e17_qd64_1024", "escape_4x64"),
@@ -560,6 +566,10 @@ QUAD_TWIN_SIZE = 256
 # K18 4x64 on the shallow frame, against its twin (the twin costs ~40 s at
 # 256²)
 QF_SHALLOW_SIZE = 64
+# and at 256², the kernel alone held to (iter_sum, CRC-32) of the grid it
+# and its twin agreed on (take_late_pins, the same run; also the JAX
+# package's "Gpu4x64 shallow" value in LATE_PINS)
+QF_SHALLOW_PIN = (256, (9_075_311, 3_935_581_982))
 QUAD_TWIN_BUDGET = 40
 # K17 4x64's guard frame (the 16 scalars, size, budget): cx = -2 + (x - 8)
 # 2^-300, cy = -y (2^-300 + 2^-480).  Rows y > 0 carry a component near
@@ -1151,9 +1161,9 @@ def view30_center():
 
 def phase_orbit_kernels(device, stats, reps=20, steps=3):
     """K4 and K5 against their twins, digit for digit, for a few steps
-    from the View #30 centre at each limb count and at the per-step
-    route's WIDE_SESSION_LIMBS (whose times the kernels line keeps);
-    times and bounds."""
+    from the View #30 centre at each limb count and at WIDE_SESSION_LIMBS
+    (whose times the kernels line keeps: the first forms' time at the
+    size K12's grid form now takes); times and bounds."""
     import torch
 
     from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
@@ -1331,9 +1341,9 @@ def phase_device_orbit(device, nr_us):
     and read just after, bounded sessions and their time per iteration at
     each limb count (K12), and the device's busy share over a 32-limb
     session (torch.profiler); then, its counts from 0 too, a session at
-    WIDE_SESSION_LIMBS, past K12's D < 2^16, on the per-step loop of K4
-    then K5, against the 16,384-limb session's orbit.  Returns (µs/iter
-    by limbs, that session's launches)."""
+    WIDE_SESSION_LIMBS (D = 2^16, K12's grid form and neither K4 nor K5),
+    against the 16,384-limb session's orbit.  Returns (µs/iter by limbs,
+    that session's launches)."""
     import numpy as np
     import torch
 
@@ -1388,10 +1398,10 @@ def phase_device_orbit(device, nr_us):
     wide = dict(kernels.launches)
     log(f"  launches of the {WIDE_SESSION_LIMBS}-limb session: "
         f"{ {k: v for k, v in wide.items() if v} }")
-    if not (wide["ntt_orbit"] and wide["orbit_tail"]) or any(
-            wide[k] for k in wide if k.startswith("orbit_chunk_")):
-        raise AssertionError(f"{WIDE_SESSION_LIMBS} limbs: not on the "
-                             f"per-step loop")
+    if not wide["orbit_chunk_grid"] or wide["ntt_orbit"] or \
+            wide["orbit_tail"] or wide["orbit_chunk_block"]:
+        raise AssertionError(f"{WIDE_SESSION_LIMBS} limbs: not on K12's "
+                             f"grid form alone")
     ref, m = sessions[max(ORBIT_LIMBS)], WIDE_SESSION_BUDGET + 1
     same = (np.array_equal(res.orbit_x[:m], ref.orbit_x[:m]) and
             np.array_equal(res.orbit_y[:m], ref.orbit_y[:m]))
@@ -2484,7 +2494,7 @@ def chunk_centre(limbs: int):
 def k12_forms(spec, values: int) -> list:
     """K12's forms that take ``spec``'s size, the default one first."""
     from fractalshark_tpu_torch.ops.bignum import orbit as O
-    forms = [O.chunk_form(spec)]
+    forms = [O.chunk_form(spec, values)]
     for form in ("block", "grid"):
         if form not in forms:
             try:
@@ -2545,12 +2555,14 @@ def phase_chunk(device, stats):
             f"{CHUNK_STEPS}-step chunks, in turns)")
         return out
 
+    def chunk_bound(n, D, values):
+        return bound(2 * values * D * 4 + 2 * D * 4 + (
+            12 * 4 * (CHUNK_STEPS + 1) if values == 2 else 32),
+            CHUNK_STEPS * chunk_ops(n, values), I32_OPS_PER_S)
+
     def record(key, limbs, ms, plain_ms, n, D, values):
         st = stats[key]
-        st.update(ms=ms, plain_ms=plain_ms, **bound(
-            2 * values * D * 4 + 2 * D * 4 + (
-                12 * 4 * (CHUNK_STEPS + 1) if values == 2 else 32),
-            CHUNK_STEPS * chunk_ops(n, values), I32_OPS_PER_S))
+        st.update(ms=ms, plain_ms=plain_ms, **chunk_bound(n, D, values))
         st["limbs"] = limbs
 
     # the orbit
@@ -2607,6 +2619,12 @@ def phase_chunk(device, stats):
                     s.x, s.y, s.row, scx, cxt, scy, cyt, spec, CHUNK_STEPS),
                     device, warm=False)
                 record(key, limbs, ms[form], pms, n, D, 2)
+            if form == "grid" and limbs >= CHUNK_MAIN[key]:
+                # the grid form at 16,384 limbs and at D = 2^16: a chunk's
+                # ms, the loop's and the bound, for the log
+                stats[key].setdefault("by_limbs", {})[limbs] = dict(
+                    ms=ms[form], loop_ms=ms["steps"],
+                    **chunk_bound(n, D, 2))
 
     # the NR instance
     for limbs in CHUNK_NR_LIMBS:
@@ -2805,13 +2823,16 @@ def k15_twin(fr, st):
     return pl, pms, tally
 
 
+def hold_pin(label, got, pin) -> None:
+    """Hold a kernel's (iter_sum, CRC-32) to its pin."""
+    log(f"  {label}: (iter_sum, crc32) {got}, the pin {pin}")
+    if got != pin:
+        raise AssertionError(f"{label}: {got} != the pin {pin}")
+
+
 def k15_pin(name, rec):
     """Hold a timed K15 frame to its pin in K15_TIMED_PINS."""
-    got = (rec["iter_sum"], rec["crc32"])
-    if got != K15_TIMED_PINS[name]:
-        raise AssertionError(f"{name}: (iter_sum, crc32) {got} != the pin "
-                             f"{K15_TIMED_PINS[name]}")
-    log(f"    {name} = its pin {K15_TIMED_PINS[name]}")
+    hold_pin(name, (rec["iter_sum"], rec["crc32"]), K15_TIMED_PINS[name])
 
 
 def phase_families(device, stats):
@@ -3019,6 +3040,49 @@ def phase_families(device, stats):
     return launches
 
 
+def shallow_ptz(size: int):
+    """The shallow frame (FAMILY_SHALLOW) at size²."""
+    from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
+    a = FAMILY_SHALLOW
+    return PointZoomBBConverter(pt_x=a[1], pt_y=a[3], zoom_factor=a[5],
+                                prec=256).square_aspect_ratio(size, size)
+
+
+def take_late_pins(device="cuda") -> dict:
+    """The pins HDR_DF_PIN and QF_SHALLOW_PIN, taken once outside the
+    smoke: K16 on HDR_DF_TWIN_FRAME at its budget of 1,500 (launches of
+    FAMILY_CHUNK steps, and the default launches) and K18 4x64 on the
+    shallow frame at 256², each against its twin at that depth; the
+    (iter_sum, CRC-32) pins are printed only where the two agree bit for
+    bit.  Run: python3 -c "import chip_smoke as c; c.take_late_pins()"."""
+    import torch
+
+    from fractalshark_tpu_torch.ops import quadflt
+    device = torch.device(device)
+    phase_build()
+    st, pins = {}, {}
+    fr = pixel_loops().setup(HDR_DF_TWIN_FRAME, device)
+    n = HDR_DF_PIN[0]
+    k = fr.run(n, FAMILY_CHUNK)
+    pl, pms = timed(lambda: fr.plain(n), device, warm=False)
+    compare(f"perturb_hdr_df {fr.name} budget {n} (launches of "
+            f"{FAMILY_CHUNK} steps)", k, pl, st)
+    compare(f"perturb_hdr_df {fr.name} budget {n} (default launches)",
+            fr.run(n), pl, st)
+    pins["HDR_DF_PIN"] = (n, crc_pin(k))
+    log(f"  twin {pms:.1f} ms")
+    s, n = QF_SHALLOW_PIN[0], int(FAMILY_SHALLOW[-1])
+    scal = quadflt.qf_params(shallow_ptz(s), s, s, "4x64")
+    k = quadflt.escape_qf_kernel(scal, s, s, n, torch.float64, device)
+    pl, pms = timed(lambda: quadflt.escape_qf_plain(
+        scal, s, s, n, torch.float64, device), device, warm=False)
+    compare(f"escape_qf64 shallow frame {s}² x{n}", k, pl, st)
+    pins["QF_SHALLOW_PIN"] = (s, crc_pin(k))
+    log(f"  twin {pms:.1f} ms")
+    log("late pins: " + json.dumps(pins))
+    return pins
+
+
 def phase_late(device, stats):
     """The last render families: K16 against its twin on the 1e8 frame at
     64² at HDR_DF_TWIN_BUDGET (launches of FAMILY_CHUNK steps over the
@@ -3028,7 +3092,9 @@ def phase_late(device, stats):
     on the antenna frame, then timed at 1024² × 600 on the 1e17 frame;
     K17 4x64 and K18 4x64 against their twins on their guard frames
     (QUAD_GUARD_SCALARS, QF_GUARD_SCALARS), K18 4x64 also on the shallow
-    frame at 64²; then escape_qf through its public entry and the
+    frame at 64²; K16 at budget 1,500 and K18 4x64 on the shallow frame at
+    256² held to their pins (HDR_DF_PIN, QF_SHALLOW_PIN); then escape_qf
+    through its public entry and the
     LATE_PINS frames
     through the CLI (counts from 0, the twins forbidden), pinned to the
     JAX package's values."""
@@ -3048,6 +3114,9 @@ def phase_late(device, stats):
     pl, pms = timed(lambda: fr.plain(n), device, warm=False)
     compare(f"perturb_hdr_df {fr.name} budget {n} (launches of "
             f"{FAMILY_CHUNK} steps over the live pixels)", k, pl, st)
+    n, pin = HDR_DF_PIN
+    hold_pin(f"perturb_hdr_df {fr.name} budget {n}",
+             crc_pin(fr.run(n, FAMILY_CHUNK)), pin)
     fr = tpl.setup(HDR_DF_FRAME, device)
     out, rec = tpl.time_frame(fr, 3)
     steps, deepest = hdr_df_steps(out, fr.n)
@@ -3098,15 +3167,15 @@ def phase_late(device, stats):
                                                          "cpu"), st)
         if entry == "escape_qf64":
             # a frame whose counts differ (the 1e17 frame's do not)
-            s, argv = QF_SHALLOW_SIZE, FAMILY_SHALLOW
-            n = int(argv[-1])
-            ptz = PointZoomBBConverter(pt_x=argv[1], pt_y=argv[3],
-                                       zoom_factor=argv[5], prec=256
-                                       ).square_aspect_ratio(s, s)
-            scal = quadflt.qf_params(ptz, s, s, variant)
+            s, n = QF_SHALLOW_SIZE, int(FAMILY_SHALLOW[-1])
+            scal = quadflt.qf_params(shallow_ptz(s), s, s, variant)
             compare(f"{entry} shallow frame {s}² x{n}",
                     quadflt.escape_qf_kernel(scal, s, s, n, dt, device),
                     quadflt.escape_qf_plain(scal, s, s, n, dt, device), st)
+            s, pin = QF_SHALLOW_PIN
+            scal = quadflt.qf_params(shallow_ptz(s), s, s, variant)
+            hold_pin(f"{entry} shallow frame {s}² x{n}", crc_pin(
+                quadflt.escape_qf_kernel(scal, s, s, n, dt, device)), pin)
         pms = plain_ms[0]
         fr = tpl.setup(name, device)
         out, rec = tpl.time_frame(fr, 3)
@@ -4128,10 +4197,11 @@ def main() -> int:
     launches.update(run("16", phase_app, device, stats))
     launches.update(run("17", phase_parallel, device, stats))
     exact_pool.shutdown()
-    # K12's and K4/K5's launches, each from its own path's run: View #6's
-    # and View #30's device-orbit frames, the feature evaluator at View
-    # #6's sizes and at View #30's, and the orbit past K12's D < 2^16.
-    # K4-NR/K5-NR are on no path since K12 took every NR size (0).
+    # K12's launches, each from its own path's run: View #6's and View
+    # #30's device-orbit frames, the feature evaluator at View #6's sizes
+    # and at View #30's.  K4/K5 are on no path since K12 took the orbit at
+    # D = 2^16 too (the 32,768-limb session's counts, which phase 5 holds
+    # to 0), K4-NR/K5-NR since K12 took every NR size (0).
     frame = {k: runs[label]["launches"][k] for label, k in (
         (VIEW6_GPU_MAIN, "orbit_chunk_block"),
         (VIEW30_MAIN, "orbit_chunk_grid"))}
@@ -4156,6 +4226,8 @@ def main() -> int:
         {str(k): round(v, 3) for k, v in per_iter.items()}))
     log("K4/K5 by limbs: " + json.dumps(
         {k: stats[k]["by_limbs"] for k in ("ntt_orbit", "orbit_tail")}))
+    log(f"K12 grid by limbs, {CHUNK_STEPS}-step chunks: " + json.dumps(
+        stats["orbit_chunk_grid"]["by_limbs"]))
     log("K4-NR/K5-NR by limbs: " + json.dumps(
         {k: stats[k]["by_limbs"] for k in ("ntt_nr", "nr_tail")}))
     log("NR chunk us/step: " + json.dumps(

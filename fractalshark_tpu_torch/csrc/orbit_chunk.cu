@@ -57,18 +57,37 @@
 //     pass.  So 6 barriers a step; they and the latency of the column and
 //     row passes are the floor (PERF.md §6).  Digits, work, coefficients
 //     and the tail's scratch stay in global memory (3.3 MB at 16,384
-//     limbs, L2-resident).
+//     limbs, 6.6 MB at 32,768, L2-resident).  At the largest size, n =
+//     2^17 (32,768 limbs), a step measured 53 us on the H100 against 37
+//     at n = 2^16: twice the work for 1.45x the time, 11x the 4.9 us
+//     operation bound, so the barriers and the passes' latency are still
+//     the floor there; column tiles of 4 or 8 columns and 3 blocks an SM
+//     measured slower at both sizes (tools/time_orbit32.py --set).
 //     The lowest/highest-nonzero atomics are reset inside the launch in
 //     the W1 + W2 phase, after the barriers that follow W5's and W6's
 //     reads; step k + 1 reads the signs of row k + 1 (the NR sign row)
 //     only after the barrier that follows their write.
 //
-// Exactness is K4's and K5's: |acc| < 2^50 for D < 2^16 (K5's carries), n
-// <= 2^17 (K4-NR's cap, and the grid form's W3 scan of n/1,024 block
-// aggregates in one 256-thread block).  K5's carry argument: segments of
-// S >= 4 digits ripple their own sums (|carry| < 2^34), absorb the carry
-// of the segment below, and then carry -1, 0 or 1, as a map of their
-// carry-in; a scan of the maps gives every carry-in at once.
+// Exactness, for each instance apart (D digits of 16 bits, n = 2^m >=
+// 2D, so no product wraps around the cyclic convolution):
+//   orbit (V = 2): coef[0] = x^2 - y^2 and coef[1] = xy are sums of at
+//     most D products of two digits, |coef| < D*2^32 <= 2^48; their CRT
+//     from the two primes is exact, since that is below p1*p2/2 ~ 2^60.7.
+//     The digit sums are coef[0] + scx*cx_j + 2^15 and +-2*coef[1] +
+//     scy*cy_j + 2^15, so |acc| < 2D*2^32 + 2^17 < 2^50 for D <= 2^16
+//     (32,768 limbs, n = 2^17);
+//   NR (V = 4): u = x*dx - y*dy and v = x*dy + y*dx are sums of 2D
+//     products, |2u| < 2D*2^33, so |acc| < D*2^34 + 2^32 < 2^50 needs
+//     D < 2^16 (16,384 limbs).
+// K5's carries need |acc| < 2^50: segments of S >= 4 digits ripple their
+// own sums (|carry| < 2^34), absorb the carry of the segment below, and
+// then carry -1, 0 or 1, as a map of their carry-in; a scan of the maps
+// gives every carry-in at once.  n <= 2^17 is K4-NR's cap and the grid
+// form's W3 scan of n/1,024 block aggregates in one 256-thread block.  At
+// n = 2^17 every index stays below 2^21 (work [2Vn], coef [Vn], scratch
+// [7n] words), the digit positions below 2^17 in int32, the shadow row's
+// base index below 2^16 in int32, a reuse row's offset in size_t; no
+// 16-bit field holds a position.
 //
 // No fallback: a refused opt-in to shared memory or a refused cooperative
 // launch returns its error (cleared from CUDA's last error), which the
@@ -116,7 +135,7 @@ __device__ __forceinline__ void reuse_item(const Chunk &c, int k,
                                            const uint32_t *x,
                                            const uint32_t *y, int sx, int sy,
                                            int t, int threads) {
-  int32_t *ru = c.reuse + (2 * c.R + 2) * k;
+  int32_t *ru = c.reuse + static_cast<size_t>(2 * c.R + 2) * k;
   for (int i = t; i < 2 * c.R; i += threads)
     ru[i] = static_cast<int32_t>(i < c.R ? x[c.D - c.R + i]
                                          : y[c.D - 2 * c.R + i]);
@@ -580,9 +599,12 @@ int launch_grid(Chunk c, cudaStream_t st) {
   return rc ? rc : last;
 }
 
+// the most digits an instance takes (the exactness argument above)
+constexpr int max_digits(int V) { return V == 2 ? 1 << 16 : (1 << 16) - 1; }
+
 template <int V>
 int chunk(Chunk c, int grid, cudaStream_t st) {
-  if (c.D < 16 || c.D >= (1 << 16) || c.m > kChunkMaxLog2 ||
+  if (c.D < 16 || c.D > max_digits(V) || c.m > kChunkMaxLog2 ||
       2 * c.D > (1 << c.m) || c.steps < 0 ||
       (grid && (c.m < kGridMinLog2 || !c.work || !c.coef || !c.scratch)) ||
       (c.reuse && (c.R < 1 || c.R > c.D)))
@@ -605,7 +627,7 @@ extern "C" int fs_k12_block_bytes(int log2n, int D, int V) {
 // shadow row after step k (fs_orbit_chunk's outputs).  grid = 0: the block
 // form (work, coef and scratch unused); grid = 1: the grid form, with work
 // uint32 [4n], coef int64 [2n] and scratch uint32 [4n].  n = 2^log2n >= 2D,
-// 16 <= D < 2^16, n <= 2^17 (the grid form: n >= 2^10).  reuse: null, or
+// 16 <= D <= 2^16, n <= 2^17 (the grid form: n >= 2^10).  reuse: null, or
 // int32 [steps + 1][2R + 2] (1 <= R <= D), row 0 the state's on entry, row
 // k + 1 written after step k.
 extern "C" int fs_orbit_chunk_k12(void *x, void *y, void *rows,
@@ -631,7 +653,7 @@ extern "C" int fs_orbit_chunk_k12(void *x, void *y, void *rows,
 // K12, the NR instance: `steps` NR steps in place on x, y, dx, dy (uint32
 // [D]) and their signs (int32 [4] on the card), fs_nr_chunk's outputs.
 // grid as above, with work uint32 [8n], coef int64 [4n] and scratch
-// uint32 [7n].
+// uint32 [7n]; 16 <= D < 2^16.
 extern "C" int fs_nr_chunk_k12(void *x, void *y, void *dx, void *dy,
                                void *signs, const void *cx, const void *cy,
                                int scx, int scy, void *work, void *coef,

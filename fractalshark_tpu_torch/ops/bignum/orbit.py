@@ -27,13 +27,15 @@ The feature finder's device evaluator (``evaluate_critical_orbit_and_derivs_devi
 ``nr_chunk_plain`` on the CPU), and reads the state back once at the
 end.
 
-K12 has two forms, chosen by the transform size alone (``chunk_form``):
+K12 has two forms, chosen by the transform size (``chunk_form``):
 the block form, one CTA with the state in shared memory, up to
 ``BLOCK_MAX_NFFT``; the grid form, one cooperative launch with K4's
 passes and K5's wide tail spread over the card between grid-wide
-barriers, above it.  Sizes K12 does not take (D ≥ 2^16 digits, or
-nfft > 2^17) keep the per-step loop of K4 then K5 (``fs_orbit_chunk``,
-one C call per chunk), which is also ``chip_smoke.py``'s yardstick.
+barriers, above it, up to the orbit's 32,768 limbs (D = 2^16 digits,
+nfft = 2^17; NR's cap is 16,384).  Sizes K12 does not take (the orbit
+past D = 2^16 or nfft = 2^17, 65,536 limbs and up) keep the per-step loop
+of K4 then K5 (``fs_orbit_chunk``, one C call per chunk), which is also
+the yardstick of ``chip_smoke.py`` and ``tools/time_orbit32.py``.
 """
 
 from __future__ import annotations
@@ -154,14 +156,15 @@ def _fused_route(spec: FP.FixedSpec, route: str) -> tuple[int, list]:
 # the orbit and for NR, at 128 limbs (512) the block form.
 BLOCK_MAX_NFFT = 512
 # The C entry point's limits, mirrored so that a size is refused before
-# any launch (csrc/orbit_chunk.cu: kMaxSmem, kChunkMaxLog2, kGridMinLog2
-# and the checks of chunk()): D < 2^16 keeps |acc| < 2^50 for the exact
-# carries, nfft <= 2^17 is K4-NR's cap and the grid form's one-block scan
-# of the tail's block aggregates; a block may opt in to SMEM_PER_BLOCK
-# bytes of shared memory.  The cuda-marked test in
+# any launch (csrc/orbit_chunk.cu: max_digits, kMaxSmem, kChunkMaxLog2,
+# kGridMinLog2 and the checks of chunk()): the carries are exact while
+# |acc| < 2^50, which the orbit keeps up to D = 2^16 digits (32,768 limbs)
+# and NR only below it; nfft <= 2^17 is K4-NR's cap and the grid form's
+# one-block scan of the tail's block aggregates; a block may opt in to
+# SMEM_PER_BLOCK bytes of shared memory.  The cuda-marked test in
 # tests/test_torch_orbit_chunk.py holds these and block_smem_bytes to the
 # C's own reckoning (fs_k12_block_bytes) and refusals.
-K12_MAX_DIGITS = (1 << 16) - 1
+K12_MAX_DIGITS = {2: 1 << 16, 4: (1 << 16) - 1}
 K12_MAX_NFFT = 1 << 17
 K12_GRID_MIN_NFFT = 1 << 10
 SMEM_PER_BLOCK = 232_448
@@ -175,11 +178,14 @@ def block_smem_bytes(nfft: int, digits: int, values: int) -> int:
                 + 2 * nfft + 16)
 
 
-def chunk_form(spec: FP.FixedSpec) -> str:
-    """The default route's form of a chunk, orbit or NR, at ``spec``'s
-    size: K12's "block" or "grid", or "steps" (K4 then K5 per step, one C
-    call) for the orbit past K12's D < 2^16, which K5 still takes."""
-    if spec.digits > K12_MAX_DIGITS:
+def chunk_form(spec: FP.FixedSpec, values: int = 2) -> str:
+    """The default route's form of a chunk at ``spec``'s size (``values``:
+    2 for the orbit, 4 for NR): K12's "block" or "grid", or "steps" (K4
+    then K5 per step, one C call) for a size K12 does not take: the orbit
+    past D = 2^16 digits or nfft = 2^17, i.e. 65,536 limbs and up, which
+    no view needs.  NR past its D < 2^16 is refused whatever the form
+    (``fixedpoint.check_nr``)."""
+    if spec.digits > K12_MAX_DIGITS[values] or spec.nfft > K12_MAX_NFFT:
         return "steps"
     return "block" if spec.nfft <= BLOCK_MAX_NFFT else "grid"
 
@@ -189,10 +195,12 @@ def check_chunk(spec: FP.FixedSpec, form: str, values: int) -> None:
     (``values``: 2 for the orbit, 4 for NR)."""
     if form == "steps":
         return
-    if not 16 <= spec.digits <= K12_MAX_DIGITS or \
+    top = K12_MAX_DIGITS[values]
+    if not 16 <= spec.digits <= top or \
             spec.nfft > K12_MAX_NFFT or spec.nfft < 2 * spec.digits:
-        raise ValueError(f"{spec}: K12 takes 16 ≤ D < 2^16 digits and "
-                         f"2D ≤ nfft ≤ 2^17")
+        what = "the orbit" if values == 2 else "NR"
+        raise ValueError(f"{spec}: K12 takes 16 ≤ D ≤ {top} digits and "
+                         f"2D ≤ nfft ≤ 2^17 for {what}")
     if form == "block" and block_smem_bytes(
             spec.nfft, spec.digits, values) > SMEM_PER_BLOCK:
         raise ValueError(f"{spec}: the block form needs more than "
@@ -454,7 +462,7 @@ def orbit_nr_chunk(state: NRState, scx: int, cx: torch.Tensor, scy: int,
         scratch = _Scratch(spec, dev, values=4)
     if route == "k4":
         launch_nr_chunk(state, scx, cx, scy, cy, spec, steps, scratch,
-                        chunk_form(spec))
+                        chunk_form(spec, 4))
         return
     code, counters = _fused_route(spec, route)
     cadd, rnd, dig, inv, work = scratch.fused_buffers(spec, cx, cy, nr=True)

@@ -9,10 +9,11 @@ bit, on every rank:
   and x·y (``:227-235``) are elementwise on each rank;
 * reshard: one more ``all_to_all`` gives rank r the residue rows of its
   contiguous digit block [r·L/M, (r+1)·L/M) (L = nfft = 2D, the flat
-  layout, ``:182``) and, from rank M − 1, the 8 coefficients below it
-  (a digit's sum takes parts of the 3 coefficients below, and the
-  segment below the block is rippled from 7: the JAX package's
-  ``_from_prev`` halo, ``:62-68``);
+  layout, ``:182``) and the 8 coefficients below it, from the ranks
+  whose columns hold them (rank M − 1 alone while a rank has 8 columns
+  or more, else the last ⌈8/(n2/M)⌉; a digit's sum takes parts of the 3
+  coefficients below, and the segment below the block is rippled from
+  7: the JAX package's ``_from_prev`` halo, ``:62-68``);
 * the tail: kernel K20 (``csrc/sharded_tail.cu``) in two launches with
   one ``all_gather`` of a few words a rank between them (``tail_a``,
   ``tail_b``; their plain twins on CPU tensors);
@@ -285,17 +286,14 @@ def sharded_tail(inv, cadd, rnd, cfg, mesh: Mesh, zsign=None):
 
 def check_spec(spec: FP.FixedSpec, mesh: Mesh) -> tuple[int, int]:
     """(n1, n2) of the step's transforms; ValueError, before any launch,
-    for a spec or mesh the sharded step does not take."""
+    for a spec or mesh the sharded step does not take: every mesh that
+    ``ntt_sharded.split`` takes, with the flat digit layout."""
     nf = spec.nfft
     if 2 * spec.digits != nf:
         raise ValueError(f"{spec}: the sharded tail needs the flat digit "
                          f"layout 2·D == nfft (FixedSpec.for_limbs of a "
                          f"power of two)")
-    n1, n2 = NS.split(nf, mesh)
-    if n2 // mesh.size < HALO:
-        raise ValueError(f"{mesh.size} ranks leave {n2 // mesh.size} columns "
-                         f"a rank; the halo needs {HALO}")
-    return n1, n2
+    return NS.split(nf, mesh)
 
 
 def local_planes(cx: torch.Tensor, cy: torch.Tensor, spec: FP.FixedSpec,
@@ -310,21 +308,46 @@ def local_planes(cx: torch.Tensor, cy: torch.Tensor, spec: FP.FixedSpec,
             pad(rnd, (HALO, 0))[lo:lo + HALO + lloc].contiguous())
 
 
+def halo_owners(n1: int, n2: int, M: int) -> np.ndarray:
+    """int64 [M, 3, HALO]: for each rank s's halo, the coefficients at
+    flat digits s·Lloc − 8 .. s·Lloc − 1 (Lloc = n1·n2/M): the rank whose
+    columns hold each and its (row, local column) there.  Rank 0's halo
+    (below digit 0) is all zero; its owner is marked −1.  Column c is on
+    rank c // (n2/M), so with fewer than 8 columns a rank the halo spans
+    the last ⌈8/(n2/M)⌉ ranks."""
+    w, lloc = n2 // M, n1 * n2 // M
+    out = np.full((M, 3, HALO), -1, np.int64)
+    for s in range(1, M):
+        idx = s * lloc - HALO + np.arange(HALO)
+        row, col = idx // n2, idx % n2
+        out[s] = col // w, row, col % w
+    return out
+
+
 def reshard(inv: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The inverse's rank block [4, n1, n2/M] → the residue rows of the
     rank's contiguous digit block with its halo, [2, 2, 8 + Lloc]: one
     ``all_to_all`` (the JAX package's ``:246-249``) whose blocks also
-    carry, from rank M − 1, the 8 coefficients below each rank's block."""
+    carry the 8 coefficients below each rank's block, each from the rank
+    whose columns hold it (``halo_owners``)."""
     R, n1, w = inv.shape
     M, h = mesh.size, n1 // mesh.size
+    own = halo_owners(n1, w * M, M)
     body = inv.view(R, M, h, w).permute(1, 0, 2, 3).reshape(M, R * h * w)
     halo = torch.zeros(M, R, HALO, dtype=inv.dtype, device=inv.device)
-    if mesh.rank == M - 1 and M > 1:
-        rows = torch.arange(1, M, device=inv.device) * h - 1
-        halo[1:] = inv[:, rows, w - HALO:].permute(1, 0, 2)
+    s, j = np.nonzero(own[:, 0] == mesh.rank)
+    if len(s):
+        idx = torch.from_numpy(own[s, 1:, j]).to(inv.device)
+        halo[torch.from_numpy(s).to(inv.device), :,
+             torch.from_numpy(j).to(inv.device)] = \
+            inv[:, idx[:, 0], idx[:, 1]].T
     recv = PM.all_to_all(mesh, torch.cat([body, halo.reshape(M, -1)], 1))
     blk = recv[:, :R * h * w].view(M, R, h, w).permute(1, 2, 0, 3)
-    below = recv[M - 1, R * h * w:].view(R, HALO)
+    below = torch.zeros(R, HALO, dtype=inv.dtype, device=inv.device)
+    if mesh.rank:
+        src = torch.from_numpy(own[mesh.rank, 0]).to(inv.device)
+        below = recv[:, R * h * w:].view(M, R, HALO)[
+            src, :, torch.arange(HALO, device=inv.device)].T
     return torch.cat([below, blk.reshape(R, -1)], 1).view(2, 2, -1)
 
 

@@ -111,11 +111,14 @@ def sharded_perturb_render_hdr(results, ptz: PointZoomBBConverter,
 def sharded_stats(iters: torch.Tensor, mesh: Mesh) -> dict:
     """Min, max and the 64-bit sum of a row-sharded iteration buffer (each
     rank's slab) over the mesh, by ``all_reduce``, without gathering the
-    frame."""
+    frame.  The sum is the total mod 2^64, in [0, 2^64), as the JAX
+    package's ``uint64`` sum gives it (``render.py:130``): int64 addition
+    wraps, which is the same sum mod 2^64, read unsigned on the host."""
     t = iters.to(torch.int64)
     out = {}
     for name, v, op in (("min", t.min(), dist.ReduceOp.MIN),
                         ("max", t.max(), dist.ReduceOp.MAX),
                         ("sum", t.sum(), dist.ReduceOp.SUM)):
         out[name] = int(PM.all_reduce(mesh, v.reshape(1), op)[0])
+    out["sum"] %= 1 << 64
     return out

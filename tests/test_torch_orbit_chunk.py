@@ -127,6 +127,36 @@ def _jax_reference(inputs):
     return out
 
 
+def _jax_wide(_inputs):
+    """The JAX package's chunk (split-bookkeeping route) at WIDE_LIMBS,
+    WIDE_STEPS steps from View #30's centre."""
+    import jax.numpy as jnp
+
+    from fractalshark_tpu.ops.bignum import fixedpoint as JFP
+    from fractalshark_tpu.ops.bignum import orbit as JO
+
+    class _SplitRoute:
+        def __getattr__(self, name):
+            return getattr(JFP, name)
+
+        @staticmethod
+        def _use_fused_tail(nf, D):
+            return True
+
+    JO.FP = _SplitRoute()
+    JO.orbit_chunk.clear_cache()
+    spec, _, scx, cxd, scy, cyd = _wide_centre()
+    zero = jnp.float64(0)
+    args = (jnp.int32(scx), jnp.asarray(cxd), jnp.int32(scy),
+            jnp.asarray(cyd))
+    (nsx, nx, nsy, ny), rows = JO.orbit_chunk(
+        *args, zero, zero, jnp.int32(0), *args, zero, jnp.int32(0), zero,
+        zero, spec=JFP.FixedSpec.for_limbs(WIDE_LIMBS), steps=WIDE_STEPS)
+    return {"sx": np.asarray(nsx), "x": np.asarray(nx),
+            "sy": np.asarray(nsy), "y": np.asarray(ny),
+            "rows": np.asarray(rows)}
+
+
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
     return ref.run_jax_reference("test_torch_orbit_chunk", "_jax_reference",
@@ -212,20 +242,32 @@ def test_nr_chunk_plain_equals_wrapped_recurrence(limbs):
 # ----------------------------------------------------------- the forms
 
 
-# the smoke's size classes and the form the route gives both instances
+# the smoke's size classes and the form the route gives the orbit (NR the
+# same up to 16,384 limbs; at 32,768, D = 2^16, K12 takes the orbit alone)
 FORMS = [(8, "block"), (16, "block"), (32, "block"), (128, "block"),
          (256, "grid"), (512, "grid"), (1024, "grid"), (2048, "grid"),
-         (16384, "grid"), (32768, "steps")]
+         (16384, "grid"), (32768, "grid")]
 
 
 @pytest.mark.parametrize("limbs,form", FORMS)
 def test_chunk_form_by_size(limbs, form):
     """The form by transform size, the same for the orbit (2 values) and
-    NR (4 values), and one that takes the size for both."""
+    NR (4 values) while D < 2^16, and one that takes the size for both;
+    at D = 2^16 (32,768 limbs) the orbit's grid form, while NR's form is
+    "steps" and both K12 and the NR step refuse it (|acc| < 2^50 needs D
+    < 2^16 there)."""
     spec = FP.FixedSpec.for_limbs(limbs)
     assert O.chunk_form(spec) == form
-    for values in (2, 4):
-        O.check_chunk(spec, form, values)
+    O.check_chunk(spec, form, 2)
+    if spec.digits <= O.K12_MAX_DIGITS[4]:
+        assert O.chunk_form(spec, 4) == form
+        O.check_chunk(spec, form, 4)
+    else:
+        assert O.chunk_form(spec, 4) == "steps"
+        with pytest.raises(ValueError, match="K12 takes"):
+            O.check_chunk(spec, form, 4)
+        with pytest.raises(ValueError, match="NR step needs"):
+            FP.check_nr(spec)
 
 
 @pytest.mark.parametrize("values,largest", [(2, 4096), (4, 2048)])
@@ -250,30 +292,105 @@ def test_block_form_shared_memory_at_its_cap(values, largest):
 
 
 def test_chunk_wrappers_refuse_sizes_past_the_bounds():
-    """D < 2^16 for both instances (the carries' |acc| < 2^50), nfft <=
-    2^17 (K4-NR's cap); the refusal comes before any launch, so it shows
-    on CPU tensors.  The default route leaves K12 only for the orbit past
-    D < 2^16, to the per-step loop."""
+    """D <= 2^16 for the orbit and D < 2^16 for NR (the carries' |acc| <
+    2^50), nfft <= 2^17 (K4-NR's cap); the refusal comes before any
+    launch, so it shows on CPU tensors.  The default route leaves K12
+    only for the orbit past D = 2^16 or nfft = 2^17 (65,536 limbs and up),
+    to the per-step loop."""
     wide = FP.FixedSpec(digits=1 << 16, nfft=1 << 17)
     long = FP.FixedSpec(digits=1 << 10, nfft=1 << 18)
-    assert O.chunk_form(wide) == "steps"
-    for spec in (wide, long):
-        for form in ("block", "grid"):
-            for values in (2, 4):
-                with pytest.raises(ValueError, match="K12 takes"):
-                    O.check_chunk(spec, form, values)
+    assert O.chunk_form(wide) == "grid"
+    O.check_chunk(wide, "grid", 2)
+    assert O.chunk_form(wide, 4) == "steps"
+    assert O.chunk_form(long) == O.chunk_form(long, 4) == "steps"
+    assert O.chunk_form(FP.FixedSpec.for_limbs(65536)) == "steps"
+    for form in ("block", "grid"):
+        with pytest.raises(ValueError, match="K12 takes"):
+            O.check_chunk(wide, form, 4)
+        for values in (2, 4):
+            with pytest.raises(ValueError, match="K12 takes"):
+                O.check_chunk(long, form, values)
+    with pytest.raises(ValueError, match="shared memory"):
+        O.check_chunk(wide, "block", 2)
     with pytest.raises(ValueError, match="shared memory"):
         O.check_chunk(FP.FixedSpec.for_limbs(2048), "block", 2)
     with pytest.raises(ValueError, match="nfft ≥ 1,024"):
         O.check_chunk(FP.FixedSpec.for_limbs(128), "grid", 2)
-    v = torch.zeros(wide.digits, dtype=torch.int32)
+    v = torch.zeros(long.digits, dtype=torch.int32)
     state = O.OrbitState(1, v.numpy(), 1, v.numpy(), "cpu")
     rows = torch.zeros(2, FP.ROW, dtype=torch.int32)
     with pytest.raises(ValueError, match="K12 takes"):
-        O.launch_orbit_chunk(state, rows, 1, v, 1, v, wide, 1, None, "grid")
+        O.launch_orbit_chunk(state, rows, 1, v, 1, v, long, 1, None, "grid")
+    v = torch.zeros(wide.digits, dtype=torch.int32)
     nr = O.NRState((1, 1, 1, 1), v, v, v, v, "cpu")
     with pytest.raises(ValueError, match="K12 takes"):
-        O.launch_nr_chunk(nr, 1, v, 1, v, long, 1, None, "block")
+        O.launch_nr_chunk(nr, 1, v, 1, v, wide, 1, None, "grid")
+
+
+# ------------------------------------------- 32,768 limbs (D = 2^16)
+# View #30's centre at 32,768 limbs: its imaginary part carries 1,661
+# fractional digits of 0xFFFF, so the carries cross the whole width
+WIDE_LIMBS = 32768
+WIDE_STEPS = 3
+
+
+def _wide_centre():
+    """(spec, c ints, scx, cx digits, scy, cy digits) of View #30's
+    centre at WIDE_LIMBS."""
+    from fractalshark_tpu_torch.core.views import get_view_preset
+    spec = FP.FixedSpec.for_limbs(WIDE_LIMBS)
+    ptz = get_view_preset(30).ptz
+    prec = spec.frac_bits - 20
+    scx, cxd = FP.hp_to_digits(ptz.pt_x.with_precision(prec), spec)
+    scy, cyd = FP.hp_to_digits(ptz.pt_y.with_precision(prec), spec)
+    c = (scx * FP.digits_to_int(cxd), scy * FP.digits_to_int(cyd))
+    return spec, c, scx, cxd, scy, cyd
+
+
+@pytest.fixture(scope="module")
+def wide_plain():
+    """(spec, c, z, (x, y, rows)): the plain chunk at D = 2^16,
+    WIDE_STEPS steps from z = c (View #30's centre)."""
+    spec, c, scx, cxd, scy, cyd = _wide_centre()
+    z = ((scx, FP.digits_to_int(cxd)), (scy, FP.digits_to_int(cyd)))
+    out = O.orbit_chunk_plain(
+        _t(cxd), _t(cyd), torch.from_numpy(_row(spec, z)), scx, _t(cxd),
+        scy, _t(cyd), spec, WIDE_STEPS)
+    return spec, c, z, out
+
+
+@pytest.fixture(scope="module")
+def jax_wide(tmp_path_factory):
+    return ref.run_jax_reference("test_torch_orbit_chunk", "_jax_wide",
+                                 tmp_path_factory.mktemp("orbit_wide"))
+
+
+def test_orbit_chunk_plain_at_32768_limbs_equals_int_recurrence(wide_plain):
+    """The plain chunk at D = 2^16, WIDE_STEPS steps from z = c (View
+    #30's centre, a 0xFFFF run of 1,661 digits): rows and state = the
+    Python-int recurrence, exactly."""
+    spec, c, z, (x, y, rows) = wide_plain
+    assert spec.digits == 1 << 16 and O.chunk_form(spec) == "grid"
+    assert (_digits(z[1][1], spec.digits)[-2 - 1661:-2] == 0xFFFF).all()
+    want = _orbit_steps(spec, z, c, WIDE_STEPS)
+    np.testing.assert_array_equal(rows[0].numpy(), _row(spec, z))
+    for k, w in enumerate(want):
+        np.testing.assert_array_equal(rows[k + 1].numpy(), _row(spec, w))
+    (_, wx), (_, wy) = want[-1]
+    assert FP.digits_to_int(x.numpy()) == wx
+    assert FP.digits_to_int(y.numpy()) == wy
+
+
+def test_orbit_chunk_plain_at_32768_limbs_equals_jax(wide_plain, jax_wide):
+    """The same chunk = the JAX package's (its split-bookkeeping scan at
+    32,768 limbs): rows, signs and digits, exactly."""
+    _, _, _, (x, y, rows) = wide_plain
+    np.testing.assert_array_equal(rows[:WIDE_STEPS].numpy(),
+                                  jax_wide["rows"].T)
+    assert int(rows[WIDE_STEPS, 10]) == int(jax_wide["sx"])
+    assert int(rows[WIDE_STEPS, 11]) == int(jax_wide["sy"])
+    np.testing.assert_array_equal(x.numpy().astype(np.uint32), jax_wide["x"])
+    np.testing.assert_array_equal(y.numpy().astype(np.uint32), jax_wide["y"])
 
 
 # ----------------------------------------------------------- on the card
@@ -360,7 +477,8 @@ def test_k12_c_limits_match_the_wrapper_on_card():
     """The wrapper's mirror of K12's limits is the C's: the block form's
     shared memory (fs_k12_block_bytes) at every transform size, and the C
     entry refuses exactly where check_chunk does, at the block form's
-    shared-memory cap and the grid form's smallest transform."""
+    shared-memory cap, the grid form's smallest transform and each
+    instance's most digits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from fractalshark_tpu_torch import kernels
@@ -383,3 +501,37 @@ def test_k12_c_limits_match_the_wrapper_on_card():
             spec = FP.FixedSpec(digits=n // 2, nfft=n)
             refused = n < O.K12_GRID_MIN_NFFT
             assert _k12_refuses(spec, values, True, dev) == refused
+    # D = 2^16: the orbit's grid form takes it, NR's refuses it, as
+    # check_chunk does
+    wide = FP.FixedSpec(digits=1 << 16, nfft=1 << 17)
+    for values in (2, 4):
+        assert _k12_refuses(wide, values, True, dev) == (values == 4)
+        assert (wide.digits > O.K12_MAX_DIGITS[values]) == (values == 4)
+
+
+@pytest.mark.cuda
+def test_k12_at_32768_limbs_equals_the_loop_on_card(wide_plain):
+    """K12's grid form at D = 2^16 (32,768 limbs, nfft 2^17): = the plain
+    chunk over WIDE_STEPS steps from View #30's centre, and = the
+    per-step loop of K4 then K5 over a 256-step chunk from there, rows
+    and state bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    spec, _, z, want = wide_plain
+    _, _, scx, cxd, scy, cyd = _wide_centre()
+    cx, cy = _t(cxd).to(dev), _t(cyd).to(dev)
+    scratch = O._Scratch(spec, dev)
+    outs = {}
+    for form, steps in (("grid", WIDE_STEPS), ("grid", 256),
+                        ("steps", 256)):
+        state = O.OrbitState(scx, cxd, scy, cyd, dev)
+        rows = torch.empty(steps + 1, FP.ROW, dtype=torch.int32, device=dev)
+        rows[0] = state.row
+        O.launch_orbit_chunk(state, rows, scx, cx, scy, cy, spec, steps,
+                             scratch, form)
+        outs[form, steps] = (state.x.cpu(), state.y.cpu(), rows.cpu())
+    for a, b in zip(outs["grid", WIDE_STEPS], want):
+        assert torch.equal(a, b)
+    for a, b in zip(outs["grid", 256], outs["steps", 256]):
+        assert torch.equal(a, b)

@@ -38,6 +38,13 @@ COORDS = (("-0.743643887037158704752191506114774",
 STEPS = 4
 CHUNK_C = ("-0.7436438870371587", "0.1318259042053119")
 CHUNK_STEPS = 6
+# meshes with fewer than 8 columns a rank, so that the halo below a block
+# spans ranks: (M, limbs), CHUNK_C over NARROW_STEPS steps, M = 8 on a
+# subgroup of ranks 0-7 (8 at 256 limbs is the JAX package's dry run,
+# __graft_entry__.py dryrun_multichip(8): 4 columns a rank; 16 at 256: 2)
+NARROW = ((8, 256), (16, 512), (16, 256))
+NARROW_WORLD = 16
+NARROW_STEPS = 3
 # the sharded session: 128 limbs (nfft 512: four ranks of 8 columns)
 SESSION = ("-0.743643887037158704752191506114774",
            "0.131825904205311970493132056385139", "1e-9", 100, 128, 32)
@@ -230,6 +237,55 @@ def _jax_reference(_inputs):
     return out
 
 
+def _jax_narrow(_inputs):
+    import jax
+    import jax.numpy as jnp
+
+    from fractalshark_tpu.core.highprecision import HighPrecision as JHP
+    from fractalshark_tpu.ops.bignum import fixedpoint as JFP
+    from fractalshark_tpu.ops.bignum.orbit import orbit_chunk
+    from fractalshark_tpu.parallel import orbit_sharded as JOS
+
+    out = {}
+    for M, limbs in NARROW:
+        mesh = JOS.make_limb_mesh(jax.devices()[:M])
+        spec = JFP.FixedSpec.for_limbs(limbs)
+        prec = spec.frac_bits - 20
+        cx, cy = JHP(CHUNK_C[0], prec=prec), JHP(CHUNK_C[1], prec=prec)
+        scx, cxd = JFP.hp_to_digits(cx, spec)
+        scy, cyd = JFP.hp_to_digits(cy, spec)
+        args = (jnp.int32(scx), jnp.asarray(cxd), jnp.int32(scy),
+                jnp.asarray(cyd))
+        st_, _ = orbit_chunk(*args, jnp.float64(1.0), jnp.float64(0.0),
+                             jnp.int32(0), *args, jnp.float64(1.0),
+                             jnp.int32(-40), jnp.float64(float(cx)),
+                             jnp.float64(float(cy)), spec=spec,
+                             steps=NARROW_STEPS, mesh=mesh)
+        for i, v in enumerate(st_[:4]):
+            out[f"{M}_{limbs}_{i}"] = np.asarray(v)
+    return out
+
+
+def _narrow_rank_cases(rank: int, world: int) -> dict:
+    import torch.distributed as dist
+    sub = dist.new_group(list(range(8)))
+    out = {}
+    for M, limbs in NARROW:
+        if rank >= M:
+            continue
+        mesh = OS.make_limb_mesh("cpu", None if M == world else sub)
+        spec, *cs = _coords(*CHUNK_C, limbs)
+        scx, cx, scy, cy = _state(*cs)
+        state = O.OrbitState(cs[0], cs[1], cs[2], cs[3], "cpu")
+        rows = O.orbit_chunk(state, scx, cx, scy, cy, spec, NARROW_STEPS,
+                             mesh=mesh)
+        out[f"{M}_{limbs}_rows"] = rows.numpy()
+        out[f"{M}_{limbs}_x"] = state.x.numpy()
+        out[f"{M}_{limbs}_y"] = state.y.numpy()
+        out[f"{M}_{limbs}_row"] = state.row.numpy()
+    return out
+
+
 def _state(scx, cxd, scy, cyd):
     cx = torch.from_numpy(cxd.astype(np.int32))
     cy = torch.from_numpy(cyd.astype(np.int32))
@@ -301,6 +357,14 @@ def runs(tmp_path_factory):
     return ref.run_ranks_and_jax("test_torch_parallel_orbit", 4,
                                  tmp_path_factory.mktemp("parallel_orbit"),
                                  4)
+
+
+@pytest.fixture(scope="module")
+def narrow_runs(tmp_path_factory):
+    return ref.run_ranks_and_jax("test_torch_parallel_orbit", NARROW_WORLD,
+                                 tmp_path_factory.mktemp("parallel_narrow"),
+                                 NARROW_WORLD, "_narrow_rank_cases",
+                                 "_jax_narrow")
 
 
 def _single_steps(spec, cs, steps):
@@ -385,6 +449,55 @@ def test_orbit_chunk_sharded_matches_single(runs, M):
                                       jref["chunk_3"])
         assert got[f"{M}_chunk_row"][10] == jref["chunk_0"]
         assert got[f"{M}_chunk_row"][11] == jref["chunk_2"]
+
+
+@pytest.mark.parametrize("M,limbs", NARROW)
+def test_orbit_chunk_sharded_on_narrow_meshes(narrow_runs, M, limbs):
+    """Meshes that leave a rank fewer than 8 columns, so that the 8
+    coefficients below a block come from two or four ranks: the 3-step
+    chunk from the dry run's centre on every rank = the one-device chunk
+    (orbit_chunk_plain), rows included, and its state = the JAX
+    package's sharded chunk on as many virtual devices; exact."""
+    ranks, jref = narrow_runs
+    spec, *cs = _coords(*CHUNK_C, limbs)
+    assert N.split_n(spec.nfft)[1] // M < OS.HALO
+    scx, cx, scy, cy = _state(*cs)
+    x, y = torch.from_numpy(cs[1].astype(np.int32)), \
+        torch.from_numpy(cs[3].astype(np.int32))
+    row = torch.from_numpy(FP.shadow_row_np(cs[0], cs[1], cs[2], cs[3]))
+    wx, wy, wrows = O.orbit_chunk_plain(x, y, row, scx, cx, scy, cy, spec,
+                                        NARROW_STEPS)
+    key = f"{M}_{limbs}"
+    for r in range(M):
+        got = ranks[r]
+        np.testing.assert_array_equal(got[f"{key}_rows"],
+                                      wrows[:NARROW_STEPS].numpy())
+        np.testing.assert_array_equal(got[f"{key}_row"],
+                                      wrows[NARROW_STEPS].numpy())
+        np.testing.assert_array_equal(got[f"{key}_x"], wx.numpy())
+        np.testing.assert_array_equal(got[f"{key}_y"], wy.numpy())
+        np.testing.assert_array_equal(got[f"{key}_x"].astype(np.uint32),
+                                      jref[f"{key}_1"])
+        np.testing.assert_array_equal(got[f"{key}_y"].astype(np.uint32),
+                                      jref[f"{key}_3"])
+        assert got[f"{key}_row"][10] == jref[f"{key}_0"]
+        assert got[f"{key}_row"][11] == jref[f"{key}_2"]
+
+
+def test_halo_owners_span_the_ranks_that_hold_the_columns():
+    """The halo's owners: rank M − 1 alone with 8 columns a rank or more;
+    the last 2 and 4 ranks with 4 and 2; rank 0's halo empty."""
+    for (n1, n2, M), want in (((16, 32, 4), [3] * 8),
+                              ((32, 32, 8), [6] * 4 + [7] * 4),
+                              ((32, 32, 16), [12, 12, 13, 13, 14, 14, 15,
+                                              15])):
+        own = OS.halo_owners(n1, n2, M)
+        assert (own[0] == -1).all()
+        for s in range(1, M):
+            assert list(own[s, 0]) == want
+            assert (own[s, 1] == s * n1 // M - 1).all()
+            assert list(own[s, 0] * (n2 // M) + own[s, 2]) == \
+                list(range(n2 - 8, n2))
 
 
 @pytest.mark.parametrize("M", MESHES)
@@ -526,8 +639,8 @@ def test_k20_blocks_on_a_step(M):
 
 def test_refusals():
     """Refused before any collective: a spec without the flat layout, a
-    mesh that does not divide the four-step factors, too few columns a
-    rank for the halo; K20's block shapes."""
+    mesh that does not divide the four-step factors; K20's block shapes.
+    A mesh with fewer than 8 columns a rank is taken."""
     cpu = torch.device("cpu")
     spec = FP.FixedSpec(digits=100, nfft=256)
     z = torch.zeros(100, dtype=torch.int32)
@@ -539,9 +652,10 @@ def test_refusals():
     with pytest.raises(ValueError, match="divide both"):
         OS.iterate_z_sharded(1, z, 1, z, 1, z, 1, z, spec=spec,
                              mesh=Mesh(None, 3, 0, cpu))
-    with pytest.raises(ValueError, match="halo"):
-        OS.iterate_z_sharded(1, z, 1, z, 1, z, 1, z, spec=spec,
-                             mesh=Mesh(None, 16, 0, cpu))
+    # 16 ranks leave 4 columns a rank: taken (the halo spans two ranks;
+    # test_orbit_chunk_sharded_on_narrow_meshes runs it)
+    assert OS.check_spec(spec, Mesh(None, 16, 0, cpu)) == \
+        N.split_n(spec.nfft)
     with pytest.raises(ValueError, match="K20"):
         OS.tail_a(torch.zeros(2, 2, 14, dtype=torch.int32),
                   torch.zeros(2, 14, dtype=torch.int32),

@@ -5,7 +5,9 @@ a subgroup of ranks 0 and 1): the escape render (K1's twin with ``y0``)
 and the HDR perturbation render (K6's twin over a slab of the dc grids),
 each rank's slab the whole frame's rows, the frame equal to the port's
 one-device render and to the JAX package's sharded render (4 virtual
-devices); the slabs and the all_reduce statistics; the height refusal.
+devices); the slabs and the all_reduce statistics, also of slabs whose
+sum passes 2^63 and 2^64 (the JAX package's ``uint64`` total mod 2^64);
+the height refusal.
 """
 
 import numpy as np
@@ -22,6 +24,11 @@ H = 32                       # rows: a multiple of both mesh sizes
 ESC_W, ESC_BUDGET = 64, 100
 DEEP_W, DEEP_BUDGET = 48, 2000
 STATS_W, STATS_BUDGET = 32, 50
+# slabs of counts near 2^51 and 2^52 (made from a seed): the frame sums to
+# a total in [2^63, 2^64) and to one past 2^64, which the JAX package's
+# uint64 sum gives mod 2^64
+BIG_W = 128
+BIG_BASES = (1 << 51, 1 << 52)
 DEEP = ("-0.743643887037158704752191506114774",
         "0.131825904205311970493132056385139", "1e8")
 
@@ -36,6 +43,13 @@ def _deep(h):
     ptz = ptz.square_aspect_ratio(DEEP_W, H)
     return ptz, h.RefOrbitCalc().get_and_create_useful_results(
         ptz, DEEP_BUDGET)
+
+
+def _big_frame(k: int) -> np.ndarray:
+    """The int64 frame [H, BIG_W] of counts BIG_BASES[k] + [0, 2^16)."""
+    rng = np.random.default_rng(2100 + k)
+    return BIG_BASES[k] + rng.integers(0, 1 << 16, size=(H, BIG_W),
+                                       dtype=np.int64)
 
 
 def _jax_reference(_inputs):
@@ -59,6 +73,11 @@ def _jax_reference(_inputs):
     it = jpr.sharded_escape_render(p, STATS_W, H, STATS_BUDGET, mesh)
     stats = jpr.sharded_stats(it, mesh)
     out["stats"] = np.asarray([int(stats[k]) for k in ("min", "max", "sum")])
+    for k in range(len(BIG_BASES)):
+        it = jpr._shard_rows(mesh, jax.numpy.asarray(_big_frame(k)))
+        stats = jpr.sharded_stats(it, mesh)
+        out[f"big{k}"] = np.asarray([int(stats[n]) for n in
+                                     ("min", "max", "sum")], np.uint64)
     return out
 
 
@@ -86,6 +105,14 @@ def _rank_cases(rank: int, world: int) -> dict:
         st = PR.sharded_stats(part, mesh)
         out[f"{M}_stats"] = np.asarray([st[k] for k in ("min", "max",
                                                         "sum")])
+        rows = H // M
+        for k in range(len(BIG_BASES)):
+            part = torch.from_numpy(
+                _big_frame(k)[rank * rows:(rank + 1) * rows])
+            st = PR.sharded_stats(part, mesh)
+            out[f"{M}_big{k}"] = np.asarray([st[n] for n in
+                                             ("min", "max", "sum")],
+                                            np.uint64)
     return out
 
 
@@ -148,6 +175,22 @@ def test_sharded_output_actually_sharded(runs, M):
         assert list(ranks[r][f"{M}_stats"]) == want
     assert want[1] == STATS_BUDGET
     assert list(jref["stats"]) == want
+
+
+@pytest.mark.parametrize("M", MESHES)
+@pytest.mark.parametrize("k", range(len(BIG_BASES)))
+def test_sharded_sum_past_2_63_is_the_uint64_total(runs, M, k):
+    """Slabs whose sum passes 2^63 (k = 0) and 2^64 (k = 1): every rank's
+    sum is the frame's total mod 2^64, in [0, 2^64), = the JAX package's
+    ``uint64`` sum, exactly; min and max as they were."""
+    ranks, jref = runs
+    frame = _big_frame(k)
+    total = sum(int(v) for v in frame.ravel())
+    assert total >= 1 << (63 + k)
+    want = [int(frame.min()), int(frame.max()), total % (1 << 64)]
+    assert [int(v) for v in jref[f"big{k}"]] == want
+    for r in range(M):
+        assert [int(v) for v in ranks[r][f"{M}_big{k}"]] == want
 
 
 def test_height_divisibility_error(host):
