@@ -85,7 +85,8 @@ flag-off routes (K10 under both flags at every size with K = 2 and 4,
 and with zsign against its tiled twin; each call's trace, taken in a
 child process, two launches and no host sync), (13) K12: every form that takes each size against the
 plain chunk and, bit for bit, against the per-step loop of K4 then K5
-(and K4-NR then K5-NR), timed in turns with it, then 2,048 steps of the
+(and K4-NR then K5-NR), timed in turns with it, both instances up to
+32,768 limbs (D = 2^16), then 2,048 steps of the
 orbit and of NR in 256-step chunks, the row carried between them, in
 both.  The kernels line takes K12's launches from the View #6 and View
 #30 device-orbit frames and the feature evaluator's two runs, K4/K5's
@@ -150,8 +151,11 @@ the orbit cache, the PNGs equal to a direct render) and the tray's
 poster mode on View 0 at 1024² in 128-row bands (K1 f64, equal to the
 whole frame), resumed with half its tiles deleted, (17) the sharded
 paths (``parallel/``): K20 (``csrc/sharded_tail.cu``, a rank's block of
-the sharded step's CRT/carry tail) against its plain version block by
-block at 16,384 limbs with M = 2 and 4 blocks, no collective, and timed;
+the sharded step's CRT/carry tail, from the reshard's receive buffer)
+against its plain version block by block at 16,384 limbs with M = 1, 2,
+4 and 8 blocks, no collective, and timed (a call pair through the public
+calls and through a workspace, each launch's device time from a CUDA
+graph);
 then this script's worker processes (``--parallel-rank``) as M = 4 ranks
 and, on a subgroup, M = 2, all on this card in a gloo group (collectives
 staged through host memory): the sharded forward, inverse and 3-way
@@ -162,8 +166,9 @@ bands (K1) and its all_reduce statistics, View #6 HDR and PO at 64² (K6)
 and RC PO 16² (K3, pinned) against the one-card frames, the sharded
 multiply and step timed, and their collectives timed apart (the device
 synchronised around each, in a second run); with two cards or more the
-same on an NCCL group, one rank a card.  K20's launches are the sharded
-session's.
+same on an NCCL group, one rank a card; on each rank the host's waits on
+the card outside the collectives, none allowed in the reshard and the
+tail.  K20's launches are the sharded session's.
 Exits non-zero if any
 phase fails, and at once when no CUDA device is present.  The next-to-last lines are the card's
 ``nvidia-smi`` name and power limit and a JSON object of the kernels;
@@ -333,7 +338,7 @@ FLAG_SESSION_BUDGET = 2048
 # at its main path's size (View #6 and its NR evaluation at 32 limbs,
 # View #30 and its NR evaluation at 16,384)
 CHUNK_ORBIT_LIMBS = (32, 128, 256, 512, 2048, 16384, WIDE_SESSION_LIMBS)
-CHUNK_NR_LIMBS = (16, 32, 128, 256, 2048, 16384)
+CHUNK_NR_LIMBS = (16, 32, 128, 256, 2048, 16384, WIDE_SESSION_LIMBS)
 CHUNK_STEPS = 256
 CHUNK_TWIN_STEPS = 3
 CHUNK_SESSION = 2048
@@ -2675,6 +2680,11 @@ def phase_chunk(device, stats):
                     s.signs, s.x, s.y, s.dx, s.dy, scx, cxt, scy, cyt, spec,
                     CHUNK_STEPS), device, warm=False)
                 record(key, limbs, ms[form], pms, n, D, 4)
+            if form == "grid" and limbs >= CHUNK_MAIN[key]:
+                # NR's grid form at 16,384 limbs and at D = 2^16
+                stats[key].setdefault("by_limbs", {})[limbs] = dict(
+                    ms=ms[form], loop_ms=ms["steps"],
+                    **chunk_bound(n, D, 4))
 
     # CHUNK_SESSION steps as a session runs them, chunk after chunk with
     # the row (the NR signs) carried: the default form against the
@@ -3659,6 +3669,9 @@ PAR_ESCAPE = (0, 512, 256)          # View 0 at 512², budget 256 (K1, f64)
 PAR_PO, PAR_RC_PO = 64, 16          # View #6 PO (K6) and RC PO (K3) sizes
 PAR_REPS = 5
 PAR_TIMED_STEPS = 64                # the sharded step's timed chunk
+K20_MESHES = (1, 2, 4, 8)            # K20's blocks held to their twins
+K20_GRAPH_LAUNCHES = 256             # launches a CUDA graph, device time
+PAR_WAIT_STEPS = 4                   # the steps whose host waits count
 
 
 def par_inputs(device):
@@ -3739,19 +3752,45 @@ def par_inputs(device):
     return out
 
 
+def k20_graph_us(fn, device, launches: int = K20_GRAPH_LAUNCHES) -> float:
+    """Device µs a launch of ``fn`` (one K20 launch), from a CUDA graph of
+    ``launches`` back-to-back launches replayed between two CUDA events:
+    the kernels' time without the host's call overhead."""
+    import torch
+    fn()
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches * 1e3
+
+
 def par_k20(device, stats):
     """K20 against its plain version block by block on one card, with no
     collective: View #30's first step at 16,384 limbs (its residue rows
-    from the one-device transforms, K8), cut into M blocks with their
-    halo, launch A's outputs, then the words stacked as the all_gather
-    would, launch B's; the blocks' digits against the whole-vector tail
-    (K10's twin).  Timed at M = 2 (a rank's block of 32,768 digits)."""
+    from the one-device transforms, K8), packed for M = 1, 2, 4 and 8
+    ranks into the receive buffers the reshard's all_to_all would give
+    each rank (``orbit_sharded.receive_buffers``), launch A's outputs on
+    each, then the words stacked as the all_gather would, launch B's; the
+    blocks' digits and signs against the whole-vector tail (K10's twin).
+    Timed at M = 2 on rank 0's block of 32,768 digits, the words fixed:
+    the call pair through the public wrappers and through a workspace
+    (the sharded step's own calls), and each launch's device time."""
     import torch
 
     from fractalshark_tpu_torch.ops.bignum import fixedpoint as FP
     from fractalshark_tpu_torch.ops.bignum import ntt as N
     from fractalshark_tpu_torch.ops.bignum import ntt_pallas as NP
     from fractalshark_tpu_torch.parallel import orbit_sharded as OS
+    from fractalshark_tpu_torch.parallel.mesh import Mesh
 
     st = stats["sharded_tail"]
     cx, cy, _ = view30_center()
@@ -3776,23 +3815,28 @@ def par_k20(device, stats):
                                 NP.tail_cfg((scx, scy, scx * scy, 0), False))
     H = OS.HALO
     pad = torch.nn.functional.pad
-    ip, cp, rp = pad(inv, (H, 0)), pad(cadd, (H, 0)), pad(rnd, (H, 0))
-    for M in (2, 4):
+    cp, rp = pad(cadd, (H, 0)), pad(rnd, (H, 0))
+
+    def planes(r, lloc):
+        return (cp[:, r * lloc:r * lloc + H + lloc].contiguous(),
+                rp[r * lloc:r * lloc + H + lloc].contiguous())
+
+    for M in K20_MESHES:
         lloc = nf // M
-        blocks = [(ip[..., r * lloc:r * lloc + H + lloc].contiguous(),
-                   cp[:, r * lloc:r * lloc + H + lloc].contiguous(),
-                   rp[r * lloc:r * lloc + H + lloc].contiguous())
-                  for r in range(M)]
-        ka = [OS.tail_a(*b, cfg, zsign) for b in blocks]
-        pa = [OS.tail_a_plain(*b, cfg, zsign) for b in blocks]
+        lays, recvs = OS.receive_buffers(inv, M)
+        pa = [OS.tail_a_plain(recvs[r], *planes(r, lloc), cfg, lays[r],
+                              zsign) for r in range(M)]
+        ka = [OS.tail_a(recvs[r], *planes(r, lloc), cfg, lays[r], zsign)
+              for r in range(M)]
         for r in range(M):
-            for i, what in enumerate(("digits", "segment words", "words")):
+            for i, what in enumerate(("digits", "prefix words", "words")):
                 compare(f"sharded_tail A M={M} block {r} {what}", ka[r][i],
                         pa[r][i], st)
         words = torch.stack([a[2] for a in ka])
-        kb = [OS.tail_b(a[0], a[1], words, r) for r, a in enumerate(ka)]
         pb = [OS.tail_b_plain(a[0], a[1], words, r)
               for r, a in enumerate(pa)]
+        kb = [OS.tail_b(a[0], a[1], words, lays[r])
+              for r, a in enumerate(ka)]
         for r in range(M):
             compare(f"sharded_tail B M={M} block {r} digits", kb[r][0],
                     pb[r][0], st)
@@ -3804,29 +3848,85 @@ def par_k20(device, stats):
                 whole[1], st)
     # timed: rank 0's block at M = 2, launch A then B, the words fixed
     lloc = nf // 2
-    b0 = (ip[..., :H + lloc].contiguous(), cp[:, :H + lloc].contiguous(),
-          rp[:H + lloc].contiguous())
-    a0 = OS.tail_a(*b0, cfg, zsign)
-    words = torch.stack([a0[2], OS.tail_a(
-        ip[..., lloc:].contiguous(), cp[:, lloc:].contiguous(),
-        rp[lloc:].contiguous(), cfg, zsign)[2]])
+    lays, recvs = OS.receive_buffers(inv, 2)
+    b0 = (recvs[0], *planes(0, lloc))
+    words = torch.stack([OS.tail_a(recvs[r], *planes(r, lloc), cfg,
+                                   lays[r], zsign)[2] for r in range(2)])
 
-    def step():
-        a = OS.tail_a(*b0, cfg, zsign)
-        return OS.tail_b(a[0], a[1], words, 0)
+    def public():
+        a = OS.tail_a(*b0, cfg, lays[0], zsign)
+        return OS.tail_b(a[0], a[1], words, lays[0])
 
     def plain():
-        a = OS.tail_a_plain(*b0, cfg, zsign)
+        a = OS.tail_a_plain(*b0, cfg, lays[0], zsign)
         return OS.tail_b_plain(a[0], a[1], words, 0)
 
-    _, ms = timed(step, device, 50)
+    ws = OS.Workspace(spec, Mesh(None, 2, 0, device))
+    ws.bind(b0[1:], cfg)
+    ws.recv.copy_(recvs[0])
+    ws.gathered.copy_(words)
+
+    def path():
+        ws.launch_a(zsign)
+        ws.launch_b()
+
+    path()
+    for got, want in zip((ws.dig, ws.sgn), public()):
+        compare("sharded_tail workspace vs the public calls", got, want, st)
+    _, ms = timed(public, device, 50)
+    _, ws_ms = timed(path, device, 50)
     _, pms = timed(plain, device, warm=False)
-    n_bytes = nbytes(*b0) + 2 * nbytes(a0[0], a0[1]) + nbytes(a0[0]) + \
-        nbytes(words) + 8
+    a_us = k20_graph_us(lambda: ws.launch_a(zsign), device)
+    b_us = k20_graph_us(ws.launch_b, device)
+    n_bytes = nbytes(*b0, words) + 4 * 2 * lloc + 8
     b = bound(n_bytes, 40.0 * 2 * lloc, I32_OPS_PER_S)
     log(f"  sharded_tail (A + B) on a rank's block of {lloc} digits: "
-        f"{ms:.4f} ms, plain {pms:.3f} ms")
-    st.update(ms=ms, plain_ms=pms, **b)
+        f"{ms:.4f} ms a call pair through the public calls, {ws_ms:.4f} "
+        f"through the workspace; device {a_us:.2f} us (A) and {b_us:.2f} "
+        f"us (B) a launch ({K20_GRAPH_LAUNCHES} in a CUDA graph); plain "
+        f"{pms:.3f} ms; bound {b['bound_ms']:.5f} ms ({n_bytes} bytes)")
+    st.update(ms=ws_ms, public_ms=ms, device_us=(a_us, b_us), plain_ms=pms,
+              **b)
+
+
+def par_host_waits(fn) -> list:
+    """The host's waits on the card while ``fn`` runs, outside the mesh's
+    collectives: the warnings of ``torch.cuda.set_sync_debug_mode`` that
+    name a synchronizing operation (a pageable host-to-device copy, a read
+    back, a synchronise), with the mode off inside each collective (gloo
+    stages through the host)."""
+    import warnings
+
+    import torch
+
+    from fractalshark_tpu_torch.parallel import mesh as PM
+    names = ("all_gather", "all_to_all", "all_reduce")
+    saved = {n: getattr(PM, n) for n in names}
+
+    def quiet(coll):
+        def call(*a, **k):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return coll(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(1)
+        return call
+
+    for n in names:
+        setattr(PM, n, quiet(saved[n]))
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode(1)
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        for n in names:
+            setattr(PM, n, saved[n])
+    return [str(w.message).splitlines()[0] for w in seen
+            if "called a synchronizing" in str(w.message)]
 
 
 def par_worker(argv) -> int:
@@ -3850,6 +3950,7 @@ def par_worker(argv) -> int:
         from fractalshark_tpu_torch.ops.bignum import ntt as N
         from fractalshark_tpu_torch.ops.bignum import orbit as O
         from fractalshark_tpu_torch.parallel import ntt_sharded as NS
+        from fractalshark_tpu_torch.parallel import orbit_sharded as OS
         from fractalshark_tpu_torch.parallel import render as PR
         from fractalshark_tpu_torch.parallel import stream_render as SR
 
@@ -3943,6 +4044,21 @@ def par_worker(argv) -> int:
             scy, cyd = FP.hp_to_digits(cy, spec)
             state = O.OrbitState(scx, cxd, scy, cyd, device)
             cxt, cyt = state.x.clone(), state.y.clone()
+            # the host's waits on the card outside the collectives, in the
+            # reshard and the tail (the workspace's step) and in a chunk
+            ws = OS._session(spec, mesh, scx, scy, cxt, cyt)
+            inv = OS.inverse_block(cxt, cyt, spec, mesh)
+            zsign = torch.tensor([scx, scy], dtype=torch.int32,
+                                 device=device)
+            waits = par_host_waits(lambda: [ws.step(inv, zsign, mesh)
+                                            for _ in range(PAR_WAIT_STEPS)])
+            if waits:
+                raise AssertionError(f"{tag} the reshard and the tail wait "
+                                     f"on the card: {waits}")
+            out[f"{M}_chunk_waits"] = par_host_waits(
+                lambda: O.orbit_chunk(state, scx, cxt, scy, cyt, spec,
+                                      PAR_WAIT_STEPS, mesh=mesh))
+            state = O.OrbitState(scx, cxd, scy, cyd, device)
 
             def chunk_us():
                 torch.cuda.synchronize(device)
@@ -4141,8 +4257,11 @@ def phase_parallel(device, stats):
                     f"{o[f'{M}_step_synced_us']:.1f}, of which collectives "
                     f"{o[f'{M}_coll_us']:.1f}; K12 "
                     f"{inp['k12_us']:.2f}) at {PAR_LIMBS} limbs; session "
-                    f"launches {o[f'{M}_launches']}; cases "
-                    f"{o[f'{M}_s']:.1f} s")
+                    f"launches {o[f'{M}_launches']}; host waits outside "
+                    f"the collectives: 0 in the reshard and the tail, "
+                    f"{len(o[f'{M}_chunk_waits'])} in a {PAR_WAIT_STEPS}-"
+                    f"step chunk {sorted(set(o[f'{M}_chunk_waits']))}; "
+                    f"cases {o[f'{M}_s']:.1f} s")
             log(f"  {backend}: {world} ranks in "
                 f"{time.perf_counter() - t0:.1f} s")
             if launches is None:
@@ -4227,7 +4346,8 @@ def main() -> int:
     log("K4/K5 by limbs: " + json.dumps(
         {k: stats[k]["by_limbs"] for k in ("ntt_orbit", "orbit_tail")}))
     log(f"K12 grid by limbs, {CHUNK_STEPS}-step chunks: " + json.dumps(
-        stats["orbit_chunk_grid"]["by_limbs"]))
+        {k: stats[k]["by_limbs"] for k in ("orbit_chunk_grid",
+                                            "nr_chunk_grid")}))
     log("K4-NR/K5-NR by limbs: " + json.dumps(
         {k: stats[k]["by_limbs"] for k in ("ntt_nr", "nr_tail")}))
     log("NR chunk us/step: " + json.dumps(

@@ -30,7 +30,7 @@
 // lies in (-2^48, 2^48) and x*y in [0, 2^48), far inside p1*p2/2 ~ 2^60.7,
 // and n >= 2D means no coefficient wraps.  The CRT value, read as negative
 // above p1*p2/2, is therefore the exact integer.  For NR, u and v are sums
-// of two such products: |u|, |v| < 2D*2^32 < 2^49 for D < 2^16.
+// of two such products: |u|, |v| < 2D*2^32 <= 2^49 for D <= 2^16.
 //
 // Layout: a four-step NTT of n = n1*n2 points, a[r*n2 + c] with
 // n1 = 2^floor(m/2) rows and n2 = 2^ceil(m/2) columns:
@@ -141,12 +141,12 @@ extern "C" int fs_ntt_orbit(const void *x, const void *y, void *coef,
 
 // K4-NR.  x, y, dx, dy: uint32 [D]; signs: int32 [4] (sx, sy, sdx, sdy);
 // coef: int64 [4][n]; work: uint32 [8n] scratch; tables as above.
-// n = 2^log2n >= 2D, 2 <= n <= 2^17, D < 2^16.
+// n = 2^log2n >= 2D, 2 <= n <= 2^17, D <= 2^16.
 extern "C" int fs_ntt_nr(const void *x, const void *y, const void *dx,
                          const void *dy, const void *signs, void *coef,
                          void *work, const void *tables, int D, int log2n,
                          void *stream) {
-  if (log2n < 2 || log2n > 17 || D < 1 || D >= (1 << 16) ||
+  if (log2n < 2 || log2n > 17 || D < 1 || D > (1 << 16) ||
       2 * D > (1 << log2n))
     return static_cast<int>(cudaErrorInvalidValue);
   const Values in = {{static_cast<const uint32_t *>(x),

@@ -76,13 +76,17 @@
 //     The digit sums are coef[0] + scx*cx_j + 2^15 and +-2*coef[1] +
 //     scy*cy_j + 2^15, so |acc| < 2D*2^32 + 2^17 < 2^50 for D <= 2^16
 //     (32,768 limbs, n = 2^17);
-//   NR (V = 4): u = x*dx - y*dy and v = x*dy + y*dx are sums of 2D
-//     products, |2u| < 2D*2^33, so |acc| < D*2^34 + 2^32 < 2^50 needs
-//     D < 2^16 (16,384 limbs).
-// K5's carries need |acc| < 2^50: segments of S >= 4 digits ripple their
-// own sums (|carry| < 2^34), absorb the carry of the segment below, and
-// then carry -1, 0 or 1, as a map of their carry-in; a scan of the maps
-// gives every carry-in at once.  n <= 2^17 is K4-NR's cap and the grid
+//   NR (V = 4): u = x*dx - y*dy and v = x*dy + y*dx are sums of at most
+//     2D products of two digits, so |2u|, |2v| <= 4D(2^16 - 1)^2, which at
+//     D = 2^16 is 2^50 - 2^35 + 2^18; with the addends (c, the +1 of dz/dc
+//     at digit 2F, the round bit: below 2^17) |acc| < 2^50 - 2^34 for D
+//     <= 2^16 (32,768 limbs, n = 2^17), and |u| < 2^49 keeps the CRT exact.
+// K5's carries (orbit_tail.cu) are exact for any |acc| < 2^51, so both
+// instances keep a margin of 2x: segments of S >= 4 digits ripple their
+// own sums (|carry| <= 2^35 + 1, int64), absorb the carry of the segment
+// below (after three digits its carry is -1, 0 or 1), and then carry -1,
+// 0 or 1, as a map of their carry-in; a scan of the maps gives every
+// carry-in at once.  n <= 2^17 is K4-NR's cap and the grid
 // form's W3 scan of n/1,024 block aggregates in one 256-thread block.  At
 // n = 2^17 every index stays below 2^21 (work [2Vn], coef [Vn], scratch
 // [7n] words), the digit positions below 2^17 in int32, the shadow row's
@@ -600,7 +604,7 @@ int launch_grid(Chunk c, cudaStream_t st) {
 }
 
 // the most digits an instance takes (the exactness argument above)
-constexpr int max_digits(int V) { return V == 2 ? 1 << 16 : (1 << 16) - 1; }
+constexpr int max_digits(int) { return 1 << 16; }
 
 template <int V>
 int chunk(Chunk c, int grid, cudaStream_t st) {
@@ -653,7 +657,7 @@ extern "C" int fs_orbit_chunk_k12(void *x, void *y, void *rows,
 // K12, the NR instance: `steps` NR steps in place on x, y, dx, dy (uint32
 // [D]) and their signs (int32 [4] on the card), fs_nr_chunk's outputs.
 // grid as above, with work uint32 [8n], coef int64 [4n] and scratch
-// uint32 [7n]; 16 <= D < 2^16.
+// uint32 [7n]; 16 <= D <= 2^16.
 extern "C" int fs_nr_chunk_k12(void *x, void *y, void *dx, void *dy,
                                void *signs, const void *cx, const void *cy,
                                int scx, int scy, void *work, void *coef,

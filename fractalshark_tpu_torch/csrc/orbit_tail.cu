@@ -46,9 +46,17 @@
 //   dy' : acc = 2*coef[3] + h
 // and it writes the four signs to a device row, with no shadow row.  Its
 // digits are F..F+D-1 of each magnitude as for z, so |dz/dc| wraps modulo
-// 2^32, as in the reference.  Bound: |coef| < 2D*2^32 for u and v, so
-// |acc| < D*2^34 + 2^32 < 2^50 for D < 2^16 (32,768 limbs), which the
-// segment carries above need; the wrapper refuses larger D.
+// 2^32, as in the reference.  Bound: a coefficient of u or v is a sum of
+// at most 2D products of two digits, so |2u|, |2v| <= 4D(2^16 - 1)^2 =
+// 2^50 - 2^35 + 2^18 at D = 2^16; the addends (c, the +1, the round bit)
+// add less than 2^17, so |acc| < 2^50 - 2^34 for D <= 2^16 (32,768 limbs,
+// n = 2^17, K4-NR's cap).  The carry steps above are exact for any |acc|
+// < 2^51: the ripple carry |C_s| <= 2^35 + 1 stays in int64; absorbed
+// into a segment, it falls below 2^19 + 2, then 10, then into {-1, 0, 1}
+// after the third digit, so S >= 4 holds; the maps and positions are
+// int32 or 2-bit fields (positions below 2^17).  The plain twin's four
+// split-and-shift rounds (fixedpoint._carry_resolve) take any |acc| <
+// 2^51 to [-1, 2^16]: bounds 2^35, 2^19 + 2^16, 2^16 + 8, then [-1, 2^16].
 //
 // Two forms of the same steps, chosen by size:
 //   narrow (L < 16,384, below 4,096 limbs): one launch, one block of 1,024
@@ -392,12 +400,12 @@ extern "C" int fs_orbit_tail(const void *coef, const void *row_in,
 
 // K5-NR.  coef: int64 [4][n]; signs: int32 [4] out (sx, sy, sdx, sdy);
 // cx, cy, nx, ny, ndx, ndy: uint32 [D]; scratch: uint32 [7n].
-// n = 2^log2n >= 2D, 16 <= D < 2^16.
+// n = 2^log2n >= 2D, 16 <= D <= 2^16.
 extern "C" int fs_nr_tail(const void *coef, void *signs, const void *cx,
                           const void *cy, int scx, int scy, void *nx,
                           void *ny, void *ndx, void *ndy, void *scratch,
                           int D, int log2n, void *stream) {
-  if (D < 16 || D >= (1 << 16) || log2n > 17 || (1 << log2n) < 2 * D)
+  if (D < 16 || D > (1 << 16) || log2n > 17 || (1 << log2n) < 2 * D)
     return static_cast<int>(cudaErrorInvalidValue);
   const Tail tl = {static_cast<const int64_t *>(coef),
                    nullptr,

@@ -173,10 +173,11 @@ _SIGNATURES = {
     # | stream
     "fs_fused_tail": [_P] * 9 + [_I32] * 5 + [_P],
     "fs_fused_tail_state_bytes": [],
-    # sharded_tail_a: inv cadd rnd cfg zsign dig fz words | K Lloc | stream
-    "fs_sharded_tail_a": [_P] * 8 + [_I32, _I32, _P],
-    # sharded_tail_b: dig fz words sgn | K Lloc ranks rank | stream
-    "fs_sharded_tail_b": [_P] * 4 + [_I32] * 4 + [_P],
+    # sharded_tail_a / _b: the ShardArgs struct | stream
+    # (parallel/orbit_sharded.py _Args); the look-back state's words
+    "fs_sharded_tail_a": [_P, _P],
+    "fs_sharded_tail_b": [_P, _P],
+    "fs_sharded_tail_state_words": [],
     # ntt_products_threads: V log2n (K9's block size)
     "fs_ntt_products_threads": [_I32, _I32],
     # iterate_full: x y | din | cadd rnd cfg zsign dig sgn shw scratch

@@ -72,9 +72,10 @@ WINDOW = 4              # top digits in a shadow row (64 bits ≥ f64)
 ROW = 12
 # the NR state's sign row: sx, sy, sdx, sdy
 NR_ROW = 4
-# K5-NR's carries are exact while every digit sum |2u| < 2·2D·2^32 stays
-# below 2^50 (``csrc/orbit_tail.cu``), so D < 2^16 (32,768 limbs)
-NR_MAX_DIGITS = (1 << 16) - 1
+# K5-NR's digit sums: |2u|, |2v| ≤ 4D·(2^16 − 1)^2 < 2^50 − 2^34 up to
+# D = 2^16 (32,768 limbs, nfft 2^17, K4-NR's cap), and the carries are
+# exact for any |acc| < 2^51 (``csrc/orbit_tail.cu``)
+NR_MAX_DIGITS = 1 << 16
 
 
 @dataclass(frozen=True)
@@ -572,9 +573,9 @@ def iterate_z(sx, x: torch.Tensor, sy, y: torch.Tensor, scx: int,
 
 def check_nr(spec: FixedSpec) -> None:
     if not 16 <= spec.digits <= NR_MAX_DIGITS:
-        raise ValueError(f"{spec}: the NR step needs 16 ≤ D < 2^16 digits "
-                         f"(8 to 16,384 limbs; K5-NR's carries are exact "
-                         f"only while |2u| < 2^50)")
+        raise ValueError(f"{spec}: the NR step needs 16 ≤ D ≤ 2^16 digits "
+                         f"(8 to 32,768 limbs; past them nfft > 2^17, "
+                         f"K4-NR's cap)")
 
 
 def _check_signs(signs: torch.Tensor, like: torch.Tensor) -> None:

@@ -31,9 +31,9 @@ K12 has two forms, chosen by the transform size (``chunk_form``):
 the block form, one CTA with the state in shared memory, up to
 ``BLOCK_MAX_NFFT``; the grid form, one cooperative launch with K4's
 passes and K5's wide tail spread over the card between grid-wide
-barriers, above it, up to the orbit's 32,768 limbs (D = 2^16 digits,
-nfft = 2^17; NR's cap is 16,384).  Sizes K12 does not take (the orbit
-past D = 2^16 or nfft = 2^17, 65,536 limbs and up) keep the per-step loop
+barriers, above it, up to 32,768 limbs (D = 2^16 digits, nfft = 2^17),
+the orbit and NR alike.  Sizes K12 does not take (the orbit past D = 2^16
+or nfft = 2^17, 65,536 limbs and up) keep the per-step loop
 of K4 then K5 (``fs_orbit_chunk``, one C call per chunk), which is also
 the yardstick of ``chip_smoke.py`` and ``tools/time_orbit32.py``.
 """
@@ -157,14 +157,14 @@ def _fused_route(spec: FP.FixedSpec, route: str) -> tuple[int, list]:
 BLOCK_MAX_NFFT = 512
 # The C entry point's limits, mirrored so that a size is refused before
 # any launch (csrc/orbit_chunk.cu: max_digits, kMaxSmem, kChunkMaxLog2,
-# kGridMinLog2 and the checks of chunk()): the carries are exact while
-# |acc| < 2^50, which the orbit keeps up to D = 2^16 digits (32,768 limbs)
-# and NR only below it; nfft <= 2^17 is K4-NR's cap and the grid form's
-# one-block scan of the tail's block aggregates; a block may opt in to
-# SMEM_PER_BLOCK bytes of shared memory.  The cuda-marked test in
+# kGridMinLog2 and the checks of chunk()): the carries are exact for any
+# |acc| < 2^51, and the digit sums stay below 2^50 up to D = 2^16 digits
+# (32,768 limbs), for the orbit and NR alike; nfft <= 2^17 is K4-NR's cap
+# and the grid form's one-block scan of the tail's block aggregates; a
+# block may opt in to SMEM_PER_BLOCK bytes of shared memory.  The cuda-marked test in
 # tests/test_torch_orbit_chunk.py holds these and block_smem_bytes to the
 # C's own reckoning (fs_k12_block_bytes) and refusals.
-K12_MAX_DIGITS = {2: 1 << 16, 4: (1 << 16) - 1}
+K12_MAX_DIGITS = {2: 1 << 16, 4: 1 << 16}
 K12_MAX_NFFT = 1 << 17
 K12_GRID_MIN_NFFT = 1 << 10
 SMEM_PER_BLOCK = 232_448
@@ -181,9 +181,9 @@ def block_smem_bytes(nfft: int, digits: int, values: int) -> int:
 def chunk_form(spec: FP.FixedSpec, values: int = 2) -> str:
     """The default route's form of a chunk at ``spec``'s size (``values``:
     2 for the orbit, 4 for NR): K12's "block" or "grid", or "steps" (K4
-    then K5 per step, one C call) for a size K12 does not take: the orbit
-    past D = 2^16 digits or nfft = 2^17, i.e. 65,536 limbs and up, which
-    no view needs.  NR past its D < 2^16 is refused whatever the form
+    then K5 per step, one C call) for a size K12 does not take: past D =
+    2^16 digits or nfft = 2^17, i.e. 65,536 limbs and up, which no view
+    needs.  NR there is refused whatever the form
     (``fixedpoint.check_nr``)."""
     if spec.digits > K12_MAX_DIGITS[values] or spec.nfft > K12_MAX_NFFT:
         return "steps"

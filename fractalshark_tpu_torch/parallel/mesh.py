@@ -76,24 +76,41 @@ def _host(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     return t.cpu() if mesh.staged else t
 
 
-def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """[M, *t.shape]: every rank's ``t``, in rank order, on every rank."""
+def _into(res: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
+    if out is None:
+        return res
+    return out.copy_(res)
+
+
+def all_gather(mesh: Mesh, t: torch.Tensor,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """[M, *t.shape]: every rank's ``t``, in rank order, on every rank;
+    into ``out`` (contiguous, on the mesh's device) when given, which
+    NCCL writes in place."""
     src = _host(mesh, t)
+    if out is not None and not mesh.staged and \
+            dist.get_backend(mesh.group) == "nccl":
+        dist.all_gather_into_tensor(out, src, group=mesh.group)
+        return out
     parts = [torch.empty_like(src) for _ in range(mesh.size)]
     dist.all_gather(parts, src, group=mesh.group)
-    return torch.stack(parts).to(mesh.device)
+    return _into(torch.stack(parts).to(mesh.device), out)
 
 
-def all_to_all(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+def all_to_all(mesh: Mesh, t: torch.Tensor,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """t [M, ...]: block s goes to rank s; returns [M, ...] with block k
-    from rank k."""
+    from rank k, into ``out`` (contiguous, t's shape) when given."""
     if t.shape[0] != mesh.size:
         raise ValueError(f"all_to_all takes [{mesh.size}, ...] blocks, not "
                          f"{tuple(t.shape)}")
     src = _host(mesh, t)
-    out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=mesh.group)
-    return out.to(mesh.device)
+    if out is not None and not mesh.staged:
+        dist.all_to_all_single(out, src, group=mesh.group)
+        return out
+    res = torch.empty_like(src)
+    dist.all_to_all_single(res, src, group=mesh.group)
+    return _into(res.to(mesh.device), out)
 
 
 def all_reduce(mesh: Mesh, t: torch.Tensor, op) -> torch.Tensor:

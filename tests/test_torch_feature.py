@@ -278,14 +278,18 @@ def test_nr_chunk_wraps_like_the_oracle():
 
 
 def test_nr_wrappers_reject_sizes_past_the_bound():
-    spec = FP.FixedSpec(digits=1 << 16, nfft=1 << 17)
+    """The NR step takes D = 2^16 (32,768 limbs, View #32's evaluator
+    size) and refuses D = 2^16 + 1, past K4-NR's nfft 2^17."""
+    FP.check_nr(FP.FixedSpec(digits=1 << 16, nfft=1 << 17))
+    spec = FP.FixedSpec(digits=(1 << 16) + 1, nfft=1 << 18)
     v = torch.zeros(spec.digits, dtype=torch.int32)
-    with pytest.raises(ValueError, match="2\\^50"):
+    with pytest.raises(ValueError, match="NR step needs"):
         FP.nr_products(v, v, v, v, torch.ones(4, dtype=torch.int32), spec)
-    with pytest.raises(ValueError, match="2\\^50"):
+    with pytest.raises(ValueError, match="NR step needs"):
         FP.nr_tail(torch.zeros(4, spec.nfft, dtype=torch.int64), 1, v, 1, v,
                    spec)
     assert O.nr_limbs(2 ** 19 - 80) == 16384
+    assert O.nr_limbs(811_541) == 32768
 
 
 # ----------------------------------------------------------- evaluator

@@ -242,8 +242,8 @@ def test_nr_chunk_plain_equals_wrapped_recurrence(limbs):
 # ----------------------------------------------------------- the forms
 
 
-# the smoke's size classes and the form the route gives the orbit (NR the
-# same up to 16,384 limbs; at 32,768, D = 2^16, K12 takes the orbit alone)
+# the smoke's size classes and the form the route gives the orbit and NR
+# (at 32,768 limbs, D = 2^16, K12's grid form takes both)
 FORMS = [(8, "block"), (16, "block"), (32, "block"), (128, "block"),
          (256, "grid"), (512, "grid"), (1024, "grid"), (2048, "grid"),
          (16384, "grid"), (32768, "grid")]
@@ -252,22 +252,15 @@ FORMS = [(8, "block"), (16, "block"), (32, "block"), (128, "block"),
 @pytest.mark.parametrize("limbs,form", FORMS)
 def test_chunk_form_by_size(limbs, form):
     """The form by transform size, the same for the orbit (2 values) and
-    NR (4 values) while D < 2^16, and one that takes the size for both;
-    at D = 2^16 (32,768 limbs) the orbit's grid form, while NR's form is
-    "steps" and both K12 and the NR step refuse it (|acc| < 2^50 needs D
-    < 2^16 there)."""
+    NR (4 values), and one that takes the size for both, up to D = 2^16
+    (32,768 limbs: the grid form for both, and the NR step takes it,
+    its digit sums below 2^50)."""
     spec = FP.FixedSpec.for_limbs(limbs)
     assert O.chunk_form(spec) == form
+    assert O.chunk_form(spec, 4) == form
     O.check_chunk(spec, form, 2)
-    if spec.digits <= O.K12_MAX_DIGITS[4]:
-        assert O.chunk_form(spec, 4) == form
-        O.check_chunk(spec, form, 4)
-    else:
-        assert O.chunk_form(spec, 4) == "steps"
-        with pytest.raises(ValueError, match="K12 takes"):
-            O.check_chunk(spec, form, 4)
-        with pytest.raises(ValueError, match="NR step needs"):
-            FP.check_nr(spec)
+    O.check_chunk(spec, form, 4)
+    FP.check_nr(spec)
 
 
 @pytest.mark.parametrize("values,largest", [(2, 4096), (4, 2048)])
@@ -292,24 +285,28 @@ def test_block_form_shared_memory_at_its_cap(values, largest):
 
 
 def test_chunk_wrappers_refuse_sizes_past_the_bounds():
-    """D <= 2^16 for the orbit and D < 2^16 for NR (the carries' |acc| <
-    2^50), nfft <= 2^17 (K4-NR's cap); the refusal comes before any
-    launch, so it shows on CPU tensors.  The default route leaves K12
-    only for the orbit past D = 2^16 or nfft = 2^17 (65,536 limbs and up),
-    to the per-step loop."""
+    """D <= 2^16 for the orbit and NR (their digit sums below 2^50),
+    nfft <= 2^17 (K4-NR's cap); the refusal comes before any launch, so
+    it shows on CPU tensors.  The default route leaves K12 only past D =
+    2^16 or nfft = 2^17 (65,536 limbs and up): the orbit to the per-step
+    loop, while the NR step refuses it."""
     wide = FP.FixedSpec(digits=1 << 16, nfft=1 << 17)
+    past = FP.FixedSpec(digits=(1 << 16) + 1, nfft=1 << 18)
     long = FP.FixedSpec(digits=1 << 10, nfft=1 << 18)
-    assert O.chunk_form(wide) == "grid"
-    O.check_chunk(wide, "grid", 2)
-    assert O.chunk_form(wide, 4) == "steps"
+    for values in (2, 4):
+        assert O.chunk_form(wide, values) == "grid"
+        O.check_chunk(wide, "grid", values)
+    FP.check_nr(wide)
+    for spec in (past, FP.FixedSpec.for_limbs(65536)):
+        assert O.chunk_form(spec) == O.chunk_form(spec, 4) == "steps"
+        with pytest.raises(ValueError, match="NR step needs"):
+            FP.check_nr(spec)
     assert O.chunk_form(long) == O.chunk_form(long, 4) == "steps"
-    assert O.chunk_form(FP.FixedSpec.for_limbs(65536)) == "steps"
     for form in ("block", "grid"):
-        with pytest.raises(ValueError, match="K12 takes"):
-            O.check_chunk(wide, form, 4)
         for values in (2, 4):
-            with pytest.raises(ValueError, match="K12 takes"):
-                O.check_chunk(long, form, values)
+            for spec in (long, past):
+                with pytest.raises(ValueError, match="K12 takes"):
+                    O.check_chunk(spec, form, values)
     with pytest.raises(ValueError, match="shared memory"):
         O.check_chunk(wide, "block", 2)
     with pytest.raises(ValueError, match="shared memory"):
@@ -321,10 +318,12 @@ def test_chunk_wrappers_refuse_sizes_past_the_bounds():
     rows = torch.zeros(2, FP.ROW, dtype=torch.int32)
     with pytest.raises(ValueError, match="K12 takes"):
         O.launch_orbit_chunk(state, rows, 1, v, 1, v, long, 1, None, "grid")
-    v = torch.zeros(wide.digits, dtype=torch.int32)
+    v = torch.zeros(past.digits, dtype=torch.int32)
     nr = O.NRState((1, 1, 1, 1), v, v, v, v, "cpu")
     with pytest.raises(ValueError, match="K12 takes"):
-        O.launch_nr_chunk(nr, 1, v, 1, v, wide, 1, None, "grid")
+        O.launch_nr_chunk(nr, 1, v, 1, v, past, 1, None, "grid")
+    with pytest.raises(ValueError, match="NR step needs"):
+        O.orbit_nr_chunk(nr, 1, v, 1, v, past, 1)
 
 
 # ------------------------------------------- 32,768 limbs (D = 2^16)
@@ -391,6 +390,119 @@ def test_orbit_chunk_plain_at_32768_limbs_equals_jax(wide_plain, jax_wide):
     assert int(rows[WIDE_STEPS, 11]) == int(jax_wide["sy"])
     np.testing.assert_array_equal(x.numpy().astype(np.uint32), jax_wide["x"])
     np.testing.assert_array_equal(y.numpy().astype(np.uint32), jax_wide["y"])
+
+
+# ------------------------------------- NR at 32,768 limbs (D = 2^16)
+# One NR step at D = 2^16 (nfft 2^17): from View #32's centre at its
+# precision (811,541 bits, orbit.nr_limbs: 32,768 limbs) with z = c and
+# dz/dc = 1, the feature finder's start; and from every digit of x, y,
+# dx, dy and c at 0xFFFF with the signs that make u = x·dx + y·dy, which
+# drives |2u| to 4D·(2^16 − 1)^2 = 2^50 − 2^35 + 2^18, the digit sums'
+# bound.
+NR_WIDE_CASES = ("view32", "ffff")
+
+
+def _nr_wide_state(case: str):
+    """(spec, state list [sx, x, sy, y, sdx, dx, sdy, dy, scx, cx, scy,
+    cy] of numpy uint32 digits) of an NR_WIDE_CASES case."""
+    spec = FP.FixedSpec.for_limbs(WIDE_LIMBS)
+    D = spec.digits
+    if case == "ffff":
+        f = np.full(D, 0xFFFF, np.uint32)
+        return spec, [1, f, 1, f, 1, f, -1, f, 1, f, 1, f]
+    from fractalshark_tpu_torch.core.views import get_view_preset
+    ptz = get_view_preset(32).ptz
+    assert O.nr_limbs(ptz.pt_x.prec) == WIDE_LIMBS
+    scx, cxd = FP.hp_to_digits(ptz.pt_x, spec)
+    scy, cyd = FP.hp_to_digits(ptz.pt_y, spec)
+    one_s, one_d = FP.hp_to_digits(HighPrecision(1, prec=64), spec)
+    return spec, [scx, cxd, scy, cyd, one_s, one_d, 1,
+                  np.zeros(D, np.uint32), scx, cxd, scy, cyd]
+
+
+def _jax_nr_wide(inputs):
+    """The JAX package's iterate_z_nr, one step of each NR_WIDE_CASES
+    state (its digits and signs in ``inputs``), jitted: integer
+    arithmetic throughout, so the jit changes no bit, and it compiles in
+    a few seconds where the op-by-op first call takes most of a minute."""
+    import jax
+    import jax.numpy as jnp
+
+    from fractalshark_tpu.ops.bignum import fixedpoint as JFP
+    spec = JFP.FixedSpec.for_limbs(WIDE_LIMBS)
+    step = jax.jit(JFP.iterate_z_nr, static_argnames=("spec",))
+    out = {}
+    for case in NR_WIDE_CASES:
+        signs = inputs[f"{case}_signs"]
+        digits = inputs[f"{case}_digits"]
+        args = []
+        for k in range(6):
+            args += [jnp.int32(int(signs[k])), jnp.asarray(digits[k])]
+        st = step(*args, spec=spec)
+        for k in range(4):
+            out[f"{case}_s{k}"] = np.asarray(st[2 * k])
+            out[f"{case}_d{k}"] = np.asarray(st[2 * k + 1])
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_nr_wide(tmp_path_factory):
+    inputs = {}
+    for case in NR_WIDE_CASES:
+        _, st = _nr_wide_state(case)
+        inputs[f"{case}_signs"] = np.asarray(st[0::2], np.int32)
+        inputs[f"{case}_digits"] = np.stack(st[1::2]).astype(np.uint32)
+    return ref.run_jax_reference("test_torch_orbit_chunk", "_jax_nr_wide",
+                                 tmp_path_factory.mktemp("nr_wide"), inputs)
+
+
+@pytest.fixture(scope="module")
+def nr_wide_plain():
+    """{case: (spec, state, (signs, x, y, dx, dy))}: one plain NR step of
+    each NR_WIDE_CASES state; View #32's through the feature finder's
+    device evaluator on the CPU (critical_orbit_state_device, period 2)."""
+    out = {}
+    for case in NR_WIDE_CASES:
+        spec, st = _nr_wide_state(case)
+        if case == "view32":
+            from fractalshark_tpu_torch.core.views import get_view_preset
+            ptz = get_view_preset(32).ptz
+            got_spec, state = O.critical_orbit_state_device(
+                ptz.pt_x, ptz.pt_y, 2, ptz.pt_x.prec, device="cpu")
+            assert got_spec == spec
+            res = (state.signs, state.x, state.y, state.dx, state.dy)
+        else:
+            res = O.nr_chunk_plain(FP.sign_row(*st[0:8:2], "cpu"),
+                                   *[_t(d) for d in st[1:8:2]], st[8],
+                                   _t(st[9]), st[10], _t(st[11]), spec, 1)
+        out[case] = (spec, st, res)
+    return out
+
+
+@pytest.mark.parametrize("case", NR_WIDE_CASES)
+def test_nr_step_at_32768_limbs_equals_int_recurrence(nr_wide_plain, case):
+    """C12: the NR step at D = 2^16 is taken (K12's grid form on the
+    card) and its plain chunk = the exact wrapped Python-int recurrence,
+    signs and digits, from View #32's centre and from the all-0xFFFF
+    state at the digit sums' bound."""
+    spec, st, (signs, *mags) = nr_wide_plain[case]
+    assert spec.digits == 1 << 16 and O.chunk_form(spec, 4) == "grid"
+    O.check_chunk(spec, "grid", 4)
+    want = _nr_oracle_steps(spec, st, 1)
+    got = [(int(s), FP.digits_to_int(m.numpy())) for s, m in
+           zip(signs, mags)]
+    assert got == [tuple(w) for w in want]
+
+
+@pytest.mark.parametrize("case", NR_WIDE_CASES)
+def test_nr_step_at_32768_limbs_equals_jax(nr_wide_plain, jax_nr_wide, case):
+    """The same step = the JAX package's iterate_z_nr (FMA off), signs
+    and digits, exactly."""
+    _, _, (signs, *mags) = nr_wide_plain[case]
+    for k in range(4):
+        assert int(signs[k]) == int(jax_nr_wide[f"{case}_s{k}"])
+        np.testing.assert_array_equal(mags[k].numpy().astype(np.uint32),
+                                      jax_nr_wide[f"{case}_d{k}"])
 
 
 # ----------------------------------------------------------- on the card
@@ -501,12 +613,16 @@ def test_k12_c_limits_match_the_wrapper_on_card():
             spec = FP.FixedSpec(digits=n // 2, nfft=n)
             refused = n < O.K12_GRID_MIN_NFFT
             assert _k12_refuses(spec, values, True, dev) == refused
-    # D = 2^16: the orbit's grid form takes it, NR's refuses it, as
-    # check_chunk does
+    # D = 2^16: both instances' grid form takes it, as check_chunk does;
+    # D = 2^16 + 1 is refused (at nfft 2^17 it wraps, at 2^18 it is past
+    # the cap)
     wide = FP.FixedSpec(digits=1 << 16, nfft=1 << 17)
     for values in (2, 4):
-        assert _k12_refuses(wide, values, True, dev) == (values == 4)
-        assert (wide.digits > O.K12_MAX_DIGITS[values]) == (values == 4)
+        assert not _k12_refuses(wide, values, True, dev)
+        assert wide.digits == O.K12_MAX_DIGITS[values]
+        for nfft in (1 << 17, 1 << 18):
+            past = FP.FixedSpec(digits=(1 << 16) + 1, nfft=nfft)
+            assert _k12_refuses(past, values, True, dev)
 
 
 @pytest.mark.cuda
@@ -535,3 +651,28 @@ def test_k12_at_32768_limbs_equals_the_loop_on_card(wide_plain):
         assert torch.equal(a, b)
     for a, b in zip(outs["grid", 256], outs["steps", 256]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k12_nr_at_32768_limbs_equals_the_plain_chunk_on_card(nr_wide_plain):
+    """C12 on the card: K12-NR's grid form at D = 2^16 = the plain chunk
+    from both NR_WIDE_CASES states (one step), and = the per-step loop of
+    K4-NR then K5-NR over 3 steps from View #32's centre."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    for case in NR_WIDE_CASES:
+        spec, st, want = nr_wide_plain[case]
+        scratch = O._Scratch(spec, dev, values=4)
+        cx, cy = _t(st[9]).to(dev), _t(st[11]).to(dev)
+        outs = {}
+        for form, steps in (("grid", 1), ("grid", 3), ("steps", 3)):
+            nr = O.NRState(st[0:8:2], *st[1:8:2], dev)
+            O.launch_nr_chunk(nr, st[8], cx, st[10], cy, spec, steps,
+                              scratch, form)
+            outs[form, steps] = [t.cpu() for t in
+                                 (nr.signs, nr.x, nr.y, nr.dx, nr.dy)]
+        for a, b in zip(outs["grid", 1], want):
+            assert torch.equal(a, b), case
+        for a, b in zip(outs["grid", 3], outs["steps", 3]):
+            assert torch.equal(a, b), case

@@ -5,14 +5,17 @@ process group (subprocesses; M = 2 on a subgroup of ranks 0 and 1), each
 equal to the JAX package's sharded step (4 virtual devices) and to the
 port's one-device step (K4 and K5's twins), bit for bit: both 512-limb
 coordinates over 4 steps, the View #30 operand at 16,384 limbs, the
-6-step chunk at 256 limbs, rows included; K20's twins equal the JAX
-package's algorithm in torch (``sharded_tail_reference``, this file's
-oracle) on every rank; the sharded session
-(``compute_reference_orbit_device(mesh=)``) returns the one-device
-session's orbit and reuse copy.  In one process:
-K20's twins block by block equal the whole-vector tail, on Hypothesis
-cases of carries and borrows across block edges held against Python ints;
-the refusals.
+6-step chunk at 256 limbs, rows included; K20's twins, fed from the
+reshard's all_to_all receive buffer, equal the JAX package's algorithm in
+torch (``sharded_tail_reference``, this file's oracle) on every rank; two
+steps through one workspace equal two through fresh ones; the sharded
+session (``compute_reference_orbit_device(mesh=)``) returns the
+one-device session's orbit and reuse copy.  In one process: K20's twins
+block by block, from receive buffers built as the all_to_all would,
+equal K20's first form's twins after the plain reshard
+(``present_tail_a``/``_b``, kept here as the oracle of the new layout)
+and the whole-vector tail, on a step and on Hypothesis cases of carries
+and borrows across block edges held against Python ints; the refusals.
 """
 
 import numpy as np
@@ -314,20 +317,44 @@ def _rank_cases(rank: int, world: int) -> dict:
         s = OS.iterate_z_sharded(*c0, *c0, spec=spec, mesh=mesh)
         for i, v in enumerate(s):
             out[f"{M}_v30_0_{i}"] = np.asarray(v)
-        # K20's twins (the default CPU path) against the JAX algorithm
+        # K20's twins (the default CPU path), fed from the receive
+        # buffer, against the JAX algorithm
         x, y = c0[1], c0[3]
-        inv = OS.products(x, y, spec, mesh)
+        lay = OS.Layout(*N.split_n(spec.nfft), M, rank)
+        inv = OS.inverse_block(x, y, spec, mesh)
+        recv = PM.all_to_all(mesh, OS.pack(inv, lay))
         cadd, rnd = OS.local_planes(c0[1], c0[3], spec, mesh)
         sgs = (c0[0], c0[2], c0[0] * c0[2])
         cfg = NP.tail_cfg(sgs + (0,), nr=False)
-        dig, sgn = OS.sharded_tail(inv, cadd, rnd, cfg, mesh)
+        dig, sgn = OS.sharded_tail(recv, cadd, rnd, cfg, lay, mesh)
         rsgn, rdig = sharded_tail_reference(
-            inv.reshape(4, -1)[:, OS.HALO:], cadd[0, OS.HALO:],
-            cadd[1, OS.HALO:], rnd[OS.HALO:], sgs, mesh)
+            OS.reshard(inv, mesh).reshape(4, -1)[:, OS.HALO:],
+            cadd[0, OS.HALO:], cadd[1, OS.HALO:], rnd[OS.HALO:], sgs, mesh)
         out[f"{M}_k20"] = dig.numpy()
         out[f"{M}_k20_sgn"] = sgn.numpy()
         out[f"{M}_ref"] = rdig.numpy()
         out[f"{M}_ref_sgn"] = rsgn.numpy()
+        # two steps through one workspace, two through fresh ones
+        spec, *cs = _coords(*COORDS[1], 512)
+        scx, cx, scy, cy = _state(*cs)
+        planes = OS.local_planes(cx, cy, spec, mesh)
+        cfg = NP.tail_cfg((scx, scy, 1, 0), nr=False)
+        one = OS.Workspace(spec, mesh)
+        one.bind(planes, cfg)
+        for fresh in (False, True):
+            x, y = cx, cy
+            zsign = torch.tensor([scx, scy], dtype=torch.int32)
+            for k in range(2):
+                ws = one
+                if fresh:
+                    ws = OS.Workspace(spec, mesh)
+                    ws.bind(planes, cfg)
+                full, sgn = OS._step(x, y, zsign, spec, mesh, ws)
+                zsign = sgn.clone()
+                F, D = spec.frac_digits, spec.digits
+                x, y = full[0, F:F + D].clone(), full[1, F:F + D].clone()
+                out[f"{M}_ws{int(fresh)}_{k}"] = np.concatenate(
+                    [zsign.numpy(), x.numpy(), y.numpy()])
         # the 6-step chunk, rows included
         spec, *cs = _coords(*CHUNK_C, 256)
         scx, cx, scy, cy = _state(*cs)
@@ -420,6 +447,23 @@ def test_k20_twins_equal_the_jax_algorithm(runs, M):
                                       ranks[r][f"{M}_ref"])
         np.testing.assert_array_equal(ranks[r][f"{M}_k20_sgn"],
                                       ranks[r][f"{M}_ref_sgn"])
+
+
+@pytest.mark.parametrize("M", MESHES)
+def test_two_steps_through_one_workspace_equal_fresh_ones(runs, M):
+    """Two steps in a row through one ``Workspace`` (its buffers, the
+    signs read from its own ``sgn``) = two steps each through a fresh
+    one, on every rank, and = the one-device steps."""
+    ranks, _ = runs
+    spec, *cs = _coords(*COORDS[1], 512)
+    single = _single_steps(spec, cs, 2)
+    for r in range(M):
+        for k in range(2):
+            got = ranks[r][f"{M}_ws0_{k}"]
+            np.testing.assert_array_equal(got, ranks[r][f"{M}_ws1_{k}"])
+            s = single[k]
+            np.testing.assert_array_equal(got, np.concatenate(
+                [[int(s[0]), int(s[2])], s[1].numpy(), s[3].numpy()]))
 
 
 @pytest.mark.parametrize("M", MESHES)
@@ -520,21 +564,103 @@ def test_sharded_session_equals_one_device(runs, M):
 
 
 # ------------------------------------------------- K20 in one process
+# The twins of K20's first form (rows after the plain reshard, per-tile
+# words), kept as the oracle of the new layout: the receive buffer read in
+# place and per-rank words.
+PRESENT_TILE_SEGS = 256
 
 
-def _blocks(inv, cadd, rnd, cfg, M: int):
-    """K20's twins over M blocks of the whole vector, the words stacked
-    by hand (no collective): (digits [K, L], each block's signs)."""
+def _present_fold(f, z):
+    while f.shape[-2] > 1:
+        f, z = OS._compose(f[..., 1::2, :], z[..., 1::2, :],
+                           f[..., 0::2, :], z[..., 0::2, :])
+    return f[..., 0, :], z[..., 0, :]
+
+
+def present_tail_a(rows, cadd, rnd, cfg):
+    """The first form's launch-A twin: (digits, segment words, each 1,024-digit
+    tile's composed word then the raw top carry)."""
+    K, lloc = rows.shape[0], rows.shape[2] - OS.HALO
+    dig, f, z, top = OS._segments(rows, cadd, rnd, cfg)
+    G = lloc // OS.SEG
+    T = -(-G // PRESENT_TILE_SEGS)
+    fi, zi = OS._identity((K, T * PRESENT_TILE_SEGS - G), rows.device)
+    tf, tz = _present_fold(
+        torch.cat([f, fi], 1).view(K, T, PRESENT_TILE_SEGS, 3),
+        torch.cat([z, zi], 1).view(K, T, PRESENT_TILE_SEGS, 3))
+    words = torch.cat([OS._encode(tf, tz), top.view(K, 1).to(torch.int32)],
+                      1)
+    return dig, OS._encode(f, z), words
+
+
+def present_tail_b(dig, fz, words, rank: int):
+    """The first form's launch-B twin: every rank's tile words [M, K,
+    T + 1]."""
+    K, lloc = dig.shape
+    M, _, T1 = words.shape
+    T, G = T1 - 1, lloc // OS.SEG
+    dev = dig.device
+    tf, tz = OS._decode(words[:, :, :T].permute(1, 0, 2).reshape(K, M * T))
+    ef, ez = OS._identity((K,), dev)
+    pre_f, pre_z = [], []
+    for g in range(M * T):
+        pre_f.append(ef)
+        pre_z.append(ez)
+        ef, ez = OS._compose(tf[:, g], tz[:, g], ef, ez)
+    top = words[M - 1, :, T].to(torch.int64)
+    neg = top + ef[:, 1] < 0
+    sign = torch.where(neg & ~ez[:, 1], -1, 1).to(torch.int32)
+    bf = torch.stack(pre_f[rank * T:(rank + 1) * T], 1)
+    bz = torch.stack(pre_z[rank * T:(rank + 1) * T], 1)
+    sf, sz = OS._decode(fz)
+    fi, zi = OS._identity((K, T * PRESENT_TILE_SEGS - G), dev)
+    sf = torch.cat([sf, fi], 1).view(K, T, PRESENT_TILE_SEGS, 3)
+    sz = torch.cat([sz, zi], 1).view(K, T, PRESENT_TILE_SEGS, 3)
+    inf, inz = OS._scan(sf, sz)
+    xf, xz = OS._identity((K, T, 1), dev)
+    xf = torch.cat([xf, inf[:, :, :-1]], 2)
+    xz = torch.cat([xz, inz[:, :, :-1]], 2)
+    pf, pz = OS._compose(xf, xz, bf.unsqueeze(2).expand_as(xf),
+                         bz.unsqueeze(2).expand_as(xz))
+    cin = pf[..., 1].reshape(K, -1)[:, :G]
+    zb = pz[..., 1].reshape(K, -1)[:, :G]
+    d = dig.to(torch.int64).view(K, G, OS.SEG).clone()
+    for q in range(OS.SEG):
+        v = d[:, :, q] + cin
+        d[:, :, q], cin = v & MASK, v >> 16
+        nd = torch.where(zb, torch.where(d[:, :, q] == 0, 0,
+                                         0x10000 - d[:, :, q]),
+                         MASK - d[:, :, q])
+        zb = zb & (d[:, :, q] == 0)
+        d[:, :, q] = torch.where(neg.view(K, 1), nd, d[:, :, q])
+    return d.reshape(K, lloc).to(torch.int32), sign
+
+
+def _blocks(inv, cadd, rnd, cfg, M: int, zsign=None):
+    """K20's twins over M blocks of the whole vector from their receive
+    buffers, the words stacked by hand (no collective), beside the first form's
+    twins after the plain reshard: (digits [K, L], each block's signs),
+    asserting on the way that the two agree block by block."""
     K, _, L = inv.shape
     lloc, H = L // M, OS.HALO
     pad = torch.nn.functional.pad
     ip, cp, rp = pad(inv, (H, 0)), pad(cadd, (H, 0)), pad(rnd, (H, 0))
-    outs = [OS.tail_a_plain(ip[..., r * lloc:r * lloc + H + lloc],
-                            cp[:, r * lloc:r * lloc + H + lloc],
-                            rp[r * lloc:r * lloc + H + lloc], cfg)
-            for r in range(M)]
-    words = torch.stack([o[2] for o in outs])
-    fin = [OS.tail_b_plain(o[0], o[1], words, r) for r, o in enumerate(outs)]
+    lays, recvs = OS.receive_buffers(inv, M)
+    new, old = [], []
+    for r in range(M):
+        rows = OS.unpack(recvs[r], lays[r])
+        assert torch.equal(rows, ip[..., r * lloc:r * lloc + H + lloc])
+        planes = (cp[:, r * lloc:r * lloc + H + lloc].contiguous(),
+                  rp[r * lloc:r * lloc + H + lloc].contiguous())
+        new.append(OS.tail_a_plain(recvs[r], *planes, cfg, lays[r], zsign))
+        old.append(present_tail_a(rows, *planes, OS._cfg(cfg, zsign)))
+        assert torch.equal(new[-1][0], old[-1][0])
+    words = torch.stack([a[2] for a in new])
+    owords = torch.stack([a[2] for a in old])
+    fin = [OS.tail_b_plain(a[0], a[1], words, r) for r, a in enumerate(new)]
+    for r, a in enumerate(old):
+        od, osg = present_tail_b(a[0], a[1], owords, r)
+        assert torch.equal(fin[r][0], od) and torch.equal(fin[r][1], osg)
     return torch.cat([f[0] for f in fin], 1), [f[1] for f in fin]
 
 
@@ -575,9 +701,11 @@ def _residues(s: np.ndarray) -> torch.Tensor:
 def _edge_case(draw):
     """A tail whose carries or borrows run across block edges: digit sums
     that are 0xFFFF or 0 over a stretch ending at or past an edge, with a
-    coefficient just below the stretch that makes or takes a carry."""
-    M = draw(st.sampled_from((2, 4, 8)))
-    L = M * draw(st.sampled_from((8, 16, 1028 // 4 * 4, 2048)))
+    coefficient just below the stretch that makes or takes a carry.
+    Blocks of 16 to 2,048 digits (below one K20 tile of 512 and up to 4
+    of them), M up to 16 ranks."""
+    M = draw(st.sampled_from((2, 4, 8, 16)))
+    L = M * draw(st.sampled_from((16, 32, 1024, 2048)))
     K = draw(st.integers(1, 3))
     s = np.zeros((K, L), np.int64)
     cadd = np.zeros((K, L), np.int64)
@@ -601,13 +729,7 @@ def _edge_case(draw):
     return M, s, cadd, rnd, cfg
 
 
-@settings(max_examples=60, deadline=None)
-@given(_edge_case())
-def test_k20_blocks_equal_the_whole_tail_and_python_ints(case):
-    """K20's twins with the carry-in given through the words, block by
-    block, = the whole-vector tail (K10's twin) = Python ints, carries and
-    borrows across block edges included."""
-    M, s, cadd, rnd, cfg = case
+def _whole_and_exact(M, s, cadd, rnd, cfg):
     L = s.shape[1]
     inv = _residues(s)
     ct = torch.from_numpy(cadd.astype(np.int32))
@@ -619,22 +741,57 @@ def test_k20_blocks_equal_the_whole_tail_and_python_ints(case):
     ed, es = _exact(s, cadd, rnd, cfg, L)
     np.testing.assert_array_equal(dig.numpy(), ed)
     np.testing.assert_array_equal(ws.numpy(), es)
+    return es
 
 
-@pytest.mark.parametrize("M", (2, 4, 8))
+@settings(max_examples=60, deadline=None)
+@given(_edge_case())
+def test_k20_blocks_equal_the_whole_tail_and_python_ints(case):
+    """K20's twins from the receive buffers, the carry-in given through
+    the per-rank words, block by block = the first form's twins = the
+    whole-vector tail (K10's twin) = Python ints, carries and borrows
+    across block edges included."""
+    _whole_and_exact(*case)
+
+
+@pytest.mark.parametrize("M", (2, 4, 16))
+def test_k20_negative_total_and_a_carry_across_ranks(M):
+    """A negative total whose borrow, and a positive one whose carry,
+    ripple from below a rank boundary across a run of 0xFFFF (0 for the
+    borrow) digits into the next ranks: the twins block by block = the
+    whole tail = Python ints."""
+    L = M * 64
+    edge = L // M
+    s = np.zeros((2, L), np.int64)
+    cadd = np.zeros((2, L), np.int64)
+    cadd[0, edge - 5:edge + 70] = 0xFFFF       # + a carry of 1 from below
+    s[0, edge - 9] = 1 << 20
+    s[1, edge - 9] = -(1 << 20)                # a borrow through zeros
+    s[1, L - 40] = -(1 << 30)                  # and a negative total
+    cfg = [0, 1, 1, 0, 0, 1, 1, 0]
+    signs = _whole_and_exact(M, s, cadd, np.zeros(L, np.int64), cfg)
+    assert list(signs) == [1, -1]
+
+
+@pytest.mark.parametrize("M", (1, 2, 4, 8, 16))
 def test_k20_blocks_on_a_step(M):
-    """A step's residue rows at 512 limbs (the 0xFFFF-run centre), cut
-    into M blocks:
-    K20's twins = the whole-vector tail, digits and signs."""
+    """A step's residue rows at 512 limbs (the 0xFFFF-run centre; nfft
+    2,048: 32 × 64, so 16 ranks leave 4 columns a rank and the halo spans
+    two), cut into M blocks and packed as the reshard sends them: the
+    receive buffer read in torch = the rows' slices, and K20's twins =
+    the first form's twins after the plain reshard = the whole-vector
+    tail, digits and signs, with the component 1's sign from zsign too."""
     spec, scx, cxd, scy, cyd = _coords(*COORDS[1], 512)
     x, y = (torch.from_numpy(d.astype(np.int32)) for d in (cxd, cyd))
     inv = NP.products(torch.stack([x, y]), None, spec.nfft, NP.PLAN_ITER)
     cadd, rnd = FP.addend_planes(x, y, spec)
     cfg = NP.tail_cfg((scx, scy, scx * scy, 0), nr=False)
-    dig, signs = _blocks(inv, cadd, rnd, cfg, M)
     wd, ws = NP.fused_tail_plain(inv, cadd, rnd, cfg)
-    assert torch.equal(dig, wd)
-    assert all(torch.equal(sg, ws) for sg in signs)
+    for zsign in (None, torch.tensor([scx, scy], dtype=torch.int32)):
+        c = cfg if zsign is None else NP.tail_cfg((scx, scy, 1, 0), False)
+        dig, signs = _blocks(inv, cadd, rnd, c, M, zsign)
+        assert torch.equal(dig, wd)
+        assert all(torch.equal(sg, ws) for sg in signs)
 
 
 def test_refusals():
@@ -656,19 +813,30 @@ def test_refusals():
     # test_orbit_chunk_sharded_on_narrow_meshes runs it)
     assert OS.check_spec(spec, Mesh(None, 16, 0, cpu)) == \
         N.split_n(spec.nfft)
+    lay = OS.Layout(4, 4, 2, 1)
     with pytest.raises(ValueError, match="K20"):
-        OS.tail_a(torch.zeros(2, 2, 14, dtype=torch.int32),
-                  torch.zeros(2, 14, dtype=torch.int32),
-                  torch.zeros(14, dtype=torch.int32), [0] * 8)
+        OS.tail_a(torch.zeros(2, lay.slot + 1, dtype=torch.int32),
+                  torch.zeros(2, 16, dtype=torch.int32),
+                  torch.zeros(16, dtype=torch.int32), [0] * 8, lay)
+    with pytest.raises(ValueError, match="K20"):
+        OS.tail_a(torch.zeros(2, lay.slot, dtype=torch.int32),
+                  torch.zeros(2, 16, dtype=torch.int32),
+                  torch.zeros(16, dtype=torch.int32), [0] * 8,
+                  OS.Layout(4, 4, 2, 2))
+    with pytest.raises(ValueError, match="K20 launch B"):
+        OS.tail_b(torch.zeros(2, 8, dtype=torch.int32),
+                  torch.zeros(2, 2, dtype=torch.int32),
+                  torch.zeros(3, 2, 2, dtype=torch.int32), lay)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", (1, 2, 4, 8))
+@pytest.mark.parametrize("M", (1, 2, 4, 8, 16))
 def test_k20_equals_its_twins_on_card(M):
-    """K20's two launches on the card = their twins, block by block (a
-    step's residue rows at 512 limbs, the 0xFFFF-run centre, and
-    rows with carries and borrows across the edges), with and without
-    zsign read on the card."""
+    """K20's two launches on the card = their twins, block by block, from
+    the receive buffers (a step's residue rows at 512 limbs, the
+    0xFFFF-run centre, and rows with carries and borrows across the
+    edges), with and without zsign read on the card; launch B in place;
+    the blocks = the whole tail."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     spec, scx, cxd, scy, cyd = _coords(*COORDS[1], 512)
@@ -688,20 +856,27 @@ def test_k20_equals_its_twins_on_card(M):
     for inv_, cadd_, zs in ((inv, cadd, None), (_residues(s), runs, (1, -1))):
         cfg = NP.tail_cfg((scx, scy, scx * scy, 0), nr=False)
         zsign = None if zs is None else torch.tensor(zs, dtype=torch.int32)
-        ip, cp, rp = pad(inv_, (H, 0)), pad(cadd_, (H, 0)), pad(rnd, (H, 0))
-        blocks = [(ip[..., r * lloc:r * lloc + H + lloc].contiguous(),
-                   cp[:, r * lloc:r * lloc + H + lloc].contiguous(),
+        lays, recvs = OS.receive_buffers(inv_, M)
+        cp, rp = pad(cadd_, (H, 0)), pad(rnd, (H, 0))
+        planes = [(cp[:, r * lloc:r * lloc + H + lloc].contiguous(),
                    rp[r * lloc:r * lloc + H + lloc].contiguous())
                   for r in range(M)]
-        want = [OS.tail_a_plain(*b, cfg, zsign) for b in blocks]
-        got = [OS.tail_a(*(t.cuda() for t in b), cfg,
+        want = [OS.tail_a_plain(recvs[r], *planes[r], cfg, lays[r], zsign)
+                for r in range(M)]
+        got = [OS.tail_a(recvs[r].cuda(), *(t.cuda() for t in planes[r]),
+                         cfg, lays[r],
                          None if zsign is None else zsign.cuda())
-               for b in blocks]
+               for r in range(M)]
         for g, w in zip(got, want):
             for gi, wi in zip(g, w):
                 assert torch.equal(gi.cpu(), wi)
         words = torch.stack([w[2] for w in want])
+        fin = []
         for r in range(M):
-            gd, gs = OS.tail_b(got[r][0], got[r][1], words.cuda(), r)
+            gd, gs = OS.tail_b(got[r][0], got[r][1], words.cuda(), lays[r])
+            assert gd.data_ptr() == got[r][0].data_ptr()
             wd, ws = OS.tail_b_plain(want[r][0], want[r][1], words, r)
             assert torch.equal(gd.cpu(), wd) and torch.equal(gs.cpu(), ws)
+            fin.append(wd)
+        whole = NP.fused_tail_plain(inv_, cadd_, rnd, OS._cfg(cfg, zsign))
+        assert torch.equal(torch.cat(fin, 1), whole[0])
