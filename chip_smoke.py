@@ -168,7 +168,18 @@ multiply and step timed, and their collectives timed apart (the device
 synchronised around each, in a second run); with two cards or more the
 same on an NCCL group, one rank a card; on each rank the host's waits on
 the card outside the collectives, none allowed in the reshard and the
-tail.  K20's launches are the sharded session's.
+tail.  K20's launches are the sharded session's, (18) the graft entry
+points: ``graft_entry.entry`` (K1, View 0 256² x 512 in f32) against its
+plain version, ``graft_entry.dryrun_multichip(8)`` (eight gloo ranks on
+this card: K6 on each rank's slab and its stream form, K8's sharded
+product at nfft 4,096, three sharded orbit steps with K20, each against
+one device's) with the JAX package's 8-device iter_sum, and
+``tools/run_view32_torch.py`` on View #32 at 32,768 limbs (K12's grid
+form) capped at 4,096 steps and resumed to 8,192 in the same directory,
+its orbit x/y/e equal to an uninterrupted 8,192-step run's bit for bit,
+each run's cap_hit record and projection checked (phase 18 alone:
+``python3 -c "import chip_smoke as c, torch; c.phase_build();
+c.phase_graft(torch.device('cuda', 0))"``).
 Exits non-zero if any
 phase fails, and at once when no CUDA device is present.  The next-to-last lines are the card's
 ``nvidia-smi`` name and power limit and a JSON object of the kernels;
@@ -1019,17 +1030,22 @@ def tool_records(script: str, *args) -> list:
             if line.startswith("{")]
 
 
+def load_tool(name: str):
+    """tools/<name>.py of this checkout as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def pixel_loops():
     """tools/time_pixel_loops.py of this checkout: the K6 and K2 frames of
     the main path and their timing, one measurement for the smoke and the
     tool."""
-    import importlib.util
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
-                        "time_pixel_loops.py")
-    spec = importlib.util.spec_from_file_location("time_pixel_loops", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return load_tool("time_pixel_loops")
 
 
 # phase 3b's frames (tools/time_pixel_loops.py FRAMES) in order: each held
@@ -4269,6 +4285,102 @@ def phase_parallel(device, stats):
     return {"sharded_tail": launches}
 
 
+GRAFT_RANKS = 8
+# __graft_entry__.py's dry run on 8 devices (MULTICHIP_r05.json): every
+# pixel of the 64 x 64 frame at the budget of 500
+GRAFT_ITER_SUM = 2_048_000
+GRAFT_KERNELS = ("perturb_hdr32", "perturb_stream", "ntt_phase",
+                 "sharded_tail")
+V32_CAP, V32_STEPS = 4096, 8192
+
+
+def phase_graft(device):
+    """(18) The graft entry points: ``graft_entry.entry`` (K1, View 0
+    256² x 512 in f32) against its plain version; ``dryrun_multichip(8)``,
+    eight ranks in a gloo group on this card (K6 on each rank's slab, the
+    stream form, K8's sharded product, three sharded orbit steps with K20),
+    every check passing on every rank, iter_sum that of the JAX package's
+    8-device run; then ``tools/run_view32_torch.py``'s ``run`` on View #32
+    at 32,768 limbs (K12's grid form) capped at 4,096 steps, resumed in the
+    same directory to 8,192: its orbit x/y/e equal an uninterrupted
+    8,192-step run's bit for bit, each run's cap_hit record and projection
+    checked."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from fractalshark_tpu_torch import graft_entry, kernels
+    from fractalshark_tpu_torch.utils.growable import GrowableArray
+
+    log("[18] the graft entry points: entry(), dryrun_multichip(8) on "
+        "one card, View #32's script capped, resumed and uninterrupted")
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry(device)
+    got = fn(*args)
+    fn_c, args_c = graft_entry.entry("cpu")
+    want = fn_c(*args_c)
+    if got.dtype != torch.int32 or not torch.equal(got.cpu(), want):
+        raise AssertionError("entry(): K1 != its plain version")
+    log(f"  entry(): {tuple(got.shape)} iter_sum {int(want.sum())} = the "
+        f"plain version's ({time.perf_counter() - t0:.1f} s)")
+
+    t1 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rec = graft_entry.dryrun_multichip(GRAFT_RANKS, device.type)
+    if rec["iter_sum"] != GRAFT_ITER_SUM or \
+            rec["shape"] != [8 * GRAFT_RANKS, 64] or \
+            not all(rec["checks"].values()):
+        raise AssertionError(f"dryrun_multichip: {rec}")
+    missing = [k for k in GRAFT_KERNELS if not rec["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"dryrun_multichip launched no {missing}")
+    log(f"  {buf.getvalue().strip()}; rank 0's launches {rec['launches']} "
+        f"({time.perf_counter() - t1:.1f} s)")
+
+    t2 = time.perf_counter()
+    rv = load_tool("run_view32_torch")
+    with tempfile.TemporaryDirectory() as d:
+        runs = {}
+        for label, cap, sub in (("capped", V32_CAP, "resumed"),
+                                ("resumed", V32_STEPS, "resumed"),
+                                ("straight", V32_STEPS, "straight")):
+            kernels.reset_counts()
+            with contextlib.redirect_stdout(io.StringIO()):
+                st = rv.run(max_it=cap, out_dir=os.path.join(d, sub),
+                            device=device)
+            new = cap - (V32_CAP if label == "resumed" else 0)
+            want_s = 1e6 * st["orbit_s"] / new
+            if st["phase"] != "cap_hit" or st["orbit_new_it"] != new or \
+                    st["orbit_len"] != cap + 1 or \
+                    abs(st["projected_s_per_Mit"] - want_s) > 1e-3 * want_s:
+                raise AssertionError(f"View #32 {label}: {st}")
+            grid = kernels.launches["orbit_chunk_grid"]
+            if grid != new // 256 or kernels.launches["ntt_orbit"] or \
+                    kernels.launches["orbit_tail"]:
+                raise AssertionError(f"View #32 {label}: launches "
+                                     f"{dict(kernels.launches)}")
+            runs[label] = st
+        stores = [[GrowableArray.open_existing(
+            os.path.join(d, sub, f"view32_orbit.{ext}")).view()
+            for ext in "xye"] for sub in ("resumed", "straight")]
+        for ext, a, b in zip("xye", *stores):
+            if a.shape != b.shape or a.tobytes() != b.tobytes():
+                raise AssertionError(f"View #32 orbit {ext}: resumed != "
+                                     "uninterrupted")
+        hdr = int(np.count_nonzero(stores[1][2]))
+    st = runs["straight"]
+    log(f"  View #32 at 32,768 limbs: {V32_CAP} steps, resumed to "
+        f"{V32_STEPS} = {V32_STEPS} uninterrupted, x/y/e bit for bit "
+        f"({hdr} HDR entries); {st['us_per_iter']:.2f} us an iteration, "
+        f"{st['projected_s_per_Mit']:.1f} s a million iterations "
+        f"uninterrupted (resumed run {runs['resumed']['us_per_iter']:.2f} "
+        f"us); {time.perf_counter() - t2:.1f} s")
+    log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -4315,6 +4427,7 @@ def main() -> int:
     launches.update(run("15", phase_late, device, stats))
     launches.update(run("16", phase_app, device, stats))
     launches.update(run("17", phase_parallel, device, stats))
+    run("18", phase_graft, device)
     exact_pool.shutdown()
     # K12's launches, each from its own path's run: View #6's and View
     # #30's device-orbit frames, the feature evaluator at View #6's sizes

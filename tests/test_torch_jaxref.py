@@ -74,6 +74,24 @@ def run_jax_reference(module: str, func: str, workdir, inputs=None,
         return {k: z[k] for k in z.files}
 
 
+class Background:
+    """``fn(*args)`` (a JAX reference) run in a background thread from
+    now on; its result is waited for at the first item access, so the
+    port's side of a test module computes while the reference runs."""
+
+    def __init__(self, fn, *args):
+        from concurrent.futures import ThreadPoolExecutor
+        pool = ThreadPoolExecutor(1)
+        self._future = pool.submit(fn, *args)
+        pool.shutdown(wait=False)
+
+    def result(self) -> dict:
+        return self._future.result()
+
+    def __getitem__(self, key):
+        return self.result()[key]
+
+
 _RANK_BOOT = """
 import os, sys
 sys.path.insert(0, {tests!r})

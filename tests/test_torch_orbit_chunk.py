@@ -157,10 +157,28 @@ def _jax_wide(_inputs):
             "rows": np.asarray(rows)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_refs(tmp_path_factory):
+    """The module's three JAX references (``_jax_reference``,
+    ``_jax_wide``, ``_jax_nr_wide``), started together in the background
+    when the module starts; each is read, and waited for, at first use."""
+    nr_inputs = {}
+    for case in NR_WIDE_CASES:
+        _, st = _nr_wide_state(case)
+        nr_inputs[f"{case}_signs"] = np.asarray(st[0::2], np.int32)
+        nr_inputs[f"{case}_digits"] = np.stack(st[1::2]).astype(np.uint32)
+    return {func: ref.Background(ref.run_jax_reference,
+                                 "test_torch_orbit_chunk", func,
+                                 tmp_path_factory.mktemp(func.strip("_")),
+                                 inputs)
+            for func, inputs in (("_jax_reference", None),
+                                 ("_jax_wide", None),
+                                 ("_jax_nr_wide", nr_inputs))}
+
+
 @pytest.fixture(scope="module")
-def jax_ref(tmp_path_factory):
-    return ref.run_jax_reference("test_torch_orbit_chunk", "_jax_reference",
-                                 tmp_path_factory.mktemp("orbit_chunk"))
+def jax_ref(jax_refs):
+    return jax_refs["_jax_reference"]
 
 
 # ----------------------------------------------------------- the twins
@@ -359,9 +377,8 @@ def wide_plain():
 
 
 @pytest.fixture(scope="module")
-def jax_wide(tmp_path_factory):
-    return ref.run_jax_reference("test_torch_orbit_chunk", "_jax_wide",
-                                 tmp_path_factory.mktemp("orbit_wide"))
+def jax_wide(jax_refs):
+    return jax_refs["_jax_wide"]
 
 
 def test_orbit_chunk_plain_at_32768_limbs_equals_int_recurrence(wide_plain):
@@ -446,14 +463,8 @@ def _jax_nr_wide(inputs):
 
 
 @pytest.fixture(scope="module")
-def jax_nr_wide(tmp_path_factory):
-    inputs = {}
-    for case in NR_WIDE_CASES:
-        _, st = _nr_wide_state(case)
-        inputs[f"{case}_signs"] = np.asarray(st[0::2], np.int32)
-        inputs[f"{case}_digits"] = np.stack(st[1::2]).astype(np.uint32)
-    return ref.run_jax_reference("test_torch_orbit_chunk", "_jax_nr_wide",
-                                 tmp_path_factory.mktemp("nr_wide"), inputs)
+def jax_nr_wide(jax_refs):
+    return jax_refs["_jax_nr_wide"]
 
 
 @pytest.fixture(scope="module")

@@ -147,6 +147,11 @@ def test_render_never_imports_jax(tmp_path):
     assert "NO_JAX_OK" in proc.stdout
 
 
+# the port's scripts under tools/ (the others there drive the JAX package)
+PORT_TOOLS = ("run_view32_torch.py", "time_k20.py", "time_ntt.py",
+              "time_orbit32.py", "time_pixel_loops.py")
+
+
 def _port_sources():
     root = os.path.join(ref.ROOT, "fractalshark_tpu_torch")
     for dirpath, dirnames, files in os.walk(root):
@@ -156,6 +161,8 @@ def _port_sources():
             if fn.endswith(".py"):
                 yield os.path.join(dirpath, fn)
     yield os.path.join(ref.ROOT, "chip_smoke.py")
+    for name in PORT_TOOLS:
+        yield os.path.join(ref.ROOT, "tools", name)
 
 
 def test_package_sources_do_not_import_jax():
@@ -165,10 +172,13 @@ def test_package_sources_do_not_import_jax():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """No module of the port, and not chip_smoke.py, imports jax or
+    """No module of the port, not chip_smoke.py and not the port's tools
+    (``PORT_TOOLS``, View #32's script among them) imports jax or
     fractalshark_tpu, at any level of any function (AST walk)."""
     import ast
     banned = ("jax", "fractalshark_tpu")
+    names = {os.path.basename(p) for p in _port_sources()}
+    assert {"graft_entry.py", "run_view32_torch.py"} <= names
     for path in _port_sources():
         tree = ast.parse(open(path).read(), filename=path)
         for node in ast.walk(tree):
