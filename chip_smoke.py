@@ -179,7 +179,19 @@ form) capped at 4,096 steps and resumed to 8,192 in the same directory,
 its orbit x/y/e equal to an uninterrupted 8,192-step run's bit for bit,
 each run's cap_hit record and projection checked (phase 18 alone:
 ``python3 -c "import chip_smoke as c, torch; c.phase_build();
-c.phase_graft(torch.device('cuda', 0))"``).
+c.phase_graft(torch.device('cuda', 0))"``), (19) the endurance
+pipeline (``tools/run_view27_torch.py``: the native session compressed
+and checkpointed, the LA table built through memmaps, ``VirtualResults``,
+K2 ``la_only``, the tables released between the phases, the gather tail)
+at the mini location of ``tests/test_torch_view27_pipeline.py`` (the 1e13
+frame, period 999, 16² x 12,000) in f64 (K19) and df32 (K3), each pinned
+to the JAX package's grid (``MINI_RC_PINS``) with the twins made to
+raise; the device memory the dropped tables free; K19 and K3 against
+their twins from one handoff at a cut budget (phase 19 alone:
+``python3 -c "import chip_smoke as c, torch; c.phase_build();
+c.phase_endurance(torch.device('cuda', 0), {k: {} for k in
+c.KERNEL_META})"``).  The kernels line adds phase 19's launches (K2
+``la_only``, K19, K3) to the earlier phases'.
 Exits non-zero if any
 phase fails, and at once when no CUDA device is present.  The next-to-last lines are the card's
 ``nvidia-smi`` name and power limit and a JSON object of the kernels;
@@ -4381,6 +4393,118 @@ def phase_graft(device):
     log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
 
 
+# phase 19: the endurance pipeline (tools/run_view27_torch.py) at the
+# mini location of tests/test_torch_view27_pipeline.py: the 1e13 frame,
+# its orbit of period 999 (the JAX test's cut at 2,048 positions leaves it
+# whole) compressed to 7 anchors, 16², budget 12,000.  The JAX package's
+# grids there, FMA off, (iter_sum, CRC-32 of the int64 grid as <u8), in
+# each gather mode (tools/view23_rc_pins.py prints them too); the twins
+# are held at the cut budget, past every pixel's first 2,000 iterations
+MINI_RC_VIEW = ("-0.743643887037158704752191506114774",
+                "0.131825904205311970493132056385139", "1e13")
+MINI_RC_SIZE, MINI_RC_BUDGET, MINI_RC_TWIN_BUDGET = 16, 12_000, 3_000
+MINI_RC_PINS = {"f64": (616_704, 2_861_679_134),
+                "df32": (617_276, 2_469_540_814)}
+MINI_RC_KERNELS = {"f64": "rc_tail_f64", "df32": "rc_tail"}
+
+
+def phase_endurance(device, stats):
+    """(19) The endurance pipeline on the card at the mini location:
+    ``tools/run_view27_torch.py``'s ``run`` (the native session, the LA
+    build through memmaps, ``VirtualResults``, K2 ``la_only``, the tables
+    released, the gather tail) in f64 (K19) and df32 (K3), each pinned to
+    the JAX package's grid, its launches counted from 0 (the twins made to
+    raise); then the tables dropped between the phases free device
+    memory, the grid with them kept is the driver's, and K19 and K3 equal
+    their twins from one handoff at the cut budget."""
+    import torch
+
+    from fractalshark_tpu_torch import kernels
+    from fractalshark_tpu_torch.core.hdr_host import HD
+    from fractalshark_tpu_torch.core.pointzoom import PointZoomBBConverter
+    from fractalshark_tpu_torch.engine import native_la as NL
+    from fractalshark_tpu_torch.engine import renderers as R
+    from fractalshark_tpu_torch.engine.la_reference import LAParameters
+    from fractalshark_tpu_torch.engine.perturbation_results import (
+        CompressedOrbit, VirtualResults)
+    from fractalshark_tpu_torch.engine.reforbit import RefOrbitCalc
+    from fractalshark_tpu_torch.ops.rc_tail import rc_tail_gather
+
+    log("[19] the endurance pipeline (tools/run_view27_torch.py) at the "
+        "mini location, f64 (K19) and df32 (K3), the tables released")
+    t0 = time.perf_counter()
+    rv = load_tool("run_view27_torch")
+    x, y, zoom = MINI_RC_VIEW
+    g, n, nt = MINI_RC_SIZE, MINI_RC_BUDGET, MINI_RC_TWIN_BUDGET
+    ptz = PointZoomBBConverter(pt_x=x, pt_y=y, zoom_factor=zoom, prec=512)
+    launches = {}
+    os.environ["FRACTALSHARK_RC_TAIL"] = "gather"   # 999 positions: not auto
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            runs = {}
+            for mode in MINI_RC_KERNELS:
+                kernels.reset_counts()
+                with forbid_twins(), \
+                        contextlib.redirect_stdout(io.StringIO()):
+                    st = rv.run(view=27, size=g, budget=n, mode=mode,
+                                out_dir=d, device=device, ptz=ptz)
+                runs[mode] = st, {k: v for k, v in kernels.launches.items()
+                                  if v}
+    finally:
+        del os.environ["FRACTALSHARK_RC_TAIL"]
+    for mode, name in MINI_RC_KERNELS.items():
+        st, grew = runs[mode]
+        other = [k for k in MINI_RC_KERNELS.values() if k != name]
+        got = (st["iter_sum"], st["crc32"])
+        log(f"  driver {mode}: (iter_sum, crc32) {got}, route {st['tail']}, "
+            f"phase 1 {st['phase1_s']:.3f} s, phase 2 {st['phase2_s']:.3f} "
+            f"s, launches {grew}")
+        if got != MINI_RC_PINS[mode]:
+            raise AssertionError(f"the driver's {mode} frame: {got} != "
+                                 f"{MINI_RC_PINS[mode]}, the JAX package's")
+        if not grew.get(name) or not grew.get("lav2_phase1") or \
+                any(grew.get(k) for k in other):
+            raise AssertionError(f"the driver's {mode} frame did not take "
+                                 f"K2 la_only and {name} alone")
+        for k, v in grew.items():
+            launches[k] = launches.get(k, 0) + v
+
+    sq = ptz.square_aspect_ratio(g, g)
+    res = RefOrbitCalc().get_and_create_useful_results(sq, 50_000)
+    comp = CompressedOrbit.from_uncompressed(res, error_exp=20)
+    la = NL.generate_native_rc(comp, HD.from_hp(res.max_radius),
+                               params=LAParameters(period_divisor=8,
+                                                   low_bound=1))
+    virt = VirtualResults.from_compressed(comp, res.center_x, res.center_y)
+    init = R.la_handoff(virt, la, sq, g, g, n, device=device)
+    torch.cuda.synchronize(device)
+    held = torch.cuda.memory_allocated(device)
+    R.drop_la_tables(virt, la, device)
+    freed = held - torch.cuda.memory_allocated(device)
+    log(f"  the tables dropped between the phases: {freed} bytes freed")
+    if freed <= 0 or la._torch_cache:
+        raise AssertionError("dropping the LA tables freed no device memory")
+    del init
+    kept = rv.grid_pin(R.two_phase_render(
+        virt, la, sq, g, g, n, comp=comp, device=device, tail="gather").cpu())
+    if kept != MINI_RC_PINS["f64"]:
+        raise AssertionError(f"the frame with the tables kept: {kept} != "
+                             "the driver's, which released them")
+
+    init = R.la_handoff(virt, la, sq, g, g, nt, device=device)
+    for mode, name in MINI_RC_KERNELS.items():
+        kern = rc_tail_gather(comp, res.center_x, res.center_y, sq, g, g, nt,
+                              {k: v.clone() for k, v in init.items()},
+                              mode=mode, device=device)
+        plain = rc_tail_gather(comp, res.center_x, res.center_y, sq, g, g,
+                               nt, {k: v.cpu() for k, v in init.items()},
+                               mode=mode, device="cpu")
+        compare(f"{name} endurance mini {g}² budget {nt} (from one "
+                "handoff)", kern, plain, stats[name])
+    log(f"  phase 19: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4428,6 +4552,8 @@ def main() -> int:
     launches.update(run("16", phase_app, device, stats))
     launches.update(run("17", phase_parallel, device, stats))
     run("18", phase_graft, device)
+    for k, v in run("19", phase_endurance, device, stats).items():
+        launches[k] = launches.get(k, 0) + v
     exact_pool.shutdown()
     # K12's launches, each from its own path's run: View #6's and View
     # #30's device-orbit frames, the feature evaluator at View #6's sizes

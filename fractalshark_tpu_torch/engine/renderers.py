@@ -43,7 +43,11 @@ of either raises ``ValueError`` (the reference takes a typo as "sweep").
 Over an uncompressed orbit the tail is K6 resumed on every route: the
 reference's sweep and gather over identity anchors give the same grid
 (``tests/test_rc_tail.py:92``), and so does K6 resumed
-(``tests/test_torch_rc_tail.py``).
+(``tests/test_torch_rc_tail.py``).  ``release_la_tables`` drops the LA
+table's and phase 1's orbit table from the card between the phases, as
+the reference does for its endurance frames (``renderers.py:288-293``);
+``la_handoff`` is phase 1 alone, for a caller that takes another tail
+(``tools/run_view27_torch.py --mode df32``).
 
 ``FRACTALSHARK_LA_PHASE=stream`` makes phase 1 of the two-phase routes
 the streaming LA phase (K7, ``ops/la_stream.py``) on a CUDA device, as
@@ -315,22 +319,29 @@ def _handoff_init(ref_iter, it, n: int) -> tuple:
     return it, ref_iter, it >= n
 
 
-def two_phase_render(results, la, ptz, w: int, h: int, n: int, *, comp=None,
-                     abort_monitor=None, device="cuda",
-                     timings: dict | None = None, stream: bool = False,
-                     chunk_steps: int | None = None,
-                     tail: str = "auto") -> torch.Tensor:
-    """Phase 1: the LA machine to each pixel's tail entry (K2,
-    ``la_only``; with `stream` the streaming LA phase, K7, unless it
-    returns None); phase 2: the tail from each pixel's orbit position,
-    over the uncompressed orbit (`comp` None: K6 resumed) or the
-    compressed orbit `comp` by ``tail_route``: K3 ("sweep") or the
-    gather tail's f64 mode, K19 ("gather").  Returns the int64 iteration
-    grid [h, w]; ``timings["tail"]`` names the route.  `chunk_steps`
-    bounds the tail's launches (default: its kernel's)."""
-    route = tail_route(tail, results.count_orbit_entries() if comp is None
-                       else int(comp.total_count), comp is not None)
-    t0 = time.perf_counter()
+def drop_la_tables(results, la, device) -> None:
+    """Drop the LA table's device tables (``la._torch_cache``) and the
+    orbit table phase 1 cached on ``results.extra``, once the device has
+    finished with them (it is synchronised first).  The reference does the
+    same between its phases (``renderers.py:288-293``): at View #27's
+    scale the node tables and the anchor table need not share the card,
+    and an endurance frame has no next frame to keep them for."""
+    _sync(device)
+    cache = getattr(la, "_torch_cache", None)
+    if cache is not None:
+        cache.clear()
+    for key in [k for k in results.extra
+                if isinstance(k, tuple) and k[:1] == ("torch_orbit",)]:
+        del results.extra[key]
+
+
+def la_handoff(results, la, ptz, w: int, h: int, n: int, *,
+               abort_monitor=None, device="cuda",
+               timings: dict | None = None, stream: bool = False) -> dict:
+    """Phase 1 of ``two_phase_render``: the LA machine to each pixel's
+    tail entry (K2 ``la_only``; with `stream` K7, unless it returns None),
+    then the handoff: a dict of [h, w] tensors 'dzr', 'dzi', 'dze', 'it',
+    'jwait' and 'done', the tails' ``init_state``."""
     init = la_phase_stream(results, la, ptz, w, h, n,
                            abort_monitor=abort_monitor,
                            device=device) if stream else None
@@ -344,6 +355,40 @@ def two_phase_render(results, la, ptz, w: int, h: int, n: int, *, comp=None,
                 "jwait": jwait, "done": done}
     elif timings is not None:
         timings["la_phase"] = "stream"
+    return init
+
+
+def two_phase_render(results, la, ptz, w: int, h: int, n: int, *, comp=None,
+                     abort_monitor=None, device="cuda",
+                     timings: dict | None = None, stream: bool = False,
+                     chunk_steps: int | None = None,
+                     tail: str = "auto",
+                     release_la_tables: bool = False,
+                     handoff: dict | None = None) -> torch.Tensor:
+    """Phase 1: the LA machine to each pixel's tail entry (K2,
+    ``la_only``; with `stream` the streaming LA phase, K7, unless it
+    returns None); phase 2: the tail from each pixel's orbit position,
+    over the uncompressed orbit (`comp` None: K6 resumed) or the
+    compressed orbit `comp` by ``tail_route``: K3 ("sweep") or the
+    gather tail's f64 mode, K19 ("gather").  Returns the int64 iteration
+    grid [h, w]; ``timings["tail"]`` names the route.  `chunk_steps`
+    bounds the tail's launches (default: its kernel's).
+    `release_la_tables`: drop the LA table's and phase 1's orbit table
+    from the device between the phases (the grid is the same; over an
+    uncompressed orbit K6's tail puts the orbit table back).  `handoff`:
+    a dict that receives phase 1's handoff tensors (``la_handoff``'s; the
+    tails copy what they update, so 'it' stays each pixel's count at the
+    handoff)."""
+    route = tail_route(tail, results.count_orbit_entries() if comp is None
+                       else int(comp.total_count), comp is not None)
+    t0 = time.perf_counter()
+    init = la_handoff(results, la, ptz, w, h, n,
+                      abort_monitor=abort_monitor, device=device,
+                      timings=timings, stream=stream)
+    if handoff is not None:
+        handoff.update(init)
+    if release_la_tables:
+        drop_la_tables(results, la, device)
     _sync(device)
     t1 = time.perf_counter()
     if comp is None:

@@ -48,8 +48,9 @@ from fractalshark_tpu_torch.ops.tables import (ibits, la_tables, orbit_on,
 # abort-poll granularity
 DEFAULT_CHUNK_STEPS = 1 << 14
 
-# written by the run loop after every render: launches ("dispatches")
-# and the pixels each launch ran ("work")
+# written by the run loop after every render: launches ("dispatches"),
+# the pixels each launch ran ("work") and its body steps a pixel a launch
+# ("chunk_steps"; 0: unbounded)
 last_run_stats: dict = {}
 
 _STATE = ("s", "j", "ref_iter", "dzr", "dzi", "dze", "it", "done")
@@ -210,7 +211,10 @@ def lav2_plain(T, orbit: torch.Tensor, dc: HDRComplex, state: tuple,
         j_la = torch.where(reb, 0, j_next)
 
         # ---------------- tail branch ----------------------------------
-        og = orbit[ref_iter.clamp(0, max_ref)]
+        # clamped to the table too: a VirtualResults orbit is one row,
+        # which la_only never reads (its pixels stop on leaving the LA
+        # stages), and the reference's gather clamps likewise
+        og = orbit[ref_iter.clamp(0, min(max_ref, orbit.shape[0] - 1))]
         zj = HDRComplex(og[:, 0], og[:, 1], zero_e)
         t2 = hdr.complex_add(hdr.complex_mul_pow2(zj, 1), dz)
         ndz = hdr.reduce_complex(
@@ -390,6 +394,7 @@ def lav2_run(T, orbit, dc: HDRComplex, max_iter: int, max_ref: int,
             break
     last_run_stats["dispatches"] = len(sizes)
     last_run_stats["work"] = sizes
+    last_run_stats["chunk_steps"] = chunk_steps
     return tuple(t.reshape(dc.re.shape) for t in state)
 
 

@@ -148,8 +148,8 @@ def test_render_never_imports_jax(tmp_path):
 
 
 # the port's scripts under tools/ (the others there drive the JAX package)
-PORT_TOOLS = ("run_view32_torch.py", "time_k20.py", "time_ntt.py",
-              "time_orbit32.py", "time_pixel_loops.py")
+PORT_TOOLS = ("run_view27_torch.py", "run_view32_torch.py", "time_k20.py",
+              "time_ntt.py", "time_orbit32.py", "time_pixel_loops.py")
 
 
 def _port_sources():
@@ -178,7 +178,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     import ast
     banned = ("jax", "fractalshark_tpu")
     names = {os.path.basename(p) for p in _port_sources()}
-    assert {"graft_entry.py", "run_view32_torch.py"} <= names
+    assert {"graft_entry.py", "run_view27_torch.py",
+            "run_view32_torch.py"} <= names
     for path in _port_sources():
         tree = ast.parse(open(path).read(), filename=path)
         for node in ast.walk(tree):
