@@ -102,8 +102,9 @@ launches) and timed
 (tools/time_pixel_loops.py; K15's timed frames held to their pins,
 ``K15_TIMED_PINS``), K13 at View #6's and View #8's centres
 (2^453, 2^2220) at 256², K15 (f32 and f64) on View #6, held to its twin
-and its tally at the preset's budget at 128², timed at 256² and held to
-its pin, and its deepest pixel run alone (its serial floor), K14 2x64 against its twin on the
+and its tally at 128² and a cut budget (``VIEW6_BLA_TWIN_BUDGET``), timed
+at 256² at the preset's budget and held to its pin, and its deepest
+pixel run alone (its serial floor), K14 2x64 against its twin on the
 guard frame (``DF_GUARD_SCALARS``: iterations on and off its exact fast
 path) and K13 on its guard frames (``HDR_GUARD_SCALARS``: iterations in
 and out of its value form), the Scaled repair pass (K6 HDR-f64) on a poisoned orbit, and the
@@ -190,8 +191,19 @@ raise; the device memory the dropped tables free; K19 and K3 against
 their twins from one handoff at a cut budget (phase 19 alone:
 ``python3 -c "import chip_smoke as c, torch; c.phase_build();
 c.phase_endurance(torch.device('cuda', 0), {k: {} for k in
+c.KERNEL_META})"``), (20) an explorer's paths after one frame: the zoom
+sequence (``tools/run_view30_torch.py``'s ``sequence``) on View #6 at
+64², three frames at a zoom step of 1.5 against one native orbit and one
+LA table (no table put on the card again), each frame's K2 handoff and
+K6 tail against their twins at a cut budget, every frame pinned to the
+JAX package's (``ZOOM_PINS``, the last ``VIEW6_64``), and the feature-zoom clip (``tools/autozoom_clip_torch.py``)
+from View 0 at 64², six frames at 10 fps through the render pool, every
+step presented in generation order and equal to a direct render of its
+step (phase 20 alone: ``python3 -c "import chip_smoke as c, torch;
+c.phase_build(); c.phase_zoom(torch.device('cuda', 0), {k: {} for k in
 c.KERNEL_META})"``).  The kernels line adds phase 19's launches (K2
-``la_only``, K19, K3) to the earlier phases'.
+``la_only``, K19, K3) and phase 20's (K2 ``la_only``, K6 resumed, K1) to
+the earlier phases'.
 Exits non-zero if any
 phase fails, and at once when no CUDA device is present.  The next-to-last lines are the card's
 ``nvidia-smi`` name and power limit and a JSON object of the kernels;
@@ -529,6 +541,11 @@ FAMILY_CHUNK = 257
 # K15 on View #6 at 256², both mantissa types, at the preset's budget
 VIEW6_BLA_FRAMES = [("view6_bla_256", "bla_f32"),
                     ("view6_bla64_256", "bla_f64")]
+# their twins' budget at 128²: the deepest pixel's 1,617 / 1,631 steps
+# (f32 / f64; the preset's budget: 6,228 / 5,475), 13,882 / 14,363 of
+# the 16,384 pixels escaped (K15's tally on the H100); the twin runs
+# every pixel in lockstep to the deepest one, ~5 ms a step on the card
+VIEW6_BLA_TWIN_BUDGET = 792_000
 # K15's timed frames, whose twins now run at 512² and 128²: (iter_sum,
 # CRC-32) of the frames K15 and its twin agreed on bit for bit when the
 # twin still ran these sizes; the kernel is held to them
@@ -2838,23 +2855,24 @@ def forbid_twins():
             setattr(m, n, f)
 
 
-def k15_twin(fr, st):
-    """K15 on a frame at its full budget through its run loop, the
-    default launches and launches of FAMILY_CHUNK steps over the live
-    pixels, against the twin in one lockstep run: the grids and the
-    per-pixel tally of BLA and single steps.  Returns (the twin's grid,
-    its ms, K15's tally)."""
+def k15_twin(fr, st, budget=None):
+    """K15 on a frame at `budget` (its full budget when None) through its
+    run loop, the default launches and launches of FAMILY_CHUNK steps
+    over the live pixels, against the twin in one lockstep run: the grids
+    and the per-pixel tally of BLA and single steps.  Returns (the twin's
+    grid, its ms, K15's tally)."""
     import torch
 
+    n = budget or fr.n
     tally = torch.zeros((fr.size * fr.size, 2), dtype=torch.int64,
                         device=fr.orbit.device)
-    k = fr.run(None, None, tally)
+    k = fr.run(n, None, tally)
     want_tally = torch.zeros_like(tally)
-    pl, pms = timed(lambda: fr.plain(None, want_tally), fr.orbit.device,
+    pl, pms = timed(lambda: fr.plain(n, want_tally), fr.orbit.device,
                     warm=False)
-    compare(f"{fr.key} {fr.name} budget {fr.n} (its run loop)", k, pl, st)
-    compare(f"{fr.key} {fr.name} budget {fr.n} (launches of {FAMILY_CHUNK} "
-            f"steps over the live pixels)", fr.run(None, FAMILY_CHUNK), pl,
+    compare(f"{fr.key} {fr.name} budget {n} (its run loop)", k, pl, st)
+    compare(f"{fr.key} {fr.name} budget {n} (launches of {FAMILY_CHUNK} "
+            f"steps over the live pixels)", fr.run(n, FAMILY_CHUNK), pl,
             st)
     compare(f"{fr.key} {fr.name} steps (BLA, single) a pixel", tally,
             want_tally, st)
@@ -2878,8 +2896,9 @@ def phase_families(device, stats):
     instance) on the shallow frame at 1024², K15 (f32, f64) and K6's glitch
     instance on the 1e8 frame at 1024² x 1,500, each against its twin (K15
     at 512²) and timed; K14 2x64 and K13 on their guard frames; K13 at View #6's and
-    View #8's centres; K15 (f32, f64) on View #6 at the preset budget
-    (its twin at 128², timed at 256²), its deepest pixel alone; the Scaled repair pass on a poisoned
+    View #8's centres; K15 (f32, f64) on View #6 (its twin at 128² and
+    VIEW6_BLA_TWIN_BUDGET, timed at 256² at the preset budget), its
+    deepest pixel alone; the Scaled repair pass on a poisoned
     orbit, and the glitch instance with the bad flag at two more
     positions; then the nine 256² frames through the CLI (counts from 0,
     the twins forbidden), pinned to the JAX package's values."""
@@ -2977,14 +2996,15 @@ def phase_families(device, stats):
                 hdr_escape.escape_hdr_plain(p, 256, 256, n, tdt, device),
                 stats["escape_hdr" + mant[1:]])
 
-    # K15 on View #6, both mantissa types: held to the twin at the
-    # preset's budget at 128² (the twin runs every pixel in lockstep to the
-    # deepest one's ~6,800 steps), then timed at 256² with the deepest
-    # pixel run alone, the bound from K15's own tally there
+    # K15 on View #6, both mantissa types: held to the twin at 128² and
+    # the cut budget (the twin runs every pixel in lockstep to the deepest
+    # one's ~1,600 steps there, ~6,200 at the preset's), then timed at
+    # 256² at the preset's budget with the deepest pixel run alone, the
+    # bound from K15's own tally there
     for name, entry in VIEW6_BLA_FRAMES:
         fr = tpl.setup(name, device)
         k15_twin(tpl.setup(name.replace("_256", "_128"), device),
-                 stats[entry])
+                 stats[entry], VIEW6_BLA_TWIN_BUDGET)
         tally = torch.zeros((fr.size * fr.size, 2), dtype=torch.int64,
                             device=device)
         fr.run(None, None, tally)
@@ -4505,6 +4525,109 @@ def phase_endurance(device, stats):
     return launches
 
 
+# phase 20: the zoom sequence (tools/run_view30_torch.py sequence) on
+# View #6, its twins' cut budget (at 64² every pixel's handoff at this
+# budget leaves a tail of up to ~670 steps; the twins run every pixel in
+# lockstep), and the feature-zoom clip (tools/autozoom_clip_torch.py)
+ZOOM_VIEW, ZOOM_SIZE, ZOOM_FRAMES, ZOOM_STEP = 6, 64, 3, 1.5
+ZOOM_TWIN_BUDGET = 796_000
+# each frame's (iter_sum, CRC-32 of the grid as <u4) at the preset's
+# budget, the JAX package on the CPU with FMA off
+# (tools/view6_zoom_pins.py, artifacts/view6_zoom_pins.json); the last
+# frame has the preset's box
+ZOOM_PINS = ((3_268_313_226, 2_050_583_409), (3_268_491_399, 4_135_625_860),
+             VIEW6_64)
+CLIP_FRAMES, CLIP_SIZE, CLIP_FPS = 6, 64, 10.0
+
+
+def phase_zoom(device, stats):
+    """(20) An explorer's paths after one frame.  The zoom sequence on
+    View #6 (``run_view30_torch.sequence``: every frame against one
+    native orbit and one LA table, ``two_phase_render`` with the tables
+    kept), its launches counted from 0 a frame, every frame pinned to the
+    JAX package's (ZOOM_PINS, the last VIEW6_64); each frame's K2 ``la_only`` handoff and K6 tail against
+    their twins (CPU tensors) from one handoff at ZOOM_TWIN_BUDGET.  Then
+    the feature-zoom clip at 64² and 10 fps through the render pool
+    (``autozoom_clip_torch.run``): every step presented, none aborted, in
+    generation order, each frame equal to a direct render of its step.
+    The twins are made to raise on both paths."""
+    import torch
+
+    from fractalshark_tpu_torch.engine import renderers as R
+    from fractalshark_tpu_torch.engine.fractal import Fractal
+    from fractalshark_tpu_torch.engine.la_reference import get_or_build_la
+
+    log(f"[20] the zoom sequence (tools/run_view30_torch.py) on View "
+        f"#{ZOOM_VIEW} {ZOOM_SIZE}², the feature-zoom clip "
+        "(tools/autozoom_clip_torch.py)")
+    t0 = time.perf_counter()
+    g, frames, step = ZOOM_SIZE, ZOOM_FRAMES, ZOOM_STEP
+    f = Fractal(width=g, height=g, view=ZOOM_VIEW, device=device)
+    res = R.get_orbit_calc(f).get_and_create_useful_results(
+        f.ptz, f.num_iterations)
+    la = get_or_build_la(f, res)
+    with forbid_twins(), contextlib.redirect_stdout(io.StringIO()):
+        seq, grids = load_tool("run_view30_torch").sequence(
+            res, la, f.ptz, g, f.num_iterations, frames, step, device)
+    launches = {"lav2_phase1": 0, "two_phase_tail": 0}
+    for fr in seq["per_frame"]:
+        log(f"  frame {fr['k']} (final x{fr['scale']:.4g}): wall "
+            f"{fr['wall_s']:.4f} s (phase 1 {fr['phase1_s']:.4f}, phase 2 "
+            f"{fr['phase2_s']:.4f}), (iter_sum, crc32 <u8) "
+            f"{(fr['iter_sum'], fr['crc32'])}, launches {fr['launches']}")
+        for k, v in fr["launches"].items():
+            if v < 1:
+                raise AssertionError(f"sequence frame {fr['k']}: {k} never "
+                                     "launched")
+            launches[k] += v
+    log(f"  first {seq['first_wall_s']:.4f} s, warm median "
+        f"{seq['warm_median_s']:.4f} s ({seq['mpix_per_s']:.3f} Mpix/s), "
+        f"{seq['tables_cached']} device tables cached once")
+    for k, pin in enumerate(ZOOM_PINS):
+        hold_pin(f"sequence frame {k} (View #{ZOOM_VIEW} {g}², the "
+                 f"preset's box x{1.0 / step ** (frames - 1 - k):.4g})",
+                 crc_pin(torch.from_numpy(grids[k])), pin)
+
+    nt = ZOOM_TWIN_BUDGET
+    for k in range(frames):
+        ptz = f.ptz.zoomed_at_center(1.0 / step ** (frames - 1 - k))
+        kern = R.la_handoff(res, la, ptz, g, g, nt, device=device)
+        plain = R.la_handoff(res, la, ptz, g, g, nt, device="cpu")
+        for key in ("dzr", "dzi", "dze", "it", "jwait", "done"):
+            compare(f"lav2_phase1 sequence frame {k} {g}² budget {nt} "
+                    f"handoff {key}", kern[key], plain[key],
+                    stats["lav2_phase1"])
+        compare(f"two_phase_tail sequence frame {k} {g}² budget {nt} (from "
+                "one handoff)",
+                R._identity_tail(res, ptz, g, g, nt, kern, None, None,
+                                 device),
+                R._identity_tail(res, ptz, g, g, nt,
+                                 {key: v.cpu() for key, v in kern.items()},
+                                 None, None, "cpu"),
+                stats["two_phase_tail"])
+
+    with tempfile.TemporaryDirectory() as d, forbid_twins(), \
+            contextlib.redirect_stdout(io.StringIO()):
+        man = load_tool("autozoom_clip_torch").run(
+            CLIP_FRAMES, CLIP_SIZE, CLIP_FPS, d, device)
+    log(f"  clip {CLIP_SIZE}² x {man['n_steps']} at {CLIP_FPS} fps: "
+        f"presented {man['presented']}, aborted {man['aborted']}, achieved "
+        f"{man['achieved_fps']} fps (gaps {man['min_gap_s']}-"
+        f"{man['max_gap_s']} s), wall {man['wall_s']} s, routes "
+        f"{man['routes']}, launches {man['launches']}, in generation order "
+        f"{man['in_generation_order']}, every frame = its direct render "
+        f"{man['all_equal_direct']}")
+    if man["presented"] != CLIP_FRAMES or man["aborted"] or \
+            not man["in_generation_order"] or not man["all_equal_direct"] \
+            or not man["launches"].get("escape"):
+        raise AssertionError("the feature-zoom clip did not present every "
+                             "step as its direct render, in order, on K1")
+    for k, v in man["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 20: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4552,8 +4675,9 @@ def main() -> int:
     launches.update(run("16", phase_app, device, stats))
     launches.update(run("17", phase_parallel, device, stats))
     run("18", phase_graft, device)
-    for k, v in run("19", phase_endurance, device, stats).items():
-        launches[k] = launches.get(k, 0) + v
+    for p, fn in (("19", phase_endurance), ("20", phase_zoom)):
+        for k, v in run(p, fn, device, stats).items():
+            launches[k] = launches.get(k, 0) + v
     exact_pool.shutdown()
     # K12's launches, each from its own path's run: View #6's and View
     # #30's device-orbit frames, the feature evaluator at View #6's sizes

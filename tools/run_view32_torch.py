@@ -109,12 +109,16 @@ def stored_orbit(ck: str, done: dict, ptz, max_it: int):
 def run(view: int = 32, size: int = 256, budget: int | None = None,
         max_it: int = 48_000_000, chunk: int = 256,
         out_dir: str = ".v32cache_torch", ck_every_s: float = 600,
-        device="cuda", limbs: int | None = 32768, ptz=None) -> dict:
+        device="cuda", limbs: int | None = 32768, ptz=None,
+        tables: dict | None = None) -> dict:
     """Run the phases (orbit, then la_build and render, or cap_hit) for
     `view` (its preset's box, or `ptz`) at `size`² and `budget` (the
     preset's when None); return the record, also written to
     ``<out_dir>/view<view>_progress.json``, and print it as one JSON
-    line."""
+    line.  `tables`: a dict that receives the orbit's results, the LA
+    table and the frame's box ('results', 'la', 'ptz') once the table is
+    built, for a caller that renders more frames from them, and the
+    frame's grid on the device ('grid') once it is rendered."""
     import torch
 
     from fractalshark_tpu_torch import kernels
@@ -242,6 +246,8 @@ def run(view: int = 32, size: int = 256, budget: int | None = None,
     state.update(la_build_s=round(time.perf_counter() - t0, 3),
                  la_valid=bool(la.is_valid), la_stages=int(la.stage_count))
     save()
+    if tables is not None:
+        tables.update(results=res, la=la, ptz=ptz)
     if not la.is_valid:
         state["phase"] = "done_no_la"
         save()
@@ -259,6 +265,8 @@ def run(view: int = 32, size: int = 256, budget: int | None = None,
                             timings=timings)
     sync()
     render_s = time.perf_counter() - t0
+    if tables is not None:
+        tables["grid"] = grid
     o = grid.cpu().numpy().astype(np.int64)
     state.update(phase="done", render_s=round(render_s, 3),
                  render_timings={k: (round(v, 3) if isinstance(v, float)
